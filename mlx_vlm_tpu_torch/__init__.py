@@ -1,0 +1,28 @@
+"""mlx_vlm_tpu_torch — the PyTorch / CUDA port of mlx_vlm_tpu.
+
+The JAX package `mlx_vlm_tpu` is the reference; module paths here mirror it
+(this file: mlx_vlm_tpu/__init__.py).
+This slice runs Qwen2-VL with 4-bit group-64 weights (the halves-packed
+grouped-int4 layout) end to end: load -> chat template -> inputs -> vision
+tower -> M-RoPE -> chunked prefill -> decode.  Its kernels are CUDA C++
+written for Hopper (mlx_vlm_tpu_torch/csrc), built with nvcc at first use.
+Importing the package needs neither JAX nor transformers, PIL,
+safetensors, tokenizers or triton.
+"""
+
+from .generate import GenerationResult, generate, generate_step, stream_generate
+from .prompt_utils import apply_chat_template
+from .utils.loader import load, load_config, load_model
+from .utils.processing import prepare_inputs
+
+__all__ = [
+    "load",
+    "load_model",
+    "load_config",
+    "generate",
+    "stream_generate",
+    "generate_step",
+    "GenerationResult",
+    "apply_chat_template",
+    "prepare_inputs",
+]

@@ -1,0 +1,107 @@
+"""Functional neural-net building blocks over parameter dicts.
+
+Port of mlx_vlm_tpu/core/layers.py.  Parameters are nested dicts whose keys
+mirror the HF safetensors names; each layer takes its parameter subtree as
+the first argument.  Norms and softmax accumulate in f32; matmuls run in the
+input dtype with f32 accumulation.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .quant import ChannelQuantizedTensor, Int4GroupedTensor, QuantizedTensor
+
+__all__ = [
+    "linear",
+    "embedding",
+    "embedding_as_linear",
+    "rms_norm",
+    "layer_norm",
+    "swiglu_mlp",
+    "gelu_mlp",
+]
+
+
+def _matmul_wT(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w.T for a dense or grouped-int4 weight in HF [out, in] layout."""
+    if isinstance(w, Int4GroupedTensor):
+        from ..ops.int4_matvec import int4_matvec
+
+        return int4_matvec(x, w)
+    if isinstance(w, (ChannelQuantizedTensor, QuantizedTensor)):
+        raise NotImplementedError(
+            f"{type(w).__name__} linears are not ported; load 4-bit weights "
+            "in the grouped-int4 layout")
+    if not isinstance(w, torch.Tensor):
+        raise NotImplementedError(f"weight type {type(w).__name__}")
+    return torch.matmul(x, w.to(x.dtype).transpose(-1, -2))
+
+
+def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """HF Linear: y = x @ W.T + b.  p = {"weight": [out, in], "bias"?: [out]}."""
+    if "lora_a" in p or "dora_m" in p:
+        raise NotImplementedError("LoRA / DoRA adapters are not ported")
+    y = _matmul_wT(x, p["weight"])
+    b = p.get("bias")
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def embedding(p: dict, ids: torch.Tensor) -> torch.Tensor:
+    """p = {"weight": [vocab, dim]} -> [..., dim]."""
+    w = p["weight"]
+    if isinstance(w, ChannelQuantizedTensor):
+        # channel layout is [dim, vocab]: gather columns, dequant the slice
+        dt = w.dtype
+        q = w.q8[:, ids]  # [dim, ...ids]
+        s = w.scales[:, ids]
+        b = w.biases[:, ids]
+        out = q.to(dt) * s.to(dt) + b.to(dt)
+        return torch.movedim(out, 0, -1)
+    if not isinstance(w, torch.Tensor):
+        raise NotImplementedError(f"{type(w).__name__} embedding tables")
+    return w[ids]
+
+
+def embedding_as_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Tied-embedding head: logits = x @ E.T."""
+    return _matmul_wT(x, p["weight"])
+
+
+def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with f32 accumulation."""
+    dtype = x.dtype
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    xn = xf * torch.rsqrt(var + eps)
+    return (xn * p["weight"].float()).to(dtype)
+
+
+def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    xn = (xf - mean) * torch.rsqrt(var + eps)
+    if "weight" in p:
+        xn = xn * p["weight"].float()
+    if p.get("bias") is not None:
+        xn = xn + p["bias"].float()
+    return xn.to(dtype)
+
+
+def swiglu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """down(silu(gate(x)) * up(x))."""
+    g = linear(p["gate_proj"], x)
+    u = linear(p["up_proj"], x)
+    return linear(p["down_proj"], F.silu(g) * u)
+
+
+def gelu_mlp(p: dict, x: torch.Tensor, approximate: bool = True) -> torch.Tensor:
+    """fc2(gelu(fc1(x))), ViT-style."""
+    h = linear(p["fc1"], x)
+    h = F.gelu(h, approximate="tanh" if approximate else "none")
+    return linear(p["fc2"], h)

@@ -1,0 +1,99 @@
+"""Rotary position embeddings: the default and M-RoPE cases.
+
+Port of mlx_vlm_tpu/core/rope.py (default_inv_freq :35, rope_cos_sin :95,
+apply_rope :110, mrope_section_map :159, mrope_cos_sin :183, Rope :205,
+make_rope :283) for Qwen2-VL: cos/sin are computed in f32 from position ids,
+and M-RoPE picks the t/h/w position stream per frequency through a static
+"chunked" section map.  The scaled variants (llama3, yarn, longrope, ...)
+and the interleaved section style are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+__all__ = [
+    "default_inv_freq",
+    "rope_cos_sin",
+    "apply_rope",
+    "mrope_section_map",
+    "mrope_cos_sin",
+    "Rope",
+    "make_rope",
+]
+
+
+def default_inv_freq(dim: int, base: float = 10000.0) -> np.ndarray:
+    return 1.0 / (base ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
+
+
+def rope_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor):
+    """positions [...] int -> cos/sin [..., dim/2] f32."""
+    angles = positions.float()[..., None] * inv_freq.float()[None, :]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def _rotate_half(x):
+    h = x.shape[-1] // 2
+    return torch.cat([-x[..., h:], x[..., :h]], dim=-1)
+
+
+def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor):
+    """Half-split ("NeoX") RoPE.  q, k [B, H, S, D]; cos/sin [B, S, D/2],
+    duplicated to D as in the HF convention; computed in f32."""
+    cos = torch.cat([cos, cos], dim=-1)[:, None, :, :]
+    sin = torch.cat([sin, sin], dim=-1)[:, None, :, :]
+    dtype = q.dtype
+    qf, kf = q.float(), k.float()
+    q_out = qf * cos + _rotate_half(qf) * sin
+    k_out = kf * cos + _rotate_half(kf) * sin
+    return q_out.to(dtype), k_out.to(dtype)
+
+
+def mrope_section_map(sections: Sequence[int]) -> np.ndarray:
+    """Frequency index -> section id (t/h/w): contiguous chunks of the given
+    sizes (Qwen2-VL's "chunked" style)."""
+    return np.concatenate(
+        [np.full(s, i, dtype=np.int32) for i, s in enumerate(sections)])
+
+
+def mrope_cos_sin(position_ids: torch.Tensor, inv_freq: torch.Tensor,
+                  section_map: torch.Tensor):
+    """M-RoPE cos/sin [B, S, dim/2] from position ids [3, B, S]."""
+    cos3, sin3 = rope_cos_sin(position_ids, inv_freq)  # [3, B, S, F]
+    idx = section_map.long().view(1, 1, 1, -1).expand(1, *cos3.shape[1:])
+    return cos3.gather(0, idx)[0], sin3.gather(0, idx)[0]
+
+
+class Rope:
+    """Host-side descriptor producing cos/sin for position ids."""
+
+    def __init__(self, dim: int, base: float = 10000.0,
+                 scaling: Optional[dict] = None):
+        self.dim = dim
+        self.section_map = None
+        if scaling:
+            typ = scaling.get("type") or scaling.get("rope_type") or "default"
+            if typ not in ("mrope", "default"):
+                raise NotImplementedError(f"rope scaling type {typ} is not ported")
+            if "mrope_section" in scaling:
+                self.section_map = mrope_section_map(scaling["mrope_section"])
+        self.inv_freq = np.asarray(default_inv_freq(dim, base), dtype=np.float32)
+
+    def cos_sin(self, position_ids: torch.Tensor):
+        """position_ids: [B, S] (1-D rope) or [3, B, S] (M-RoPE)."""
+        inv = torch.from_numpy(self.inv_freq).to(position_ids.device)
+        if self.section_map is not None and position_ids.dim() == 3:
+            smap = torch.from_numpy(self.section_map).to(position_ids.device)
+            return mrope_cos_sin(position_ids, inv, smap)
+        if position_ids.dim() == 3:
+            position_ids = position_ids[0]
+        return rope_cos_sin(position_ids, inv)
+
+
+def make_rope(dim: int, base: float, scaling: Optional[dict] = None) -> Rope:
+    return Rope(dim, base, scaling)

@@ -1,0 +1,108 @@
+"""Samplers and logits processors.
+
+Port of mlx_vlm_tpu/core/sampling.py (make_sampler :94,
+make_logits_processors :210) for temperature, top-k, top-p and min-p
+sampling and the logit-bias and repetition-penalty processors.
+A sampler is `(logits [B, V] f32, generator) -> tokens [B] int64`; random
+draws come from the `torch.Generator` it is given.  The batched samplers,
+presence/frequency penalties and the other filters are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+__all__ = ["make_sampler", "make_logits_processors"]
+
+_NEG_INF = float("-inf")
+
+
+def _apply_top_k(logits: torch.Tensor, top_k: int) -> torch.Tensor:
+    vals = torch.topk(logits, min(top_k, logits.shape[-1]), dim=-1).values
+    return logits.masked_fill(logits < vals[..., -1:], _NEG_INF)
+
+
+def _apply_top_p(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Nucleus filtering: keep tokens while the exclusive cumulative
+    probability of the sorted distribution is below top_p."""
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep_sorted = (cum - probs) < top_p
+    masked = torch.where(keep_sorted, sorted_logits,
+                         torch.full_like(sorted_logits, float("inf")))
+    thresh = masked.amin(dim=-1, keepdim=True)
+    return logits.masked_fill(logits < thresh, _NEG_INF)
+
+
+def _apply_min_p(logits: torch.Tensor, min_p: float) -> torch.Tensor:
+    probs = torch.softmax(logits, dim=-1)
+    pmax = probs.amax(dim=-1, keepdim=True)
+    return logits.masked_fill(probs < min_p * pmax, _NEG_INF)
+
+
+def make_sampler(temp: float = 0.0, top_p: float = 0.0, min_p: float = 0.0,
+                 top_k: int = -1) -> Callable:
+    """Build `(logits [B, V], generator) -> tokens [B]`.
+
+    temp == 0 is greedy (argmax).  Otherwise filters apply in the
+    reference's order (top_k -> top_p -> min_p), then a categorical draw at
+    temperature `temp` from the generator."""
+
+    def sample(logits: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if temp == 0.0:
+            return torch.argmax(logits, dim=-1)
+        x = logits.float()
+        if top_k > 0:
+            x = _apply_top_k(x, top_k)
+        if 0.0 < top_p < 1.0:
+            x = _apply_top_p(x, top_p)
+        if min_p > 0.0:
+            x = _apply_min_p(x, min_p)
+        probs = torch.softmax(x / temp, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+    return sample
+
+
+def make_logits_processors(logit_bias: Optional[dict] = None,
+                           repetition_penalty: Optional[float] = None,
+                           repetition_context_size: int = 20):
+    """Processors `(history [B, W] int64, logits [B, V]) -> logits`.
+
+    `history` is a fixed-width ring of the last W generated tokens, padded
+    with -1."""
+    processors = []
+
+    if logit_bias:
+        ids = list(logit_bias.keys())
+        vals = list(logit_bias.values())
+
+        def bias_proc(history, logits):
+            out = logits.clone()
+            out[..., ids] += torch.tensor(vals, dtype=logits.dtype,
+                                          device=logits.device)
+            return out
+
+        processors.append(bias_proc)
+
+    if repetition_penalty and repetition_penalty != 1.0:
+        w = repetition_context_size
+
+        def rep_proc(history, logits):
+            hist = history[:, -w:]
+            seen = torch.zeros(logits.shape, dtype=torch.float32,
+                               device=logits.device)
+            seen.scatter_add_(1, hist.clamp(min=0), (hist >= 0).float())
+            seen = seen > 0
+            lf = logits.float()
+            penalized = torch.where(lf < 0, lf * repetition_penalty,
+                                    lf / repetition_penalty)
+            return torch.where(seen, penalized, lf).to(logits.dtype)
+
+        processors.append(rep_proc)
+
+    return processors

@@ -1,0 +1,162 @@
+"""High-level generate / stream_generate.
+
+Port of mlx_vlm_tpu/generate/dispatch.py (stream_generate :43, generate
+:309) for the autoregressive image + text path.  The arguments of paths that
+are not ported (audio, video, quantized KV, prefix caching, vision-feature
+caching, speculative drafting) raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Generator, List, Optional, Union
+
+import numpy as np
+import torch
+
+from ..core.sampling import make_logits_processors, make_sampler
+from ..utils.processing import prepare_inputs
+from ..utils.tokenizer import make_detokenizer
+from .ar import generate_step
+from .common import GenerationResult, device_peak_memory_gb
+
+__all__ = ["stream_generate", "generate"]
+
+
+def _get_eos_ids(model, processor) -> set:
+    eos = set()
+    cfg = getattr(model, "config_dict", {}) or {}
+    v = cfg.get("eos_token_id")
+    if v is None and isinstance(cfg.get("text_config"), dict):
+        v = cfg["text_config"].get("eos_token_id")
+    if isinstance(v, int):
+        eos.add(v)
+    elif isinstance(v, (list, tuple)):
+        eos.update(v)
+    tok = getattr(processor, "tokenizer", processor)
+    tid = getattr(tok, "eos_token_id", None)
+    if tid is not None:
+        eos.add(int(tid))
+    return eos
+
+
+def stream_generate(
+    model,
+    processor,
+    prompt: Union[str, List[int], np.ndarray],
+    image: Optional[Any] = None,
+    audio: Optional[Any] = None,
+    video: Optional[Any] = None,
+    *,
+    max_tokens: int = 256,
+    temperature: float = 0.0,
+    top_p: float = 0.0,
+    min_p: float = 0.0,
+    top_k: int = -1,
+    repetition_penalty: Optional[float] = None,
+    repetition_context_size: int = 20,
+    logit_bias: Optional[dict] = None,
+    seed: Optional[int] = None,
+    prefill_step_size: int = 512,
+    kv_bits: Optional[int] = None,
+    apc=None,
+    vision_cache=None,
+    draft_model=None,
+) -> Generator[GenerationResult, None, None]:
+    """Stream GenerationResult chunks, one per generated token."""
+    for name, val in (("audio", audio), ("video", video), ("kv_bits", kv_bits),
+                      ("apc", apc), ("vision_cache", vision_cache),
+                      ("draft_model", draft_model)):
+        if val is not None:
+            raise NotImplementedError(f"{name} is not ported")
+
+    inputs = prepare_inputs(processor, prompt, images=image)
+    input_ids = np.asarray(inputs["input_ids"])
+    pixel_values = inputs.get("pixel_values")
+    grid_thw = inputs.get("image_grid_thw")
+    attention_mask = inputs.get("attention_mask")
+    dev = model.device
+
+    tic = time.perf_counter()
+    ids = torch.from_numpy(input_ids.astype(np.int64)).to(dev)
+    if pixel_values is not None:
+        aux = model.vision_aux_inputs(np.asarray(grid_thw))
+        embeds = model.get_input_embeddings(
+            model.params, ids, torch.from_numpy(np.asarray(pixel_values)).to(dev),
+            rotary_freqs=torch.from_numpy(aux["rotary_freqs"]).to(dev),
+            segment_ids=torch.from_numpy(aux["segment_ids"]).to(dev))
+    else:
+        embeds = model.get_input_embeddings(model.params, ids)
+
+    position_ids, rope_deltas = model.prepare_position_ids(
+        input_ids, None if grid_thw is None else np.asarray(grid_thw), None,
+        attention_mask)
+
+    sampler = make_sampler(temperature, top_p, min_p, top_k)
+    processors = make_logits_processors(logit_bias, repetition_penalty,
+                                        repetition_context_size)
+    eos_ids = _get_eos_ids(model, processor)
+    detok = make_detokenizer(getattr(processor, "tokenizer", processor))
+
+    prompt_tokens = int(input_ids.shape[1])
+    prompt_time = None
+    gen_start = None
+    n = 0
+    token_iter = generate_step(
+        embeds, model, position_ids=position_ids, rope_deltas=rope_deltas,
+        max_tokens=max_tokens, sampler=sampler, logits_processors=processors,
+        prefill_step_size=prefill_step_size, seed=seed)
+    for token, logprobs in token_iter:
+        now = time.perf_counter()
+        if prompt_time is None:
+            prompt_time = now - tic
+            gen_start = now
+        t = int(np.asarray(token).reshape(-1)[0])
+        n += 1
+        common = dict(
+            token=t, logprobs=logprobs, prompt_tokens=prompt_tokens,
+            generation_tokens=n,
+            prompt_tps=prompt_tokens / max(prompt_time, 1e-9),
+            generation_tps=(n - 1) / max(now - gen_start, 1e-9) if n > 1 else 0.0,
+            peak_memory=device_peak_memory_gb(dev))
+        if t in eos_ids:
+            yield GenerationResult(text="", finish_reason="stop", **common)
+            return
+        detok.add_token(t)
+        is_last = n >= max_tokens
+        text = detok.last_segment()
+        if is_last:
+            text += detok.finalize()
+        yield GenerationResult(text=text,
+                               finish_reason="length" if is_last else None,
+                               **common)
+
+
+def generate(model, processor, prompt: Union[str, List[int]],
+             image: Optional[Any] = None, audio: Optional[Any] = None,
+             video: Optional[Any] = None, verbose: bool = False,
+             **kwargs) -> GenerationResult:
+    """Blocking generate: the last GenerationResult with the whole text."""
+    pieces: List[str] = []
+    last: Optional[GenerationResult] = None
+    for res in stream_generate(model, processor, prompt, image, audio, video,
+                               **kwargs):
+        pieces.append(res.text)
+        last = res
+        if verbose and res.text:
+            print(res.text, end="", flush=True)
+    if verbose:
+        print()
+        if last:
+            print(f"Prompt: {last.prompt_tokens} tokens, "
+                  f"{last.prompt_tps:.3f} tokens-per-sec")
+            print(f"Generation: {last.generation_tokens} tokens, "
+                  f"{last.generation_tps:.3f} tokens-per-sec")
+            print(f"Peak memory: {last.peak_memory:.3f} GB")
+    if last is None:
+        return GenerationResult(
+            text="", token=None, logprobs=None, prompt_tokens=0,
+            generation_tokens=0, prompt_tps=0.0, generation_tps=0.0,
+            peak_memory=0.0, finish_reason="length")
+    last.text = "".join(pieces)
+    return last

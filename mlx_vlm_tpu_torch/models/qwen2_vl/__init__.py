@@ -1,0 +1,14 @@
+from .config import ModelConfig, TextConfig, VisionConfig
+from .language import LanguageModel
+from .qwen2_vl import STACK_PATTERNS, Model
+from .vision import VisionModel
+
+__all__ = [
+    "Model",
+    "ModelConfig",
+    "TextConfig",
+    "VisionConfig",
+    "LanguageModel",
+    "VisionModel",
+    "STACK_PATTERNS",
+]

@@ -1,0 +1,99 @@
+"""Build and bind the port's CUDA kernels (no counterpart in the JAX package,
+whose Pallas kernels compile inside `pallas_call`).
+
+The kernels under `mlx_vlm_tpu_torch/csrc/` are compiled by one `nvcc` call
+for `sm_90a` into a shared library with a plain C interface and loaded with
+ctypes.  The build runs at first use, into `mlx_vlm_tpu_torch/build/`, keyed
+by a hash of the sources and flags, so a fresh checkout builds everything
+the first time a kernel launches.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "build"
+SOURCES = ("int4_matmul.cu", "int4_matvec.cu", "flash_attention.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: argument types (each returns a cudaError_t as int)
+_SIGNATURES = {
+    # x, qp, sl, sh, bl, bh, y, M, K, N2p, n, stream
+    "mvt_int4_matmul": (_P,) * 7 + (_I,) * 4 + (_P,),
+    # x, qp, sl, sh, bl, bh, part, y, M, K, N2p, n, group_size, stream
+    "mvt_int4_matvec": (_P,) * 8 + (_I,) * 5 + (_P,),
+    # q, k, v, o, offset, left_pad, B, H, KVH, S, C, scale, window, stream
+    "mvt_flash_attention": (_P,) * 6 + (_I,) * 5 + (_F, _I, _P),
+    "mvt_int4_matvec_slices": (_I,),
+}
+
+
+def source_paths() -> list:
+    return [CSRC_DIR / s for s in SOURCES]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in source_paths():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libmvt_kernels_{h.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first call if its hash is not on disk."""
+    so = library_path()
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(p) for p in source_paths())]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.mvt_error_string.argtypes = (ctypes.c_int,)
+    lib.mvt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = library().mvt_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def stream_handle(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

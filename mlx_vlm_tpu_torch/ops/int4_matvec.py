@@ -1,0 +1,142 @@
+"""Grouped-int4 linears: y = x @ dequant(W).T for the halves-packed layout.
+
+Port of mlx_vlm_tpu/ops/int4_matvec.py (`int4_matvec` :269 and its two Pallas
+kernels).  Two CUDA kernels written for Hopper take their place:
+
+K1, `int4_matmul` (csrc/int4_matmul.cu), replaces `_int4_matmul` (:159,
+kernel `_mm_kern` :117) for more than MAX_KERNEL_ROWS rows: every prefill
+linear.  Each weight dequantizes as code * s + b in f32 and rounds to x's
+dtype before the product; products accumulate in f32 and the output is in
+x's dtype.  Bound on the H100 by tensor-core work at prefill sizes; the
+kernel dequantizes one quantization group per block into shared memory and
+feeds mma.sync bf16 tensor-core products (see the .cu header).
+
+K2, `int4_matvec_rows` (csrc/int4_matvec.cu), replaces `_int4_matvec`
+(:223, kernel `_kern` :61) for up to MAX_KERNEL_ROWS rows: the decode
+linears and the prefill lm_head.  x is cast to f32, the dequantized weight is
+f32, the output is f32 and is then cast to x's dtype.  Bound on the H100 by
+device-memory bandwidth; the kernel splits K over hundreds of blocks with
+16-byte loads and sums the slices in a second pass.
+
+The reference pads decode rows to 8 and indexes stacked weights with a
+scalar-prefetched layer number; both are TPU artifacts.  Here a stacked
+weight is sliced into per-layer views, which copy nothing.
+
+On CPU tensors every wrapper computes its kernel's plain PyTorch version
+(`int4_matmul_plain`, `int4_matvec_plain`); on CUDA tensors it launches the
+kernel or raises.  `launches` counts kernel launches per kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.quant import Int4GroupedTensor, int4_grouped_dequantize
+from . import _cuda
+
+MAX_KERNEL_ROWS = 8
+
+launches = {"int4_matmul": 0, "int4_matvec": 0}
+
+
+def int4_matmul_plain(x: torch.Tensor, t: Int4GroupedTensor) -> torch.Tensor:
+    """Plain version of K1: x [M, K] -> [M, n] in x.dtype."""
+    w = int4_grouped_dequantize(t, x.dtype).T
+    return (x.float() @ w.float()).to(x.dtype)
+
+
+def int4_matvec_plain(x: torch.Tensor, t: Int4GroupedTensor) -> torch.Tensor:
+    """Plain version of K2: x [M, K] -> [M, n] in float32."""
+    return x.float() @ int4_grouped_dequantize(t, torch.float32).T
+
+
+def _check_weight(x: torch.Tensor, t: Int4GroupedTensor, name: str):
+    K, n2p = t.qp.shape
+    if x.dim() != 2 or x.shape[1] != K:
+        raise ValueError(f"{name}: x {tuple(x.shape)} does not match K={K}")
+    for a in (t.qp, t.sl, t.sh, t.bl, t.bh):
+        if a.device != x.device:
+            raise ValueError(f"{name}: weight and x on different devices")
+        if not a.is_contiguous():
+            raise ValueError(f"{name}: weight arrays must be contiguous")
+    if t.qp.dtype != torch.uint8:
+        raise TypeError(f"{name}: qp must be uint8")
+    for a in (t.sl, t.sh, t.bl, t.bh):
+        if a.dtype != torch.float32 or a.shape != (K // t.group_size, 1, n2p):
+            raise ValueError(f"{name}: scale planes must be f32 [G, 1, N2p]")
+    if n2p % 128 or K % t.group_size or t.n > 2 * n2p:
+        raise ValueError(f"{name}: unsupported shape K={K} N2p={n2p} n={t.n}")
+
+
+def int4_matmul(x: torch.Tensor, t: Int4GroupedTensor) -> torch.Tensor:
+    """K1: x [M, K] @ dequant(t).T -> [M, n] in x.dtype (single weight)."""
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, t)
+    _check_weight(x, t, "int4_matmul")
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise TypeError("int4_matmul: the CUDA kernel takes bfloat16 x on CUDA")
+    if t.group_size != 64:
+        raise ValueError("int4_matmul: the CUDA kernel takes group_size 64")
+    x = x.contiguous()
+    M, K = x.shape
+    n2p = t.qp.shape[1]
+    y = torch.empty((M, t.n), dtype=x.dtype, device=x.device)
+    lib = _cuda.library()
+    err = lib.mvt_int4_matmul(
+        x.data_ptr(), t.qp.data_ptr(), t.sl.data_ptr(), t.sh.data_ptr(),
+        t.bl.data_ptr(), t.bh.data_ptr(), y.data_ptr(), M, K, n2p, t.n,
+        _cuda.stream_handle(x.device))
+    _cuda.check(err, "int4_matmul")
+    launches["int4_matmul"] += 1
+    return y
+
+
+def int4_matvec_rows(x: torch.Tensor, t: Int4GroupedTensor) -> torch.Tensor:
+    """K2: x [M <= 8, K] @ dequant(t).T -> [M, n] in float32 (single weight)."""
+    if x.device.type == "cpu":
+        return int4_matvec_plain(x, t)
+    _check_weight(x, t, "int4_matvec")
+    if x.device.type != "cuda":
+        raise TypeError("int4_matvec: the kernel runs on CUDA tensors")
+    if t.group_size % 16:
+        raise ValueError("int4_matvec: group_size must be a multiple of 16")
+    M, K = x.shape
+    if M > MAX_KERNEL_ROWS:
+        raise ValueError(f"int4_matvec: at most {MAX_KERNEL_ROWS} rows")
+    x = x.float().contiguous()
+    n2p = t.qp.shape[1]
+    lib = _cuda.library()
+    slices = lib.mvt_int4_matvec_slices(K)
+    part = torch.empty((slices, M, 2 * n2p), dtype=torch.float32,
+                       device=x.device)
+    y = torch.empty((M, t.n), dtype=torch.float32, device=x.device)
+    err = lib.mvt_int4_matvec(
+        x.data_ptr(), t.qp.data_ptr(), t.sl.data_ptr(), t.sh.data_ptr(),
+        t.bl.data_ptr(), t.bh.data_ptr(), part.data_ptr(), y.data_ptr(), M, K,
+        n2p, t.n, t.group_size, _cuda.stream_handle(x.device))
+    _cuda.check(err, "int4_matvec")
+    launches["int4_matvec"] += 1
+    return y
+
+
+def int4_matvec(x: torch.Tensor, t: Int4GroupedTensor,
+                layer=None) -> torch.Tensor:
+    """x [..., K] @ dequant(t).T -> [..., N] in x.dtype.
+
+    `t` is a single weight ([K, N2p] arrays) or a stacked one ([L, K, N2p])
+    with `layer` selecting a per-layer view.  Up to MAX_KERNEL_ROWS rows go
+    through K2, more through K1."""
+    if t.qp.dim() == 3:
+        t = t.layer(layer if layer is not None else 0)
+    *lead, K = x.shape
+    M = 1
+    for d in lead:
+        M *= d
+    if M == 0:
+        return x.new_zeros((*lead, t.n))
+    xm = x.reshape(M, K)
+    if M > MAX_KERNEL_ROWS:
+        y = int4_matmul(xm, t)
+    else:
+        y = int4_matvec_rows(xm, t).to(x.dtype)
+    return y.reshape(*lead, t.n)

@@ -1,0 +1,343 @@
+"""Model loading: checkpoints -> torch parameter trees (Qwen2-VL only).
+
+Port of mlx_vlm_tpu/utils/loader.py (load_config :107, _nest :143,
+_stack_layers :154, _fold_quantized :323, _raw_uint8_tensor :445,
+load_model_from_weights :548, load_model :759, load :773) for the
+qwen2_vl family and the w4grp layout.  Safetensors are parsed in numpy
+(bfloat16 read as uint16 and viewed as torch.bfloat16), so loading needs
+neither `safetensors` nor `ml_dtypes`.  mlx 4-bit linears fold bit-exact
+into the halves-packed Int4GroupedTensor layout and quantized embedding
+tables into the per-channel int8 layout; per-layer weights are stacked on a
+leading axis; no fused-decode pack is built.
+
+`params_from_jax` carries a parameter tree of the JAX package (numpy
+leaves) over to the port unchanged, so tests run both on the same weights.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import struct
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.quant import (
+    ChannelQuantizedTensor,
+    Int4GroupedTensor,
+    QuantizedTensor,
+    from_mlx_packed,
+    to_channel_quantized,
+    to_int4_grouped,
+)
+
+__all__ = [
+    "load",
+    "load_model",
+    "load_model_from_weights",
+    "load_config",
+    "read_safetensors",
+    "params_from_jax",
+]
+
+# safetensors dtype -> numpy dtype (BF16 is read as uint16 and re-viewed)
+_ST_DTYPES = {
+    "F64": np.float64, "F32": np.float32, "F16": np.float16, "BF16": np.uint16,
+    "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
+    "U64": np.uint64, "U32": np.uint32, "U16": np.uint16, "U8": np.uint8,
+    "BOOL": np.bool_,
+}
+
+
+def get_model_path(path: str) -> Path:
+    p = Path(path)
+    if not p.exists():
+        raise FileNotFoundError(
+            f"Model path {path} not found (the port loads local checkpoints "
+            "only)")
+    return p
+
+
+def load_config(model_path: Path) -> dict:
+    """config.json merged with generation_config.json's token ids."""
+    with open(model_path / "config.json") as f:
+        config = json.load(f)
+    gen_cfg_path = model_path / "generation_config.json"
+    if gen_cfg_path.exists():
+        try:
+            with open(gen_cfg_path) as f:
+                gen = json.load(f)
+            for k in ("eos_token_id", "bos_token_id", "pad_token_id"):
+                if k in gen and k not in config:
+                    config[k] = gen[k]
+        except (json.JSONDecodeError, OSError):
+            pass
+    return config
+
+
+def get_model_and_args(config: dict):
+    model_type = config["model_type"]
+    if model_type != "qwen2_vl":
+        raise NotImplementedError(
+            f"model type {model_type} is not ported (qwen2_vl only)")
+    from ..models import qwen2_vl
+
+    return qwen2_vl, model_type
+
+
+def _bf16_tensor(u16: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(u16)).view(torch.bfloat16)
+
+
+def read_safetensors(path) -> dict:
+    """All tensors of one .safetensors file: numpy arrays, except BF16
+    tensors, which come back as CPU torch.bfloat16 tensors."""
+    out = {}
+    with open(path, "rb") as fh:
+        (hlen,) = struct.unpack("<Q", fh.read(8))
+        header = json.loads(fh.read(hlen))
+        base = 8 + hlen
+        for key, meta in header.items():
+            if key == "__metadata__":
+                continue
+            dt = _ST_DTYPES.get(meta["dtype"])
+            if dt is None:
+                raise NotImplementedError(
+                    f"{key}: safetensors dtype {meta['dtype']} is not supported")
+            start, end = meta["data_offsets"]
+            fh.seek(base + start)
+            arr = np.frombuffer(fh.read(end - start), dtype=dt).reshape(
+                meta["shape"]).copy()
+            out[key] = _bf16_tensor(arr) if meta["dtype"] == "BF16" else arr
+    return out
+
+
+def _read_checkpoint(model_path: Path) -> dict:
+    files = sorted(model_path.glob("*.safetensors"))
+    if not files:
+        raise FileNotFoundError(f"No safetensors found in {model_path}")
+    weights = {}
+    for f in files:
+        weights.update(read_safetensors(f))
+    return weights
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for k, v in flat.items():
+        parts = k.split(".")
+        d = out
+        for p in parts[:-1]:
+            d = d.setdefault(p, {})
+        d[parts[-1]] = v
+    return out
+
+
+def _stack(vals: list):
+    if isinstance(vals[0], torch.Tensor):
+        return torch.stack(vals)
+    return np.stack(vals)
+
+
+def _stack_layers(flat: dict, patterns) -> dict:
+    """Fold `prefix.{i}.rest` keys into stacked leaves keyed `prefix.rest`
+    (new axis 0)."""
+    for pref in patterns:
+        pr = re.compile(rf"^{re.escape(pref)}\.(\d+)\.(.+)$")
+        out = {}
+        groups: dict = {}
+        for k, v in flat.items():
+            m = pr.match(k)
+            if m:
+                groups.setdefault(m.group(2), {})[int(m.group(1))] = v
+            else:
+                out[k] = v
+        for rest, items in groups.items():
+            vals = [items[i] for i in sorted(items)]
+            if len(vals) != max(items) + 1:
+                raise ValueError(f"missing indices under {pref}.*.{rest}")
+            v0 = vals[0]
+            if isinstance(v0, Int4GroupedTensor):
+                stacked = Int4GroupedTensor(
+                    **{f: _stack([getattr(t, f) for t in vals])
+                       for f in ("qp", "sl", "sh", "bl", "bh")},
+                    n=v0.n, group_size=v0.group_size, out_dtype=v0.out_dtype)
+            elif isinstance(v0, (QuantizedTensor, ChannelQuantizedTensor)):
+                raise NotImplementedError(
+                    f"stacking {type(v0).__name__} at {pref}.*.{rest}")
+            else:
+                stacked = _stack(vals)
+            out[f"{pref}.{rest}"] = stacked
+        flat = out
+    return flat
+
+
+def _fold_quantized(flat: dict, qcfg: dict) -> dict:
+    """Fold mlx-style (weight: packed uint32, scales, biases) triples: 4-bit
+    linears -> Int4GroupedTensor (w4grp), embedding tables and other 2-D
+    tensors -> ChannelQuantizedTensor, as the reference does for qwen2_vl."""
+    bits = qcfg.get("bits", 4)
+    group_size = qcfg.get("group_size", 64)
+    out = {}
+    handled = set()
+    for k in list(flat.keys()):
+        if not k.endswith(".scales"):
+            continue
+        base = k[: -len(".scales")]
+        wk, bk = base + ".weight", base + ".biases"
+        if wk not in flat:
+            continue
+        # per-path overrides are keyed by checkpoint names; sanitize() may
+        # have prefixed them, so probe with leading components stripped
+        probe = base
+        per = qcfg.get(probe, None)
+        while per is None and "." in probe:
+            probe = probe.split(".", 1)[1]
+            per = qcfg.get(probe, None)
+        b, g = bits, group_size
+        if isinstance(per, dict):
+            b, g = per.get("bits", bits), per.get("group_size", group_size)
+        if per is False:
+            continue
+        w = flat[wk]
+        if not (isinstance(w, np.ndarray) and w.dtype == np.uint32):
+            continue
+        biases = flat.get(bk)
+        if biases is None:
+            biases = np.zeros_like(flat[k]) if isinstance(flat[k], np.ndarray) \
+                else torch.zeros_like(flat[k])
+        qt = from_mlx_packed(w, flat[k], biases, b, g)
+        is_embed = "embed_tokens" in base or "wte" in base
+        if (b == 4 and qt.q.ndim == 2 and not is_embed
+                and (qt.q.shape[1] * 2) % g == 0):
+            qt = to_int4_grouped(qt)
+        elif qt.q.ndim == 2:
+            qt = to_channel_quantized(qt)
+        out[wk] = qt
+        handled.update({wk, k, bk})
+    for k, v in flat.items():
+        if k not in handled:
+            out.setdefault(k, v)
+    return out
+
+
+def _as_tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if not a.flags.writeable:  # e.g. arrays exported by JAX: copy, as torch
+        a = a.copy()           # tensors may be written
+    if a.dtype.name == "bfloat16":
+        return _bf16_tensor(a.view(np.uint16))
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _to_device(flat: dict, dtype: torch.dtype, device) -> dict:
+    name = str(dtype).removeprefix("torch.")
+
+    def put(v):
+        if isinstance(v, Int4GroupedTensor):
+            return Int4GroupedTensor(
+                qp=_as_tensor(v.qp).to(device),
+                **{f: _as_tensor(getattr(v, f)).to(device, torch.float32)
+                   for f in ("sl", "sh", "bl", "bh")},
+                n=v.n, group_size=v.group_size, out_dtype=name)
+        if isinstance(v, ChannelQuantizedTensor):
+            return ChannelQuantizedTensor(
+                q8=_as_tensor(v.q8).to(device),
+                scales=_as_tensor(v.scales).to(device, dtype),
+                biases=_as_tensor(v.biases).to(device, dtype),
+                src_bits=v.src_bits,
+                out_dtype=name)
+        if isinstance(v, QuantizedTensor):
+            raise NotImplementedError("QuantizedTensor weights are not ported")
+        t = _as_tensor(v)
+        if t.is_floating_point():
+            return t.to(device, dtype)
+        return t.to(device)
+
+    return {k: put(v) for k, v in flat.items()}
+
+
+def load_model_from_weights(config: dict, weights: dict,
+                            dtype: torch.dtype = torch.bfloat16,
+                            device="cpu"):
+    """Full load pipeline from an in-memory flat weight dict (HF keys):
+    sanitize -> quant fold -> layer stacking -> device."""
+    arch, _ = get_model_and_args(config)
+    model = arch.Model(arch.ModelConfig.from_dict(config))
+    qc = config.get("quantization_config") or {}
+    if qc.get("quant_method") == "compressed-tensors":
+        raise NotImplementedError("compressed-tensors checkpoints are not ported")
+    weights = model.sanitize(weights)
+    qcfg = config.get("quantization")
+    if qcfg:
+        weights = _fold_quantized(weights, qcfg)
+    weights = _stack_layers(weights, tuple(model.stack_patterns))
+    model.params = _nest(_to_device(weights, dtype, device))
+    model.config_dict = config
+    model.device = torch.device(device)
+    return model
+
+
+def load_model(model_path, dtype: torch.dtype = torch.bfloat16, device="cpu"):
+    """Instantiate the model and attach its parameter tree."""
+    model_path = Path(model_path)
+    config = load_config(model_path)
+    return load_model_from_weights(config, _read_checkpoint(model_path), dtype,
+                                   device)
+
+
+def load(path: str, processor_kwargs: Optional[dict] = None,
+         dtype: torch.dtype = torch.bfloat16, device="cpu"):
+    """Load (model, processor) from a local checkpoint directory."""
+    model_path = get_model_path(path)
+    model = load_model(model_path, dtype=dtype, device=device)
+    from .processing import load_processor
+
+    processor = load_processor(model_path, model, **(processor_kwargs or {}))
+    return model, processor
+
+
+def params_from_jax(model, params: dict) -> dict:
+    """The port's parameter tree for `model` from a JAX-package tree.
+
+    `params` is the JAX package's `model.params` with numpy leaves (e.g.
+    `jax.tree_util.tree_map(np.asarray, params)`): stacked dense arrays and
+    Int4GroupedTensor / ChannelQuantizedTensor containers of numpy fields.
+    Containers are recognised by their fields, so the JAX package is not
+    imported.  Every byte and value is kept; tensors land on the CPU."""
+
+    def convert(v, path):
+        if isinstance(v, dict):
+            if "fused_decode" in v:
+                raise ValueError(
+                    "a fused-decode pack is not part of the port's layout; "
+                    "load the JAX model with MLX_VLM_TPU_FUSED_DECODE=0")
+            return {k: convert(x, f"{path}.{k}" if path else k)
+                    for k, x in v.items()}
+        if hasattr(v, "qp") and hasattr(v, "sl"):
+            return Int4GroupedTensor(
+                **{f: _as_tensor(getattr(v, f))
+                   for f in ("qp", "sl", "sh", "bl", "bh")},
+                n=int(v.n), group_size=int(v.group_size),
+                out_dtype=str(v.out_dtype))
+        if hasattr(v, "q8"):
+            return ChannelQuantizedTensor(
+                q8=_as_tensor(v.q8), scales=_as_tensor(v.scales),
+                biases=_as_tensor(v.biases), src_bits=int(v.src_bits),
+                out_dtype=str(v.out_dtype))
+        if isinstance(v, (np.ndarray, np.generic)):
+            return _as_tensor(v)
+        raise TypeError(f"{path}: unsupported leaf {type(v).__name__}")
+
+    out = convert(params, "")
+    q = out["language_model"]["model"]["layers"]["self_attn"]["q_proj"]["weight"]
+    n_layers = (q.qp if isinstance(q, Int4GroupedTensor) else q).shape[0]
+    if n_layers != model.decoder_layers:
+        raise ValueError(f"params hold {n_layers} decoder layers, the model "
+                         f"{model.decoder_layers}")
+    return out

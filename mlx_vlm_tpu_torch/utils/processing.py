@@ -1,0 +1,218 @@
+"""Preprocessing: images -> patch arrays, prompt -> token ids (Qwen2-VL).
+
+Port of mlx_vlm_tpu/utils/processing.py (load_image :24, smart_resize :127,
+Qwen2VLImageProcessor :150, Qwen2VLProcessor :273, load_processor :390,
+prepare_inputs :420) for images and text.  PIL and transformers are imported
+only inside the functions that use them: a uint8 [H, W, 3] array whose size
+already meets the resize rule goes through without PIL.  Audio and video
+inputs are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+from pathlib import Path
+from typing import List, Union
+
+import numpy as np
+
+OPENAI_CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
+OPENAI_CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+
+
+def load_image(source):
+    """Path / URL / data URI / PIL image -> RGB PIL image; a uint8 [H, W, 3]
+    array is returned as it is."""
+    if isinstance(source, np.ndarray):
+        if source.dtype != np.uint8 or source.ndim != 3 or source.shape[2] != 3:
+            raise ValueError("image arrays must be uint8 [H, W, 3]")
+        return source
+    from PIL import Image, ImageOps
+
+    if hasattr(source, "convert"):
+        img = source
+    elif isinstance(source, (str, Path)):
+        s = str(source)
+        if s.startswith("http://") or s.startswith("https://"):
+            import io
+            import urllib.request
+
+            with urllib.request.urlopen(s) as r:
+                img = Image.open(io.BytesIO(r.read()))
+        elif s.startswith("data:image"):
+            import base64
+            import io
+
+            img = Image.open(io.BytesIO(base64.b64decode(s.split(",", 1)[1])))
+        else:
+            img = Image.open(s)
+    else:
+        raise ValueError(f"cannot load image from {type(source)}")
+    img = ImageOps.exif_transpose(img)
+    return img.convert("RGB")
+
+
+def smart_resize(height: int, width: int, factor: int = 28,
+                 min_pixels: int = 56 * 56,
+                 max_pixels: int = 14 * 14 * 4 * 1280):
+    """Qwen2-VL resize rule: dims divisible by `factor`, area within bounds."""
+    if max(height, width) / min(height, width) > 200:
+        raise ValueError("absolute aspect ratio must be smaller than 200")
+    h_bar = max(factor, round(height / factor) * factor)
+    w_bar = max(factor, round(width / factor) * factor)
+    if h_bar * w_bar > max_pixels:
+        beta = math.sqrt((height * width) / max_pixels)
+        h_bar = math.floor(height / beta / factor) * factor
+        w_bar = math.floor(width / beta / factor) * factor
+    elif h_bar * w_bar < min_pixels:
+        beta = math.sqrt(min_pixels / (height * width))
+        h_bar = math.ceil(height * beta / factor) * factor
+        w_bar = math.ceil(width * beta / factor) * factor
+    return h_bar, w_bar
+
+
+class Qwen2VLImageProcessor:
+    """Numpy Qwen2-VL image processor (patch layout matches HF exactly)."""
+
+    def __init__(self, patch_size: int = 14, merge_size: int = 2,
+                 temporal_patch_size: int = 2, min_pixels: int = 56 * 56,
+                 max_pixels: int = 14 * 14 * 4 * 1280,
+                 image_mean=OPENAI_CLIP_MEAN, image_std=OPENAI_CLIP_STD):
+        self.patch_size = patch_size
+        self.merge_size = merge_size
+        self.temporal_patch_size = temporal_patch_size
+        self.min_pixels = min_pixels
+        self.max_pixels = max_pixels
+        self.image_mean = np.asarray(image_mean, np.float32)
+        self.image_std = np.asarray(image_std, np.float32)
+
+    def _preprocess_one(self, frames: List[np.ndarray]):
+        """frames: T uint8 [H, W, 3] frames of one image -> (patches, grid).
+
+        The bicubic resize is skipped when the rule keeps the size: PIL then
+        returns an identical copy."""
+        h, w = frames[0].shape[:2]
+        hb, wb = smart_resize(h, w, self.patch_size * self.merge_size,
+                              self.min_pixels, self.max_pixels)
+        proc = []
+        for f in frames:
+            if (hb, wb) != (h, w):
+                from PIL import Image
+
+                f = np.asarray(Image.fromarray(f).resize((wb, hb), Image.BICUBIC))
+            x = np.asarray(f, np.float32) / 255.0
+            x = (x - self.image_mean) / self.image_std
+            proc.append(x.transpose(2, 0, 1))  # CHW
+        patches = np.stack(proc)  # [T, C, H, W]
+        T = patches.shape[0]
+        if T % self.temporal_patch_size:
+            reps = self.temporal_patch_size - T % self.temporal_patch_size
+            patches = np.concatenate([patches, np.tile(patches[-1:], (reps, 1, 1, 1))])
+        C = patches.shape[1]
+        gt = patches.shape[0] // self.temporal_patch_size
+        gh, gw = hb // self.patch_size, wb // self.patch_size
+        m, P = self.merge_size, self.patch_size
+        patches = patches.reshape(
+            gt, self.temporal_patch_size, C, gh // m, m, P, gw // m, m, P)
+        patches = patches.transpose(0, 3, 6, 4, 7, 2, 1, 5, 8)
+        flat = patches.reshape(gt * gh * gw, C * self.temporal_patch_size * P * P)
+        return flat, np.array([gt, gh, gw], np.int64)
+
+    def __call__(self, images) -> dict:
+        """images: image-likes or a list of them -> pixel_values [N, D], grids."""
+        if not isinstance(images, (list, tuple)):
+            images = [images]
+        flats, grids = [], []
+        for im in images:
+            flat, grid = self._preprocess_one([np.asarray(load_image(im))])
+            flats.append(flat)
+            grids.append(grid)
+        return {
+            "pixel_values": np.concatenate(flats, axis=0).astype(np.float32),
+            "image_grid_thw": np.stack(grids),
+        }
+
+
+class Qwen2VLProcessor:
+    """Minimal text + image processor mirroring the HF behaviour."""
+
+    image_pad = "<|image_pad|>"
+
+    def __init__(self, tokenizer, image_processor: Qwen2VLImageProcessor):
+        self.tokenizer = tokenizer
+        self.image_processor = image_processor
+
+    def __call__(self, text=None, images=None, videos=None, padding=True,
+                 audio=None, **kw):
+        if videos is not None or audio is not None:
+            raise NotImplementedError("video and audio inputs are not ported")
+        out = {}
+        if images is not None:
+            out.update(self.image_processor(images))
+            merge2 = self.image_processor.merge_size**2
+            texts = [text] if isinstance(text, str) else list(text)
+            grid_iter = iter(out["image_grid_thw"])
+            expanded = []
+            for t in texts:
+                while self.image_pad in t:
+                    n = int(np.prod(next(grid_iter))) // merge2
+                    t = t.replace(self.image_pad, "<_IMG_PLACEHOLDER_>" * n, 1)
+                expanded.append(t.replace("<_IMG_PLACEHOLDER_>", self.image_pad))
+            text = expanded
+        enc = self.tokenizer(text, return_tensors="np", padding=padding,
+                             padding_side="left")
+        out["input_ids"] = np.asarray(enc["input_ids"])
+        out["attention_mask"] = np.asarray(enc["attention_mask"])
+        return out
+
+    def apply_chat_template(self, messages, **kwargs):
+        return self.tokenizer.apply_chat_template(messages, **kwargs)
+
+
+def load_processor(model_path, model=None, **kwargs):
+    """The HF AutoProcessor when transformers can build one with an image
+    processor; otherwise the numpy Qwen2VLProcessor around the checkpoint's
+    tokenizer."""
+    model_path = Path(model_path)
+    try:
+        from transformers import AutoProcessor
+
+        proc = AutoProcessor.from_pretrained(str(model_path), **kwargs)
+        if hasattr(proc, "image_processor"):
+            return proc
+        return Qwen2VLProcessor(proc, Qwen2VLImageProcessor())
+    except Exception:  # noqa: BLE001 — no transformers, or no processor files
+        pass
+    from .tokenizer import load_tokenizer
+
+    return Qwen2VLProcessor(load_tokenizer(model_path), Qwen2VLImageProcessor())
+
+
+def prepare_inputs(processor, prompts: Union[str, List[int], np.ndarray],
+                   images=None, videos=None, **kwargs) -> dict:
+    """Normalize user inputs into model arrays (input_ids, attention_mask,
+    pixel_values, image_grid_thw)."""
+    if videos is not None or kwargs.get("audios") is not None:
+        raise NotImplementedError("video and audio inputs are not ported")
+    kwargs.pop("audios", None)
+    if isinstance(prompts, np.ndarray):
+        return {"input_ids": prompts.reshape(1, -1) if prompts.ndim == 1 else prompts}
+    if isinstance(prompts, (list, tuple)) and prompts and isinstance(prompts[0], int):
+        return {"input_ids": np.asarray(prompts, np.int64)[None]}
+    if images is not None and not isinstance(images, (list, tuple)):
+        images = [images]
+    if images is not None:
+        images = [load_image(im) for im in images]
+    out = processor(
+        text=prompts if isinstance(prompts, list) else [prompts],
+        images=images,
+        padding=True,
+        **kwargs,
+    )
+    result = {}
+    for k, v in out.items():
+        if hasattr(v, "numpy"):
+            v = v.numpy()
+        if isinstance(v, (np.ndarray, list)):
+            result[k] = np.asarray(v)
+    return result

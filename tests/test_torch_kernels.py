@@ -1,0 +1,289 @@
+"""Port parity: kernel modules and the layers around them.
+
+On the CPU the port's wrappers run their kernels' plain PyTorch versions;
+they are held to the JAX package's Pallas kernels in interpret mode at f32
+(tolerance 1e-5 abs / 1e-4 rel).  Tests marked `cuda` compare each CUDA
+kernel with its plain version on a GPU and skip without one.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mlx_vlm_tpu.core import quant as jq
+from mlx_vlm_tpu.core.mask import causal_cache_mask as jax_mask
+from mlx_vlm_tpu.core.rope import make_rope as jax_make_rope
+from mlx_vlm_tpu.ops.attention import sdpa as jax_sdpa
+from mlx_vlm_tpu.ops.flash_attention import flash_attention as jax_flash
+from mlx_vlm_tpu.ops.int4_matvec import int4_matvec as jax_int4_matvec
+from mlx_vlm_tpu_torch.core import quant as tq
+from mlx_vlm_tpu_torch.core.mask import causal_cache_mask
+from mlx_vlm_tpu_torch.core.rope import apply_rope, make_rope
+from mlx_vlm_tpu_torch.ops import _cuda
+from mlx_vlm_tpu_torch.ops import flash_attention as fa
+from mlx_vlm_tpu_torch.ops import int4_matvec as iv
+from mlx_vlm_tpu_torch.ops.attention import sdpa
+
+torch.set_num_threads(2)
+
+ATOL, RTOL = 1e-5, 1e-4
+
+
+def _jax_int4(n, k, seed, layers=None):
+    """JAX Int4GroupedTensor (numpy fields) from random f32 weights; stacked
+    over `layers` when given."""
+    rng = np.random.default_rng(seed)
+
+    def one():
+        w = rng.standard_normal((n, k)).astype(np.float32) * 0.1
+        return jq.to_int4_grouped(jq.quantize(jnp.asarray(w), 4, 64))
+
+    if layers is None:
+        return one()
+    ts = [one() for _ in range(layers)]
+    return jq.Int4GroupedTensor(
+        **{f: np.stack([np.asarray(getattr(t, f)) for t in ts])
+           for f in ("qp", "sl", "sh", "bl", "bh")},
+        n=n, group_size=64, out_dtype="float32")
+
+
+def _port_int4(t):
+    return tq.Int4GroupedTensor(
+        **{f: torch.from_numpy(np.asarray(getattr(t, f)))
+           for f in ("qp", "sl", "sh", "bl", "bh")},
+        n=t.n, group_size=t.group_size, out_dtype="float32")
+
+
+@pytest.mark.parametrize("M", [1, 5, 64, 300])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_int4_matvec_matches_pallas(M, stacked):
+    K, N = 128, 200
+    t = _jax_int4(N, K, seed=M, layers=3 if stacked else None)
+    x = np.random.default_rng(M + 1).standard_normal((M, K)).astype(np.float32)
+    layer = 2 if stacked else None
+    ref = np.asarray(jax_int4_matvec(jnp.asarray(x), jq.Int4GroupedTensor(
+        **{f: jnp.asarray(getattr(t, f)) for f in ("qp", "sl", "sh", "bl", "bh")},
+        n=t.n, group_size=64, out_dtype="float32"), layer))
+    got = iv.int4_matvec(torch.from_numpy(x), _port_int4(t), layer).numpy()
+    assert got.shape == (M, N)
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
+
+
+def test_int4_matvec_leading_dims_and_bf16_rounding():
+    t = _port_int4(_jax_int4(64, 128, seed=7))
+    x = torch.randn((2, 3, 128), generator=torch.Generator().manual_seed(0))
+    y = iv.int4_matvec(x, t)
+    assert y.shape == (2, 3, 64) and y.dtype == torch.float32
+    # K1's plain version rounds the dequantized weight to x.dtype
+    xb = x.reshape(6, 128).to(torch.bfloat16)
+    w = tq.int4_grouped_dequantize(t, torch.bfloat16).T.float()
+    ref = (xb.float() @ w).to(torch.bfloat16)
+    assert torch.equal(iv.int4_matmul_plain(xb, t), ref)
+    # K2's plain version keeps the f32 dequant and returns f32
+    assert iv.int4_matvec_plain(xb[:2], t).dtype == torch.float32
+
+
+def _visible_rows(offset, left_pad, S, C, window):
+    """[B, S] True where query row i keeps at least one cache column."""
+    pos = offset[:, None] + np.arange(S)[None]
+    lo = np.maximum(left_pad[:, None], 0)
+    if window is not None:
+        lo = np.maximum(lo, pos - window + 1)
+    hi = np.minimum(pos, C - 1)
+    return hi >= lo
+
+
+@pytest.mark.parametrize("window", [None, 6])
+def test_flash_attention_matches_pallas(window):
+    B, H, KVH, S, C, D = 2, 4, 2, 16, 64, 16
+    rng = np.random.default_rng(0 if window is None else 1)
+    q = rng.standard_normal((B, H, S, D)).astype(np.float32)
+    k = rng.standard_normal((B, KVH, C, D)).astype(np.float32)
+    v = rng.standard_normal((B, KVH, C, D)).astype(np.float32)
+    offset = np.array([40, 3], np.int32)
+    left_pad = np.array([0, 5], np.int32)  # row 1: early queries see nothing
+    scale = D**-0.5
+    ref = np.asarray(jax_flash(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(offset),
+        jnp.asarray(left_pad), scale, q_tile=16, window=window,
+        interpret=True))
+    got = fa.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(offset), torch.from_numpy(left_pad), scale,
+        window).numpy()
+    vis = _visible_rows(offset, left_pad, S, C, window)
+    assert not vis.all()  # the case covers padding rows; they are skipped
+    sel = np.broadcast_to(vis[:, None, :], (B, H, S))
+    np.testing.assert_allclose(got[sel], ref[sel], atol=ATOL, rtol=RTOL)
+
+
+def test_sdpa_matches_reference():
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((2, 4, 5, 8)).astype(np.float32)
+    k = rng.standard_normal((2, 2, 12, 8)).astype(np.float32)
+    v = rng.standard_normal((2, 2, 12, 8)).astype(np.float32)
+    off, lp = np.array([7, 7], np.int32), np.array([0, 3], np.int32)
+    mj = jax_mask(jnp.asarray(7), jnp.asarray(lp), 5, 12)
+    mt = causal_cache_mask(7, torch.from_numpy(lp), 5, 12)
+    assert np.array_equal(np.asarray(mj), mt.numpy())
+    ref = np.asarray(jax_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              0.35, mj))
+    got = sdpa(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+               0.35, mt).numpy()
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
+    # per-row cursors build the same mask
+    mt2 = causal_cache_mask(torch.from_numpy(off), torch.from_numpy(lp), 5, 12)
+    assert torch.equal(mt, mt2)
+
+
+def test_mrope_cos_sin_and_apply_match():
+    scaling = {"type": "mrope", "mrope_section": [2, 3, 3]}
+    jr = jax_make_rope(16, 10000.0, scaling)
+    tr = make_rope(16, 10000.0, scaling)
+    pos = np.random.default_rng(3).integers(0, 50, (3, 2, 6)).astype(np.int32)
+    jc, js = jr.cos_sin(jnp.asarray(pos))
+    tc, ts = tr.cos_sin(torch.from_numpy(pos.astype(np.int64)))
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-6)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-6)
+    from mlx_vlm_tpu.core.rope import apply_rope as jax_apply
+
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((2, 3, 6, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 1, 6, 16)).astype(np.float32)
+    jq_, jk_ = jax_apply(jnp.asarray(q), jnp.asarray(k), jc, js)
+    tq_, tk_ = apply_rope(torch.from_numpy(q), torch.from_numpy(k), tc, ts)
+    np.testing.assert_allclose(tq_.numpy(), np.asarray(jq_), atol=ATOL)
+    np.testing.assert_allclose(tk_.numpy(), np.asarray(jk_), atol=ATOL)
+
+
+@pytest.mark.parametrize("name", ["rms_norm", "layer_norm", "swiglu_mlp"])
+def test_layers_match(name):
+    from mlx_vlm_tpu.core import layers as jl
+    from mlx_vlm_tpu_torch.core import layers as tl
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((3, 32)).astype(np.float32)
+    if name == "swiglu_mlp":
+        p = {n: {"weight": rng.standard_normal(s).astype(np.float32) * 0.2}
+             for n, s in (("gate_proj", (48, 32)), ("up_proj", (48, 32)),
+                          ("down_proj", (32, 48)))}
+    else:
+        p = {"weight": rng.standard_normal(32).astype(np.float32),
+             "bias": rng.standard_normal(32).astype(np.float32)}
+
+    def conv(tree, fn):
+        return {k: conv(v, fn) if isinstance(v, dict) else fn(v)
+                for k, v in tree.items()}
+
+    ref = np.asarray(getattr(jl, name)(conv(p, jnp.asarray), jnp.asarray(x)))
+    got = getattr(tl, name)(conv(p, torch.from_numpy), torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=RTOL)
+
+
+def test_sampling_matches_reference():
+    from mlx_vlm_tpu.core import sampling as js
+    from mlx_vlm_tpu_torch.core import sampling as ts
+
+    logits = np.random.default_rng(6).standard_normal((3, 50)).astype(np.float32)
+    lj, lt = jnp.asarray(logits), torch.from_numpy(logits)
+    assert np.array_equal(np.asarray(js.make_sampler()(lj, None)),
+                          ts.make_sampler()(lt).numpy())
+    np.testing.assert_array_equal(np.asarray(js._apply_top_k(lj, 5)),
+                                  ts._apply_top_k(lt, 5).numpy())
+    np.testing.assert_array_equal(np.asarray(js._apply_top_p(lj, 0.7)),
+                                  ts._apply_top_p(lt, 0.7).numpy())
+    np.testing.assert_array_equal(np.asarray(js._apply_min_p(lj, 0.2)),
+                                  ts._apply_min_p(lt, 0.2).numpy())
+    history = np.full((3, 64), -1, np.int32)
+    history[:, -4:] = [[0, 1, 2, 3], [4, 4, 5, 6], [7, 8, 9, 0]]
+    jp = js.make_logits_processors({3: 1.5, 10: -2.0}, 1.3, 3)
+    tp = ts.make_logits_processors({3: 1.5, 10: -2.0}, 1.3, 3)
+    assert len(jp) == len(tp) == 2
+    for a, b in zip(jp, tp):
+        np.testing.assert_allclose(
+            b(torch.from_numpy(history.astype(np.int64)), lt).numpy(),
+            np.asarray(a(jnp.asarray(history), lj)), rtol=1e-6, atol=1e-6)
+    # seeded draws: reproducible from a generator, and always a kept token
+    s = ts.make_sampler(temp=0.8, top_k=3)
+    t1 = s(lt, torch.Generator().manual_seed(1))
+    t2 = s(lt, torch.Generator().manual_seed(1))
+    assert torch.equal(t1, t2)
+    top3 = np.argsort(-logits, axis=-1)[:, :3]
+    assert all(int(t) in top3[i] for i, t in enumerate(t1))
+
+
+def test_cpu_calls_leave_launch_counters_at_zero():
+    before = {**iv.launches, **fa.launches}
+    t = _port_int4(_jax_int4(64, 128, seed=11))
+    iv.int4_matvec(torch.zeros((1, 128)), t)
+    iv.int4_matvec(torch.zeros((20, 128)), t)
+    x = torch.zeros((1, 2, 8, 128))
+    fa.flash_attention(x, x[:, :1], x[:, :1], torch.zeros(1), torch.zeros(1),
+                       0.1)
+    assert {**iv.launches, **fa.launches} == before
+    assert set(before) == {"int4_matmul", "int4_matvec", "flash_attention"}
+
+
+def test_build_names_existing_sources():
+    paths = _cuda.source_paths()
+    assert [p.name for p in paths] == list(_cuda.SOURCES)
+    for p in paths:
+        assert p.is_file(), p
+        assert p.suffix == ".cu"
+    assert sorted(p.name for p in _cuda.CSRC_DIR.glob("*.cu")) == sorted(
+        _cuda.SOURCES)
+    # the library name is keyed by the sources, and nothing is built here
+    assert _cuda.library_path().parent == _cuda.BUILD_DIR
+
+
+# ----------------------------------------------------------- on a GPU only
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _cuda_int4(K, N, device):
+    t = _port_int4(_jax_int4(N, K, seed=K + N))
+    return tq.Int4GroupedTensor(
+        **{f: getattr(t, f).to(device) for f in ("qp", "sl", "sh", "bl", "bh")},
+        n=t.n, group_size=64, out_dtype="bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 9, 300])
+def test_cuda_int4_kernels_match_plain(cuda_device, M):
+    t = _cuda_int4(256, 200, cuda_device)
+    x = torch.randn((M, 256), device=cuda_device).to(torch.bfloat16)
+    y = iv.int4_matvec(x, t).float()
+    if M > iv.MAX_KERNEL_ROWS:
+        ref = iv.int4_matmul_plain(x, t).float()
+        tol = 2e-2
+    else:
+        ref = iv.int4_matvec_plain(x, t).to(torch.bfloat16).float()
+        tol = 1e-2  # output rounded to bf16 on both sides
+    torch.cuda.synchronize()
+    assert float((y - ref).abs().max()) <= tol * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 100])
+def test_cuda_flash_attention_matches_plain(cuda_device, window):
+    B, H, KVH, S, C, D = 2, 8, 2, 96, 256, 128
+    g = torch.Generator(device="cpu").manual_seed(0)
+    # q scaled by 4 sharpens the scores, so a column masked wrongly
+    # (left_pad, window) moves the output far past the tolerance
+    q, k, v = (torch.randn(s, generator=g).to(cuda_device, torch.bfloat16)
+               for s in ((B, H, S, D), (B, KVH, C, D), (B, KVH, C, D)))
+    q = q * 4
+    off = torch.tensor([150, 100], dtype=torch.int32, device=cuda_device)
+    lp = torch.tensor([0, 7], dtype=torch.int32, device=cuda_device)
+    o = fa.flash_attention(q, k, v, off, lp, D**-0.5, window).float()
+    ref = fa.flash_attention_plain(q, k, v, off, lp, D**-0.5, window).float()
+    torch.cuda.synchronize()
+    assert float((o - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
