@@ -5,14 +5,19 @@
 Phases (any failure exits non-zero):
   1. environment: card, power limit, versions; builds the CUDA kernels from
      mlx_vlm_tpu_torch/csrc with nvcc;
-  2. each kernel (K1 int4_matmul, K2 int4_matvec, K4 flash_attention)
-     against its plain PyTorch version on the card at Qwen2-VL-7B shapes;
-  3. the slice on the card (bf16, kernels) against the slice on the CPU
-     (f32, plain versions) at 7B widths with 2 decoder layers, teacher-forced;
+  2. each kernel (K1 int4_matmul, K2 int4_matvec, K3 fused_decode, K4
+     flash_attention) against its plain PyTorch version on the card at
+     Qwen2-VL-7B shapes (K3: 4 decoder layers and the int4 head);
+  3. the slice on the card (bf16, kernels; decode steps through K3) against
+     the slice on the CPU (f32, plain versions) at 7B widths with 2 decoder
+     layers, teacher-forced;
   4. the main path at full Qwen2-VL-7B width (random mlx-format 4-bit
      weights, 28 decoder layers, 32 vision blocks): three greedy requests
      through load_model_from_weights and stream_generate, with the kernels'
-     launch counters reset before and read after.
+     launch counters reset before and read after.  Requests (a) and (c)
+     decode through K3; (b) runs with MLX_VLM_TPU_FUSED_DECODE=0, the
+     per-linear route (K2).  Then one 28-layer K3 step and its plain
+     version are timed on the loaded model.
 The line before the last is the kernel report, the last line the result.
 Needs no network and imports nothing of JAX.
 """
@@ -20,6 +25,7 @@ Needs no network and imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -163,7 +169,10 @@ def phase_kernels() -> list:
     results: list = []
     print("phase 2: kernels vs plain versions (tolerances: K1 "
           "2e-2*max(1,|ref|) and K4 2e-2*max|ref| for bf16 output rounding, "
-          "K2 1e-3*max(1,|ref|) for summation order)", flush=True)
+          "K2 1e-3*max(1,|ref|) for summation order, K3 1e-4*max|ref| on the "
+          "first layer's k/v and 6e-2*max|ref| behind bf16 roundings that "
+          "the layers amplify)",
+          flush=True)
     weights = {}
     for K, N in K2_SHAPES:
         weights[(K, N)] = random_int4(K, N, gen, dev)
@@ -202,7 +211,165 @@ def phase_kernels() -> list:
                lambda: fa.flash_attention(q, k, v, off, lp, scale, window),
                lambda: fa.flash_attention_plain(q, k, v, off, lp, scale,
                                                 window), floor=0.0)
+    check_fused_decode(results, gen, dev)
     return results
+
+
+FUSED_LAYERS, FUSED_CAPACITY, FUSED_OFFSETS = 4, 8704, (1, 300, 8545)
+# K3 tolerances, relative to max|ref| of each output, no floor.  EXACT holds
+# the first layer's k/v rows, which see no rounded intermediate.  Every
+# later output sits behind bf16 roundings of x before each weight dot, and
+# the random 7B stack amplifies a flipped rounding: the plain version itself
+# moves these outputs by up to 2.6e-2 * max|ref| when cos is perturbed by one
+# part in 1e6 (NVIDIA H100 80GB HBM3, 4 layers, offset 8545), so ROUNDED is set at
+# about twice that floor, which the check prints beside each error.
+FUSED_EXACT, FUSED_ROUNDED = 1e-4, 6e-2
+
+
+def fused_params(n_layers: int, gen, dev, q_scale: float):
+    """(language-model params, TextConfig) at Qwen2-VL-7B width with
+    `n_layers` random int4 decoder layers and an int4 lm_head; q_proj's
+    planes and bias are scaled by q_scale (sharper attention scores)."""
+    import torch
+
+    from mlx_vlm_tpu_torch.core.quant import Int4GroupedTensor
+    from mlx_vlm_tpu_torch.models.qwen2_vl import ModelConfig
+    from mlx_vlm_tpu_torch.utils.testing import qwen2_vl_7b_config
+
+    cfg = qwen2_vl_7b_config()
+    cfg["num_hidden_layers"] = n_layers
+    args = ModelConfig.from_dict(cfg).text_config
+    D, I = args.hidden_size, args.intermediate_size
+    nkv = args.num_key_value_heads * (D // args.num_attention_heads)
+    bf16 = torch.bfloat16
+
+    def stacked(K, N, scale=1.0):
+        ts = [random_int4(K, N, gen, dev) for _ in range(n_layers)]
+        return Int4GroupedTensor(
+            qp=torch.stack([t.qp for t in ts]),
+            **{f: torch.stack([getattr(t, f) for t in ts]) * scale
+               for f in ("sl", "sh", "bl", "bh")},
+            n=N, group_size=64, out_dtype="bfloat16")
+
+    def small(*shape, mean=0.0, std=0.02):
+        return (mean + std * torch.randn(shape, generator=gen)).to(dev, bf16)
+
+    layers = {
+        "input_layernorm": {"weight": small(n_layers, D, mean=1, std=0.1)},
+        "post_attention_layernorm": {
+            "weight": small(n_layers, D, mean=1, std=0.1)},
+        "self_attn": {
+            "q_proj": {"weight": stacked(D, D, q_scale),
+                       "bias": small(n_layers, D, std=0.02 * q_scale)},
+            "k_proj": {"weight": stacked(D, nkv),
+                       "bias": small(n_layers, nkv)},
+            "v_proj": {"weight": stacked(D, nkv),
+                       "bias": small(n_layers, nkv)},
+            "o_proj": {"weight": stacked(D, D)},
+        },
+        "mlp": {"gate_proj": {"weight": stacked(D, I)},
+                "up_proj": {"weight": stacked(D, I)},
+                "down_proj": {"weight": stacked(I, D)}},
+    }
+    params = {"model": {"layers": layers,
+                        "norm": {"weight": small(D, mean=1, std=0.1)}},
+              "lm_head": {"weight": random_int4(D, args.vocab_size, gen,
+                                                dev)}}
+    return params, args
+
+
+def fused_step_bytes(params: dict, args, offset: int) -> int:
+    """Bytes one K3 step must read: int4 codes and f32 scale planes of the
+    seven layer linears and the fused head, and the bf16 k/v history
+    [0, offset)."""
+    from mlx_vlm_tpu_torch.ops import fused_decode as fd
+
+    ws = [p["weight"] for p in fd._linears(params)]
+    head = fd.fused_head(params, args)
+    if head is not None:
+        ws.append(head)
+    n = sum(w.qp.numel() + 4 * 4 * w.sl.numel() for w in ws)
+    L = ws[0].qp.shape[0]
+    hd = args.hidden_size // args.num_attention_heads
+    return n + 2 * L * args.num_key_value_heads * offset * hd * 2
+
+
+def check_fused_decode(results: list, gen, dev) -> None:
+    """K3 against its plain version: 4 layers at 7B width with the int4
+    head and q sharpened by 4, C = 8704, the cache past `offset` filled
+    with 1e3 so that a read past the cursor breaks the check.  Tolerances:
+    FUSED_EXACT and FUSED_ROUNDED above.  Besides summation order, the
+    kernel rounds attention probabilities to bf16 against a running maximum
+    instead of the global one; norms and biases are bf16 in both
+    versions."""
+    import torch
+
+    from mlx_vlm_tpu_torch.core.rope import make_rope
+    from mlx_vlm_tpu_torch.ops import fused_decode as fd
+
+    params, args = fused_params(FUSED_LAYERS, gen, dev, q_scale=4.0)
+    L, C = FUSED_LAYERS, FUSED_CAPACITY
+    D = args.hidden_size
+    nkv, hd = args.num_key_value_heads, D // args.num_attention_heads
+    rope = make_rope(hd, args.rope_theta, args.rope_scaling)
+    h = torch.randn((1, 1, D), generator=gen).to(dev, torch.bfloat16)
+
+    def parts(outs, cache_k, cache_v, off):
+        hh, kn, vn, lg = outs
+        return {"h_out": hh, "k_new[0]": kn[0], "v_new[0]": vn[0],
+                "k_new[1:]": kn[1:], "v_new[1:]": vn[1:], "logits": lg,
+                "k row": cache_k[:, :, :, off].float(),
+                "v row": cache_v[:, :, :, off].float()}
+
+    for off in FUSED_OFFSETS:
+        cos, sin = rope.cos_sin(torch.full((3, 1, 1), off, device=dev))
+        cos, sin = cos[0, 0], sin[0, 0]
+        k = torch.randn((L, 1, nkv, C, hd), generator=gen).to(
+            dev, torch.bfloat16)
+        v = torch.randn((L, 1, nkv, C, hd), generator=gen).to(
+            dev, torch.bfloat16)
+        k[:, :, :, off:] = 1e3
+        v[:, :, :, off:] = 1e3
+        kr, vr, kf, vf = k.clone(), v.clone(), k.clone(), v.clone()
+        out = fd.fused_decode_step(params, args, h, cos, sin, k, v, off)
+        if len(out) != 4:
+            fail("fused_decode: the head did not run inside the step")
+        ref = fd.fused_decode_step_plain(params, args, h, cos, sin, kr, vr,
+                                         off)
+        floor = fd.fused_decode_step_plain(params, args, h, cos * (1 + 1e-6),
+                                           sin, kf, vf, off)
+        torch.cuda.synchronize()
+        got, want = parts(out, k, v, off), parts(ref, kr, vr, off)
+        noise = parts(floor, kf, vf, off)
+        errs, ok = {}, bool((k[:, :, :, off + 1:] == 1e3).all()
+                            and (v[:, :, :, off + 1:] == 1e3).all())
+        for name in got:
+            rel = FUSED_EXACT if name.endswith("[0]") else FUSED_ROUNDED
+            scale = float(want[name].abs().max())
+            err = float((got[name] - want[name]).abs().max())
+            errs[name] = (err, rel * scale,
+                          float((noise[name] - want[name]).abs().max()))
+            ok = ok and err <= rel * scale
+        shape = (f"L={L} D={D} I={args.intermediate_size} H=28 KVH=4 "
+                 f"V={args.vocab_size} C={C} offset={off} q_scale=4")
+        ms = device_ms(lambda: fd.fused_decode_step(
+            params, args, h, cos, sin, k, v, off))
+        plain_ms = device_ms(lambda: fd.fused_decode_step_plain(
+            params, args, h, cos, sin, kr, vr, off), iters=5)
+        call = call_ms(lambda: fd.fused_decode_step(
+            params, args, h, cos, sin, k, v, off))
+        gbs = fused_step_bytes(params, args, off) / ms / 1e6
+        print(f"  fused_decode {shape}: " + ", ".join(
+            f"{n} err={e:.3e} tol={t:.3e} (plain's 1e-6 floor {f:.3e})"
+            for n, (e, t, f) in errs.items())
+            + f"; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (device time, "
+            f"{gbs:.1f} GB/s) kernel_call_ms={call:.4f} "
+            f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        results.append({"name": "fused_decode", "shape": shape,
+                        "err": max(e for e, _, _ in errs.values()),
+                        "tol": min(t for _, t, _ in errs.values()), "ms": ms,
+                        "plain_ms": plain_ms, "call_ms": call, "ok": ok})
+    del params
 
 
 # ------------------------------------------------------------ phase 3
@@ -224,8 +391,8 @@ def _image(size: int) -> np.ndarray:
 def teacher_forced_logits(model, inputs: dict, forced=None,
                           n_steps: int = 8) -> tuple:
     """Per-step last-token logits [n_steps, V] (f32 numpy): the prompt in one
-    prefill chunk, then n_steps - 1 decode steps fed `forced` tokens, or the
-    greedy argmax when `forced` is None."""
+    prefill chunk, then n_steps - 1 decode steps (the fused route when it is
+    on) fed `forced` tokens, or the greedy argmax when `forced` is None."""
     import torch
 
     dev = model.device
@@ -251,8 +418,8 @@ def teacher_forced_logits(model, inputs: dict, forced=None,
         emb = lm.embed(lp, torch.tensor([[tok]], device=dev))
         p = torch.full((3, 1, 1), cache.offset + int(deltas[0, 0]),
                        dtype=torch.int64, device=dev)
-        h = lm(lp, emb, cache, p)
-        out.append(lm.logits(lp, h)[0, 0].float().cpu().numpy())
+        out.append(lm.step_logits(lp, emb, cache, p)[0, 0].float().cpu()
+                   .numpy())
     return np.stack(out), toks
 
 
@@ -280,9 +447,9 @@ def phase_slice_parity() -> bool:
     from mlx_vlm_tpu_torch.utils.testing import (mlx_int4_checkpoint,
                                                  qwen2_vl_7b_config)
 
-    print("phase 3: slice on the card (bf16) vs on the CPU (f32), "
-          "Qwen2-VL-7B widths, 2 decoder layers, 8 teacher-forced steps",
-          flush=True)
+    print("phase 3: slice on the card (bf16, decode through K3) vs on the CPU "
+          "(f32, the plain fused step), Qwen2-VL-7B widths, 2 decoder layers, "
+          "8 teacher-forced steps", flush=True)
     t0 = time.perf_counter()
     cfg = qwen2_vl_7b_config()
     cfg["num_hidden_layers"] = 2
@@ -291,19 +458,26 @@ def phase_slice_parity() -> bool:
     prompt = apply_chat_template(proc, cfg, "What is in this image?",
                                  num_images=1)
     inputs = prepare_inputs(proc, prompt, images=_image(224))
+    from mlx_vlm_tpu_torch.ops import fused_decode as fd
+
     cpu = load_model_from_weights(cfg, weights, torch.float32, "cpu")
     ref, toks = teacher_forced_logits(cpu, inputs)
+    route = cpu.language_model.fused_decode
     del cpu
     gpu = load_model_from_weights(cfg, weights, torch.bfloat16, "cuda")
+    n0 = fd.launches["fused_decode"]
     got, _ = teacher_forced_logits(gpu, inputs, forced=toks)
+    route = route and gpu.language_model.fused_decode
+    k3 = fd.launches["fused_decode"] - n0
     del gpu, weights
     torch.cuda.empty_cache()
     ok, err, tol, n_margin = parity_rule(ref, got)
     print(f"  prompt {inputs['input_ids'].shape[1]} tokens, 8 steps: "
           f"max|cuda - cpu| = {err:.4e}, tol {tol:.4e}; argmax checked on "
-          f"{n_margin}/8 steps; {'ok' if ok else 'MISMATCH'} "
+          f"{n_margin}/8 steps; fused route on both: {route}, K3 launches "
+          f"{k3}; {'ok' if ok else 'MISMATCH'} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    return ok
+    return ok and route and k3 == 7
 
 
 # ------------------------------------------------------------ phase 4
@@ -316,8 +490,10 @@ def phase_main_path() -> dict:
 
     from mlx_vlm_tpu_torch import apply_chat_template, stream_generate
     from mlx_vlm_tpu_torch.ops import flash_attention as fa
+    from mlx_vlm_tpu_torch.ops import fused_decode as fd
     from mlx_vlm_tpu_torch.ops import int4_matvec as iv
-    from mlx_vlm_tpu_torch.utils.loader import load_model_from_weights
+    from mlx_vlm_tpu_torch.utils.loader import (decide_fused_decode,
+                                                load_model_from_weights)
     from mlx_vlm_tpu_torch.utils.testing import (mlx_int4_checkpoint,
                                                  qwen2_vl_7b_config)
 
@@ -334,17 +510,24 @@ def phase_main_path() -> dict:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     proc = _processor()
     long_text = "The quick brown fox jumps over the lazy dog. " * 183
-    requests = [
+    if not model.language_model.fused_decode:
+        fail("the 7B model did not take the fused decode route")
+    requests = [  # (name, text, image, images, max_tokens, fused route)
         ("image 448x448 + short prompt", "Describe this image in detail.",
-         _image(448), 1, 32),
-        ("text only", "Write a short story about a lighthouse.", None, 0, 32),
+         _image(448), 1, 32, True),
+        ("text only", "Write a short story about a lighthouse.", None, 0, 32,
+         False),
         ("image + ~8.2k-token prompt", long_text + "Summarize the text and "
-         "the image.", _image(448), 1, 16),
+         "the image.", _image(448), 1, 16, True),
     ]
-    for counts in (iv.launches, fa.launches):
+    fused_steps = 0
+    for counts in (iv.launches, fa.launches, fd.launches):
         for k in counts:
             counts[k] = 0
-    for name, text, image, n_img, max_tokens in requests:
+    for name, text, image, n_img, max_tokens, fused in requests:
+        os.environ["MLX_VLM_TPU_FUSED_DECODE"] = "1" if fused else "0"
+        if decide_fused_decode(model) != fused:
+            fail(f"{name}: the fused route did not switch to {fused}")
         prompt = apply_chat_template(proc, cfg, text, num_images=n_img)
         torch.cuda.reset_peak_memory_stats()
         tic = time.perf_counter()
@@ -360,20 +543,54 @@ def phase_main_path() -> dict:
         n = last.generation_tokens
         if not (n == max_tokens or last.finish_reason == "stop"):
             fail(f"{name}: {n} tokens, finish_reason {last.finish_reason}")
+        fused_steps += (n - 1) if fused else 0
         ttft = times[0] - tic
         tps = (n - 1) / (times[-1] - times[0]) if n > 1 else 0.0
         steps_ms = 1e3 * np.diff(times) if n > 1 else np.zeros(1)
-        print(f"  {name}: prompt {last.prompt_tokens} tokens, TTFT "
+        print(f"  {name} ({'K3' if fused else 'per-linear'} decode): prompt "
+              f"{last.prompt_tokens} tokens, TTFT "
               f"{ttft:.4f} s, decode {tps:.2f} tok/s over {n} tokens (step "
               f"ms min {steps_ms.min():.1f} median {np.median(steps_ms):.1f} "
               f"max {steps_ms.max():.1f}), peak {last.peak_memory:.2f} GiB, "
               f"finish_reason {last.finish_reason}", flush=True)
-    launches = {**iv.launches, **fa.launches}
+    launches = {**iv.launches, **fa.launches, **fd.launches}
+    del os.environ["MLX_VLM_TPU_FUSED_DECODE"]
+    decide_fused_decode(model)
     print(f"  kernel launches on the main path: {launches}", flush=True)
     for k, v in launches.items():
         if v <= 0:
             fail(f"kernel {k} was not launched on the main path")
+    if launches["fused_decode"] != fused_steps:
+        fail(f"fused_decode launched {launches['fused_decode']} times for "
+             f"{fused_steps} decode steps on the fused route")
+    time_full_step(model)
     return launches
+
+
+def time_full_step(model) -> None:
+    """One 28-layer K3 step (with the int4 head) and its plain version on
+    the loaded 7B model, at 300 and 8545 tokens of history."""
+    import torch
+
+    from mlx_vlm_tpu_torch.ops import fused_decode as fd
+
+    lm = model.language_model
+    lp = model.params["language_model"]
+    dev = model.device
+    cache = lm.init_cache(1, FUSED_CAPACITY, torch.bfloat16, device=dev)
+    h = lm.embed(lp, torch.tensor([[42]], device=dev))
+    for off in (300, 8545):
+        cos, sin = lm.rope.cos_sin(torch.full((3, 1, 1), off, device=dev))
+        args = (lp, lm.args, h, cos[0, 0], sin[0, 0], cache.k, cache.v, off)
+        ms = device_ms(lambda: fd.fused_decode_step(*args))
+        plain_ms = device_ms(lambda: fd.fused_decode_step_plain(*args),
+                             iters=3)
+        call = call_ms(lambda: fd.fused_decode_step(*args))
+        nbytes = fused_step_bytes(lp, lm.args, off)
+        print(f"  28-layer K3 step, offset {off}: kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} (device time) kernel_call_ms="
+              f"{call:.4f}; {nbytes / 1e9:.3f} GB read, "
+              f"{nbytes / ms / 1e9:.3f} TB/s", flush=True)
 
 
 KERNELS = (
@@ -385,6 +602,9 @@ KERNELS = (
      "mlx_vlm_tpu/ops/flash_attention.py:89",
      "B=1 H=28 KVH=4 D=128 S=512 C=8192 offset=7680 left_pad=0 window=None "
      "q_scale=1"),
+    ("fused_decode", "mlx_vlm_tpu_torch/csrc/fused_decode.cu",
+     "mlx_vlm_tpu/ops/fused_decode.py:964",
+     "L=4 D=3584 I=18944 H=28 KVH=4 V=152064 C=8704 offset=8545 q_scale=4"),
 )
 
 

@@ -4,8 +4,10 @@ Port of mlx_vlm_tpu/generate/ar.py (generate_step :305).  The prompt is
 prefilled in `prefill_step_size` chunks, padded as in the reference
 (:357-397) so every chunk has the same length; the cache's capacity must
 hold the padded prompt, which is checked before any write.  Decoding runs one
-eager step per token.  The reference's multi-step decode blocks, prompt
-caches and quantized KV caches are not ported.
+eager step per token through `step_logits`, which takes the whole-stack
+fused decode kernel (K3) when the model's route is on.  The reference's
+multi-step decode blocks, prompt caches and quantized KV caches are not
+ported.
 """
 
 from __future__ import annotations
@@ -111,8 +113,7 @@ def generate_step(
     for _ in range(max_tokens - 1):
         emb = lm.embed(lm_params, tok[:, None])
         pos = (cache.offset + deltas)[None, :, None].expand(3, B, 1)
-        hidden = lm(lm_params, emb, cache, pos)
-        logits = lm.logits(lm_params, hidden)[:, 0].float()
+        logits = lm.step_logits(lm_params, emb, cache, pos)[:, 0].float()
         for proc in processors:
             logits = proc(history, logits)
         tok, lp, history = pick(logits, history)

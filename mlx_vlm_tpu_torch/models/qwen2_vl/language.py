@@ -1,12 +1,17 @@
 """Qwen2-VL language model: the Qwen2 decoder with M-RoPE.
 
-Port of mlx_vlm_tpu/models/qwen2_vl/language.py without the whole-stack
-fused decode branch (:73-105) and the pack-only weight unpack (:107-120):
-every step runs the per-linear path, which is the reference's path with
-MLX_VLM_TPU_FUSED_DECODE=0.  Decoder layers run as a Python loop over views
-of the stacked weights; the KV cache is written in place.  `logits` returns
-its result instead of stashing it on the instance.  `mrope_position_ids`
-(:230) is copied unchanged (host numpy, once per prompt).
+Port of mlx_vlm_tpu/models/qwen2_vl/language.py.  Decoder layers run as a
+Python loop over views of the stacked weights; the KV cache is written in
+place.  `step_logits` carries the reference's whole-stack fused decode
+branch (:73-105): a B=1, S=1 step on a plain KVCache runs as one K3 launch
+(ops/fused_decode.py) when the loader turned the route on
+(`fused_decode`, decided once from MLX_VLM_TPU_FUSED_DECODE and the
+reference's eligibility rule); every other step runs the per-linear path.
+The logits come back from `step_logits` instead of being stashed on the
+instance (the reference's `_fused_logits`, :72-86 and :189-194).  The
+pack-only weight unpack (:107-120) is not ported: the port keeps the
+per-linear weights only.  `mrope_position_ids` (:230) is copied unchanged
+(host numpy, once per prompt).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from ...core.layers import (embedding, embedding_as_linear, linear, rms_norm,
 from ...core.mask import causal_cache_mask
 from ...core.rope import apply_rope, make_rope
 from ...ops.attention import sdpa
+from ...ops.fused_decode import fused_decode_step
 from ..base import layer_view
 from .config import ModelConfig, TextConfig
 
@@ -37,6 +43,7 @@ class LanguageModel:
         self.head_dim = args.hidden_size // args.num_attention_heads
         self.scale = self.head_dim**-0.5
         self.rope = make_rope(self.head_dim, args.rope_theta, args.rope_scaling)
+        self.fused_decode = False  # set by the loader
 
     def __call__(self, params: dict, inputs_embeds: torch.Tensor,
                  cache: Optional[cache_lib.KVCache],
@@ -82,6 +89,27 @@ class LanguageModel:
             out = cache.attend(layer, q, k, v, self.scale, mask)
         out = out.transpose(1, 2).reshape(B, S, -1)
         return linear(p["o_proj"], out)
+
+    def step_logits(self, params: dict, inputs_embeds: torch.Tensor,
+                    cache: Optional[cache_lib.KVCache],
+                    position_ids: torch.Tensor) -> torch.Tensor:
+        """Logits [B, S, V] of a forward step.  With the fused route on, a
+        B=1, S=1 step on a plain KVCache is one whole-stack K3 step, which
+        writes its k/v at `cache.offset` and advances the cursor."""
+        B, S, _ = inputs_embeds.shape
+        if not (self.fused_decode and B == 1 and S == 1
+                and type(cache) is cache_lib.KVCache):
+            return self.logits(params,
+                               self(params, inputs_embeds, cache, position_ids))
+        cos, sin = self.rope.cos_sin(position_ids)  # [1, 1, hd/2]
+        outs = fused_decode_step(params, self.args, inputs_embeds, cos[0, 0],
+                                 sin[0, 0], cache.k, cache.v, cache.offset)
+        cache.advance(1)
+        if len(outs) == 4:  # the head ran inside the step
+            return outs[3][:, None, :]
+        h = rms_norm(params["model"]["norm"], outs[0].to(inputs_embeds.dtype),
+                     self.args.rms_norm_eps)
+        return self.logits(params, h)
 
     def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
         if self.args.tie_word_embeddings:

@@ -80,11 +80,10 @@ class Model:
 
     def __call__(self, params: dict, inputs_embeds: torch.Tensor, cache,
                  position_ids: torch.Tensor) -> torch.Tensor:
-        """Forward over embeddings -> logits [B, S, V] (cache written in place)."""
-        lm_params = params["language_model"]
-        hidden = self.language_model(lm_params, inputs_embeds, cache,
-                                     position_ids)
-        return self.language_model.logits(lm_params, hidden)
+        """Forward over embeddings -> logits [B, S, V] (cache written in place;
+        a B=1, S=1 step takes the fused route when it is on)."""
+        return self.language_model.step_logits(
+            params["language_model"], inputs_embeds, cache, position_ids)
 
     def prepare_position_ids(self, input_ids: np.ndarray,
                              image_grid_thw: Optional[np.ndarray] = None,

@@ -21,7 +21,8 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-SOURCES = ("int4_matmul.cu", "int4_matvec.cu", "flash_attention.cu")
+SOURCES = ("int4_matmul.cu", "int4_matvec.cu", "flash_attention.cu",
+           "fused_decode.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -37,6 +38,9 @@ _SIGNATURES = {
     # q, k, v, o, offset, left_pad, B, H, KVH, S, C, scale, window, stream
     "mvt_flash_attention": (_P,) * 6 + (_I,) * 5 + (_F, _I, _P),
     "mvt_int4_matvec_slices": (_I,),
+    # FusedDecodeArgs*, stream
+    "mvt_fused_decode": (_P, _P),
+    "mvt_fused_decode_grid": (),
 }
 
 

@@ -8,15 +8,22 @@ qwen2_vl family and the w4grp layout.  Safetensors are parsed in numpy
 neither `safetensors` nor `ml_dtypes`.  mlx 4-bit linears fold bit-exact
 into the halves-packed Int4GroupedTensor layout and quantized embedding
 tables into the per-channel int8 layout; per-layer weights are stacked on a
-leading axis; no fused-decode pack is built.
+leading axis.  The whole-stack fused decode route is decided at load time,
+as the reference decides whether to build its pack (:655, :697): on unless
+MLX_VLM_TPU_FUSED_DECODE is 0 or false, and only for weights that pass the
+reference's eligibility rule.  No pack is built: the fused kernel reads the
+same stacked weights as the per-linear path.
 
 `params_from_jax` carries a parameter tree of the JAX package (numpy
 leaves) over to the port unchanged, so tests run both on the same weights.
+A JAX tree that holds a fused-decode pack gets its per-linear layers back
+from the pack (the reference's `stacked_params_from_pack`).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
 import struct
 from pathlib import Path
@@ -41,6 +48,7 @@ __all__ = [
     "load_config",
     "read_safetensors",
     "params_from_jax",
+    "decide_fused_decode",
 ]
 
 # safetensors dtype -> numpy dtype (BF16 is read as uint16 and re-viewed)
@@ -280,7 +288,21 @@ def load_model_from_weights(config: dict, weights: dict,
     model.params = _nest(_to_device(weights, dtype, device))
     model.config_dict = config
     model.device = torch.device(device)
+    decide_fused_decode(model)
     return model
+
+
+def decide_fused_decode(model) -> bool:
+    """Turn the language model's whole-stack fused decode route on when
+    MLX_VLM_TPU_FUSED_DECODE allows it (default on) and its weights are
+    eligible; returns the decision."""
+    from ..ops.fused_decode import fused_decode_eligible
+
+    lm = model.language_model
+    lm.fused_decode = (
+        os.environ.get("MLX_VLM_TPU_FUSED_DECODE", "1") not in ("0", "false")
+        and fused_decode_eligible(model.params["language_model"], lm.args))
+    return lm.fused_decode
 
 
 def load_model(model_path, dtype: torch.dtype = torch.bfloat16, device="cpu"):
@@ -309,14 +331,18 @@ def params_from_jax(model, params: dict) -> dict:
     `jax.tree_util.tree_map(np.asarray, params)`): stacked dense arrays and
     Int4GroupedTensor / ChannelQuantizedTensor containers of numpy fields.
     Containers are recognised by their fields, so the JAX package is not
-    imported.  Every byte and value is kept; tensors land on the CPU."""
+    imported.  Every byte and value is kept; tensors land on the CPU.  A
+    fused-decode pack (the JAX default for int4 weights) is not part of the
+    port's layout: the per-linear layers it replaced are rebuilt from it
+    when the tree has none, and the pack is dropped."""
 
     def convert(v, path):
         if isinstance(v, dict):
-            if "fused_decode" in v:
-                raise ValueError(
-                    "a fused-decode pack is not part of the port's layout; "
-                    "load the JAX model with MLX_VLM_TPU_FUSED_DECODE=0")
+            v = dict(v)
+            pack = v.pop("fused_decode", None)
+            if pack is not None:
+                mdl = v["model"] = dict(v["model"])
+                mdl.setdefault("layers", _stacked_params_from_pack(pack))
             return {k: convert(x, f"{path}.{k}" if path else k)
                     for k, x in v.items()}
         if hasattr(v, "qp") and hasattr(v, "sl"):
@@ -341,3 +367,73 @@ def params_from_jax(model, params: dict) -> dict:
         raise ValueError(f"params hold {n_layers} decoder layers, the model "
                          f"{model.decoder_layers}")
     return out
+
+
+def _stacked_params_from_pack(pack) -> dict:
+    """The stacked per-linear layer tree (numpy Int4GroupedTensor fields)
+    from a JAX fused-decode pack with numpy leaves: the reference's
+    `stacked_params_from_pack` (mlx_vlm_tpu/ops/fused_decode.py:478-572),
+    a pure relayout, so every byte and value is kept."""
+    g, od = int(pack.group_size), str(pack.out_dtype)
+    D, I = int(pack.dim), int(pack.inter)
+    nkv = int(pack.n_kv) * int(pack.head_dim)
+    nq2, nk2, nv2 = int(pack.nq2), int(pack.nk2), int(pack.nv2)
+
+    def planes(sc):
+        sc = np.asarray(sc)
+        if sc.dtype == np.uint16:  # f16-bit planes -> exact f32
+            sc = sc.view(np.float16).astype(np.float32)
+        return sc
+
+    def untile(qp, sc):
+        # [L, NT, K, TN] -> [L, K, C];  [L, NT, G, 4, TN] -> [L, G, 4, C]
+        qp, sc = np.asarray(qp), planes(sc)
+        L, NT, K, TN = qp.shape
+        qp = qp.transpose(0, 2, 1, 3).reshape(L, K, NT * TN)
+        sc = sc.transpose(0, 2, 3, 1, 4).reshape(L, sc.shape[2], 4, NT * TN)
+        return qp, sc
+
+    def tensor(qp, sc, c0, w, n):
+        p = [np.ascontiguousarray(sc[:, :, k, c0:c0 + w][:, :, None, :])
+             for k in range(4)]
+        return Int4GroupedTensor(
+            qp=np.ascontiguousarray(qp[:, :, c0:c0 + w]), sl=p[0], sh=p[1],
+            bl=p[2], bh=p[3], n=n, group_size=g, out_dtype=od)
+
+    qp, sc = untile(pack.qkv_qp, pack.qkv_sc)
+    wq = tensor(qp, sc, 0, nq2, D)
+    wk = tensor(qp, sc, nq2, nk2, nkv)
+    wv = tensor(qp, sc, nq2 + nk2, nv2, nkv)
+    bias = np.asarray(pack.qkv_bias)  # [L, 2, Cq] lo / hi planes
+
+    def seg_bias(c0, w, n):
+        return np.ascontiguousarray(np.concatenate(
+            [bias[:, 0, c0:c0 + w], bias[:, 1, c0:c0 + w]], axis=-1)[:, :n])
+
+    qp, sc = untile(pack.o_qp, pack.o_sc)
+    wo = tensor(qp, sc, 0, int(pack.no2), D)
+    qp, sc = untile(pack.gu_qp, pack.gu_sc)
+    ng2 = int(pack.ng2)
+    wg = tensor(qp, sc, 0, ng2, I)
+    wu = tensor(qp, sc, ng2, qp.shape[-1] - ng2, I)
+    dqp = np.asarray(pack.dn_qp)  # [L, ND, TKD, Cd]
+    L, ND, TKD, Cd = dqp.shape
+    dsc = planes(pack.dn_sc).reshape(L, ND * TKD // g, 4, Cd)
+    wd = tensor(dqp.reshape(L, ND * TKD, Cd), dsc, 0, Cd, D)
+    norms = np.asarray(pack.norms)  # [L, 2, D]
+    return {
+        "input_layernorm": {"weight": np.ascontiguousarray(norms[:, 0])},
+        "post_attention_layernorm": {
+            "weight": np.ascontiguousarray(norms[:, 1])},
+        "self_attn": {
+            "q_proj": {"weight": wq, "bias": seg_bias(0, nq2, D)},
+            "k_proj": {"weight": wk, "bias": seg_bias(nq2, nk2, nkv)},
+            "v_proj": {"weight": wv, "bias": seg_bias(nq2 + nk2, nv2, nkv)},
+            "o_proj": {"weight": wo},
+        },
+        "mlp": {
+            "gate_proj": {"weight": wg},
+            "up_proj": {"weight": wu},
+            "down_proj": {"weight": wd},
+        },
+    }
