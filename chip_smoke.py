@@ -4,20 +4,30 @@
 
 Phases (any failure exits non-zero):
   1. environment: card, power limit, versions; builds the CUDA kernels from
-     mlx_vlm_tpu_torch/csrc with nvcc;
+     mlx_vlm_tpu_torch/csrc with nvcc (one process per source, in
+     parallel);
   2. each kernel (K1 int4_matmul, K2 int4_matvec, K3 fused_decode, K4
-     flash_attention) against its plain PyTorch version on the card at
-     Qwen2-VL-7B shapes (K3: 4 decoder layers and the int4 head);
-  3. the slice on the card (bf16, kernels; decode steps through K3) against
-     the slice on the CPU (f32, plain versions) at 7B widths with 2 decoder
-     layers, teacher-forced;
+     flash_attention, K6 int4_kv_attention, K7 tq_kv_attention, K8
+     tq_kv_attention_split) against its plain PyTorch version on the card
+     at Qwen2-VL-7B shapes (K3: 4 decoder layers and the int4 head; K6-K8:
+     4 KV heads of 7 query rows over an 8704-slot cache), each with its
+     device time, the least time the card could take (`bound_ms`, from
+     bytes at 3.35 TB/s or operations at 989 TFLOP/s) and, for K4, the time
+     of one PyTorch call computing the same function (`library_ms`);
+  3. the slice on the card (bf16, kernels) against the slice on the CPU
+     (plain versions) at 7B widths with 2 decoder layers, teacher-forced:
+     decode through K3 on the bf16 cache (CPU in f32, 8 steps), and through
+     K6, K7 and K8 with kv_bits 4, 3.5 and 3.5 split (CPU in bf16, 4
+     steps);
   4. the main path at full Qwen2-VL-7B width (random mlx-format 4-bit
-     weights, 28 decoder layers, 32 vision blocks): three greedy requests
-     through load_model_from_weights and stream_generate, with the kernels'
-     launch counters reset before and read after.  Requests (a) and (c)
-     decode through K3; (b) runs with MLX_VLM_TPU_FUSED_DECODE=0, the
-     per-linear route (K2).  Then one 28-layer K3 step and its plain
-     version are timed on the loaded model.
+     weights, 28 decoder layers, 32 vision blocks): six greedy requests
+     through load_model_from_weights and stream_generate, each with the
+     kernels' launch counters set to 0 just before it and read just after.
+     Requests (a) and (c) decode through K3; (b) runs with
+     MLX_VLM_TPU_FUSED_DECODE=0, the per-linear route (K2); (d), (e) and
+     (f) take (c)'s image and ~8.2k-token prompt with kv_bits 3.5 (K7),
+     3.5 and MLX_VLM_TPU_TQ_SCHEME=split (K8) and 4 (K6).  Then one
+     28-layer K3 step and its plain version are timed on the loaded model.
 The line before the last is the kernel report, the last line the result.
 Needs no network and imports nothing of JAX.
 """
@@ -134,11 +144,28 @@ def random_int4(K: int, N: int, gen, device) -> "object":
                              group_size=64, out_dtype="bfloat16")
 
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): HBM bytes/s
+# and bf16 tensor-core operations/s, at the 700 W power limit.
+HBM_BYTES_PER_S, BF16_OPS_PER_S = 3.35e12, 989e12
+
+
+def bound(nbytes: float, nops: float) -> tuple:
+    """(least ms the card could take, what bounds it): each input byte read
+    once and each output byte written once at the HBM rate, against the
+    operations at the bf16 peak."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = nops / BF16_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
 def _check(results: list, name: str, shape: str, out, ref, rel_tol: float,
-           kernel, plain, floor: float = 1.0) -> None:
+           kernel, plain, floor: float = 1.0, work=(0.0, 0.0),
+           library=None) -> None:
     """Record max|out - ref| against rel_tol * max(floor, max|ref|) and time
-    the kernel and its plain version: device time (graph replay) and eager
-    call time."""
+    the kernel, its plain version and the library call computing the same
+    function (if any): device time (graph replay) and eager call time.
+    `work` is (bytes, operations) of the call, for its bound."""
     import torch
 
     torch.cuda.synchronize()
@@ -146,13 +173,27 @@ def _check(results: list, name: str, shape: str, out, ref, rel_tol: float,
     tol = rel_tol * max(floor, float(ref.float().abs().max()))
     ok = err <= tol
     ms, plain_ms = device_ms(kernel), device_ms(plain, iters=5)
+    lib_ms = device_ms(library) if library is not None else None
     call = call_ms(kernel)
+    bound_ms, bound_by = bound(*work)
+    lib = f" library_ms={lib_ms:.4f}" if lib_ms is not None else ""
     print(f"  {name} {shape}: max_abs_err={err:.3e} tol={tol:.3e} "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (device time) "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}{lib} (device time) "
+          f"bound_ms={bound_ms:.5f} ({bound_by}) "
           f"kernel_call_ms={call:.4f} (eager, host included) "
           f"{'ok' if ok else 'MISMATCH'}", flush=True)
     results.append({"name": name, "shape": shape, "err": err, "tol": tol,
-                    "ms": ms, "plain_ms": plain_ms, "call_ms": call, "ok": ok})
+                    "ms": ms, "plain_ms": plain_ms, "call_ms": call,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": lib_ms, "ok": ok})
+
+
+def int4_work(M: int, t, out_bytes: int) -> tuple:
+    """(bytes, operations) of x [M, K] bf16 @ dequant(t): the codes and the
+    four f32 scale planes read once, the output written once."""
+    K = t.qp.shape[0]
+    nbytes = M * K * 2 + t.qp.numel() + 4 * t.sl.numel() * 4
+    return nbytes + M * t.n * out_bytes, 2.0 * M * K * t.n
 
 
 def phase_kernels() -> list:
@@ -171,7 +212,8 @@ def phase_kernels() -> list:
           "2e-2*max(1,|ref|) and K4 2e-2*max|ref| for bf16 output rounding, "
           "K2 1e-3*max(1,|ref|) for summation order, K3 1e-4*max|ref| on the "
           "first layer's k/v and 6e-2*max|ref| behind bf16 roundings that "
-          "the layers amplify)",
+          "the layers amplify, K6-K8 1e-2*max|ref| for bf16(p*vs) rounded "
+          "against block-local maxima)",
           flush=True)
     weights = {}
     for K, N in K2_SHAPES:
@@ -181,14 +223,15 @@ def phase_kernels() -> list:
         x = torch.randn((512, K), generator=gen).to(dev, torch.bfloat16)
         _check(results, "int4_matmul", f"M=512 K={K} N={N}",
                iv.int4_matmul(x, t), iv.int4_matmul_plain(x, t), 2e-2,
-               lambda: iv.int4_matmul(x, t), lambda: iv.int4_matmul_plain(x, t))
+               lambda: iv.int4_matmul(x, t), lambda: iv.int4_matmul_plain(x, t),
+               work=int4_work(512, t, 2))
     for K, N in K2_SHAPES:
         t = weights[(K, N)]
         x = torch.randn((1, K), generator=gen).to(dev, torch.bfloat16)
         _check(results, "int4_matvec", f"M=1 K={K} N={N}",
                iv.int4_matvec_rows(x, t), iv.int4_matvec_plain(x, t), 1e-3,
                lambda: iv.int4_matvec_rows(x, t),
-               lambda: iv.int4_matvec_plain(x, t))
+               lambda: iv.int4_matvec_plain(x, t), work=int4_work(1, t, 4))
     del weights
     B, H, KVH, D, S, C = 1, 28, 4, 128, 512, 8192
     q1 = torch.randn((B, H, S, D), generator=gen)
@@ -203,6 +246,7 @@ def phase_kernels() -> list:
                                     (100, 1024, 4)):
         q = (q1 * q_scale).to(dev, torch.bfloat16)
         lp = torch.full((B,), lp_val, dtype=torch.int32, device=dev)
+        mask = flash_mask(off, lp, S, C, window)
         _check(results, "flash_attention",
                f"B=1 H=28 KVH=4 D=128 S=512 C=8192 offset=7680 "
                f"left_pad={lp_val} window={window} q_scale={q_scale}",
@@ -210,9 +254,37 @@ def phase_kernels() -> list:
                fa.flash_attention_plain(q, k, v, off, lp, scale, window), 2e-2,
                lambda: fa.flash_attention(q, k, v, off, lp, scale, window),
                lambda: fa.flash_attention_plain(q, k, v, off, lp, scale,
-                                                window), floor=0.0)
+                                                window), floor=0.0,
+               work=flash_work(mask, H, KVH, D),
+               library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q, k, v, attn_mask=mask, scale=scale, enable_gqa=True))
     check_fused_decode(results, gen, dev)
+    check_kv_kernels(results, gen, dev)
     return results
+
+
+def flash_mask(offset, left_pad, S: int, C: int, window):
+    """K4's visibility as a boolean mask [B, 1, S, C] (True = attend)."""
+    import torch
+
+    dev = offset.device
+    pos = offset.long()[:, None] + torch.arange(S, device=dev)
+    col = torch.arange(C, device=dev)
+    keep = (col[None, None] <= pos[:, :, None]) & (
+        col[None, None] >= left_pad.long()[:, None, None])
+    if window is not None:
+        keep &= col[None, None] > pos[:, :, None] - window
+    return keep[:, None]
+
+
+def flash_work(mask, H: int, KVH: int, D: int) -> tuple:
+    """(bytes, operations) of K4 on this data: q and o once, each KV head's
+    k and v over the columns some row sees, and 4 * D operations per
+    visible (row, head, column)."""
+    B, _, S, _ = mask.shape
+    cols = int(mask.any(dim=2).sum())
+    visible = float(mask.sum()) * H
+    return 2 * B * H * S * D * 2 + 2 * KVH * cols * D * 2, 4.0 * D * visible
 
 
 FUSED_LAYERS, FUSED_CAPACITY, FUSED_OFFSETS = 4, 8704, (1, 300, 8545)
@@ -294,6 +366,21 @@ def fused_step_bytes(params: dict, args, offset: int) -> int:
     return n + 2 * L * args.num_key_value_heads * offset * hd * 2
 
 
+def fused_step_ops(params: dict, args, offset: int) -> float:
+    """Operations of one K3 step: two per int4 weight (each code byte holds
+    two) and 4 * hd per head and history token in each layer."""
+    from mlx_vlm_tpu_torch.ops import fused_decode as fd
+
+    ws = [p["weight"] for p in fd._linears(params)]
+    head = fd.fused_head(params, args)
+    if head is not None:
+        ws.append(head)
+    L = ws[0].qp.shape[0]
+    hd = args.hidden_size // args.num_attention_heads
+    return (4.0 * sum(w.qp.numel() for w in ws)
+            + 4.0 * L * args.num_attention_heads * hd * offset)
+
+
 def check_fused_decode(results: list, gen, dev) -> None:
     """K3 against its plain version: 4 layers at 7B width with the int4
     head and q sharpened by 4, C = 8704, the cache past `offset` filled
@@ -358,18 +445,128 @@ def check_fused_decode(results: list, gen, dev) -> None:
             params, args, h, cos, sin, kr, vr, off), iters=5)
         call = call_ms(lambda: fd.fused_decode_step(
             params, args, h, cos, sin, k, v, off))
-        gbs = fused_step_bytes(params, args, off) / ms / 1e6
+        nbytes = fused_step_bytes(params, args, off)
+        bound_ms, bound_by = bound(nbytes, fused_step_ops(params, args, off))
         print(f"  fused_decode {shape}: " + ", ".join(
             f"{n} err={e:.3e} tol={t:.3e} (plain's 1e-6 floor {f:.3e})"
             for n, (e, t, f) in errs.items())
             + f"; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (device time, "
-            f"{gbs:.1f} GB/s) kernel_call_ms={call:.4f} "
+            f"{nbytes / ms / 1e6:.1f} GB/s) bound_ms={bound_ms:.5f} "
+            f"({bound_by}) kernel_call_ms={call:.4f} "
             f"{'ok' if ok else 'MISMATCH'}", flush=True)
         results.append({"name": "fused_decode", "shape": shape,
                         "err": max(e for e, _, _ in errs.values()),
                         "tol": min(t for _, t, _ in errs.values()), "ms": ms,
-                        "plain_ms": plain_ms, "call_ms": call, "ok": ok})
+                        "plain_ms": plain_ms, "call_ms": call,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None, "ok": ok})
     del params
+
+
+KV_HEADS, KV_ROWS, KV_DIM, KV_CAPACITY = 4, 7, 128, 8704
+# (offsets, left_pad) cases; the last has per-row cursors
+KV_CASES = ((1, 0), (300, 0), (8545, 0), (8545, 100),
+            ((8545, 300, 4000, 1), (0, 0, 100, 0)))
+KV_TOL = 1e-2
+
+
+def _kv_case(off, lp, dev):
+    """Cursor tensors [BH] and a shape label for one KV_CASES entry."""
+    import torch
+
+    offs = off if isinstance(off, tuple) else (off,) * KV_HEADS
+    lps = lp if isinstance(lp, tuple) else (lp,) * KV_HEADS
+    t = [torch.tensor(x, dtype=torch.int32, device=dev) for x in (offs, lps)]
+    return t[0], t[1], (f"BH={KV_HEADS} g={KV_ROWS} D={KV_DIM} "
+                        f"C={KV_CAPACITY} offset={off} left_pad={lp} "
+                        f"q_scale=4")
+
+
+def kv_work(offs, lps, token_bytes: int, head_bytes: int) -> tuple:
+    """(bytes, operations) of a K6/K7/K8 call on this data: `token_bytes`
+    of codes and scales per visible token and KV head, `head_bytes` per
+    head for the query, cursors and output; 4 * g * D operations per
+    visible token (the score dot and the value sum)."""
+    visible = float((offs - lps).clamp(min=0).sum())
+    return (visible * token_bytes + KV_HEADS * head_bytes,
+            4.0 * KV_ROWS * KV_DIM * visible)
+
+
+def check_kv_kernels(results: list, gen, dev) -> None:
+    """K6, K7 (3-bit keys, 4-bit values) and K8 (kv_bits 3.5 split: 64
+    dims at 3 bits, 64 at 4) against their plain versions at the shapes of
+    requests (d)-(f): 4 KV heads of 7 query rows, C = 8704, q x 4.  The
+    codes past each cursor are random and their scales 1e3, so that a read
+    past the cursor breaks the check.  Tolerance KV_TOL * max|ref|: the
+    kernels round p * vs to bf16 against block-local softmax maxima."""
+    import torch
+
+    from mlx_vlm_tpu_torch.core.turboquant import _levels
+    from mlx_vlm_tpu_torch.ops import int4_kv_attention as k6
+    from mlx_vlm_tpu_torch.ops import tq_kv_attention as tk
+
+    BH, G, D, C = KV_HEADS, KV_ROWS, KV_DIM, KV_CAPACITY
+    scale = D ** -0.5
+
+    def codes(width):
+        return torch.randint(0, 256, (BH, C, width), generator=gen,
+                             dtype=torch.uint8).to(dev)
+
+    def scales(off, lo, hi):
+        x = lo + (hi - lo) * torch.rand((BH, C), generator=gen)
+        col = torch.arange(C)[None]
+        return torch.where(col >= off.cpu()[:, None].long(),
+                           torch.full_like(x, 1e3), x).to(dev)
+
+    luts = (_levels(3), _levels(4))
+    head_out = G * D * 4 + 8  # output f32, offset and left_pad
+    for off_v, lp_v in KV_CASES:
+        off, lp, shape = _kv_case(off_v, lp_v, dev)
+        q = torch.randn((BH, G, D), generator=gen) * 4
+        qs = q.abs().amax(-1) / 127.0
+        q8 = torch.round(q / qs[..., None])
+        meta = torch.stack([q8.sum(-1), qs], -1).to(dev)
+        q8 = q8.to(torch.int8).to(dev)
+        k4, v4 = codes(D // 2), codes(D // 2)
+        ks, vs = scales(off, 0.02, 0.3), scales(off, 0.02, 0.3)
+        kb, vb = scales(off, -2.0, 0.0), scales(off, -2.0, 0.0)
+        a6 = (q8, meta, k4, ks, kb, v4, vs, vb)
+        _check(results, "int4_kv_attention", shape,
+               k6.int4_kv_decode_attention(*a6, off, scale, left_pad=lp),
+               k6.int4_kv_decode_attention_plain(*a6, off, scale, lp), KV_TOL,
+               lambda: k6.int4_kv_decode_attention(*a6, off, scale,
+                                                   left_pad=lp),
+               lambda: k6.int4_kv_decode_attention_plain(*a6, off, scale, lp),
+               floor=0.0,
+               work=kv_work(off, lp, D + 16, G * D + 8 * G + head_out))
+        qr = (torch.randn((BH, G, D), generator=gen) * 4).to(dev)
+        a7 = (qr, codes(D * 3 // 8), scales(off, 0.5, 1.5), codes(D // 2),
+              scales(off, 0.5, 1.5))
+        _check(results, "tq_kv_attention", shape,
+               tk.tq_kv_decode_attention(*a7, off, scale, 3, 4, *luts,
+                                         left_pad=lp),
+               tk.tq_kv_decode_attention_plain(*a7, off, scale, 3, 4, *luts,
+                                               lp), KV_TOL,
+               lambda: tk.tq_kv_decode_attention(*a7, off, scale, 3, 4, *luts,
+                                                 left_pad=lp),
+               lambda: tk.tq_kv_decode_attention_plain(*a7, off, scale, 3, 4,
+                                                       *luts, lp),
+               floor=0.0,
+               work=kv_work(off, lp, D * 7 // 8 + 8, G * D * 4 + head_out))
+        a8 = (qr, codes(24), scales(off, 0.5, 1.5), codes(32),
+              scales(off, 0.5, 1.5), codes(24), scales(off, 0.5, 1.5),
+              codes(32), scales(off, 0.5, 1.5))
+        _check(results, "tq_kv_attention_split", shape,
+               tk.tq_kv_decode_attention_split(*a8, off, scale, 3, 4, *luts,
+                                               left_pad=lp),
+               tk.tq_kv_decode_attention_split_plain(*a8, off, scale, 3, 4,
+                                                     *luts, lp), KV_TOL,
+               lambda: tk.tq_kv_decode_attention_split(*a8, off, scale, 3, 4,
+                                                       *luts, left_pad=lp),
+               lambda: tk.tq_kv_decode_attention_split_plain(
+                   *a8, off, scale, 3, 4, *luts, lp),
+               floor=0.0,
+               work=kv_work(off, lp, D * 7 // 8 + 16, G * D * 4 + head_out))
 
 
 # ------------------------------------------------------------ phase 3
@@ -388,12 +585,54 @@ def _image(size: int) -> np.ndarray:
         0, 256, (size, size, 3), dtype=np.uint8)
 
 
+def counters() -> list:
+    """Every kernel's launch counter (dicts of name -> count)."""
+    from mlx_vlm_tpu_torch.ops import flash_attention as fa
+    from mlx_vlm_tpu_torch.ops import fused_decode as fd
+    from mlx_vlm_tpu_torch.ops import int4_kv_attention as k6
+    from mlx_vlm_tpu_torch.ops import int4_matvec as iv
+    from mlx_vlm_tpu_torch.ops import tq_kv_attention as tk
+
+    return [iv.launches, fa.launches, fd.launches, k6.launches, tk.launches]
+
+
+def reset_counts() -> None:
+    for c in counters():
+        for k in c:
+            c[k] = 0
+
+
+def read_counts() -> dict:
+    return {k: v for c in counters() for k, v in c.items()}
+
+
+class tq_scheme:
+    """Set MLX_VLM_TPU_TQ_SCHEME (None: unset) for the duration of a with
+    block."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __enter__(self):
+        self.old = os.environ.pop("MLX_VLM_TPU_TQ_SCHEME", None)
+        if self.value is not None:
+            os.environ["MLX_VLM_TPU_TQ_SCHEME"] = self.value
+
+    def __exit__(self, *exc):
+        os.environ.pop("MLX_VLM_TPU_TQ_SCHEME", None)
+        if self.old is not None:
+            os.environ["MLX_VLM_TPU_TQ_SCHEME"] = self.old
+
+
 def teacher_forced_logits(model, inputs: dict, forced=None,
-                          n_steps: int = 8) -> tuple:
+                          n_steps: int = 8, kv_bits=None) -> tuple:
     """Per-step last-token logits [n_steps, V] (f32 numpy): the prompt in one
     prefill chunk, then n_steps - 1 decode steps (the fused route when it is
-    on) fed `forced` tokens, or the greedy argmax when `forced` is None."""
+    on and the cache is bf16) fed `forced` tokens, or the greedy argmax when
+    `forced` is None.  `kv_bits` picks the cache as generate does."""
     import torch
+
+    from mlx_vlm_tpu_torch.generate.ar import make_cache
 
     dev = model.device
     lm = model.language_model
@@ -407,8 +646,8 @@ def teacher_forced_logits(model, inputs: dict, forced=None,
     pos, deltas = model.prepare_position_ids(
         inputs["input_ids"], inputs["image_grid_thw"])
     S = ids.shape[1]
-    cache = lm.init_cache(1, 256 * ((S + n_steps + 255) // 256), embeds.dtype,
-                          device=dev)
+    cache = make_cache(model, 1, 256 * ((S + n_steps + 255) // 256),
+                       embeds.dtype, kv_bits, device=dev)
     h = lm(lp, embeds, cache, torch.from_numpy(pos.astype(np.int64)).to(dev))
     out = [lm.logits(lp, h[:, -1:])[0, 0].float().cpu().numpy()]
     toks = []
@@ -436,9 +675,25 @@ def parity_rule(ref: np.ndarray, got: np.ndarray) -> tuple:
     return ok, err, tol, int(margin_ok.sum())
 
 
+# (kv_bits, MLX_VLM_TPU_TQ_SCHEME, the kernel each decode step runs,
+# launches per layer and step, the CPU reference's dtype, teacher-forced
+# steps).  The bf16 cache is held to an f32 CPU run.  A quantized cache is
+# held to a CPU run in the card's working type, bf16: against f32, every
+# k/v element that bf16 rounding moves across a code boundary flips a
+# code, and the random stack amplifies the flips (0.37-0.47 against the
+# 0.31 bound at 2 layers on the H100, where the bf16 cache drifts 0.21).
+PARITY_CASES = (
+    (None, None, "fused_decode", 0, "float32", 8),
+    (4, None, "int4_kv_attention", 1, "bfloat16", 4),
+    (3.5, None, "tq_kv_attention", 1, "bfloat16", 4),
+    (3.5, "split", "tq_kv_attention_split", 1, "bfloat16", 4),
+)
+
+
 def phase_slice_parity() -> bool:
-    """The slice on the card (bf16, kernels) vs on the CPU (f32, plain
-    versions), 7B widths with 2 decoder layers, same random checkpoint."""
+    """The slice on the card (bf16, kernels) vs on the CPU (plain versions),
+    7B widths with 2 decoder layers, same random checkpoint, for the bf16
+    cache (K3) and the quantized caches (K6, K7, K8)."""
     import torch
 
     from mlx_vlm_tpu_torch import apply_chat_template
@@ -447,51 +702,70 @@ def phase_slice_parity() -> bool:
     from mlx_vlm_tpu_torch.utils.testing import (mlx_int4_checkpoint,
                                                  qwen2_vl_7b_config)
 
-    print("phase 3: slice on the card (bf16, decode through K3) vs on the CPU "
-          "(f32, the plain fused step), Qwen2-VL-7B widths, 2 decoder layers, "
-          "8 teacher-forced steps", flush=True)
+    n_layers = 2
+    print(f"phase 3: slice on the card (bf16, kernels) vs on the CPU (plain "
+          f"versions), Qwen2-VL-7B widths, {n_layers} decoder layers, "
+          f"teacher-forced, for each cache", flush=True)
     t0 = time.perf_counter()
     cfg = qwen2_vl_7b_config()
-    cfg["num_hidden_layers"] = 2
+    cfg["num_hidden_layers"] = n_layers
     cfg, weights = mlx_int4_checkpoint(cfg, seed=SEED + 1)
     proc = _processor()
     prompt = apply_chat_template(proc, cfg, "What is in this image?",
                                  num_images=1)
     inputs = prepare_inputs(proc, prompt, images=_image(224))
-    from mlx_vlm_tpu_torch.ops import fused_decode as fd
-
-    cpu = load_model_from_weights(cfg, weights, torch.float32, "cpu")
-    ref, toks = teacher_forced_logits(cpu, inputs)
-    route = cpu.language_model.fused_decode
-    del cpu
+    refs, route = {}, True
+    for dtype in ("float32", "bfloat16"):
+        cpu = load_model_from_weights(cfg, weights, getattr(torch, dtype),
+                                      "cpu")
+        route = route and cpu.language_model.fused_decode
+        for kv_bits, tq, _, _, ref_dtype, n_steps in PARITY_CASES:
+            if ref_dtype == dtype:
+                with tq_scheme(tq):
+                    refs[kv_bits, tq] = teacher_forced_logits(
+                        cpu, inputs, n_steps=n_steps, kv_bits=kv_bits)
+        del cpu
     gpu = load_model_from_weights(cfg, weights, torch.bfloat16, "cuda")
-    n0 = fd.launches["fused_decode"]
-    got, _ = teacher_forced_logits(gpu, inputs, forced=toks)
     route = route and gpu.language_model.fused_decode
-    k3 = fd.launches["fused_decode"] - n0
+    all_ok = route
+    for kv_bits, tq, kernel, per_layer, ref_dtype, n_steps in PARITY_CASES:
+        ref, toks = refs[kv_bits, tq]
+        reset_counts()
+        with tq_scheme(tq):
+            got, _ = teacher_forced_logits(gpu, inputs, forced=toks,
+                                           n_steps=n_steps, kv_bits=kv_bits)
+        n = read_counts()[kernel]
+        want = (n_steps - 1) * (n_layers * per_layer or 1)
+        ok, err, tol, n_margin = parity_rule(ref, got)
+        print(f"  kv_bits={kv_bits} tq_scheme={tq} vs the CPU in {ref_dtype}: "
+              f"prompt {inputs['input_ids'].shape[1]} tokens: max|cuda - cpu| "
+              f"= {err:.4e}, tol {tol:.4e}; argmax checked on {n_margin}/"
+              f"{n_steps} steps; {kernel} launches {n} (want {want}); "
+              f"{'ok' if ok and n == want else 'MISMATCH'}", flush=True)
+        all_ok = all_ok and ok and n == want
     del gpu, weights
     torch.cuda.empty_cache()
-    ok, err, tol, n_margin = parity_rule(ref, got)
-    print(f"  prompt {inputs['input_ids'].shape[1]} tokens, 8 steps: "
-          f"max|cuda - cpu| = {err:.4e}, tol {tol:.4e}; argmax checked on "
-          f"{n_margin}/8 steps; fused route on both: {route}, K3 launches "
-          f"{k3}; {'ok' if ok else 'MISMATCH'} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    return ok and route and k3 == 7
+    print(f"  fused route on all: {route} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return all_ok
 
 
 # ------------------------------------------------------------ phase 4
 
 
+# The kernel each quantized request's decode attention runs, once per layer
+# and step: {kv_bits, MLX_VLM_TPU_TQ_SCHEME} -> counter name.
+KV_KERNEL = {(3.5, None): "tq_kv_attention", (3.5, "split"):
+             "tq_kv_attention_split", (4, None): "int4_kv_attention"}
+
+
 def phase_main_path() -> dict:
     """Qwen2-VL-7B at full width through the public entry points; returns
-    the kernels' launch counts over the three requests."""
+    the kernels' launch counts summed over the requests, each request's
+    counted from 0."""
     import torch
 
     from mlx_vlm_tpu_torch import apply_chat_template, stream_generate
-    from mlx_vlm_tpu_torch.ops import flash_attention as fa
-    from mlx_vlm_tpu_torch.ops import fused_decode as fd
-    from mlx_vlm_tpu_torch.ops import int4_matvec as iv
     from mlx_vlm_tpu_torch.utils.loader import (decide_fused_decode,
                                                 load_model_from_weights)
     from mlx_vlm_tpu_torch.utils.testing import (mlx_int4_checkpoint,
@@ -505,66 +779,84 @@ def phase_main_path() -> dict:
     model = load_model_from_weights(cfg, weights, torch.bfloat16, "cuda")
     del weights
     t2 = time.perf_counter()
+    n_layers = model.language_model.args.num_hidden_layers
     print(f"  checkpoint built in {t1 - t0:.1f} s, loaded (fold + stack + "
           f"upload) in {t2 - t1:.1f} s; device memory "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     proc = _processor()
-    long_text = "The quick brown fox jumps over the lazy dog. " * 183
+    long_text = ("The quick brown fox jumps over the lazy dog. " * 183
+                 + "Summarize the text and the image.")
     if not model.language_model.fused_decode:
         fail("the 7B model did not take the fused decode route")
-    requests = [  # (name, text, image, images, max_tokens, fused route)
-        ("image 448x448 + short prompt", "Describe this image in detail.",
-         _image(448), 1, 32, True),
-        ("text only", "Write a short story about a lighthouse.", None, 0, 32,
-         False),
-        ("image + ~8.2k-token prompt", long_text + "Summarize the text and "
-         "the image.", _image(448), 1, 16, True),
+    requests = [  # (name, text, image, images, max_tokens, fused route,
+        #             kv_bits, MLX_VLM_TPU_TQ_SCHEME)
+        ("(a) image 448x448 + short prompt", "Describe this image in detail.",
+         _image(448), 1, 32, True, None, None),
+        ("(b) text only", "Write a short story about a lighthouse.", None, 0,
+         32, False, None, None),
+        ("(c) image + ~8.2k-token prompt", long_text, _image(448), 1, 16,
+         True, None, None),
+        ("(d) as (c), kv_bits 3.5", long_text, _image(448), 1, 16, True, 3.5,
+         None),
+        ("(e) as (c), kv_bits 3.5 split", long_text, _image(448), 1, 16, True,
+         3.5, "split"),
+        ("(f) as (c), kv_bits 4", long_text, _image(448), 1, 16, True, 4,
+         None),
     ]
-    fused_steps = 0
-    for counts in (iv.launches, fa.launches, fd.launches):
-        for k in counts:
-            counts[k] = 0
-    for name, text, image, n_img, max_tokens, fused in requests:
+    total: dict = {}
+    for (name, text, image, n_img, max_tokens, fused, kv_bits,
+         tq) in requests:
         os.environ["MLX_VLM_TPU_FUSED_DECODE"] = "1" if fused else "0"
         if decide_fused_decode(model) != fused:
             fail(f"{name}: the fused route did not switch to {fused}")
         prompt = apply_chat_template(proc, cfg, text, num_images=n_img)
         torch.cuda.reset_peak_memory_stats()
-        tic = time.perf_counter()
         times, last = [], None
-        for res in stream_generate(model, proc, prompt, image=image,
-                                   max_tokens=max_tokens):
-            times.append(time.perf_counter())
-            if not np.all(np.isfinite(res.logprobs)):
-                fail(f"{name}: non-finite logits at token {len(times)}")
-            last = res
+        with tq_scheme(tq):
+            reset_counts()
+            tic = time.perf_counter()
+            for res in stream_generate(model, proc, prompt, image=image,
+                                       max_tokens=max_tokens,
+                                       kv_bits=kv_bits):
+                times.append(time.perf_counter())
+                if not np.all(np.isfinite(res.logprobs)):
+                    fail(f"{name}: non-finite logits at token {len(times)}")
+                last = res
+            counts = read_counts()
         if last is None:
             fail(f"{name}: no tokens")
         n = last.generation_tokens
         if not (n == max_tokens or last.finish_reason == "stop"):
             fail(f"{name}: {n} tokens, finish_reason {last.finish_reason}")
-        fused_steps += (n - 1) if fused else 0
         ttft = times[0] - tic
         tps = (n - 1) / (times[-1] - times[0]) if n > 1 else 0.0
         steps_ms = 1e3 * np.diff(times) if n > 1 else np.zeros(1)
-        print(f"  {name} ({'K3' if fused else 'per-linear'} decode): prompt "
-              f"{last.prompt_tokens} tokens, TTFT "
-              f"{ttft:.4f} s, decode {tps:.2f} tok/s over {n} tokens (step "
-              f"ms min {steps_ms.min():.1f} median {np.median(steps_ms):.1f} "
-              f"max {steps_ms.max():.1f}), peak {last.peak_memory:.2f} GiB, "
-              f"finish_reason {last.finish_reason}", flush=True)
-    launches = {**iv.launches, **fa.launches, **fd.launches}
+        kv_kernel = KV_KERNEL.get((kv_bits, tq))
+        route = (kv_kernel if kv_kernel else
+                 "K3" if fused else "per-linear")
+        print(f"  {name} ({route} decode): prompt {last.prompt_tokens} "
+              f"tokens, TTFT {ttft:.4f} s, decode {tps:.2f} tok/s over {n} "
+              f"tokens (step ms min {steps_ms.min():.1f} median "
+              f"{np.median(steps_ms):.1f} max {steps_ms.max():.1f}), peak "
+              f"{last.peak_memory:.2f} GiB, finish_reason "
+              f"{last.finish_reason}; launches {counts}", flush=True)
+        want = {k: 0 for k in KV_KERNEL.values()}
+        want["fused_decode"] = (n - 1) if fused and kv_bits is None else 0
+        if kv_kernel:
+            want[kv_kernel] = n_layers * (n - 1)
+        for k, v in want.items():
+            if counts[k] != v:
+                fail(f"{name}: {k} launched {counts[k]} times, want {v}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
     del os.environ["MLX_VLM_TPU_FUSED_DECODE"]
     decide_fused_decode(model)
-    print(f"  kernel launches on the main path: {launches}", flush=True)
-    for k, v in launches.items():
+    print(f"  kernel launches on the main path: {total}", flush=True)
+    for k, v in total.items():
         if v <= 0:
             fail(f"kernel {k} was not launched on the main path")
-    if launches["fused_decode"] != fused_steps:
-        fail(f"fused_decode launched {launches['fused_decode']} times for "
-             f"{fused_steps} decode steps on the fused route")
     time_full_step(model)
-    return launches
+    return total
 
 
 def time_full_step(model) -> None:
@@ -587,12 +879,16 @@ def time_full_step(model) -> None:
                              iters=3)
         call = call_ms(lambda: fd.fused_decode_step(*args))
         nbytes = fused_step_bytes(lp, lm.args, off)
+        bound_ms, bound_by = bound(nbytes, fused_step_ops(lp, lm.args, off))
         print(f"  28-layer K3 step, offset {off}: kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} (device time) kernel_call_ms="
               f"{call:.4f}; {nbytes / 1e9:.3f} GB read, "
-              f"{nbytes / ms / 1e9:.3f} TB/s", flush=True)
+              f"{nbytes / ms / 1e9:.3f} TB/s; bound_ms={bound_ms:.4f} "
+              f"({bound_by})", flush=True)
 
 
+KV_SHAPE = (f"BH={KV_HEADS} g={KV_ROWS} D={KV_DIM} C={KV_CAPACITY} "
+            f"offset=8545 left_pad=0 q_scale=4")
 KERNELS = (
     ("int4_matmul", "mlx_vlm_tpu_torch/csrc/int4_matmul.cu",
      "mlx_vlm_tpu/ops/int4_matvec.py:159", "M=512 K=3584 N=18944"),
@@ -605,6 +901,12 @@ KERNELS = (
     ("fused_decode", "mlx_vlm_tpu_torch/csrc/fused_decode.cu",
      "mlx_vlm_tpu/ops/fused_decode.py:964",
      "L=4 D=3584 I=18944 H=28 KVH=4 V=152064 C=8704 offset=8545 q_scale=4"),
+    ("int4_kv_attention", "mlx_vlm_tpu_torch/csrc/int4_kv_attention.cu",
+     "mlx_vlm_tpu/ops/int4_kv_attention.py:104", KV_SHAPE),
+    ("tq_kv_attention", "mlx_vlm_tpu_torch/csrc/tq_kv_attention.cu",
+     "mlx_vlm_tpu/ops/tq_kv_attention.py:115", KV_SHAPE),
+    ("tq_kv_attention_split", "mlx_vlm_tpu_torch/csrc/tq_kv_attention.cu",
+     "mlx_vlm_tpu/ops/tq_kv_attention.py:228", KV_SHAPE),
 )
 
 
@@ -630,7 +932,9 @@ def main() -> None:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["err"] for r in mine),
             "ms": at["ms"], "plain_ms": at["plain_ms"],
-            "call_ms": at["call_ms"], "shape": shape})
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"], "call_ms": at["call_ms"],
+            "shape": shape})
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ The JAX package `mlx_vlm_tpu` is the reference; module paths here mirror it
 (this file: mlx_vlm_tpu/__init__.py).
 This slice runs Qwen2-VL with 4-bit group-64 weights (the halves-packed
 grouped-int4 layout) end to end: load -> chat template -> inputs -> vision
-tower -> M-RoPE -> chunked prefill -> decode.  Its kernels are CUDA C++
+tower -> M-RoPE -> chunked prefill -> decode, with a bf16 KV cache or a
+quantized one (`kv_bits` 8, 4 or 3.5).  Its kernels are CUDA C++
 written for Hopper (mlx_vlm_tpu_torch/csrc), built with nvcc at first use.
 Importing the package needs neither JAX nor transformers, PIL,
 safetensors, tokenizers or triton.

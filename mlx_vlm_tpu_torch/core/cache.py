@@ -1,12 +1,22 @@
-"""KV cache: fixed-capacity buffers written by index.
+"""KV caches: fixed-capacity buffers written by index.
 
 Port of mlx_vlm_tpu/core/cache.py (_flash_eligible :47, KVCache :79,
-init_cache :149, update_layer :169).  The cache holds every layer's K and V
-in two preallocated buffers [L, B, n_kv_heads, capacity, head_dim]; rows
-share one write cursor `offset` and mask their unused prefix with
-`left_pad`.  Unlike the reference's immutable arrays, writes happen IN
-PLACE at `offset`: `update_layer` and `KVCache.attend` mutate the buffers
-they are given, and `advance` moves the cursor.
+init_cache :149, update_layer :169, Int8KVCache :608, _update_scalar_auto
+:743, init_int8_cache :762, Int4KVCache :795, init_int4_cache :965).  A
+cache holds every layer's K and V in preallocated buffers
+[L, B, n_kv_heads, capacity, ...]; rows share one write cursor `offset` and
+mask their unused prefix with `left_pad`.  Unlike the reference's immutable
+arrays, writes happen IN PLACE at `offset`: `update_layer` and each cache's
+`attend(layer, q, k, v, scale, mask)` mutate the buffers they are given,
+and `advance` moves the cursor.
+
+The quantized caches keep one affine scale and bias per (row, head, token),
+so the scale factors out of the head-dim reduction and attention runs on
+the integer codes.  Their prefill (S > 1) is plain PyTorch, as the
+reference's is XLA; a 4-bit decode step runs K6
+(ops/int4_kv_attention.py).  Integer dots are taken in f32, which is exact
+here (|sum| < 2**24 for head dims up to 256), because CUDA has no int8
+einsum.
 """
 
 from __future__ import annotations
@@ -16,7 +26,10 @@ from typing import Optional
 
 import torch
 
-__all__ = ["KVCache", "init_cache", "update_layer", "flash_eligible"]
+__all__ = ["KVCache", "init_cache", "update_layer", "flash_eligible",
+           "Int8KVCache", "init_int8_cache", "Int4KVCache", "init_int4_cache"]
+
+_F32_MIN = float(torch.finfo(torch.float32).min)
 
 
 def flash_eligible(q: torch.Tensor, k_buf: torch.Tensor) -> bool:
@@ -34,8 +47,9 @@ def flash_eligible(q: torch.Tensor, k_buf: torch.Tensor) -> bool:
 
 def update_layer(k_cache: torch.Tensor, v_cache: torch.Tensor,
                  k_new: torch.Tensor, v_new: torch.Tensor, offset: int):
-    """Write S new tokens at `offset` into one layer's [B, H, C, D] buffers,
-    in place.  Raises if the write does not fit (no silent clamping)."""
+    """Write S new tokens at `offset` into one layer's [B, H, C, ...]
+    buffers, in place.  Raises if the write does not fit (no silent
+    clamping)."""
     S = k_new.shape[2]
     C = k_cache.shape[2]
     if offset < 0 or offset + S > C:
@@ -43,6 +57,22 @@ def update_layer(k_cache: torch.Tensor, v_cache: torch.Tensor,
     k_cache[:, :, offset:offset + S] = k_new.to(k_cache.dtype)
     v_cache[:, :, offset:offset + S] = v_new.to(v_cache.dtype)
     return k_cache, v_cache
+
+
+def _update_scalar(a_cache: torch.Tensor, b_cache: torch.Tensor,
+                   a_new: torch.Tensor, b_new: torch.Tensor, offset: int):
+    """Write per-token scalars [B, H, S] at `offset` into [B, H, C] buffers,
+    in place (the reference's _update_scalar_auto for a scalar cursor)."""
+    return update_layer(a_cache[..., None], b_cache[..., None],
+                        a_new[..., None], b_new[..., None], offset)
+
+
+def cursor(left_pad: Optional[torch.Tensor], batch_size: int,
+           device) -> torch.Tensor:
+    """The cache's left_pad: int32 [B] on `device` (zeros by default)."""
+    if left_pad is None:
+        return torch.zeros((batch_size,), dtype=torch.int32, device=device)
+    return left_pad.to(device=device, dtype=torch.int32)
 
 
 @dataclasses.dataclass
@@ -90,11 +120,225 @@ def init_cache(num_layers: int, batch_size: int, num_kv_heads: int,
                left_pad: Optional[torch.Tensor] = None,
                device=None) -> KVCache:
     shape = (num_layers, batch_size, num_kv_heads, capacity, head_dim)
-    if left_pad is None:
-        left_pad = torch.zeros((batch_size,), dtype=torch.int32, device=device)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
         offset=0,
-        left_pad=left_pad.to(device=device, dtype=torch.int32),
+        left_pad=cursor(left_pad, batch_size, device),
     )
+
+
+def quantize_query(q: torch.Tensor):
+    """Symmetric per-(b, head, s) int8 query codes for the score dot:
+    (q8 as f32 integers, qs [B, nh, S], qsum = sum(q8) [B, nh, S])."""
+    qf = q.to(torch.float32)
+    qs = qf.abs().amax(dim=-1) / 127.0
+    qs = torch.where(qs == 0.0, torch.ones_like(qs), qs)
+    q8 = torch.round(qf / qs[..., None])
+    return q8, qs, q8.sum(dim=-1)
+
+
+def _integer_attend(q8, qs, qsum, k_codes, ks, kb, v_codes, vs, vb,
+                    scale: float, mask, dtype) -> torch.Tensor:
+    """The reference's integer-domain attend (Int8KVCache.attend and
+    Int4KVCache's XLA route): per-token affine codes, scores
+    qs * (ks * (q8 . k) + kb * sum(q8)) * scale, masked to f32 min, a plain
+    softmax, the value scale folded into the probabilities (rounded to
+    `dtype`) and the value bias added as a rank-1 term.
+
+    q8/qs/qsum from quantize_query; k/v codes [B, nkv, C, D] as f32
+    integers; scales and biases [B, nkv, C].  Returns [B, nh, S, D]."""
+    B, nh, S, D = q8.shape
+    nkv = k_codes.shape[1]
+    g = nh // nkv
+    iscores = torch.einsum("bkgsd,bktd->bkgst", q8.reshape(B, nkv, g, S, D),
+                           k_codes)
+    scores = ((iscores * ks[:, :, None, None, :]
+               + qsum.reshape(B, nkv, g, S, 1) * kb[:, :, None, None, :])
+              * qs.reshape(B, nkv, g, S, 1) * scale)
+    if mask is not None:
+        m = mask
+        if m.dim() == 4:
+            m = (m.reshape(B, nkv, g, S, -1) if m.shape[1] == nh
+                 else m[:, :, None])
+        scores = scores.masked_fill(~m, _F32_MIN)
+    p = torch.softmax(scores, dim=-1)
+    pv = (p * vs[:, :, None, None, :]).to(dtype).float()
+    out = torch.einsum("bkgst,bktd->bkgsd", pv, v_codes.to(dtype).float())
+    out = out + torch.einsum("bkgst,bkt->bkgs", p, vb)[..., None]
+    return out.reshape(B, nh, S, D).to(dtype)
+
+
+def _affine_tokens(x: torch.Tensor, levels: int):
+    """Per-token affine codes of x [B, H, S, D]: (codes in [0, levels] as
+    f32, scale, min)."""
+    xf = x.to(torch.float32)
+    mn = xf.amin(dim=-1)
+    s = (xf.amax(dim=-1) - mn) / float(levels)
+    s = torch.where(s == 0.0, torch.ones_like(s), s)
+    q = torch.clamp(torch.round((xf - mn[..., None]) / s[..., None]), 0,
+                    levels)
+    return q, s, mn
+
+
+@dataclasses.dataclass
+class Int8KVCache:
+    """Per-token-scale int8 KV cache with an integer-domain attend.
+
+    k8, v8: int8 [L, B, H, C, D] (codes shifted by -128)
+    ks/kb, vs/vb: f32 [L, B, H, C] per-token scale / bias (dequant =
+    k8 * s + b, the bias being min + 128 * s)
+
+    It has no kernel of its own: prefill and decode run `_integer_attend`
+    in plain PyTorch, as the reference's run in XLA."""
+
+    k8: torch.Tensor
+    ks: torch.Tensor
+    kb: torch.Tensor
+    v8: torch.Tensor
+    vs: torch.Tensor
+    vb: torch.Tensor
+    offset: int
+    left_pad: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.k8.shape[3]
+
+    def advance(self, new_tokens: int) -> None:
+        self.offset += new_tokens
+
+    @staticmethod
+    def _quantize_tokens(x: torch.Tensor):
+        """[B,H,S,D] -> (int8 codes, scale [B,H,S], bias [B,H,S])."""
+        q, s, mn = _affine_tokens(x, 255)
+        return (q - 128.0).to(torch.int8), s, mn + 128.0 * s
+
+    def attend(self, layer: int, q, k, v, scale: float, mask) -> torch.Tensor:
+        k8, ks, kb = self.k8[layer], self.ks[layer], self.kb[layer]
+        v8, vs, vb = self.v8[layer], self.vs[layer], self.vb[layer]
+        kn8, kns, knb = self._quantize_tokens(k)
+        vn8, vns, vnb = self._quantize_tokens(v)
+        update_layer(k8, v8, kn8, vn8, self.offset)
+        _update_scalar(ks, vs, kns, vns, self.offset)
+        _update_scalar(kb, vb, knb, vnb, self.offset)
+        q8, qs, qsum = quantize_query(q)
+        return _integer_attend(q8, qs, qsum, k8.float(), ks, kb, v8.float(),
+                               vs, vb, scale, mask, q.dtype)
+
+
+def _cache_planes(num_layers, batch_size, num_kv_heads, capacity, width,
+                  code_dtype, device) -> dict:
+    """Zeroed code planes [L, B, H, C, width] and f32 per-token planes."""
+    base = (num_layers, batch_size, num_kv_heads, capacity)
+    planes = {}
+    for side in "kv":
+        planes[side] = torch.zeros((*base, width), dtype=code_dtype,
+                                   device=device)
+        for f in "sb":
+            planes[side + f] = torch.zeros(base, dtype=torch.float32,
+                                           device=device)
+    return planes
+
+
+def init_int8_cache(num_layers: int, batch_size: int, num_kv_heads: int,
+                    head_dim: int, capacity: int,
+                    left_pad: Optional[torch.Tensor] = None,
+                    device=None) -> Int8KVCache:
+    p = _cache_planes(num_layers, batch_size, num_kv_heads, capacity,
+                      head_dim, torch.int8, device)
+    return Int8KVCache(k8=p["k"], ks=p["ks"], kb=p["kb"], v8=p["v"],
+                       vs=p["vs"], vb=p["vb"], offset=0,
+                       left_pad=cursor(left_pad, batch_size, device))
+
+
+def int4_kv_route(S: int, D: int) -> bool:
+    """A 4-bit cache's attend runs K6 for a decode step (S == 1) with an
+    even head dim.  The reference's further rules ((D/2) % 128 == 0,
+    C % 128 == 0, g * S <= 8: cache.py:887-892) are Mosaic tiling and row
+    padding limits of its TPU kernel; the port's kernel has neither."""
+    return S == 1 and D % 2 == 0
+
+
+@dataclasses.dataclass
+class Int4KVCache:
+    """Per-token-scale 4-bit KV cache with a packed-domain attend.
+
+    Codes pack along the head dim in two half planes (channels [0, D/2) in
+    the low nibble, [D/2, D) in the high nibble):
+
+    k4, v4: u8 [L, B, H, C, D/2]
+    ks/kb, vs/vb: f32 [L, B, H, C] per-token scale / bias (dequant =
+    code * s + b, codes 0..15)
+
+    A decode step runs K6 (ops/int4_kv_attention.py) on the packed codes;
+    prefill takes the integer-domain attend with the unpack materialized
+    (the reference's XLA route)."""
+
+    k4: torch.Tensor
+    ks: torch.Tensor
+    kb: torch.Tensor
+    v4: torch.Tensor
+    vs: torch.Tensor
+    vb: torch.Tensor
+    offset: int
+    left_pad: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.k4.shape[3]
+
+    def advance(self, new_tokens: int) -> None:
+        self.offset += new_tokens
+
+    @staticmethod
+    def _quantize_tokens(x: torch.Tensor):
+        """[B,H,S,D] -> (packed u8 [B,H,S,D/2], scale [B,H,S], bias)."""
+        q, s, mn = _affine_tokens(x, 15)
+        q = q.to(torch.uint8)
+        h = x.shape[-1] // 2
+        return q[..., :h] | (q[..., h:] << 4), s, mn
+
+    @staticmethod
+    def _unpack(p4: torch.Tensor) -> torch.Tensor:
+        """u8 [..., D/2] -> codes [..., D] as f32 (half-plane order)."""
+        return torch.cat([p4 & 0xF, p4 >> 4], dim=-1).float()
+
+    def attend(self, layer: int, q, k, v, scale: float, mask) -> torch.Tensor:
+        from ..ops.int4_kv_attention import int4_kv_decode_attention
+
+        k4, ks, kb = self.k4[layer], self.ks[layer], self.kb[layer]
+        v4, vs, vb = self.v4[layer], self.vs[layer], self.vb[layer]
+        kn4, kns, knb = self._quantize_tokens(k)
+        vn4, vns, vnb = self._quantize_tokens(v)
+        update_layer(k4, v4, kn4, vn4, self.offset)
+        _update_scalar(ks, vs, kns, vns, self.offset)
+        _update_scalar(kb, vb, knb, vnb, self.offset)
+
+        B, nh, S, D = q.shape
+        nkv, C = k4.shape[1], k4.shape[2]
+        q8, qs, qsum = quantize_query(q)
+        if not int4_kv_route(S, D):
+            return _integer_attend(q8, qs, qsum, self._unpack(k4), ks, kb,
+                                   self._unpack(v4), vs, vb, scale, mask,
+                                   q.dtype)
+        BH, g = B * nkv, nh // nkv
+        out = int4_kv_decode_attention(
+            q8.to(torch.int8).reshape(BH, g, D),
+            torch.stack([qsum.reshape(BH, g), qs.reshape(BH, g)], dim=-1),
+            k4.reshape(BH, C, D // 2), ks.reshape(BH, C), kb.reshape(BH, C),
+            v4.reshape(BH, C, D // 2), vs.reshape(BH, C), vb.reshape(BH, C),
+            self.offset + S, scale,
+            left_pad=self.left_pad.repeat_interleave(nkv))
+        return out.reshape(B, nh, S, D).to(q.dtype)
+
+
+def init_int4_cache(num_layers: int, batch_size: int, num_kv_heads: int,
+                    head_dim: int, capacity: int,
+                    left_pad: Optional[torch.Tensor] = None,
+                    device=None) -> Int4KVCache:
+    p = _cache_planes(num_layers, batch_size, num_kv_heads, capacity,
+                      head_dim // 2, torch.uint8, device)
+    return Int4KVCache(k4=p["k"], ks=p["ks"], kb=p["kb"], v4=p["v"],
+                       vs=p["vs"], vb=p["vb"], offset=0,
+                       left_pad=cursor(left_pad, batch_size, device))

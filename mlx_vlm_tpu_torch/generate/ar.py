@@ -1,17 +1,24 @@
 """Autoregressive decode: chunked prefill, then one decode step per token.
 
-Port of mlx_vlm_tpu/generate/ar.py (generate_step :305).  The prompt is
-prefilled in `prefill_step_size` chunks, padded as in the reference
-(:357-397) so every chunk has the same length; the cache's capacity must
-hold the padded prompt, which is checked before any write.  Decoding runs one
-eager step per token through `step_logits`, which takes the whole-stack
-fused decode kernel (K3) when the model's route is on.  The reference's
-multi-step decode blocks, prompt caches and quantized KV caches are not
-ported.
+Port of mlx_vlm_tpu/generate/ar.py (make_cache :222, generate_step :305).
+`make_cache` picks the KV cache from `kv_bits` and the environment as the
+reference does: bf16 `KVCache`, `Int8KVCache` (8), `Int4KVCache` (4), the
+rotated int4 cache (4 with MLX_VLM_TPU_KV_SCHEME=turboquant) and the
+TurboQuant caches (fractional bits; MLX_VLM_TPU_TQ_SCHEME=split for the
+per-channel split).  The group-affine `QuantizedKVCache` is not ported.
+The prompt is prefilled in `prefill_step_size` chunks, padded as in the
+reference (:357-397) so every chunk has the same length; the cache's
+capacity must hold the padded prompt, which is checked before any write.
+Decoding runs one eager step per token through `step_logits`: the
+whole-stack fused decode kernel (K3) when the model's route is on and the
+cache is a plain `KVCache`, else the per-linear path, whose attention runs
+K6, K7 or K8 on a quantized cache.  The reference's multi-step decode
+blocks and prompt caches are not ported.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Generator, List, Optional, Tuple
 
@@ -35,6 +42,61 @@ def _pad_axis(x: np.ndarray, axis: int, target: int):
     return np.pad(x, widths)
 
 
+def _group_affine(kv_bits, head_dim: int = 2) -> bool:
+    """Whether `kv_bits` and the environment pick the reference's
+    group-affine QuantizedKVCache (ar.py:296), which is not ported."""
+    if not kv_bits or float(kv_bits) != int(kv_bits):
+        return False
+    scheme = os.environ.get("MLX_VLM_TPU_KV_SCHEME")
+    if scheme == "turboquant":
+        return False
+    if kv_bits == 8:
+        return scheme == "affine"
+    return kv_bits != 4 or scheme == "affine" or head_dim % 2 != 0
+
+
+def check_kv_bits(kv_bits, kv_group_size: int = 64,
+                  head_dim: int = 2) -> None:
+    """Raise for a `kv_bits` that picks the group-affine cache; callers
+    without a model check before any work (an odd head dim is caught by
+    make_cache)."""
+    if _group_affine(kv_bits, head_dim):
+        raise NotImplementedError(
+            f"the group-affine QuantizedKVCache (kv_bits={kv_bits}, "
+            f"kv_group_size={kv_group_size}, MLX_VLM_TPU_KV_SCHEME="
+            f"{os.environ.get('MLX_VLM_TPU_KV_SCHEME')}) is not ported")
+
+
+def make_cache(model, batch_size: int, capacity: int, dtype,
+               kv_bits: Optional[float] = None, kv_group_size: int = 64,
+               device=None):
+    """The KV cache for `kv_bits`, by the reference's decision tree
+    (ar.py:244-302)."""
+    from ..core import cache as cache_lib
+    from ..core import turboquant as tq
+
+    lm = model.language_model
+    dims = (lm.args.num_hidden_layers, batch_size, lm.n_kv_heads,
+            lm.head_dim, capacity)
+    kv_scheme = os.environ.get("MLX_VLM_TPU_KV_SCHEME")
+    fractional = bool(kv_bits) and float(kv_bits) != int(kv_bits)
+    if kv_bits and (fractional or kv_scheme == "turboquant"):
+        hd = lm.head_dim
+        if float(kv_bits) == 4.0 and hd & (hd - 1) == 0:
+            return tq.make_rotated_int4_cache(*dims, device=device)
+        if fractional and os.environ.get("MLX_VLM_TPU_TQ_SCHEME") == "split":
+            return tq.init_turboquant_split_cache(
+                *dims, kv_bits=float(kv_bits), device=device)
+        return tq.init_turboquant_cache(*dims, kv_bits=float(kv_bits),
+                                        device=device)
+    check_kv_bits(kv_bits, kv_group_size, lm.head_dim)
+    if kv_bits == 8:
+        return cache_lib.init_int8_cache(*dims, device=device)
+    if kv_bits == 4:
+        return cache_lib.init_int4_cache(*dims, device=device)
+    return lm.init_cache(batch_size, capacity, dtype, device=device)
+
+
 def generate_step(
     inputs_embeds: torch.Tensor,  # [B, S, D]
     model,
@@ -46,6 +108,8 @@ def generate_step(
     logits_processors: Optional[List[Callable]] = None,
     prefill_step_size: int = 512,
     seed: Optional[int] = None,
+    kv_bits: Optional[float] = None,
+    kv_group_size: int = 64,
 ) -> Generator[Tuple[np.ndarray, np.ndarray], None, None]:
     """Yield (token [B], chosen-token logprob [B]) numpy pairs.
 
@@ -64,7 +128,8 @@ def generate_step(
         np.asarray(rope_deltas, np.int64).reshape(-1)[:B].copy()).to(dev)
 
     capacity = round_up(S + max_tokens + 1, CACHE_BUCKET)
-    cache = lm.init_cache(B, capacity, inputs_embeds.dtype, device=dev)
+    cache = make_cache(model, B, capacity, inputs_embeds.dtype, kv_bits,
+                       kv_group_size, device=dev)
 
     # ---- chunked prefill; the padded chunks must fit the cache, since an
     # out-of-range index write would not be clamped

@@ -1,9 +1,10 @@
 """High-level generate / stream_generate.
 
 Port of mlx_vlm_tpu/generate/dispatch.py (stream_generate :43, generate
-:309) for the autoregressive image + text path.  The arguments of paths that
-are not ported (audio, video, quantized KV, prefix caching, vision-feature
-caching, speculative drafting) raise NotImplementedError.
+:309) for the autoregressive image + text path.  `kv_bits` picks a
+quantized KV cache (generate/ar.py make_cache).  The arguments of paths that are not
+ported (audio, video, prefix caching, vision-feature caching, speculative
+drafting) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from ..core.sampling import make_logits_processors, make_sampler
 from ..utils.processing import prepare_inputs
 from ..utils.tokenizer import make_detokenizer
-from .ar import generate_step
+from .ar import check_kv_bits, generate_step
 from .common import GenerationResult, device_peak_memory_gb
 
 __all__ = ["stream_generate", "generate"]
@@ -58,17 +59,19 @@ def stream_generate(
     logit_bias: Optional[dict] = None,
     seed: Optional[int] = None,
     prefill_step_size: int = 512,
-    kv_bits: Optional[int] = None,
+    kv_bits: Optional[float] = None,
+    kv_group_size: int = 64,
     apc=None,
     vision_cache=None,
     draft_model=None,
 ) -> Generator[GenerationResult, None, None]:
     """Stream GenerationResult chunks, one per generated token."""
-    for name, val in (("audio", audio), ("video", video), ("kv_bits", kv_bits),
-                      ("apc", apc), ("vision_cache", vision_cache),
+    for name, val in (("audio", audio), ("video", video), ("apc", apc),
+                      ("vision_cache", vision_cache),
                       ("draft_model", draft_model)):
         if val is not None:
             raise NotImplementedError(f"{name} is not ported")
+    check_kv_bits(kv_bits, kv_group_size)
 
     inputs = prepare_inputs(processor, prompt, images=image)
     input_ids = np.asarray(inputs["input_ids"])
@@ -105,7 +108,8 @@ def stream_generate(
     token_iter = generate_step(
         embeds, model, position_ids=position_ids, rope_deltas=rope_deltas,
         max_tokens=max_tokens, sampler=sampler, logits_processors=processors,
-        prefill_step_size=prefill_step_size, seed=seed)
+        prefill_step_size=prefill_step_size, seed=seed, kv_bits=kv_bits,
+        kv_group_size=kv_group_size)
     for token, logprobs in token_iter:
         now = time.perf_counter()
         if prompt_time is None:

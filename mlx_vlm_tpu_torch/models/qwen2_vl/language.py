@@ -16,12 +16,13 @@ per-linear weights only.  `mrope_position_ids` (:230) is copied unchanged
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from ...core import cache as cache_lib
+from ...core import turboquant
 from ...core.layers import (embedding, embedding_as_linear, linear, rms_norm,
                             swiglu_mlp)
 from ...core.mask import causal_cache_mask
@@ -32,6 +33,12 @@ from ..base import layer_view
 from .config import ModelConfig, TextConfig
 
 STACK_PREFIX = "model.layers"
+
+# Any of the caches that generate/ar.py make_cache builds; each writes in
+# place at its `offset` in `attend(layer, q, k, v, scale, mask)`.
+Cache = Union[cache_lib.KVCache, cache_lib.Int8KVCache,
+              cache_lib.Int4KVCache, turboquant.TurboQuantKVCache,
+              turboquant.SplitTurboQuantKVCache]
 
 
 class LanguageModel:
@@ -46,7 +53,7 @@ class LanguageModel:
         self.fused_decode = False  # set by the loader
 
     def __call__(self, params: dict, inputs_embeds: torch.Tensor,
-                 cache: Optional[cache_lib.KVCache],
+                 cache: Optional[Cache],
                  position_ids: torch.Tensor) -> torch.Tensor:
         """Forward over embeddings [B, S, D] -> final-normed hidden [B, S, D].
 
@@ -91,7 +98,7 @@ class LanguageModel:
         return linear(p["o_proj"], out)
 
     def step_logits(self, params: dict, inputs_embeds: torch.Tensor,
-                    cache: Optional[cache_lib.KVCache],
+                    cache: Optional[Cache],
                     position_ids: torch.Tensor) -> torch.Tensor:
         """Logits [B, S, V] of a forward step.  With the fused route on, a
         B=1, S=1 step on a plain KVCache is one whole-stack K3 step, which

@@ -48,7 +48,7 @@ class Model:
         self.language_model = LanguageModel(config.text_config, config)
         self.params: dict = {}  # set by the loader
         self.config_dict: dict = {}
-        self.device = torch.device("cpu")
+        self.device: Optional[torch.device] = None  # set by the loader
 
     def vision_features(self, params: dict, pixel_values: torch.Tensor,
                         rotary_freqs: torch.Tensor,

@@ -1,11 +1,12 @@
 """Build and bind the port's CUDA kernels (no counterpart in the JAX package,
 whose Pallas kernels compile inside `pallas_call`).
 
-The kernels under `mlx_vlm_tpu_torch/csrc/` are compiled by one `nvcc` call
-for `sm_90a` into a shared library with a plain C interface and loaded with
-ctypes.  The build runs at first use, into `mlx_vlm_tpu_torch/build/`, keyed
-by a hash of the sources and flags, so a fresh checkout builds everything
-the first time a kernel launches.  Nothing here runs at import time.
+The kernels under `mlx_vlm_tpu_torch/csrc/` are compiled for `sm_90a`, one
+`nvcc` process per source, all started together, then linked into one
+shared library with a plain C interface and loaded with ctypes.  The build
+runs at first use, into `mlx_vlm_tpu_torch/build/`, keyed by a hash of the
+sources, headers and flags, so a fresh checkout builds everything the first
+time a kernel launches.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -22,10 +23,10 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("int4_matmul.cu", "int4_matvec.cu", "flash_attention.cu",
-           "fused_decode.cu")
+           "fused_decode.cu", "int4_kv_attention.cu", "tq_kv_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -41,6 +42,12 @@ _SIGNATURES = {
     # FusedDecodeArgs*, stream
     "mvt_fused_decode": (_P, _P),
     "mvt_fused_decode_grid": (),
+    # q8, qmeta, k4, ks, kb, v4, vs, vb, offset, left_pad, part_ml, part_acc,
+    # out, BH, G, C, D, scale, stream
+    "mvt_int4_kv_attention": (_P,) * 13 + (_I,) * 4 + (_F, _P),
+    # q, 2 x (kq, ks, vq, vs, klut, vlut), offset, left_pad, part_ml,
+    # part_acc, out, 2 x (d, kbits, vbits), nseg, BH, G, C, scale, stream
+    "mvt_tq_kv_attention": (_P,) * 18 + (_I,) * 10 + (_F, _P),
 }
 
 
@@ -60,10 +67,24 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in source_paths():
+    for p in [*source_paths(), *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"libmvt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds: list) -> None:
+    """Run the commands in parallel; raise with nvcc's output on a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
 @functools.cache
@@ -72,13 +93,15 @@ def library() -> ctypes.CDLL:
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(p) for p in source_paths())]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        stem = so.with_suffix(f".{os.getpid()}")
+        objs = [Path(f"{stem}.{p.stem}.o") for p in source_paths()]
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                  for p, o in zip(source_paths(), objs)])
+        tmp = Path(f"{stem}.tmp")
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        for o in objs:
+            o.unlink()
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

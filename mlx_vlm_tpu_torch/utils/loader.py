@@ -270,11 +270,23 @@ def _to_device(flat: dict, dtype: torch.dtype, device) -> dict:
     return {k: put(v) for k, v in flat.items()}
 
 
+def _check_device(device) -> torch.device:
+    """The device to load onto; the card unless the caller asks for the CPU.
+    Raises before any work when that device is a card this host lacks."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the model loads onto the GPU unless the caller "
+            "passes device='cpu'")
+    return device
+
+
 def load_model_from_weights(config: dict, weights: dict,
                             dtype: torch.dtype = torch.bfloat16,
-                            device="cpu"):
+                            device="cuda"):
     """Full load pipeline from an in-memory flat weight dict (HF keys):
     sanitize -> quant fold -> layer stacking -> device."""
+    device = _check_device(device)
     arch, _ = get_model_and_args(config)
     model = arch.Model(arch.ModelConfig.from_dict(config))
     qc = config.get("quantization_config") or {}
@@ -287,7 +299,7 @@ def load_model_from_weights(config: dict, weights: dict,
     weights = _stack_layers(weights, tuple(model.stack_patterns))
     model.params = _nest(_to_device(weights, dtype, device))
     model.config_dict = config
-    model.device = torch.device(device)
+    model.device = device
     decide_fused_decode(model)
     return model
 
@@ -305,8 +317,9 @@ def decide_fused_decode(model) -> bool:
     return lm.fused_decode
 
 
-def load_model(model_path, dtype: torch.dtype = torch.bfloat16, device="cpu"):
+def load_model(model_path, dtype: torch.dtype = torch.bfloat16, device="cuda"):
     """Instantiate the model and attach its parameter tree."""
+    device = _check_device(device)
     model_path = Path(model_path)
     config = load_config(model_path)
     return load_model_from_weights(config, _read_checkpoint(model_path), dtype,
@@ -314,8 +327,9 @@ def load_model(model_path, dtype: torch.dtype = torch.bfloat16, device="cpu"):
 
 
 def load(path: str, processor_kwargs: Optional[dict] = None,
-         dtype: torch.dtype = torch.bfloat16, device="cpu"):
+         dtype: torch.dtype = torch.bfloat16, device="cuda"):
     """Load (model, processor) from a local checkpoint directory."""
+    device = _check_device(device)
     model_path = get_model_path(path)
     model = load_model(model_path, dtype=dtype, device=device)
     from .processing import load_processor

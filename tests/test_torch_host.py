@@ -64,7 +64,8 @@ def test_load_image_array_passthrough():
 
 def test_prepare_inputs_equal_on_tiny_checkpoint(tiny_dir):
     jm, jp = mlx_vlm_tpu.load(str(tiny_dir))
-    tm, tp = mlx_vlm_tpu_torch.load(str(tiny_dir), dtype=torch.float32)
+    tm, tp = mlx_vlm_tpu_torch.load(str(tiny_dir), dtype=torch.float32,
+                                      device="cpu")
     img = np.random.default_rng(0).integers(0, 256, (84, 56, 3), dtype=np.uint8)
     for text, n_img in (("What is in this image?", 1), ("Describe", 2),
                         ("A cat sat on a mat.", 0)):

@@ -216,7 +216,7 @@ def test_checkpoint_loads_identically(kind):
                       jnp.float32)
     finally:
         mp.undo()
-    tm = load_model_from_weights(cfg, w, torch.float32)
+    tm = load_model_from_weights(cfg, w, torch.float32, "cpu")
     ref = params_from_jax(tm, jax.tree_util.tree_map(np.asarray, jm.params))
 
     def walk(a, b, path):
@@ -243,7 +243,8 @@ def test_generate_matches_on_tiny_checkpoint(tmp_path):
     """Both packages' load + greedy generate on the same f32 checkpoint."""
     build_tiny_checkpoint(str(tmp_path))
     jm, jp = mlx_vlm_tpu.load(str(tmp_path), dtype=jnp.float32)
-    tm, tp = mlx_vlm_tpu_torch.load(str(tmp_path), dtype=torch.float32)
+    tm, tp = mlx_vlm_tpu_torch.load(str(tmp_path), dtype=torch.float32,
+                                      device="cpu")
     img = np.random.default_rng(1).integers(0, 256, (56, 56, 3), dtype=np.uint8)
     for text, image in (("What is in this image?", img), ("Describe a cat.", None)):
         n_img = 1 if image is not None else 0
@@ -281,8 +282,8 @@ def test_generate_matches_on_int4_checkpoint(tmp_path):
     host = {k: _jax_leaf(v) for k, v in w.items()}
     save_file(host, str(tmp_path / "model.safetensors"))
     (tmp_path / "config.json").write_text(json.dumps(cfg))
-    tm = load_model(tmp_path, dtype=torch.float32)
-    mem = load_model_from_weights(cfg, w, torch.float32)
+    tm = load_model(tmp_path, dtype=torch.float32, device="cpu")
+    mem = load_model_from_weights(cfg, w, torch.float32, "cpu")
     q = tm.params["language_model"]["model"]["layers"]["mlp"]["up_proj"]["weight"]
     q_mem = mem.params["language_model"]["model"]["layers"]["mlp"]["up_proj"]["weight"]
     assert torch.equal(q.qp, q_mem.qp) and torch.equal(q.sl, q_mem.sl)
