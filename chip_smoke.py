@@ -7,34 +7,46 @@ Phases (any failure exits non-zero):
      mlx_vlm_tpu_torch/csrc with nvcc (one process per source, in
      parallel);
   2. each kernel (K1 int4_matmul, K2 int4_matvec, K3 fused_decode, K4
-     flash_attention, K6 int4_kv_attention, K7 tq_kv_attention, K8
-     tq_kv_attention_split) against its plain PyTorch version on the card
-     at Qwen2-VL-7B shapes (K3: 4 decoder layers and the int4 head; K6-K8:
-     4 KV heads of 7 query rows over an 8704-slot cache), each with its
-     device time, the least time the card could take (`bound_ms`, from
-     bytes at 3.35 TB/s or operations at 989 TFLOP/s) and, for K4, the time
-     of one PyTorch call computing the same function (`library_ms`);
+     flash_attention, K5 qmatmul_int4 / qmatmul_int8, K6
+     int4_kv_attention, K7 tq_kv_attention, K8 tq_kv_attention_split)
+     against its plain PyTorch version on the card at Qwen2-VL-7B shapes
+     (K3: 4 decoder layers and the int4 head; K6-K8: 4 KV heads of 7 query
+     rows over an 8704-slot cache), each with its device time, the least
+     time the card could take (`bound_ms`, from bytes at 3.35 TB/s or
+     operations at 989 TFLOP/s) and, where one exists, the time of one
+     PyTorch call computing the same function (`library_ms`: K4 against
+     scaled_dot_product_attention; K1, K2 and 4-bit K5 against
+     torch._weight_int4pack_mm after an untimed repack);
   3. the slice on the card (bf16, kernels) against the slice on the CPU
      (plain versions) at 7B widths with 2 decoder layers, teacher-forced:
      decode through K3 on the bf16 cache (CPU in f32, 8 steps), and through
      K6, K7 and K8 with kv_bits 4, 3.5 and 3.5 split (CPU in bf16, 4
-     steps);
-  4. the main path at full Qwen2-VL-7B width (random mlx-format 4-bit
-     weights, 28 decoder layers, 32 vision blocks): six greedy requests
-     through load_model_from_weights and stream_generate, each with the
-     kernels' launch counters set to 0 just before it and read just after.
-     Requests (a) and (c) decode through K3; (b) runs with
-     MLX_VLM_TPU_FUSED_DECODE=0, the per-linear route (K2); (d), (e) and
-     (f) take (c)'s image and ~8.2k-token prompt with kv_bits 3.5 (K7),
-     3.5 and MLX_VLM_TPU_TQ_SCHEME=split (K8) and 4 (K6).  Then one
-     28-layer K3 step and its plain version are timed on the loaded model.
-The line before the last is the kernel report, the last line the result.
-Needs no network and imports nothing of JAX.
+     steps); then the runtime quantization modes (2 steps each): exact
+     4-bit (K5) and w8chan 8-bit against f32 CPU runs, exact 8-bit (K5)
+     with the 8-bit group-affine KV cache against a bf16 CPU run;
+  4. the main path at full Qwen2-VL-7B width (random mlx-format weights,
+     28 decoder layers, 32 vision blocks): eight greedy requests through
+     load_model_from_weights and stream_generate, each with the kernels'
+     launch counters set to 0 just before it and read just after.
+     Requests (a)-(f) run 4-bit weights in the default w4grp layout: (a)
+     and (c) decode through K3; (b) runs with MLX_VLM_TPU_FUSED_DECODE=0,
+     the per-linear route (K2); (d), (e) and (f) take (c)'s image and
+     ~8.2k-token prompt with kv_bits 3.5 (K7), 3.5 and
+     MLX_VLM_TPU_TQ_SCHEME=split (K8) and 4 (K6).  Then one 28-layer K3
+     step and its plain version are timed on the loaded model.  Requests
+     (g) and (h) each load their own model with
+     MLX_VLM_TPU_RUNTIME_QUANT=exact, so every linear and the lm_head run
+     K5: (g) (a)'s 4-bit checkpoint, image and prompt; (h) an 8-bit
+     checkpoint, text only, kv_bits 8 with MLX_VLM_TPU_KV_SCHEME=affine.
+Each phase prints its seconds.  The line before the last is the kernel
+report, the last line the result.  Needs no network and imports nothing of
+JAX.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -164,8 +176,9 @@ def _check(results: list, name: str, shape: str, out, ref, rel_tol: float,
            library=None) -> None:
     """Record max|out - ref| against rel_tol * max(floor, max|ref|) and time
     the kernel, its plain version and the library call computing the same
-    function (if any): device time (graph replay) and eager call time.
-    `work` is (bytes, operations) of the call, for its bound."""
+    function (if any; its own max|lib - ref| is printed beside it): device
+    time (graph replay) and eager call time.  `work` is (bytes, operations)
+    of the call, for its bound."""
     import torch
 
     torch.cuda.synchronize()
@@ -173,10 +186,13 @@ def _check(results: list, name: str, shape: str, out, ref, rel_tol: float,
     tol = rel_tol * max(floor, float(ref.float().abs().max()))
     ok = err <= tol
     ms, plain_ms = device_ms(kernel), device_ms(plain, iters=5)
-    lib_ms = device_ms(library) if library is not None else None
+    lib_ms, lib = None, ""
+    if library is not None:
+        lib_err = float((library().float() - ref.float()).abs().max())
+        lib_ms = device_ms(library)
+        lib = f" library_ms={lib_ms:.4f} (library max_abs_err={lib_err:.3e})"
     call = call_ms(kernel)
     bound_ms, bound_by = bound(*work)
-    lib = f" library_ms={lib_ms:.4f}" if lib_ms is not None else ""
     print(f"  {name} {shape}: max_abs_err={err:.3e} tol={tol:.3e} "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}{lib} (device time) "
           f"bound_ms={bound_ms:.5f} ({bound_by}) "
@@ -196,6 +212,108 @@ def int4_work(M: int, t, out_bytes: int) -> tuple:
     return nbytes + M * t.n * out_bytes, 2.0 * M * K * t.n
 
 
+def int4pack_mm(codes, s, b, g: int, x):
+    """The library yardstick for a group-affine int4 product: a closure
+    making one torch._weight_int4pack_mm call that computes x @ w.T for
+    w[n, k] = codes[n, k] * s[n, k // g] + b[n, k // g] (codes uint8 [N, K]
+    on the card; s, b [N, K / g]), or None where this torch build refuses
+    the op or the shape (printed).  The repack runs once, untimed: the op
+    keeps two codes per byte with the even k in the high nibble and
+    dequantizes (code - 8) * scale + zero, so zero = b + 8 s, both rounded
+    to bf16.  The port never calls it."""
+    import torch
+
+    try:
+        packed = ((codes[:, 0::2] << 4) | codes[:, 1::2]).contiguous()
+        w = torch._convert_weight_to_int4pack(packed, 8)
+        s, b = s.float(), b.float()
+        sz = torch.stack([s.T, (b + 8 * s).T], dim=-1).to(
+            torch.bfloat16).contiguous()
+        torch._weight_int4pack_mm(x, w, g, sz)
+    except (RuntimeError, NotImplementedError) as exc:
+        print(f"  torch._weight_int4pack_mm refused x {tuple(x.shape)} "
+              f"w {tuple(codes.shape)} g={g}: {str(exc).splitlines()[0]}",
+              flush=True)
+        return None
+    return lambda: torch._weight_int4pack_mm(x, w, g, sz)
+
+
+def grouped_int4pack_mm(t, x):
+    """int4pack_mm for a halves-packed Int4GroupedTensor (K1, K2): column n
+    sits in the low nibbles of qp[:, n] for n < N2p, in the high nibbles of
+    qp[:, n - N2p] after that."""
+    import torch
+
+    codes = torch.cat([t.qp & 0xF, t.qp >> 4], dim=1)[:, :t.n].T
+    s = torch.cat([t.sl, t.sh], dim=-1)[:, 0, :t.n].T
+    b = torch.cat([t.bl, t.bh], dim=-1)[:, 0, :t.n].T
+    return int4pack_mm(codes, s, b, t.group_size, x)
+
+
+# K5 cases (bits, group size, M, K, N): the 7B linears at M = 1 (a decode
+# step) and 512 (a prefill chunk), the lm_head at M = 1, and mlx's other
+# group sizes
+K5_CASES = (tuple((bits, 64, M, K, N) for bits in (4, 8) for M in (1, 512)
+                  for K, N in K1_SHAPES)
+            + tuple((bits, 64, 1, 3584, 152064) for bits in (4, 8))
+            + tuple((bits, g, 512, 3584, 3584) for bits in (4, 8)
+                    for g in (32, 128)))
+K5_TOL = 1e-2
+
+
+def random_mlx(bits: int, g: int, K: int, N: int, gen, dev):
+    """Random mlx-layout weight [N, K], as utils/testing's
+    mlx_quantized_checkpoint draws them: codes uniform over [0, 2**bits),
+    bf16 scales around the value that gives the dequantized weights std
+    0.02, biases -((2**bits - 1) / 2) * scale."""
+    import torch
+
+    from mlx_vlm_tpu_torch.core.quant import QuantizedTensor
+
+    levels = 2**bits
+    s_mean = 0.02 / math.sqrt((levels**2 - 1) / 12.0)
+    q = torch.randint(0, 256, (N, K * bits // 8), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    s = s_mean * (0.75 + 0.5 * torch.rand((N, K // g), generator=gen,
+                                          device=dev))
+    return QuantizedTensor(q=q, scales=s.to(torch.bfloat16),
+                           biases=(-(levels - 1) / 2 * s).to(torch.bfloat16),
+                           bits=bits, group_size=g, out_dtype="bfloat16")
+
+
+def qmm_work(M: int, t) -> tuple:
+    """(bytes, operations) of x [M, K] bf16 @ dequant(t).T: x, the codes and
+    the bf16 scales and biases read once, the bf16 output written once."""
+    N, K = t.q.shape[0], t.q.shape[1] * 8 // t.bits
+    nbytes = M * K * 2 + t.q.numel() + 2 * t.scales.numel() * 2 + M * N * 2
+    return nbytes, 2.0 * M * N * K
+
+
+def check_qmatmul(results: list, dev) -> None:
+    """K5 against its plain version at K5_CASES, its weights drawn on the
+    card; 4-bit cases also time torch._weight_int4pack_mm.  No single
+    PyTorch call takes 8-bit group-affine codes (_weight_int8pack_mm is
+    per-channel, with no group bias), so the 8-bit cases have none."""
+    import torch
+
+    from mlx_vlm_tpu_torch.ops import qmatmul as k5
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for bits, g, M, K, N in K5_CASES:
+        t = random_mlx(bits, g, K, N, gen, dev)
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        lib = None
+        if bits == 4:
+            codes = torch.stack([t.q & 0xF, t.q >> 4], dim=-1).reshape(N, K)
+            lib = int4pack_mm(codes, t.scales, t.biases, g, x)
+        _check(results, f"qmatmul_int{bits}", f"M={M} K={K} N={N} g={g}",
+               k5.quantized_matmul_kernel(x, t), k5.qmatmul_plain(x, t),
+               K5_TOL, lambda: k5.quantized_matmul_kernel(x, t),
+               lambda: k5.qmatmul_plain(x, t), floor=0.0,
+               work=qmm_work(M, t), library=lib)
+        del t, x, lib
+
+
 def phase_kernels() -> list:
     """Each kernel against its plain version on the card at 7B shapes."""
     import torch
@@ -212,8 +330,10 @@ def phase_kernels() -> list:
           "2e-2*max(1,|ref|) and K4 2e-2*max|ref| for bf16 output rounding, "
           "K2 1e-3*max(1,|ref|) for summation order, K3 1e-4*max|ref| on the "
           "first layer's k/v and 6e-2*max|ref| behind bf16 roundings that "
-          "the layers amplify, K6-K8 1e-2*max|ref| for bf16(p*vs) rounded "
-          "against block-local maxima)",
+          "the layers amplify, K5 1e-2*max|ref| since kernel and plain "
+          "version each round once to bf16 (one ulp is at most 2^-7*max|ref|)"
+          " after f32 sums that differ by reassociation only, K6-K8 "
+          "1e-2*max|ref| for bf16(p*vs) rounded against block-local maxima)",
           flush=True)
     weights = {}
     for K, N in K2_SHAPES:
@@ -224,15 +344,17 @@ def phase_kernels() -> list:
         _check(results, "int4_matmul", f"M=512 K={K} N={N}",
                iv.int4_matmul(x, t), iv.int4_matmul_plain(x, t), 2e-2,
                lambda: iv.int4_matmul(x, t), lambda: iv.int4_matmul_plain(x, t),
-               work=int4_work(512, t, 2))
+               work=int4_work(512, t, 2), library=grouped_int4pack_mm(t, x))
     for K, N in K2_SHAPES:
         t = weights[(K, N)]
         x = torch.randn((1, K), generator=gen).to(dev, torch.bfloat16)
         _check(results, "int4_matvec", f"M=1 K={K} N={N}",
                iv.int4_matvec_rows(x, t), iv.int4_matvec_plain(x, t), 1e-3,
                lambda: iv.int4_matvec_rows(x, t),
-               lambda: iv.int4_matvec_plain(x, t), work=int4_work(1, t, 4))
+               lambda: iv.int4_matvec_plain(x, t), work=int4_work(1, t, 4),
+               library=grouped_int4pack_mm(t, x))
     del weights
+    check_qmatmul(results, dev)
     B, H, KVH, D, S, C = 1, 28, 4, 128, 512, 8192
     q1 = torch.randn((B, H, S, D), generator=gen)
     k = torch.randn((B, KVH, C, D), generator=gen).to(dev, torch.bfloat16)
@@ -591,9 +713,11 @@ def counters() -> list:
     from mlx_vlm_tpu_torch.ops import fused_decode as fd
     from mlx_vlm_tpu_torch.ops import int4_kv_attention as k6
     from mlx_vlm_tpu_torch.ops import int4_matvec as iv
+    from mlx_vlm_tpu_torch.ops import qmatmul as k5
     from mlx_vlm_tpu_torch.ops import tq_kv_attention as tk
 
-    return [iv.launches, fa.launches, fd.launches, k6.launches, tk.launches]
+    return [iv.launches, fa.launches, fd.launches, k5.launches, k6.launches,
+            tk.launches]
 
 
 def reset_counts() -> None:
@@ -606,22 +730,24 @@ def read_counts() -> dict:
     return {k: v for c in counters() for k, v in c.items()}
 
 
-class tq_scheme:
-    """Set MLX_VLM_TPU_TQ_SCHEME (None: unset) for the duration of a with
-    block."""
+class env_vars:
+    """Set environment variables (a value of None unsets one) for the
+    duration of a with block."""
 
-    def __init__(self, value):
-        self.value = value
+    def __init__(self, **values):
+        self.values = values
 
     def __enter__(self):
-        self.old = os.environ.pop("MLX_VLM_TPU_TQ_SCHEME", None)
-        if self.value is not None:
-            os.environ["MLX_VLM_TPU_TQ_SCHEME"] = self.value
+        self.old = {k: os.environ.pop(k, None) for k in self.values}
+        for k, v in self.values.items():
+            if v is not None:
+                os.environ[k] = v
 
     def __exit__(self, *exc):
-        os.environ.pop("MLX_VLM_TPU_TQ_SCHEME", None)
-        if self.old is not None:
-            os.environ["MLX_VLM_TPU_TQ_SCHEME"] = self.old
+        for k, v in self.old.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
 
 
 def teacher_forced_logits(model, inputs: dict, forced=None,
@@ -721,7 +847,7 @@ def phase_slice_parity() -> bool:
         route = route and cpu.language_model.fused_decode
         for kv_bits, tq, _, _, ref_dtype, n_steps in PARITY_CASES:
             if ref_dtype == dtype:
-                with tq_scheme(tq):
+                with env_vars(MLX_VLM_TPU_TQ_SCHEME=tq):
                     refs[kv_bits, tq] = teacher_forced_logits(
                         cpu, inputs, n_steps=n_steps, kv_bits=kv_bits)
         del cpu
@@ -731,7 +857,7 @@ def phase_slice_parity() -> bool:
     for kv_bits, tq, kernel, per_layer, ref_dtype, n_steps in PARITY_CASES:
         ref, toks = refs[kv_bits, tq]
         reset_counts()
-        with tq_scheme(tq):
+        with env_vars(MLX_VLM_TPU_TQ_SCHEME=tq):
             got, _ = teacher_forced_logits(gpu, inputs, forced=toks,
                                            n_steps=n_steps, kv_bits=kv_bits)
         n = read_counts()[kernel]
@@ -750,6 +876,95 @@ def phase_slice_parity() -> bool:
     return all_ok
 
 
+# Runtime quantization modes: (label, checkpoint bits,
+# MLX_VLM_TPU_RUNTIME_QUANT (None: the default, w8chan for 8 bits), kv_bits,
+# MLX_VLM_TPU_KV_SCHEME, the K5 counter every linear and the head run, the
+# CPU reference's dtype).  The exact-8 case's quantized cache is held to a
+# bf16 CPU run for the reason given at PARITY_CASES.
+QUANT_CASES = (
+    ("exact-4", 4, "exact", None, None, "qmatmul_int4", "float32"),
+    ("w8chan-8", 8, None, None, None, None, "float32"),
+    ("exact-8, kv_bits 8 affine", 8, "exact", 8, "affine", "qmatmul_int8",
+     "bfloat16"),
+)
+# 2 steps: the cases cost 183 s at 4 (the w8chan loads' host requantization
+# in float64 most of it), past the ~120 s that phase 3 may grow by
+QUANT_STEPS = 2
+# every counter that a per-linear exact or w8chan model must leave at 0
+# besides the other K5 variant (K4 may run its prefill attention)
+NOT_ON_QUANT_PATH = ("int4_matmul", "int4_matvec", "fused_decode",
+                     "int4_kv_attention", "tq_kv_attention",
+                     "tq_kv_attention_split")
+
+
+def phase_quant_parity(n_layers: int = 2) -> bool:
+    """The exact and w8chan layouts on the card (bf16, K5) against the CPU
+    (plain versions), 7B widths with `n_layers` decoder layers, random mlx
+    checkpoints, teacher-forced; each model loaded through
+    load_model_from_weights with its mode set."""
+    import torch
+
+    from mlx_vlm_tpu_torch import apply_chat_template
+    from mlx_vlm_tpu_torch.utils.loader import load_model_from_weights
+    from mlx_vlm_tpu_torch.utils.processing import prepare_inputs
+    from mlx_vlm_tpu_torch.utils.testing import (mlx_quantized_checkpoint,
+                                                 qwen2_vl_7b_config)
+
+    print(f"phase 3: runtime quantization modes on the card vs the CPU, "
+          f"Qwen2-VL-7B widths, {n_layers} decoder layers, {QUANT_STEPS} "
+          f"teacher-forced steps", flush=True)
+    base = qwen2_vl_7b_config()
+    base["num_hidden_layers"] = n_layers
+    proc = _processor()
+    prompt = apply_chat_template(proc, base, "What is in this image?",
+                                 num_images=1)
+    inputs = prepare_inputs(proc, prompt, images=_image(224))
+    ckpts, all_ok = {}, True
+    for label, bits, mode, kv_bits, scheme, counter, ref_dtype in QUANT_CASES:
+        t0 = time.perf_counter()
+        if bits not in ckpts:
+            ckpts[bits] = mlx_quantized_checkpoint(base, bits=bits,
+                                                   seed=SEED + 1)
+        cfg, weights = ckpts[bits]
+        with env_vars(MLX_VLM_TPU_RUNTIME_QUANT=mode,
+                      MLX_VLM_TPU_KV_SCHEME=scheme):
+            cpu = load_model_from_weights(cfg, weights,
+                                          getattr(torch, ref_dtype), "cpu")
+            ref, toks = teacher_forced_logits(cpu, inputs, n_steps=QUANT_STEPS,
+                                              kv_bits=kv_bits)
+            del cpu
+            gpu = load_model_from_weights(cfg, weights, torch.bfloat16, "cuda")
+            reset_counts()
+            got, _ = teacher_forced_logits(gpu, inputs, forced=toks,
+                                           n_steps=QUANT_STEPS,
+                                           kv_bits=kv_bits)
+            counts = read_counts()
+        lp = gpu.params["language_model"]
+        layouts = {type(lp["lm_head"]["weight"]).__name__,
+                   type(lp["model"]["layers"]["mlp"]["up_proj"]["weight"])
+                   .__name__}
+        layouts_ok = layouts == {"QuantizedTensor" if mode == "exact"
+                                 else "ChannelQuantizedTensor"}
+        layouts_ok = layouts_ok and not gpu.language_model.fused_decode
+        del gpu
+        torch.cuda.empty_cache()
+        want = {k: 0 for k in NOT_ON_QUANT_PATH + ("qmatmul_int4",
+                                                   "qmatmul_int8")}
+        if counter:
+            want[counter] = QUANT_STEPS * (7 * n_layers + 1)
+        counts_ok = all(counts[k] == v for k, v in want.items())
+        ok, err, tol, n_margin = parity_rule(ref, got)
+        print(f"  {label} ({'/'.join(sorted(layouts))}) vs the CPU in "
+              f"{ref_dtype}: max|cuda - cpu| = {err:.4e}, tol {tol:.4e}; "
+              f"argmax checked on {n_margin}/{QUANT_STEPS} steps; launches "
+              f"{ {k: counts[k] for k in want} } (want {want}); "
+              f"{time.perf_counter() - t0:.1f} s; "
+              f"{'ok' if ok and counts_ok and layouts_ok else 'MISMATCH'}",
+              flush=True)
+        all_ok = all_ok and ok and counts_ok and layouts_ok
+    return all_ok
+
+
 # ------------------------------------------------------------ phase 4
 
 
@@ -759,13 +974,74 @@ KV_KERNEL = {(3.5, None): "tq_kv_attention", (3.5, "split"):
              "tq_kv_attention_split", (4, None): "int4_kv_attention"}
 
 
+def prefill_chunks(S: int, max_tokens: int, step: int = 512,
+                   bucket: int = 256) -> int:
+    """Prefill chunks of a request, by generate_step's rule: the chunk is
+    the prompt rounded up to the cache bucket, at most `step` rows, halved
+    while the padded prompt overflows the cache."""
+    capacity = -(-(S + max_tokens + 1) // bucket) * bucket
+    step = min(step, -(-S // bucket) * bucket)
+    while -(-S // step) * step > capacity and step > 64:
+        step = max(64, step // 2)
+    return -(-S // step)
+
+
+def run_request(model, proc, cfg, name: str, route: str, text: str, image,
+                n_img: int, max_tokens: int, kv_bits, env: dict) -> tuple:
+    """One greedy request through stream_generate with `env` set, the
+    kernels' launch counters set to 0 just before it and read just after;
+    prints its metrics and returns (launch counts, generated tokens, prompt
+    tokens)."""
+    import torch
+
+    from mlx_vlm_tpu_torch import apply_chat_template, stream_generate
+
+    prompt = apply_chat_template(proc, cfg, text, num_images=n_img)
+    torch.cuda.reset_peak_memory_stats()
+    times, last = [], None
+    with env_vars(**env):
+        reset_counts()
+        tic = time.perf_counter()
+        for res in stream_generate(model, proc, prompt, image=image,
+                                   max_tokens=max_tokens, kv_bits=kv_bits):
+            times.append(time.perf_counter())
+            if not np.all(np.isfinite(res.logprobs)):
+                fail(f"{name}: non-finite logits at token {len(times)}")
+            last = res
+        counts = read_counts()
+    if last is None:
+        fail(f"{name}: no tokens")
+    n = last.generation_tokens
+    if not (n == max_tokens or last.finish_reason == "stop"):
+        fail(f"{name}: {n} tokens, finish_reason {last.finish_reason}")
+    ttft = times[0] - tic
+    tps = (n - 1) / (times[-1] - times[0]) if n > 1 else 0.0
+    steps_ms = 1e3 * np.diff(times) if n > 1 else np.zeros(1)
+    print(f"  {name} ({route} decode): prompt {last.prompt_tokens} "
+          f"tokens, TTFT {ttft:.4f} s, decode {tps:.2f} tok/s over {n} "
+          f"tokens (step ms min {steps_ms.min():.1f} median "
+          f"{np.median(steps_ms):.1f} max {steps_ms.max():.1f}), peak "
+          f"{last.peak_memory:.2f} GiB, finish_reason "
+          f"{last.finish_reason}; launches {counts}", flush=True)
+    return counts, n, last.prompt_tokens
+
+
+def expect(name: str, counts: dict, want: dict, total: dict) -> None:
+    """Fail unless each counter in `want` holds its count; add the request's
+    counts to `total`."""
+    for k, v in want.items():
+        if counts[k] != v:
+            fail(f"{name}: {k} launched {counts[k]} times, want {v}")
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
 def phase_main_path() -> dict:
     """Qwen2-VL-7B at full width through the public entry points; returns
     the kernels' launch counts summed over the requests, each request's
     counted from 0."""
     import torch
 
-    from mlx_vlm_tpu_torch import apply_chat_template, stream_generate
     from mlx_vlm_tpu_torch.utils.loader import (decide_fused_decode,
                                                 load_model_from_weights)
     from mlx_vlm_tpu_torch.utils.testing import (mlx_int4_checkpoint,
@@ -777,7 +1053,6 @@ def phase_main_path() -> dict:
     cfg, weights = mlx_int4_checkpoint(qwen2_vl_7b_config(), seed=SEED + 2)
     t1 = time.perf_counter()
     model = load_model_from_weights(cfg, weights, torch.bfloat16, "cuda")
-    del weights
     t2 = time.perf_counter()
     n_layers = model.language_model.args.num_hidden_layers
     print(f"  checkpoint built in {t1 - t0:.1f} s, loaded (fold + stack + "
@@ -809,54 +1084,84 @@ def phase_main_path() -> dict:
         os.environ["MLX_VLM_TPU_FUSED_DECODE"] = "1" if fused else "0"
         if decide_fused_decode(model) != fused:
             fail(f"{name}: the fused route did not switch to {fused}")
-        prompt = apply_chat_template(proc, cfg, text, num_images=n_img)
-        torch.cuda.reset_peak_memory_stats()
-        times, last = [], None
-        with tq_scheme(tq):
-            reset_counts()
-            tic = time.perf_counter()
-            for res in stream_generate(model, proc, prompt, image=image,
-                                       max_tokens=max_tokens,
-                                       kv_bits=kv_bits):
-                times.append(time.perf_counter())
-                if not np.all(np.isfinite(res.logprobs)):
-                    fail(f"{name}: non-finite logits at token {len(times)}")
-                last = res
-            counts = read_counts()
-        if last is None:
-            fail(f"{name}: no tokens")
-        n = last.generation_tokens
-        if not (n == max_tokens or last.finish_reason == "stop"):
-            fail(f"{name}: {n} tokens, finish_reason {last.finish_reason}")
-        ttft = times[0] - tic
-        tps = (n - 1) / (times[-1] - times[0]) if n > 1 else 0.0
-        steps_ms = 1e3 * np.diff(times) if n > 1 else np.zeros(1)
         kv_kernel = KV_KERNEL.get((kv_bits, tq))
-        route = (kv_kernel if kv_kernel else
-                 "K3" if fused else "per-linear")
-        print(f"  {name} ({route} decode): prompt {last.prompt_tokens} "
-              f"tokens, TTFT {ttft:.4f} s, decode {tps:.2f} tok/s over {n} "
-              f"tokens (step ms min {steps_ms.min():.1f} median "
-              f"{np.median(steps_ms):.1f} max {steps_ms.max():.1f}), peak "
-              f"{last.peak_memory:.2f} GiB, finish_reason "
-              f"{last.finish_reason}; launches {counts}", flush=True)
+        route = kv_kernel if kv_kernel else "K3" if fused else "per-linear"
+        counts, n, _ = run_request(model, proc, cfg, name, route, text, image,
+                                   n_img, max_tokens, kv_bits,
+                                   {"MLX_VLM_TPU_TQ_SCHEME": tq})
         want = {k: 0 for k in KV_KERNEL.values()}
         want["fused_decode"] = (n - 1) if fused and kv_bits is None else 0
         if kv_kernel:
             want[kv_kernel] = n_layers * (n - 1)
-        for k, v in want.items():
-            if counts[k] != v:
-                fail(f"{name}: {k} launched {counts[k]} times, want {v}")
-        for k, v in counts.items():
-            total[k] = total.get(k, 0) + v
+        expect(name, counts, want, total)
     del os.environ["MLX_VLM_TPU_FUSED_DECODE"]
     decide_fused_decode(model)
+    time_full_step(model)
+    del model
+    torch.cuda.empty_cache()
+    exact_requests(proc, cfg, weights, total)
     print(f"  kernel launches on the main path: {total}", flush=True)
     for k, v in total.items():
         if v <= 0:
             fail(f"kernel {k} was not launched on the main path")
-    time_full_step(model)
     return total
+
+
+def exact_requests(proc, cfg4: dict, weights4: dict, total: dict) -> None:
+    """Requests (g) and (h): each on its own full-width model loaded with
+    MLX_VLM_TPU_RUNTIME_QUANT=exact, so that every decoder linear (7 per
+    layer) runs K5 for each prefill chunk and each decode step, and the
+    lm_head once per token; no other weight kernel and no quantized-KV
+    kernel runs."""
+    import torch
+
+    from mlx_vlm_tpu_torch.utils.loader import load_model_from_weights
+    from mlx_vlm_tpu_torch.utils.testing import (mlx_quantized_checkpoint,
+                                                 qwen2_vl_7b_config)
+
+    zero = ("int4_matmul", "int4_matvec", "fused_decode",
+            "int4_kv_attention", "tq_kv_attention", "tq_kv_attention_split")
+    requests = [  # (name, bits, text, image, images, max_tokens, kv_bits,
+        #             MLX_VLM_TPU_KV_SCHEME)
+        ("(g) exact 4-bit, image 448x448 + short prompt", 4,
+         "Describe this image in detail.", _image(448), 1, 32, None, None),
+        ("(h) exact 8-bit, text only, kv_bits 8 affine", 8,
+         "Write a short story about a lighthouse.", None, 0, 32, 8, "affine"),
+    ]
+    for name, bits, text, image, n_img, max_tokens, kv_bits, scheme in \
+            requests:
+        t0 = time.perf_counter()
+        if bits == 4:
+            cfg, weights = cfg4, weights4
+        else:
+            cfg, weights = mlx_quantized_checkpoint(
+                qwen2_vl_7b_config(), bits=bits, seed=SEED + 3)
+        t1 = time.perf_counter()
+        with env_vars(MLX_VLM_TPU_RUNTIME_QUANT="exact"):
+            model = load_model_from_weights(cfg, weights, torch.bfloat16,
+                                            "cuda")
+        del weights
+        t2 = time.perf_counter()
+        lp = model.params["language_model"]
+        n_layers = model.language_model.args.num_hidden_layers
+        head = lp["lm_head"]["weight"]
+        if (type(head).__name__ != "QuantizedTensor" or head.bits != bits
+                or model.language_model.fused_decode):
+            fail(f"{name}: the model did not load exact {bits}-bit weights")
+        print(f"  {name}: checkpoint built in {t1 - t0:.1f} s, loaded in "
+              f"{t2 - t1:.1f} s; device memory "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+        counts, n, S = run_request(
+            model, proc, cfg, name, f"per-linear, qmatmul_int{bits}", text,
+            image, n_img, max_tokens, kv_bits,
+            {"MLX_VLM_TPU_KV_SCHEME": scheme})
+        want = {k: 0 for k in zero + ("qmatmul_int4", "qmatmul_int8")}
+        want[f"qmatmul_int{bits}"] = (
+            prefill_chunks(S, max_tokens) * 7 * n_layers + 1
+            + (n - 1) * (7 * n_layers + 1))
+        expect(name, counts, want, total)
+        del model, lp, head
+        torch.cuda.empty_cache()
 
 
 def time_full_step(model) -> None:
@@ -901,6 +1206,10 @@ KERNELS = (
     ("fused_decode", "mlx_vlm_tpu_torch/csrc/fused_decode.cu",
      "mlx_vlm_tpu/ops/fused_decode.py:964",
      "L=4 D=3584 I=18944 H=28 KVH=4 V=152064 C=8704 offset=8545 q_scale=4"),
+    ("qmatmul_int4", "mlx_vlm_tpu_torch/csrc/qmatmul.cu",
+     "mlx_vlm_tpu/ops/qmatmul.py:53", "M=512 K=3584 N=18944 g=64"),
+    ("qmatmul_int8", "mlx_vlm_tpu_torch/csrc/qmatmul.cu",
+     "mlx_vlm_tpu/ops/qmatmul.py:83", "M=512 K=3584 N=18944 g=64"),
     ("int4_kv_attention", "mlx_vlm_tpu_torch/csrc/int4_kv_attention.cu",
      "mlx_vlm_tpu/ops/int4_kv_attention.py:104", KV_SHAPE),
     ("tq_kv_attention", "mlx_vlm_tpu_torch/csrc/tq_kv_attention.cu",
@@ -915,14 +1224,26 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a GPU")
+    clock = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        clock.append(time.perf_counter())
+        print(f"{phase}: {clock[-1] - clock[-2]:.1f} s", flush=True)
+
     phase_environment()
+    lap("phase 1")
     results = phase_kernels()
+    lap("phase 2")
     bad = [r for r in results if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks disagree with their plain versions")
     if not phase_slice_parity():
         fail("the slice on the card disagrees with the slice on the CPU")
+    if not phase_quant_parity():
+        fail("a runtime quantization mode on the card disagrees with the CPU")
+    lap("phase 3")
     launches = phase_main_path()
+    lap("phase 4")
     report = []
     for name, source, replaces, shape in KERNELS:
         mine = [r for r in results if r["name"] == name]

@@ -1,8 +1,9 @@
 """KV caches: fixed-capacity buffers written by index.
 
 Port of mlx_vlm_tpu/core/cache.py (_flash_eligible :47, KVCache :79,
-init_cache :149, update_layer :169, Int8KVCache :608, _update_scalar_auto
-:743, init_int8_cache :762, Int4KVCache :795, init_int4_cache :965).  A
+init_cache :149, update_layer :169, QuantizedKVCache :301,
+init_quantized_cache :389, Int8KVCache :608, _update_scalar_auto :743,
+init_int8_cache :762, Int4KVCache :795, init_int4_cache :965).  A
 cache holds every layer's K and V in preallocated buffers
 [L, B, n_kv_heads, capacity, ...]; rows share one write cursor `offset` and
 mask their unused prefix with `left_pad`.  Unlike the reference's immutable
@@ -10,7 +11,11 @@ arrays, writes happen IN PLACE at `offset`: `update_layer` and each cache's
 `attend(layer, q, k, v, scale, mask)` mutate the buffers they are given,
 and `advance` moves the cursor.
 
-The quantized caches keep one affine scale and bias per (row, head, token),
+The group-affine QuantizedKVCache stores mlx-style codes along the head dim
+(the `quantize` / `dequantize` of QuantizedTensor) and attends by
+dequantizing the whole layer, in plain PyTorch, as the reference does in
+XLA.  The other quantized caches keep one affine scale and bias per (row,
+head, token),
 so the scale factors out of the head-dim reduction and attention runs on
 the integer codes.  Their prefill (S > 1) is plain PyTorch, as the
 reference's is XLA; a 4-bit decode step runs K6
@@ -26,8 +31,12 @@ from typing import Optional
 
 import torch
 
+from .quant import (QuantizedTensor, _check_bits, dequantize, dtype_name,
+                    quantize)
+
 __all__ = ["KVCache", "init_cache", "update_layer", "flash_eligible",
-           "Int8KVCache", "init_int8_cache", "Int4KVCache", "init_int4_cache"]
+           "QuantizedKVCache", "init_quantized_cache", "Int8KVCache",
+           "init_int8_cache", "Int4KVCache", "init_int4_cache"]
 
 _F32_MIN = float(torch.finfo(torch.float32).min)
 
@@ -126,6 +135,83 @@ def init_cache(num_layers: int, batch_size: int, num_kv_heads: int,
         offset=0,
         left_pad=cursor(left_pad, batch_size, device),
     )
+
+
+@dataclasses.dataclass
+class QuantizedKVCache:
+    """Group-affine quantized KV cache (1, 2, 4 or 8 bits along head_dim).
+
+    kq, vq: uint8 [L, B, H, C, D * bits / 8] packed codes (low bits first)
+    ks/kb, vs/vb: [L, B, H, C, D / group_size] scales / biases in the model
+    dtype (dequant = code * s + b per group)
+
+    `attend` quantizes the new k/v, writes them at `offset` in place,
+    dequantizes the whole layer and runs `sdpa`: the reference's XLA route
+    (it has no kernel for this cache)."""
+
+    kq: torch.Tensor
+    ks: torch.Tensor
+    kb: torch.Tensor
+    vq: torch.Tensor
+    vs: torch.Tensor
+    vb: torch.Tensor
+    offset: int
+    left_pad: torch.Tensor
+    bits: int
+    group_size: int
+
+    @property
+    def capacity(self) -> int:
+        return self.kq.shape[3]
+
+    def advance(self, new_tokens: int) -> None:
+        self.offset += new_tokens
+
+    def _dequantize(self, q, s, b, dtype) -> torch.Tensor:
+        t = QuantizedTensor(q=q, scales=s, biases=b, bits=self.bits,
+                            group_size=self.group_size,
+                            out_dtype=dtype_name(s))
+        return dequantize(t, dtype)
+
+    def attend(self, layer: int, q, k, v, scale: float, mask) -> torch.Tensor:
+        from ..ops.attention import sdpa
+
+        kq, ks, kb = self.kq[layer], self.ks[layer], self.kb[layer]
+        vq, vs, vb = self.vq[layer], self.vs[layer], self.vb[layer]
+        kn = quantize(k, bits=self.bits, group_size=self.group_size)
+        vn = quantize(v, bits=self.bits, group_size=self.group_size)
+        update_layer(kq, vq, kn.q, vn.q, self.offset)
+        update_layer(ks, vs, kn.scales, vn.scales, self.offset)
+        update_layer(kb, vb, kn.biases, vn.biases, self.offset)
+        k_full = self._dequantize(kq, ks, kb, q.dtype)
+        v_full = self._dequantize(vq, vs, vb, q.dtype)
+        return sdpa(q, k_full, v_full, scale, mask)
+
+
+def init_quantized_cache(num_layers: int, batch_size: int, num_kv_heads: int,
+                         head_dim: int, capacity: int, dtype=torch.bfloat16,
+                         bits: int = 8, group_size: int = 64,
+                         left_pad: Optional[torch.Tensor] = None,
+                         device=None) -> QuantizedKVCache:
+    """Zeroed group-affine cache; raises for bits or a group size that
+    `quantize` does not take (the reference raises the same errors at the
+    first write)."""
+    _check_bits(bits)
+    if head_dim % group_size:
+        raise ValueError(f"last dim {head_dim} not divisible by group_size "
+                         f"{group_size}")
+    base = (num_layers, batch_size, num_kv_heads, capacity)
+    packed = (*base, head_dim * bits // 8)
+    groups = (*base, head_dim // group_size)
+    return QuantizedKVCache(
+        kq=torch.zeros(packed, dtype=torch.uint8, device=device),
+        ks=torch.zeros(groups, dtype=dtype, device=device),
+        kb=torch.zeros(groups, dtype=dtype, device=device),
+        vq=torch.zeros(packed, dtype=torch.uint8, device=device),
+        vs=torch.zeros(groups, dtype=dtype, device=device),
+        vb=torch.zeros(groups, dtype=dtype, device=device),
+        offset=0, left_pad=cursor(left_pad, batch_size, device), bits=bits,
+        group_size=group_size)
 
 
 def quantize_query(q: torch.Tensor):

@@ -8,10 +8,13 @@ input dtype with f32 accumulation.
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 
-from .quant import ChannelQuantizedTensor, Int4GroupedTensor, QuantizedTensor
+from .quant import (ChannelQuantizedTensor, Int4GroupedTensor, QuantizedTensor,
+                    channel_quantized_matmul, dequantize, quantized_matmul)
 
 __all__ = [
     "linear",
@@ -25,15 +28,21 @@ __all__ = [
 
 
 def _matmul_wT(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w.T for a dense or grouped-int4 weight in HF [out, in] layout."""
+    """x @ w.T for a dense or quantized weight in HF [out, in] layout:
+    grouped int4 (w4grp) through K1 / K2, mlx group-affine (exact) through
+    `quantized_matmul` (K5), per-channel int8 (w8chan) as plain tensor
+    math."""
     if isinstance(w, Int4GroupedTensor):
         from ..ops.int4_matvec import int4_matvec
 
         return int4_matvec(x, w)
-    if isinstance(w, (ChannelQuantizedTensor, QuantizedTensor)):
-        raise NotImplementedError(
-            f"{type(w).__name__} linears are not ported; load 4-bit weights "
-            "in the grouped-int4 layout")
+    if isinstance(w, QuantizedTensor):
+        return quantized_matmul(x, w, transpose=True)
+    if isinstance(w, ChannelQuantizedTensor):
+        if os.environ.get("MLX_VLM_TPU_ACT_QUANT", "0") in ("1", "true"):
+            raise NotImplementedError(
+                "MLX_VLM_TPU_ACT_QUANT (int8 activations) is not ported")
+        return channel_quantized_matmul(x, w)
     if not isinstance(w, torch.Tensor):
         raise NotImplementedError(f"weight type {type(w).__name__}")
     return torch.matmul(x, w.to(x.dtype).transpose(-1, -2))
@@ -61,6 +70,13 @@ def embedding(p: dict, ids: torch.Tensor) -> torch.Tensor:
         b = w.biases[:, ids]
         out = q.to(dt) * s.to(dt) + b.to(dt)
         return torch.movedim(out, 0, -1)
+    if isinstance(w, QuantizedTensor):
+        # gather the rows, then dequantize only them: the reference's values
+        # (it dequantizes the whole table first) without a dense table copy
+        rows = QuantizedTensor(q=w.q[ids], scales=w.scales[ids],
+                               biases=w.biases[ids], bits=w.bits,
+                               group_size=w.group_size, out_dtype=w.out_dtype)
+        return dequantize(rows)
     if not isinstance(w, torch.Tensor):
         raise NotImplementedError(f"{type(w).__name__} embedding tables")
     return w[ids]

@@ -1,9 +1,10 @@
 """Group-affine weight quantization: the layouts the slice loads into.
 
 Port of mlx_vlm_tpu/core/quant.py (QuantizedTensor :38, ChannelQuantizedTensor
-:77, to_channel_quantized :114, quantize :188, dequantize :234,
-from_mlx_packed :279, Int4GroupedTensor :484, _int4_half_width :526,
-to_int4_grouped :537, int4_grouped_dequantize :574).
+:77, to_channel_quantized :114, channel_quantized_matmul :173, quantize
+:188, dequantize :234, quantized_matmul :246, from_mlx_packed :279,
+Int4GroupedTensor :484, _int4_half_width :526, to_int4_grouped :537,
+int4_grouped_dequantize :574).
 
 Layouts stay bit-exact with the reference: the mlx uint32 words are re-viewed
 as bytes, and the halves-packed int4 repack runs on the host in numpy, as in
@@ -24,6 +25,9 @@ __all__ = [
     "Int4GroupedTensor",
     "quantize",
     "dequantize",
+    "quantized_matmul",
+    "qmm_kernel_route",
+    "channel_quantized_matmul",
     "from_mlx_packed",
     "to_channel_quantized",
     "to_int4_grouped",
@@ -91,6 +95,11 @@ class QuantizedTensor:
     def ndim(self):
         return len(self.q.shape)
 
+    def layer(self, i: int) -> "QuantizedTensor":
+        """Layer `i` of a stacked [L, N, K*bits/8] weight, as views."""
+        return dataclasses.replace(self, q=self.q[i], scales=self.scales[i],
+                                   biases=self.biases[i])
+
 
 @dataclasses.dataclass
 class ChannelQuantizedTensor:
@@ -119,6 +128,11 @@ class ChannelQuantizedTensor:
     @property
     def ndim(self):
         return len(self.q8.shape)
+
+    def layer(self, i: int) -> "ChannelQuantizedTensor":
+        """Layer `i` of a stacked [L, K, N] weight, as views."""
+        return dataclasses.replace(self, q8=self.q8[i], scales=self.scales[i],
+                                   biases=self.biases[i])
 
 
 @dataclasses.dataclass
@@ -210,6 +224,16 @@ def to_channel_quantized(t: QuantizedTensor,
     )
 
 
+def channel_quantized_matmul(x: torch.Tensor,
+                             t: ChannelQuantizedTensor) -> torch.Tensor:
+    """x [..., K] @ dequant(t).T -> [..., N]: the weight dequantized in x's
+    dtype (q8 * s + b over [K, N]), then one product in x's dtype with f32
+    accumulation, as the reference leaves it to XLA."""
+    dt = x.dtype
+    w = t.q8.to(dt) * t.scales.to(dt) + t.biases.to(dt)
+    return torch.matmul(x, w)
+
+
 def _check_bits(bits: int):
     if bits not in (1, 2, 4, 8):
         raise ValueError(f"Only 1/2/4/8-bit quantization supported, got {bits}")
@@ -270,6 +294,30 @@ def dequantize(t: QuantizedTensor, dtype=None) -> torch.Tensor:
     s = torch.as_tensor(t.scales).float()[..., None]
     b = torch.as_tensor(t.biases).float()[..., None]
     return (qf * s + b).reshape(*lead, n).to(dtype)
+
+
+def qmm_kernel_route(t: QuantizedTensor, transpose: bool = True) -> bool:
+    """Whether x @ dequant(t).T runs K5 (ops/qmatmul.py): the reference's
+    rule (:256-260) for a 2-D 4- or 8-bit weight whose packed row holds whole
+    groups.  Its TPU check and its MLX_VLM_TPU_QMM switch are not ported."""
+    return (transpose and t.ndim == 2 and t.bits in (4, 8)
+            and t.q.shape[1] % max(t.group_size, 2) == 0)
+
+
+def quantized_matmul(x: torch.Tensor, t: QuantizedTensor,
+                     transpose: bool = True) -> torch.Tensor:
+    """x @ dequant(t).T (transpose=True, HF Linear layout) or x @ dequant(t).
+
+    Weights that pass `qmm_kernel_route` go through K5; others are
+    dequantized in x's dtype and multiplied, the reference's XLA route."""
+    if qmm_kernel_route(t, transpose):
+        from ..ops.qmatmul import quantized_matmul_kernel
+
+        return quantized_matmul_kernel(x, t)
+    w = dequantize(t, dtype=x.dtype)
+    if transpose:  # x's free dims, then w's (the reference's dot_general)
+        return torch.tensordot(x, w, dims=([x.dim() - 1], [w.dim() - 1]))
+    return torch.matmul(x, w)
 
 
 def from_mlx_packed(wq_u32: np.ndarray, scales, biases, bits: int,

@@ -3,9 +3,10 @@
 Port of mlx_vlm_tpu/generate/ar.py (make_cache :222, generate_step :305).
 `make_cache` picks the KV cache from `kv_bits` and the environment as the
 reference does: bf16 `KVCache`, `Int8KVCache` (8), `Int4KVCache` (4), the
-rotated int4 cache (4 with MLX_VLM_TPU_KV_SCHEME=turboquant) and the
+rotated int4 cache (4 with MLX_VLM_TPU_KV_SCHEME=turboquant), the
 TurboQuant caches (fractional bits; MLX_VLM_TPU_TQ_SCHEME=split for the
-per-channel split).  The group-affine `QuantizedKVCache` is not ported.
+per-channel split) and the group-affine `QuantizedKVCache` (other integer
+bits, or 4 / 8 with MLX_VLM_TPU_KV_SCHEME=affine).
 The prompt is prefilled in `prefill_step_size` chunks, padded as in the
 reference (:357-397) so every chunk has the same length; the cache's
 capacity must hold the padded prompt, which is checked before any write.
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.quant import _check_bits
 from ..core.sampling import make_sampler
 from .common import round_up
 
@@ -44,7 +46,7 @@ def _pad_axis(x: np.ndarray, axis: int, target: int):
 
 def _group_affine(kv_bits, head_dim: int = 2) -> bool:
     """Whether `kv_bits` and the environment pick the reference's
-    group-affine QuantizedKVCache (ar.py:296), which is not ported."""
+    group-affine QuantizedKVCache (ar.py:296)."""
     if not kv_bits or float(kv_bits) != int(kv_bits):
         return False
     scheme = os.environ.get("MLX_VLM_TPU_KV_SCHEME")
@@ -55,16 +57,12 @@ def _group_affine(kv_bits, head_dim: int = 2) -> bool:
     return kv_bits != 4 or scheme == "affine" or head_dim % 2 != 0
 
 
-def check_kv_bits(kv_bits, kv_group_size: int = 64,
-                  head_dim: int = 2) -> None:
-    """Raise for a `kv_bits` that picks the group-affine cache; callers
-    without a model check before any work (an odd head dim is caught by
-    make_cache)."""
-    if _group_affine(kv_bits, head_dim):
-        raise NotImplementedError(
-            f"the group-affine QuantizedKVCache (kv_bits={kv_bits}, "
-            f"kv_group_size={kv_group_size}, MLX_VLM_TPU_KV_SCHEME="
-            f"{os.environ.get('MLX_VLM_TPU_KV_SCHEME')}) is not ported")
+def check_kv_bits(kv_bits) -> None:
+    """Raise before any work for a `kv_bits` whose group-affine cache
+    `quantize` cannot build (bits other than 1, 2, 4, 8): the reference
+    raises the same ValueError at the cache's first write."""
+    if _group_affine(kv_bits):
+        _check_bits(int(kv_bits))
 
 
 def make_cache(model, batch_size: int, capacity: int, dtype,
@@ -89,7 +87,10 @@ def make_cache(model, batch_size: int, capacity: int, dtype,
                 *dims, kv_bits=float(kv_bits), device=device)
         return tq.init_turboquant_cache(*dims, kv_bits=float(kv_bits),
                                         device=device)
-    check_kv_bits(kv_bits, kv_group_size, lm.head_dim)
+    if _group_affine(kv_bits, lm.head_dim):
+        return cache_lib.init_quantized_cache(
+            *dims, dtype, bits=int(kv_bits), group_size=kv_group_size,
+            device=device)
     if kv_bits == 8:
         return cache_lib.init_int8_cache(*dims, device=device)
     if kv_bits == 4:

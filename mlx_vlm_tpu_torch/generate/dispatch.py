@@ -71,7 +71,7 @@ def stream_generate(
                       ("draft_model", draft_model)):
         if val is not None:
             raise NotImplementedError(f"{name} is not ported")
-    check_kv_bits(kv_bits, kv_group_size)
+    check_kv_bits(kv_bits)
 
     inputs = prepare_inputs(processor, prompt, images=image)
     input_ids = np.asarray(inputs["input_ids"])

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from ..core.quant import Int4GroupedTensor
+from ..core.quant import (ChannelQuantizedTensor, Int4GroupedTensor,
+                          QuantizedTensor)
 
 
 def layer_view(tree: dict, i: int) -> dict:
@@ -19,7 +20,8 @@ def layer_view(tree: dict, i: int) -> dict:
     for k, v in tree.items():
         if isinstance(v, dict):
             out[k] = layer_view(v, i)
-        elif isinstance(v, Int4GroupedTensor):
+        elif isinstance(v, (Int4GroupedTensor, QuantizedTensor,
+                            ChannelQuantizedTensor)):
             out[k] = v.layer(i)
         elif isinstance(v, torch.Tensor):
             out[k] = v[i]

@@ -36,8 +36,9 @@ STACK_PREFIX = "model.layers"
 
 # Any of the caches that generate/ar.py make_cache builds; each writes in
 # place at its `offset` in `attend(layer, q, k, v, scale, mask)`.
-Cache = Union[cache_lib.KVCache, cache_lib.Int8KVCache,
-              cache_lib.Int4KVCache, turboquant.TurboQuantKVCache,
+Cache = Union[cache_lib.KVCache, cache_lib.QuantizedKVCache,
+              cache_lib.Int8KVCache, cache_lib.Int4KVCache,
+              turboquant.TurboQuantKVCache,
               turboquant.SplitTurboQuantKVCache]
 
 

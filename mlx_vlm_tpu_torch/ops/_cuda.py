@@ -23,7 +23,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("int4_matmul.cu", "int4_matvec.cu", "flash_attention.cu",
-           "fused_decode.cu", "int4_kv_attention.cu", "tq_kv_attention.cu")
+           "fused_decode.cu", "int4_kv_attention.cu", "tq_kv_attention.cu",
+           "qmatmul.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -48,6 +49,8 @@ _SIGNATURES = {
     # q, 2 x (kq, ks, vq, vs, klut, vlut), offset, left_pad, part_ml,
     # part_acc, out, 2 x (d, kbits, vbits), nseg, BH, G, C, scale, stream
     "mvt_tq_kv_attention": (_P,) * 18 + (_I,) * 10 + (_F, _P),
+    # x, q, scales, biases, y, M, K, N, bits, group_size, stream
+    "mvt_qmatmul": (_P,) * 5 + (_I,) * 5 + (_P,),
 }
 
 

@@ -1,18 +1,22 @@
 """Model loading: checkpoints -> torch parameter trees (Qwen2-VL only).
 
 Port of mlx_vlm_tpu/utils/loader.py (load_config :107, _nest :143,
-_stack_layers :154, _fold_quantized :323, _raw_uint8_tensor :445,
-load_model_from_weights :548, load_model :759, load :773) for the
-qwen2_vl family and the w4grp layout.  Safetensors are parsed in numpy
-(bfloat16 read as uint16 and viewed as torch.bfloat16), so loading needs
-neither `safetensors` nor `ml_dtypes`.  mlx 4-bit linears fold bit-exact
-into the halves-packed Int4GroupedTensor layout and quantized embedding
-tables into the per-channel int8 layout; per-layer weights are stacked on a
-leading axis.  The whole-stack fused decode route is decided at load time,
-as the reference decides whether to build its pack (:655, :697): on unless
-MLX_VLM_TPU_FUSED_DECODE is 0 or false, and only for weights that pass the
-reference's eligibility rule.  No pack is built: the fused kernel reads the
-same stacked weights as the per-linear path.
+_stack_layers :154, runtime_quant_mode :290, _fold_quantized :323,
+_to_device :375, load_model_from_weights :548, load_model :759, load :773)
+for the qwen2_vl family.  Safetensors are parsed in numpy (bfloat16 read as
+uint16 and viewed as torch.bfloat16), so loading needs neither
+`safetensors` nor `ml_dtypes`.  mlx group-affine triples fold by the
+runtime mode (MLX_VLM_TPU_RUNTIME_QUANT, the reference's default rule when
+unset): "w4grp" keeps 4-bit linears bit-exact in the halves-packed
+Int4GroupedTensor layout and requantizes the rest to per-channel int8,
+"w8chan" requantizes every 2-D triple to per-channel int8 and "exact" keeps
+every triple as a QuantizedTensor in the mlx byte layout.  Per-layer weights
+are stacked on a leading axis.  The whole-stack fused decode route is
+decided at load time, as the reference decides whether to build its pack
+(:655, :697): on unless MLX_VLM_TPU_FUSED_DECODE is 0 or false, and only for
+weights that pass the reference's eligibility rule (w4grp layers only; an
+exact or w8chan model decodes per linear).  No pack is built: the fused
+kernel reads the same stacked weights as the per-linear path.
 
 `params_from_jax` carries a parameter tree of the JAX package (numpy
 leaves) over to the port unchanged, so tests run both on the same weights.
@@ -22,6 +26,7 @@ from the pack (the reference's `stacked_params_from_pack`).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -48,6 +53,7 @@ __all__ = [
     "load_config",
     "read_safetensors",
     "params_from_jax",
+    "runtime_quant_mode",
     "decide_fused_decode",
 ]
 
@@ -144,6 +150,14 @@ def _nest(flat: dict) -> dict:
     return out
 
 
+# the array fields of each container, stacked along a new leading axis
+_DATA_FIELDS = {
+    Int4GroupedTensor: ("qp", "sl", "sh", "bl", "bh"),
+    QuantizedTensor: ("q", "scales", "biases"),
+    ChannelQuantizedTensor: ("q8", "scales", "biases"),
+}
+
+
 def _stack(vals: list):
     if isinstance(vals[0], torch.Tensor):
         return torch.stack(vals)
@@ -168,14 +182,10 @@ def _stack_layers(flat: dict, patterns) -> dict:
             if len(vals) != max(items) + 1:
                 raise ValueError(f"missing indices under {pref}.*.{rest}")
             v0 = vals[0]
-            if isinstance(v0, Int4GroupedTensor):
-                stacked = Int4GroupedTensor(
-                    **{f: _stack([getattr(t, f) for t in vals])
-                       for f in ("qp", "sl", "sh", "bl", "bh")},
-                    n=v0.n, group_size=v0.group_size, out_dtype=v0.out_dtype)
-            elif isinstance(v0, (QuantizedTensor, ChannelQuantizedTensor)):
-                raise NotImplementedError(
-                    f"stacking {type(v0).__name__} at {pref}.*.{rest}")
+            if type(v0) in _DATA_FIELDS:
+                stacked = dataclasses.replace(
+                    v0, **{f: _stack([getattr(t, f) for t in vals])
+                           for f in _DATA_FIELDS[type(v0)]})
             else:
                 stacked = _stack(vals)
             out[f"{pref}.{rest}"] = stacked
@@ -183,12 +193,32 @@ def _stack_layers(flat: dict, patterns) -> dict:
     return flat
 
 
-def _fold_quantized(flat: dict, qcfg: dict) -> dict:
-    """Fold mlx-style (weight: packed uint32, scales, biases) triples: 4-bit
-    linears -> Int4GroupedTensor (w4grp), embedding tables and other 2-D
-    tensors -> ChannelQuantizedTensor, as the reference does for qwen2_vl."""
+def runtime_quant_mode(default: str = "w8chan") -> str:
+    """How quantized weights run: MLX_VLM_TPU_RUNTIME_QUANT, else `default`.
+
+    "w4grp": 4-bit linears bit-exact in the halves-packed Int4GroupedTensor
+    layout (K1 / K2 / K3); "w8chan": per-channel int8 [K, N]
+    (ChannelQuantizedTensor, plain tensor math); "exact": the checkpoint's
+    mlx codes as they are (QuantizedTensor, K5)."""
+    mode = os.environ.get("MLX_VLM_TPU_RUNTIME_QUANT", "") or default
+    if mode not in ("w4grp", "w8chan", "exact"):
+        raise ValueError(
+            f"MLX_VLM_TPU_RUNTIME_QUANT must be w4grp|w8chan|exact, "
+            f"got {mode}")
+    return mode
+
+
+def _fold_quantized(flat: dict, qcfg: dict,
+                    default_mode: str = "w8chan") -> dict:
+    """Fold mlx-style (weight: packed uint32, scales, biases) triples by the
+    runtime mode: under "w4grp" eligible 4-bit linears -> Int4GroupedTensor
+    and other 2-D triples (embedding tables included) ->
+    ChannelQuantizedTensor; under "w8chan" every 2-D triple ->
+    ChannelQuantizedTensor; under "exact" every triple stays a
+    QuantizedTensor."""
     bits = qcfg.get("bits", 4)
     group_size = qcfg.get("group_size", 64)
+    mode = runtime_quant_mode(default_mode)
     out = {}
     handled = set()
     for k in list(flat.keys()):
@@ -219,10 +249,10 @@ def _fold_quantized(flat: dict, qcfg: dict) -> dict:
                 else torch.zeros_like(flat[k])
         qt = from_mlx_packed(w, flat[k], biases, b, g)
         is_embed = "embed_tokens" in base or "wte" in base
-        if (b == 4 and qt.q.ndim == 2 and not is_embed
+        if (mode == "w4grp" and b == 4 and qt.q.ndim == 2 and not is_embed
                 and (qt.q.shape[1] * 2) % g == 0):
             qt = to_int4_grouped(qt)
-        elif qt.q.ndim == 2:
+        elif mode in ("w8chan", "w4grp") and qt.q.ndim == 2:
             qt = to_channel_quantized(qt)
         out[wk] = qt
         handled.update({wk, k, bk})
@@ -261,7 +291,11 @@ def _to_device(flat: dict, dtype: torch.dtype, device) -> dict:
                 src_bits=v.src_bits,
                 out_dtype=name)
         if isinstance(v, QuantizedTensor):
-            raise NotImplementedError("QuantizedTensor weights are not ported")
+            return QuantizedTensor(
+                q=_as_tensor(v.q).to(device, torch.uint8),
+                scales=_as_tensor(v.scales).to(device, dtype),
+                biases=_as_tensor(v.biases).to(device, dtype),
+                bits=v.bits, group_size=v.group_size, out_dtype=name)
         t = _as_tensor(v)
         if t.is_floating_point():
             return t.to(device, dtype)
@@ -295,7 +329,10 @@ def load_model_from_weights(config: dict, weights: dict,
     weights = model.sanitize(weights)
     qcfg = config.get("quantization")
     if qcfg:
-        weights = _fold_quantized(weights, qcfg)
+        # the reference's default (:566-577): w4grp for a 4-bit checkpoint
+        # whose language model has the fused decode step, else w8chan
+        default = "w4grp" if qcfg.get("bits", 4) == 4 else "w8chan"
+        weights = _fold_quantized(weights, qcfg, default)
     weights = _stack_layers(weights, tuple(model.stack_patterns))
     model.params = _nest(_to_device(weights, dtype, device))
     model.config_dict = config
@@ -343,7 +380,8 @@ def params_from_jax(model, params: dict) -> dict:
 
     `params` is the JAX package's `model.params` with numpy leaves (e.g.
     `jax.tree_util.tree_map(np.asarray, params)`): stacked dense arrays and
-    Int4GroupedTensor / ChannelQuantizedTensor containers of numpy fields.
+    Int4GroupedTensor / QuantizedTensor / ChannelQuantizedTensor containers
+    of numpy fields.
     Containers are recognised by their fields, so the JAX package is not
     imported.  Every byte and value is kept; tensors land on the CPU.  A
     fused-decode pack (the JAX default for int4 weights) is not part of the
@@ -370,13 +408,21 @@ def params_from_jax(model, params: dict) -> dict:
                 q8=_as_tensor(v.q8), scales=_as_tensor(v.scales),
                 biases=_as_tensor(v.biases), src_bits=int(v.src_bits),
                 out_dtype=str(v.out_dtype))
+        if all(hasattr(v, f) for f in ("q", "scales", "biases", "bits",
+                                       "group_size", "out_dtype")):
+            return QuantizedTensor(
+                q=_as_tensor(v.q), scales=_as_tensor(v.scales),
+                biases=_as_tensor(v.biases), bits=int(v.bits),
+                group_size=int(v.group_size), out_dtype=str(v.out_dtype))
         if isinstance(v, (np.ndarray, np.generic)):
             return _as_tensor(v)
         raise TypeError(f"{path}: unsupported leaf {type(v).__name__}")
 
     out = convert(params, "")
     q = out["language_model"]["model"]["layers"]["self_attn"]["q_proj"]["weight"]
-    n_layers = (q.qp if isinstance(q, Int4GroupedTensor) else q).shape[0]
+    if not isinstance(q, torch.Tensor):
+        q = getattr(q, _DATA_FIELDS[type(q)][0])
+    n_layers = q.shape[0]
     if n_layers != model.decoder_layers:
         raise ValueError(f"params hold {n_layers} decoder layers, the model "
                          f"{model.decoder_layers}")

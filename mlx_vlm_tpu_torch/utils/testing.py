@@ -4,11 +4,12 @@ Port of mlx_vlm_tpu/utils/testing.py (tiny_qwen2_vl_config :21 and
 qwen2_vl_7b_config :675 copied; qwen2_vl_hf_weights :59 draws the same
 arrays for a seed from one list of tensor specs), plus:
 
-- `mlx_int4_checkpoint`: a random checkpoint in the layout of a 4-bit
-  mlx-community conversion (every language-model linear, lm_head and
-  embed_tokens as uint32 codes + bf16 scales and biases, group 64; the vision
-  tower dense bf16), drawn directly in that layout so that no float weights
-  of full size are ever quantized on the host;
+- `mlx_quantized_checkpoint`: a random checkpoint in the layout of a 4- or
+  8-bit mlx-community conversion (every language-model linear, lm_head and
+  embed_tokens as uint32 codes + bf16 scales and biases; the vision tower
+  dense bf16), drawn directly in that layout so that no float weights of
+  full size are ever quantized on the host; `mlx_int4_checkpoint` is its
+  4-bit case;
 - `ByteTokenizer`: Qwen2-VL's special tokens at their public ids and one id
   per UTF-8 byte otherwise, so a processor works without `transformers`.
 
@@ -178,40 +179,46 @@ def qwen2_vl_hf_weights(config: dict, seed: int = 0,
     return w
 
 
-def _is_quantized_in_mlx_4bit(key: str) -> bool:
-    """Keys a 4-bit mlx-community Qwen2-VL conversion stores quantized: the
+def _is_quantized_in_mlx(key: str) -> bool:
+    """Keys an mlx-community Qwen2-VL conversion stores quantized: the
     language model's linears, lm_head and embed_tokens."""
     return key in ("model.embed_tokens.weight", "lm_head.weight") or (
         key.startswith("model.layers.") and key.endswith("_proj.weight"))
 
 
-def mlx_int4_checkpoint(config: dict, seed: int = 0, group_size: int = 64,
-                        std: float = 0.02):
-    """(config, weights) of a random 4-bit mlx-format Qwen2-VL checkpoint.
+def mlx_quantized_checkpoint(config: dict, bits: int = 4, group_size: int = 64,
+                             seed: int = 0, std: float = 0.02):
+    """(config, weights) of a random `bits`-bit mlx-format Qwen2-VL
+    checkpoint (bits 4 or 8).
 
-    Quantized tensors: `<key>.weight` uint32 [out, in/8] (8 codes per word,
-    low nibble first), `<key>.scales` and `<key>.biases` bf16
-    [out, in/group].  Codes are uniform in [0, 16) and each group's bias is
-    -7.5 * scale, with scales drawn so the dequantized weights have standard
-    deviation ~std.  The vision tower, the q/k/v biases and the norms are
-    dense bf16 (weights and biases ~ N(0, std), norms 1 / 0).  Returns the
-    config with its `quantization` entry added and a flat dict of numpy
-    uint32 arrays and CPU torch.bfloat16 tensors."""
+    Quantized tensors: `<key>.weight` uint32 [out, in * bits / 32] (codes
+    packed low bits first), `<key>.scales` and `<key>.biases` bf16
+    [out, in/group].  Codes are uniform in [0, 2**bits) and each group's bias
+    is -((2**bits - 1) / 2) * scale, with scales drawn so the dequantized
+    weights have standard deviation ~std.  The vision tower, the q/k/v biases
+    and the norms are dense bf16 (weights and biases ~ N(0, std), norms
+    1 / 0).  Returns the config with its `quantization` entry added and a
+    flat dict of numpy uint32 arrays and CPU torch.bfloat16 tensors."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
     rng = np.random.default_rng(seed)
-    s_mean = std / float(np.sqrt((16**2 - 1) / 12.0))  # std of uniform codes
+    levels = 2**bits
+    s_mean = std / float(np.sqrt((levels**2 - 1) / 12.0))  # uniform codes
     w = {}
     for key, shape, fill in qwen2_vl_tensor_specs(config):
-        if _is_quantized_in_mlx_4bit(key):
+        if _is_quantized_in_mlx(key):
             n, k = shape
-            if k % group_size:
+            if k % group_size or (k * bits) % 32:
                 raise ValueError(f"{key}: in-features {k} not a multiple of "
-                                 f"the group {group_size}")
+                                 f"the group {group_size} or of a word")
             s = rng.uniform(0.75 * s_mean, 1.25 * s_mean,
                             size=(n, k // group_size)).astype(np.float32)
             base = key[: -len(".weight")]
-            w[key] = rng.integers(0, 2**32, size=(n, k // 8), dtype=np.uint32)
+            w[key] = rng.integers(0, 2**32, size=(n, k * bits // 32),
+                                  dtype=np.uint32)
             w[base + ".scales"] = torch.from_numpy(s).to(torch.bfloat16)
-            w[base + ".biases"] = torch.from_numpy(-7.5 * s).to(torch.bfloat16)
+            w[base + ".biases"] = torch.from_numpy(
+                -((levels - 1) / 2) * s).to(torch.bfloat16)
         elif fill == "rand":
             w[key] = torch.from_numpy(
                 rng.standard_normal(shape, dtype=np.float32) * std).to(
@@ -219,8 +226,15 @@ def mlx_int4_checkpoint(config: dict, seed: int = 0, group_size: int = 64,
         else:
             w[key] = (torch.ones if fill == "ones" else torch.zeros)(
                 shape, dtype=torch.bfloat16)
-    cfg = {**config, "quantization": {"group_size": group_size, "bits": 4}}
+    cfg = {**config, "quantization": {"group_size": group_size, "bits": bits}}
     return cfg, w
+
+
+def mlx_int4_checkpoint(config: dict, seed: int = 0, group_size: int = 64,
+                        std: float = 0.02):
+    """The 4-bit case of `mlx_quantized_checkpoint` (the same draws)."""
+    return mlx_quantized_checkpoint(config, bits=4, group_size=group_size,
+                                    seed=seed, std=std)
 
 
 def _byte_unicode() -> list:

@@ -180,7 +180,12 @@ def test_import_pulls_in_no_jax_or_optional_packages():
 @pytest.mark.parametrize("arg", ["kv_bits", "apc", "vision_cache",
                                  "draft_model", "audio", "video"])
 def test_unported_arguments_raise(arg):
+    """Arguments the port cannot take raise before any work.  `kv_bits` is
+    ported; a bit width no cache takes (6) raises the reference's
+    ValueError before any work."""
     from mlx_vlm_tpu_torch.generate.dispatch import stream_generate
 
-    with pytest.raises(NotImplementedError):
-        next(stream_generate(None, None, "hi", **{arg: 1}))
+    value, exc = (6, ValueError) if arg == "kv_bits" else (1,
+                                                           NotImplementedError)
+    with pytest.raises(exc):
+        next(stream_generate(None, None, "hi", **{arg: value}))

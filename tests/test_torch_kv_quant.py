@@ -262,6 +262,11 @@ def test_make_cache_follows_reference(monkeypatch, kv_bits, kv_scheme,
 @pytest.mark.parametrize("kv_bits,kv_scheme", [(4, "affine"), (8, "affine"),
                                                (6, None), (2, None)])
 def test_make_cache_group_affine_raises(monkeypatch, kv_bits, kv_scheme):
+    """Where the reference picks its group-affine QuantizedKVCache, the port
+    builds the same cache (buffers of the same shapes and dtypes, the same
+    bits and group size); at a bit width `quantize` does not take (6) the
+    port raises the reference's ValueError when the cache is built, where
+    the reference raises it at the cache's first write."""
     from mlx_vlm_tpu.generate.ar import make_cache as jax_make
     from mlx_vlm_tpu_torch.generate.ar import make_cache
 
@@ -272,8 +277,19 @@ def test_make_cache_group_affine_raises(monkeypatch, kv_bits, kv_scheme):
     jm, tm = _lms()
     ref = jax_make(jm, 1, 256, jnp.float32, kv_bits)
     assert type(ref).__name__ == "QuantizedKVCache"
-    with pytest.raises(NotImplementedError, match="QuantizedKVCache"):
-        make_cache(tm, 1, 256, torch.float32, kv_bits)
+    if kv_bits == 6:
+        with pytest.raises(ValueError, match="Only 1/2/4/8-bit"):
+            make_cache(tm, 1, 256, torch.float32, kv_bits)
+        return
+    got = make_cache(tm, 1, 256, torch.float32, kv_bits)
+    assert type(got).__name__ == "QuantizedKVCache"
+    assert (got.bits, got.group_size) == (ref.bits, ref.group_size)
+    fields = ("kq", "ks", "kb", "vq", "vs", "vb")
+    for f, b in zip(fields, ref.scan_arrays()):
+        a = getattr(got, f)
+        assert tuple(a.shape) == tuple(b.shape), f
+        assert str(a.dtype).removeprefix("torch.") == str(b.dtype), f
+    assert got.offset == int(ref.offset) == 0
 
 
 # ------------------------------------------------------------ the slice
