@@ -5,13 +5,16 @@
 Phases (any failure exits non-zero):
   1. environment: card, power limit, versions; builds the CUDA kernels from
      mlx_vlm_tpu_torch/csrc with nvcc (one process per source, in
-     parallel);
+     parallel) and prints ptxas's registers, static shared memory and
+     spills of every kernel;
   2. each kernel (K1 int4_matmul, K2 int4_matvec, K3 fused_decode, K4
      flash_attention, K5 qmatmul_int4 / qmatmul_int8, K6
      int4_kv_attention, K7 tq_kv_attention, K8 tq_kv_attention_split)
      against its plain PyTorch version on the card at Qwen2-VL-7B shapes
-     (K3: 4 decoder layers and the int4 head; K6-K8: 4 KV heads of 7 query
-     rows over an 8704-slot cache), each with its device time, the least
+     (K1 also at groups of 32 and 128 and on a ragged 100-row chunk that
+     splits K; K3: 4 decoder layers and the int4 head; K6-K8: 4 KV heads
+     of 7 query rows over an 8704-slot cache), each with its device time,
+     the least
      time the card could take (`bound_ms`, from bytes at 3.35 TB/s or
      operations at 989 TFLOP/s) and, where one exists, the time of one
      PyTorch call computing the same function (`library_ms`: K4 against
@@ -128,23 +131,57 @@ def phase_environment() -> None:
     build_s = time.perf_counter() - t0
     print(f"kernels built and loaded in {build_s:.2f} s "
           f"({_cuda.library_path().name})", flush=True)
+    for source, log in _cuda.BUILD_LOG.items():
+        for name, regs, spills in ptxas_report(log):
+            print(f"  ptxas {source} {name}: {regs}; {spills}", flush=True)
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel, registers and static shared memory, spills) for each entry
+    function in nvcc -Xptxas -v output; names demangled by c++filt where the
+    host has it."""
+    import re
+    import shutil
+
+    rows, name, spills = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        elif "spill" in line and name:
+            spills = line.strip()
+        elif "Used" in line and name:
+            rows.append([name, line.split(":", 1)[1].strip(), spills])
+            name = None
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True).stdout.split("\n")
+        for r, full in zip(rows, names):
+            r[0] = full.replace("(anonymous namespace)::", "").split("(")[0]
+            r[0] = r[0].removeprefix("void ")
+    return [tuple(r) for r in rows]
 
 
 # ------------------------------------------------------------ phase 2
 
 K1_SHAPES = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584))
 K2_SHAPES = K1_SHAPES + ((3584, 152064),)
+# K1's further cases (M, K, N, group size): mlx's other group sizes, and a
+# ragged row count on the narrow shape, which takes the split-K pass
+K1_EXTRA = ((512, 3584, 3584, 32), (512, 3584, 3584, 128), (100, 3584, 512, 64))
+K1_TOL = 1e-2
 
 
-def random_int4(K: int, N: int, gen, device) -> "object":
-    """Random halves-packed int4 weight whose dequantized values have std
-    ~0.02 (codes uniform in [0, 16), zero-centred by the bias)."""
+def random_int4(K: int, N: int, gen, device, g: int = 64) -> "object":
+    """Random halves-packed int4 weight of group size g whose dequantized
+    values have std ~0.02 (codes uniform in [0, 16), zero-centred by the
+    bias)."""
     import torch
 
     from mlx_vlm_tpu_torch.core.quant import Int4GroupedTensor, _int4_half_width
 
     n2p = _int4_half_width(N)
-    G = K // 64
+    G = K // g
     qp = torch.randint(0, 256, (K, n2p), generator=gen, dtype=torch.uint8,
                        device="cpu").to(device)
     planes = []
@@ -153,7 +190,7 @@ def random_int4(K: int, N: int, gen, device) -> "object":
         planes += [s, -7.5 * s]
     sl, bl, sh, bh = (p.to(device) for p in planes)
     return Int4GroupedTensor(qp=qp, sl=sl, sh=sh, bl=bl, bh=bh, n=N,
-                             group_size=64, out_dtype="bfloat16")
+                             group_size=g, out_dtype="bfloat16")
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): HBM bytes/s
@@ -326,25 +363,29 @@ def phase_kernels() -> list:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
     results: list = []
-    print("phase 2: kernels vs plain versions (tolerances: K1 "
-          "2e-2*max(1,|ref|) and K4 2e-2*max|ref| for bf16 output rounding, "
-          "K2 1e-3*max(1,|ref|) for summation order, K3 1e-4*max|ref| on the "
-          "first layer's k/v and 6e-2*max|ref| behind bf16 roundings that "
-          "the layers amplify, K5 1e-2*max|ref| since kernel and plain "
-          "version each round once to bf16 (one ulp is at most 2^-7*max|ref|)"
-          " after f32 sums that differ by reassociation only, K6-K8 "
-          "1e-2*max|ref| for bf16(p*vs) rounded against block-local maxima)",
-          flush=True)
+    print("phase 2: kernels vs plain versions (tolerances: K1 and K5 "
+          "1e-2*max|ref| since kernel and plain version each round once to "
+          "bf16 (one ulp is at most 2^-7*max|ref|) after f32 sums that "
+          "differ by reassociation only, K4 2e-2*max|ref| for bf16 output "
+          "rounding, K2 1e-3*max(1,|ref|) for summation order, K3 "
+          "1e-4*max|ref| on the first layer's k/v and 6e-2*max|ref| behind "
+          "bf16 roundings that the layers amplify, K6-K8 1e-2*max|ref| for "
+          "bf16(p*vs) rounded against block-local maxima)", flush=True)
     weights = {}
     for K, N in K2_SHAPES:
         weights[(K, N)] = random_int4(K, N, gen, dev)
-    for K, N in K1_SHAPES:
-        t = weights[(K, N)]
-        x = torch.randn((512, K), generator=gen).to(dev, torch.bfloat16)
-        _check(results, "int4_matmul", f"M=512 K={K} N={N}",
-               iv.int4_matmul(x, t), iv.int4_matmul_plain(x, t), 2e-2,
+    k1_cases = [(512, K, N, 64, weights[(K, N)]) for K, N in K1_SHAPES]
+    k1_cases += [(M, K, N, g, random_int4(K, N, gen, dev, g))
+                 for M, K, N, g in K1_EXTRA]
+    for M, K, N, g, t in k1_cases:
+        x = torch.randn((M, K), generator=gen).to(dev, torch.bfloat16)
+        _check(results, "int4_matmul",
+               f"M={M} K={K} N={N}" + (f" g={g}" if g != 64 else ""),
+               iv.int4_matmul(x, t), iv.int4_matmul_plain(x, t), K1_TOL,
                lambda: iv.int4_matmul(x, t), lambda: iv.int4_matmul_plain(x, t),
-               work=int4_work(512, t, 2), library=grouped_int4pack_mm(t, x))
+               floor=0.0, work=int4_work(M, t, 2),
+               library=grouped_int4pack_mm(t, x))
+    del k1_cases
     for K, N in K2_SHAPES:
         t = weights[(K, N)]
         x = torch.randn((1, K), generator=gen).to(dev, torch.bfloat16)
@@ -975,11 +1016,12 @@ KV_KERNEL = {(3.5, None): "tq_kv_attention", (3.5, "split"):
 
 
 def prefill_chunks(S: int, max_tokens: int, step: int = 512,
-                   bucket: int = 256) -> int:
+                   bucket: int = 256, block_size: int = 32) -> int:
     """Prefill chunks of a request, by generate_step's rule: the chunk is
     the prompt rounded up to the cache bucket, at most `step` rows, halved
     while the padded prompt overflows the cache."""
-    capacity = -(-(S + max_tokens + 1) // bucket) * bucket
+    block = max(1, min(block_size, max_tokens))
+    capacity = -(-(S + max_tokens + block + 1) // bucket) * bucket
     step = min(step, -(-S // bucket) * bucket)
     while -(-S // step) * step > capacity and step > 64:
         step = max(64, step // 2)

@@ -1,45 +1,179 @@
 // K1: W4A16 GEMM for the halves-packed grouped-int4 layout (prefill linears).
 //
-// Replaces mlx_vlm_tpu/ops/int4_matvec.py:_int4_matmul (Pallas kernel _mm_kern).
-// y = x @ dequant(W) for x [M, K] bf16 and W in the Int4GroupedTensor layout
-// (qp [K, N2p] uint8: low nibble -> column j, high nibble -> column N2p + j;
-// sl/sh/bl/bh [G, N2p] f32).  Each weight is dequantized as code * s + b in
-// f32 and rounded to bf16 (the reference's `.astype(x.dtype)`), products
-// accumulate in f32, and the output is rounded to bf16 and sliced to n.
+// Replaces mlx_vlm_tpu/ops/int4_matvec.py:_int4_matmul (Pallas kernel
+// _mm_kern).  y = x @ dequant(W) for x [M, K] bf16 and W in the
+// Int4GroupedTensor layout (qp [K, N2p] uint8: low nibble -> column j, high
+// nibble -> column N2p + j; sl/sh/bl/bh [G, N2p] f32, any group size g with
+// g % 16 == 0 and K % g == 0).  Each weight is dequantized as code * s + b
+// in f32 and rounded to bf16 (the reference's `.astype(x.dtype)`), products
+// accumulate in f32, and the output is rounded once to bf16 and cut to n.
 //
-// Bound on the H100: tensor-core throughput at prefill sizes (M = 512 rows
-// per chunk gives ~512 operations per weight byte, above the card's
-// ~295 bf16 operations per byte of device memory).
-// Design: a block owns a 64-row tile of x and 64 packed columns, i.e. 128
-// output columns (64 of the low plane, 64 of the high plane).  It walks K one
-// quantization group (64 rows) at a time: x and the packed bytes are staged
-// in shared memory, the weights are dequantized once per block into a bf16
-// tile stored column-major (so the MMA's B fragments are single 32-bit
-// loads), and four warps run mma.sync m16n8k16 bf16 with f32 accumulators
-// held in registers for the whole K loop.  There is no software pipelining
-// yet: loads and MMAs alternate behind __syncthreads.
+// What bounds it on the H100: the bound is tensor-core work.  A 512-row
+// prefill chunk does ~512 operations per weight byte, above the card's ~295
+// bf16 operations per byte of device memory, so the floor is the bf16 rate
+// (989 TFLOP/s).  Four things stand between a W4A16 kernel and that rate,
+// and the design answers each:
+//
+// - The dequantization is ALU work beside the tensor cores.  The operands
+//   are swapped, y^T[n, m] = W[n, :] . x[m, :]^T, so that the weight is the
+//   A operand of `wgmma.mma_async.m64nBMk16` and comes from REGISTERS: each
+//   consumer thread turns its packed bytes straight into its A fragment
+//   (code via the 2^23 float trick, one FMA with s and b, cvt.rn.bf16x2),
+//   and the weight never returns to shared memory as bf16.  One packed byte
+//   feeds two output columns: a block owns 64 packed columns; consumer
+//   warpgroup 0 dequantizes their low nibbles and warpgroup 1 their high
+//   nibbles, both against the same x tile, so every weight is dequantized
+//   once per block.  The A row -> column map is permuted (A rows g and g+8
+//   of a warp are packed columns 2g and 2g+1) so a thread reads its two
+//   columns' bytes with one 16-bit load per k row.
+// - The dequantization must overlap the products.  A consumer dequantizes a
+//   whole 64-deep stage (four 16-k slices) into one A buffer while the
+//   previous stage's four wgmmas run from the other (wgmma.wait_group 1);
+//   the stage loop is unrolled by two so both buffers stay in registers.
+// - Loads must overlap both.  One producer thread keeps a ring of stages in
+//   flight with TMA: x (BM rows x 64 k, bf16, 128-byte swizzle, the K-major
+//   B layout wgmma reads with no transpose), the packed bytes (64 k x 64
+//   bytes, 64-byte swizzle, so the consumers' 16-bit reads are free of bank
+//   conflicts) and, by cp.async.bulk, the scales and biases of each group
+//   the stage touches.  Full/empty mbarriers pair producer and consumers
+//   (one empty arrival per consumer warp); nothing waits on __syncthreads
+//   after the start.  The producer's warpgroup hands its registers to the
+//   consumers (setmaxnreg 40 / 232), which a 256-row tile's 128 f32
+//   accumulators per thread need.
+// - Narrow outputs leave SMs idle (the k/v projections, N = 512, give 16
+//   tiles at M = 512).  The wrapper splits K into S slices (its rule:
+//   ops/int4_matvec.py:int4_matmul_plan); each slice writes f32 partials
+//   [S, M, n] and a second pass sums them in a fixed order and rounds once,
+//   so the result does not depend on run order.
+//
+// What still holds it above the bound (PERF.md §6): the same pipeline with
+// the dequantization taken out stays well above it too.  x is read from L2
+// once per 128-output column block, 28 times over at N = 3584, so wider
+// column tiles (two accumulators per consumer) are the next step; clusters
+// that multicast x tiles to 2 or 4 column blocks were tried and were slower,
+// their CTAs advancing in lockstep.
+//
+// Ragged edges: TMA fills x rows >= M and k >= K with zeros (the packed
+// bytes past K too, and a stage's scale slot is clamped to the last group),
+// the epilogue masks rows >= M and columns >= n.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64;              // rows of x per block
-constexpr int BN = 64;              // packed columns per block (128 outputs)
-constexpr int BK = 64;              // K rows per step: one group
-constexpr int THREADS = 128;        // 4 warps: 2 (rows) x 2 (planes)
-constexpr int XS = BK + 8;          // bf16 per x row in smem (36 words)
-constexpr int WS = BK + 8;          // bf16 per weight column in smem
-constexpr int QS = BN + 16;         // bytes per packed row in smem
+constexpr int BK = 64;          // k per stage
+constexpr int BNP = 64;         // packed columns per block (128 outputs)
+constexpr int MAX_STAGES = 8;
+constexpr int MAXG = 4;         // groups one stage can touch (g = 16)
+constexpr int CONSUMERS = 2;    // warpgroups: low plane, high plane
+constexpr int THREADS = (CONSUMERS + 1) * 128;  // + the producer warpgroup
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
+template <int BM>
+struct Layout {
+  static constexpr int X_BYTES = BM * BK * 2;          // x tile, 128B swizzle
+  static constexpr int Q_BYTES = BK * BNP;             // packed tile, 64B swizzle
+  static constexpr int S_BYTES = MAXG * 4 * BNP * 4;   // [slot][sl sh bl bh][64]
+  static constexpr int STAGE = X_BYTES + Q_BYTES + S_BYTES;
+  // as many stages as ~160 KB of shared memory holds (one block per SM)
+  static constexpr int STAGES = BM == 64 ? 8 : BM == 128 ? 6 : 4;
+  static constexpr int SMEM = STAGES * STAGE + 1024;  // + alignment slack
+  static_assert(STAGE % 1024 == 0, "stages must keep 1024-byte alignment");
+};
+
+template <int N>
+struct Acc {
+  float v[N / 2];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of `bar` with parity `phase` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(phase)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep a register's value where it is across the asynchronous wgmma.
+__device__ __forceinline__ void fence_reg(uint32_t& r) {
+  asm volatile("" : "+r"(r));
+}
+__device__ __forceinline__ void fence_reg(float& r) {
+  asm volatile("" : "+f"(r));
+}
+
+// Shared-memory matrix descriptor of a K-major bf16 tile with 128-byte rows
+// and the 128-byte swizzle: 8-row core groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t x_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// code * s + b in f32 for the nibble in bits [0, 4) of v: the code becomes
+// a float exactly through the 2^23 exponent trick (no int-to-float unit).
+__device__ __forceinline__ float deq(uint32_t v, float s, float b) {
+  return fmaf(__uint_as_float(0x4B000000u | (v & 0xFu)) - 8388608.0f, s, b);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -47,138 +181,392 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__global__ void __launch_bounds__(THREADS)
-int4_matmul_kernel(const __nv_bfloat16* __restrict__ x,
-                   const uint8_t* __restrict__ qp,
+__device__ __forceinline__ void wgmma_rs(Acc<64>& d, const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d.v[0]), "+f"(d.v[1]), "+f"(d.v[2]), "+f"(d.v[3]), "+f"(d.v[4]), "+f"(d.v[5]), "+f"(d.v[6]), "+f"(d.v[7]),
+        "+f"(d.v[8]), "+f"(d.v[9]), "+f"(d.v[10]), "+f"(d.v[11]), "+f"(d.v[12]), "+f"(d.v[13]), "+f"(d.v[14]), "+f"(d.v[15]),
+        "+f"(d.v[16]), "+f"(d.v[17]), "+f"(d.v[18]), "+f"(d.v[19]), "+f"(d.v[20]), "+f"(d.v[21]), "+f"(d.v[22]), "+f"(d.v[23]),
+        "+f"(d.v[24]), "+f"(d.v[25]), "+f"(d.v[26]), "+f"(d.v[27]), "+f"(d.v[28]), "+f"(d.v[29]), "+f"(d.v[30]), "+f"(d.v[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(Acc<128>& d, const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d.v[0]), "+f"(d.v[1]), "+f"(d.v[2]), "+f"(d.v[3]), "+f"(d.v[4]), "+f"(d.v[5]), "+f"(d.v[6]), "+f"(d.v[7]),
+        "+f"(d.v[8]), "+f"(d.v[9]), "+f"(d.v[10]), "+f"(d.v[11]), "+f"(d.v[12]), "+f"(d.v[13]), "+f"(d.v[14]), "+f"(d.v[15]),
+        "+f"(d.v[16]), "+f"(d.v[17]), "+f"(d.v[18]), "+f"(d.v[19]), "+f"(d.v[20]), "+f"(d.v[21]), "+f"(d.v[22]), "+f"(d.v[23]),
+        "+f"(d.v[24]), "+f"(d.v[25]), "+f"(d.v[26]), "+f"(d.v[27]), "+f"(d.v[28]), "+f"(d.v[29]), "+f"(d.v[30]), "+f"(d.v[31]),
+        "+f"(d.v[32]), "+f"(d.v[33]), "+f"(d.v[34]), "+f"(d.v[35]), "+f"(d.v[36]), "+f"(d.v[37]), "+f"(d.v[38]), "+f"(d.v[39]),
+        "+f"(d.v[40]), "+f"(d.v[41]), "+f"(d.v[42]), "+f"(d.v[43]), "+f"(d.v[44]), "+f"(d.v[45]), "+f"(d.v[46]), "+f"(d.v[47]),
+        "+f"(d.v[48]), "+f"(d.v[49]), "+f"(d.v[50]), "+f"(d.v[51]), "+f"(d.v[52]), "+f"(d.v[53]), "+f"(d.v[54]), "+f"(d.v[55]),
+        "+f"(d.v[56]), "+f"(d.v[57]), "+f"(d.v[58]), "+f"(d.v[59]), "+f"(d.v[60]), "+f"(d.v[61]), "+f"(d.v[62]), "+f"(d.v[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(Acc<256>& d, const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d.v[0]), "+f"(d.v[1]), "+f"(d.v[2]), "+f"(d.v[3]), "+f"(d.v[4]), "+f"(d.v[5]), "+f"(d.v[6]), "+f"(d.v[7]),
+        "+f"(d.v[8]), "+f"(d.v[9]), "+f"(d.v[10]), "+f"(d.v[11]), "+f"(d.v[12]), "+f"(d.v[13]), "+f"(d.v[14]), "+f"(d.v[15]),
+        "+f"(d.v[16]), "+f"(d.v[17]), "+f"(d.v[18]), "+f"(d.v[19]), "+f"(d.v[20]), "+f"(d.v[21]), "+f"(d.v[22]), "+f"(d.v[23]),
+        "+f"(d.v[24]), "+f"(d.v[25]), "+f"(d.v[26]), "+f"(d.v[27]), "+f"(d.v[28]), "+f"(d.v[29]), "+f"(d.v[30]), "+f"(d.v[31]),
+        "+f"(d.v[32]), "+f"(d.v[33]), "+f"(d.v[34]), "+f"(d.v[35]), "+f"(d.v[36]), "+f"(d.v[37]), "+f"(d.v[38]), "+f"(d.v[39]),
+        "+f"(d.v[40]), "+f"(d.v[41]), "+f"(d.v[42]), "+f"(d.v[43]), "+f"(d.v[44]), "+f"(d.v[45]), "+f"(d.v[46]), "+f"(d.v[47]),
+        "+f"(d.v[48]), "+f"(d.v[49]), "+f"(d.v[50]), "+f"(d.v[51]), "+f"(d.v[52]), "+f"(d.v[53]), "+f"(d.v[54]), "+f"(d.v[55]),
+        "+f"(d.v[56]), "+f"(d.v[57]), "+f"(d.v[58]), "+f"(d.v[59]), "+f"(d.v[60]), "+f"(d.v[61]), "+f"(d.v[62]), "+f"(d.v[63]),
+        "+f"(d.v[64]), "+f"(d.v[65]), "+f"(d.v[66]), "+f"(d.v[67]), "+f"(d.v[68]), "+f"(d.v[69]), "+f"(d.v[70]), "+f"(d.v[71]),
+        "+f"(d.v[72]), "+f"(d.v[73]), "+f"(d.v[74]), "+f"(d.v[75]), "+f"(d.v[76]), "+f"(d.v[77]), "+f"(d.v[78]), "+f"(d.v[79]),
+        "+f"(d.v[80]), "+f"(d.v[81]), "+f"(d.v[82]), "+f"(d.v[83]), "+f"(d.v[84]), "+f"(d.v[85]), "+f"(d.v[86]), "+f"(d.v[87]),
+        "+f"(d.v[88]), "+f"(d.v[89]), "+f"(d.v[90]), "+f"(d.v[91]), "+f"(d.v[92]), "+f"(d.v[93]), "+f"(d.v[94]), "+f"(d.v[95]),
+        "+f"(d.v[96]), "+f"(d.v[97]), "+f"(d.v[98]), "+f"(d.v[99]), "+f"(d.v[100]), "+f"(d.v[101]), "+f"(d.v[102]), "+f"(d.v[103]),
+        "+f"(d.v[104]), "+f"(d.v[105]), "+f"(d.v[106]), "+f"(d.v[107]), "+f"(d.v[108]), "+f"(d.v[109]), "+f"(d.v[110]), "+f"(d.v[111]),
+        "+f"(d.v[112]), "+f"(d.v[113]), "+f"(d.v[114]), "+f"(d.v[115]), "+f"(d.v[116]), "+f"(d.v[117]), "+f"(d.v[118]), "+f"(d.v[119]),
+        "+f"(d.v[120]), "+f"(d.v[121]), "+f"(d.v[122]), "+f"(d.v[123]), "+f"(d.v[124]), "+f"(d.v[125]), "+f"(d.v[126]), "+f"(d.v[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// The A fragment of one 16-k slice for one thread: packed columns jA (A row
+// g) and jA + 1 (A row g + 8) of the plane that `shift` selects, k rows 2t,
+// 2t+1, 2t+8, 2t+9 of the slice.  `q` points at the thread's byte pair in k
+// row 2t of the slice (the 64-byte swizzle puts the four rows' pairs at the
+// same column offset); `sc` at the group's scale of column jA.
+__device__ __forceinline__ void dequant_slice(uint32_t (&a)[4],
+                                              const uint8_t* q,
+                                              const float* sc, int shift) {
+  const uint32_t v0 = *reinterpret_cast<const uint16_t*>(q) >> shift;
+  const uint32_t v1 = *reinterpret_cast<const uint16_t*>(q + 64) >> shift;
+  const uint32_t v2 = *reinterpret_cast<const uint16_t*>(q + 8 * 64) >> shift;
+  const uint32_t v3 = *reinterpret_cast<const uint16_t*>(q + 9 * 64) >> shift;
+  const float2 s = *reinterpret_cast<const float2*>(sc);
+  const float2 b = *reinterpret_cast<const float2*>(sc + 2 * BNP);
+  a[0] = pack_bf16(deq(v0, s.x, b.x), deq(v1, s.x, b.x));
+  a[1] = pack_bf16(deq(v0 >> 8, s.y, b.y), deq(v1 >> 8, s.y, b.y));
+  a[2] = pack_bf16(deq(v2, s.x, b.x), deq(v3, s.x, b.x));
+  a[3] = pack_bf16(deq(v2 >> 8, s.y, b.y), deq(v3 >> 8, s.y, b.y));
+}
+
+// Grid: (ceil(M / BM) row blocks, N2p / 64 column blocks, splits).  Warps
+// 0-3 and 4-7 are the consumer warpgroups of the low and high plane; one
+// thread of warpgroup 2 is the producer, and the warpgroup gives its
+// registers to the consumers (setmaxnreg).  With splits > 1 the block
+// writes f32 partials of its K slice to part[blockIdx.z], else bf16 to y.
+template <int BM>
+__global__ void __launch_bounds__(THREADS, 1)
+int4_matmul_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap qmap,
                    const float* __restrict__ sl, const float* __restrict__ sh,
                    const float* __restrict__ bl, const float* __restrict__ bh,
-                   __nv_bfloat16* __restrict__ y, int M, int K, int N2p,
-                   int n) {
-  __shared__ __align__(16) __nv_bfloat16 xs[BM * XS];
-  __shared__ __align__(16) __nv_bfloat16 ws[2 * BN * WS];  // [column][k]
-  __shared__ __align__(16) uint8_t qs[BK * QS];
-  __shared__ float sc[4][BN];  // s_lo, s_hi, b_lo, b_hi of this group
+                   __nv_bfloat16* __restrict__ y, float* __restrict__ part,
+                   int M, int K, int N2p, int n, int g, int splits) {
+  using L = Layout<BM>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[MAX_STAGES], empty[MAX_STAGES];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int n0 = blockIdx.x * BN;  // first packed column
-  const int m0 = blockIdx.y * BM;
-  const int wm = warp / 2;         // rows wm*32 .. +32
-  const int wn = warp % 2;         // plane: columns wn*64 .. +64 of the tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m0 = blockIdx.x * BM, j0 = blockIdx.y * BNP;
+  const int T = (K + BK - 1) / BK, G = K / g;
+  const int t0 = (int)((long long)blockIdx.z * T / splits);
+  const int t1 = (int)((long long)(blockIdx.z + 1) * T / splits);
 
-  float acc[2][8][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 8; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
-
-  const int G = K / BK;
-  for (int grp = 0; grp < G; ++grp) {
-    const int k0 = grp * BK;
-    // x tile: 64 rows x 8 vectors of 8 bf16
-#pragma unroll
-    for (int i = 0; i < (BM * BK / 8) / THREADS; ++i) {
-      const int v = tid + i * THREADS, r = v / 8, cv = v % 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (m0 + r < M)
-        val = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + k0 +
-                                              cv * 8);
-      *reinterpret_cast<uint4*>(xs + r * XS + cv * 8) = val;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 4);  // one arrival per consumer warp
     }
-    // packed tile: 64 rows x 4 vectors of 16 bytes
-#pragma unroll
-    for (int i = 0; i < (BK * BN / 16) / THREADS; ++i) {
-      const int v = tid + i * THREADS, r = v / 4, cv = v % 4;
-      *reinterpret_cast<uint4*>(qs + r * QS + cv * 16) =
-          *reinterpret_cast<const uint4*>(qp + (size_t)(k0 + r) * N2p + n0 +
-                                          cv * 16);
-    }
-    for (int i = tid; i < 4 * BN; i += THREADS) {
-      const int a = i / BN, j = i % BN;
-      const float* src = a == 0 ? sl : a == 1 ? sh : a == 2 ? bl : bh;
-      sc[a][j] = src[(size_t)grp * N2p + n0 + j];
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // dequantize: thread owns k pair (2kp, 2kp+1) and 16 packed columns
-    {
-      const int kp = tid % 32, nb = tid / 32;
-      const uint4 r0 = *reinterpret_cast<const uint4*>(qs + (2 * kp) * QS + nb * 16);
-      const uint4 r1 = *reinterpret_cast<const uint4*>(qs + (2 * kp + 1) * QS + nb * 16);
-      const uint32_t w0[4] = {r0.x, r0.y, r0.z, r0.w};
-      const uint32_t w1[4] = {r1.x, r1.y, r1.z, r1.w};
-      uint32_t* wsw = reinterpret_cast<uint32_t*>(ws);
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const int j = nb * 16 + c;
-        const uint32_t q0 = (w0[c / 4] >> (8 * (c % 4))) & 0xFFu;
-        const uint32_t q1 = (w1[c / 4] >> (8 * (c % 4))) & 0xFFu;
-        const float slo = sc[0][j], shi = sc[1][j], blo = sc[2][j], bhi = sc[3][j];
-        wsw[(j * WS) / 2 + kp] = pack_bf16((float)(q0 & 0xFu) * slo + blo,
-                                           (float)(q1 & 0xFu) * slo + blo);
-        wsw[((BN + j) * WS) / 2 + kp] = pack_bf16((float)(q0 >> 4) * shi + bhi,
-                                                  (float)(q1 >> 4) * shi + bhi);
+  if (warp >= CONSUMERS * 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp > CONSUMERS * 4) return;
+    // ---- producer: one thread keeps the ring full
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&xmap))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&qmap))
+                   : "memory");
+      for (int it = 0; it < t1 - t0; ++it) {
+        const int tile = t0 + it;
+        const int s = it % L::STAGES;
+        mbar_wait(&empty[s], ((it / L::STAGES) & 1) ^ 1);
+        uint8_t* st = smem + s * L::STAGE;
+        const int k0 = tile * BK;
+        const int gA = k0 / g, gB = min((k0 + BK - 1) / g, G - 1);
+        const int ng = gB - gA + 1;
+        mbar_expect_tx(&full[s], L::X_BYTES + L::Q_BYTES + ng * 4 * BNP * 4);
+        tma_load_2d(st, &xmap, &full[s], k0, m0);
+        tma_load_2d(st + L::X_BYTES, &qmap, &full[s], j0, k0);
+        float* sc = reinterpret_cast<float*>(st + L::X_BYTES + L::Q_BYTES);
+        for (int q = 0; q < ng; ++q) {
+          const size_t off = (size_t)(gA + q) * N2p + j0;
+          bulk_load(sc + (4 * q + 0) * BNP, sl + off, BNP * 4, &full[s]);
+          bulk_load(sc + (4 * q + 1) * BNP, sh + off, BNP * 4, &full[s]);
+          bulk_load(sc + (4 * q + 2) * BNP, bl + off, BNP * 4, &full[s]);
+          bulk_load(sc + (4 * q + 3) * BNP, bh + off, BNP * 4, &full[s]);
+        }
       }
     }
-    __syncthreads();
-
-    const uint32_t* xsw = reinterpret_cast<const uint32_t*>(xs);
-    const uint32_t* wsw = reinterpret_cast<const uint32_t*>(ws);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = wm * 32 + mt * 16 + g;
-        a[mt][0] = xsw[(r * XS) / 2 + kk * 8 + t];
-        a[mt][1] = xsw[((r + 8) * XS) / 2 + kk * 8 + t];
-        a[mt][2] = xsw[(r * XS) / 2 + kk * 8 + 4 + t];
-        a[mt][3] = xsw[((r + 8) * XS) / 2 + kk * 8 + 4 + t];
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int col = wn * 64 + nt * 8 + g;
-        const uint32_t b0 = wsw[(col * WS) / 2 + kk * 8 + t];
-        const uint32_t b1 = wsw[(col * WS) / 2 + kk * 8 + 4 + t];
-        mma_bf16(acc[0][nt], a[0], b0, b1);
-        mma_bf16(acc[1][nt], a[1], b0, b1);
-      }
-    }
-    __syncthreads();
+    return;
   }
 
-  // epilogue: tile column wn*64 + nt*8 + 2t (+1) is plane wn, packed column
-  // n0 + nt*8 + 2t (+1); global column = wn * N2p + packed column
+  // ---- consumers: warpgroup `plane`, warp w of it
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int plane = warp / 4, w = warp % 4, g8 = lane / 4, t = lane % 4;
+  const int jA = 16 * w + 2 * g8;                // packed column of A row g8
+  const int qoff = (2 * t) * 64 + ((w ^ t) << 4) + 2 * g8;
+  const int soff = plane * BNP + jA;
+  const int shift = 4 * plane;
+  const int g16 = g / 16;
+
+  Acc<BM> acc;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+  for (int i = 0; i < BM / 2; ++i) acc.v[i] = 0.f;
+  // A fragments of two stages: one is dequantized while the other's four
+  // wgmmas run (the stage loop is unrolled by two to keep them in registers)
+  uint32_t a0[4][4], a1[4][4];
+  int prev = -1;
+
+  auto stage = [&](uint32_t(&a)[4][4], uint32_t(&done)[4][4], int it) {
+    const int tile = t0 + it;
+    const int s = it % L::STAGES;
+    mbar_wait(&full[s], (it / L::STAGES) & 1);
+    const uint8_t* st = smem + s * L::STAGE;
+    const uint8_t* qs = st + L::X_BYTES + qoff;
+    const float* sc = reinterpret_cast<const float*>(st + L::X_BYTES +
+                                                     L::Q_BYTES) + soff;
+    int gi = (tile * 4) / g16;          // group of the next 16-k slice
+    int left = g16 - (tile * 4) % g16;  // its slices still to come
+    const int gA = gi;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int kk = 0; kk < 4; ++kk) {
+      const int slot = min(gi, G - 1) - gA;
+      dequant_slice(a[kk], qs + kk * 16 * 64, sc + slot * 4 * BNP, shift);
+      if (--left == 0) {
+        ++gi;
+        left = g16;
+      }
+    }
+    const uint32_t xaddr = smem_u32(st);
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * 32 + mt * 16 + g + (e >= 2 ? 8 : 0);
-        const int col = wn * N2p + n0 + nt * 8 + 2 * t + (e & 1);
-        if (row < M && col < n)
-          y[(size_t)row * n + col] = __float2bfloat16_rn(acc[mt][nt][e]);
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, a[kk], x_desc(xaddr + kk * 32));
+    wgmma_commit();
+    wgmma_wait<1>();
+    // the previous stage's wgmmas are done: its registers and stage are free
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) fence_reg(done[kk][r]);
+    __syncwarp();
+    if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+    prev = s;
+  };
+
+  int it = 0;
+  for (; t0 + it + 1 < t1; it += 2) {
+    stage(a0, a1, it);
+    stage(a1, a0, it + 1);
+  }
+  if (t0 + it < t1) stage(a0, a1, it);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) fence_reg(acc.v[i]);
+
+  // ---- epilogue: acc.v[4i + e] is column jA + (e >> 1), token 8i + 2t +
+  // (e & 1) of the tile
+  const int c = plane * N2p + j0 + jA;
+  if (c >= n) return;
+  const bool pair = (n % 2 == 0);  // then c + 1 < n too (c is even)
+#pragma unroll
+  for (int i = 0; i < BM / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * i + 2 * t + e;
+      if (m >= M) continue;
+      const float lo = acc.v[4 * i + e], hi = acc.v[4 * i + 2 + e];
+      if (splits > 1) {
+        float* dst = part + ((size_t)blockIdx.z * M + m) * n + c;
+        if (pair) {
+          *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
+        } else {
+          dst[0] = lo;
+          if (c + 1 < n) dst[1] = hi;
+        }
+      } else {
+        __nv_bfloat16* dst = y + (size_t)m * n + c;
+        if (pair) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) =
+              __floats2bfloat162_rn(lo, hi);
+        } else {
+          dst[0] = __float2bfloat16_rn(lo);
+          if (c + 1 < n) dst[1] = __float2bfloat16_rn(hi);
+        }
       }
     }
   }
 }
 
+// Second pass of a split call: y = bf16(sum over the splits of part), the
+// splits summed in order.
+__global__ void __launch_bounds__(256)
+int4_matmul_reduce(const float* __restrict__ part,
+                   __nv_bfloat16* __restrict__ y, long long total,
+                   int splits) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  // float4 rows of every split stay 16-byte aligned only when 4 | total
+  const long long quads = total % 4 == 0 ? total / 4 : 0;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < quads; i += stride) {
+    float4 acc = reinterpret_cast<const float4*>(part)[i];
+    for (int z = 1; z < splits; ++z) {
+      const float4 v = reinterpret_cast<const float4*>(part + z * total)[i];
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(y + 4 * i);
+    out[0] = __floats2bfloat162_rn(acc.x, acc.y);
+    out[1] = __floats2bfloat162_rn(acc.z, acc.w);
+  }
+  for (long long i = 4 * quads + blockIdx.x * (long long)blockDim.x +
+                     threadIdx.x;
+       i < total; i += stride) {
+    float acc = part[i];
+    for (int z = 1; z < splits; ++z) acc += part[z * total + i];
+    y[i] = __float2bfloat16_rn(acc);
+  }
+}
+
+// cuTensorMapEncodeTiled of libcuda, looked up through the CUDA runtime's
+// entry-point query, so that the library needs no link against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D tensor map over a row-major [rows, cols] array with a box of
+// [box_rows, box_cols]; elements past the edges read as zero.
+bool tensor_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                int elem_bytes, int rows, int cols, int box_rows, int box_cols,
+                CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM>
+cudaError_t launch(const void* x, const void* qp, const float* sl,
+                   const float* sh, const float* bl, const float* bh,
+                   __nv_bfloat16* y, float* part, int M, int K, int N2p, int n,
+                   int g, int splits, cudaStream_t stream) {
+  CUtensorMap xmap, qmap;
+  if (!tensor_map(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, BM, BK,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&qmap, qp, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N2p, BK, BNP,
+                  CU_TENSOR_MAP_SWIZZLE_64B))
+    return cudaErrorInvalidValue;
+  const int smem = Layout<BM>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      int4_matmul_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((M + BM - 1) / BM, N2p / BNP, splits);
+  int4_matmul_kernel<BM><<<grid, THREADS, smem, stream>>>(
+      xmap, qmap, sl, sh, bl, bh, y, part, M, K, N2p, n, g, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long total = (long long)M * n;
+  const int blocks = (int)min((total / 4 + 255) / 256 + 1, 4LL * 132);
+  int4_matmul_reduce<<<blocks, 256, 0, stream>>>(part, y, total, splits);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// x [M, K] bf16; qp [K, N2p] u8; s/b planes [G, N2p] f32 with group 64;
-// y [M, n] bf16.  N2p % 64 == 0, K % 64 == 0, K % 8 == 0 for 16-byte rows.
+// x [M, K] bf16; qp [K, N2p] u8; s/b planes [G, N2p] f32 with group g
+// (g % 16 == 0, K % g == 0); y [M, n] bf16; part [splits, M, n] f32 scratch
+// when splits > 1.  N2p % 64 == 0, K % 8 == 0; x, qp and the planes 16-byte
+// aligned.  bm (64, 128 or 256) is the row tile.
 extern "C" int mvt_int4_matmul(const void* x, const void* qp, const void* sl,
                                const void* sh, const void* bl, const void* bh,
-                               void* y, int M, int K, int N2p, int n,
+                               void* y, void* part, int M, int K, int N2p,
+                               int n, int g, int bm, int splits,
                                void* stream) {
-  dim3 grid(N2p / BN, (M + BM - 1) / BM), block(THREADS);
-  int4_matmul_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(qp),
-      static_cast<const float*>(sl), static_cast<const float*>(sh),
-      static_cast<const float*>(bl), static_cast<const float*>(bh),
-      static_cast<__nv_bfloat16*>(y), M, K, N2p, n);
-  return (int)cudaGetLastError();
+  auto* fsl = static_cast<const float*>(sl);
+  auto* fsh = static_cast<const float*>(sh);
+  auto* fbl = static_cast<const float*>(bl);
+  auto* fbh = static_cast<const float*>(bh);
+  auto* yb = static_cast<__nv_bfloat16*>(y);
+  auto* fp = static_cast<float*>(part);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (bm) {
+    case 64:
+      return (int)launch<64>(x, qp, fsl, fsh, fbl, fbh, yb, fp, M, K, N2p, n, g,
+                             splits, s);
+    case 128:
+      return (int)launch<128>(x, qp, fsl, fsh, fbl, fbh, yb, fp, M, K, N2p, n,
+                              g, splits, s);
+    case 256:
+      return (int)launch<256>(x, qp, fsl, fsh, fbl, fbh, yb, fp, M, K, N2p, n,
+                              g, splits, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

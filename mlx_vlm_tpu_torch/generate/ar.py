@@ -109,12 +109,16 @@ def generate_step(
     logits_processors: Optional[List[Callable]] = None,
     prefill_step_size: int = 512,
     seed: Optional[int] = None,
+    block_size: int = 32,
     kv_bits: Optional[float] = None,
     kv_group_size: int = 64,
 ) -> Generator[Tuple[np.ndarray, np.ndarray], None, None]:
     """Yield (token [B], chosen-token logprob [B]) numpy pairs.
 
-    The prompt embeddings must already contain the merged vision features."""
+    The prompt embeddings must already contain the merged vision features.
+    `block_size` is the reference's count of decode steps per device
+    program; here it sizes the cache as the reference does (ar.py:344-352),
+    and decoding runs one token per step."""
     lm = model.language_model
     lm_params = model.params["language_model"]
     B, S, _ = inputs_embeds.shape
@@ -128,7 +132,8 @@ def generate_step(
     deltas = torch.from_numpy(
         np.asarray(rope_deltas, np.int64).reshape(-1)[:B].copy()).to(dev)
 
-    capacity = round_up(S + max_tokens + 1, CACHE_BUCKET)
+    block_size = max(1, min(block_size, max_tokens))
+    capacity = round_up(S + max_tokens + block_size + 1, CACHE_BUCKET)
     cache = make_cache(model, B, capacity, inputs_embeds.dtype, kv_bits,
                        kv_group_size, device=dev)
 

@@ -59,6 +59,7 @@ def stream_generate(
     logit_bias: Optional[dict] = None,
     seed: Optional[int] = None,
     prefill_step_size: int = 512,
+    block_size: int = 32,
     kv_bits: Optional[float] = None,
     kv_group_size: int = 64,
     apc=None,
@@ -108,8 +109,8 @@ def stream_generate(
     token_iter = generate_step(
         embeds, model, position_ids=position_ids, rope_deltas=rope_deltas,
         max_tokens=max_tokens, sampler=sampler, logits_processors=processors,
-        prefill_step_size=prefill_step_size, seed=seed, kv_bits=kv_bits,
-        kv_group_size=kv_group_size)
+        prefill_step_size=prefill_step_size, seed=seed, block_size=block_size,
+        kv_bits=kv_bits, kv_group_size=kv_group_size)
     for token, logprobs in token_iter:
         now = time.perf_counter()
         if prompt_time is None:

@@ -27,14 +27,18 @@ SOURCES = ("int4_matmul.cu", "int4_matvec.cu", "flash_attention.cu",
            "qmatmul.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# ptxas's report (registers, spills, shared memory) of each source compiled
+# by this process, filled by `library()` when it builds
+BUILD_LOG: dict = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: argument types (each returns a cudaError_t as int)
 _SIGNATURES = {
-    # x, qp, sl, sh, bl, bh, y, M, K, N2p, n, stream
-    "mvt_int4_matmul": (_P,) * 7 + (_I,) * 4 + (_P,),
+    # x, qp, sl, sh, bl, bh, y, part, M, K, N2p, n, group_size, bm, splits,
+    # stream
+    "mvt_int4_matmul": (_P,) * 8 + (_I,) * 7 + (_P,),
     # x, qp, sl, sh, bl, bh, part, y, M, K, N2p, n, group_size, stream
     "mvt_int4_matvec": (_P,) * 8 + (_I,) * 5 + (_P,),
     # q, k, v, o, offset, left_pad, B, H, KVH, S, C, scale, window, stream
@@ -76,18 +80,21 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmvt_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: list) -> None:
-    """Run the commands in parallel; raise with nvcc's output on a failure."""
+def _run_all(cmds: list) -> list:
+    """Run the commands in parallel and return their output; raise with
+    nvcc's output on a failure."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    failed = []
+    failed, outs = [], []
     for cmd, proc in zip(cmds, procs):
         out = proc.communicate()[0]
+        outs.append(out)
         if proc.returncode != 0:
             failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return outs
 
 
 @functools.cache
@@ -98,8 +105,9 @@ def library() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         stem = so.with_suffix(f".{os.getpid()}")
         objs = [Path(f"{stem}.{p.stem}.o") for p in source_paths()]
-        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
-                  for p, o in zip(source_paths(), objs)])
+        outs = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                         for p, o in zip(source_paths(), objs)])
+        BUILD_LOG.update({p.name: out for p, out in zip(source_paths(), outs)})
         tmp = Path(f"{stem}.tmp")
         _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
                    *map(str, objs)]])

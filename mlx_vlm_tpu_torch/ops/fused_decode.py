@@ -61,11 +61,29 @@ def _linears(params: dict):
     return [layers[a][b] for a, b in LINEARS]
 
 
-def fused_decode_eligible(params: dict, args) -> bool:
+def kernel_refusal(args, group_size: int, intermediate: int):
+    """Why the CUDA kernel cannot take a model, or None: it takes head_dim
+    HEAD_DIM, at most 8 q heads per kv head, g % 16 == 0 and hidden and
+    intermediate sizes that are multiples of KS_NARROW."""
+    D, nh, nkv = (args.hidden_size, args.num_attention_heads,
+                  args.num_key_value_heads)
+    if D // nh != HEAD_DIM or nh % nkv or nh // nkv > 8:
+        return (f"the kernel takes head_dim {HEAD_DIM} and at most 8 q heads "
+                "per kv head")
+    if group_size % 16 or D % KS_NARROW or intermediate % KS_NARROW:
+        return ("needs group_size % 16 == 0 and hidden, intermediate "
+                "multiples of 128")
+    return None
+
+
+def fused_decode_eligible(params: dict, args, device="cpu") -> bool:
     """The reference's rules for building a pack (`build_fused_pack`
     :187-211): all seven layer linears are stacked Int4GroupedTensor with
     one group size, K % g == 0, I % g == 0, K == D, n_heads * head_dim == D
-    and each linear's n matches.  `params` is the language model's tree."""
+    and each linear's n matches.  `params` is the language model's tree.
+    On a `device` other than the CPU the step runs the kernel, so its
+    limits (`kernel_refusal`) apply too, as the reference builds no pack on
+    its device for a head_dim the kernel does not take (:205-210)."""
     try:
         ws = [p["weight"] for p in _linears(params)]
     except (KeyError, TypeError):
@@ -83,9 +101,12 @@ def fused_decode_eligible(params: dict, args) -> bool:
     if K % g or I % g or K != D or nh * (D // nh) != D:
         return False
     n_kv = nkv * (D // nh)
-    return (wq.n == D and wo.n == D and wd.n == D and wg.n == I
+    if not (wq.n == D and wo.n == D and wd.n == D and wg.n == I
             and wu.n == I and wk.n == n_kv and wv.n == n_kv
-            and all(w.qp.shape[1] == D for w in (wk, wv, wo, wg, wu)))
+            and all(w.qp.shape[1] == D for w in (wk, wv, wo, wg, wu))):
+        return False
+    return (torch.device(device).type == "cpu"
+            or kernel_refusal(args, g, I) is None)
 
 
 def fused_head(params: dict, args):
@@ -278,12 +299,9 @@ def fused_decode_step(params: dict, args, h: torch.Tensor, cos: torch.Tensor,
     hd = D // nh
     L, I, _ = ws[6].qp.shape
     g = ws[0].group_size
-    if hd != HEAD_DIM or nh % nkv or nh // nkv > 8:
-        raise ValueError(f"fused_decode: the kernel takes head_dim "
-                         f"{HEAD_DIM} and at most 8 q heads per kv head")
-    if g % 16 or D % KS_NARROW or I % KS_NARROW:
-        raise ValueError("fused_decode: needs group_size % 16 == 0 and "
-                         "hidden, intermediate multiples of 128")
+    refusal = kernel_refusal(args, g, I)
+    if refusal:
+        raise ValueError(f"fused_decode: {refusal}")
     small_dt = h.dtype
     if small_dt not in (torch.bfloat16, torch.float32):
         raise TypeError("fused_decode: h must be bfloat16 or float32")

@@ -8,8 +8,10 @@ kernel `_mm_kern` :117) for more than MAX_KERNEL_ROWS rows: every prefill
 linear.  Each weight dequantizes as code * s + b in f32 and rounds to x's
 dtype before the product; products accumulate in f32 and the output is in
 x's dtype.  Bound on the H100 by tensor-core work at prefill sizes; the
-kernel dequantizes one quantization group per block into shared memory and
-feeds mma.sync bf16 tensor-core products (see the .cu header).
+kernel dequantizes the weight straight into the A registers of `wgmma`,
+fed by a TMA ring for x, and splits K when its tiles would leave SMs idle
+(`int4_matmul_plan`; see the .cu header).  It takes any group size with
+g % 16 == 0.
 
 K2, `int4_matvec_rows` (csrc/int4_matvec.cu), replaces `_int4_matvec`
 (:223, kernel `_kern` :61) for up to MAX_KERNEL_ROWS rows: the decode
@@ -24,7 +26,8 @@ weight is sliced into per-layer views, which copy nothing.
 
 On CPU tensors every wrapper computes its kernel's plain PyTorch version
 (`int4_matmul_plain`, `int4_matvec_plain`); on CUDA tensors it launches the
-kernel or raises.  `launches` counts kernel launches per kernel.
+kernel or raises.  `launches` counts kernel launches per kernel: one per
+call, K1's split-K second pass included.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ..core.quant import Int4GroupedTensor, int4_grouped_dequantize
 from . import _cuda
 
 MAX_KERNEL_ROWS = 8
+SMS = 132  # streaming multiprocessors of an H100 SXM
 
 launches = {"int4_matmul": 0, "int4_matvec": 0}
 
@@ -68,24 +72,53 @@ def _check_weight(x: torch.Tensor, t: Int4GroupedTensor, name: str):
         raise ValueError(f"{name}: unsupported shape K={K} N2p={n2p} n={t.n}")
 
 
+def int4_matmul_plan(M: int, K: int, n2p: int, group_size: int) -> tuple:
+    """K1's (row tile, split-K count) for x [M, K] and a weight of n2p
+    packed columns.  A block computes a row tile of x against 64 packed
+    columns (128 outputs).  The row tile is the tallest of 256, 128 and 64
+    rows that is less than twice M and still gives SMS / 8 tiles or more
+    (a taller tile dequantizes each weight for more rows; too few tiles
+    would need a deep split), else 64.  When the tiles would leave SMs
+    idle, K splits into S slices, S the largest that keeps the blocks at
+    SMS or fewer and every slice at one quantization group and one 64-deep
+    stage or more.  Raises for a group size the kernel does not take."""
+    if group_size <= 0 or group_size % 16 or K % group_size:
+        raise ValueError(f"int4_matmul: the CUDA kernel takes group sizes "
+                         f"with g % 16 == 0 and K % g == 0, not g="
+                         f"{group_size} at K={K}")
+    cols = n2p // 64
+    bm = next((b for b in (256, 128) if b < 2 * M
+               and -(-M // b) * cols >= SMS // 8), 64)
+    tiles = -(-M // bm) * cols
+    most = -(-K // 64) // -(-group_size // 64)
+    return bm, max(1, min(SMS // tiles, most))
+
+
 def int4_matmul(x: torch.Tensor, t: Int4GroupedTensor) -> torch.Tensor:
     """K1: x [M, K] @ dequant(t).T -> [M, n] in x.dtype (single weight)."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, t)
     _check_weight(x, t, "int4_matmul")
-    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
-        raise TypeError("int4_matmul: the CUDA kernel takes bfloat16 x on CUDA")
-    if t.group_size != 64:
-        raise ValueError("int4_matmul: the CUDA kernel takes group_size 64")
-    x = x.contiguous()
     M, K = x.shape
     n2p = t.qp.shape[1]
+    bm, splits = int4_matmul_plan(M, K, n2p, t.group_size)
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise TypeError("int4_matmul: the CUDA kernel takes bfloat16 x on CUDA")
+    x = x.contiguous()
+    if any(a.data_ptr() % 16 for a in (x, t.qp, t.sl, t.sh, t.bl, t.bh)):
+        raise ValueError("int4_matmul: x and the weight arrays must be "
+                         "16-byte aligned (the kernel reads them by TMA)")
     y = torch.empty((M, t.n), dtype=x.dtype, device=x.device)
+    part = None
+    if splits > 1:
+        part = torch.empty((splits, M, t.n), dtype=torch.float32,
+                           device=x.device)
     lib = _cuda.library()
     err = lib.mvt_int4_matmul(
         x.data_ptr(), t.qp.data_ptr(), t.sl.data_ptr(), t.sh.data_ptr(),
-        t.bl.data_ptr(), t.bh.data_ptr(), y.data_ptr(), M, K, n2p, t.n,
-        _cuda.stream_handle(x.device))
+        t.bl.data_ptr(), t.bh.data_ptr(), y.data_ptr(),
+        None if part is None else part.data_ptr(), M, K, n2p, t.n,
+        t.group_size, bm, splits, _cuda.stream_handle(x.device))
     _cuda.check(err, "int4_matmul")
     launches["int4_matmul"] += 1
     return y

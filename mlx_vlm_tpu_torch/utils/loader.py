@@ -304,10 +304,16 @@ def _to_device(flat: dict, dtype: torch.dtype, device) -> dict:
     return {k: put(v) for k, v in flat.items()}
 
 
-def _check_device(device) -> torch.device:
+def _check_device(device, dtype: torch.dtype) -> torch.device:
     """The device to load onto; the card unless the caller asks for the CPU.
-    Raises before any work when that device is a card this host lacks."""
+    Raises before any work when the card would not take `dtype` (its
+    kernels K1, K4 and K5 take bfloat16 only) or is one this host lacks."""
     device = torch.device(device)
+    if device.type == "cuda" and dtype != torch.bfloat16:
+        raise TypeError(
+            f"the CUDA kernels (K1, K4, K5) take torch.bfloat16, not {dtype}: "
+            "load onto the GPU with dtype=torch.bfloat16, or pass "
+            "device='cpu' for other dtypes")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the model loads onto the GPU unless the caller "
@@ -320,7 +326,7 @@ def load_model_from_weights(config: dict, weights: dict,
                             device="cuda"):
     """Full load pipeline from an in-memory flat weight dict (HF keys):
     sanitize -> quant fold -> layer stacking -> device."""
-    device = _check_device(device)
+    device = _check_device(device, dtype)
     arch, _ = get_model_and_args(config)
     model = arch.Model(arch.ModelConfig.from_dict(config))
     qc = config.get("quantization_config") or {}
@@ -350,13 +356,14 @@ def decide_fused_decode(model) -> bool:
     lm = model.language_model
     lm.fused_decode = (
         os.environ.get("MLX_VLM_TPU_FUSED_DECODE", "1") not in ("0", "false")
-        and fused_decode_eligible(model.params["language_model"], lm.args))
+        and fused_decode_eligible(model.params["language_model"], lm.args,
+                                  model.device))
     return lm.fused_decode
 
 
 def load_model(model_path, dtype: torch.dtype = torch.bfloat16, device="cuda"):
     """Instantiate the model and attach its parameter tree."""
-    device = _check_device(device)
+    device = _check_device(device, dtype)
     model_path = Path(model_path)
     config = load_config(model_path)
     return load_model_from_weights(config, _read_checkpoint(model_path), dtype,
@@ -366,7 +373,7 @@ def load_model(model_path, dtype: torch.dtype = torch.bfloat16, device="cuda"):
 def load(path: str, processor_kwargs: Optional[dict] = None,
          dtype: torch.dtype = torch.bfloat16, device="cuda"):
     """Load (model, processor) from a local checkpoint directory."""
-    device = _check_device(device)
+    device = _check_device(device, dtype)
     model_path = get_model_path(path)
     model = load_model(model_path, dtype=dtype, device=device)
     from .processing import load_processor

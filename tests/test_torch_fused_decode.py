@@ -19,6 +19,8 @@ tokens, logprobs within 0.08 (the JAX CPU route is the grid kernel with
 dequant math, the port follows the z2 math).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -258,6 +260,34 @@ def test_route_switch_off(monkeypatch):
     assert _route_calls(tm, 1, 1, monkeypatch) == 0
     monkeypatch.setenv("MLX_VLM_TPU_FUSED_DECODE", "1")
     assert decide_fused_decode(tm)
+
+
+def test_route_rule_takes_the_kernels_limits_on_the_card(models):
+    """On the card the fused route needs what K3 takes (head_dim 128 among
+    others), as the reference builds no pack on its device otherwise; on
+    the CPU the rule stays the reference's.  This model has head_dim 32:
+    eligible on the CPU, per-linear on the card."""
+    _, tm, cfg = models
+    lp, args = tm.params["language_model"], tm.language_model.args
+    assert args.hidden_size // args.num_attention_heads == 32
+    assert fd.fused_decode_eligible(lp, args, torch.device("cpu"))
+    assert not fd.fused_decode_eligible(lp, args, torch.device("cuda"))
+    assert fd.kernel_refusal(args, 64, cfg["intermediate_size"])
+    try:
+        tm.device = torch.device("cuda")
+        assert not decide_fused_decode(tm)
+    finally:
+        tm.device = torch.device("cpu")
+        assert decide_fused_decode(tm)
+    # a head_dim-128 model within the kernel's limits keeps the route
+    wide = dataclasses.replace(args, hidden_size=256, num_attention_heads=2,
+                               num_key_value_heads=1)
+    assert fd.kernel_refusal(wide, 64, 256) is None
+    for bad in (dict(num_key_value_heads=2, num_attention_heads=1),
+                dict(hidden_size=2304, num_attention_heads=18,
+                     num_key_value_heads=2)):
+        assert fd.kernel_refusal(dataclasses.replace(wide, **bad), 64, 256)
+    assert fd.kernel_refusal(wide, 24, 256) and fd.kernel_refusal(wide, 64, 192)
 
 
 def test_step_logits_match_per_linear_path(models):

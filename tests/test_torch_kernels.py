@@ -31,14 +31,14 @@ torch.set_num_threads(2)
 ATOL, RTOL = 1e-5, 1e-4
 
 
-def _jax_int4(n, k, seed, layers=None):
-    """JAX Int4GroupedTensor (numpy fields) from random f32 weights; stacked
-    over `layers` when given."""
+def _jax_int4(n, k, seed, layers=None, g=64):
+    """JAX Int4GroupedTensor (numpy fields) from random f32 weights, group
+    size g; stacked over `layers` when given."""
     rng = np.random.default_rng(seed)
 
     def one():
         w = rng.standard_normal((n, k)).astype(np.float32) * 0.1
-        return jq.to_int4_grouped(jq.quantize(jnp.asarray(w), 4, 64))
+        return jq.to_int4_grouped(jq.quantize(jnp.asarray(w), 4, g))
 
     if layers is None:
         return one()
@@ -46,7 +46,7 @@ def _jax_int4(n, k, seed, layers=None):
     return jq.Int4GroupedTensor(
         **{f: np.stack([np.asarray(getattr(t, f)) for t in ts])
            for f in ("qp", "sl", "sh", "bl", "bh")},
-        n=n, group_size=64, out_dtype="float32")
+        n=n, group_size=g, out_dtype="float32")
 
 
 def _port_int4(t):
@@ -214,6 +214,75 @@ def test_sampling_matches_reference():
     assert all(int(t) in top3[i] for i, t in enumerate(t1))
 
 
+# K1's plan (row tile, splits) at chip_smoke.py's K1_SHAPES (K, N) for a
+# 512-row chunk, g = 64: 256-row tiles, split where their 56 tiles (N = 3584)
+# would leave SMs idle; the narrow k/v projection takes 128-row tiles and 8
+# slices
+K1_PLANS = {(3584, 3584): (256, 2), (3584, 512): (128, 8),
+            (3584, 18944): (256, 1), (18944, 3584): (256, 2)}
+
+
+@pytest.mark.parametrize("K,N", sorted(K1_PLANS))
+def test_int4_matmul_plan_at_k1_shapes(K, N):
+    n2p = tq._int4_half_width(N)
+    assert iv.int4_matmul_plan(512, K, n2p, 64) == K1_PLANS[(K, N)]
+
+
+@pytest.mark.parametrize("M,K,N,g", [
+    (512, 3584, 512, 32), (512, 3584, 512, 128), (100, 3584, 512, 64),
+    (9, 256, 200, 64), (64, 3584, 3584, 64), (300, 272, 200, 16),
+    (512, 5376, 512, 96), (100, 768, 512, 96), (512, 18944, 3584, 128),
+    (17, 128, 4096, 128)])
+def test_int4_matmul_plan_slices(M, K, N, g):
+    """The split rule: blocks stay at SMS or fewer whenever K is split, and
+    every K slice (the kernel's tile ranges z*T/S .. (z+1)*T/S over T
+    64-deep stages) holds one quantization group or more."""
+    n2p = tq._int4_half_width(N)
+    bm, splits = iv.int4_matmul_plan(M, K, n2p, g)
+    assert bm in (64, 128, 256) and (bm == 64 or bm < 2 * M) and splits >= 1
+    blocks = -(-M // bm) * (n2p // 64)
+    assert bm == 64 or blocks >= iv.SMS // 8
+    assert splits == 1 or blocks * splits <= iv.SMS
+    T = -(-K // 64)
+    for z in range(splits):
+        t0, t1 = z * T // splits, (z + 1) * T // splits
+        assert min(t1 * 64, K) - t0 * 64 >= g
+    if splits > 1:  # the largest such count: one more breaks a limit
+        s = splits + 1
+        assert (blocks * s > iv.SMS or any(
+            min((z + 1) * T // s * 64, K) - z * T // s * 64 < g
+            for z in range(s)))
+
+
+@pytest.mark.parametrize("g", [8, 24, 40])
+def test_int4_matmul_refuses_group_size_before_launch(g, monkeypatch):
+    """A group size with g % 16 != 0 makes the wrapper raise on a tensor
+    that is not on the CPU, before any launch; a size it takes gets past
+    that check.  Meta tensors stand in for the card's."""
+    def no_build():
+        raise AssertionError("the wrapper reached the kernel library")
+
+    monkeypatch.setattr(_cuda, "library", no_build)
+    K, n2p = 8 * g, 128
+
+    def weight(gs):
+        planes = [torch.empty((K // gs, 1, n2p), device="meta")
+                  for _ in range(4)]
+        return tq.Int4GroupedTensor(
+            torch.empty((K, n2p), dtype=torch.uint8, device="meta"), *planes,
+            n=200, group_size=gs, out_dtype="bfloat16")
+
+    x = torch.empty((20, K), dtype=torch.bfloat16, device="meta")
+    before = dict(iv.launches)
+    with pytest.raises(ValueError, match="g % 16 == 0"):
+        iv.int4_matmul(x, weight(g))
+    with pytest.raises(ValueError, match="g % 16 == 0"):
+        iv.int4_matvec(x, weight(g))
+    with pytest.raises(TypeError, match="bfloat16 x on CUDA"):
+        iv.int4_matmul(x, weight(g * 2 if g % 16 == 8 else 16))
+    assert iv.launches == before
+
+
 def test_cpu_calls_leave_launch_counters_at_zero():
     before = {**iv.launches, **fa.launches}
     t = _port_int4(_jax_int4(64, 128, seed=11))
@@ -248,27 +317,38 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _cuda_int4(K, N, device):
-    t = _port_int4(_jax_int4(N, K, seed=K + N))
+def _cuda_int4(K, N, device, g=64):
+    t = _port_int4(_jax_int4(N, K, seed=K + N, g=g))
     return tq.Int4GroupedTensor(
         **{f: getattr(t, f).to(device) for f in ("qp", "sl", "sh", "bl", "bh")},
-        n=t.n, group_size=64, out_dtype="bfloat16")
+        n=t.n, group_size=g, out_dtype="bfloat16")
+
+
+# (K, N, g): a narrow weight whose K1 calls split K, a wide one whose calls
+# do not (M = 512), and K not a multiple of K1's 64-deep stage at g = 16
+CUDA_INT4 = [(256, 200, g) for g in (32, 64, 128)] + [
+    (512, 4608, g) for g in (32, 64, 128)] + [(272, 200, 16)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 8, 9, 300])
-def test_cuda_int4_kernels_match_plain(cuda_device, M):
-    t = _cuda_int4(256, 200, cuda_device)
-    x = torch.randn((M, 256), device=cuda_device).to(torch.bfloat16)
+@pytest.mark.parametrize("K,N,g", CUDA_INT4)
+@pytest.mark.parametrize("M", [1, 8, 9, 100, 300, 512])
+def test_cuda_int4_kernels_match_plain(cuda_device, M, K, N, g):
+    """K2 (M <= 8) and K1 against their plain versions.  Both sides round
+    the output once to bf16 (one ulp is at most 2^-7 max|ref|) after f32
+    sums that differ by their order only."""
+    t = _cuda_int4(K, N, cuda_device, g)
+    x = torch.randn((M, K), device=cuda_device).to(torch.bfloat16)
     y = iv.int4_matvec(x, t).float()
     if M > iv.MAX_KERNEL_ROWS:
         ref = iv.int4_matmul_plain(x, t).float()
-        tol = 2e-2
+        tol = 1e-2 * float(ref.abs().max())
     else:
         ref = iv.int4_matvec_plain(x, t).to(torch.bfloat16).float()
-        tol = 1e-2  # output rounded to bf16 on both sides
+        tol = 1e-2 * max(1.0, float(ref.abs().max()))
     torch.cuda.synchronize()
-    assert float((y - ref).abs().max()) <= tol * max(1.0, float(ref.abs().max()))
+    assert y.shape == (M, N)
+    assert float((y - ref).abs().max()) <= tol
 
 
 @pytest.mark.cuda

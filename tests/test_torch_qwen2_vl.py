@@ -304,3 +304,83 @@ def test_generate_matches_on_int4_checkpoint(tmp_path):
     tt = [r.token for r in stream_generate(tm, tok, prompt, max_tokens=6,
                                            prefill_step_size=64)]
     assert len(tt) == 6 and tt == jt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("loader", ["load_model_from_weights", "load_model",
+                                    "load"])
+def test_loaders_refuse_other_dtypes_on_the_card(loader, dtype):
+    """The card's kernels (K1, K4, K5) take bfloat16: a load onto it in
+    another dtype is refused at load time, before anything is read, with a
+    message that names bfloat16.  CPU loads keep every dtype."""
+    import mlx_vlm_tpu_torch.utils.loader as tl
+
+    call = {"load_model_from_weights": lambda: tl.load_model_from_weights(
+                tiny_qwen2_vl_config(), {}, dtype, "cuda"),
+            "load_model": lambda: tl.load_model("/nonexistent", dtype,
+                                                "cuda"),
+            "load": lambda: tl.load("/nonexistent", dtype=dtype,
+                                    device="cuda")}[loader]
+    with pytest.raises(TypeError, match="torch.bfloat16"):
+        call()
+    cfg, w = mlx_int4_checkpoint(_bench_config(), seed=5)
+    tm = tl.load_model_from_weights(cfg, w, dtype, "cpu")
+    emb = tm.params["language_model"]["model"]["embed_tokens"]["weight"]
+    assert emb.scales.dtype == dtype
+
+
+def test_block_size_sizes_the_cache_as_the_reference(models, monkeypatch):
+    """generate_step takes block_size and sizes the cache by the
+    reference's rule, round_up(S + max_tokens + max(1, min(block_size,
+    max_tokens)) + 1, 256): at S = 7900 and max_tokens = 20 both packages
+    make an 8192-slot cache (the flash prefill's size)."""
+    import importlib
+
+    # `generate` is also each package's function, so import by module name
+    jar = importlib.import_module("mlx_vlm_tpu.generate.ar")
+    tar = importlib.import_module("mlx_vlm_tpu_torch.generate.ar")
+    jm, tm, cfg = models
+    made = {}
+
+    class Made(Exception):
+        pass
+
+    def spy(name):
+        def make_cache(model, batch_size, capacity, *args, **kwargs):
+            made[name] = capacity
+            raise Made
+        return make_cache
+
+    monkeypatch.setattr(jar, "make_cache", spy("jax"))
+    monkeypatch.setattr(tar, "make_cache", spy("port"))
+    D = cfg["hidden_size"]
+    for kw in ({}, {"block_size": 32}):
+        made.clear()
+        with pytest.raises(Made):
+            next(jar.generate_step(jnp.zeros((1, 7900, D), jnp.float32), jm,
+                                   max_tokens=20, **kw))
+        with pytest.raises(Made):
+            next(tar.generate_step(torch.zeros((1, 7900, D)), tm,
+                                   max_tokens=20, **kw))
+        assert made == {"jax": 8192, "port": 8192}
+    with pytest.raises(Made):
+        next(tar.generate_step(torch.zeros((1, 7900, D)), tm, max_tokens=20,
+                               block_size=8))
+    assert made["port"] == 7936  # 7900 + 20 + 8 + 1 rounds up to 7936
+
+
+def test_block_size_is_accepted_and_keeps_the_tokens(models):
+    """block_size=8 through stream_generate and generate gives the default's
+    tokens: decoding stays one token per step."""
+    from mlx_vlm_tpu_torch.utils.testing import ByteTokenizer
+
+    _, tm, _ = models
+    tok = ByteTokenizer()
+    prompt = [int(t) for t in np.random.default_rng(8).integers(0, 256, 21)]
+    runs = [[r.token for r in mlx_vlm_tpu_torch.stream_generate(
+        tm, tok, prompt, max_tokens=6, prefill_step_size=64, **kw)]
+        for kw in ({}, {"block_size": 8})]
+    assert len(runs[0]) == 6 and runs[1] == runs[0]
+    out = mlx_vlm_tpu_torch.generate(tm, tok, prompt, max_tokens=6,
+                                     prefill_step_size=64, block_size=8)
+    assert out.generation_tokens == 6 and out.token == runs[0][-1]
