@@ -39,11 +39,10 @@ _SIGNATURES = {
     # x, qp, sl, sh, bl, bh, y, part, M, K, N2p, n, group_size, bm, splits,
     # stream
     "mvt_int4_matmul": (_P,) * 8 + (_I,) * 7 + (_P,),
-    # x, qp, sl, sh, bl, bh, part, y, M, K, N2p, n, group_size, stream
-    "mvt_int4_matvec": (_P,) * 8 + (_I,) * 5 + (_P,),
+    # x, qp, sl, sh, bl, bh, y, M, K, N2p, n, group_size, slices, stream
+    "mvt_int4_matvec": (_P,) * 7 + (_I,) * 6 + (_P,),
     # q, k, v, o, offset, left_pad, B, H, KVH, S, C, scale, window, stream
     "mvt_flash_attention": (_P,) * 6 + (_I,) * 5 + (_F, _I, _P),
-    "mvt_int4_matvec_slices": (_I,),
     # FusedDecodeArgs*, stream
     "mvt_fused_decode": (_P, _P),
     "mvt_fused_decode_grid": (),

@@ -15,10 +15,15 @@ g % 16 == 0.
 
 K2, `int4_matvec_rows` (csrc/int4_matvec.cu), replaces `_int4_matvec`
 (:223, kernel `_kern` :61) for up to MAX_KERNEL_ROWS rows: the decode
-linears and the prefill lm_head.  x is cast to f32, the dequantized weight is
-f32, the output is f32 and is then cast to x's dtype.  Bound on the H100 by
-device-memory bandwidth; the kernel splits K over hundreds of blocks with
-16-byte loads and sums the slices in a second pass.
+linears and the prefill lm_head.  Each weight dequantizes as code * s + b in
+f32, products and sums are f32, and the output is rounded once to x's dtype
+(bf16 on the card).  Bound on the H100 by device-memory bandwidth; the
+kernel is one launch per call that reads the weight once for all rows: a
+TMA ring streams 128-column strips of the codes and their scales, each
+group is factored as s * sum x (128 + q) + (b - 128 s) * sum x with the
+sums on `mma.sync`, and K splits into slices (`int4_matvec_plan`), one
+block each in a cluster per strip, whose partials the cluster adds in slice
+order from distributed shared memory (see the .cu header).
 
 The reference pads decode rows to 8 and indexes stacked weights with a
 scalar-prefetched layer number; both are TPU artifacts.  Here a stacked
@@ -39,6 +44,8 @@ from . import _cuda
 
 MAX_KERNEL_ROWS = 8
 SMS = 132  # streaming multiprocessors of an H100 SXM
+K2_SLICE_ROWS = 14 * 64  # K rows a K2 block streams at most (14 stages)
+K2_MAX_SLICES = 16  # a K2 strip's cluster holds one block per K slice
 
 launches = {"int4_matmul": 0, "int4_matvec": 0}
 
@@ -124,29 +131,47 @@ def int4_matmul(x: torch.Tensor, t: Int4GroupedTensor) -> torch.Tensor:
     return y
 
 
+def int4_matvec_plan(M: int, K: int, n2p: int, group_size: int) -> int:
+    """K2's count S of K slices for x [M <= 8, K] and a weight of n2p packed
+    columns.  A block streams one strip of 128 packed columns (256 outputs)
+    over one slice of whole quantization groups.  S is the least count that
+    gives two blocks per SM or more and slices of at most K2_SLICE_ROWS
+    rows (shorter slices spread a call over more blocks, so that the last
+    wave of blocks is short), but at most K2_MAX_SLICES (the slices of a
+    strip form one thread-block cluster) and the group count.  Raises for a
+    row count or group size the kernel does not take."""
+    if not 1 <= M <= MAX_KERNEL_ROWS:
+        raise ValueError(f"int4_matvec: the CUDA kernel takes 1 to "
+                         f"{MAX_KERNEL_ROWS} rows, not {M}")
+    if group_size <= 0 or group_size % 16 or K % group_size:
+        raise ValueError(f"int4_matvec: the CUDA kernel takes group sizes "
+                         f"with g % 16 == 0 and K % g == 0, not g="
+                         f"{group_size} at K={K}")
+    slices = max(-(-2 * SMS // (n2p // 128)), -(-K // K2_SLICE_ROWS))
+    return min(K // group_size, K2_MAX_SLICES, slices)
+
+
 def int4_matvec_rows(x: torch.Tensor, t: Int4GroupedTensor) -> torch.Tensor:
-    """K2: x [M <= 8, K] @ dequant(t).T -> [M, n] in float32 (single weight)."""
+    """K2: x [M <= 8, K] @ dequant(t).T -> [M, n] in x.dtype (single
+    weight; bf16 on the card)."""
     if x.device.type == "cpu":
-        return int4_matvec_plain(x, t)
+        return int4_matvec_plain(x, t).to(x.dtype)
     _check_weight(x, t, "int4_matvec")
-    if x.device.type != "cuda":
-        raise TypeError("int4_matvec: the kernel runs on CUDA tensors")
-    if t.group_size % 16:
-        raise ValueError("int4_matvec: group_size must be a multiple of 16")
     M, K = x.shape
-    if M > MAX_KERNEL_ROWS:
-        raise ValueError(f"int4_matvec: at most {MAX_KERNEL_ROWS} rows")
-    x = x.float().contiguous()
     n2p = t.qp.shape[1]
+    slices = int4_matvec_plan(M, K, n2p, t.group_size)
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise TypeError("int4_matvec: the CUDA kernel takes bfloat16 x on CUDA")
+    x = x.contiguous()
+    if any(a.data_ptr() % 16 for a in (x, t.qp, t.sl, t.sh, t.bl, t.bh)):
+        raise ValueError("int4_matvec: x and the weight arrays must be "
+                         "16-byte aligned (the kernel reads them by TMA)")
+    y = torch.empty((M, t.n), dtype=x.dtype, device=x.device)
     lib = _cuda.library()
-    slices = lib.mvt_int4_matvec_slices(K)
-    part = torch.empty((slices, M, 2 * n2p), dtype=torch.float32,
-                       device=x.device)
-    y = torch.empty((M, t.n), dtype=torch.float32, device=x.device)
     err = lib.mvt_int4_matvec(
         x.data_ptr(), t.qp.data_ptr(), t.sl.data_ptr(), t.sh.data_ptr(),
-        t.bl.data_ptr(), t.bh.data_ptr(), part.data_ptr(), y.data_ptr(), M, K,
-        n2p, t.n, t.group_size, _cuda.stream_handle(x.device))
+        t.bl.data_ptr(), t.bh.data_ptr(), y.data_ptr(), M, K, n2p, t.n,
+        t.group_size, slices, _cuda.stream_handle(x.device))
     _cuda.check(err, "int4_matvec")
     launches["int4_matvec"] += 1
     return y
@@ -171,5 +196,5 @@ def int4_matvec(x: torch.Tensor, t: Int4GroupedTensor,
     if M > MAX_KERNEL_ROWS:
         y = int4_matmul(xm, t)
     else:
-        y = int4_matvec_rows(xm, t).to(x.dtype)
+        y = int4_matvec_rows(xm, t)
     return y.reshape(*lead, t.n)

@@ -56,7 +56,7 @@ def _port_int4(t):
         n=t.n, group_size=t.group_size, out_dtype="float32")
 
 
-@pytest.mark.parametrize("M", [1, 5, 64, 300])
+@pytest.mark.parametrize("M", [1, 2, 5, 8, 64, 300])
 @pytest.mark.parametrize("stacked", [False, True])
 def test_int4_matvec_matches_pallas(M, stacked):
     K, N = 128, 200
@@ -283,6 +283,72 @@ def test_int4_matmul_refuses_group_size_before_launch(g, monkeypatch):
     assert iv.launches == before
 
 
+# chip_smoke.py's K2_SHAPES (K, N): the 7B decoder linears and the lm_head
+K2_SHAPES = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584),
+             (3584, 152064)]
+
+
+@pytest.mark.parametrize("K,N", K2_SHAPES)
+@pytest.mark.parametrize("M", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", [16, 32, 64, 128])
+def test_int4_matvec_plan_at_k2_shapes(K, N, M, g):
+    """K2's plan: the strips x slices give two blocks per SM, or the slices
+    are as many as allowed (one group each, or K2_MAX_SLICES, the cluster
+    limit); every slice (groups z*G//S .. (z+1)*G//S, as the kernel cuts
+    them) is whole groups, one or more, and at most K2_SLICE_ROWS rows
+    unless no more slices are allowed; and S is the least count that does
+    all this."""
+    n2p = tq._int4_half_width(N)
+    S = iv.int4_matvec_plan(M, K, n2p, g)
+    G, strips = K // g, n2p // 128
+    most = min(G, iv.K2_MAX_SLICES)
+    assert 1 <= S <= most
+    assert strips * S >= 2 * iv.SMS or S == most
+    bounds = [z * G // S * g for z in range(S + 1)]
+    assert bounds[0] == 0 and bounds[-1] == K
+    sizes = [b1 - b0 for b0, b1 in zip(bounds, bounds[1:])]
+    assert min(sizes) >= g
+    assert max(sizes) <= max(iv.K2_SLICE_ROWS, g) or S == most
+    if S > 1:  # one slice fewer breaks a rule
+        s = S - 1
+        assert strips * s < 2 * iv.SMS or -(-K // s) > iv.K2_SLICE_ROWS
+
+
+def test_int4_matvec_refuses_before_launch(monkeypatch):
+    """K2's wrapper raises on M = 9, on g % 16 != 0 and on x that is not
+    bfloat16 on a tensor that is not on the CPU, before any launch; meta
+    tensors stand in for the card's."""
+    def no_build():
+        raise AssertionError("the wrapper reached the kernel library")
+
+    monkeypatch.setattr(_cuda, "library", no_build)
+    K, n2p = 960, 128
+
+    def weight(gs):
+        planes = [torch.empty((K // gs, 1, n2p), device="meta")
+                  for _ in range(4)]
+        return tq.Int4GroupedTensor(
+            torch.empty((K, n2p), dtype=torch.uint8, device="meta"), *planes,
+            n=200, group_size=gs, out_dtype="bfloat16")
+
+    def x(M, dtype=torch.bfloat16):
+        return torch.empty((M, K), dtype=dtype, device="meta")
+
+    before = dict(iv.launches)
+    with pytest.raises(ValueError, match="1 to 8 rows"):
+        iv.int4_matvec_rows(x(9), weight(64))
+    for g in (24, 40):
+        with pytest.raises(ValueError, match="g % 16 == 0"):
+            iv.int4_matvec_rows(x(1), weight(g))
+    for dtype in (torch.float32, torch.float16):
+        with pytest.raises(TypeError, match="bfloat16 x on CUDA"):
+            iv.int4_matvec_rows(x(4, dtype), weight(64))
+    # bf16 x of a taken shape gets past the checks (meta is not CUDA)
+    with pytest.raises(TypeError, match="bfloat16 x on CUDA"):
+        iv.int4_matvec(x(8), weight(64))
+    assert iv.launches == before
+
+
 def test_cpu_calls_leave_launch_counters_at_zero():
     before = {**iv.launches, **fa.launches}
     t = _port_int4(_jax_int4(64, 128, seed=11))
@@ -325,14 +391,17 @@ def _cuda_int4(K, N, device, g=64):
 
 
 # (K, N, g): a narrow weight whose K1 calls split K, a wide one whose calls
-# do not (M = 512), and K not a multiple of K1's 64-deep stage at g = 16
+# do not (M = 512), K not a multiple of K1's 64-deep stage at g = 16, and a
+# ragged n = 1000 (N2p = 512) at K = 4096, whose K2 calls split K into 16
+# slices
 CUDA_INT4 = [(256, 200, g) for g in (32, 64, 128)] + [
-    (512, 4608, g) for g in (32, 64, 128)] + [(272, 200, 16)]
+    (512, 4608, g) for g in (32, 64, 128)] + [(272, 200, 16),
+                                              (4096, 1000, 64)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,N,g", CUDA_INT4)
-@pytest.mark.parametrize("M", [1, 8, 9, 100, 300, 512])
+@pytest.mark.parametrize("M", [1, 2, 4, 8, 9, 100, 300, 512])
 def test_cuda_int4_kernels_match_plain(cuda_device, M, K, N, g):
     """K2 (M <= 8) and K1 against their plain versions.  Both sides round
     the output once to bf16 (one ulp is at most 2^-7 max|ref|) after f32
@@ -349,6 +418,20 @@ def test_cuda_int4_kernels_match_plain(cuda_device, M, K, N, g):
     torch.cuda.synchronize()
     assert y.shape == (M, N)
     assert float((y - ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8])
+def test_cuda_int4_matvec_is_bit_identical_across_calls(cuda_device, M):
+    """K2 sums its K slices in slice order, whichever block finishes first:
+    two calls on the same input give the same bits (16 slices here)."""
+    t = _cuda_int4(4096, 1000, cuda_device)
+    assert iv.int4_matvec_plan(M, 4096, t.qp.shape[1], 64) > 1
+    x = torch.randn((M, 4096), device=cuda_device).to(torch.bfloat16)
+    y1 = iv.int4_matvec_rows(x, t)
+    y2 = iv.int4_matvec_rows(x, t)
+    torch.cuda.synchronize()
+    assert y1.dtype == torch.bfloat16 and torch.equal(y1, y2)
 
 
 @pytest.mark.cuda
