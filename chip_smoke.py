@@ -15,7 +15,10 @@ Phases (any failure exits non-zero):
      splits K; K2 at M = 1, 2, 4 and 8, groups of 32 and 128 and a ragged
      n = 1000, timed also with its weights cold in L2 (`graph_ms` over
      copies of the weight), and its
-     kernels per call counted; K3: 4 decoder layers and the int4 head;
+     kernels per call counted; K5 at M = 1 (timed cold and warm) and 512,
+     its int4 GEMM also on a ragged chunk (M = 100, N = 1000) and a narrow
+     one at g = 32, with its kernels per call and a bit-identical repeat;
+     K3: 4 decoder layers and the int4 head;
      K6-K8: 4 KV heads of 7 query rows over an 8704-slot cache), each with
      its device time, the least
      time the card could take (`bound_ms`, from bytes at 3.35 TB/s or
@@ -188,6 +191,10 @@ def phase_environment() -> None:
     for source, log in _cuda.BUILD_LOG.items():
         for name, regs, spills in ptxas_report(log):
             print(f"  ptxas {source} {name}: {regs}; {spills}", flush=True)
+            # K5's int4 GEMM keeps its accumulators in registers
+            if name.startswith("qmm4_kernel") and (
+                    "0 bytes spill stores, 0 bytes spill loads" not in spills):
+                fail(f"ptxas spills in {name}: {spills}")
 
 
 def ptxas_report(log: str) -> list:
@@ -454,12 +461,14 @@ def check_int4_matvec(results: list, gen, dev) -> None:
 
 # K5 cases (bits, group size, M, K, N): the 7B linears at M = 1 (a decode
 # step) and 512 (a prefill chunk), the lm_head at M = 1, and mlx's other
-# group sizes
+# group sizes; for the int4 GEMM route also a ragged chunk (M = 100,
+# N = 1000) and a narrow one at g = 32 (both split K)
 K5_CASES = (tuple((bits, 64, M, K, N) for bits in (4, 8) for M in (1, 512)
                   for K, N in K1_SHAPES)
             + tuple((bits, 64, 1, 3584, 152064) for bits in (4, 8))
             + tuple((bits, g, 512, 3584, 3584) for bits in (4, 8)
-                    for g in (32, 128)))
+                    for g in (32, 128))
+            + ((4, 64, 100, 3584, 1000), (4, 32, 512, 3584, 512)))
 K5_TOL = 1e-2
 
 
@@ -491,11 +500,24 @@ def qmm_work(M: int, t) -> tuple:
     return nbytes, 2.0 * M * N * K
 
 
+def clone_mlx(t):
+    """A copy of a QuantizedTensor in fresh device memory."""
+    return type(t)(q=t.q.clone(), scales=t.scales.clone(),
+                   biases=t.biases.clone(), bits=t.bits,
+                   group_size=t.group_size, out_dtype=t.out_dtype)
+
+
 def check_qmatmul(results: list, dev) -> None:
     """K5 against its plain version at K5_CASES, its weights drawn on the
     card; 4-bit cases also time torch._weight_int4pack_mm.  No single
     PyTorch call takes 8-bit group-affine codes (_weight_int8pack_mm is
-    per-channel, with no group bias), so the 8-bit cases have none."""
+    per-channel, with no group bias), so the 8-bit cases have none.  M = 1
+    cases are timed cold (graph_ms over cold_copies of the weight, as a
+    decode step reads it) and warm (device_ms), the library too.  Every
+    int4 GEMM case (M > 8) records the kernels one call launches (one, two
+    where it splits K) and must give bit-identical output on a repeat."""
+    import functools
+
     import torch
 
     from mlx_vlm_tpu_torch.ops import qmatmul as k5
@@ -508,12 +530,42 @@ def check_qmatmul(results: list, dev) -> None:
         if bits == 4:
             codes = torch.stack([t.q & 0xF, t.q >> 4], dim=-1).reshape(N, K)
             lib = int4pack_mm(codes, t.scales, t.biases, g, x)
-        _check(results, f"qmatmul_int{bits}", f"M={M} K={K} N={N} g={g}",
-               k5.quantized_matmul_kernel(x, t), k5.qmatmul_plain(x, t),
-               K5_TOL, lambda: k5.quantized_matmul_kernel(x, t),
-               lambda: k5.qmatmul_plain(x, t), floor=0.0,
+        name, shape = f"qmatmul_int{bits}", f"M={M} K={K} N={N} g={g}"
+        run = functools.partial(k5.quantized_matmul_kernel, x)
+        out = run(t)
+        _check(results, name, shape, out, k5.qmatmul_plain(x, t), K5_TOL,
+               lambda: run(t), lambda: k5.qmatmul_plain(x, t), floor=0.0,
                work=qmm_work(M, t), library=lib)
-        del t, x, lib
+        r = results[-1]
+        if M == 1:
+            weight_bytes = t.q.numel() + 2 * t.scales.numel() * 2
+            copies = [t] + [clone_mlx(t) for _ in range(
+                cold_copies(weight_bytes) - 1)]
+            r["warm_ms"], r["ms"] = r["ms"], graph_ms(
+                [functools.partial(run, c) for c in copies], iters=5)
+            del copies
+            txt = f"kernel_ms={r['ms']:.4f} cold {r['warm_ms']:.4f} warm"
+            if lib is not None:
+                _, w, _, sz = lib.args
+                r["library_warm_ms"], r["library_ms"] = (
+                    r["library_ms"], graph_ms(int4pack_copies(lib, cold_copies(
+                        w.numel() * w.element_size()
+                        + sz.numel() * sz.element_size())), iters=5))
+                txt += (f" library_ms={r['library_ms']:.4f} cold "
+                        f"{r['library_warm_ms']:.4f} warm")
+            print(f"  {name} {shape}: {txt} (device time)", flush=True)
+        elif bits == 4:
+            _, splits = k5.qmatmul_plan(M, K, N, g)
+            kernels = kernels_per_call(lambda: run(t))
+            same = bool(torch.equal(run(t), out))
+            r["kernels_per_call"], r["splits"], r["repeat_identical"] = (
+                kernels, splits, same)
+            r["ok"] = r["ok"] and same and kernels == (1 if splits == 1
+                                                       else 2)
+            print(f"  {name} {shape}: {splits} K slice(s), kernels per call "
+                  f"{kernels} (graph nodes), repeat bit-identical {same} "
+                  f"{'ok' if r['ok'] else 'MISMATCH'}", flush=True)
+        del t, x, lib, out
 
 
 def phase_kernels() -> list:

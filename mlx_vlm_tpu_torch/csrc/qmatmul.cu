@@ -17,34 +17,98 @@
 // reassociation, then one rounding to bf16.  (K1 differs: it rounds
 // code*s + b to bf16 before its MMA, as its reference does.)
 //
-// Two routes in one launch entry point:
-// - M <= 8 (decode steps, the prefill lm_head row): bound by device-memory
-//   bandwidth; at Qwen2-VL-7B one exact decode step's linears and head read
-//   about 3.98 GB at 4 bits (about 1.19 ms at 3.35 TB/s) and 7.5 GB at 8
-//   bits (2.2 ms), scales and biases included (reckoned from the shapes;
-//   the measured times are in PERF.md).  Each output row is a
-//   contiguous K*BITS/8-byte stream, so a block of 128 threads owns 4 output
-//   rows and strides over their 16-byte chunks (one chunk lies in one group
-//   for every group size taken), loading x once per chunk for the 4 rows;
-//   partials reduce by warp shuffles and then across the 4 warps.  With
-//   N = 512 (k/v projections) only 128 blocks run, fewer than the card's
-//   132 SMs.
-// - M > 8 (prefill chunks): bound by tensor-core operations (2*M*N*K at
-//   989 TFLOP/s bf16).  A block owns 64 rows of x and 128 output rows and
-//   walks K in steps of 32 codes (the smallest group).  x and the unpacked
-//   codes (as bf16) are staged in shared memory, with the next step's global
-//   loads held in registers while the current step computes; eight warps run
-//   mma.sync m16n8k16 into per-group partials that are folded into the f32
-//   accumulators with the group's scale and bias at each group's end.
-//   No cp.async / TMA / wgmma yet: that is later work.
+// Three routes:
+// - M <= 8, both widths (decode steps, the prefill lm_head row), entry
+//   mvt_qmatmul: bound by device-memory bandwidth; at Qwen2-VL-7B one exact
+//   decode step's linears and head read about 3.98 GB at 4 bits (about 1.19
+//   ms at 3.35 TB/s) and 7.5 GB at 8 bits (2.2 ms), scales and biases
+//   included (reckoned from the shapes; the measured times are in PERF.md).
+//   Each output row is a contiguous K*BITS/8-byte stream, so a block of 128
+//   threads owns 4 output rows and strides over their 16-byte chunks (one
+//   chunk lies in one group for every group size taken), loading x once
+//   per chunk for the 4 rows; partials reduce by warp shuffles and then
+//   across the 4 warps.  With N = 512 (k/v projections) only 128 blocks
+//   run, fewer than the card's 132 SMs.
+// - M > 8, 8-bit (entry mvt_qmatmul): a block owns 64 rows of x and 128
+//   output rows and walks K in steps of 32 codes; x and the codes unpacked
+//   to bf16 are staged in shared memory, eight warps run mma.sync m16n8k16
+//   into per-group partials folded at each group's end.
+// - M > 8, 4-bit (prefill chunks of an exact-4 model), entry
+//   mvt_qmatmul_int4_gemm: bound by tensor-core operations (2 M N K at 989
+//   TFLOP/s bf16: 512 rows do ~2,000 operations per code byte).  K1's
+//   pipeline (int4_matmul.cu; the wgmma helpers and the split-K pass are in
+//   wgmma.cuh), with what differs for the mlx layout:
+//   * Operands swapped: y^T[n, m] = W[n, :] . x[m, :]^T, W the A operand of
+//     wgmma.m64nBMk16 from REGISTERS, x the K-major B tile that TMA loads
+//     with the 128-byte swizzle.  A block owns 128 W rows (two consumer
+//     warpgroups of 64) against BM x rows (64 or 128); one producer thread
+//     keeps a ring of 64-code stages full: x (BM x 64 bf16) and the codes
+//     as they lie in memory (128 W rows x 32 bytes, one TMA box, no
+//     swizzle), behind full/empty mbarriers.
+//   * Codes exact: each nibble becomes bf16 128 + q with a PRMT and one
+//     LOP3 per pair, as K2 does, and a group's partial P = sum x (128 + q)
+//     accumulates on wgmma into an f32 accumulator of its own, zeroed by
+//     scale-d = 0 at the group's first 16-k slice.  At the group's end it
+//     is folded in f32: acc += s P + (b - 128 s) sum x.  Codes 0..255 are
+//     exact in bf16 and x (128 + q) exact in f32, so the contract above
+//     holds.
+//   * The A fragment against the mlx byte order: thread (g8, t) of a slice
+//     needs byte t and byte t + 4 of each of its two W rows' 8-byte slice.
+//     It reads its two 32-byte rows of the stage with four 16-byte loads
+//     (rows 64 apart within a quarter warp: no bank conflicts; each row is
+//     read by the quad's four threads at once), and PRMTs gather byte t of
+//     the eight words.  A row g8 / g8 + 8 of a warp are W rows 2 g8 / 2 g8
+//     + 1, as in K1, so the epilogue stores bf16 pairs.  The other two ways
+//     (a 32-bit read with a quad exchange; x permuted within each 16-k
+//     chunk by a pre-pass) were not built: the first costs more shuffles
+//     than these loads cost, the second a launch and a pass over x.
+//   * Sums of x, scales and biases: the producer warpgroup's three idle
+//     warps take turns, one stage in three each, and write into the stage
+//     (s, b - 128 s) in f32 for the block's 128 W rows and the sum of x per
+//     row and group (from the x tile in shared memory; at g = 128 the
+//     group's second stage adds the first's), then signal a third
+//     mbarrier.  A warp loads the scales and biases of its next stage
+//     before it waits for this one, so the L2 round trip is off the
+//     pipeline: with each thread reading its rows' scales at the stage it
+//     wrote, one round trip per stage set the pace of the whole kernel.
+//     Cost per stage: 8-16 scale and bias reads and 16-32 16-byte shared
+//     reads per lane of one warp, ~1,100 adds, off the consumers' path
+//     but on the same SM sub-partitions.
+//   * The fold needs the partial complete: one partial per warpgroup, so a
+//     fold waits for its group's wgmmas (wait_group 0) while the other
+//     warpgroup's wgmmas may run.  Two partials would let a warpgroup
+//     overlap its own fold, at BM/2 more registers: at BM = 128, acc, two
+//     partials and two stages of A fragments would be 224 registers, more
+//     than the 208 setmaxnreg leaves the consumers (the group-data warps
+//     need 80).  The next stage's A fragments are built while the current
+//     stage's wgmmas run, as in K1.
+//   * What bounds it on an H100: instruction issue, not the tensor cores.
+//     The fold is 2 FMAs per accumulator and group on the consumers' SM
+//     sub-partitions, beside the A fragments' PRMT / LOP3 work and the
+//     group-data warps' sums.  Builds with the fold or the sums of x taken
+//     out (wrong results, timing only) ran faster, the fold the more, and
+//     with both out about as fast as K1.  Tried and dropped: making the
+//     warpgroups take turns to issue their wgmmas (named barriers; no
+//     change), and summing x on mma.sync with A = 1 in the group-data
+//     warps, as K2 does (slower: the MMAs' latency chain per stage).
+//   * Narrow outputs: the plan (ops/qmatmul.py:qmatmul_plan) splits K into
+//     S slices of whole units of max(g, 64) codes, enough to fill the 132
+//     SMs; slices write f32 partials that splitk_reduce adds in slice
+//     order and rounds once.  No atomics: a repeated call is bit-identical.
+//   * Ragged edges: TMA fills x rows >= M and W rows >= N with zeros; the
+//     epilogue masks them.  Any M, any N, K % (2 g) == 0.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma_ring.cuh"
+#include "wgmma.cuh"
+
 namespace {
 
-// ------------------------------------------------------------ GEMM route
+// ------------------------------------------------------- int8 GEMM route
 
 constexpr int BM = 64;        // rows of x per block
 constexpr int BN = 128;       // output rows (of W) per block
@@ -75,30 +139,24 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
   return __uint_as_float(w & 0xFFFF0000u);
 }
 
-// 16 code bytes -> bf16 codes in 4 (8-bit) or 8 (4-bit) 32-bit words, in K
-// order (lower K at the lower address)
-template <int BITS>
-__device__ __forceinline__ void unpack_codes(const uint4 q, uint32_t* out) {
+// 16 code bytes -> 8 words of two bf16 codes each, in K order (lower K at
+// the lower address)
+__device__ __forceinline__ void unpack_codes8(const uint4 q, uint32_t* out) {
   const uint32_t w[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-  for (int i = 0; i < 16 * 8 / BITS / 2; ++i) {
-    if (BITS == 4) {
-      const uint32_t byte = (w[i / 4] >> (8 * (i % 4))) & 0xFFu;
-      out[i] = pack_bf16((float)(byte & 0xFu), (float)(byte >> 4));
-    } else {
-      const uint32_t pair = (w[i / 2] >> (16 * (i % 2))) & 0xFFFFu;
-      out[i] = pack_bf16((float)(pair & 0xFFu), (float)(pair >> 8));
-    }
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t pair = (w[i / 2] >> (16 * (i % 2))) & 0xFFFFu;
+    out[i] = pack_bf16((float)(pair & 0xFFu), (float)(pair >> 8));
   }
 }
 
-template <int BITS>
 __global__ void __launch_bounds__(THREADS)
-qmm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+qmm8_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
            const __nv_bfloat16* __restrict__ scales,
            const __nv_bfloat16* __restrict__ biases,
            __nv_bfloat16* __restrict__ y, int M, int K, int N,
            int group_size) {
+  constexpr int BITS = 8;
   constexpr int QV = BK * BITS / 8 / 16;  // 16-byte code vectors per W row
   __shared__ __align__(16) __nv_bfloat16 xs[BM * XS];
   __shared__ __align__(16) __nv_bfloat16 ws[BN * WS];  // [n][k]
@@ -161,7 +219,7 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
     }
     if (qr_row < BN) {
       uint32_t words[16 * 8 / BITS / 2];
-      unpack_codes<BITS>(qr, words);
+      unpack_codes8(qr, words);
       uint4* dst = reinterpret_cast<uint4*>(ws + qr_row * WS +
                                             qr_part * (16 * 8 / BITS));
 #pragma unroll
@@ -226,6 +284,381 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
         if (row < M && col < N)
           y[(size_t)row * N + col] = __float2bfloat16_rn(acc[mt][nt][e]);
       }
+}
+
+// ------------------------------------------------------- int4 GEMM route
+
+constexpr int Q4_BK = 64;        // codes of K per stage
+constexpr int Q4_BN = 128;       // output columns (W rows) per block
+constexpr int Q4_THREADS = 384;  // two consumer warpgroups + one producer
+constexpr int Q4_MAX_STAGES = 12;
+
+template <int BM>
+struct Q4Layout {
+  static constexpr int X_BYTES = BM * Q4_BK * 2;      // x, 128B swizzle
+  static constexpr int W_BYTES = Q4_BN * Q4_BK / 2;   // codes, 32 B per row
+  static constexpr int SC_BYTES = 2 * Q4_BN * 8;      // float2 [slot][row]
+  static constexpr int XS_BYTES = 2 * BM * 4;         // float [slot][row]
+  static constexpr int META = (SC_BYTES + XS_BYTES + 1023) / 1024 * 1024;
+  static constexpr int STAGE = X_BYTES + W_BYTES + META;
+  static constexpr int STAGES = BM == 64 ? 12 : 8;
+  static constexpr int SMEM = STAGES * STAGE + 1024;  // + alignment slack
+  static_assert(STAGE % 1024 == 0, "stages must keep 1024-byte alignment");
+  static_assert(STAGES <= Q4_MAX_STAGES, "barrier arrays too short");
+};
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(r) : "r"(a), "r"(b), "r"(s));
+  return r;
+}
+
+// The two codes of byte I of r as bf16 128 + code (low nibble in the low
+// half): byte I of r and of r >> 4 go to bits [0, 8) and [16, 24), then one
+// LOP3 keeps their low nibbles under the exponent of 128.0 (bf16 0x4300).
+template <int I>
+__device__ __forceinline__ uint32_t code_pair(uint32_t r, uint32_t r4) {
+  const uint32_t v =
+      prmt(r, r4, I | (I << 4) | ((4 + I) << 8) | ((4 + I) << 12));
+  uint32_t out;  // (v & 0x000F000F) | 0x43004300
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n"
+      : "=r"(out)
+      : "r"(v), "r"(0x000F000Fu), "r"(0x43004300u));
+  return out;
+}
+
+// A fragments of one stage (four 16-k slices) for one thread.  `w` points
+// at W row r0 of the stage (32 code bytes; row r0 + 1 follows): A row g8 is
+// W row r0, A row g8 + 8 is W row r0 + 1.  Slice kk needs codes 2t, 2t+1
+// (byte t of word 2kk) and 2t+8, 2t+9 (byte t of word 2kk+1) of each row:
+// two 16-byte reads per row, and `sel` gathers byte t of the eight words
+// into two registers (byte j of the first = byte t of word j).
+__device__ __forceinline__ void q4_fragments(uint32_t (&a)[4][4],
+                                             const uint8_t* w, uint32_t sel) {
+  uint32_t r[2][2], r4[2][2];
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const uint4 u0 = *reinterpret_cast<const uint4*>(w + 32 * row);
+    const uint4 u1 = *reinterpret_cast<const uint4*>(w + 32 * row + 16);
+    r[row][0] = prmt(prmt(u0.x, u0.y, sel), prmt(u0.z, u0.w, sel), 0x5410);
+    r[row][1] = prmt(prmt(u1.x, u1.y, sel), prmt(u1.z, u1.w, sel), 0x5410);
+    r4[row][0] = r[row][0] >> 4;
+    r4[row][1] = r[row][1] >> 4;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // slices 2h (words 4h, 4h+1), 2h + 1
+    a[2 * h][0] = code_pair<0>(r[0][h], r4[0][h]);
+    a[2 * h][1] = code_pair<0>(r[1][h], r4[1][h]);
+    a[2 * h][2] = code_pair<1>(r[0][h], r4[0][h]);
+    a[2 * h][3] = code_pair<1>(r[1][h], r4[1][h]);
+    a[2 * h + 1][0] = code_pair<2>(r[0][h], r4[0][h]);
+    a[2 * h + 1][1] = code_pair<2>(r[1][h], r4[1][h]);
+    a[2 * h + 1][2] = code_pair<3>(r[0][h], r4[0][h]);
+    a[2 * h + 1][3] = code_pair<3>(r[1][h], r4[1][h]);
+  }
+}
+
+// acc += s P + (b - 128 s) sum(x) for one finished group: `sc` holds the
+// group's (s, b - 128 s) per W row, `xs` its sum of x per x row.
+// P.v[4i + e] is W row r0 + (e >> 1), x row 8i + 2t + (e & 1).
+template <int BM>
+__device__ __forceinline__ void q4_fold(Acc<BM>& acc, const Acc<BM>& P,
+                                        const float2* sc, const float* xs,
+                                        int r0, int t) {
+  const float4 v = *reinterpret_cast<const float4*>(sc + r0);
+#pragma unroll
+  for (int i = 0; i < BM / 8; ++i) {
+    const float2 x2 = *reinterpret_cast<const float2*>(xs + 8 * i + 2 * t);
+    acc.v[4 * i] = fmaf(v.x, P.v[4 * i], fmaf(v.y, x2.x, acc.v[4 * i]));
+    acc.v[4 * i + 1] =
+        fmaf(v.x, P.v[4 * i + 1], fmaf(v.y, x2.y, acc.v[4 * i + 1]));
+    acc.v[4 * i + 2] =
+        fmaf(v.z, P.v[4 * i + 2], fmaf(v.w, x2.x, acc.v[4 * i + 2]));
+    acc.v[4 * i + 3] =
+        fmaf(v.z, P.v[4 * i + 3], fmaf(v.w, x2.y, acc.v[4 * i + 3]));
+  }
+}
+
+__device__ __forceinline__ float bf16_sum8(const uint4 u) {
+  return ((bf16_lo(u.x) + bf16_hi(u.x)) + (bf16_lo(u.y) + bf16_hi(u.y))) +
+         ((bf16_lo(u.z) + bf16_hi(u.z)) + (bf16_lo(u.w) + bf16_hi(u.w)));
+}
+
+// Grid: (ceil(M / BM) x tiles, ceil(N / 128) W tiles, splits).  Warps 0-3
+// and 4-7 are the consumer warpgroups of W rows 0-63 and 64-127 of the
+// tile; lane 0 of warp 8 is the producer; warps 9-11 take turns to write a
+// stage's group data (s, b - 128 s, sums of x).  Split slice z covers units
+// [z U / S, (z + 1) U / S) of the U units of max(g, 64) codes; with
+// splits > 1 the block writes f32 partials to part[z], else bf16 to y.
+template <int BM>
+__global__ void __launch_bounds__(Q4_THREADS, 1)
+qmm4_kernel(const __grid_constant__ CUtensorMap xmap,
+            const __grid_constant__ CUtensorMap qmap,
+            const __nv_bfloat16* __restrict__ scales,
+            const __nv_bfloat16* __restrict__ biases,
+            __nv_bfloat16* __restrict__ y, float* __restrict__ part, int M,
+            int K, int N, int g, int splits) {
+  using L = Q4Layout<BM>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[Q4_MAX_STAGES], empty[Q4_MAX_STAGES];
+  __shared__ __align__(8) uint64_t ready[Q4_MAX_STAGES];
+  // aligned by an offset from the __shared__ array (32-bit shared loads)
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * Q4_BN;
+  const int G = K / g;
+  const int per_unit = (g > Q4_BK ? g : Q4_BK) / Q4_BK;  // stages per unit
+  const int units = K / (per_unit * Q4_BK);
+  const int t0 = (int)((long long)blockIdx.z * units / splits) * per_unit;
+  const int t1 =
+      (int)((long long)(blockIdx.z + 1) * units / splits) * per_unit;
+  const int slots = g == 32 ? 2 : 1;  // groups that end in one stage
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+      mbar_init(&ready[s], 1);  // the group-data warp of the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 80;\n");
+    if (warp == 8) {
+      // ---- producer: one thread keeps the ring of x and code tiles full
+      if (lane == 0) {
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                         reinterpret_cast<uint64_t>(&xmap))
+                     : "memory");
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                         reinterpret_cast<uint64_t>(&qmap))
+                     : "memory");
+        for (int it = 0; it < t1 - t0; ++it) {
+          const int s = it % L::STAGES;
+          mbar_wait(&empty[s], ((it / L::STAGES) & 1) ^ 1);
+          uint8_t* st = smem + s * L::STAGE;
+          const int k0 = (t0 + it) * Q4_BK;
+          mbar_expect_tx(&full[s], L::X_BYTES + L::W_BYTES);
+          tma_load_2d(st, &xmap, &full[s], k0, m0);
+          tma_load_2d(st + L::X_BYTES, &qmap, &full[s], k0 / 2, n0);
+        }
+      }
+      return;
+    }
+    // ---- group data: warp 9 + j writes stages j, j + 3, j + 6, ...; lane
+    // l handles W rows and x rows l + 32 i of the tile.  Each stage's
+    // scales and biases are loaded one turn (three stages) ahead.
+    const int j = warp - 9, nst = t1 - t0;
+    uint32_t cur[4][2], nxt[4][2];  // bf16 s and b: [row][s, b], slot 1 high
+    auto load_sb = [&](int it, uint32_t(&sb)[4][2]) {
+      const int gi = (t0 + it) * Q4_BK / g;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = n0 + lane + 32 * i;
+        const size_t at = (size_t)n * G + gi;
+        sb[i][0] = sb[i][1] = 0u;
+        if (n < N && slots == 2) {  // two groups: one aligned 32-bit read
+          sb[i][0] = *reinterpret_cast<const uint32_t*>(scales + at);
+          sb[i][1] = *reinterpret_cast<const uint32_t*>(biases + at);
+        } else if (n < N) {
+          sb[i][0] = *reinterpret_cast<const uint16_t*>(scales + at);
+          sb[i][1] = *reinterpret_cast<const uint16_t*>(biases + at);
+        }
+      }
+    };
+    if (j < nst) load_sb(j, cur);
+    for (int it = j; it < nst; it += 3) {
+      if (it + 3 < nst) load_sb(it + 3, nxt);
+      const int s = it % L::STAGES;
+      const int k0 = (t0 + it) * Q4_BK;
+      mbar_wait(&full[s], (it / L::STAGES) & 1);
+      uint8_t* st = smem + s * L::STAGE;
+      float2* sc = reinterpret_cast<float2*>(st + L::X_BYTES + L::W_BYTES);
+      float* xs = reinterpret_cast<float*>(st + L::X_BYTES + L::W_BYTES +
+                                           L::SC_BYTES);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int slot = 0; slot < 2; ++slot) {
+          if (slot < slots) {
+            const float sv = slot ? bf16_hi(cur[i][0]) : bf16_lo(cur[i][0]);
+            const float bv = slot ? bf16_hi(cur[i][1]) : bf16_lo(cur[i][1]);
+            sc[slot * Q4_BN + lane + 32 * i] =
+                make_float2(sv, fmaf(-128.f, sv, bv));
+          }
+        }
+      }
+      // g = 128, the group's second stage: add the first stage's sums,
+      // which another warp writes (that stage is not released before this
+      // one is ready)
+      const float* first = nullptr;
+      if (slots == 1 && k0 % g != 0) {
+        const int sp = (it - 1) % L::STAGES;
+        mbar_wait(&ready[sp], ((it - 1) / L::STAGES) & 1);
+        first = reinterpret_cast<const float*>(
+            smem + sp * L::STAGE + L::X_BYTES + L::W_BYTES + L::SC_BYTES);
+      }
+#pragma unroll 1
+      for (int i = 0; i < BM / 32; ++i) {
+        const int r = lane + 32 * i;
+        // 16-byte chunk c of x row r sits at chunk c ^ (r % 8)
+        const uint8_t* xr = st + r * 128;
+        float half[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float sum = 0.f;
+#pragma unroll
+          for (int c = 4 * h; c < 4 * h + 4; ++c)
+            sum += bf16_sum8(*reinterpret_cast<const uint4*>(
+                xr + ((c ^ (r & 7)) << 4)));
+          half[h] = sum;
+        }
+        if (slots == 2) {
+          xs[r] = half[0];
+          xs[BM + r] = half[1];
+        } else {
+          xs[r] = (half[0] + half[1]) + (first ? first[r] : 0.f);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&ready[s]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        cur[i][0] = nxt[i][0];
+        cur[i][1] = nxt[i][1];
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns W rows 64 wg .. 64 wg + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 208;\n");
+  const int wg = warp / 4, w = warp % 4, g8 = lane / 4, t = lane % 4;
+  const int r0 = 64 * wg + 16 * w + 2 * g8;  // W row of A row g8 (+1: g8+8)
+  const uint32_t sel = t | ((4 + t) << 4);
+
+  Acc<BM> acc, P;
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) acc.v[i] = P.v[i] = 0.f;
+  // A fragments of two stages: one is built while the other's wgmmas run
+  uint32_t a0[4][4], a1[4][4];
+  int prev = -1;
+
+  // fold the group whose data stage s holds in `slot`, once its wgmmas end
+  auto fold = [&](int s, int slot) {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < BM / 2; ++i) fence_reg(P.v[i]);
+    const uint8_t* m = smem + s * L::STAGE + L::X_BYTES + L::W_BYTES;
+    q4_fold<BM>(acc, P, reinterpret_cast<const float2*>(m) + slot * Q4_BN,
+                reinterpret_cast<const float*>(m + L::SC_BYTES) + slot * BM,
+                r0, t);
+  };
+
+  auto stage = [&](uint32_t(&a)[4][4], uint32_t(&done)[4][4], int it) {
+    const int s = it % L::STAGES;
+    const int phase = (it / L::STAGES) & 1;
+    mbar_wait(&full[s], phase);
+    mbar_wait(&ready[s], phase);
+    const uint8_t* st = smem + s * L::STAGE;
+    q4_fragments(a, st + L::X_BYTES + r0 * 32, sel);
+    const bool starts = (t0 + it) * Q4_BK % g == 0;
+    // the group that ended with the previous stage is complete: fold it
+    if (starts && prev >= 0) fold(prev, slots - 1);
+    const uint32_t xaddr = smem_u32(st);
+    wgmma_fence();
+    wgmma_rs(P, a[0], x_desc(xaddr), starts ? 0 : 1);
+    wgmma_rs(P, a[1], x_desc(xaddr + 32));
+    if (slots == 2) {  // g = 32: the stage's first group ends here
+      wgmma_commit();
+      fold(s, 0);
+      wgmma_fence();
+      wgmma_rs(P, a[2], x_desc(xaddr + 64), 0);
+    } else {
+      wgmma_rs(P, a[2], x_desc(xaddr + 64));
+    }
+    wgmma_rs(P, a[3], x_desc(xaddr + 96));
+    wgmma_commit();
+    wgmma_wait<1>();
+    // the previous stage's wgmmas are done: its registers and stage are free
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) fence_reg(done[kk][r]);
+    __syncwarp();
+    if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+    prev = s;
+  };
+
+  int it = 0;
+  for (; t0 + it + 1 < t1; it += 2) {
+    stage(a0, a1, it);
+    stage(a1, a0, it + 1);
+  }
+  if (t0 + it < t1) stage(a0, a1, it);
+  fold(prev, slots - 1);
+
+  // ---- epilogue: acc.v[4i + e] is W row r0 + (e >> 1), x row 8i + 2t +
+  // (e & 1) of the tile
+  const int n = n0 + r0;
+  if (n >= N) return;
+  const bool pair = (N % 2 == 0);  // then n + 1 < N too (n is even)
+#pragma unroll
+  for (int i = 0; i < BM / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * i + 2 * t + e;
+      if (m >= M) continue;
+      const float lo = acc.v[4 * i + e], hi = acc.v[4 * i + 2 + e];
+      if (splits > 1) {
+        float* dst = part + ((size_t)blockIdx.z * M + m) * N + n;
+        if (pair) {
+          *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
+        } else {
+          dst[0] = lo;
+          if (n + 1 < N) dst[1] = hi;
+        }
+      } else {
+        __nv_bfloat16* dst = y + (size_t)m * N + n;
+        if (pair) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) =
+              __floats2bfloat162_rn(lo, hi);
+        } else {
+          dst[0] = __float2bfloat16_rn(lo);
+          if (n + 1 < N) dst[1] = __float2bfloat16_rn(hi);
+        }
+      }
+    }
+  }
+}
+
+template <int BM>
+cudaError_t launch_q4(const void* x, const void* q, const __nv_bfloat16* s,
+                      const __nv_bfloat16* b, __nv_bfloat16* y, float* part,
+                      int M, int K, int N, int g, int splits,
+                      cudaStream_t st) {
+  CUtensorMap xmap, qmap;
+  if (!tensor_map(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, BM,
+                  Q4_BK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&qmap, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K / 2, Q4_BN,
+                  Q4_BK / 2, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  const int smem = Q4Layout<BM>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      qmm4_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((M + BM - 1) / BM, (N + Q4_BN - 1) / Q4_BN, splits);
+  qmm4_kernel<BM><<<grid, Q4_THREADS, smem, st>>>(xmap, qmap, s, b, y, part,
+                                                  M, K, N, g, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long total = (long long)M * N;
+  const int blocks = (int)min((total / 4 + 255) / 256 + 1, 4LL * 132);
+  splitk_reduce<<<blocks, 256, 0, st>>>(part, y, total, splits);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ GEMV route
@@ -328,9 +761,10 @@ cudaError_t launch(const __nv_bfloat16* x, const uint8_t* q,
                    __nv_bfloat16* y, int M, int K, int N, int group_size,
                    cudaStream_t st) {
   if (M > 8) {
+    // 4-bit codes take the wgmma route (mvt_qmatmul_int4_gemm)
+    if (BITS != 8) return cudaErrorInvalidValue;
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    qmm_kernel<BITS><<<grid, THREADS, 0, st>>>(x, q, s, b, y, M, K, N,
-                                               group_size);
+    qmm8_kernel<<<grid, THREADS, 0, st>>>(x, q, s, b, y, M, K, N, group_size);
     return cudaGetLastError();
   }
   const int blocks = (N + MV_ROWS - 1) / MV_ROWS;
@@ -351,6 +785,7 @@ cudaError_t launch(const __nv_bfloat16* x, const uint8_t* q,
 
 }  // namespace
 
+// The GEMV route (M <= 8, both widths) and the int8 GEMM route (M > 8):
 // x [M, K] bf16 (16-byte aligned rows); q [N, K*bits/8] u8; scales and
 // biases [N, K/group_size] bf16; y [M, N] bf16.  bits in {4, 8}; group_size
 // in {32, 64, 128}; K a multiple of 2 * group_size (4-bit) or of group_size
@@ -367,5 +802,32 @@ extern "C" int mvt_qmatmul(const void* x, const void* q, const void* scales,
   if (M <= 0 || group_size % BK || K % group_size) return (int)cudaErrorInvalidValue;
   if (bits == 4) return (int)launch<4>(xp, qp, sp, bp, yp, M, K, N, group_size, st);
   if (bits == 8) return (int)launch<8>(xp, qp, sp, bp, yp, M, K, N, group_size, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The int4 GEMM route (M > 8): x [M, K] bf16, q [N, K/2] u8, scales and
+// biases [N, K/g] bf16, y [M, N] bf16, part [splits, M, N] f32 scratch when
+// splits > 1.  g in {32, 64, 128}, K % (2 g) == 0, bm 64 or 128, splits at
+// most K / max(g, 64); x and q 16-byte aligned.  The wrapper's plan
+// (ops/qmatmul.py:qmatmul_plan) picks bm and splits.
+extern "C" int mvt_qmatmul_int4_gemm(const void* x, const void* q,
+                                     const void* scales, const void* biases,
+                                     void* y, void* part, int M, int K, int N,
+                                     int group_size, int bm, int splits,
+                                     void* stream) {
+  const auto* sp = static_cast<const __nv_bfloat16*>(scales);
+  const auto* bp = static_cast<const __nv_bfloat16*>(biases);
+  auto* yp = static_cast<__nv_bfloat16*>(y);
+  auto* pp = static_cast<float*>(part);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int g = group_size;
+  if (M <= 0 || N <= 0 || (g != 32 && g != 64 && g != 128) || K % (2 * g) ||
+      splits < 1 || splits > K / (g > Q4_BK ? g : Q4_BK) ||
+      (splits > 1 && !part))
+    return (int)cudaErrorInvalidValue;
+  if (bm == 64)
+    return (int)launch_q4<64>(x, q, sp, bp, yp, pp, M, K, N, g, splits, st);
+  if (bm == 128)
+    return (int)launch_q4<128>(x, q, sp, bp, yp, pp, M, K, N, g, splits, st);
   return (int)cudaErrorInvalidValue;
 }

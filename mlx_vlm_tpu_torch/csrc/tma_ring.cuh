@@ -1,5 +1,6 @@
 // Shared by the kernels that stream tiles through shared memory with TMA
-// (K1 int4_matmul.cu, K2 int4_matvec.cu): mbarrier and bulk-copy wrappers
+// (K1 int4_matmul.cu, K2 int4_matvec.cu, K5's int4 GEMM in qmatmul.cu):
+// mbarrier and bulk-copy wrappers
 // for the device, and the host code that encodes a 2-D tensor map.
 
 #pragma once

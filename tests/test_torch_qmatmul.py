@@ -4,10 +4,13 @@ The port's plain version is held to the reference's Pallas kernel run in
 interpret mode (as tests/test_qmatmul.py runs it), for 4- and 8-bit codes,
 group sizes 32 / 64 / 128, 1 to 70 rows, leading dims, and x in float32 and
 bfloat16.  The port's route rule is held to the reference's, and the
-dequantize route to the reference's `quantized_matmul` on the CPU.  Inputs
-are made with numpy from a seed and handed to both packages.  Tests marked
-`cuda` hold the CUDA kernel to its plain version on a GPU and skip without
-one.
+dequantize route to the reference's `quantized_matmul` on the CPU.  The
+int4 GEMM route's fold (codes as bf16 128 + q, per-group f32 partials,
+s P + (b - 128 s) sum x, split-K slices added in order) is emulated in
+plain PyTorch and held to the Pallas kernel too; its plan and the
+wrapper's refusals are checked on CPU tensors.  Inputs are made with numpy
+from a seed and handed to both packages.  Tests marked `cuda` hold the
+CUDA kernel to its plain version on a GPU and skip without one.
 """
 
 import numpy as np
@@ -176,6 +179,122 @@ def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take():
         k5._check(torch.ones((1, K), dtype=torch.bfloat16), t)
 
 
+def test_cuda_wrapper_refusals_before_any_launch():
+    """The int4 GEMM route refuses non-bf16 x, K not a whole number of group
+    pairs and misaligned arrays before it reaches the kernel library (the
+    shape and layout checks hold on any device, so CPU tensors show them)."""
+    q, s, b = mlx_weight(4, 64, seed=3, bf16=True)
+    _, t = both(q, s, b, 4, 64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        k5._check_args(torch.ones((16, K)), t)
+    x = torch.ones((16, K), dtype=torch.bfloat16)
+    k5._check_args(x, t)  # the well-formed case passes
+    q6, s6, b6 = mlx_weight(4, 64, seed=3, k=192, bf16=True)
+    _, t6 = both(q6, s6, b6, 4, 64)
+    with pytest.raises(ValueError, match="group pairs"):
+        k5._check_args(torch.ones((16, 192), dtype=torch.bfloat16), t6)
+    with pytest.raises(ValueError, match="not taken"):
+        k5.qmatmul_plan(16, 192, N, 64)
+    buf = torch.empty(16 * K + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        k5._int4_gemm(buf[1:].view(16, K), t, K, N)
+    qbuf = torch.empty(t.q.numel() + 1, dtype=torch.uint8)
+    qbuf[1:] = t.q.reshape(-1)
+    moved = tq.QuantizedTensor(q=qbuf[1:].view(t.q.shape), scales=t.scales,
+                               biases=t.biases, bits=4, group_size=64,
+                               out_dtype="bfloat16")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        k5._check_args(x, moved)
+
+
+# The shapes the main path and chip_smoke.py give the int4 GEMM route
+# (Qwen2-VL-7B's linears) at the row counts of prefill chunks
+PLAN_SHAPES = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584))
+
+
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("K,N", PLAN_SHAPES + ((3584, 1000), (1024, 130)))
+@pytest.mark.parametrize("M", [9, 70, 100, 300, 512])
+def test_qmatmul_plan(M, K, N, g):
+    """The row tile is one the kernel instantiates; K slices are whole
+    units of max(g, 64) codes (whole groups and whole 64-code stages); a
+    split grid fills the 132 SMs as far as the units allow and never
+    exceeds them."""
+    bm, splits = k5.qmatmul_plan(M, K, N, g)
+    assert bm in (64, 128)
+    unit = max(g, 64)
+    assert unit % g == 0 and K % unit == 0
+    units = K // unit
+    assert 1 <= splits <= units
+    tiles = -(-M // bm) * -(-N // 128)
+    if splits > 1:
+        assert tiles * splits <= k5.SMS
+        assert tiles * (splits + 1) > k5.SMS or splits == units
+    else:
+        assert tiles * 2 > k5.SMS or units == 1
+
+
+def test_qmatmul_plan_at_7b_shapes():
+    """The plans of a 512-row chunk: the narrow k/v projections split K
+    over 8 slices (128 blocks); the others fill the card with tiles."""
+    assert k5.qmatmul_plan(512, 3584, 512, 64) == (128, 8)
+    assert k5.qmatmul_plan(512, 3584, 3584, 64) == (128, 1)
+    assert k5.qmatmul_plan(512, 3584, 18944, 64) == (128, 1)
+    assert k5.qmatmul_plan(512, 18944, 3584, 64) == (128, 1)
+    assert k5.qmatmul_plan(100, 3584, 1000, 64) == (64, 8)
+    for M in (1, 8):
+        with pytest.raises(ValueError, match="GEMV"):
+            k5.qmatmul_plan(M, 3584, 3584, 64)
+
+
+def fold_emulation(x, t, splits=1):
+    """The int4 GEMM route's arithmetic in plain PyTorch: codes as bf16
+    128 + q (exact), per-group f32 partials P = sum x (128 + q) and sums of
+    x, each group folded as acc += s P + (b - 128 s) sum x in f32; K split
+    into `splits` slices of whole max(g, 64)-code units whose f32 partials
+    are added in slice order; one rounding to bf16."""
+    g = t.group_size
+    n, kb = t.q.shape
+    k = 2 * kb
+    codes = torch.stack([t.q & 0xF, t.q >> 4], dim=-1).reshape(n, k)
+    c128 = (128 + codes.float()).to(torch.bfloat16).float()
+    xf = x.float()
+    s, b = t.scales.float(), t.biases.float()
+    units = k // max(g, 64)
+    total = None
+    for z in range(splits):
+        k0 = z * units // splits * max(g, 64)
+        k1 = (z + 1) * units // splits * max(g, 64)
+        acc = torch.zeros((x.shape[0], n))
+        for j in range(k0 // g, k1 // g):
+            sl = slice(j * g, (j + 1) * g)
+            P = xf[:, sl] @ c128[:, sl].T
+            sx = xf[:, sl].sum(dim=1, keepdim=True)
+            acc = acc + s[:, j] * P + (b[:, j] - 128 * s[:, j]) * sx
+        total = acc if total is None else total + acc
+    return total.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("splits", [1, 2])
+@pytest.mark.parametrize("M", [9, 70, 100])
+@pytest.mark.parametrize("g", [32, 64, 128])
+def test_int4_fold_emulation_matches_pallas(g, M, splits):
+    """The design's numerics before the chip: the fold emulation against
+    the reference's _qmm4_kernel in interpret mode, bf16 x and weights as
+    on the card, within K5_TOL = 1e-2 * max|ref| (both round once to bf16;
+    the sums differ by f32 reassociation only)."""
+    q, s, b = mlx_weight(4, g, seed=4000 + g + M, bf16=True)
+    ref_t, t = both(q, s, b, 4, g)
+    x = _x((M, K), "bfloat16", seed=7 * M + g)
+    ref = np.asarray(jqmm.quantized_matmul_pallas(jnp.asarray(x), ref_t,
+                                                  interpret=True))
+    got = fold_emulation(_torch(x), t, splits)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == ref.shape
+    ref = ref.astype(np.float32)
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0,
+                               atol=1e-2 * float(np.abs(ref).max()))
+
+
 # ----------------------------------------------------------- on a GPU only
 
 
@@ -245,4 +364,56 @@ def test_cuda_k5_matches_plain_at_7b_shapes(cuda_device, bits, g, M, K, N):
     ref = k5.qmatmul_plain(x, t)
     torch.cuda.synchronize()
     err = float((got.float() - ref.float()).abs().max())
+    assert err <= 1e-2 * float(ref.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [9, 70, 512])
+@pytest.mark.parametrize("g", [32, 64, 128])
+def test_cuda_k5_int4_gemm(cuda_device, g, M):
+    """The int4 GEMM route at ragged N (1000) against the plain version
+    (1e-2 * max|ref|, as above) and the fold emulation, one counted call,
+    and a repeated call bit-identical (the split-K slices are added in a
+    fixed order)."""
+    q, s, b = mlx_weight(4, g, seed=50 + g + M, n=1000, k=1024, bf16=True)
+    _, t = both(q, s, b, 4, g)
+    t = tq.QuantizedTensor(q=t.q.to(cuda_device), scales=t.scales.to(cuda_device),
+                           biases=t.biases.to(cuda_device), bits=4,
+                           group_size=g, out_dtype="bfloat16")
+    x = _torch(_x((M, 1024), "bfloat16", seed=M)).to(cuda_device)
+    n0 = k5.launches["qmatmul_int4"]
+    got = k5.quantized_matmul_kernel(x, t)
+    again = k5.quantized_matmul_kernel(x, t)
+    ref = k5.qmatmul_plain(x, t)
+    torch.cuda.synchronize()
+    assert k5.launches["qmatmul_int4"] == n0 + 2
+    assert torch.equal(got, again)
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= 1e-2 * float(ref.float().abs().max())
+    _, splits = k5.qmatmul_plan(M, 1024, 1000, g)
+    emu = fold_emulation(x.cpu(), tq.QuantizedTensor(
+        q=t.q.cpu(), scales=t.scales.cpu(), biases=t.biases.cpu(), bits=4,
+        group_size=g, out_dtype="bfloat16"), splits)
+    err = float((got.cpu().float() - emu.float()).abs().max())
+    assert err <= 1e-2 * float(emu.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_k5_int4_gemm_split_is_repeatable(cuda_device):
+    """A 512-row chunk on a narrow weight splits K (8 slices at g = 32) and
+    gives the same bits on every call."""
+    M, Kb, Nb, g = 512, 3584, 512, 32
+    assert k5.qmatmul_plan(M, Kb, Nb, g)[1] > 1
+    q, s, b = mlx_weight(4, g, seed=9, n=Nb, k=Kb, bf16=True)
+    _, t = both(q, s, b, 4, g)
+    t = tq.QuantizedTensor(q=t.q.to(cuda_device), scales=t.scales.to(cuda_device),
+                           biases=t.biases.to(cuda_device), bits=4,
+                           group_size=g, out_dtype="bfloat16")
+    x = _torch(_x((M, Kb), "bfloat16", seed=3)).to(cuda_device)
+    first = k5.quantized_matmul_kernel(x, t)
+    for _ in range(3):
+        assert torch.equal(k5.quantized_matmul_kernel(x, t), first)
+    ref = k5.qmatmul_plain(x, t)
+    torch.cuda.synchronize()
+    err = float((first.float() - ref.float()).abs().max())
     assert err <= 1e-2 * float(ref.float().abs().max())
