@@ -18,6 +18,11 @@ Phases (any failure exits non-zero):
      kernels per call counted; K5 at M = 1 (timed cold and warm) and 512,
      its int4 GEMM also on a ragged chunk (M = 100, N = 1000) and a narrow
      one at g = 32, with its kernels per call and a bit-identical repeat;
+     K4 at the 8k rows (offset 7680; left_pad 100; window 1024), at (c)'s
+     first, middle and last chunk (S = 512 against C = 8704 at offsets 0,
+     4096, 8192) and at two batch rows with their own offsets and
+     left_pads, each timed cold (`graph_ms` over copies of k/v) and warm,
+     with its kernels per call and a bit-identical repeat;
      K3: 4 decoder layers and the int4 head;
      K6-K8: 4 KV heads of 7 query rows over an 8704-slot cache), each with
      its device time, the least
@@ -191,8 +196,8 @@ def phase_environment() -> None:
     for source, log in _cuda.BUILD_LOG.items():
         for name, regs, spills in ptxas_report(log):
             print(f"  ptxas {source} {name}: {regs}; {spills}", flush=True)
-            # K5's int4 GEMM keeps its accumulators in registers
-            if name.startswith("qmm4_kernel") and (
+            # K5's int4 GEMM and K4 keep their accumulators in registers
+            if name.startswith(("qmm4_kernel", "flash_fwd_kernel")) and (
                     "0 bytes spill stores, 0 bytes spill loads" not in spills):
                 fail(f"ptxas spills in {name}: {spills}")
 
@@ -606,34 +611,92 @@ def phase_kernels() -> list:
     del k1_cases, weights
     check_int4_matvec(results, gen, dev)
     check_qmatmul(results, dev)
-    B, H, KVH, D, S, C = 1, 28, 4, 128, 512, 8192
-    q1 = torch.randn((B, H, S, D), generator=gen)
-    k = torch.randn((B, KVH, C, D), generator=gen).to(dev, torch.bfloat16)
-    v = torch.randn((B, KVH, C, D), generator=gen).to(dev, torch.bfloat16)
-    off = torch.full((B,), 7680, dtype=torch.int32, device=dev)
-    scale = D ** -0.5
-    # q_scale 4 sharpens the scores (std 4), so that a cache column masked
-    # wrongly (left_pad, window) moves the output far past the tolerance;
-    # every row sees at least one key here (offset 7680 > left_pad)
-    for lp_val, window, q_scale in ((0, None, 1), (100, None, 4),
-                                    (100, 1024, 4)):
-        q = (q1 * q_scale).to(dev, torch.bfloat16)
-        lp = torch.full((B,), lp_val, dtype=torch.int32, device=dev)
-        mask = flash_mask(off, lp, S, C, window)
-        _check(results, "flash_attention",
-               f"B=1 H=28 KVH=4 D=128 S=512 C=8192 offset=7680 "
-               f"left_pad={lp_val} window={window} q_scale={q_scale}",
-               fa.flash_attention(q, k, v, off, lp, scale, window),
-               fa.flash_attention_plain(q, k, v, off, lp, scale, window), 2e-2,
-               lambda: fa.flash_attention(q, k, v, off, lp, scale, window),
-               lambda: fa.flash_attention_plain(q, k, v, off, lp, scale,
-                                                window), floor=0.0,
-               work=flash_work(mask, H, KVH, D),
-               library=lambda: torch.nn.functional.scaled_dot_product_attention(
-                   q, k, v, attn_mask=mask, scale=scale, enable_gqa=True))
+    check_flash_attention(results, gen, dev)
     check_fused_decode(results, gen, dev)
     check_kv_kernels(results, gen, dev)
     return results
+
+
+# K4's cases: (B, C, offsets, left_pads, window, q_scale), all at H = 28,
+# KVH = 4, D = 128, S = 512.  The first three are the 8k rows: offset 7680,
+# then left_pad 100, then a 1024-column window.  Then (c)'s first, middle
+# and last 512-row chunk against its 8704-slot cache (offset 0 cuts the
+# causal diagonal through every block), and two batch rows with their own
+# offsets and a left_pad inside a tile.  q_scale 4 sharpens the scores (std
+# 4), so that a cache column masked wrongly (left_pad, window) moves the
+# output far past the tolerance; every row sees at least one key.
+FLASH_CASES = (
+    (1, 8192, (7680,), (0,), None, 1),
+    (1, 8192, (7680,), (100,), None, 4),
+    (1, 8192, (7680,), (100,), 1024, 4),
+    (1, 8704, (0,), (0,), None, 1),
+    (1, 8704, (4096,), (0,), None, 1),
+    (1, 8704, (8192,), (0,), None, 1),
+    (2, 8704, (4096, 2900), (0, 1061), None, 4),
+)
+FLASH_TOL = 2e-2
+
+
+def _csv(values) -> str:
+    return ",".join(map(str, values))
+
+
+def check_flash_attention(results: list, gen, dev) -> None:
+    """K4 against its plain version at FLASH_CASES (2e-2 * max|ref|, no
+    floor), beside F.scaled_dot_product_attention on the same boolean mask.
+    Each case also records the kernels one call puts in a captured
+    graph (one: K4 has no combine pass), whether a repeat call gives the
+    same bits, and a cold time: `graph_ms` over `cold_copies` of k/v
+    (17.8 MB a pair at B = 1, together past 100 MB), so each call finds
+    its cache outside the 50 MB L2, as a prefill does after 27 layers'
+    weights."""
+    import functools
+
+    import torch
+
+    from mlx_vlm_tpu_torch.ops import flash_attention as fa
+
+    H, KVH, D, S = 28, 4, 128, 512
+    scale = D ** -0.5
+    q1 = kv = None
+    for B, C, offs, lps, window, q_scale in FLASH_CASES:
+        if q1 is None or q1.shape[0] != B or kv[0].shape[2] != C:
+            q1 = torch.randn((B, H, S, D), generator=gen)
+            kv = [torch.randn((B, KVH, C, D), generator=gen).to(
+                dev, torch.bfloat16) for _ in range(2)]
+        k, v = kv
+        q = (q1 * q_scale).to(dev, torch.bfloat16)
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        lp = torch.tensor(lps, dtype=torch.int32, device=dev)
+        mask = flash_mask(off, lp, S, C, window)
+        run = lambda kc=k, vc=v: fa.flash_attention(q, kc, vc, off, lp,
+                                                     scale, window)
+        out = run()
+        plain = lambda: fa.flash_attention_plain(q, k, v, off, lp, scale,
+                                                 window)
+        _check(results, "flash_attention",
+               f"B={B} H={H} KVH={KVH} D={D} S={S} C={C} offset="
+               f"{_csv(offs)} left_pad={_csv(lps)} "
+               f"window={window} q_scale={q_scale}",
+               out, plain(), FLASH_TOL, run, plain, floor=0.0,
+               work=flash_work(mask, H, KVH, D),
+               library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q, k, v, attn_mask=mask, scale=scale, enable_gqa=True))
+        r = results[-1]
+        kernels = kernels_per_call(run)
+        same = bool(torch.equal(run(), out))
+        pair = 2 * k.numel() * k.element_size()
+        copies = [(k, v)] + [(k.clone(), v.clone())
+                             for _ in range(cold_copies(pair) - 1)]
+        r["warm_ms"], r["ms"] = r["ms"], graph_ms(
+            [functools.partial(run, kc, vc) for kc, vc in copies], iters=5)
+        del copies
+        r["kernels_per_call"], r["repeat_identical"] = kernels, same
+        r["ok"] = r["ok"] and same and kernels == 1
+        print(f"  flash_attention {r['shape']}: kernel_ms={r['ms']:.4f} cold "
+              f"{r['warm_ms']:.4f} warm (device time), kernels per call "
+              f"{kernels} (graph nodes), repeat bit-identical {same} "
+              f"{'ok' if r['ok'] else 'MISMATCH'}", flush=True)
 
 
 def flash_mask(offset, left_pad, S: int, C: int, window):

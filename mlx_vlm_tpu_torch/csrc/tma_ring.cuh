@@ -1,7 +1,8 @@
 // Shared by the kernels that stream tiles through shared memory with TMA
-// (K1 int4_matmul.cu, K2 int4_matvec.cu, K5's int4 GEMM in qmatmul.cu):
+// (K1 int4_matmul.cu, K2 int4_matvec.cu, K5's int4 GEMM in qmatmul.cu, K4
+// flash_attention.cu):
 // mbarrier and bulk-copy wrappers
-// for the device, and the host code that encodes a 2-D tensor map.
+// for the device, and the host code that encodes 2-D and 3-D tensor maps.
 
 #pragma once
 
@@ -59,6 +60,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar) {
   asm volatile(
@@ -106,6 +118,27 @@ bool tensor_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D tensor map over a row-major [mats, rows, cols] array with a box of
+// [1, box_rows, box_cols]: a box never crosses into the next matrix, and
+// rows past `rows` read as zero.
+bool tensor_map_3d(CUtensorMap* map, const void* base,
+                   CUtensorMapDataType type, int elem_bytes, int mats,
+                   int rows, int cols, int box_rows, int box_cols,
+                   CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)mats};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * elem_bytes,
+                                 (cuuint64_t)rows * cols * elem_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box,
                 elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

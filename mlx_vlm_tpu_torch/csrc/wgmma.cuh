@@ -1,9 +1,10 @@
-// Shared by the kernels that run `wgmma` with A from registers against a
-// K-major bf16 B tile in shared memory (K1 int4_matmul.cu, K5's int4 GEMM in
-// qmatmul.cu): the fence / commit / wait helpers, a register fence, the
-// shared-memory descriptor of a 128-byte-swizzled B tile, the
-// m64n{64,128,256}k16 wrappers and the ordered second pass of a split-K
-// call.
+// Shared by the kernels that run `wgmma` on bf16 tiles in shared memory
+// (K1 int4_matmul.cu, K5's int4 GEMM in qmatmul.cu, K4 flash_attention.cu):
+// the fence / commit / wait helpers, a register fence, the shared-memory
+// descriptors of 128-byte-swizzled tiles (K-major, and MN-major for a B
+// whose N is contiguous), the m64n{64,128,256}k16 wrappers with A from
+// registers, m64n128k16 with A from shared memory, and the ordered second
+// pass of a split-K call.
 
 #pragma once
 
@@ -43,8 +44,18 @@ __device__ __forceinline__ uint64_t x_desc(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// Descriptor of an MN-major bf16 tile with the 128-byte swizzle, the layout
+// TMA writes for rows of 64 contiguous N values: 8-row K groups 1024 bytes
+// apart, the next 64 N values `lbo` bytes on.  wgmma reads it as B with the
+// transpose-B bit set.
+__device__ __forceinline__ uint64_t mn_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
 // d (+)= A . B for one 16-k slice: A [64 x 16] bf16 from registers (the
-// mma.sync m16n8k16 A fragment per warp), B the K-major tile at `desc`.
+// mma.sync m16n8k16 A fragment per warp), B the K-major tile at `desc`
+// (or, at m64n128 with TRANS_B = 1, the MN-major tile of mn_desc).
 // scale_d = 0 overwrites d with the product, 1 adds to it.
 __device__ __forceinline__ void wgmma_rs(Acc<64>& d, const uint32_t (&a)[4],
                                          uint64_t desc, int scale_d = 1) {
@@ -61,6 +72,7 @@ __device__ __forceinline__ void wgmma_rs(Acc<64>& d, const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_rs(Acc<128>& d, const uint32_t (&a)[4],
                                          uint64_t desc, int scale_d = 1) {
   asm volatile(
@@ -70,7 +82,7 @@ __device__ __forceinline__ void wgmma_rs(Acc<128>& d, const uint32_t (&a)[4],
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d.v[0]), "+f"(d.v[1]), "+f"(d.v[2]), "+f"(d.v[3]), "+f"(d.v[4]), "+f"(d.v[5]), "+f"(d.v[6]), "+f"(d.v[7]),
         "+f"(d.v[8]), "+f"(d.v[9]), "+f"(d.v[10]), "+f"(d.v[11]), "+f"(d.v[12]), "+f"(d.v[13]), "+f"(d.v[14]), "+f"(d.v[15]),
         "+f"(d.v[16]), "+f"(d.v[17]), "+f"(d.v[18]), "+f"(d.v[19]), "+f"(d.v[20]), "+f"(d.v[21]), "+f"(d.v[22]), "+f"(d.v[23]),
@@ -79,7 +91,8 @@ __device__ __forceinline__ void wgmma_rs(Acc<128>& d, const uint32_t (&a)[4],
         "+f"(d.v[40]), "+f"(d.v[41]), "+f"(d.v[42]), "+f"(d.v[43]), "+f"(d.v[44]), "+f"(d.v[45]), "+f"(d.v[46]), "+f"(d.v[47]),
         "+f"(d.v[48]), "+f"(d.v[49]), "+f"(d.v[50]), "+f"(d.v[51]), "+f"(d.v[52]), "+f"(d.v[53]), "+f"(d.v[54]), "+f"(d.v[55]),
         "+f"(d.v[56]), "+f"(d.v[57]), "+f"(d.v[58]), "+f"(d.v[59]), "+f"(d.v[60]), "+f"(d.v[61]), "+f"(d.v[62]), "+f"(d.v[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),
+        "n"(TRANS_B));
 }
 
 __device__ __forceinline__ void wgmma_rs(Acc<256>& d, const uint32_t (&a)[4],
@@ -113,6 +126,29 @@ __device__ __forceinline__ void wgmma_rs(Acc<256>& d, const uint32_t (&a)[4],
         "+f"(d.v[112]), "+f"(d.v[113]), "+f"(d.v[114]), "+f"(d.v[115]), "+f"(d.v[116]), "+f"(d.v[117]), "+f"(d.v[118]), "+f"(d.v[119]),
         "+f"(d.v[120]), "+f"(d.v[121]), "+f"(d.v[122]), "+f"(d.v[123]), "+f"(d.v[124]), "+f"(d.v[125]), "+f"(d.v[126]), "+f"(d.v[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d (+)= A . B for one 16-k slice with both operands in shared memory: A
+// [64 x 16] and B [128 x 16], each a K-major tile at its x_desc.
+__device__ __forceinline__ void wgmma_ss(Acc<128>& d, uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d.v[0]), "+f"(d.v[1]), "+f"(d.v[2]), "+f"(d.v[3]), "+f"(d.v[4]), "+f"(d.v[5]), "+f"(d.v[6]), "+f"(d.v[7]),
+        "+f"(d.v[8]), "+f"(d.v[9]), "+f"(d.v[10]), "+f"(d.v[11]), "+f"(d.v[12]), "+f"(d.v[13]), "+f"(d.v[14]), "+f"(d.v[15]),
+        "+f"(d.v[16]), "+f"(d.v[17]), "+f"(d.v[18]), "+f"(d.v[19]), "+f"(d.v[20]), "+f"(d.v[21]), "+f"(d.v[22]), "+f"(d.v[23]),
+        "+f"(d.v[24]), "+f"(d.v[25]), "+f"(d.v[26]), "+f"(d.v[27]), "+f"(d.v[28]), "+f"(d.v[29]), "+f"(d.v[30]), "+f"(d.v[31]),
+        "+f"(d.v[32]), "+f"(d.v[33]), "+f"(d.v[34]), "+f"(d.v[35]), "+f"(d.v[36]), "+f"(d.v[37]), "+f"(d.v[38]), "+f"(d.v[39]),
+        "+f"(d.v[40]), "+f"(d.v[41]), "+f"(d.v[42]), "+f"(d.v[43]), "+f"(d.v[44]), "+f"(d.v[45]), "+f"(d.v[46]), "+f"(d.v[47]),
+        "+f"(d.v[48]), "+f"(d.v[49]), "+f"(d.v[50]), "+f"(d.v[51]), "+f"(d.v[52]), "+f"(d.v[53]), "+f"(d.v[54]), "+f"(d.v[55]),
+        "+f"(d.v[56]), "+f"(d.v[57]), "+f"(d.v[58]), "+f"(d.v[59]), "+f"(d.v[60]), "+f"(d.v[61]), "+f"(d.v[62]), "+f"(d.v[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // Second pass of a split-K call: y = bf16(sum over the splits of part

@@ -9,11 +9,18 @@ column j when left_pad[b] <= j <= offset[b] + i (and j > position - window
 with a window).  Scores are f32, masked scores are -0.7 * f32 max, the
 softmax is online, and a row whose softmax sum is 0 divides by 1.
 
-Bound on the H100: tensor-core work (about 2 * S operations per byte of K/V
-at S = 512); the score matrix never reaches device memory.  The kernel runs
-one block per 64-row query tile and head, keeps the running max, sum and
-output in registers, and skips the cache tiles that no row of its tile may
-see.  See the .cu header for the tiling.
+Bound on the H100, at the main path's shape (B = 1, H = 28, KVH = 4,
+S = 512 against C = 8192 at offset 7680): operations, 58 GFLOP of visible
+work, 0.059 ms at 989 TFLOP/s; beside them 115 M exponentials (about
+0.03 ms at 16 per clock per SM) and 0.45 GB of K/V reads from L2.  The
+kernel runs both products on `wgmma`, hides each tile's softmax (ex2,
+masked only on tiles that cut a row's visible range) under the tensor
+cores (the next tile's Q K^T and the last tile's P V are issued first, and
+two warpgroups take turns), feeds K/V by TMA through a three-stage ring,
+and reads each KV head's live tiles once per 128 query rows; the score
+matrix never reaches device memory, and dead tiles are skipped.
+`flash_attention_plan` gives its grid and tiles; the .cu header has the
+design.
 
 A row that sees no cache column is padding: the reference kernel averages
 whatever tiles it visited there, so such rows are not part of the contract.
@@ -32,8 +39,25 @@ from . import _cuda
 
 NEG = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIM = 128  # the kernel's head size
+Q_TILE, KV_TILE = 128, 128  # query rows per block, cache columns per tile
 
 launches = {"flash_attention": 0}
+
+
+def flash_attention_plan(B: int, H: int, KVH: int, S: int, C: int,
+                         D: int) -> tuple:
+    """K4's (grid, query rows per block, cache columns per tile, KV splits)
+    for q [B, H, S, D] against a cache [B, KVH, C, D].  One block takes 128
+    query rows of one head (two consumer warpgroups of 64) and walks its KV
+    head's live 128-column tiles itself: KV is never split, so no combine
+    pass runs.  Raises for what the kernel does not take."""
+    if D != HEAD_DIM:
+        raise ValueError(f"flash_attention: the CUDA kernel takes head_dim "
+                         f"{HEAD_DIM}, not {D}")
+    if min(B, H, KVH, S, C) < 1 or H % KVH or C % 64:
+        raise ValueError(f"flash_attention: need B, S >= 1, H % KVH == 0 and "
+                         f"C % 64 == 0 (B={B} H={H} KVH={KVH} S={S} C={C})")
+    return (-(-S // Q_TILE), H, B), Q_TILE, KV_TILE, 1
 
 
 def flash_attention_plain(q, k, v, offset, left_pad, scale: float,
@@ -71,6 +95,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, offset, left_pad, scale, window)
     B, H, S, D = q.shape
     KVH, C = k.shape[1], k.shape[2]
+    if k.shape != (B, KVH, C, D) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: unsupported shapes {tuple(q.shape)} "
+                         f"{tuple(k.shape)}")
+    flash_attention_plan(B, H, KVH, S, C, D)
     if q.device.type != "cuda":
         raise TypeError("flash_attention: the kernel runs on CUDA tensors")
     for a in (q, k, v):
@@ -78,11 +106,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise TypeError("flash_attention: q/k/v must be bfloat16 on one device")
         if not a.is_contiguous():
             raise ValueError("flash_attention: q/k/v must be contiguous")
-    if D != HEAD_DIM or k.shape != (B, KVH, C, D) or v.shape != k.shape:
-        raise ValueError(f"flash_attention: unsupported shapes {tuple(q.shape)} "
-                         f"{tuple(k.shape)}")
-    if H % KVH or C % 64:
-        raise ValueError("flash_attention: need H % KVH == 0 and C % 64 == 0")
+    if any(a.data_ptr() % 16 for a in (q, k, v)):
+        raise ValueError("flash_attention: q/k/v must be 16-byte aligned (the "
+                         "kernel reads them by TMA)")
     off = offset.to(device=q.device, dtype=torch.int32).contiguous()
     lp = left_pad.to(device=q.device, dtype=torch.int32).contiguous()
     if off.shape != (B,) or lp.shape != (B,):

@@ -95,15 +95,24 @@ def _visible_rows(offset, left_pad, S, C, window):
     return hi >= lo
 
 
-@pytest.mark.parametrize("window", [None, 6])
-def test_flash_attention_matches_pallas(window):
-    B, H, KVH, S, C, D = 2, 4, 2, 16, 64, 16
-    rng = np.random.default_rng(0 if window is None else 1)
+# (window, S, C, offsets, left_pads, seed): the first two are the original
+# small cases; then S = 136, not a multiple of K4's 128-row query tile, and
+# a left_pad (133) and a window edge that fall inside 128-column KV tiles
+@pytest.mark.parametrize("window,S,C,offset,left_pad,seed", [
+    pytest.param(None, 16, 64, (40, 3), (0, 5), 0, id="None"),
+    pytest.param(6, 16, 64, (40, 3), (0, 5), 1, id="6"),
+    pytest.param(None, 136, 256, (100, 3), (0, 5), 2, id="S136"),
+    pytest.param(50, 136, 512, (300, 100), (37, 133), 3,
+                 id="edges_inside_tiles"),
+])
+def test_flash_attention_matches_pallas(window, S, C, offset, left_pad, seed):
+    B, H, KVH, D = 2, 4, 2, 16
+    rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, H, S, D)).astype(np.float32)
     k = rng.standard_normal((B, KVH, C, D)).astype(np.float32)
     v = rng.standard_normal((B, KVH, C, D)).astype(np.float32)
-    offset = np.array([40, 3], np.int32)
-    left_pad = np.array([0, 5], np.int32)  # row 1: early queries see nothing
+    offset = np.array(offset, np.int32)
+    left_pad = np.array(left_pad, np.int32)  # row 1: early queries see nothing
     scale = D**-0.5
     ref = np.asarray(jax_flash(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(offset),
@@ -117,6 +126,51 @@ def test_flash_attention_matches_pallas(window):
     assert not vis.all()  # the case covers padding rows; they are skipped
     sel = np.broadcast_to(vis[:, None, :], (B, H, S))
     np.testing.assert_allclose(got[sel], ref[sel], atol=ATOL, rtol=RTOL)
+
+
+# request (c) of chip_smoke.py: its ~8.6k-token prompt is prefilled in 17
+# chunks of 512 rows (offsets 0, 512, ..., 8192) against an 8704-slot cache
+@pytest.mark.parametrize("offset", range(0, 8704, 512))
+def test_flash_attention_plan_at_request_c_chunks(offset):
+    """Every chunk of (c) fits the cache and is planned as one launch of
+    4 x 28 blocks of 128 query rows over 128-column tiles, KV unsplit."""
+    S, C = 512, 8704
+    assert offset + S <= C
+    assert fa.flash_attention_plan(1, 28, 4, S, C, fa.HEAD_DIM) == (
+        (4, 28, 1), 128, 128, 1)
+
+
+@pytest.mark.parametrize("B,S,grid", [(1, 1, (1, 28, 1)), (1, 128, (1, 28, 1)),
+                                      (1, 129, (2, 28, 1)), (2, 300, (3, 28, 2))])
+def test_flash_attention_plan_ragged(B, S, grid):
+    assert fa.flash_attention_plan(B, 28, 4, S, 8192, 128) == (grid, 128, 128, 1)
+
+
+@pytest.mark.parametrize("B,H,KVH,S,C,D", [
+    (1, 28, 4, 512, 8192, 64),    # head size
+    (1, 28, 3, 512, 8192, 128),   # H % KVH
+    (1, 28, 4, 512, 8200, 128),   # C % 64
+    (1, 28, 4, 0, 8192, 128),     # no query rows
+    (0, 28, 4, 512, 8192, 128),   # no batch rows
+])
+def test_flash_attention_refuses_before_launch(B, H, KVH, S, C, D):
+    """The plan raises for what K4 does not take, and so does the wrapper
+    before any launch (meta tensors stand in for CUDA ones)."""
+    with pytest.raises(ValueError):
+        fa.flash_attention_plan(B, H, KVH, S, C, D)
+    before = dict(fa.launches)
+    q = torch.empty((B, H, S, D), dtype=torch.bfloat16, device="meta")
+    kv = torch.empty((B, KVH, C, D), dtype=torch.bfloat16, device="meta")
+    pos = torch.zeros((B,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, kv, kv, pos, pos, D**-0.5)
+    # a shape it takes gets past the plan (meta is not CUDA)
+    q = torch.empty((1, 28, 512, 128), dtype=torch.bfloat16, device="meta")
+    kv = torch.empty((1, 4, 8192, 128), dtype=torch.bfloat16, device="meta")
+    pos = torch.zeros((1,), dtype=torch.int32, device="meta")
+    with pytest.raises(TypeError, match="CUDA tensors"):
+        fa.flash_attention(q, kv, kv, pos, pos, 128**-0.5)
+    assert fa.launches == before
 
 
 def test_sdpa_matches_reference():
@@ -435,18 +489,29 @@ def test_cuda_int4_matvec_is_bit_identical_across_calls(cuda_device, M):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("window", [None, 100])
-def test_cuda_flash_attention_matches_plain(cuda_device, window):
-    B, H, KVH, S, C, D = 2, 8, 2, 96, 256, 128
+@pytest.mark.parametrize("window,B,H,KVH,S,C,offset,left_pad", [
+    pytest.param(None, 2, 8, 2, 96, 256, (150, 100), (0, 7), id="None"),
+    pytest.param(100, 2, 8, 2, 96, 256, (150, 100), (0, 7), id="100"),
+    # (c)'s first chunk: the causal diagonal cuts every block's last tile
+    pytest.param(None, 1, 8, 2, 512, 8704, (0,), (0,), id="S512_offset0"),
+])
+def test_cuda_flash_attention_matches_plain(cuda_device, window, B, H, KVH,
+                                            S, C, offset, left_pad):
+    """K4 against its plain version within 2e-2 * max|ref| (the output's
+    bf16 rounding and P rounded to bf16 for the second product); a repeat
+    call gives the same bits (no split, no atomics)."""
+    D = 128
     g = torch.Generator(device="cpu").manual_seed(0)
     # q scaled by 4 sharpens the scores, so a column masked wrongly
     # (left_pad, window) moves the output far past the tolerance
     q, k, v = (torch.randn(s, generator=g).to(cuda_device, torch.bfloat16)
                for s in ((B, H, S, D), (B, KVH, C, D), (B, KVH, C, D)))
     q = q * 4
-    off = torch.tensor([150, 100], dtype=torch.int32, device=cuda_device)
-    lp = torch.tensor([0, 7], dtype=torch.int32, device=cuda_device)
-    o = fa.flash_attention(q, k, v, off, lp, D**-0.5, window).float()
+    off = torch.tensor(offset, dtype=torch.int32, device=cuda_device)
+    lp = torch.tensor(left_pad, dtype=torch.int32, device=cuda_device)
+    o = fa.flash_attention(q, k, v, off, lp, D**-0.5, window)
+    again = fa.flash_attention(q, k, v, off, lp, D**-0.5, window)
     ref = fa.flash_attention_plain(q, k, v, off, lp, D**-0.5, window).float()
     torch.cuda.synchronize()
-    assert float((o - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
+    assert float((o.float() - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
+    assert torch.equal(o, again)
