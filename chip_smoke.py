@@ -6,7 +6,7 @@ Phases (any failure exits non-zero):
   1. environment: card, power limit, versions; builds the CUDA kernels from
      mlx_vlm_tpu_torch/csrc with nvcc (one process per source, in
      parallel) and prints ptxas's registers, static shared memory and
-     spills of every kernel;
+     spills of every kernel (K3, K4 and K5's int4 GEMM must not spill);
   2. each kernel (K1 int4_matmul, K2 int4_matvec, K3 fused_decode, K4
      flash_attention, K5 qmatmul_int4 / qmatmul_int8, K6
      int4_kv_attention, K7 tq_kv_attention, K8 tq_kv_attention_split)
@@ -23,7 +23,10 @@ Phases (any failure exits non-zero):
      4096, 8192) and at two batch rows with their own offsets and
      left_pads, each timed cold (`graph_ms` over copies of k/v) and warm,
      with its kernels per call and a bit-identical repeat;
-     K3: 4 decoder layers and the int4 head;
+     K3: 4 decoder layers and the int4 head at offsets 1, 300 and 8545
+     with 1e3 past the cursor and at 8545 with NaN past it, each with its
+     kernels per call, a bit-identical repeat and its bytes per second
+     beside the bound's;
      K6-K8: 4 KV heads of 7 query rows over an 8704-slot cache), each with
      its device time, the least
      time the card could take (`bound_ms`, from bytes at 3.35 TB/s or
@@ -196,8 +199,9 @@ def phase_environment() -> None:
     for source, log in _cuda.BUILD_LOG.items():
         for name, regs, spills in ptxas_report(log):
             print(f"  ptxas {source} {name}: {regs}; {spills}", flush=True)
-            # K5's int4 GEMM and K4 keep their accumulators in registers
-            if name.startswith(("qmm4_kernel", "flash_fwd_kernel")) and (
+            # K5's int4 GEMM, K4 and K3 keep their accumulators in registers
+            if name.startswith(("qmm4_kernel", "flash_fwd_kernel",
+                                "fused_decode_kernel")) and (
                     "0 bytes spill stores, 0 bytes spill loads" not in spills):
                 fail(f"ptxas spills in {name}: {spills}")
 
@@ -723,7 +727,9 @@ def flash_work(mask, H: int, KVH: int, D: int) -> tuple:
     return 2 * B * H * S * D * 2 + 2 * KVH * cols * D * 2, 4.0 * D * visible
 
 
-FUSED_LAYERS, FUSED_CAPACITY, FUSED_OFFSETS = 4, 8704, (1, 300, 8545)
+FUSED_LAYERS, FUSED_CAPACITY = 4, 8704
+# K3's cases: (offset, what fills the cache past the cursor)
+FUSED_CASES = ((1, 1e3), (300, 1e3), (8545, 1e3), (8545, float("nan")))
 # K3 tolerances, relative to max|ref| of each output, no floor.  EXACT holds
 # the first layer's k/v rows, which see no rounded intermediate.  Every
 # later output sits behind bf16 roundings of x before each weight dot, and
@@ -820,11 +826,13 @@ def fused_step_ops(params: dict, args, offset: int) -> float:
 def check_fused_decode(results: list, gen, dev) -> None:
     """K3 against its plain version: 4 layers at 7B width with the int4
     head and q sharpened by 4, C = 8704, the cache past `offset` filled
-    with 1e3 so that a read past the cursor breaks the check.  Tolerances:
-    FUSED_EXACT and FUSED_ROUNDED above.  Besides summation order, the
-    kernel rounds attention probabilities to bf16 against a running maximum
-    instead of the global one; norms and biases are bf16 in both
-    versions."""
+    with 1e3 (and, in the last case, NaN) so that a read past the cursor
+    breaks the check.  Tolerances: FUSED_EXACT and FUSED_ROUNDED above.
+    Besides summation order, the kernel rounds attention probabilities to
+    bf16 against a running maximum instead of the global one; norms and
+    biases are bf16 in both versions.  Each case also checks that a second
+    call is bit-identical and that one call puts one kernel on the device
+    (graph nodes), and prints the bytes per second beside the bound's."""
     import torch
 
     from mlx_vlm_tpu_torch.core.rope import make_rope
@@ -844,15 +852,20 @@ def check_fused_decode(results: list, gen, dev) -> None:
                 "k row": cache_k[:, :, :, off].float(),
                 "v row": cache_v[:, :, :, off].float()}
 
-    for off in FUSED_OFFSETS:
+    def untouched(cache, off, fill):
+        rest = cache[:, :, :, off + 1:]
+        return bool((rest.isnan() if math.isnan(fill) else rest == fill)
+                    .all())
+
+    for off, fill in FUSED_CASES:
         cos, sin = rope.cos_sin(torch.full((3, 1, 1), off, device=dev))
         cos, sin = cos[0, 0], sin[0, 0]
         k = torch.randn((L, 1, nkv, C, hd), generator=gen).to(
             dev, torch.bfloat16)
         v = torch.randn((L, 1, nkv, C, hd), generator=gen).to(
             dev, torch.bfloat16)
-        k[:, :, :, off:] = 1e3
-        v[:, :, :, off:] = 1e3
+        k[:, :, :, off:] = fill
+        v[:, :, :, off:] = fill
         kr, vr, kf, vf = k.clone(), v.clone(), k.clone(), v.clone()
         out = fd.fused_decode_step(params, args, h, cos, sin, k, v, off)
         if len(out) != 4:
@@ -864,8 +877,8 @@ def check_fused_decode(results: list, gen, dev) -> None:
         torch.cuda.synchronize()
         got, want = parts(out, k, v, off), parts(ref, kr, vr, off)
         noise = parts(floor, kf, vf, off)
-        errs, ok = {}, bool((k[:, :, :, off + 1:] == 1e3).all()
-                            and (v[:, :, :, off + 1:] == 1e3).all())
+        errs = {}
+        ok = untouched(k, off, fill) and untouched(v, off, fill)
         for name in got:
             rel = FUSED_EXACT if name.endswith("[0]") else FUSED_ROUNDED
             scale = float(want[name].abs().max())
@@ -873,29 +886,39 @@ def check_fused_decode(results: list, gen, dev) -> None:
             errs[name] = (err, rel * scale,
                           float((noise[name] - want[name]).abs().max()))
             ok = ok and err <= rel * scale
+        step = lambda: fd.fused_decode_step(params, args, h, cos, sin, k, v,
+                                            off)
+        again = step()
+        same = all(bool(torch.equal(x, y)) for x, y in zip(out, again))
+        kernels = kernels_per_call(step)
+        plan = fd.step_plan(params, args, off, dev)
+        ok = ok and same and kernels == 1
         shape = (f"L={L} D={D} I={args.intermediate_size} H=28 KVH=4 "
-                 f"V={args.vocab_size} C={C} offset={off} q_scale=4")
-        ms = device_ms(lambda: fd.fused_decode_step(
-            params, args, h, cos, sin, k, v, off))
+                 f"V={args.vocab_size} C={C} offset={off} q_scale=4"
+                 + ("" if fill == 1e3 else f" past={fill}"))
+        ms = device_ms(step)
         plain_ms = device_ms(lambda: fd.fused_decode_step_plain(
             params, args, h, cos, sin, kr, vr, off), iters=5)
-        call = call_ms(lambda: fd.fused_decode_step(
-            params, args, h, cos, sin, k, v, off))
+        call = call_ms(step)
         nbytes = fused_step_bytes(params, args, off)
         bound_ms, bound_by = bound(nbytes, fused_step_ops(params, args, off))
         print(f"  fused_decode {shape}: " + ", ".join(
             f"{n} err={e:.3e} tol={t:.3e} (plain's 1e-6 floor {f:.3e})"
             for n, (e, t, f) in errs.items())
-            + f"; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (device time, "
-            f"{nbytes / ms / 1e6:.1f} GB/s) bound_ms={bound_ms:.5f} "
-            f"({bound_by}) kernel_call_ms={call:.4f} "
-            f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            + f"; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (device time) "
+            f"{nbytes / ms / 1e9:.3f} TB/s against the bound's "
+            f"{nbytes / bound_ms / 1e9:.3f} ({bound_ms / ms:.1%}) "
+            f"bound_ms={bound_ms:.5f} ({bound_by}) kernel_call_ms={call:.4f}; "
+            f"kernels per call {kernels} (graph nodes), repeat bit-identical "
+            f"{same}, {plan.barriers} grid barriers, {plan.chunks} attention "
+            f"chunks per kv head {'ok' if ok else 'MISMATCH'}", flush=True)
         results.append({"name": "fused_decode", "shape": shape,
                         "err": max(e for e, _, _ in errs.values()),
                         "tol": min(t for _, t, _ in errs.values()), "ms": ms,
                         "plain_ms": plain_ms, "call_ms": call,
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": None, "ok": ok})
+                        "library_ms": None, "kernels_per_call": kernels,
+                        "repeat_identical": same, "ok": ok})
     del params
 
 
@@ -1500,11 +1523,14 @@ def time_full_step(model) -> None:
         call = call_ms(lambda: fd.fused_decode_step(*args))
         nbytes = fused_step_bytes(lp, lm.args, off)
         bound_ms, bound_by = bound(nbytes, fused_step_ops(lp, lm.args, off))
+        plan = fd.step_plan(lp, lm.args, off, dev)
         print(f"  28-layer K3 step, offset {off}: kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} (device time) kernel_call_ms="
               f"{call:.4f}; {nbytes / 1e9:.3f} GB read, "
               f"{nbytes / ms / 1e9:.3f} TB/s; bound_ms={bound_ms:.4f} "
-              f"({bound_by})", flush=True)
+              f"({bound_by}, {bound_ms / ms:.1%} of it); {plan.barriers} grid "
+              f"barriers, {plan.chunks} attention chunks per kv head",
+              flush=True)
 
 
 KV_SHAPE = (f"BH={KV_HEADS} g={KV_ROWS} D={KV_DIM} C={KV_CAPACITY} "

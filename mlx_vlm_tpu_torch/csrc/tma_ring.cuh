@@ -1,6 +1,6 @@
 // Shared by the kernels that stream tiles through shared memory with TMA
 // (K1 int4_matmul.cu, K2 int4_matvec.cu, K5's int4 GEMM in qmatmul.cu, K4
-// flash_attention.cu):
+// flash_attention.cu, K3 fused_decode.cu):
 // mbarrier and bulk-copy wrappers
 // for the device, and the host code that encodes 2-D and 3-D tensor maps.
 
@@ -125,17 +125,20 @@ bool tensor_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
 
 // A 3-D tensor map over a row-major [mats, rows, cols] array with a box of
 // [1, box_rows, box_cols]: a box never crosses into the next matrix, and
-// rows past `rows` read as zero.
+// rows past `rows` read as zero.  A matrix may hold more rows in memory
+// than the map shows (`mat_rows`, 0 for `rows`): the map then cuts each
+// matrix at `rows`.
 bool tensor_map_3d(CUtensorMap* map, const void* base,
                    CUtensorMapDataType type, int elem_bytes, int mats,
                    int rows, int cols, int box_rows, int box_cols,
-                   CUtensorMapSwizzle swizzle) {
+                   CUtensorMapSwizzle swizzle, int mat_rows = 0) {
   EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)mats};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * elem_bytes,
-                                 (cuuint64_t)rows * cols * elem_bytes};
+  const cuuint64_t strides[2] = {
+      (cuuint64_t)cols * elem_bytes,
+      (cuuint64_t)(mat_rows ? mat_rows : rows) * cols * elem_bytes};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   return encode(map, type, 3, const_cast<void*>(base), dims, strides, box,

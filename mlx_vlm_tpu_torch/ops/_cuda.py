@@ -45,7 +45,8 @@ _SIGNATURES = {
     "mvt_flash_attention": (_P,) * 6 + (_I,) * 5 + (_F, _I, _P),
     # FusedDecodeArgs*, stream
     "mvt_fused_decode": (_P, _P),
-    "mvt_fused_decode_grid": (),
+    # dynamic shared memory bytes
+    "mvt_fused_decode_grid": (_I,),
     # q8, qmeta, k4, ks, kb, v4, vs, vb, offset, left_pad, part_ml, part_acc,
     # out, BH, G, C, D, scale, stream
     "mvt_int4_kv_attention": (_P,) * 13 + (_I,) * 4 + (_F, _P),

@@ -12,7 +12,10 @@ follows the TPU route's math:
   dot with the raw code bytes (lo + 16 * hi) and with the high nibble; the
   scales s_l, s_h and biases b_l, b_h apply to the f32 group partials, the
   bias term with the unrounded f32 sum of x over the group (`_mv2z`
-  :1085);
+  :1085).  The kernel sums the low plane directly, as exact bf16 codes
+  128 + q on the tensor cores, and folds each group as
+  s (sum x_b (128 + q) - 128 sum x_b) + b sum x_f32: the same sums up to
+  f32 reassociation;
 - RoPE uses the duplicated-half convention (`_rope_rows` :575) and q is
   scaled by hd**-0.5 after it;
 - attention rounds q, the history k/v and the probabilities to bf16 for
@@ -32,6 +35,13 @@ planes), `_mv2` (the deq switch), FUSED_DECODE_TILES, FUSED_DECODE_CHUNK_K,
 FUSED_DECODE_ABLATE, MLX_VLM_TPU_PACK_SC16 / SCB16, MLX_VLM_TPU_FUSED_MV
 and MLX_VLM_TPU_FUSED_V3.
 
+The kernel takes its numbers from `fused_decode_plan`: the grid (one block
+per SM), each phase's K slices and which block streams which weight tile,
+the weight ring's stages and shared memory, the attention chunks at
+`offset` and the barrier count (5 per layer); the CPU tests check the plan
+that the card runs.  The card's SMs and the kernel's residency are queried
+once per card.
+
 `fused_decode_step` writes the step's k/v rows into the cache at `offset`
 (in place, in the model's cache dtype) and returns the f32 rows as well;
 the step's own attention uses the f32 rows.  On CPU tensors it runs
@@ -42,6 +52,9 @@ raises.  `launches` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import math
 
 import torch
 
@@ -54,6 +67,7 @@ LINEARS = (("self_attn", "q_proj"), ("self_attn", "k_proj"),
            ("self_attn", "v_proj"), ("self_attn", "o_proj"),
            ("mlp", "gate_proj"), ("mlp", "up_proj"), ("mlp", "down_proj"))
 HEAD_DIM = 128  # the kernel's head size
+MAX_GQ = 8  # the kernel's q heads per kv head
 
 
 def _linears(params: dict):
@@ -64,13 +78,13 @@ def _linears(params: dict):
 def kernel_refusal(args, group_size: int, intermediate: int):
     """Why the CUDA kernel cannot take a model, or None: it takes head_dim
     HEAD_DIM, at most 8 q heads per kv head, g % 16 == 0 and hidden and
-    intermediate sizes that are multiples of KS_NARROW."""
+    intermediate sizes that are multiples of STRIP."""
     D, nh, nkv = (args.hidden_size, args.num_attention_heads,
                   args.num_key_value_heads)
-    if D // nh != HEAD_DIM or nh % nkv or nh // nkv > 8:
-        return (f"the kernel takes head_dim {HEAD_DIM} and at most 8 q heads "
-                "per kv head")
-    if group_size % 16 or D % KS_NARROW or intermediate % KS_NARROW:
+    if D // nh != HEAD_DIM or nh % nkv or nh // nkv > MAX_GQ:
+        return (f"the kernel takes head_dim {HEAD_DIM} and at most {MAX_GQ} "
+                "q heads per kv head")
+    if group_size % 16 or D % STRIP or intermediate % STRIP:
         return ("needs group_size % 16 == 0 and hidden, intermediate "
                 "multiples of 128")
     return None
@@ -222,13 +236,206 @@ def fused_decode_step_plain(params: dict, args, h: torch.Tensor,
     return outs + (_mv_z2(xn, head)[None],)
 
 
+# ------------------------------------------------------------ the plan
+
+# Mirrors of csrc/fused_decode.cu's constants: keep both in step.
+BK, STRIP = 64, 128           # code rows per ring stage; packed columns a piece
+Q_BYTES = BK * STRIP          # codes of one stage
+SLOT_BYTES = 4 * STRIP * 4    # one group's four f32 scale planes
+MAX_STAGES = 32
+T_TILE = 64                   # history tokens per attention tile (4 stages)
+# an attention unit's scratch in the x region: the q|k|v rows, the warps'
+# (m, l) and O^T
+ATT_SCRATCH = ((MAX_GQ + 2) * HEAD_DIM + 4 * (2 + HEAD_DIM) * MAX_GQ) * 4
+XROWS = 2048                  # x rows staged at once, at least
+MAX_CHUNKS = 160
+SMEM_LIMIT = 232448           # shared memory of a block on the H100 (227 KB)
+STATIC_BYTES = 8192           # the kernel's static shared memory, at most
+PHASES = ("qkv", "o", "gate_up", "down", "head")
+PHASE_LINEARS = ((0, 1, 2), (3,), (4, 5), (6,), (7,))  # indices in LINEARS
+BARRIERS_PER_LAYER = 5
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedDecodeShapes:
+    """What the plan needs of the weights and the step: layers, group size,
+    each linear's packed width N2p (q, k, v, o, gate, up, down and, when the
+    head is fused, lm_head), the head's vocab (0: no fused head) and the
+    step's `offset`."""
+
+    layers: int
+    group_size: int
+    n2p: tuple
+    vocab: int
+    offset: int
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedDecodePlan:
+    """K3's numbers for one step, as the kernel takes them (`_Args`).
+
+    One block per SM.  A phase (q|k|v, o, gate|up, down, head) is a row of
+    strips (128 packed columns of one of its linears, in linear order), each
+    of G quantization groups; its strips x G group units are cut into `grid`
+    equal contiguous ranges, one per block, and a range's part in one strip
+    is a piece.  Each block streams its pieces, layer after layer, through a
+    ring of `stages` stages of `stage_bytes`; a strip's pieces leave partial
+    rows that its last piece adds in order.  Attention runs `chunks` units
+    per kv head, each a whole number of 64-token tiles of [0, offset)."""
+
+    grid: int
+    group_size: int
+    layers: int
+    n2p: tuple
+    K: tuple                 # K rows per phase
+    pmax: tuple              # pieces a strip has at most, per phase
+    slots: int               # scale slots per ring stage
+    stage_bytes: int
+    stages: int
+    xrows: int               # x rows the shared memory holds
+    seg_rows: int            # x rows staged at once
+    unit_rows: int           # rows a consumer warpgroup takes at a time
+    smem_bytes: int          # dynamic shared memory
+    offset: int
+    chunks: int
+    max_chunks: int
+    n_kv: int
+    barriers: int
+    part_floats: int         # partial rows of the widest phase
+    sync_words: int          # the grid barrier and one ticket per strip
+
+    @property
+    def phases(self) -> int:
+        return 5 if len(self.n2p) == 8 else 4
+
+    def strips(self, p: int) -> list:
+        return [self.n2p[i] // STRIP for i in PHASE_LINEARS[p]]
+
+    def units(self, p: int) -> int:
+        return sum(self.strips(p)) * (self.K[p] // self.group_size)
+
+    def blocks(self, p: int) -> int:
+        """Blocks that own units of phase p: every one owns at least one."""
+        return min(self.grid, self.units(p))
+
+    def owner(self, p: int, u: int) -> int:
+        """The block whose range holds group unit u of phase p."""
+        nb = self.blocks(p)
+        return (u * nb + nb - 1) // self.units(p)
+
+    def pieces_of(self, p: int, strip: int) -> int:
+        G = self.K[p] // self.group_size
+        return (self.owner(p, strip * G + G - 1) - self.owner(p, strip * G)
+                + 1)
+
+    def phase_pieces(self, p: int, block: int) -> list:
+        """Block `block`'s pieces of phase p, in order: (linear, first packed
+        column, k begin, k end, strip, piece number within the strip)."""
+        G, U, g = self.K[p] // self.group_size, self.units(p), self.group_size
+        strips, nb = self.strips(p), self.blocks(p)
+        b = min(block, nb)
+        u, u1 = U * b // nb, U * min(b + 1, nb) // nb
+        out = []
+        while u < u1:
+            strip = u // G
+            ue = min(u1, (strip + 1) * G)
+            s, lin = strip, 0
+            while s >= strips[lin]:
+                s -= strips[lin]
+                lin += 1
+            out.append((PHASE_LINEARS[p][lin], s * STRIP, (u - strip * G) * g,
+                        (ue - strip * G) * g, strip,
+                        block - self.owner(p, strip * G)))
+            u = ue
+        return out
+
+    def block_tiles(self, block: int) -> list:
+        """Every weight piece block `block` streams in a step, in the order
+        its producer loads and its consumers use them: (layer, phase,
+        linear, first packed column, k begin, k end)."""
+        out = []
+        for l in range(self.layers):
+            for p in range(4):
+                out += [(l, p, *t[:4]) for t in self.phase_pieces(p, block)]
+        if self.phases == 5:
+            out += [(0, 4, *t[:4]) for t in self.phase_pieces(4, block)]
+        return out
+
+    def chunk_tokens(self) -> list:
+        """History tokens [t0, t1) of each attention chunk."""
+        nsub = -(-self.offset // T_TILE)
+        cuts = [c * nsub // self.chunks for c in range(self.chunks + 1)]
+        return [(min(a * T_TILE, self.offset), min(b * T_TILE, self.offset))
+                for a, b in zip(cuts, cuts[1:])]
+
+
+def _ring(D: int, g: int) -> dict:
+    """The shared memory of a block: the x region (x of a K = D phase, a
+    norm of h, is staged whole, once per phase) and the ring's stages."""
+    unit = BK * g // math.gcd(BK, g)  # stages and groups both end here
+    xrows = -(-max(XROWS, D, unit) // 16) * 16
+    slots = -(-BK // g)
+    stage_bytes = Q_BYTES + slots * SLOT_BYTES
+    xbytes = max(xrows * 6 + xrows // 16 * 8, ATT_SCRATCH)
+    free = SMEM_LIMIT - STATIC_BYTES - xbytes - 1024
+    stages = min(MAX_STAGES, free // stage_bytes)
+    if stages < 2:
+        raise ValueError(f"fused_decode: group size {g} leaves no room for "
+                         "the weight ring")
+    return dict(unit_rows=unit, xrows=xrows, seg_rows=xrows // unit * unit,
+                slots=slots, stage_bytes=stage_bytes, stages=stages,
+                smem_bytes=stages * stage_bytes + xbytes + 1024)
+
+
+@functools.lru_cache(maxsize=32)
+def _plan(D, I, nkv, layers, g, n2p, sm_count) -> dict:
+    """The offset-free part of `fused_decode_plan`."""
+    if g <= 0 or g % 16 or D % g or I % g:
+        raise ValueError(f"fused_decode: group size {g} does not divide "
+                         f"{D} and {I} in multiples of 16")
+    if (any(n <= 0 or n % STRIP for n in n2p) or n2p[4] != n2p[5]
+            or n2p[3] != n2p[6]):
+        raise ValueError("fused_decode: packed widths must be multiples of "
+                         f"{STRIP}, gate's equal to up's, o's to down's")
+    grid = sm_count
+    K = (D, D, D, I, D)[:5 if len(n2p) == 8 else 4]
+    pmax, part = [], 0
+    for p, k in enumerate(K):
+        G = k // g
+        strips = sum(n2p[i] for i in PHASE_LINEARS[p]) // STRIP
+        U = strips * G
+        nb = min(grid, U)
+        own = [(u * nb + nb - 1) // U for u in range(U)]
+        most = max(own[s * G + G - 1] - own[s * G] + 1
+                   for s in range(strips))
+        pmax.append(most)
+        part = max(part, strips * most * 2 * STRIP)
+    return dict(grid=grid, group_size=g, layers=layers, n2p=n2p, K=K,
+                pmax=tuple(pmax), **_ring(D, g),
+                max_chunks=min(MAX_CHUNKS, max(1, grid // nkv)), n_kv=nkv,
+                barriers=BARRIERS_PER_LAYER * layers, part_floats=part,
+                sync_words=1 + sum(n2p[i] // STRIP for i in (3, 4, 6, 7)
+                                   if i < len(n2p)))
+
+
+def fused_decode_plan(args, shapes: FusedDecodeShapes,
+                      sm_count: int) -> FusedDecodePlan:
+    """K3's plan for a model (`args`: hidden size, intermediate size, heads)
+    with weights and a step of `shapes` on a card of `sm_count` SMs: the
+    grid, each phase's pieces and which block streams each, the ring's
+    stages and its shared-memory bytes, the attention chunks at
+    `shapes.offset` and the barrier count.  Raises for what the kernel does
+    not take."""
+    nkv = args.num_key_value_heads
+    base = _plan(args.hidden_size, args.intermediate_size, nkv,
+                 shapes.layers, shapes.group_size, tuple(shapes.n2p),
+                 sm_count)
+    nsub = -(-shapes.offset // T_TILE)
+    chunks = max(1, min(base["max_chunks"], nsub))
+    return FusedDecodePlan(offset=shapes.offset, chunks=chunks, **base)
+
+
 # ------------------------------------------------------------ the kernel
-
-KS_NARROW, KS_WIDE = 128, 512  # K rows per work unit (32 lanes x 4 / x 16)
-
-
-def _slice_rows(K: int) -> int:
-    return KS_WIDE if K % KS_WIDE == 0 else KS_NARROW
 
 
 class _Args(ctypes.Structure):
@@ -244,17 +451,21 @@ class _Args(ctypes.Structure):
         ("k_cache", ctypes.c_void_p), ("v_cache", ctypes.c_void_p),
         ("h_out", ctypes.c_void_p), ("k_new", ctypes.c_void_p),
         ("v_new", ctypes.c_void_p), ("logits", ctypes.c_void_p),
-        ("part_a", ctypes.c_void_p), ("part_b", ctypes.c_void_p),
-        ("qbuf", ctypes.c_void_p), ("attn_ml", ctypes.c_void_p),
-        ("attn_acc", ctypes.c_void_p),
+        ("part", ctypes.c_void_p), ("act", ctypes.c_void_p),
+        ("attn_ml", ctypes.c_void_p), ("attn_acc", ctypes.c_void_p),
+        ("sumsq", ctypes.c_void_p), ("sync", ctypes.c_void_p),
         ("n2p", ctypes.c_int * 8),
-        ("ks", ctypes.c_int * 5),  # qkv, o, gate|up, down, head
+        ("pmax", ctypes.c_int * 5),  # qkv, o, gate|up, down, head
         ("L", ctypes.c_int), ("D", ctypes.c_int), ("I", ctypes.c_int),
         ("n_heads", ctypes.c_int), ("n_kv", ctypes.c_int),
         ("group_size", ctypes.c_int), ("capacity", ctypes.c_int),
         ("offset", ctypes.c_int), ("vocab", ctypes.c_int),
         ("has_head", ctypes.c_int), ("small_bf16", ctypes.c_int),
-        ("max_chunks", ctypes.c_int),
+        ("grid", ctypes.c_int), ("stages", ctypes.c_int),
+        ("slots", ctypes.c_int), ("xrows", ctypes.c_int),
+        ("seg_rows", ctypes.c_int), ("unit_rows", ctypes.c_int),
+        ("chunks", ctypes.c_int), ("max_chunks", ctypes.c_int),
+        ("smem_bytes", ctypes.c_int),
         ("eps", ctypes.c_float), ("scale", ctypes.c_float),
     ]
 
@@ -263,18 +474,69 @@ def _check_int4(w: Int4GroupedTensor, dev, name: str) -> None:
     for a in (w.qp, w.sl, w.sh, w.bl, w.bh):
         if a.device != dev or not a.is_contiguous():
             raise ValueError(f"fused_decode: {name} must be contiguous on {dev}")
+        if a.data_ptr() % 16:
+            raise ValueError(f"fused_decode: {name} must be 16-byte aligned "
+                             "(the kernel reads it by TMA)")
     if w.qp.dtype != torch.uint8 or any(
             a.dtype != torch.float32 for a in (w.sl, w.sh, w.bl, w.bh)):
         raise TypeError(f"fused_decode: {name} needs uint8 codes, f32 planes")
-    if w.qp.shape[-1] % 128:
-        raise ValueError(f"fused_decode: {name} N2p must be a multiple of 128")
+    if w.qp.shape[-1] % STRIP:
+        raise ValueError(f"fused_decode: {name} N2p must be a multiple of "
+                         f"{STRIP}")
 
 
 def _small(t: torch.Tensor, dtype, dev, name: str) -> int:
-    if t.device != dev or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"fused_decode: {name} must be contiguous {dtype} "
-                         f"on {dev}")
+    if (t.device != dev or t.dtype != dtype or not t.is_contiguous()
+            or t.data_ptr() % 16):
+        raise ValueError(f"fused_decode: {name} must be contiguous 16-byte "
+                         f"aligned {dtype} on {dev}")
     return t.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def _device(index: int, smem_bytes: int) -> int:
+    """SMs of card `index`, once it is known that the kernel can be
+    resident on every one with `smem_bytes` of shared memory (queried once
+    per card and size)."""
+    with torch.cuda.device(index):
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        resident = _cuda.library().mvt_fused_decode_grid(smem_bytes)
+    if resident < 0:
+        _cuda.check(-resident, "fused_decode")
+    if resident < sms:
+        raise RuntimeError(f"fused_decode: {resident} blocks can be "
+                           f"resident, the kernel needs one per SM ({sms})")
+    return sms
+
+
+_SYNC: dict = {}
+
+
+def _sync_words(dev, n: int) -> torch.Tensor:
+    """The card's grid-barrier word and ticket counters: zeroed once, and
+    every launch leaves them as it found them."""
+    t = _SYNC.get(dev.index)
+    if t is None or t.numel() < n:
+        t = _SYNC[dev.index] = torch.zeros(max(n, 4096), dtype=torch.int32,
+                                           device=dev)
+    return t
+
+
+def step_plan(params: dict, args, offset: int, device) -> FusedDecodePlan:
+    """The plan the kernel runs for a step of this model at `offset` on a
+    card (its SM count and the kernel's residency queried once)."""
+    ws = [p["weight"] for p in _linears(params)]
+    head = fused_head(params, args)
+    full = ws + ([head] if head is not None else [])
+    n2p = tuple(w.qp.shape[-1] for w in full)
+    L = ws[0].qp.shape[0]
+    g = ws[0].group_size
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    sms = _device(index, _ring(args.hidden_size, g)["smem_bytes"])
+    shapes = FusedDecodeShapes(L, g, n2p, head.n if head is not None else 0,
+                               offset)
+    return fused_decode_plan(args, shapes, sms)
 
 
 def fused_decode_step(params: dict, args, h: torch.Tensor, cos: torch.Tensor,
@@ -308,21 +570,26 @@ def fused_decode_step(params: dict, args, h: torch.Tensor, cos: torch.Tensor,
     shape = (L, 1, nkv, k_cache.shape[3], hd)
     for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
         if (c.device != dev or c.dtype != torch.bfloat16
-                or tuple(c.shape) != shape or not c.is_contiguous()):
+                or tuple(c.shape) != shape or not c.is_contiguous()
+                or c.data_ptr() % 16):
             raise ValueError(f"fused_decode: {name} must be contiguous "
-                             f"bfloat16 {shape} on {dev}")
+                             f"16-byte aligned bfloat16 {shape} on {dev}")
     C = shape[3]
     if not 0 <= offset < C:
         raise ValueError(f"fused_decode: offset {offset} outside [0, {C})")
     if tuple(h.shape) != (1, 1, D):
         raise ValueError(f"fused_decode: h must be [1, 1, {D}]")
 
+    full = ws + ([head] if head is not None else [])
+    n2p = tuple(w.qp.shape[-1] for w in full)
+    plan = step_plan(params, args, offset, dev)
+
     a = _Args()
-    for i, w in enumerate(ws + ([head] if head is not None else [])):
+    for i, w in enumerate(full):
         _check_int4(w, dev, f"{LINEARS[i][1] if i < 7 else 'lm_head'}")
         for j, f in enumerate((w.qp, w.sl, w.sh, w.bl, w.bh)):
             a.w[5 * i + j] = f.data_ptr()
-        a.n2p[i] = w.qp.shape[-1]
+        a.n2p[i] = n2p[i]
     for i in range(3):
         b = lin[i].get("bias")
         a.bias[i] = None if b is None else _small(b, small_dt, dev, "bias")
@@ -339,11 +606,6 @@ def fused_decode_step(params: dict, args, h: torch.Tensor, cos: torch.Tensor,
     a.cos, a.sin = cos.data_ptr(), sin.data_ptr()
     a.k_cache, a.v_cache = k_cache.data_ptr(), v_cache.data_ptr()
 
-    n2p = [w.qp.shape[-1] for w in ws]
-    ks = [KS_NARROW, KS_NARROW, _slice_rows(D), _slice_rows(I),
-          _slice_rows(D)]
-    rows_a = [D // ks[0] * 2 * sum(n2p[:3]), D // ks[2] * 2 * (n2p[4] + n2p[5])]
-    rows_b = [D // ks[1] * 2 * n2p[3], I // ks[3] * 2 * n2p[6]]
     h_out = torch.empty((1, 1, D), dtype=torch.float32, device=dev)
     k_new = torch.empty((L, nkv * hd), dtype=torch.float32, device=dev)
     v_new = torch.empty_like(k_new)
@@ -351,31 +613,32 @@ def fused_decode_step(params: dict, args, h: torch.Tensor, cos: torch.Tensor,
     if head is not None:
         a.final_norm = _small(params["model"]["norm"]["weight"], small_dt,
                               dev, "norm")
-        rows_a.append(D // ks[4] * 2 * head.qp.shape[-1])
         logits = torch.empty((1, head.n), dtype=torch.float32, device=dev)
         a.logits, a.vocab, a.has_head = logits.data_ptr(), head.n, 1
-    lib = _cuda.library()
-    max_chunks = lib.mvt_fused_decode_grid()
-    if max_chunks <= 0:
-        raise RuntimeError("fused_decode: the kernel cannot be resident")
-    part_a = torch.empty(max(rows_a), dtype=torch.float32, device=dev)
-    part_b = torch.empty(max(rows_b), dtype=torch.float32, device=dev)
-    qbuf = torch.empty(D, dtype=torch.float32, device=dev)
-    attn_ml = torch.empty((nh, max_chunks, 2), dtype=torch.float32,
+    part = torch.empty(plan.part_floats, dtype=torch.float32, device=dev)
+    act = torch.empty(I, dtype=torch.float32, device=dev)
+    attn_ml = torch.empty((nh, plan.max_chunks, 2), dtype=torch.float32,
                           device=dev)
-    attn_acc = torch.empty((nh, max_chunks, hd), dtype=torch.float32,
+    attn_acc = torch.empty((nh, plan.max_chunks, hd), dtype=torch.float32,
                            device=dev)
     a.h_out, a.k_new, a.v_new = (t.data_ptr() for t in (h_out, k_new, v_new))
-    a.part_a, a.part_b, a.qbuf = (t.data_ptr() for t in (part_a, part_b, qbuf))
+    a.part, a.act = part.data_ptr(), act.data_ptr()
+    sumsq = torch.empty(2 * n2p[3] // STRIP, dtype=torch.float32, device=dev)
     a.attn_ml, a.attn_acc = attn_ml.data_ptr(), attn_acc.data_ptr()
-    for i, v in enumerate(ks):
-        a.ks[i] = v
+    a.sumsq = sumsq.data_ptr()
+    a.sync = _sync_words(dev, plan.sync_words).data_ptr()
+    for i, v in enumerate(plan.pmax):
+        a.pmax[i] = v
     a.L, a.D, a.I, a.n_heads, a.n_kv = L, D, I, nh, nkv
     a.group_size, a.capacity, a.offset = g, C, offset
     a.small_bf16 = int(small_dt == torch.bfloat16)
-    a.max_chunks = max_chunks
+    a.grid, a.stages, a.slots = plan.grid, plan.stages, plan.slots
+    a.xrows, a.seg_rows, a.unit_rows = plan.xrows, plan.seg_rows, plan.unit_rows
+    a.chunks, a.max_chunks = plan.chunks, plan.max_chunks
+    a.smem_bytes = plan.smem_bytes
     a.eps, a.scale = eps, hd**-0.5
-    err = lib.mvt_fused_decode(ctypes.addressof(a), _cuda.stream_handle(dev))
+    err = _cuda.library().mvt_fused_decode(ctypes.addressof(a),
+                                           _cuda.stream_handle(dev))
     _cuda.check(err, "fused_decode")
     launches["fused_decode"] += 1
     if head is None:

@@ -19,7 +19,10 @@ tokens, logprobs within 0.08 (the JAX CPU route is the grid kernel with
 dequant math, the port follows the z2 math).
 """
 
+import ctypes
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,7 +36,7 @@ from mlx_vlm_tpu.generate.dispatch import stream_generate as jax_stream
 from mlx_vlm_tpu.ops.fused_decode import fused_decode_step_manual
 from mlx_vlm_tpu.utils.loader import load_model_from_weights as jax_load
 from mlx_vlm_tpu.utils.testing import qwen2_vl_hf_weights, tiny_qwen2_vl_config
-from mlx_vlm_tpu_torch.core.quant import Int4GroupedTensor
+from mlx_vlm_tpu_torch.core.quant import Int4GroupedTensor, _int4_half_width
 from mlx_vlm_tpu_torch.generate.dispatch import stream_generate
 from mlx_vlm_tpu_torch.models.qwen2_vl import Model, ModelConfig
 from mlx_vlm_tpu_torch.models.qwen2_vl import language as language_mod
@@ -44,6 +47,9 @@ from mlx_vlm_tpu_torch.utils.testing import ByteTokenizer
 torch.set_num_threads(2)
 
 EXACT, ROUNDED = 1e-5, 3e-2  # relative to max|ref|, see the docstring
+# K3's tolerances on the card (chip_smoke.py FUSED_EXACT / FUSED_ROUNDED):
+# the kernel's arithmetic, emulated here, is held to them
+FUSED_EXACT, FUSED_ROUNDED = 1e-4, 6e-2
 C = 32
 
 
@@ -171,6 +177,258 @@ def test_step_ignores_rows_past_offset_and_writes_its_row(models):
     assert torch.equal(tv[:, 0, :, offset], got[2].view(L, Hkv, hd))
     assert bool((tk[:, :, :, offset + 1:] == 1e3).all())
     assert bool((tv[:, :, :, offset + 1:] == -1e3).all())
+
+
+def test_step_ignores_nan_past_offset(models):
+    """NaN past `offset` (a cache slot never written) leaves every output
+    as it is with a clean cache: the step reads history [0, offset) only,
+    and the kernel's zero-filled rows past the cursor never meet a NaN."""
+    jm, tm, _ = models
+    pack = jm.params["language_model"]["fused_decode"]
+    offset = 9
+    h, cos, sin, k, v = _step_inputs(pack, offset, seed=4)
+    L, Hkv, hd = pack.n_layers, pack.n_kv, pack.head_dim
+    kg, vg = k.copy(), v.copy()
+    kg[:, :, :, offset:] = np.nan
+    vg[:, :, :, offset:] = np.nan
+    tk, tv = torch.from_numpy(kg), torch.from_numpy(vg)
+    ref = _port_step(tm, h, cos, sin, k, v, offset)
+    got = fd.fused_decode_step(
+        tm.params["language_model"], tm.language_model.args,
+        *(torch.from_numpy(a) for a in (h, cos, sin)), tk, tv, offset)
+    for a, b in zip(ref, got):
+        assert bool(torch.isfinite(b).all()) and torch.equal(a, b)
+    assert torch.equal(tk[:, 0, :, offset], got[1].view(L, Hkv, hd))
+    assert torch.equal(tv[:, 0, :, offset], got[2].view(L, Hkv, hd))
+    assert bool(torch.isnan(tk[:, :, :, offset + 1:]).all())
+    assert bool(torch.isnan(tv[:, :, :, offset + 1:]).all())
+
+
+# ------------------------------------------------- the kernel's fold, emulated
+
+
+def _mv_fold(x, t, trap=False):
+    """x [K] f32 @ dequant(t) with the kernel's arithmetic: x_b = bf16(x);
+    per group and plane, d = sum x_b (128 + q) with exact codes (the low
+    plane summed directly), dx = sum x_b and sx = sum x (unrounded), folded
+    as s (d - 128 dx) + b sx.  `trap`: the fold (b - 128 s) sx instead,
+    which drops 128 s sum (x_b - x) from every group."""
+    K, n2p = t.qp.shape
+    g = t.group_size
+    G = K // g
+    q = t.qp.to(torch.int32).view(G, g, n2p)
+    xb = x.to(torch.bfloat16).float().view(G, 1, g)
+    dx = xb.sum(-1)                                       # [G, 1]
+    sx = x.view(G, g).sum(-1, keepdim=True)
+    ys = []
+    for plane, s, b in ((q & 15, t.sl, t.bl), (q >> 4, t.sh, t.bh)):
+        d = torch.bmm(xb, 128.0 + plane.float())[:, 0]    # [G, n2p]
+        s, b = s[:, 0], b[:, 0]
+        if trap:
+            ys.append((s * d + (b - 128.0 * s) * sx).sum(0))
+        else:
+            ys.append((s * (d - 128.0 * dx) + b * sx).sum(0))
+    return torch.cat(ys)[: t.n]
+
+
+def _manual_and_fold(models, offset, monkeypatch, trap=False):
+    jm, tm, _ = models
+    pack = jm.params["language_model"]["fused_decode"]
+    h, cos, sin, k, v = _step_inputs(pack, offset)
+    hj, kj, vj, lj = fused_decode_step_manual(
+        pack, *(jnp.asarray(a) for a in (h, cos, sin, k, v)),
+        jnp.asarray(offset, jnp.int32), interpret=True)
+    monkeypatch.setattr(fd, "_mv_z2", lambda x, t: _mv_fold(x, t, trap))
+    ht, kt, vt, lt = _port_step(tm, h, cos, sin, k, v, offset)
+    L, Hkv = pack.n_layers, pack.n_kv
+    kj = np.asarray(kj)[:, :Hkv].reshape(L, -1)
+    vj = np.asarray(vj)[:, :Hkv].reshape(L, -1)
+    return ((kt.numpy()[0], kj[0]), (vt.numpy()[0], vj[0])), (
+        (kt.numpy()[1:], kj[1:]), (vt.numpy()[1:], vj[1:]),
+        (ht.numpy(), np.asarray(hj)), (lt.numpy(), np.asarray(lj)))
+
+
+def _rel_err(got, ref):
+    return float(np.abs(got - ref).max()) / float(np.abs(ref).max())
+
+
+@pytest.mark.parametrize("offset", [0, 5, 31])
+def test_kernel_fold_matches_manual_kernel(models, monkeypatch, offset):
+    """The kernel's fold, emulated on the CPU through the plain step, held
+    to the Pallas manual kernel in interpret mode with K3's tolerances on
+    the card: FUSED_EXACT on the first layer's k/v, FUSED_ROUNDED beyond."""
+    first, rest = _manual_and_fold(models, offset, monkeypatch)
+    for got, ref in first:
+        assert _rel_err(got, ref) <= FUSED_EXACT
+    for got, ref in rest:
+        assert _rel_err(got, ref) <= FUSED_ROUNDED
+
+
+def test_kernel_fold_trap_misses_exact(models, monkeypatch):
+    """Folding (b - 128 s) sum x_f32 with codes 128 + q summed against
+    bf16 x misses FUSED_EXACT on the first layer's k/v: the fold must
+    subtract 128 s sum x_b, as the kernel does."""
+    first, _ = _manual_and_fold(models, 5, monkeypatch, trap=True)
+    assert max(_rel_err(got, ref) for got, ref in first) > FUSED_EXACT
+
+
+# ------------------------------------------------------------ the plan
+
+KERNEL_SOURCE = (Path(fd.__file__).resolve().parent.parent / "csrc"
+                 / "fused_decode.cu")
+
+
+def _plan_model(name):
+    """(args, shapes without offset) at 7B width or at the tiny config of
+    the `cuda` test (head_dim 128, two layers)."""
+    from mlx_vlm_tpu_torch.utils.testing import (qwen2_vl_7b_config,
+                                                 tiny_qwen2_vl_config)
+    if name == "7b":
+        cfg, L = qwen2_vl_7b_config(), 28
+    else:
+        cfg = tiny_qwen2_vl_config(hidden_size=512, intermediate_size=1024,
+                                   num_attention_heads=4,
+                                   num_key_value_heads=2, vocab_size=1024)
+        L = 2
+    args = ModelConfig.from_dict(cfg).text_config
+    D, I = args.hidden_size, args.intermediate_size
+    nkv = args.num_key_value_heads * (D // args.num_attention_heads)
+    n2p = tuple(_int4_half_width(n)
+                for n in (D, nkv, nkv, D, I, I, D, args.vocab_size))
+    return args, L, n2p
+
+
+@pytest.mark.parametrize("name", ["7b", "tiny"])
+@pytest.mark.parametrize("g", [64, 32, 128])
+def test_plan_owns_every_tile_once_in_order(name, g):
+    """Every weight tile (one quantization group of one 128-column strip)
+    of every phase belongs to exactly one block: each block's pieces are
+    whole groups, contiguous in the phase's strip-major order, numbered
+    within their strip in block order, and a strip's pieces cover [0, K);
+    each block's list runs layer by layer, q|k|v, o, gate|up, down, then
+    the head, which is the order its producer loads and its consumers use
+    them; the ring and the rest of the kernel's shared memory fit in a
+    block's 227 KB."""
+    args, L, n2p = _plan_model(name)
+    plan = fd.fused_decode_plan(
+        args, fd.FusedDecodeShapes(L, g, n2p, args.vocab_size, 300), 132)
+    assert plan.grid == 132 and plan.phases == 5
+    assert plan.smem_bytes + fd.STATIC_BYTES <= 227 * 1024
+    assert 2 <= plan.stages <= fd.MAX_STAGES
+    assert plan.stage_bytes == fd.Q_BYTES + plan.slots * fd.SLOT_BYTES
+    assert plan.slots * g >= fd.BK
+    assert plan.seg_rows % fd.BK == 0 and plan.seg_rows % g == 0
+    assert plan.seg_rows <= plan.xrows
+    for p in range(5):
+        K = plan.K[p]
+        lins = fd.PHASE_LINEARS[p]
+        owned, pieces = {}, {}
+        for b in range(plan.grid):
+            last = None
+            for lin, j0, kb, ke, strip, ord_ in plan.phase_pieces(p, b):
+                assert 0 <= kb < ke <= K and kb % g == 0 and ke % g == 0
+                assert last is None or (strip, kb) > last
+                last = (strip, kb)
+                for k in range(kb, ke, g):
+                    assert (lin, j0, k) not in owned
+                    owned[(lin, j0, k)] = b
+                pieces.setdefault(strip, []).append((kb, ke, ord_))
+        assert len(owned) == sum(n2p[i] // fd.STRIP for i in lins) * (K // g)
+        assert sorted(pieces) == list(range(len(pieces)))
+        for strip, ps in pieces.items():
+            assert [o for _, _, o in ps] == list(range(len(ps)))
+            assert len(ps) == plan.pieces_of(p, strip) <= plan.pmax[p]
+            assert ps[0][0] == 0 and ps[-1][1] == K
+            for (_, a1, _), (b0, _, _) in zip(ps, ps[1:]):
+                assert a1 == b0
+        assert plan.part_floats >= len(pieces) * plan.pmax[p] * 2 * fd.STRIP
+    key = {(l, p): 5 * l + p for l in range(L) for p in range(4)}
+    for b in range(plan.grid):
+        order = [(key.get((l, p), 5 * L), lin, j0, kb)
+                 for l, p, lin, j0, kb, _ in plan.block_tiles(b)]
+        assert order == sorted(order)
+    rows = sum(ke - kb for b in range(plan.grid)
+               for _, _, _, _, kb, ke in plan.block_tiles(b))
+    assert rows == sum((L if p < 4 else 1) * plan.K[p] * sum(
+        n2p[i] // fd.STRIP for i in fd.PHASE_LINEARS[p]) for p in range(5))
+
+
+@pytest.mark.parametrize("name", ["7b", "tiny"])
+@pytest.mark.parametrize("offset", [0, 1, 63, 64, 65, 300, 8545])
+def test_plan_chunks_cover_history(name, offset):
+    """The attention chunks cover [0, offset) exactly, each a whole number
+    of 64-token tiles but the last, never more units than blocks; at 8.5k
+    tokens every block of the 7B grid gets a unit."""
+    args, L, n2p = _plan_model(name)
+    plan = fd.fused_decode_plan(
+        args, fd.FusedDecodeShapes(L, 64, n2p, args.vocab_size, offset), 132)
+    chunks = plan.chunk_tokens()
+    assert len(chunks) == plan.chunks <= plan.max_chunks
+    assert plan.chunks * args.num_key_value_heads <= plan.grid
+    assert chunks[0][0] == 0 and chunks[-1][1] == offset
+    for (a0, a1), (b0, _) in zip(chunks, chunks[1:]):
+        assert a1 == b0 and a0 % fd.T_TILE == 0
+    if offset:
+        assert all(a1 > a0 for a0, a1 in chunks)
+    else:
+        assert chunks == [(0, 0)]
+    if name == "7b" and offset == 8545:
+        assert plan.chunks * args.num_key_value_heads == plan.grid
+
+
+def _c_fields(src: str) -> list:
+    """(name, kind, count) of each field of `FusedDecodeArgs` in the kernel
+    source: kind p (pointer), i (int) or f (float)."""
+    body = src[src.index("struct FusedDecodeArgs {"):]
+    body = body[body.index("{") + 1:body.index("};")]
+    fields = []
+    for line in body.splitlines():
+        decl = line.split("//")[0].strip().rstrip(";")
+        if not decl:
+            continue
+        kind = "p" if "*" in decl else "f" if decl.startswith("float") else "i"
+        names = re.sub(r"^(const )?(void\*|int|float)", "", decl)
+        for n in names.split(","):
+            m = re.fullmatch(r"\s*\*?\s*(\w+)(?:\[(\d+)\])?\s*", n)
+            fields.append((m.group(1), kind, int(m.group(2) or 1)))
+    return fields
+
+
+def test_plan_barriers_and_kernel_constants():
+    """A step takes 5 grid barriers a layer (at most 5 L + 2): the plan
+    says so and the kernel's layer loop holds exactly that many; the plan's
+    mirrors of the kernel's constants and of `FusedDecodeArgs` agree with
+    csrc/fused_decode.cu."""
+    args, L, n2p = _plan_model("7b")
+    plan = fd.fused_decode_plan(
+        args, fd.FusedDecodeShapes(L, 64, n2p, args.vocab_size, 300), 132)
+    assert plan.barriers == fd.BARRIERS_PER_LAYER * L <= 5 * L + 2
+    src = KERNEL_SOURCE.read_text()
+    loop = src[src.index("run_phase(c, P_QKV, l);"):]
+    loop = loop[:loop.index("if (a.has_head) run_phase")]
+    assert loop.count("grid_barrier(") == fd.BARRIERS_PER_LAYER
+    assert src.count("grid_barrier(bar") == fd.BARRIERS_PER_LAYER
+    consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
+
+    def value(name):
+        return eval(consts[name], {}, {k: value(k) for k in consts
+                                       if re.search(rf"\b{k}\b",
+                                                    consts[name])})
+
+    for name, want in (("BK", fd.BK), ("STRIP", fd.STRIP),
+                       ("Q_BYTES", fd.Q_BYTES), ("SLOT_BYTES", fd.SLOT_BYTES),
+                       ("MAX_STAGES", fd.MAX_STAGES), ("T_TILE", fd.T_TILE),
+                       ("MAX_GQ", fd.MAX_GQ), ("HD", fd.HEAD_DIM),
+                       ("ATT_SCRATCH", fd.ATT_SCRATCH),
+                       ("MAX_CHUNKS", fd.MAX_CHUNKS)):
+        assert value(name) == want, name
+    mirror = []
+    for name, ctype in fd._Args._fields_:
+        base = ctype._type_ if hasattr(ctype, "_length_") else ctype
+        kind = ("p" if base is ctypes.c_void_p else
+                "f" if base is ctypes.c_float else "i")
+        mirror.append((name, kind, getattr(ctype, "_length_", 1)))
+    assert _c_fields(src) == mirror
 
 
 def test_params_from_pack_equal_keep_layers_load():
@@ -322,14 +580,16 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("offset", [0, 100, 300])
+@pytest.mark.parametrize("offset", [0, 100, 300, 64])
 def test_cuda_fused_decode_matches_plain(cuda_device, offset):
     """K3 against its plain version on the card at head_dim 128 (bf16
-    model, garbage past `offset`).  The first layer's k/v rows agree within
-    1e-4 * max|ref| (summation order only); the other outputs within
-    6e-2 * max|ref|: the kernel also rounds attention probabilities to bf16
-    against a running maximum, and a last-bit difference can flip a bf16
-    rounding of x before a weight dot, which the layers amplify."""
+    model, garbage past `offset`; 64 ends exactly on an attention tile).
+    The first layer's k/v rows agree within 1e-4 * max|ref| (summation
+    order only); the other outputs within 6e-2 * max|ref|: the kernel also
+    rounds attention probabilities to bf16 against a running maximum, and a
+    last-bit difference can flip a bf16 rounding of x before a weight dot,
+    which the layers amplify.  A second call is bit-identical (sums in a
+    fixed order)."""
     from mlx_vlm_tpu_torch.utils.loader import load_model_from_weights
     from mlx_vlm_tpu_torch.utils.testing import (mlx_int4_checkpoint,
                                                  tiny_qwen2_vl_config)
@@ -371,3 +631,6 @@ def test_cuda_fused_decode_matches_plain(cuda_device, offset):
         assert float((a - b).abs().max()) <= rel * float(b.abs().max())
     assert bool((cache.k[:, :, :, offset + 1:] == 1e3).all())
     assert bool((cache.v[:, :, :, offset + 1:] == 1e3).all())
+    again = fd.fused_decode_step(lp, lm.args, h, cos[0, 0], sin[0, 0],
+                                 cache.k, cache.v, offset)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
