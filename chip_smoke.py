@@ -6,7 +6,8 @@ Phases (any failure exits non-zero):
   1. environment: card, power limit, versions; builds the CUDA kernels from
      mlx_vlm_tpu_torch/csrc with nvcc (one process per source, in
      parallel) and prints ptxas's registers, static shared memory and
-     spills of every kernel (K3, K4 and K5's int4 GEMM must not spill);
+     spills of every kernel (K3, K4 and K5's GEMV and int4 GEMM must not
+     spill) and the I2F count of K5's GEMV in cuobjdump -sass (must be 0);
   2. each kernel (K1 int4_matmul, K2 int4_matvec, K3 fused_decode, K4
      flash_attention, K5 qmatmul_int4 / qmatmul_int8, K6
      int4_kv_attention, K7 tq_kv_attention, K8 tq_kv_attention_split)
@@ -15,9 +16,11 @@ Phases (any failure exits non-zero):
      splits K; K2 at M = 1, 2, 4 and 8, groups of 32 and 128 and a ragged
      n = 1000, timed also with its weights cold in L2 (`graph_ms` over
      copies of the weight), and its
-     kernels per call counted; K5 at M = 1 (timed cold and warm) and 512,
-     its int4 GEMM also on a ragged chunk (M = 100, N = 1000) and a narrow
-     one at g = 32, with its kernels per call and a bit-identical repeat;
+     kernels per call counted; K5's GEMV at M = 1, 2, 4 and 8, groups of
+     32 and 128 and a ragged N = 1000 (timed cold and warm), its GEMMs at
+     M = 512, its int4 GEMM also on a ragged chunk (M = 100, N = 1000) and
+     a narrow one at g = 32, the GEMV and the int4 GEMM with their kernels
+     per call and a bit-identical repeat;
      K4 at the 8k rows (offset 7680; left_pad 100; window 1024), at (c)'s
      first, middle and last chunk (S = 512 against C = 8704 at offsets 0,
      4096, 8192) and at two batch rows with their own offsets and
@@ -199,11 +202,40 @@ def phase_environment() -> None:
     for source, log in _cuda.BUILD_LOG.items():
         for name, regs, spills in ptxas_report(log):
             print(f"  ptxas {source} {name}: {regs}; {spills}", flush=True)
-            # K5's int4 GEMM, K4 and K3 keep their accumulators in registers
-            if name.startswith(("qmm4_kernel", "flash_fwd_kernel",
-                                "fused_decode_kernel")) and (
+            # K5's GEMV and int4 GEMM, K4 and K3 keep their operands and
+            # accumulators in registers
+            if name.startswith(("qmv_kernel", "qmm4_kernel",
+                                "flash_fwd_kernel", "fused_decode_kernel")
+                               ) and (
                     "0 bytes spill stores, 0 bytes spill loads" not in spills):
                 fail(f"ptxas spills in {name}: {spills}")
+    # K5's GEMV takes its codes exact with no integer-to-float conversion
+    for name, n in sass_conversions(_cuda.library_path()).items():
+        if "qmv_kernel" in name:
+            print(f"  sass {name}: {n} I2F / I2FP", flush=True)
+            if n:
+                fail(f"{name} converts integers to floats ({n} I2F)")
+
+
+def sass_conversions(library) -> dict:
+    """Integer-to-float conversions (I2F, I2FP) per kernel, by mangled name,
+    in the SASS of the built library as cuobjdump -sass prints it."""
+    import re
+
+    from mlx_vlm_tpu_torch.ops import _cuda
+
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.search(r"\sI2F", line):
+            counts[name] += 1
+    return counts
 
 
 def ptxas_report(log: str) -> list:
@@ -470,11 +502,19 @@ def check_int4_matvec(results: list, gen, dev) -> None:
 
 # K5 cases (bits, group size, M, K, N): the 7B linears at M = 1 (a decode
 # step) and 512 (a prefill chunk), the lm_head at M = 1, and mlx's other
-# group sizes; for the int4 GEMM route also a ragged chunk (M = 100,
+# group sizes; for the GEMV route (M <= 8) also M = 2, 4 and 8 at 3584^2
+# and at N = 18944 (batched decode), g = 32 and 128 at M = 1 and a ragged
+# N = 1000 at M = 1 and 5; for the int4 GEMM route a ragged chunk (M = 100,
 # N = 1000) and a narrow one at g = 32 (both split K)
 K5_CASES = (tuple((bits, 64, M, K, N) for bits in (4, 8) for M in (1, 512)
                   for K, N in K1_SHAPES)
             + tuple((bits, 64, 1, 3584, 152064) for bits in (4, 8))
+            + tuple((bits, 64, M, K, N) for bits in (4, 8) for M in (2, 4, 8)
+                    for K, N in ((3584, 3584), (3584, 18944)))
+            + tuple((bits, g, 1, 3584, 3584) for bits in (4, 8)
+                    for g in (32, 128))
+            + tuple((bits, 64, M, 3584, 1000) for bits in (4, 8)
+                    for M in (1, 5))
             + tuple((bits, g, 512, 3584, 3584) for bits in (4, 8)
                     for g in (32, 128))
             + ((4, 64, 100, 3584, 1000), (4, 32, 512, 3584, 512)))
@@ -520,11 +560,12 @@ def check_qmatmul(results: list, dev) -> None:
     """K5 against its plain version at K5_CASES, its weights drawn on the
     card; 4-bit cases also time torch._weight_int4pack_mm.  No single
     PyTorch call takes 8-bit group-affine codes (_weight_int8pack_mm is
-    per-channel, with no group bias), so the 8-bit cases have none.  M = 1
-    cases are timed cold (graph_ms over cold_copies of the weight, as a
-    decode step reads it) and warm (device_ms), the library too.  Every
-    int4 GEMM case (M > 8) records the kernels one call launches (one, two
-    where it splits K) and must give bit-identical output on a repeat."""
+    per-channel, with no group bias), so the 8-bit cases have none.  GEMV
+    cases (M <= 8) are timed cold (graph_ms over cold_copies of the weight,
+    as a decode step reads it) and warm (device_ms), the library too.  Every
+    GEMV case and every int4 GEMM case (M > 8) records the kernels one call
+    launches (the GEMV one, the GEMM one or two where it splits K) and must
+    give bit-identical output on a repeat."""
     import functools
 
     import torch
@@ -546,7 +587,7 @@ def check_qmatmul(results: list, dev) -> None:
                lambda: run(t), lambda: k5.qmatmul_plain(x, t), floor=0.0,
                work=qmm_work(M, t), library=lib)
         r = results[-1]
-        if M == 1:
+        if M <= k5.MAX_GEMV_ROWS:
             weight_bytes = t.q.numel() + 2 * t.scales.numel() * 2
             copies = [t] + [clone_mlx(t) for _ in range(
                 cold_copies(weight_bytes) - 1)]
@@ -562,17 +603,20 @@ def check_qmatmul(results: list, dev) -> None:
                         + sz.numel() * sz.element_size())), iters=5))
                 txt += (f" library_ms={r['library_ms']:.4f} cold "
                         f"{r['library_warm_ms']:.4f} warm")
+            rt, chunks = k5.qmatmul_gemv_plan(M, K, N, bits, g)
+            plan, want = f"GEMV {rt} row tile(s) a block, {chunks} chunk(s)", 1
             print(f"  {name} {shape}: {txt} (device time)", flush=True)
         elif bits == 4:
             _, splits = k5.qmatmul_plan(M, K, N, g)
+            plan, want = f"{splits} K slice(s)", 1 if splits == 1 else 2
+        if M <= k5.MAX_GEMV_ROWS or bits == 4:
             kernels = kernels_per_call(lambda: run(t))
             same = bool(torch.equal(run(t), out))
-            r["kernels_per_call"], r["splits"], r["repeat_identical"] = (
-                kernels, splits, same)
-            r["ok"] = r["ok"] and same and kernels == (1 if splits == 1
-                                                       else 2)
-            print(f"  {name} {shape}: {splits} K slice(s), kernels per call "
-                  f"{kernels} (graph nodes), repeat bit-identical {same} "
+            r["kernels_per_call"], r["plan"], r["repeat_identical"] = (
+                kernels, plan, same)
+            r["ok"] = r["ok"] and same and kernels == want
+            print(f"  {name} {shape}: {plan}, kernels per call {kernels} "
+                  f"(graph nodes; want {want}), repeat bit-identical {same} "
                   f"{'ok' if r['ok'] else 'MISMATCH'}", flush=True)
         del t, x, lib, out
 

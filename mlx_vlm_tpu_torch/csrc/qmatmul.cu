@@ -11,24 +11,64 @@
 // group instead:  sum_{k in grp} x*(q*s + b) = s * sum x*q + b * sum x.
 // Codes 0..255 are exact in bf16 and a bf16 x times a code is exact in f32,
 // so x*q runs with no rounding of the weight (tensor cores with f32
-// accumulators on the GEMM route, f32 FMAs on the GEMV route); the group
-// partial is scaled by the f32-widened s and b multiplies the f32 sum of x
-// over the group.  The result equals the reference's up to f32
-// reassociation, then one rounding to bf16.  (K1 differs: it rounds
-// code*s + b to bf16 before its MMA, as its reference does.)
+// accumulators, as exact bf16 operands); the group partial is scaled by the
+// f32-widened s and b multiplies the f32 sum of x over the group.  The
+// result equals the reference's up to f32 reassociation, then one rounding
+// to bf16.  (K1 differs: it rounds code*s + b to bf16 before its MMA, as
+// its reference does.)
 //
 // Three routes:
 // - M <= 8, both widths (decode steps, the prefill lm_head row), entry
-//   mvt_qmatmul: bound by device-memory bandwidth; at Qwen2-VL-7B one exact
-//   decode step's linears and head read about 3.98 GB at 4 bits (about 1.19
-//   ms at 3.35 TB/s) and 7.5 GB at 8 bits (2.2 ms), scales and biases
-//   included (reckoned from the shapes; the measured times are in PERF.md).
-//   Each output row is a contiguous K*BITS/8-byte stream, so a block of 128
-//   threads owns 4 output rows and strides over their 16-byte chunks (one
-//   chunk lies in one group for every group size taken), loading x once
-//   per chunk for the 4 rows; partials reduce by warp shuffles and then
-//   across the 4 warps.  With N = 512 (k/v projections) only 128 blocks
-//   run, fewer than the card's 132 SMs.
+//   mvt_qmatmul_gemv, one launch per call: bound by device-memory
+//   bandwidth; at Qwen2-VL-7B one exact decode step's linears and head read
+//   about 3.98 GB at 4 bits (about 1.19 ms at 3.35 TB/s) and 7.5 GB at 8
+//   bits (2.2 ms), scales and biases included (reckoned from the shapes;
+//   the measured times are in PERF.md).  qmv_kernel<BITS, G>:
+//   * Codes exact on mma.sync m16n8k16 (bf16, f32 accumulate): W is the A
+//     operand, 16 W rows a warp tile; x the B operand, columns >= M zero.
+//     A 4-bit word (8 codes) becomes four bf16 pairs 128 + q with a shift
+//     and one LOP3 each (the nibble is the mantissa of 128.0); an 8-bit
+//     word (4 codes) two pairs of parts, 128 + (low nibble) and 256 + 16
+//     (high nibble) (the high nibble shifted to mantissa bits 3-6 of
+//     256.0), two MMAs into one partial, so that the partial sums x (384 +
+//     q).  No integer-to-float conversion anywhere (chip_smoke.py phase 1
+//     counts I2F in the SASS).  A group ends in acc += s P + (b - c s) sum x,
+//     c = 128 or 384.
+//   * The k order: the quad of an A row reads word t of each 16-byte piece
+//     of the row (t its lane in the quad), so every 16-k slice of the MMAs
+//     lies in one piece, and so in one group at g = 32, 64 and 128; a
+//     word's pairs are (i, i + 4) at 4 bits and (i, i + 2) at 8, and x is
+//     staged in that order (x_order) so that a B fragment is one shared
+//     load.  The sum over a group does not depend on the order of its k.
+//   * Bytes in flight: each warp keeps a ring of MV_RING stages of its 16
+//     rows x MV_SS * 32 bytes in shared memory, filled by cp.async with
+//     the L2 256-byte prefetch hint (a warp instruction copies 128
+//     contiguous bytes of 4 rows); the stage's two 16-byte pieces per step
+//     sum into two partials, two MMA chains.  Loads of the codes into
+//     registers (8 rows x 32 bytes a warp instruction) were tried first and
+//     streamed at ~1 TB/s; a deeper ring only lengthened the time to issue
+//     it (PERF.md).
+//   * Scales and biases once per group per row: a block copies its rows'
+//     values with cp.async as whole 16-byte pieces (4-byte words for a
+//     chunk of each row), ahead of the codes that need them; the fold
+//     reads them from shared memory.  Loading them into registers at each
+//     step, as first built, made more L2 requests than the codes did.
+//   * x: copied once per block (per chunk of K where M rows of K do not fit
+//     in ops/qmatmul.py's GEMV_SMEM_BYTES) by cp.async as the first copies
+//     of the block, so that they do not wait behind the code stream, then
+//     put in pair order in place while the first stages are in flight; the
+//     sum of x per group and row is taken there, once per block.
+//   * Filling the card (ops/qmatmul.py:qmatmul_gemv_plan): a block of 8
+//     warps owns RT row tiles of 16 rows, its 8 / RT warps per tile split
+//     K, and the warps' partials are added in shared memory in the order
+//     of their parts.  With one chunk of K and more tiles than two blocks
+//     an SM, the grid is persistent: 2 blocks an SM walk the tiles, each
+//     warp's ring streams on into the next tile while the block finishes
+//     one, and the next tile's values go to a second slot, so the last
+//     wave of blocks does not run alone on a few SMs.  No atomics: a
+//     repeated call is bit-identical.
+//   * Ragged N: rows >= N are not copied and not stored.  K a whole number
+//     of group pairs (the values are copied as 32-bit words).
 // - M > 8, 8-bit (entry mvt_qmatmul): a block owns 64 rows of x and 128
 //   output rows and walks K in steps of 32 codes; x and the codes unpacked
 //   to bf16 are staged in shared memory, eight warps run mma.sync m16n8k16
@@ -663,145 +703,548 @@ cudaError_t launch_q4(const void* x, const void* q, const __nv_bfloat16* s,
 
 // ------------------------------------------------------------ GEMV route
 
-constexpr int MV_THREADS = 128;  // 4 warps
-constexpr int MV_ROWS = 4;       // output rows per block
+constexpr int MV_THREADS = 256;  // 8 warps: RT row tiles x 8 / RT parts of K
+constexpr int MV_STEP = 32;      // code bytes of one W row per step
+constexpr int MV_SS = 4;         // steps per ring stage
+constexpr int MV_RING = 2;       // ring stages per warp
+constexpr int MV_ROW = MV_SS * MV_STEP + 16;  // a stage row in shared memory
+                                              // (rows 16 bytes apart mod 128)
+constexpr int MV_WARP_RING = MV_RING * 16 * MV_ROW;  // bytes per warp
+constexpr int MV_RED_BYTES = MV_THREADS / 32 * 16 * 8 * 4;  // warps' partials
+// dynamic shared memory of a block at most
+constexpr int MV_SMEM_MAX = 232448 - MV_RED_BYTES;
 
-template <int BITS, int M>
-__global__ void __launch_bounds__(MV_THREADS)
+// The GEMV's shape for BITS-bit codes in groups of G.
+template <int BITS, int G>
+struct Qmv {
+  static constexpr int GB = G * BITS / 8;  // code bytes of a group
+  static constexpr int GPS = GB <= MV_STEP ? MV_STEP / GB : 0;  // groups a
+                                                                // step holds
+  static constexpr int SPG = GB > MV_STEP ? GB / MV_STEP : 1;   // steps a
+                                                                // group takes
+  static constexpr int UNIT = GB > MV_STEP ? GB : MV_STEP;  // K unit, bytes
+  static constexpr int GPU = GPS > 1 ? GPS : 1;             // groups a unit
+  static constexpr int XB = BITS == 4 ? 16 : 8;  // x bytes per code word
+  static constexpr float OFF = BITS == 4 ? 128.f : 384.f;  // code offset
+};
+
+// Shared memory of a GEMV block (launch_qmv and ops/qmatmul.py:_gemv_smem):
+// the warps' rings; the scales and biases of a tile's rows for a chunk
+// ([slots][2][16 RT rows][sbw values]: with one chunk, the rows as they
+// lie in memory, sbw = K / g, in two slots when the grid is persistent;
+// with more, the 32-bit words that hold the chunk's groups, one more group
+// where a chunk starts at an odd one); x of a chunk, M rows of xstride
+// bytes; the sums of x, 8 per group of a chunk.
+struct QmvSmem {
+  int sbw, sb_slots, xstride, bytes;
+};
+
+__host__ __device__ inline QmvSmem qmv_smem(int M, int K, int bits, int g,
+                                            int lrt, int lnc, int slots) {
+  const int gb = g * bits / 8, unit = gb > MV_STEP ? gb : MV_STEP;
+  const int units = K / 8 * bits / unit;
+  const int cu = (units + (1 << lnc) - 1) >> lnc;       // units of a chunk
+  const int kc = cu * unit / bits * 8;                  // codes of a chunk
+  QmvSmem r;
+  r.sbw = lnc ? (kc / g + 2) / 2 * 2 : K / g;
+  r.sb_slots = slots;  // 2: a persistent block's next tile in the other
+  r.xstride = (kc * 2 + 127) / 128 * 128 + 16;  // x rows 16 bytes apart
+  r.bytes = 8 * MV_WARP_RING + r.sb_slots * 2 * (16 << lrt) * r.sbw * 2 +
+            M * r.xstride + kc / g * 8 * 4;
+  return r;
+}
+
+__device__ __forceinline__ uint32_t and_or(uint32_t v, uint32_t mask,
+                                           uint32_t bits) {
+  uint32_t r;  // one LOP3: (v & mask) | bits
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(r) : "r"(v), "r"(mask),
+      "r"(bits));
+  return r;
+}
+
+// 4-bit: the eight codes of a word (code i at bits [4i, 4i + 4)) as four
+// pairs of exact bf16 128 + code; pair i holds codes i and i + 4.
+__device__ __forceinline__ void codes4(uint32_t w, uint32_t (&r)[4]) {
+  r[0] = and_or(w, 0x000F000Fu, 0x43004300u);
+  r[1] = and_or(w >> 4, 0x000F000Fu, 0x43004300u);
+  r[2] = and_or(w >> 8, 0x000F000Fu, 0x43004300u);
+  r[3] = and_or(w >> 12, 0x000F000Fu, 0x43004300u);
+}
+
+// 8-bit: the four codes of a word (code i in byte i) as two pairs of exact
+// bf16 parts, lo = 128 + (low nibble) and hi = 256 + 16 (high nibble), so
+// that lo + hi = 384 + code; pair i holds codes i and i + 2.  The high
+// nibble, shifted to mantissa bits 3-6 of 256.0 (bf16 0x4380), counts 16.
+__device__ __forceinline__ void codes8(uint32_t w, uint32_t (&lo)[2],
+                                       uint32_t (&hi)[2]) {
+  lo[0] = and_or(w, 0x000F000Fu, 0x43004300u);
+  hi[0] = and_or(w >> 1, 0x00780078u, 0x43804380u);
+  lo[1] = and_or(w >> 8, 0x000F000Fu, 0x43004300u);
+  hi[1] = and_or(w >> 9, 0x00780078u, 0x43804380u);
+}
+
+// Eight bf16 of x (k0 .. k0 + 7, two to a word, the lower k in the low
+// half) in the order a code word's pairs take them: 4-bit (k0, k0+4),
+// (k0+1, k0+5), (k0+2, k0+6), (k0+3, k0+7); 8-bit (k0, k0+2), (k0+1, k0+3),
+// (k0+4, k0+6), (k0+5, k0+7).
+template <int BITS>
+__device__ __forceinline__ uint4 x_order(uint4 u) {
+  if (BITS == 4)
+    return make_uint4(prmt(u.x, u.z, 0x5410), prmt(u.x, u.z, 0x7632),
+                      prmt(u.y, u.w, 0x5410), prmt(u.y, u.w, 0x7632));
+  return make_uint4(prmt(u.x, u.y, 0x5410), prmt(u.x, u.y, 0x7632),
+                    prmt(u.z, u.w, 0x5410), prmt(u.z, u.w, 0x7632));
+}
+
+// 16 bytes into shared memory, asynchronously, asking L2 to fetch the 256
+// bytes around them (the rest of a row's stream)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16;\n" ::"r"(
+                   dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Row tiles of 16 RT W rows, RT = 1 << lrt; a block of 8 warps computes a
+// tile, warp w its row tile w % RT over part w / RT of K (K is cut into
+// units of whole groups and whole 32-byte steps, the units into 8 / RT
+// parts).  With one chunk of K (lnc = 0) a block's x is staged once and the
+// block walks tiles blockIdx.x, + gridDim.x, ...: each warp streams its
+// stages across tiles, the next tile's scales and biases going into the
+// other of two slots; with NC = 1 << lnc chunks, x of a chunk at a time,
+// the grid holds one block per tile.  Shared memory as qmv_smem lays it
+// out.
+template <int BITS, int G>
+__global__ void __launch_bounds__(MV_THREADS, 2)
 qmv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
            const __nv_bfloat16* __restrict__ scales,
            const __nv_bfloat16* __restrict__ biases,
-           __nv_bfloat16* __restrict__ y, int K, int N, int group_size) {
-  constexpr int CODES = 16 * 8 / BITS;  // codes per 16-byte chunk: 32 or 16
-  __shared__ float red[MV_THREADS / 32][M * MV_ROWS];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int n0 = blockIdx.x * MV_ROWS;
-  const size_t row_bytes = (size_t)K * BITS / 8;
-  const int chunks = (int)(row_bytes / 16);
-  const int G = K / group_size;
+           __nv_bfloat16* __restrict__ y, int M, int K, int N, int lrt,
+           int lnc) {
+  using C = Qmv<BITS, G>;
+  extern __shared__ __align__(16) uint8_t mv_smem[];
+  __shared__ float red[MV_THREADS / 32][16][8];  // each warp's partial
+  const int tiles = (N + (16 << lrt) - 1) >> (4 + lrt);
+  const QmvSmem L =
+      qmv_smem(M, K, BITS, G, lrt, lnc, (int)gridDim.x < tiles ? 2 : 1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, t = lane & 3;
+  const int rt = warp & ((1 << lrt) - 1), wk = warp >> lrt, lwk = 3 - lrt;
+  const bool xon = g8 < M;
+  const int row_bytes = K / 8 * BITS, ngroups = K / G;
+  const int units = row_bytes / C::UNIT;
+  uint8_t* ring = mv_smem + warp * MV_WARP_RING;
+  const uint32_t ring_u32 = smem_u32(ring);
+  const int sb_array = (16 << lrt) * L.sbw;  // values per array
+  auto* sbs = reinterpret_cast<__nv_bfloat16*>(mv_smem + 8 * MV_WARP_RING);
+  uint8_t* xs = mv_smem + 8 * MV_WARP_RING + L.sb_slots * 2 * sb_array * 2;
+  float* xsum = reinterpret_cast<float*>(xs + M * L.xstride);
 
-  float acc[M][MV_ROWS];
+  // stage st of the warp's steps [s0, s0 + nst) of tile `tile` into ring
+  // slot `ring_slot`: 16 rows x MV_SS * 2 pieces of 16 bytes, a row's
+  // pieces on neighbouring lanes (the caller commits)
+  auto issue = [&](int tile, int st, int ring_slot, int s0, int nst) {
+    const int row0 = (tile << (4 + lrt)) + 16 * rt;
+    const uint32_t slot = ring_u32 + ring_slot * (16 * MV_ROW);
 #pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int r = 0; r < MV_ROWS; ++r) acc[m][r] = 0.f;
+    for (int u = 0; u < MV_SS; ++u) {
+      const int id = u * 32 + lane, r = id / (2 * MV_SS), pc = id % (2 * MV_SS);
+      const int i = st * MV_SS + pc / 2;  // the piece's step
+      if (tile < tiles && i < nst && row0 + r < N)
+        cp_async16(slot + r * MV_ROW + pc * 16,
+                   q + (size_t)(row0 + r) * row_bytes + (s0 + i) * MV_STEP +
+                       (pc & 1) * 16);
+    }
+  };
 
-  for (int c = tid; c < chunks; c += MV_THREADS) {
-    const int k0 = c * CODES;
-    const int grp = k0 / group_size;  // the whole chunk lies in this group
-    uint4 w[MV_ROWS];
-    float s[MV_ROWS], b[MV_ROWS];
+  // every thread: the scales and biases of tile `tile`'s rows for groups
+  // [cg0, cg0 + ng) into values slot `slot` (the caller commits)
+  auto issue_sb = [&](int tile, int slot, int cg0, int ng) {
+    const int nb0 = tile << (4 + lrt), nrows = min(16 << lrt, N - nb0);
+    const uint32_t base = smem_u32(sbs) + slot * 2 * sb_array * 2;
 #pragma unroll
-    for (int r = 0; r < MV_ROWS; ++r) {
-      const int n = n0 + r;
-      w[r] = make_uint4(0, 0, 0, 0);
-      s[r] = b[r] = 0.f;
-      if (n < N) {
-        w[r] = *reinterpret_cast<const uint4*>(q + (size_t)n * row_bytes +
-                                               (size_t)c * 16);
-        s[r] = __bfloat162float(scales[(size_t)n * G + grp]);
-        b[r] = __bfloat162float(biases[(size_t)n * G + grp]);
+    for (int a = 0; a < 2; ++a) {
+      const __nv_bfloat16* src = (a ? biases : scales) + (size_t)nb0 * ngroups;
+      const uint32_t dst = base + a * sb_array * 2;
+      if (lnc == 0) {  // whole rows: one span, 16-byte copies where aligned
+        const int bytes = nrows * ngroups * 2;
+        const int n16 =
+            reinterpret_cast<uintptr_t>(src) % 16 ? 0 : bytes / 16;
+        for (int i = threadIdx.x; i < n16; i += MV_THREADS)
+          cp_async16(dst + 16 * i,
+                     reinterpret_cast<const uint8_t*>(src) + 16 * i);
+        for (int i = 4 * n16 + threadIdx.x; i < bytes / 4; i += MV_THREADS)
+          cp_async4(dst + 4 * i, reinterpret_cast<const uint8_t*>(src) + 4 * i);
+      } else {  // a chunk of each row: its words (rows start at even values)
+        const int par = cg0 & 1, words = (ng + par + 1) >> 1;
+        int lw = 0;  // words per row, rounded up to a power of two
+        while ((1 << lw) < words) ++lw;
+        for (int i = threadIdx.x; i < (nrows << lw); i += MV_THREADS) {
+          const int r = i >> lw, w = i & ((1 << lw) - 1);
+          if (w < words)
+            cp_async4(dst + (r * L.sbw + 2 * w) * 2,
+                      src + (size_t)r * ngroups + cg0 - par + 2 * w);
+        }
       }
     }
-#pragma unroll
+  };
+
+  // x rows 0 .. M-1, codes [k0, k0 + 8 nblk) of a chunk, into xs as they
+  // lie in memory: thread i copies 16-byte blocks i + 256 j of each row (the
+  // caller commits)
+  auto issue_x = [&](int k0, int nblk) {
+    const uint32_t base = smem_u32(xs);
+    for (int m = 0; m < M; ++m)
+      for (int j = threadIdx.x; j < nblk; j += MV_THREADS)
+        cp_async16(base + m * L.xstride + j * 16,
+                   x + (size_t)m * K + k0 + 8 * j);
+  };
+  // once a thread's copies of x have landed: each of its blocks into pair
+  // order in place, and the sum of x per group and row into xsum (a group
+  // is G / 8 neighbouring lanes' blocks)
+  auto stage_x = [&](int nblk) {
+    const int rb = (nblk + 31) & ~31;  // blocks per row, in whole warps
     for (int m = 0; m < M; ++m) {
-      float xv[CODES];
-      const uint4* xp = reinterpret_cast<const uint4*>(x + (size_t)m * K + k0);
+      for (int b0 = warp * 32; b0 < rb; b0 += MV_THREADS) {
+        const int j = b0 + lane;
+        uint4* p = reinterpret_cast<uint4*>(xs + m * L.xstride + j * 16);
+        const uint4 u = j < nblk ? *p : make_uint4(0, 0, 0, 0);
+        float sum = bf16_sum8(u);
 #pragma unroll
-      for (int v = 0; v < CODES / 8; ++v) {
-        const uint4 u = xp[v];
-        const uint32_t uw[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          xv[8 * v + 2 * i] = bf16_lo(uw[i]);
-          xv[8 * v + 2 * i + 1] = bf16_hi(uw[i]);
+        for (int o = 1; o < G / 8; o <<= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if (j < nblk) {
+          *p = x_order<BITS>(u);
+          if ((lane & (G / 8 - 1)) == 0) xsum[j / (G / 8) * 8 + m] = sum;
         }
-      }
-      float xsum = 0.f;
-#pragma unroll
-      for (int i = 0; i < CODES; ++i) xsum += xv[i];
-#pragma unroll
-      for (int r = 0; r < MV_ROWS; ++r) {
-        const uint32_t ww[4] = {w[r].x, w[r].y, w[r].z, w[r].w};
-        float dot = 0.f;
-#pragma unroll
-        for (int i = 0; i < CODES; ++i) {
-          const uint32_t code =
-              BITS == 4 ? (ww[i / 8] >> (4 * (i % 8))) & 0xFu
-                        : (ww[i / 4] >> (8 * (i % 4))) & 0xFFu;
-          dot = fmaf(xv[i], (float)code, dot);
-        }
-        acc[m][r] = fmaf(s[r], dot, fmaf(b[r], xsum, acc[m][r]));
       }
     }
-  }
+  };
 
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-#pragma unroll
-    for (int r = 0; r < MV_ROWS; ++r) {
-      float v = acc[m][r];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      if (lane == 0) red[warp][m * MV_ROWS + r] = v;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float P0[4] = {0.f, 0.f, 0.f, 0.f}, P1[4] = {0.f, 0.f, 0.f, 0.f};
+
+  // acc += s P + (b - OFF s) sum x for a group with partial P: its scale
+  // and bias at sv (rows g8 and g8 + 8 of the tile's values), its sums of x
+  // at xg (x rows 2t and 2t + 1)
+  auto fold = [&](const float (&P)[4], const __nv_bfloat16* sv,
+                  const float* xg) {
+    const float sA = __bfloat162float(sv[0]);
+    const float sB = __bfloat162float(sv[8 * L.sbw]);
+    const float bA = __bfloat162float(sv[sb_array]);
+    const float bB = __bfloat162float(sv[sb_array + 8 * L.sbw]);
+    const float x0 = 2 * t < M ? xg[0] : 0.f;
+    const float x1 = 2 * t + 1 < M ? xg[1] : 0.f;
+    const float cA = fmaf(-C::OFF, sA, bA), cB = fmaf(-C::OFF, sB, bB);
+    acc[0] = fmaf(sA, P[0], fmaf(cA, x0, acc[0]));
+    acc[1] = fmaf(sA, P[1], fmaf(cA, x1, acc[1]));
+    acc[2] = fmaf(sB, P[2], fmaf(cB, x0, acc[2]));
+    acc[3] = fmaf(sB, P[3], fmaf(cB, x1, acc[3]));
+  };
+
+  // piece p (16 bytes) of a step whose codes sit at st (row g8) and x at xp
+  // (row g8, the step's word t): the quad reads word t of each of its two
+  // rows, so that every 16-k slice of the MMAs lies in one piece and so in
+  // one group; partial into P
+  auto piece = [&](float (&P)[4], const uint8_t* st, const uint8_t* xp,
+                   int p) {
+    const uint32_t wa = *reinterpret_cast<const uint32_t*>(st + 16 * p);
+    const uint32_t wb =
+        *reinterpret_cast<const uint32_t*>(st + 8 * MV_ROW + 16 * p);
+    xp += 4 * p * C::XB;
+    if (BITS == 4) {
+      const uint4 b =
+          xon ? *reinterpret_cast<const uint4*>(xp) : make_uint4(0, 0, 0, 0);
+      uint32_t ra[4], rb[4];
+      codes4(wa, ra);
+      codes4(wb, rb);
+      const uint32_t a0[4] = {ra[0], rb[0], ra[1], rb[1]};
+      const uint32_t a1[4] = {ra[2], rb[2], ra[3], rb[3]};
+      mma_bf16(P, a0, b.x, b.y);
+      mma_bf16(P, a1, b.z, b.w);
+    } else {
+      const uint2 b =
+          xon ? *reinterpret_cast<const uint2*>(xp) : make_uint2(0, 0);
+      uint32_t la[2], ha[2], lb[2], hb[2];
+      codes8(wa, la, ha);
+      codes8(wb, lb, hb);
+      const uint32_t a0[4] = {la[0], lb[0], la[1], lb[1]};
+      const uint32_t a1[4] = {ha[0], hb[0], ha[1], hb[1]};
+      mma_bf16(P, a0, b.x, b.y);
+      mma_bf16(P, a1, b.x, b.y);
     }
-  __syncthreads();
-  if (tid < M * MV_ROWS) {
-    const int m = tid / MV_ROWS, n = n0 + tid % MV_ROWS;
-    float v = 0.f;
+  };
+
+  // step v of a stage: codes at st, x at xp, its (first) group's values at
+  // sv and sums of x at xg; the two pieces into partials of their own (two
+  // MMA chains), folded at the end of each group.  `last`: the step ends a
+  // group (always when a group is no longer than a step).
+  auto step = [&](const uint8_t* st, const uint8_t* xp,
+                  const __nv_bfloat16* sv, const float* xg, bool last) {
+    piece(P0, st, xp, 0);
+    piece(P1, st, xp, 1);
+    if (C::GPS == 2) {  // piece p is group p
+      fold(P0, sv, xg);
+      fold(P1, sv + 1, xg + 8);
+    } else if (last) {
+      float P[4];
 #pragma unroll
-    for (int wi = 0; wi < MV_THREADS / 32; ++wi) v += red[wi][tid];
-    if (n < N) y[(size_t)m * N + n] = __float2bfloat16_rn(v);
+      for (int i = 0; i < 4; ++i) P[i] = P0[i] + P1[i];
+      fold(P, sv, xg);
+    } else {
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) P0[i] = P1[i] = 0.f;
+  };
+
+  // stage stg of the warp's part (steps [s0, s0 + nst)) in ring slot
+  // ring_slot, once it has landed: x and sums of x relative to the chunk's
+  // first code byte cbyte0, values in slot `slot` laid out from group e0
+  constexpr int XSTEP = MV_STEP / 4 * C::XB;  // x bytes per step
+  auto consume = [&](int stg, int ring_slot, int s0, int nst, int cbyte0,
+                     int e0, int slot) {
+    const uint8_t* sp = ring + ring_slot * (16 * MV_ROW) + g8 * MV_ROW + 4 * t;
+    const uint8_t* xp0 =
+        xs + g8 * L.xstride + ((s0 * MV_STEP - cbyte0) / 4 + t) * C::XB;
+    const float* xg0 = xsum + (s0 * MV_STEP - cbyte0) / C::GB * 8 + 2 * t;
+    const __nv_bfloat16* sv0 = sbs + slot * 2 * sb_array +
+                               (16 * rt + g8) * L.sbw + s0 * MV_STEP / C::GB -
+                               e0;
+    const int i0 = stg * MV_SS;  // the stage's first step in the part
+    // step v of the stage; its first group in the part at gi
+    auto run = [&](int v) {
+      const int gi = C::GPS ? (i0 + v) * C::GPS : (i0 + v) / C::SPG;
+      step(sp + v * MV_STEP, xp0 + (i0 + v) * XSTEP, sv0 + gi, xg0 + gi * 8,
+           C::GPS || (i0 + v) % C::SPG == C::SPG - 1);
+    };
+    if (i0 + MV_SS <= nst) {  // a whole stage: its steps may interleave
+#pragma unroll
+      for (int v = 0; v < MV_SS; ++v) run(v);
+    } else {
+#pragma unroll
+      for (int v = 0; v < MV_SS; ++v)
+        if (i0 + v < nst) run(v);
+    }
+  };
+
+  // the warps' partials of tile `tile`, added in the order of their K parts
+  auto finish = [&](int tile) {
+    red[warp][g8][2 * t] = acc[0];
+    red[warp][g8][2 * t + 1] = acc[1];
+    red[warp][g8 + 8][2 * t] = acc[2];
+    red[warp][g8 + 8][2 * t + 1] = acc[3];
+    __syncthreads();
+    const int rows = 16 << lrt;
+    for (int o = threadIdx.x; o < (M << (4 + lrt)); o += MV_THREADS) {
+      const int m = o >> (4 + lrt), r = o & (rows - 1);
+      const int n = (tile << (4 + lrt)) + r;
+      float v = 0.f;
+      for (int w = 0; w < (8 >> lrt); ++w)
+        v += red[(w << lrt) + (r >> 4)][r & 15][m];
+      if (n < N) y[(size_t)m * N + n] = __float2bfloat16_rn(v);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] = 0.f;
+  };
+
+  // x's copies (hitting L2) go first, so that they do not wait behind the
+  // code stream
+  constexpr int SPU = C::UNIT / MV_STEP;  // steps per unit
+  if (lnc == 0) {
+    // the warp's part, the same in every tile
+    const int wu0 = (wk * units) >> lwk;
+    const int wun = (((wk + 1) * units) >> lwk) - wu0;
+    const int s0 = wu0 * SPU, nst = wun * SPU;
+    const int stages = max(1, (nst + MV_SS - 1) / MV_SS);
+    const int nblk = units * C::UNIT / BITS;  // 16-byte blocks of an x row
+    // the next stage to issue: stage `is` of tile `it`, the warp's
+    // stage `ig` counted across tiles (its ring slot ig % RING), whose
+    // values go to slot `isl`; a tile's values are issued with its stage 0
+    int it = blockIdx.x, is = 0, isl = 0, ig = 0;
+    auto issue_next = [&]() {
+      if (is == 0 && it < tiles) issue_sb(it, isl, 0, ngroups);
+      issue(it, is, ig++ % MV_RING, s0, nst);
+      cp_async_commit();
+      if (++is == stages) is = 0, it += gridDim.x, isl ^= 1;
+    };
+    issue_x(0, nblk);
+    cp_async_commit();
+#pragma unroll
+    for (int r = 0; r < MV_RING; ++r) issue_next();
+    cp_async_wait<MV_RING>();  // this thread's copies of x
+    stage_x(nblk);  // while the first stages are in flight
+    int slot = 0, cg = 0;  // the tile's values slot; the stage across tiles
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      for (int stg = 0; stg < stages; ++stg) {
+        cp_async_wait<MV_RING - 1>();  // this stage (and its tile's values)
+        if (stg == 0)
+          __syncthreads();  // the tile's values, x: every thread's copies
+        else
+          __syncwarp();
+        consume(stg, cg++ % MV_RING, s0, nst, 0, 0, slot);
+        __syncwarp();  // the stage is read: refill its slot
+        issue_next();
+      }
+      finish(tile);
+      slot ^= 1;
+    }
+  } else {
+    const int tile = blockIdx.x;
+    for (int c = 0; c < (1 << lnc); ++c) {
+      const int cu0 = (c * units) >> lnc;
+      const int cn = (((c + 1) * units) >> lnc) - cu0;
+      const int wu0 = cu0 + ((wk * cn) >> lwk);
+      const int wun = cu0 + (((wk + 1) * cn) >> lwk) - wu0;
+      const int s0 = wu0 * SPU, nst = wun * SPU;
+      const int stages = (nst + MV_SS - 1) / MV_SS;
+      const int cbyte0 = cu0 * C::UNIT, cg0 = cu0 * C::GPU;
+      const int nblk = cn * C::UNIT / BITS;  // 16-byte blocks of an x row
+      if (c > 0) __syncthreads();  // every warp is done with the last chunk
+      issue_x(cbyte0 / BITS * 8, nblk);
+      cp_async_commit();
+      issue_sb(tile, 0, cg0, cn * C::GPU);
+      cp_async_commit();
+#pragma unroll
+      for (int r = 0; r < MV_RING; ++r) {
+        issue(tile, r, r, s0, nst);  // empty past nst
+        cp_async_commit();
+      }
+      cp_async_wait<MV_RING + 1>();  // this thread's copies of x
+      stage_x(nblk);
+      cp_async_wait<MV_RING>();  // and of the scales and biases
+      __syncthreads();
+      for (int stg = 0; stg < stages; ++stg) {
+        cp_async_wait<MV_RING - 1>();  // this stage
+        __syncwarp();
+        consume(stg, stg % MV_RING, s0, nst, cbyte0, cg0 - (cg0 & 1), 0);
+        __syncwarp();  // the stage is read: refill its slot
+        issue(tile, stg + MV_RING, stg % MV_RING, s0, nst);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+    }
+    finish(tile);
   }
+  cp_async_wait<0>();
 }
 
-template <int BITS>
-cudaError_t launch(const __nv_bfloat16* x, const uint8_t* q,
-                   const __nv_bfloat16* s, const __nv_bfloat16* b,
-                   __nv_bfloat16* y, int M, int K, int N, int group_size,
-                   cudaStream_t st) {
-  if (M > 8) {
-    // 4-bit codes take the wgmma route (mvt_qmatmul_int4_gemm)
-    if (BITS != 8) return cudaErrorInvalidValue;
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    qmm8_kernel<<<grid, THREADS, 0, st>>>(x, q, s, b, y, M, K, N, group_size);
-    return cudaGetLastError();
+// SMs of the current device (the persistent grid's size is twice that),
+// read once per device
+inline int sm_count(int dev) {
+  static int count[64];
+  if (dev < 0 || dev >= 64) return 132;
+  if (!count[dev] && cudaDeviceGetAttribute(&count[dev],
+                                            cudaDevAttrMultiProcessorCount,
+                                            dev) != cudaSuccess)
+    return 132;
+  return count[dev];
+}
+
+template <int BITS, int G>
+cudaError_t launch_qmv(const __nv_bfloat16* x, const uint8_t* q,
+                       const __nv_bfloat16* s, const __nv_bfloat16* b,
+                       __nv_bfloat16* y, int M, int K, int N, int lrt,
+                       int lnc, cudaStream_t st) {
+  using C = Qmv<BITS, G>;
+  const int tiles = (N + (16 << lrt) - 1) >> (4 + lrt);
+  // persistent (2 blocks an SM) with one chunk and more tiles than that,
+  // when every warp's part has a ring's stages (a tile's values slot is
+  // refilled only once the tile has started); as ops/qmatmul.py's
+  // _gemv_persistent decides
+  const int units = K / 8 * BITS / C::UNIT;
+  const int min_steps = (units >> (3 - lrt)) * (C::UNIT / MV_STEP);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const int sms = sm_count(dev);
+  const bool persistent =
+      lnc == 0 && min_steps >= MV_RING * MV_SS && tiles > 2 * sms;
+  const int smem = qmv_smem(M, K, BITS, G, lrt, lnc, persistent ? 2 : 1).bytes;
+  if (smem > MV_SMEM_MAX || dev >= 64) return cudaErrorInvalidValue;
+  static bool sized[64];  // the shared-memory limit raised, once per device
+  if (!sized[dev]) {
+    err = cudaFuncSetAttribute(qmv_kernel<BITS, G>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               MV_SMEM_MAX);
+    if (err != cudaSuccess) return err;
+    sized[dev] = true;
   }
-  const int blocks = (N + MV_ROWS - 1) / MV_ROWS;
-#define MVT_QMV(MR)                                                       \
-  case MR:                                                                \
-    qmv_kernel<BITS, MR><<<blocks, MV_THREADS, 0, st>>>(x, q, s, b, y, K, \
-                                                        N, group_size);   \
-    break;
-  switch (M) {
-    MVT_QMV(1) MVT_QMV(2) MVT_QMV(3) MVT_QMV(4)
-    MVT_QMV(5) MVT_QMV(6) MVT_QMV(7) MVT_QMV(8)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef MVT_QMV
+  const int blocks = persistent ? 2 * sms : tiles;
+  qmv_kernel<BITS, G><<<blocks, MV_THREADS, smem, st>>>(x, q, s, b, y, M, K,
+                                                        N, lrt, lnc);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The GEMV route (M <= 8, both widths) and the int8 GEMM route (M > 8):
-// x [M, K] bf16 (16-byte aligned rows); q [N, K*bits/8] u8; scales and
-// biases [N, K/group_size] bf16; y [M, N] bf16.  bits in {4, 8}; group_size
-// in {32, 64, 128}; K a multiple of 2 * group_size (4-bit) or of group_size
-// (8-bit).  The wrapper checks all of it.
+// The int8 GEMM route (M > 8): x [M, K] bf16 (16-byte aligned rows); q
+// [N, K] u8; scales and biases [N, K/group_size] bf16; y [M, N] bf16.
+// group_size in {32, 64, 128}, K a multiple of group_size.  The wrapper
+// checks all of it.
 extern "C" int mvt_qmatmul(const void* x, const void* q, const void* scales,
                            const void* biases, void* y, int M, int K, int N,
                            int bits, int group_size, void* stream) {
+  if (M <= 8 || bits != 8 || group_size % BK || K % group_size)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  qmm8_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
+      static_cast<const __nv_bfloat16*>(scales),
+      static_cast<const __nv_bfloat16*>(biases),
+      static_cast<__nv_bfloat16*>(y), M, K, N, group_size);
+  return (int)cudaGetLastError();
+}
+
+// The GEMV route (1 <= M <= 8, both widths): x [M, K] bf16 (16-byte
+// aligned); q [N, K*bits/8] u8 (8-byte aligned rows); scales and biases
+// [N, K/group_size] bf16 (4-byte aligned); y [M, N] bf16.  bits in {4, 8};
+// group_size in {32, 64, 128}; K a multiple of 2 * group_size (4-bit) or of
+// group_size (8-bit), so of the K unit max(group bytes, 32) too; row_tiles
+// in {1, 2, 4, 8} and chunks a power of two, at most the K units, from the
+// plan (ops/qmatmul.py:qmatmul_gemv_plan).
+extern "C" int mvt_qmatmul_gemv(const void* x, const void* q,
+                                const void* scales, const void* biases,
+                                void* y, int M, int K, int N, int bits,
+                                int group_size, int row_tiles, int chunks,
+                                void* stream) {
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
   const auto* qp = static_cast<const uint8_t*>(q);
   const auto* sp = static_cast<const __nv_bfloat16*>(scales);
   const auto* bp = static_cast<const __nv_bfloat16*>(biases);
   auto* yp = static_cast<__nv_bfloat16*>(y);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || group_size % BK || K % group_size) return (int)cudaErrorInvalidValue;
-  if (bits == 4) return (int)launch<4>(xp, qp, sp, bp, yp, M, K, N, group_size, st);
-  if (bits == 8) return (int)launch<8>(xp, qp, sp, bp, yp, M, K, N, group_size, st);
+  const int g = group_size;
+  if ((bits != 4 && bits != 8) || (g != 32 && g != 64 && g != 128))
+    return (int)cudaErrorInvalidValue;
+  const int gb = g * bits / 8;
+  const int unit = (gb > MV_STEP ? gb : MV_STEP) * 8 / bits;  // codes
+  if (M < 1 || M > 8 || N < 1 || K < 1 || K % unit || K % (2 * g) ||
+      row_tiles < 1 || row_tiles > 8 || (row_tiles & (row_tiles - 1)) ||
+      chunks < 1 || (chunks & (chunks - 1)) || chunks > K / unit)
+    return (int)cudaErrorInvalidValue;
+  const int lrt = __builtin_ctz(row_tiles), lnc = __builtin_ctz(chunks);
+#define MVT_QMV(B, G)                                                     \
+  if (bits == B && g == G)                                                \
+    return (int)launch_qmv<B, G>(xp, qp, sp, bp, yp, M, K, N, lrt, lnc, st);
+  MVT_QMV(4, 32) MVT_QMV(4, 64) MVT_QMV(4, 128)
+  MVT_QMV(8, 32) MVT_QMV(8, 64) MVT_QMV(8, 128)
+#undef MVT_QMV
   return (int)cudaErrorInvalidValue;
 }
 

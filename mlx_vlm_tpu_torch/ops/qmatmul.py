@@ -3,12 +3,19 @@
 Port of mlx_vlm_tpu/ops/qmatmul.py (`quantized_matmul_pallas` :174,
 `_qmm_2d` :118 with its Pallas kernels `_qmm4_kernel` :53 and `_qmm8_kernel`
 :83).  K5, one CUDA source written for Hopper (csrc/qmatmul.cu), takes
-their place for every linear of an "exact" model: prefill chunks (more
-than 8 rows, tensor-core tiles) and decode steps and the lm_head (up to 8
-rows, a GEMV).  4-bit prefill chunks take
-their own entry point, a `wgmma` kernel on K1's pipeline with the codes
-exact in registers and each group folded in f32 (`qmatmul_plan` picks its
-row tile and K split; see the .cu header).
+their place for every linear of an "exact" model, by three entry points:
+
+- up to 8 rows (decode steps, the lm_head row), both widths: a GEMV on
+  `mma.sync` with the codes exact as bf16 operands, one launch per call;
+  `qmatmul_gemv_plan` picks its row tiles per block and its chunks of K;
+- more than 8 rows at 4 bits (prefill chunks): a `wgmma` kernel on K1's
+  pipeline with the codes exact in registers (`qmatmul_plan` picks its row
+  tile and K split);
+- more than 8 rows at 8 bits: an `mma.sync` GEMM with the codes in shared
+  memory.
+
+Each folds a group's f32 partial as s P + (b - c s) sum x and rounds once
+to bf16 (see the .cu header).
 
 W is a 2-D QuantizedTensor: q uint8 [N, K * bits / 8] (4-bit: byte j of a
 row holds code 2j in its low nibble and 2j+1 in its high nibble; 8-bit: one
@@ -33,6 +40,20 @@ from . import _cuda
 GROUP_SIZES = (32, 64, 128)
 MAX_GEMV_ROWS = 8  # more rows take a GEMM route
 SMS = 132  # streaming multiprocessors of an H100 SXM
+# The GEMV's dynamic shared memory per block at most, so that two blocks
+# share an SM's 228 KB; for its row tiles per block, the blocks at least
+# (below, from GEMV_BIG_ROWS rows of x on) and the code bytes of a block at
+# most (twice that from GEMV_BIG_ROWS rows on)
+GEMV_SMEM_BYTES = 108 * 1024
+GEMV_MIN_BLOCKS = (SMS * 4 // 5, SMS // 2)
+GEMV_BLOCK_CODES = 128 * 1024
+GEMV_BIG_ROWS = 4
+# csrc/qmatmul.cu's GEMV constants: a warp's ring of code stages (MV_RING
+# stages of 16 rows x (MV_SS * 32 + 16) bytes) and the bytes of a row a
+# step covers (MV_STEP)
+GEMV_WARP_RING = 2 * 16 * (4 * 32 + 16)
+GEMV_STEP = 32
+GEMV_RING_STEPS = 2 * 4  # MV_RING stages of MV_SS steps
 
 launches = {"qmatmul_int4": 0, "qmatmul_int8": 0}
 
@@ -131,6 +152,88 @@ def _int4_gemm(x: torch.Tensor, t: QuantizedTensor, K: int, N: int):
     return y
 
 
+def _gemv_persistent(K: int, N: int, bits: int, group_size: int, rt: int,
+                     chunks: int) -> bool:
+    """Whether csrc/qmatmul.cu:launch_qmv makes the GEMV's grid persistent
+    (2 blocks an SM, each walking row tiles): one chunk of K, more tiles
+    than that, and every warp's part of K GEMV_RING_STEPS steps or more."""
+    unit = max(group_size * bits // 8, GEMV_STEP)
+    steps = K * bits // 8 // unit // (8 // rt) * (unit // GEMV_STEP)
+    return (chunks == 1 and -(-N // (16 * rt)) > 2 * SMS
+            and steps >= GEMV_RING_STEPS)
+
+
+def _gemv_smem(M: int, K: int, N: int, bits: int, group_size: int, rt: int,
+               chunks: int) -> int:
+    """Dynamic shared memory of a GEMV block, as csrc/qmatmul.cu:qmv_smem
+    lays it out: 8 warps' rings; the scales and biases of a tile's 16 rt
+    rows, whole rows with one chunk (in two slots when the grid is
+    persistent: a block fetches its next tile's while it computes one),
+    else the 32-bit words that hold a chunk's groups (one more group where
+    a chunk starts at an odd one); M rows of x for a chunk, 16 bytes apart
+    mod 128; 8 f32 sums of x per group of a chunk."""
+    unit = max(group_size * bits // 8, GEMV_STEP)
+    cu = -(-(K * bits // 8 // unit) // chunks)  # units of a chunk
+    kc = cu * unit * 8 // bits  # codes of a chunk
+    sbw = K // group_size if chunks == 1 else (kc // group_size + 2) // 2 * 2
+    slots = 2 if _gemv_persistent(K, N, bits, group_size, rt, chunks) else 1
+    return (8 * GEMV_WARP_RING + slots * 2 * 16 * rt * sbw * 2
+            + M * (-(-kc * 2 // 128) * 128 + 16) + kc // group_size * 32)
+
+
+def qmatmul_gemv_plan(M: int, K: int, N: int, bits: int,
+                      group_size: int) -> tuple:
+    """The GEMV route's (row tiles per block, chunks of K) for x [M <= 8, K]
+    and a weight of N rows.  A block of 8 warps owns RT row tiles of 16 W
+    rows, and its 8 / RT warps per tile split K; fewer, longer blocks stage
+    x and start their streams for more rows.  RT is the largest of 8, 4
+    and 2 that still gives GEMV_MIN_BLOCKS blocks of at most
+    GEMV_BLOCK_CODES code bytes (from GEMV_BIG_ROWS rows of x on, where x
+    weighs more, fewer blocks and twice the bytes), else 1.  K is cut into
+    units of whole
+    groups and whole 32-byte steps of a row; the chunks, whose x a block
+    stages in turn, are the least power of two that keeps a block's shared
+    memory within GEMV_SMEM_BYTES.  Raises for what the kernel does not
+    take (its scales and biases are copied as 32-bit words, so K must be a
+    whole number of group pairs at 8 bits too)."""
+    if not 1 <= M <= MAX_GEMV_ROWS:
+        raise ValueError(f"qmatmul_gemv_plan: {M} rows do not take the GEMV "
+                         f"route (1 to {MAX_GEMV_ROWS})")
+    if (bits not in (4, 8) or group_size not in GROUP_SIZES
+            or K % (2 * group_size)):
+        raise ValueError(f"qmatmul_gemv_plan: bits {bits} / group_size "
+                         f"{group_size} at K={K} not taken (K a whole number "
+                         f"of group pairs)")
+    big = M >= GEMV_BIG_ROWS
+    blocks, cap = GEMV_MIN_BLOCKS[big], GEMV_BLOCK_CODES * (2 if big else 1)
+    rt = next((r for r in (8, 4, 2) if -(-N // (16 * r)) >= blocks
+               and 16 * r * K * bits // 8 <= cap), 1)
+    units = K * bits // 8 // max(group_size * bits // 8, GEMV_STEP)
+    chunks = 1
+    while (2 * chunks <= units and _gemv_smem(
+            M, K, N, bits, group_size, rt, chunks) > GEMV_SMEM_BYTES):
+        chunks *= 2
+    return rt, chunks
+
+
+def _gemv(x: torch.Tensor, t: QuantizedTensor, K: int, N: int):
+    """K5's GEMV route for x [M <= 8, K] bf16 on the card."""
+    M = x.shape[0]
+    rt, chunks = qmatmul_gemv_plan(M, K, N, t.bits, t.group_size)
+    if any(a.data_ptr() % 4 for a in (t.scales, t.biases)):
+        raise ValueError("quantized_matmul: scales and biases must be 4-byte "
+                         "aligned (the GEMV copies them as 32-bit words)")
+    if x.data_ptr() % 16:
+        x = x.clone()
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    err = _cuda.library().mvt_qmatmul_gemv(
+        x.data_ptr(), t.q.data_ptr(), t.scales.data_ptr(),
+        t.biases.data_ptr(), y.data_ptr(), M, K, N, t.bits, t.group_size, rt,
+        chunks, _cuda.stream_handle(x.device))
+    _cuda.check(err, "qmatmul")
+    return y
+
+
 def quantized_matmul_kernel(x: torch.Tensor, t: QuantizedTensor) -> torch.Tensor:
     """K5: x [..., K] @ dequant(t [N, K]).T -> [..., N] in x.dtype."""
     if t.q.dim() != 2:
@@ -144,7 +247,9 @@ def quantized_matmul_kernel(x: torch.Tensor, t: QuantizedTensor) -> torch.Tensor
     if x.shape[0] == 0:
         return x.new_zeros((*lead, N))
     x = x.contiguous()
-    if t.bits == 4 and x.shape[0] > MAX_GEMV_ROWS:
+    if x.shape[0] <= MAX_GEMV_ROWS:
+        y = _gemv(x, t, K, N)
+    elif t.bits == 4:
         y = _int4_gemm(x, t, K, N)
     else:
         if x.data_ptr() % 16:

@@ -7,10 +7,13 @@ bfloat16.  The port's route rule is held to the reference's, and the
 dequantize route to the reference's `quantized_matmul` on the CPU.  The
 int4 GEMM route's fold (codes as bf16 128 + q, per-group f32 partials,
 s P + (b - 128 s) sum x, split-K slices added in order) is emulated in
-plain PyTorch and held to the Pallas kernel too; its plan and the
-wrapper's refusals are checked on CPU tensors.  Inputs are made with numpy
-from a seed and handed to both packages.  Tests marked `cuda` hold the
-CUDA kernel to its plain version on a GPU and skip without one.
+plain PyTorch and held to the Pallas kernel too, and so is the GEMV
+route's (codes as exact bf16 operands, two partial chains per step, the
+fold per group, K parts per warp and per chunk added in order); both
+plans and the wrapper's refusals are checked on CPU tensors.  Inputs are
+made with numpy from a seed and handed to both packages.  Tests marked
+`cuda` hold the CUDA kernels to their plain version on a GPU and skip
+without one.
 """
 
 import numpy as np
@@ -295,6 +298,157 @@ def test_int4_fold_emulation_matches_pallas(g, M, splits):
                                atol=1e-2 * float(np.abs(ref).max()))
 
 
+def gemv_emulation(x, t, rt=1, chunks=1):
+    """The GEMV route's arithmetic (csrc/qmatmul.cu, qmv_kernel) in plain
+    PyTorch.  Codes are the exact bf16 operands the kernel builds: 128 + q
+    at 4 bits; at 8 bits (128 + low nibble) and (256 + 16 high nibble), two
+    MMAs into one partial, so x (384 + q).  Each 32-byte step of a row is
+    two 16-byte pieces, each summed into a partial of its own (at 4 bits
+    and g = 32 a piece is a group); a group's partial P, its pieces added,
+    is folded as acc += s P + (b - off s) sum x in f32.  K is cut into
+    units of max(group bytes, 32) bytes, the units into `chunks` chunks and
+    each chunk into 8 / rt warp parts; each part's acc runs over the
+    chunks, and the parts are added in order; one rounding to bf16."""
+    g, bits = t.group_size, t.bits
+    n, rb = t.q.shape
+    k = rb * 8 // bits
+    if bits == 4:
+        codes = torch.stack([t.q & 0xF, t.q >> 4], dim=-1).reshape(n, k)
+        val = (128 + codes.float()).to(torch.bfloat16).float()
+        off = 128.0
+    else:
+        lo = (128 + (t.q & 0xF).float()).to(torch.bfloat16).float()
+        hi = (256 + 16 * (t.q >> 4).float()).to(torch.bfloat16).float()
+        val, off = lo + hi, 384.0
+    piece = (torch.arange(k) * bits // 8) % 32 // 16  # the piece of each k
+    xf = x.float()
+    s, b = t.scales.float(), t.biases.float()
+    unit = max(g * bits // 8, 32) * 8 // bits  # codes
+    units, parts = k // unit, 8 // rt
+    acc = [torch.zeros((x.shape[0], n)) for _ in range(parts)]
+    for c in range(chunks):
+        cu0, cu1 = c * units // chunks, (c + 1) * units // chunks
+        for w in range(parts):
+            u0 = cu0 + w * (cu1 - cu0) // parts
+            u1 = cu0 + (w + 1) * (cu1 - cu0) // parts
+            for j in range(u0 * unit // g, u1 * unit // g):
+                ks = torch.arange(j * g, (j + 1) * g)
+                P = 0.0
+                for p in (0, 1):
+                    kp = ks[piece[ks] == p]
+                    if len(kp):
+                        P = P + xf[:, kp] @ val[:, kp].T
+                sx = xf[:, ks].sum(dim=1, keepdim=True)
+                acc[w] = acc[w] + s[:, j] * P + (b[:, j] - off * s[:, j]) * sx
+    total = acc[0]
+    for a in acc[1:]:
+        total = total + a
+    return total.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("layout", [(1, 1), (2, 2)])
+@pytest.mark.parametrize("M", [1, 3, 8])
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_gemv_emulation_matches_pallas(bits, g, M, layout):
+    """The GEMV design's numerics before the chip: its emulation, with one
+    or two row tiles a block and one or two chunks of K, against the
+    reference's kernel in interpret mode, bf16 x and weights as on the
+    card, within K5_TOL = 1e-2 * max|ref| (both round once to bf16; the
+    sums differ by f32 reassociation only)."""
+    q, s, b = mlx_weight(bits, g, seed=6000 + 10 * g + M + bits, bf16=True)
+    ref_t, t = both(q, s, b, bits, g)
+    x = _x((M, K), "bfloat16", seed=11 * M + g + bits)
+    ref = np.asarray(jqmm.quantized_matmul_pallas(jnp.asarray(x), ref_t,
+                                                  interpret=True))
+    got = gemv_emulation(_torch(x), t, *layout)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == ref.shape
+    ref = ref.astype(np.float32)
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0,
+                               atol=1e-2 * float(np.abs(ref).max()))
+
+
+# Qwen2-VL-7B's linears and head (K, N) and ragged widths, for the GEMV plan
+GEMV_SHAPES = PLAN_SHAPES + ((3584, 152064), (3584, 1000), (1024, 130),
+                             (1280, 3840))
+
+
+@pytest.mark.parametrize("bits,g", [(4, 32), (4, 64), (4, 128), (8, 32),
+                                    (8, 64), (8, 128)])
+@pytest.mark.parametrize("K,N", GEMV_SHAPES)
+@pytest.mark.parametrize("M", [1, 2, 5, 8])
+def test_qmatmul_gemv_plan(M, K, N, bits, g):
+    """The row tiles are the largest of 8, 4, 2 that still give
+    GEMV_MIN_BLOCKS blocks of at most GEMV_BLOCK_CODES code bytes (fewer
+    blocks and twice the bytes from GEMV_BIG_ROWS rows of x on), else 1;
+    the chunks are the least power of two (at most the K
+    units) that keeps a block's shared memory within GEMV_SMEM_BYTES, and
+    that fits: two blocks share an SM."""
+    rt, chunks = k5.qmatmul_gemv_plan(M, K, N, bits, g)
+    assert rt in (1, 2, 4, 8) and chunks >= 1 and chunks & (chunks - 1) == 0
+    big = M >= k5.GEMV_BIG_ROWS
+    need = k5.GEMV_MIN_BLOCKS[big]
+    cap = k5.GEMV_BLOCK_CODES * (2 if big else 1)
+
+    def fits(r):
+        return -(-N // (16 * r)) >= need and 16 * r * K * bits // 8 <= cap
+
+    assert rt == 1 or fits(rt)
+    assert not any(fits(r) for r in (8, 4, 2) if r > rt)
+    units = K * bits // 8 // max(g * bits // 8, 32)
+    assert chunks <= units
+    smem = k5._gemv_smem(M, K, N, bits, g, rt, chunks)
+    assert smem <= k5.GEMV_SMEM_BYTES
+    if chunks > 1:
+        assert k5._gemv_smem(M, K, N, bits, g, rt, chunks // 2) > \
+            k5.GEMV_SMEM_BYTES
+    assert 2 * (smem + 4096 + 1024) <= 228 * 1024  # + red[], + reserved
+
+
+def test_qmatmul_gemv_plan_at_7b_shapes():
+    """A decode step's plans: two row tiles a block for the q/o
+    projections, one (with K split over the block's 8 warps) for k/v and
+    down_proj; 4 row tiles (2 at 8 bits, whose rows are twice as long) for
+    gate/up and the head, whose grids are persistent; 8 for gate/up at
+    M = 8; x staged in chunks only where M rows of a whole K do not fit."""
+    plan = k5.qmatmul_gemv_plan
+    assert plan(1, 3584, 3584, 4, 64) == (2, 1)
+    assert plan(1, 3584, 512, 4, 64) == (1, 1)
+    assert plan(1, 3584, 18944, 4, 64) == (4, 1)
+    assert plan(1, 3584, 18944, 8, 64) == (2, 1)
+    assert plan(1, 18944, 3584, 4, 64) == (1, 1)
+    assert plan(1, 3584, 152064, 4, 64) == (4, 1)
+    assert plan(8, 3584, 18944, 4, 64) == (8, 2)
+    assert plan(8, 3584, 3584, 8, 64) == (2, 1)
+    assert plan(8, 18944, 3584, 4, 64) == (1, 8)
+    for bits, rt in ((4, 4), (8, 2)):
+        assert k5._gemv_persistent(3584, 18944, bits, 64, rt, 1)
+        assert k5._gemv_persistent(3584, 152064, bits, 64, rt, 1)
+    assert not k5._gemv_persistent(3584, 3584, 4, 64, 2, 1)
+
+
+def test_gemv_refusals_before_any_launch():
+    """The GEMV takes 1 to 8 rows, K a whole number of group pairs at both
+    widths (its scales and biases travel as 32-bit words) and 4-byte
+    aligned scales and biases; it refuses anything else before it reaches
+    the kernel library (CPU tensors show it)."""
+    for M in (0, 9):
+        with pytest.raises(ValueError, match="GEMV"):
+            k5.qmatmul_gemv_plan(M, K, N, 4, 64)
+    with pytest.raises(ValueError, match="group pairs"):
+        k5.qmatmul_gemv_plan(1, 96, N, 8, 32)
+    k5.qmatmul_gemv_plan(1, 64, N, 8, 32)  # two groups: taken
+    q, s, b = mlx_weight(8, 32, seed=5, bf16=True)
+    _, t = both(q, s, b, 8, 32)
+    buf = torch.empty(t.scales.numel() + 1, dtype=torch.bfloat16)
+    buf[1:] = t.scales.reshape(-1)
+    moved = tq.QuantizedTensor(q=t.q, scales=buf[1:].view(t.scales.shape),
+                               biases=t.biases, bits=8, group_size=32,
+                               out_dtype="bfloat16")
+    with pytest.raises(ValueError, match="4-byte"):
+        k5._gemv(torch.ones((1, K), dtype=torch.bfloat16), moved, K, N)
+
+
 # ----------------------------------------------------------- on a GPU only
 
 
@@ -396,6 +550,67 @@ def test_cuda_k5_int4_gemm(cuda_device, g, M):
         group_size=g, out_dtype="bfloat16"), splits)
     err = float((got.cpu().float() - emu.float()).abs().max())
     assert err <= 1e-2 * float(emu.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", range(1, 9))
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_cuda_k5_gemv(cuda_device, bits, g, M):
+    """The GEMV route at ragged N (1000) against the plain version (1e-2 *
+    max|ref|, as above) and its emulation, one counted launch per call,
+    and a repeated call bit-identical (the warps' K parts are added in a
+    fixed order)."""
+    q, s, b = mlx_weight(bits, g, seed=70 + g + M + bits, n=1000, k=1024,
+                         bf16=True)
+    _, t = both(q, s, b, bits, g)
+    t = tq.QuantizedTensor(q=t.q.to(cuda_device), scales=t.scales.to(cuda_device),
+                           biases=t.biases.to(cuda_device), bits=bits,
+                           group_size=g, out_dtype="bfloat16")
+    x = _torch(_x((M, 1024), "bfloat16", seed=M + bits)).to(cuda_device)
+    name = f"qmatmul_int{bits}"
+    n0 = k5.launches[name]
+    got = k5.quantized_matmul_kernel(x, t)
+    again = k5.quantized_matmul_kernel(x, t)
+    ref = k5.qmatmul_plain(x, t)
+    torch.cuda.synchronize()
+    assert k5.launches[name] == n0 + 2
+    assert torch.equal(got, again)
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= 1e-2 * float(ref.float().abs().max())
+    rt, chunks = k5.qmatmul_gemv_plan(M, 1024, 1000, bits, g)
+    emu = gemv_emulation(x.cpu(), tq.QuantizedTensor(
+        q=t.q.cpu(), scales=t.scales.cpu(), biases=t.biases.cpu(), bits=bits,
+        group_size=g, out_dtype="bfloat16"), rt, chunks)
+    err = float((got.cpu().float() - emu.float()).abs().max())
+    assert err <= 1e-2 * float(emu.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 2])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_cuda_k5_gemv_persistent(cuda_device, bits, M):
+    """A weight with more row tiles than two blocks an SM (Qwen2-VL-7B's
+    gate/up projection, N = 18944) takes the persistent grid: blocks walk
+    tiles, fetching the next tile's scales and codes while they finish
+    one.  Against the plain version (1e-2 * max|ref|), bit-identical on a
+    repeat."""
+    Kp, Np, g = 3584, 18944, 64
+    rt, chunks = k5.qmatmul_gemv_plan(M, Kp, Np, bits, g)
+    assert k5._gemv_persistent(Kp, Np, bits, g, rt, chunks)
+    q, s, b = mlx_weight(bits, g, seed=90 + bits + M, n=Np, k=Kp, bf16=True)
+    _, t = both(q, s, b, bits, g)
+    t = tq.QuantizedTensor(q=t.q.to(cuda_device), scales=t.scales.to(cuda_device),
+                           biases=t.biases.to(cuda_device), bits=bits,
+                           group_size=g, out_dtype="bfloat16")
+    x = _torch(_x((M, Kp), "bfloat16", seed=M)).to(cuda_device)
+    got = k5.quantized_matmul_kernel(x, t)
+    again = k5.quantized_matmul_kernel(x, t)
+    ref = k5.qmatmul_plain(x, t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= 1e-2 * float(ref.float().abs().max())
 
 
 @pytest.mark.cuda
