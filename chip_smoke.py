@@ -6,8 +6,9 @@ Phases (any failure exits non-zero):
   1. environment: card, power limit, versions; builds the CUDA kernels from
      mlx_vlm_tpu_torch/csrc with nvcc (one process per source, in
      parallel) and prints ptxas's registers, static shared memory and
-     spills of every kernel (K3, K4 and K5's GEMV and int4 GEMM must not
-     spill) and the I2F count of K5's GEMV in cuobjdump -sass (must be 0);
+     spills of every kernel (K3, K4, K5's GEMV and int4 GEMM, and K7/K8's
+     tq_attention_kernel must not spill) and the I2F count of K5's GEMV in
+     cuobjdump -sass (must be 0);
   2. each kernel (K1 int4_matmul, K2 int4_matvec, K3 fused_decode, K4
      flash_attention, K5 qmatmul_int4 / qmatmul_int8, K6
      int4_kv_attention, K7 tq_kv_attention, K8 tq_kv_attention_split)
@@ -18,9 +19,10 @@ Phases (any failure exits non-zero):
      copies of the weight), and its
      kernels per call counted; K5's GEMV at M = 1, 2, 4 and 8, groups of
      32 and 128 and a ragged N = 1000 (timed cold and warm), its GEMMs at
-     M = 512, its int4 GEMM also on a ragged chunk (M = 100, N = 1000) and
-     a narrow one at g = 32, the GEMV and the int4 GEMM with their kernels
-     per call and a bit-identical repeat;
+     M = 512 and at request (h)'s 58-row chunk (int8), its int4 GEMM also
+     on a ragged chunk (M = 100, N = 1000) and a narrow one at g = 32, the
+     GEMV and the int4 GEMM with their kernels per call and a bit-identical
+     repeat;
      K4 at the 8k rows (offset 7680; left_pad 100; window 1024), at (c)'s
      first, middle and last chunk (S = 512 against C = 8704 at offsets 0,
      4096, 8192) and at two batch rows with their own offsets and
@@ -30,8 +32,13 @@ Phases (any failure exits non-zero):
      with 1e3 past the cursor and at 8545 with NaN past it, each with its
      kernels per call, a bit-identical repeat and its bytes per second
      beside the bound's;
-     K6-K8: 4 KV heads of 7 query rows over an 8704-slot cache), each with
-     its device time, the least
+     K6-K8: 4 KV heads of 7 query rows over an 8704-slot cache at offsets
+     1, 300 and 8545, left_pad 100 and per-row cursors, K8 also at
+     kv_bits 3.05 and 3.95 (8-dim segments); K7 and K8 each timed cold
+     (`graph_ms` over copies of the codes and scales) and warm, with their
+     plan, kernels per call (must be 1), a bit-identical repeat and their
+     bytes per second beside the bound's), each with its device time, the
+     least
      time the card could take (`bound_ms`, from bytes at 3.35 TB/s or
      operations at 989 TFLOP/s) and, where one exists, the time of one
      PyTorch call computing the same function (`library_ms`: K4 against
@@ -202,11 +209,11 @@ def phase_environment() -> None:
     for source, log in _cuda.BUILD_LOG.items():
         for name, regs, spills in ptxas_report(log):
             print(f"  ptxas {source} {name}: {regs}; {spills}", flush=True)
-            # K5's GEMV and int4 GEMM, K4 and K3 keep their operands and
-            # accumulators in registers
+            # K5's GEMV and int4 GEMM, K4, K3, K7 and K8 keep their
+            # operands and accumulators in registers
             if name.startswith(("qmv_kernel", "qmm4_kernel",
-                                "flash_fwd_kernel", "fused_decode_kernel")
-                               ) and (
+                                "flash_fwd_kernel", "fused_decode_kernel",
+                                "tq_attention_kernel")) and (
                     "0 bytes spill stores, 0 bytes spill loads" not in spills):
                 fail(f"ptxas spills in {name}: {spills}")
     # K5's GEMV takes its codes exact with no integer-to-float conversion
@@ -501,13 +508,15 @@ def check_int4_matvec(results: list, gen, dev) -> None:
 
 
 # K5 cases (bits, group size, M, K, N): the 7B linears at M = 1 (a decode
-# step) and 512 (a prefill chunk), the lm_head at M = 1, and mlx's other
-# group sizes; for the GEMV route (M <= 8) also M = 2, 4 and 8 at 3584^2
+# step) and 512 (a prefill chunk), the int8 GEMM at request (h)'s one
+# 58-row prefill chunk (q/o and gate/up widths), the lm_head at M = 1, and
+# mlx's other group sizes; for the GEMV route (M <= 8) also M = 2, 4 and 8 at 3584^2
 # and at N = 18944 (batched decode), g = 32 and 128 at M = 1 and a ragged
 # N = 1000 at M = 1 and 5; for the int4 GEMM route a ragged chunk (M = 100,
 # N = 1000) and a narrow one at g = 32 (both split K)
 K5_CASES = (tuple((bits, 64, M, K, N) for bits in (4, 8) for M in (1, 512)
                   for K, N in K1_SHAPES)
+            + ((8, 64, 58, 3584, 3584), (8, 64, 58, 3584, 18944))
             + tuple((bits, 64, 1, 3584, 152064) for bits in (4, 8))
             + tuple((bits, 64, M, K, N) for bits in (4, 8) for M in (2, 4, 8)
                     for K, N in ((3584, 3584), (3584, 18944)))
@@ -971,6 +980,10 @@ KV_HEADS, KV_ROWS, KV_DIM, KV_CAPACITY = 4, 7, 128, 8704
 KV_CASES = ((1, 0), (300, 0), (8545, 0), (8545, 100),
             ((8545, 300, 4000, 1), (0, 0, 100, 0)))
 KV_TOL = 1e-2
+# K8's kv_bits: 3.5 (64 dims at 3 bits + 64 at 4, requests (e)) at every
+# KV_CASES entry; 3.05 (120 + 8) and 3.95 (8 + 120), whose 8-dim segments
+# pad their k-steps, at offset 8545
+K8_CASES = ((3.5, KV_CASES), (3.05, ((8545, 0),)), (3.95, ((8545, 0),)))
 
 
 def _kv_case(off, lp, dev):
@@ -995,13 +1008,55 @@ def kv_work(offs, lps, token_bytes: int, head_bytes: int) -> tuple:
             4.0 * KV_ROWS * KV_DIM * visible)
 
 
+def split_dims(kv_bits: float, D: int) -> tuple:
+    """(lo bits, hi bits, DA, DB) of the split cache at kv_bits
+    (core/turboquant.py's init_turboquant_split_cache rule)."""
+    lo, hi = int(math.floor(kv_bits)), int(math.ceil(kv_bits))
+    d_hi = max(8, min(D - 8, int(round((kv_bits - lo) * D / 8)) * 8))
+    return lo, hi, D - d_hi, d_hi
+
+
+def check_tq_case(results: list, run, arrays, nbytes: float, plan) -> None:
+    """K7's or K8's further checks of the case _check just recorded: the
+    kernels one call puts on the device (one), a bit-identical repeat, and
+    a cold time: `graph_ms` over `cold_copies` of the codes and scales
+    (`run(*arrays)` is the call), as a decode step reads each layer's cache
+    cold; the warm time is device_ms's.  Prints the bytes per second beside
+    the bound's."""
+    import functools
+
+    import torch
+
+    r = results[-1]
+    out = run(*arrays)
+    kernels = kernels_per_call(lambda: run(*arrays))
+    same = bool(torch.equal(run(*arrays), out))
+    size = sum(a.numel() * a.element_size() for a in arrays)
+    copies = [arrays] + [tuple(a.clone() for a in arrays)
+                         for _ in range(cold_copies(size) - 1)]
+    r["warm_ms"], r["ms"] = r["ms"], graph_ms(
+        [functools.partial(run, *c) for c in copies], iters=5)
+    del copies
+    r["kernels_per_call"], r["repeat_identical"] = kernels, same
+    r["plan"] = (f"T={plan.tokens} splits={plan.splits} warps={plan.warps} "
+                 f"n_tiles={plan.n_tiles} smem={plan.smem_bytes}")
+    r["ok"] = r["ok"] and same and kernels == 1
+    print(f"  {r['name']} {r['shape']}: plan {r['plan']}; kernel_ms="
+          f"{r['ms']:.4f} cold {r['warm_ms']:.4f} warm (device time), "
+          f"{nbytes / r['ms'] / 1e9:.4f} TB/s cold against the bound's "
+          f"{nbytes / r['bound_ms'] / 1e9:.3f} ({r['bound_ms'] / r['ms']:.1%});"
+          f" kernels per call {kernels} (graph nodes), repeat bit-identical "
+          f"{same} {'ok' if r['ok'] else 'MISMATCH'}", flush=True)
+
+
 def check_kv_kernels(results: list, gen, dev) -> None:
-    """K6, K7 (3-bit keys, 4-bit values) and K8 (kv_bits 3.5 split: 64
-    dims at 3 bits, 64 at 4) against their plain versions at the shapes of
-    requests (d)-(f): 4 KV heads of 7 query rows, C = 8704, q x 4.  The
-    codes past each cursor are random and their scales 1e3, so that a read
-    past the cursor breaks the check.  Tolerance KV_TOL * max|ref|: the
-    kernels round p * vs to bf16 against block-local softmax maxima."""
+    """K6, K7 (3-bit keys, 4-bit values) and K8 (K8_CASES) against their
+    plain versions at the shapes of requests (d)-(f): 4 KV heads of 7
+    query rows, C = 8704, q x 4.  The codes past each cursor are random and
+    their scales 1e3, so that a read past the cursor breaks the check.
+    Tolerance KV_TOL * max|ref|: the kernels round p * vs to bf16 against
+    split-local softmax maxima.  K7 and K8 also record their plan, kernels
+    per call, a bit-identical repeat and a cold time (check_tq_case)."""
     import torch
 
     from mlx_vlm_tpu_torch.core.turboquant import _levels
@@ -1010,6 +1065,7 @@ def check_kv_kernels(results: list, gen, dev) -> None:
 
     BH, G, D, C = KV_HEADS, KV_ROWS, KV_DIM, KV_CAPACITY
     scale = D ** -0.5
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def codes(width):
         return torch.randint(0, 256, (BH, C, width), generator=gen,
@@ -1023,6 +1079,7 @@ def check_kv_kernels(results: list, gen, dev) -> None:
 
     luts = (_levels(3), _levels(4))
     head_out = G * D * 4 + 8  # output f32, offset and left_pad
+    queries = {}
     for off_v, lp_v in KV_CASES:
         off, lp, shape = _kv_case(off_v, lp_v, dev)
         q = torch.randn((BH, G, D), generator=gen) * 4
@@ -1042,34 +1099,52 @@ def check_kv_kernels(results: list, gen, dev) -> None:
                lambda: k6.int4_kv_decode_attention_plain(*a6, off, scale, lp),
                floor=0.0,
                work=kv_work(off, lp, D + 16, G * D + 8 * G + head_out))
-        qr = (torch.randn((BH, G, D), generator=gen) * 4).to(dev)
-        a7 = (qr, codes(D * 3 // 8), scales(off, 0.5, 1.5), codes(D // 2),
+        qr = queries[(off_v, lp_v)] = (
+            torch.randn((BH, G, D), generator=gen) * 4).to(dev)
+        a7 = (codes(D * 3 // 8), scales(off, 0.5, 1.5), codes(D // 2),
               scales(off, 0.5, 1.5))
-        _check(results, "tq_kv_attention", shape,
-               tk.tq_kv_decode_attention(*a7, off, scale, 3, 4, *luts,
-                                         left_pad=lp),
-               tk.tq_kv_decode_attention_plain(*a7, off, scale, 3, 4, *luts,
-                                               lp), KV_TOL,
-               lambda: tk.tq_kv_decode_attention(*a7, off, scale, 3, 4, *luts,
-                                                 left_pad=lp),
-               lambda: tk.tq_kv_decode_attention_plain(*a7, off, scale, 3, 4,
-                                                       *luts, lp),
-               floor=0.0,
-               work=kv_work(off, lp, D * 7 // 8 + 8, G * D * 4 + head_out))
-        a8 = (qr, codes(24), scales(off, 0.5, 1.5), codes(32),
-              scales(off, 0.5, 1.5), codes(24), scales(off, 0.5, 1.5),
-              codes(32), scales(off, 0.5, 1.5))
-        _check(results, "tq_kv_attention_split", shape,
-               tk.tq_kv_decode_attention_split(*a8, off, scale, 3, 4, *luts,
-                                               left_pad=lp),
-               tk.tq_kv_decode_attention_split_plain(*a8, off, scale, 3, 4,
-                                                     *luts, lp), KV_TOL,
-               lambda: tk.tq_kv_decode_attention_split(*a8, off, scale, 3, 4,
-                                                       *luts, left_pad=lp),
-               lambda: tk.tq_kv_decode_attention_split_plain(
-                   *a8, off, scale, 3, 4, *luts, lp),
-               floor=0.0,
-               work=kv_work(off, lp, D * 7 // 8 + 16, G * D * 4 + head_out))
+
+        def k7(*arrays, off=off, lp=lp, qr=qr):
+            return tk.tq_kv_decode_attention(qr, *arrays, off, scale, 3, 4,
+                                             *luts, left_pad=lp)
+
+        def p7(off=off, lp=lp, qr=qr, a7=a7):
+            return tk.tq_kv_decode_attention_plain(qr, *a7, off, scale, 3, 4,
+                                                   *luts, lp)
+
+        work = kv_work(off, lp, D * 7 // 8 + 8, G * D * 4 + head_out)
+        _check(results, "tq_kv_attention", shape, k7(*a7), p7(), KV_TOL,
+               lambda: k7(*a7), p7, floor=0.0, work=work)
+        check_tq_case(results, k7, a7, work[0], tk.tq_kv_attention_plan(
+            BH, G, C, [(D, 3, 4)], sms))
+    for kv_bits, cases in K8_CASES:
+        lo, hi, DA, DB = split_dims(kv_bits, D)
+        for off_v, lp_v in cases:
+            off, lp, shape = _kv_case(off_v, lp_v, dev)
+            if kv_bits != 3.5:
+                shape += f" kv_bits={kv_bits}"
+            qr = queries[(off_v, lp_v)]
+            a8 = (codes(DA * lo // 8), scales(off, 0.5, 1.5),
+                  codes(DB * hi // 8), scales(off, 0.5, 1.5),
+                  codes(DA * lo // 8), scales(off, 0.5, 1.5),
+                  codes(DB * hi // 8), scales(off, 0.5, 1.5))
+
+            def k8(*arrays, off=off, lp=lp, qr=qr, lo=lo, hi=hi):
+                return tk.tq_kv_decode_attention_split(
+                    qr, *arrays, off, scale, lo, hi, _levels(lo),
+                    _levels(hi), left_pad=lp)
+
+            def p8(off=off, lp=lp, qr=qr, a8=a8, lo=lo, hi=hi):
+                return tk.tq_kv_decode_attention_split_plain(
+                    qr, *a8, off, scale, lo, hi, _levels(lo), _levels(hi),
+                    lp)
+
+            token = (DA * lo // 8 + DB * hi // 8) * 2 + 16
+            work = kv_work(off, lp, token, G * D * 4 + head_out)
+            _check(results, "tq_kv_attention_split", shape, k8(*a8), p8(),
+                   KV_TOL, lambda: k8(*a8), p8, floor=0.0, work=work)
+            check_tq_case(results, k8, a8, work[0], tk.tq_kv_attention_plan(
+                BH, G, C, [(DA, lo, lo), (DB, hi, hi)], sms))
 
 
 # ------------------------------------------------------------ phase 3

@@ -1,5 +1,5 @@
-// Shared by the quantized-KV decode-attention kernels (K6 in
-// int4_kv_attention.cu, K7 and K8 in tq_kv_attention.cu).
+// The split-and-combine helpers of K6 (int4_kv_attention.cu), the
+// quantized-KV decode attention over per-token affine nibbles.
 //
 // The TPU kernels walk the whole history of one (row, KV head) in order on
 // one core, carrying (m, l, acc) from tile to tile.  On the H100 that would

@@ -51,8 +51,9 @@ _SIGNATURES = {
     # out, BH, G, C, D, scale, stream
     "mvt_int4_kv_attention": (_P,) * 13 + (_I,) * 4 + (_F, _P),
     # q, 2 x (kq, ks, vq, vs, klut, vlut), offset, left_pad, part_ml,
-    # part_acc, out, 2 x (d, kbits, vbits), nseg, BH, G, C, scale, stream
-    "mvt_tq_kv_attention": (_P,) * 18 + (_I,) * 10 + (_F, _P),
+    # part_acc, tickets, out, 2 x (d, kbits, vbits), nseg, BH, G, C,
+    # tokens, warps, combiners, smem, scale, stream
+    "mvt_tq_kv_attention": (_P,) * 19 + (_I,) * 14 + (_F, _P),
     # x, q, scales, biases, y, M, K, N, bits, group_size, stream
     "mvt_qmatmul": (_P,) * 5 + (_I,) * 5 + (_P,),
     # x, q, scales, biases, y, M, K, N, bits, group_size, row_tiles, chunks,

@@ -21,10 +21,12 @@ Column c is visible when left_pad <= c < offset; the softmax contract is
 ops/int4_kv_attention.py's.
 
 Bound on the H100: device-memory bytes (the packed codes and two f32
-scales per visible token and KV head).  The kernel splits the history over
-blocks of 128 tokens, each serving every query row of its KV head and
-decoding each code byte once through a shared-memory table, and combines
-the partials in a second pass.  See the .cu header.
+scales per visible token and KV head).  One launch a call: the kernel cuts
+each KV head's capacity into splits of `tq_kv_attention_plan`'s tokens,
+one block each, which stages its codes and scales by bulk copies and
+decodes each code once into `mma.sync` operands for every query row of its
+head; each split's softmax runs against its own maximum, and the last
+blocks of a head combine the live splits.  See the .cu header.
 
 On CPU tensors the wrappers compute the plain PyTorch versions; on CUDA
 tensors they launch the kernel or raise.  `launches` counts calls that
@@ -33,6 +35,7 @@ launched a kernel.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Optional, Sequence, Union
 
@@ -40,10 +43,145 @@ import torch
 
 from ..core.turboquant import unpack_codes
 from . import _cuda
-from .int4_kv_attention import (TC, _rows, bf16_round, online_softmax_out,
-                                visible)
+from .int4_kv_attention import _rows, bf16_round, online_softmax_out, visible
 
 launches = {"tq_kv_attention": 0, "tq_kv_attention_split": 0}
+
+# Mirrors of csrc/tq_kv_attention.cu's constants
+TILE = 16          # tokens of one mma tile; a split is whole tiles
+MAX_SEGS = 2
+MAX_NT = 2         # n-tiles of 8 query rows a block serves
+MAX_WARPS = 12     # 8 at two n-tiles
+LUT_ENTRIES = 256
+GROUP_TILES = 8
+ARRAY_SLACK = 32
+MAX_COMBINERS = 8
+# The plan's choices: blocks per SM the grid aims at, the longest split,
+# and the shared memory a block may take on the H100
+BLOCKS_PER_SM = 1
+MAX_TOKENS = 512
+SMEM_BYTES = 232448
+H100_SMS = 132
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class SegGeometry:
+    """How one segment's codes are cut into the kernel's 16-slot tiles
+    (csrc/tq_kv_attention.cu `seg_geo`): w bytes a plane; a group is nm
+    bytes of each plane cut into nm / 2 tiles of 16 / nm bit positions
+    (8-bit codes: 16 consecutive dims a tile, 8 tiles a group)."""
+    w: int
+    nm: int
+    groups: int
+    steps: int
+
+
+def seg_geometry(d: int, bits: int) -> SegGeometry:
+    w = d // 8
+    if bits == 8:
+        steps = _cdiv(d, TILE)
+        return SegGeometry(w, 16, _cdiv(steps, GROUP_TILES), steps)
+    nm, steps = 16, None
+    for cand in (16, 8, 4):
+        tiles = cand // 2 * _cdiv(w, cand)
+        if steps is None or tiles < steps:
+            nm, steps = cand, tiles
+    return SegGeometry(w, nm, _cdiv(w, nm), steps)
+
+
+def _code_width(d: int, bits: int) -> int:
+    return d if bits == 8 else d // 8 * bits
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def _smem_bytes(segs, T: int, D: int, nt: int, warps: int) -> int:
+    """A block's dynamic shared memory: the kernel's `tq_layout`."""
+    rows = 8 * nt
+    steps = sum(seg_geometry(d, kb).steps for d, kb, _ in segs)
+    n = len(segs) * 2 * (LUT_ENTRIES * 2
+                         + _align16(LUT_ENTRIES * 4 + ARRAY_SLACK))
+    n += _align16(rows * D * 4 + ARRAY_SLACK) + nt * steps * 32 * 8
+    n += rows * T * 4 + len(segs) * rows * T * 2 + _align16(rows * 2 * 4)
+    n += rows * D * 4 + warps * rows * D * 4
+    for d, kb, vb in segs:
+        for width in (_code_width(d, kb), 4, 4, _code_width(d, vb)):
+            n += _align16(T * width + ARRAY_SLACK)
+    return n
+
+
+@dataclasses.dataclass(frozen=True)
+class TqPlan:
+    tokens: int      # T: tokens of one split (one block), a multiple of 16
+    splits: int      # NS = ceil(C / T) splits per KV head
+    combiners: int   # the last blocks of a head to arrive, which combine
+    warps: int       # warps per block
+    n_tiles: int     # 8-row n-tiles of query rows a block serves
+    row_groups: int  # blocks per split along the query rows
+    smem_bytes: int
+
+
+def tq_kv_attention_plan(BH: int, G: int, C: int, segs,
+                         sms: int = H100_SMS) -> TqPlan:
+    """The kernel's grid and block for BH KV heads of G query rows over a
+    capacity of C tokens on a card of `sms` SMs; `segs` lists each
+    segment's (dims, key bits, value bits).  The grid is sized from C (not
+    the cursor) for about BLOCKS_PER_SM blocks per SM: each KV head's
+    capacity is cut into NS splits of T tokens (whole 16-token tiles, at
+    most MAX_TOKENS), one block each; on the card a row's NS splits cover
+    its history [0, min(C, offset)) in whole tiles of at most T tokens.
+    A block takes the fewest warps (at most MAX_WARPS, 8 with two n-tiles)
+    that leave no warp more tiles than that many warps would; T halves
+    while a block's shared memory passes SMEM_BYTES.  G <= 8 rows take one
+    n-tile, more take two, and past 16 the rows are cut into groups of
+    16.  The last `combiners` blocks of a head to arrive combine
+    its splits: at most MAX_COMBINERS and SMs / heads, so that the blocks
+    waiting for the rest can never hold every SM."""
+    if not segs or len(segs) > MAX_SEGS or G < 1 or C < 1:
+        raise ValueError(f"tq_kv_attention_plan: {len(segs)} segments, "
+                         f"G={G}, C={C}")
+    nt = 1 if G <= 8 else MAX_NT
+    Z = _cdiv(G, 8 * nt)
+    D = sum(d for d, _, _ in segs)
+    per_head = max(1, BLOCKS_PER_SM * sms // (BH * Z))
+    T = min(MAX_TOKENS, _cdiv(_cdiv(C, per_head), TILE) * TILE)
+    most = MAX_WARPS if nt == 1 else 8
+    while True:
+        tiles = T // TILE
+        warps = _cdiv(tiles, _cdiv(tiles, most))
+        smem = _smem_bytes(segs, T, D, nt, warps)
+        if smem <= SMEM_BYTES:
+            NS = _cdiv(C, T)
+            K = min(MAX_COMBINERS, NS, max(1, sms // (BH * Z)))
+            return TqPlan(T, NS, K, warps, nt, Z, smem)
+        if T == TILE:
+            raise ValueError(f"tq_kv_attention_plan: {smem} bytes of shared "
+                             f"memory at 16 tokens a split")
+        T = max(TILE, T // 2 // TILE * TILE)
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(dev, n: int) -> torch.Tensor:
+    """The card's ticket counters: zeroed once, and every launch leaves
+    them as it found them."""
+    t = _TICKETS.get(dev.index)
+    if t is None or t.numel() < n:
+        t = _TICKETS[dev.index] = torch.zeros(max(n, 4096),
+                                              dtype=torch.int32, device=dev)
+    return t
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache
@@ -136,15 +274,20 @@ def _launch(name: str, q_rot, segs, off, lp, scale: float) -> torch.Tensor:
     nseg = len(segs)
     ptrs += [0] * (12 - len(ptrs))
     ints += [0] * (6 - len(ints))
-    n_split = (C + TC - 1) // TC
-    f32 = dict(dtype=torch.float32, device=q_rot.device)
-    part_ml = torch.empty((n_split, BH, g, 3), **f32)
-    part_acc = torch.empty((n_split, BH, g, D), **f32)
+    dev = q_rot.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    plan = tq_kv_attention_plan(BH, g, C, [s[6:] for s in segs], _sms(index))
+    f32 = dict(dtype=torch.float32, device=dev)
+    part_ml = torch.empty((plan.splits, BH, g, 2), **f32)
+    part_acc = torch.empty((plan.splits, BH, g, D), **f32)
     out = torch.empty((BH, g, D), **f32)
+    tickets = _tickets(dev, 2 * BH * plan.row_groups)
     err = _cuda.library().mvt_tq_kv_attention(
         q_rot.data_ptr(), *ptrs, off.data_ptr(), lp.data_ptr(),
-        part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(), *ints,
-        nseg, BH, g, C, float(scale), _cuda.stream_handle(q_rot.device))
+        part_ml.data_ptr(), part_acc.data_ptr(), tickets.data_ptr(),
+        out.data_ptr(), *ints, nseg, BH, g, C, plan.tokens, plan.warps,
+        plan.combiners, plan.smem_bytes, float(scale),
+        _cuda.stream_handle(dev))
     _cuda.check(err, name)
     return out
 

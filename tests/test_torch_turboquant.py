@@ -119,11 +119,11 @@ def test_tq_encode_split_matches(kv_bits):
 # ------------------------------------------------------------ K7 and K8
 
 
-def tq_inputs(D, k_bits, v_bits, seed, q_scale=1.0):
+def tq_inputs(D, k_bits, v_bits, seed, q_scale=1.0, g=G):
     """Random K7 inputs over the whole capacity: the codes and scales past
     each cursor are garbage the kernel must not read."""
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((BH, G, D)).astype(np.float32) * q_scale
+    q = rng.standard_normal((BH, g, D)).astype(np.float32) * q_scale
     kq = rng.integers(0, 256, (BH, C, D * k_bits // 8), dtype=np.uint8)
     vq = rng.integers(0, 256, (BH, C, D * v_bits // 8), dtype=np.uint8)
     ks, vs = (rng.uniform(0.5, 1.5, (BH, C)).astype(np.float32)
@@ -164,12 +164,12 @@ def test_k7_plain_matches_pallas(k_bits, v_bits, rows):
                                atol=PALLAS * np.abs(ref).max())
 
 
-def split_inputs(kv_bits, seed, q_scale=1.0):
+def split_inputs(kv_bits, seed, q_scale=1.0, g=G):
     D = 128
     lo, hi = int(np.floor(kv_bits)), int(np.ceil(kv_bits))
     d_hi = int(round((kv_bits - lo) * D / 8)) * 8
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((BH, G, D)).astype(np.float32) * q_scale
+    q = rng.standard_normal((BH, g, D)).astype(np.float32) * q_scale
     arrs = []
     for width in ((D - d_hi) * lo // 8, d_hi * hi // 8) * 2:
         arrs.append(rng.integers(0, 256, (BH, C, width), dtype=np.uint8))
@@ -284,19 +284,21 @@ def _cuda_cursors(rows, dev):
     return off, torch.from_numpy(lp).to(dev)
 
 
-# On the card the kernels round p * vs to bf16 against a block-local
+# On the card the kernels round p * vs to bf16 against a split-local
 # maximum instead of the global one: 1e-2 * max|ref|, q sharpened by 4.
 CUDA_TOL = 1e-2
 
 
+# query rows per KV head: Qwen2-VL-2B's 6, 7B's 7, and 12 (two n-tiles)
 @pytest.mark.cuda
+@pytest.mark.parametrize("g", [6, 7, 12])
 @pytest.mark.parametrize("k_bits,v_bits", [(3, 4), (3, 3), (5, 5), (6, 6),
                                            (8, 8)])
 @pytest.mark.parametrize("rows", ["scalar", "per_row"])
-def test_cuda_k7_matches_plain(cuda_device, k_bits, v_bits, rows):
+def test_cuda_k7_matches_plain(cuda_device, k_bits, v_bits, rows, g):
     D = 128
     arrs = [torch.from_numpy(a).to(cuda_device)
-            for a in tq_inputs(D, k_bits, v_bits, seed=3, q_scale=4.0)]
+            for a in tq_inputs(D, k_bits, v_bits, seed=3, q_scale=4.0, g=g)]
     off, lp = _cuda_cursors(rows, cuda_device)
     luts = (ttq._levels(k_bits), ttq._levels(v_bits))
     n0 = tk.launches["tq_kv_attention"]
@@ -311,10 +313,11 @@ def test_cuda_k7_matches_plain(cuda_device, k_bits, v_bits, rows):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kv_bits", [3.5, 4.5])
+@pytest.mark.parametrize("g", [6, 7, 12])
+@pytest.mark.parametrize("kv_bits", [3.5, 4.5, 3.05, 3.95])
 @pytest.mark.parametrize("rows", ["scalar", "per_row"])
-def test_cuda_k8_matches_plain(cuda_device, kv_bits, rows):
-    q, arrs, lo, hi = split_inputs(kv_bits, seed=4, q_scale=4.0)
+def test_cuda_k8_matches_plain(cuda_device, kv_bits, rows, g):
+    q, arrs, lo, hi = split_inputs(kv_bits, seed=4, q_scale=4.0, g=g)
     q = torch.from_numpy(q).to(cuda_device)
     arrs = [torch.from_numpy(a).to(cuda_device) for a in arrs]
     off, lp = _cuda_cursors(rows, cuda_device)
@@ -329,3 +332,21 @@ def test_cuda_k8_matches_plain(cuda_device, kv_bits, rows):
     torch.cuda.synchronize()
     assert tk.launches["tq_kv_attention_split"] == n0 + 1
     assert float((got - ref).abs().max()) <= CUDA_TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_tq_repeat_is_bit_identical_and_leaves_counters_zero(
+        cuda_device):
+    """A second call gives the same bits (the splits are combined in a
+    fixed order), and the per-card counters are back at zero after it."""
+    q, arrs, lo, hi = split_inputs(3.5, seed=6, q_scale=4.0)
+    q = torch.from_numpy(q).to(cuda_device)
+    arrs = [torch.from_numpy(a).to(cuda_device) for a in arrs]
+    off, lp = _cuda_cursors("per_row", cuda_device)
+    luts = (ttq._levels(lo), ttq._levels(hi))
+    outs = [tk.tq_kv_decode_attention_split(q, *arrs, off, 128 ** -0.5, lo,
+                                            hi, *luts, left_pad=lp)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert not tk._tickets(q.device, 1).any()
