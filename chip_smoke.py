@@ -6,9 +6,9 @@ Phases (any failure exits non-zero):
   1. environment: card, power limit, versions; builds the CUDA kernels from
      mlx_vlm_tpu_torch/csrc with nvcc (one process per source, in
      parallel) and prints ptxas's registers, static shared memory and
-     spills of every kernel (K3, K4, K5's GEMV and int4 GEMM, and K7/K8's
-     tq_attention_kernel must not spill) and the I2F count of K5's GEMV in
-     cuobjdump -sass (must be 0);
+     spills of every kernel (K3, K4, K5's GEMV and its GEMM at both widths,
+     and K7/K8's tq_attention_kernel must not spill) and the I2F count of
+     K5's GEMV and GEMM in cuobjdump -sass (must be 0);
   2. each kernel (K1 int4_matmul, K2 int4_matvec, K3 fused_decode, K4
      flash_attention, K5 qmatmul_int4 / qmatmul_int8, K6
      int4_kv_attention, K7 tq_kv_attention, K8 tq_kv_attention_split)
@@ -18,11 +18,11 @@ Phases (any failure exits non-zero):
      n = 1000, timed also with its weights cold in L2 (`graph_ms` over
      copies of the weight), and its
      kernels per call counted; K5's GEMV at M = 1, 2, 4 and 8, groups of
-     32 and 128 and a ragged N = 1000 (timed cold and warm), its GEMMs at
-     M = 512 and at request (h)'s 58-row chunk (int8), its int4 GEMM also
-     on a ragged chunk (M = 100, N = 1000) and a narrow one at g = 32, the
-     GEMV and the int4 GEMM with their kernels per call and a bit-identical
-     repeat;
+     32 and 128 and a ragged N = 1000 (timed cold and warm), its GEMM at
+     both widths at M = 512, on a ragged chunk (M = 100, N = 1000) and a
+     narrow one at g = 32, and at 8 bits on request (h)'s 58-row chunk at
+     the four linear shapes (timed cold and warm), every case with its
+     plan, kernels per call and a bit-identical repeat;
      K4 at the 8k rows (offset 7680; left_pad 100; window 1024), at (c)'s
      first, middle and last chunk (S = 512 against C = 8704 at offsets 0,
      4096, 8192) and at two batch rows with their own offsets and
@@ -209,16 +209,17 @@ def phase_environment() -> None:
     for source, log in _cuda.BUILD_LOG.items():
         for name, regs, spills in ptxas_report(log):
             print(f"  ptxas {source} {name}: {regs}; {spills}", flush=True)
-            # K5's GEMV and int4 GEMM, K4, K3, K7 and K8 keep their
-            # operands and accumulators in registers
-            if name.startswith(("qmv_kernel", "qmm4_kernel",
+            # K5's GEMV and GEMM (both widths), K4, K3, K7 and K8 keep
+            # their operands and accumulators in registers
+            if name.startswith(("qmv_kernel", "qmm_gemm_kernel",
                                 "flash_fwd_kernel", "fused_decode_kernel",
                                 "tq_attention_kernel")) and (
                     "0 bytes spill stores, 0 bytes spill loads" not in spills):
                 fail(f"ptxas spills in {name}: {spills}")
-    # K5's GEMV takes its codes exact with no integer-to-float conversion
+    # K5's GEMV and GEMM take their codes exact with no integer-to-float
+    # conversion
     for name, n in sass_conversions(_cuda.library_path()).items():
-        if "qmv_kernel" in name:
+        if "qmv_kernel" in name or "qmm_gemm_kernel" in name:
             print(f"  sass {name}: {n} I2F / I2FP", flush=True)
             if n:
                 fail(f"{name} converts integers to floats ({n} I2F)")
@@ -508,15 +509,17 @@ def check_int4_matvec(results: list, gen, dev) -> None:
 
 
 # K5 cases (bits, group size, M, K, N): the 7B linears at M = 1 (a decode
-# step) and 512 (a prefill chunk), the int8 GEMM at request (h)'s one
-# 58-row prefill chunk (q/o and gate/up widths), the lm_head at M = 1, and
-# mlx's other group sizes; for the GEMV route (M <= 8) also M = 2, 4 and 8 at 3584^2
-# and at N = 18944 (batched decode), g = 32 and 128 at M = 1 and a ragged
-# N = 1000 at M = 1 and 5; for the int4 GEMM route a ragged chunk (M = 100,
-# N = 1000) and a narrow one at g = 32 (both split K)
+# step) and 512 (a prefill chunk), the 8-bit GEMM at request (h)'s one
+# 58-row prefill chunk (all four linear shapes), the lm_head at M = 1, and
+# mlx's other group sizes; for the GEMV route (M <= 8) also M = 2, 4 and 8
+# at 3584^2 and at N = 18944 (batched decode), g = 32 and 128 at M = 1 and a
+# ragged N = 1000 at M = 1 and 5; for the GEMM route at both widths a
+# ragged chunk (M = 100, N = 1000) and a narrow one at g = 32 (both split
+# K)
 K5_CASES = (tuple((bits, 64, M, K, N) for bits in (4, 8) for M in (1, 512)
                   for K, N in K1_SHAPES)
-            + ((8, 64, 58, 3584, 3584), (8, 64, 58, 3584, 18944))
+            + ((8, 64, 58, 3584, 3584), (8, 64, 58, 3584, 18944),
+               (8, 64, 58, 3584, 512), (8, 64, 58, 18944, 3584))
             + tuple((bits, 64, 1, 3584, 152064) for bits in (4, 8))
             + tuple((bits, 64, M, K, N) for bits in (4, 8) for M in (2, 4, 8)
                     for K, N in ((3584, 3584), (3584, 18944)))
@@ -526,7 +529,9 @@ K5_CASES = (tuple((bits, 64, M, K, N) for bits in (4, 8) for M in (1, 512)
                     for M in (1, 5))
             + tuple((bits, g, 512, 3584, 3584) for bits in (4, 8)
                     for g in (32, 128))
-            + ((4, 64, 100, 3584, 1000), (4, 32, 512, 3584, 512)))
+            + tuple(case for bits in (4, 8)
+                    for case in ((bits, 64, 100, 3584, 1000),
+                                 (bits, 32, 512, 3584, 512))))
 K5_TOL = 1e-2
 
 
@@ -565,16 +570,57 @@ def clone_mlx(t):
                    group_size=t.group_size, out_dtype=t.out_dtype)
 
 
+def qmm_cold_ms(run, t) -> float:
+    """Device time of run(t) with the weight cold in L2: graph_ms over
+    cold_copies of t, as a prefill chunk or a decode step reads it."""
+    import functools
+
+    copies = [t] + [clone_mlx(t) for _ in range(cold_copies(
+        t.q.numel() + 2 * t.scales.numel() * 2) - 1)]
+    return graph_ms([functools.partial(run, c) for c in copies], iters=5)
+
+
+def time_k5(cases, dev, outputs=None) -> None:
+    """Cold (qmm_cold_ms) and warm (device_ms) device times of K5's wrapper
+    at `cases` (bits, group size, M, K, N), one printed line a case.  It
+    calls only `quantized_matmul_kernel`, so it times the K5 of whichever
+    tree the package is imported from: run from an unpacked parent, it
+    puts the parent's times beside this tree's in one call.  Inputs come
+    from a fixed seed, so that `outputs` (a dict, filled with each case's
+    output on the CPU) can hold two trees' results to the bit."""
+    import functools
+
+    import torch
+
+    from mlx_vlm_tpu_torch.ops import qmatmul as k5
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    for bits, g, M, K, N in cases:
+        t = random_mlx(bits, g, K, N, gen, dev)
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        run = functools.partial(k5.quantized_matmul_kernel, x)
+        if outputs is not None:
+            outputs[(bits, g, M, K, N)] = run(t).cpu()
+        cold, warm = qmm_cold_ms(run, t), device_ms(lambda: run(t))
+        bound_ms, bound_by = bound(*qmm_work(M, t))
+        shape = f"M={M} K={K} N={N} g={g}"
+        print(f"  time_k5 qmatmul_int{bits} {shape}: kernel_ms={cold:.4f} "
+              f"cold {warm:.4f} warm bound_ms={bound_ms:.5f} ({bound_by})",
+              flush=True)
+        del t, x
+
+
 def check_qmatmul(results: list, dev) -> None:
     """K5 against its plain version at K5_CASES, its weights drawn on the
     card; 4-bit cases also time torch._weight_int4pack_mm.  No single
     PyTorch call takes 8-bit group-affine codes (_weight_int8pack_mm is
     per-channel, with no group bias), so the 8-bit cases have none.  GEMV
-    cases (M <= 8) are timed cold (graph_ms over cold_copies of the weight,
-    as a decode step reads it) and warm (device_ms), the library too.  Every
-    GEMV case and every int4 GEMM case (M > 8) records the kernels one call
-    launches (the GEMV one, the GEMM one or two where it splits K) and must
-    give bit-identical output on a repeat."""
+    cases (M <= 8) and the GEMM's 58-row cases (request (h)'s prefill
+    chunk) are timed cold (qmm_cold_ms: the weight outside L2, as a decode
+    step or a chunk reads it) and warm (device_ms), the GEMV's library
+    too.  Every case records the kernels one call launches (the GEMV one,
+    the GEMM one or two where its plan splits K) and must give
+    bit-identical output on a repeat."""
     import functools
 
     import torch
@@ -596,13 +642,8 @@ def check_qmatmul(results: list, dev) -> None:
                lambda: run(t), lambda: k5.qmatmul_plain(x, t), floor=0.0,
                work=qmm_work(M, t), library=lib)
         r = results[-1]
-        if M <= k5.MAX_GEMV_ROWS:
-            weight_bytes = t.q.numel() + 2 * t.scales.numel() * 2
-            copies = [t] + [clone_mlx(t) for _ in range(
-                cold_copies(weight_bytes) - 1)]
-            r["warm_ms"], r["ms"] = r["ms"], graph_ms(
-                [functools.partial(run, c) for c in copies], iters=5)
-            del copies
+        if M <= k5.MAX_GEMV_ROWS or M == 58:
+            r["warm_ms"], r["ms"] = r["ms"], qmm_cold_ms(run, t)
             txt = f"kernel_ms={r['ms']:.4f} cold {r['warm_ms']:.4f} warm"
             if lib is not None:
                 _, w, _, sz = lib.args
@@ -612,21 +653,22 @@ def check_qmatmul(results: list, dev) -> None:
                         + sz.numel() * sz.element_size())), iters=5))
                 txt += (f" library_ms={r['library_ms']:.4f} cold "
                         f"{r['library_warm_ms']:.4f} warm")
+            print(f"  {name} {shape}: {txt} (device time)", flush=True)
+        if M <= k5.MAX_GEMV_ROWS:
             rt, chunks = k5.qmatmul_gemv_plan(M, K, N, bits, g)
             plan, want = f"GEMV {rt} row tile(s) a block, {chunks} chunk(s)", 1
-            print(f"  {name} {shape}: {txt} (device time)", flush=True)
-        elif bits == 4:
-            _, splits = k5.qmatmul_plan(M, K, N, g)
-            plan, want = f"{splits} K slice(s)", 1 if splits == 1 else 2
-        if M <= k5.MAX_GEMV_ROWS or bits == 4:
-            kernels = kernels_per_call(lambda: run(t))
-            same = bool(torch.equal(run(t), out))
-            r["kernels_per_call"], r["plan"], r["repeat_identical"] = (
-                kernels, plan, same)
-            r["ok"] = r["ok"] and same and kernels == want
-            print(f"  {name} {shape}: {plan}, kernels per call {kernels} "
-                  f"(graph nodes; want {want}), repeat bit-identical {same} "
-                  f"{'ok' if r['ok'] else 'MISMATCH'}", flush=True)
+        else:
+            bm, splits = k5.qmatmul_plan(M, K, N, g, bits=bits)
+            plan = f"GEMM row tile {bm}, {splits} K slice(s)"
+            want = 1 if splits == 1 else 2
+        kernels = kernels_per_call(lambda: run(t))
+        same = bool(torch.equal(run(t), out))
+        r["kernels_per_call"], r["plan"], r["repeat_identical"] = (
+            kernels, plan, same)
+        r["ok"] = r["ok"] and same and kernels == want
+        print(f"  {name} {shape}: {plan}, kernels per call {kernels} "
+              f"(graph nodes; want {want}), repeat bit-identical {same} "
+              f"{'ok' if r['ok'] else 'MISMATCH'}", flush=True)
         del t, x, lib, out
 
 

@@ -17,7 +17,7 @@
 // to bf16.  (K1 differs: it rounds code*s + b to bf16 before its MMA, as
 // its reference does.)
 //
-// Three routes:
+// Two routes:
 // - M <= 8, both widths (decode steps, the prefill lm_head row), entry
 //   mvt_qmatmul_gemv, one launch per call: bound by device-memory
 //   bandwidth; at Qwen2-VL-7B one exact decode step's linears and head read
@@ -69,42 +69,55 @@
 //     repeated call is bit-identical.
 //   * Ragged N: rows >= N are not copied and not stored.  K a whole number
 //     of group pairs (the values are copied as 32-bit words).
-// - M > 8, 8-bit (entry mvt_qmatmul): a block owns 64 rows of x and 128
-//   output rows and walks K in steps of 32 codes; x and the codes unpacked
-//   to bf16 are staged in shared memory, eight warps run mma.sync m16n8k16
-//   into per-group partials folded at each group's end.
-// - M > 8, 4-bit (prefill chunks of an exact-4 model), entry
-//   mvt_qmatmul_int4_gemm: bound by tensor-core operations (2 M N K at 989
-//   TFLOP/s bf16: 512 rows do ~2,000 operations per code byte).  K1's
-//   pipeline (int4_matmul.cu; the wgmma helpers and the split-K pass are in
-//   wgmma.cuh), with what differs for the mlx layout:
+// - M > 8, both widths (prefill chunks of an exact model), entry
+//   mvt_qmatmul_gemm, one kernel qmm_gemm_kernel<BITS, BM, GT>: bound by
+//   tensor-core operations at 512 rows (2 M N K at 989 TFLOP/s bf16, twice
+//   that at 8 bits, whose codes take two MMAs), by bytes at a 58-row chunk
+//   of an 8-bit model (3584^2: 13.6 MB, about 4 us at 3.35 TB/s).
+//   K1's pipeline (int4_matmul.cu; the wgmma helpers and the split-K pass
+//   are in wgmma.cuh), with what differs for the mlx layout:
 //   * Operands swapped: y^T[n, m] = W[n, :] . x[m, :]^T, W the A operand of
 //     wgmma.m64nBMk16 from REGISTERS, x the K-major B tile that TMA loads
 //     with the 128-byte swizzle.  A block owns 128 W rows (two consumer
 //     warpgroups of 64) against BM x rows (64 or 128); one producer thread
 //     keeps a ring of 64-code stages full: x (BM x 64 bf16) and the codes
-//     as they lie in memory (128 W rows x 32 bytes, one TMA box, no
-//     swizzle), behind full/empty mbarriers.
-//   * Codes exact: each nibble becomes bf16 128 + q with a PRMT and one
-//     LOP3 per pair, as K2 does, and a group's partial P = sum x (128 + q)
-//     accumulates on wgmma into an f32 accumulator of its own, zeroed by
-//     scale-d = 0 at the group's first 16-k slice.  At the group's end it
-//     is folded in f32: acc += s P + (b - 128 s) sum x.  Codes 0..255 are
-//     exact in bf16 and x (128 + q) exact in f32, so the contract above
-//     holds.
-//   * The A fragment against the mlx byte order: thread (g8, t) of a slice
-//     needs byte t and byte t + 4 of each of its two W rows' 8-byte slice.
-//     It reads its two 32-byte rows of the stage with four 16-byte loads
-//     (rows 64 apart within a quarter warp: no bank conflicts; each row is
-//     read by the quad's four threads at once), and PRMTs gather byte t of
-//     the eight words.  A row g8 / g8 + 8 of a warp are W rows 2 g8 / 2 g8
-//     + 1, as in K1, so the epilogue stores bf16 pairs.  The other two ways
-//     (a 32-bit read with a quad exchange; x permuted within each 16-k
-//     chunk by a pre-pass) were not built: the first costs more shuffles
-//     than these loads cost, the second a launch and a pass over x.
+//     as they lie in memory (128 W rows x 32 bytes at 4 bits, no swizzle;
+//     x 64 bytes at 8 bits, with the 64-byte swizzle), one TMA box, behind
+//     full/empty mbarriers.  The stages per ring (QmmLayout) fill the 227
+//     KB for each width and row tile.
+//   * Codes exact, no integer-to-float conversion (chip_smoke.py phase 1
+//     counts I2F in the 8-bit instance's SASS).  4 bits: each nibble
+//     becomes bf16 128 + q with a PRMT and one LOP3 per pair, as K2 does.
+//     8 bits: each byte gives two exact parts, 128 + (low nibble) and 256 +
+//     16 (high nibble), as the GEMV's codes8, and the two parts run as two
+//     wgmmas into the same partial, which then sums x (384 + q).  A group's
+//     partial P accumulates on wgmma into an f32 accumulator of its own,
+//     zeroed by scale-d = 0 at the group's first 16-k slice, and is folded
+//     at the group's end in f32: acc += s P + (b - c s) sum x, c = 128 or
+//     384.  Codes 0..255 and the parts are exact in bf16 and x times them
+//     exact in f32, so the contract above holds.
+//   * The A fragment against the mlx byte order: thread (g8, t) of a 16-k
+//     slice needs codes 2t, 2t+1, 2t+8 and 2t+9 of each of its two W rows.
+//     4 bits: bytes t and t + 4 of the row's 8-byte slice; the thread reads
+//     its two 32-byte rows of the stage with four 16-byte loads (rows 64
+//     apart within a quarter warp: no bank conflicts; each row is read by
+//     the quad's four threads at once), and PRMTs gather byte t of the
+//     eight words.  8 bits: halfwords t and t + 4 of the row's 16-byte
+//     chunk; one 16-byte load per row and slice, one PRMT per halfword, and
+//     the 64-byte swizzle puts the two rows of a quarter warp's two quads
+//     (128 bytes apart) on other banks.  A row g8 / g8 + 8 of a warp are W
+//     rows 2 g8 / 2 g8 + 1, as in K1, so the epilogue stores bf16 pairs.
+//     x arrives unpermuted, so every k is in its natural order.
+//   * Registers: the next step's A fragments are built while the current
+//     step's wgmmas run, as in K1.  A 4-bit step is a stage (16
+//     registers); an 8-bit stage's fragments are twice that, so at BM =
+//     128 its step is half a stage (two slices, four wgmmas): acc, P and
+//     two steps' fragments fit in the 208 registers setmaxnreg leaves the
+//     consumers (the group-data warps need 80).  At BM = 64 an 8-bit step
+//     is a stage, and a second partial fits (below).
 //   * Sums of x, scales and biases: the producer warpgroup's three idle
 //     warps take turns, one stage in three each, and write into the stage
-//     (s, b - 128 s) in f32 for the block's 128 W rows and the sum of x per
+//     (s, b - c s) in f32 for the block's 128 W rows and the sum of x per
 //     row and group (from the x tile in shared memory; at g = 128 the
 //     group's second stage adds the first's), then signal a third
 //     mbarrier.  A warp loads the scales and biases of its next stage
@@ -114,29 +127,48 @@
 //     Cost per stage: 8-16 scale and bias reads and 16-32 16-byte shared
 //     reads per lane of one warp, ~1,100 adds, off the consumers' path
 //     but on the same SM sub-partitions.
-//   * The fold needs the partial complete: one partial per warpgroup, so a
-//     fold waits for its group's wgmmas (wait_group 0) while the other
-//     warpgroup's wgmmas may run.  Two partials would let a warpgroup
-//     overlap its own fold, at BM/2 more registers: at BM = 128, acc, two
-//     partials and two stages of A fragments would be 224 registers, more
-//     than the 208 setmaxnreg leaves the consumers (the group-data warps
-//     need 80).  The next stage's A fragments are built while the current
-//     stage's wgmmas run, as in K1.
-//   * What bounds it on an H100: instruction issue, not the tensor cores.
-//     The fold is 2 FMAs per accumulator and group on the consumers' SM
-//     sub-partitions, beside the A fragments' PRMT / LOP3 work and the
-//     group-data warps' sums.  Builds with the fold or the sums of x taken
-//     out (wrong results, timing only) ran faster, the fold the more, and
-//     with both out about as fast as K1.  Tried and dropped: making the
-//     warpgroups take turns to issue their wgmmas (named barriers; no
-//     change), and summing x on mma.sync with A = 1 in the group-data
-//     warps, as K2 does (slower: the MMAs' latency chain per stage).
-//   * Narrow outputs: the plan (ops/qmatmul.py:qmatmul_plan) splits K into
-//     S slices of whole units of max(g, 64) codes, enough to fill the 132
-//     SMs; slices write f32 partials that splitk_reduce adds in slice
-//     order and rounds once.  No atomics: a repeated call is bit-identical.
+//   * The fold needs the partial complete.  With one partial per
+//     warpgroup (4 bits; 8 bits at BM = 128) a fold waits for its group's
+//     wgmmas (wait_group 0) while the other warpgroup's wgmmas may run; two
+//     partials at BM = 128 with two steps of fragments would be 224
+//     registers.  The 8-bit kernel at BM = 64 (a 58-row chunk) has two,
+//     P and Q, taking turns by group: a group is folded once the next
+//     group's wgmmas are issued (wait_group 1).  ptxas serializes every
+//     wgmma of a kernel (warning C7514 / C7515) where a partial that is
+//     read might be one still in flight, so the partials' roles are fixed
+//     in the code: the loop is unrolled over two groups, the kernel is
+//     built for each g (GT; 0 elsewhere, g a runtime shift), and the loop
+//     drains its wgmmas (wait_group 0) before its back edge.  A build with
+//     one loop for every g, or with a wgmma in flight across the back
+//     edge, or choosing the partial at run time, was serialized.
+//   * What bounds the 4-bit kernel on an H100: instruction issue, not the
+//     tensor cores.  The fold is 2 FMAs per accumulator and group on the
+//     consumers' SM sub-partitions, beside the A fragments' PRMT / LOP3
+//     work and the group-data warps' sums.  Builds with the fold or the sums
+//     of x taken out (wrong results, timing only) ran faster, the fold the
+//     more, and with both out about as fast as K1.  Tried and dropped:
+//     making the warpgroups take turns to issue their wgmmas (named
+//     barriers; no change), and summing x on mma.sync with A = 1 in the
+//     group-data warps, as K2 does (slower: the MMAs' latency chain per
+//     stage).  (A timing build whose partial is never read also lets
+//     ptxas drop the wgmmas that feed it, so the fold's share measured
+//     that way is too large.)  At 8 bits the tensor cores have twice the
+//     work per code and the fold the same.  At BM = 64 the wgmmas are
+//     m64n64k16, and timing builds of the 8-bit kernel (the hi parts'
+//     wgmmas taken out, the A fragments not built, the sums of x or the
+//     whole group data not taken) each ran faster, none by enough to
+//     reach the tensor bound: no one part sets its pace.  Building the
+//     next stage's fragments slice by slice between this stage's wgmmas
+//     was tried and ran slower.
+//   * Narrow outputs and short chunks: the plan
+//     (ops/qmatmul.py:qmatmul_plan) splits K into S slices of whole units
+//     of max(g, 64) codes, enough to fill the 132 SMs (at 8 bits also in
+//     two where more tiles than SMs leave the last wave part empty); slices
+//     write f32 partials that splitk_reduce adds in slice order and rounds
+//     once.  No atomics: a repeated call is bit-identical.
 //   * Ragged edges: TMA fills x rows >= M and W rows >= N with zeros; the
-//     epilogue masks them.  Any M, any N, K % (2 g) == 0.
+//     epilogue masks them.  Any M, any N; K % (2 g) == 0 at 4 bits, K %
+//     max(g, 64) == 0 at 8.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -148,14 +180,7 @@
 
 namespace {
 
-// ------------------------------------------------------- int8 GEMM route
-
-constexpr int BM = 64;        // rows of x per block
-constexpr int BN = 128;       // output rows (of W) per block
-constexpr int BK = 32;        // codes of K per step (the smallest group)
-constexpr int THREADS = 256;  // 8 warps: 2 (m) x 4 (n), each 32 x 32
-constexpr int XS = BK + 8;    // bf16 per x row in smem (20 words: no conflicts)
-constexpr int WS = BK + 8;    // bf16 per W row in smem
+// ------------------------------------------------------------- helpers
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
@@ -166,11 +191,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float bf16_lo(uint32_t w) {
   return __uint_as_float(w << 16);
 }
@@ -179,172 +199,40 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
   return __uint_as_float(w & 0xFFFF0000u);
 }
 
-// 16 code bytes -> 8 words of two bf16 codes each, in K order (lower K at
-// the lower address)
-__device__ __forceinline__ void unpack_codes8(const uint4 q, uint32_t* out) {
-  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const uint32_t pair = (w[i / 2] >> (16 * (i % 2))) & 0xFFFFu;
-    out[i] = pack_bf16((float)(pair & 0xFFu), (float)(pair >> 8));
-  }
+__device__ __forceinline__ uint32_t and_or(uint32_t v, uint32_t mask,
+                                           uint32_t bits) {
+  uint32_t r;  // one LOP3: (v & mask) | bits
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(r) : "r"(v), "r"(mask),
+      "r"(bits));
+  return r;
 }
 
-__global__ void __launch_bounds__(THREADS)
-qmm8_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
-           const __nv_bfloat16* __restrict__ scales,
-           const __nv_bfloat16* __restrict__ biases,
-           __nv_bfloat16* __restrict__ y, int M, int K, int N,
-           int group_size) {
-  constexpr int BITS = 8;
-  constexpr int QV = BK * BITS / 8 / 16;  // 16-byte code vectors per W row
-  __shared__ __align__(16) __nv_bfloat16 xs[BM * XS];
-  __shared__ __align__(16) __nv_bfloat16 ws[BN * WS];  // [n][k]
-  __shared__ float xsum[BM];         // sum of x over the current group
-  __shared__ float gs[BN], gb[BN];   // the current group's scale and bias
+// ------------------------------------------------------------ GEMM route
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int wm = warp / 4, wn = warp % 4;
-  const size_t row_bytes = (size_t)K * BITS / 8;
-  const int G = K / group_size;
-  const int steps = K / BK, per_group = group_size / BK;
+constexpr int QG_BK = 64;        // codes of K per stage
+constexpr int QG_BN = 128;       // output columns (W rows) per block
+constexpr int QG_THREADS = 384;  // two consumer warpgroups + one producer
+constexpr int QG_MAX_STAGES = 12;
 
-  float acc[2][4][4], part[2][4][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][b][c] = part[a][b][c] = 0.f;
-
-  // this thread's share of a step's loads: one 8-bf16 vector of x (row
-  // tid / 4), one 16-byte code vector (W row tid / QV) and, at a group's
-  // first step, one scale / bias pair (W row tid)
-  const int xr_row = tid / 4, xr_col = (tid % 4) * 8;
-  const int qr_row = tid / QV, qr_part = tid % QV;
-  uint4 xr, qr;
-  float sr = 0.f, br = 0.f;
-  auto load = [&](int step) {
-    const int k0 = step * BK;
-    xr = make_uint4(0, 0, 0, 0);
-    if (m0 + xr_row < M)
-      xr = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + xr_row) * K +
-                                           k0 + xr_col);
-    qr = make_uint4(0, 0, 0, 0);
-    if (qr_row < BN && n0 + qr_row < N)
-      qr = *reinterpret_cast<const uint4*>(q + (size_t)(n0 + qr_row) * row_bytes +
-                                           (size_t)k0 * BITS / 8 + qr_part * 16);
-    if (step % per_group == 0 && tid < BN && n0 + tid < N) {
-      const size_t i = (size_t)(n0 + tid) * G + step / per_group;
-      sr = __bfloat162float(scales[i]);
-      br = __bfloat162float(biases[i]);
-    }
-  };
-
-  load(0);
-  for (int step = 0; step < steps; ++step) {
-    // stage this step: x as is, codes unpacked to bf16, the row sums of x
-    *reinterpret_cast<uint4*>(xs + xr_row * XS + xr_col) = xr;
-    {
-      const uint32_t w[4] = {xr.x, xr.y, xr.z, xr.w};
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s += bf16_lo(w[i]) + bf16_hi(w[i]);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if (tid % 4 == 0)
-        xsum[xr_row] = (step % per_group == 0) ? s : xsum[xr_row] + s;
-    }
-    if (qr_row < BN) {
-      uint32_t words[16 * 8 / BITS / 2];
-      unpack_codes8(qr, words);
-      uint4* dst = reinterpret_cast<uint4*>(ws + qr_row * WS +
-                                            qr_part * (16 * 8 / BITS));
-#pragma unroll
-      for (int v = 0; v < 16 * 8 / BITS / 8; ++v)
-        dst[v] = make_uint4(words[4 * v], words[4 * v + 1], words[4 * v + 2],
-                            words[4 * v + 3]);
-    }
-    if (step % per_group == 0 && tid < BN) {
-      gs[tid] = sr;
-      gb[tid] = br;
-    }
-    __syncthreads();
-    if (step + 1 < steps) load(step + 1);  // in flight during the MMAs
-
-    const uint32_t* xsw = reinterpret_cast<const uint32_t*>(xs);
-    const uint32_t* wsw = reinterpret_cast<const uint32_t*>(ws);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = wm * 32 + mt * 16 + g;
-        a[mt][0] = xsw[(r * XS) / 2 + kk * 8 + t];
-        a[mt][1] = xsw[((r + 8) * XS) / 2 + kk * 8 + t];
-        a[mt][2] = xsw[(r * XS) / 2 + kk * 8 + 4 + t];
-        a[mt][3] = xsw[((r + 8) * XS) / 2 + kk * 8 + 4 + t];
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = wn * 32 + nt * 8 + g;
-        const uint32_t b0 = wsw[(col * WS) / 2 + kk * 8 + t];
-        const uint32_t b1 = wsw[(col * WS) / 2 + kk * 8 + 4 + t];
-        mma_bf16(part[0][nt], a[0], b0, b1);
-        mma_bf16(part[1][nt], a[1], b0, b1);
-      }
-    }
-    if ((step + 1) % per_group == 0) {  // the group ends: fold its partials
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = wm * 32 + mt * 16 + g + (e >= 2 ? 8 : 0);
-            const int c = wn * 32 + nt * 8 + 2 * t + (e & 1);
-            acc[mt][nt][e] = fmaf(gs[c], part[mt][nt][e],
-                                  fmaf(gb[c], xsum[r], acc[mt][nt][e]));
-            part[mt][nt][e] = 0.f;
-          }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * 32 + mt * 16 + g + (e >= 2 ? 8 : 0);
-        const int col = n0 + wn * 32 + nt * 8 + 2 * t + (e & 1);
-        if (row < M && col < N)
-          y[(size_t)row * N + col] = __float2bfloat16_rn(acc[mt][nt][e]);
-      }
-}
-
-// ------------------------------------------------------- int4 GEMM route
-
-constexpr int Q4_BK = 64;        // codes of K per stage
-constexpr int Q4_BN = 128;       // output columns (W rows) per block
-constexpr int Q4_THREADS = 384;  // two consumer warpgroups + one producer
-constexpr int Q4_MAX_STAGES = 12;
-
-template <int BM>
-struct Q4Layout {
-  static constexpr int X_BYTES = BM * Q4_BK * 2;      // x, 128B swizzle
-  static constexpr int W_BYTES = Q4_BN * Q4_BK / 2;   // codes, 32 B per row
-  static constexpr int SC_BYTES = 2 * Q4_BN * 8;      // float2 [slot][row]
+// A stage of the GEMM's ring for BITS-bit codes and a row tile of BM: x
+// (BM x 64 bf16, 128-byte swizzle), the codes (128 W rows x 32 bytes at 4
+// bits, no swizzle; x 64 bytes at 8 bits, 64-byte swizzle), then the
+// group data.  ops/qmatmul.py:_gemm_smem mirrors it.
+template <int BITS, int BM>
+struct QmmLayout {
+  static constexpr int X_BYTES = BM * QG_BK * 2;            // x, 128B swizzle
+  static constexpr int W_BYTES = QG_BN * QG_BK * BITS / 8;  // codes
+  static constexpr int SC_BYTES = 2 * QG_BN * 8;      // float2 [slot][row]
   static constexpr int XS_BYTES = 2 * BM * 4;         // float [slot][row]
   static constexpr int META = (SC_BYTES + XS_BYTES + 1023) / 1024 * 1024;
   static constexpr int STAGE = X_BYTES + W_BYTES + META;
-  static constexpr int STAGES = BM == 64 ? 12 : 8;
+  static constexpr int STAGES =
+      BITS == 4 ? (BM == 64 ? 12 : 8) : (BM == 64 ? 11 : 8);
   static constexpr int SMEM = STAGES * STAGE + 1024;  // + alignment slack
+  static constexpr float OFF = BITS == 4 ? 128.f : 384.f;  // code offset
   static_assert(STAGE % 1024 == 0, "stages must keep 1024-byte alignment");
-  static_assert(STAGES <= Q4_MAX_STAGES, "barrier arrays too short");
+  static_assert(STAGES <= QG_MAX_STAGES, "barrier arrays too short");
+  static_assert(SMEM + 3 * QG_MAX_STAGES * 8 <= 232448, "shared memory");
 };
 
 __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
@@ -398,13 +286,36 @@ __device__ __forceinline__ void q4_fragments(uint32_t (&a)[4][4],
   }
 }
 
-// acc += s P + (b - 128 s) sum(x) for one finished group: `sc` holds the
-// group's (s, b - 128 s) per W row, `xs` its sum of x per x row.
-// P.v[4i + e] is W row r0 + (e >> 1), x row 8i + 2t + (e & 1).
+// A fragments of 16-k slice kk of a stage for one thread, 8-bit codes.
+// `w` points at W row r0 of the stage's code box (64 bytes a row, row r0 +
+// 1 follows), whose 16-byte chunk c of both rows TMA wrote at chunk c ^ sw
+// (the 64-byte swizzle, sw = (r0 / 2) % 4).  The slice needs bytes 2t,
+// 2t+1 (halfword t of chunk kk) and 2t+8, 2t+9 (halfword t + 4) of each
+// row; `sel` puts halfword t of a word pair at bytes 0 and 2.  Each byte
+// gives two exact bf16 parts, lo = 128 + (low nibble) and hi = 256 + 16
+// (high nibble) (as codes8 below).
+__device__ __forceinline__ void q8_slice(uint32_t (&lo)[4], uint32_t (&hi)[4],
+                                         const uint8_t* w, int sw, int kk,
+                                         uint32_t sel) {
+  const int c = kk ^ sw;
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const uint4 u = *reinterpret_cast<const uint4*>(w + 64 * row + 16 * c);
+    const uint32_t v0 = prmt(u.x, u.y, sel), v1 = prmt(u.z, u.w, sel);
+    lo[row] = and_or(v0, 0x000F000Fu, 0x43004300u);
+    lo[2 + row] = and_or(v1, 0x000F000Fu, 0x43004300u);
+    hi[row] = and_or(v0 >> 1, 0x00780078u, 0x43804380u);
+    hi[2 + row] = and_or(v1 >> 1, 0x00780078u, 0x43804380u);
+  }
+}
+
+// acc += s P + (b - c s) sum(x) for one finished group (c = 128 at 4 bits,
+// 384 at 8): `sc` holds the group's (s, b - c s) per W row, `xs` its sum of
+// x per x row.  P.v[4i + e] is W row r0 + (e >> 1), x row 8i + 2t + (e & 1).
 template <int BM>
-__device__ __forceinline__ void q4_fold(Acc<BM>& acc, const Acc<BM>& P,
-                                        const float2* sc, const float* xs,
-                                        int r0, int t) {
+__device__ __forceinline__ void qmm_fold(Acc<BM>& acc, const Acc<BM>& P,
+                                         const float2* sc, const float* xs,
+                                         int r0, int t) {
   const float4 v = *reinterpret_cast<const float4*>(sc + r0);
 #pragma unroll
   for (int i = 0; i < BM / 8; ++i) {
@@ -424,35 +335,45 @@ __device__ __forceinline__ float bf16_sum8(const uint4 u) {
          ((bf16_lo(u.z) + bf16_hi(u.z)) + (bf16_lo(u.w) + bf16_hi(u.w)));
 }
 
+// floor(n / d) for a split's bounds, m = ceil(2^32 / d) from the host (0
+// for d = 1): exact while n d < 2^32, and free of the integer-to-float
+// conversions that the code of an integer division holds.
+__device__ __forceinline__ int div_magic(uint32_t n, uint32_t m) {
+  return m ? (int)__umulhi(n, m) : (int)n;
+}
+
 // Grid: (ceil(M / BM) x tiles, ceil(N / 128) W tiles, splits).  Warps 0-3
 // and 4-7 are the consumer warpgroups of W rows 0-63 and 64-127 of the
 // tile; lane 0 of warp 8 is the producer; warps 9-11 take turns to write a
-// stage's group data (s, b - 128 s, sums of x).  Split slice z covers units
-// [z U / S, (z + 1) U / S) of the U units of max(g, 64) codes; with
-// splits > 1 the block writes f32 partials to part[z], else bf16 to y.
-template <int BM>
-__global__ void __launch_bounds__(Q4_THREADS, 1)
-qmm4_kernel(const __grid_constant__ CUtensorMap xmap,
-            const __grid_constant__ CUtensorMap qmap,
-            const __nv_bfloat16* __restrict__ scales,
-            const __nv_bfloat16* __restrict__ biases,
-            __nv_bfloat16* __restrict__ y, float* __restrict__ part, int M,
-            int K, int N, int g, int splits) {
-  using L = Q4Layout<BM>;
+// stage's group data (s, b - c s, sums of x).  Split slice z covers units
+// [z U / S, (z + 1) U / S) of the U units of max(g, 64) codes (split_m the
+// magic of S for div_magic); with splits > 1 the block writes f32 partials
+// to part[z], else bf16 to y.  g = 1 << lg, so that the kernel divides by
+// no runtime value; the 8-bit kernel at BM = 64 is built for each g (GT).
+template <int BITS, int BM, int GT>
+__global__ void __launch_bounds__(QG_THREADS, 1)
+qmm_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap qmap,
+                const __nv_bfloat16* __restrict__ scales,
+                const __nv_bfloat16* __restrict__ biases,
+                __nv_bfloat16* __restrict__ y, float* __restrict__ part, int M,
+                int K, int N, int lg, int splits, uint32_t split_m) {
+  using L = QmmLayout<BITS, BM>;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full[Q4_MAX_STAGES], empty[Q4_MAX_STAGES];
-  __shared__ __align__(8) uint64_t ready[Q4_MAX_STAGES];
+  __shared__ __align__(8) uint64_t full[QG_MAX_STAGES], empty[QG_MAX_STAGES];
+  __shared__ __align__(8) uint64_t ready[QG_MAX_STAGES];
   // aligned by an offset from the __shared__ array (32-bit shared loads)
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * Q4_BN;
-  const int G = K / g;
-  const int per_unit = (g > Q4_BK ? g : Q4_BK) / Q4_BK;  // stages per unit
-  const int units = K / (per_unit * Q4_BK);
-  const int t0 = (int)((long long)blockIdx.z * units / splits) * per_unit;
-  const int t1 =
-      (int)((long long)(blockIdx.z + 1) * units / splits) * per_unit;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * QG_BN;
+  static_assert((BITS == 8 && BM == 64) == (GT != 0), "GT: 8-bit, BM 64");
+  const int g = GT ? GT : 1 << lg, G = K >> lg;
+  const int lu = lg > 6 ? lg : 6;  // a unit is 1 << lu codes: max(g, 64)
+  const int per_unit = 1 << (lu - 6);  // stages per unit
+  const int units = K >> lu;
+  const int t0 = div_magic(blockIdx.z * units, split_m) * per_unit;
+  const int t1 = div_magic((blockIdx.z + 1) * units, split_m) * per_unit;
   const int slots = g == 32 ? 2 : 1;  // groups that end in one stage
 
   if (threadIdx.x == 0) {
@@ -480,10 +401,10 @@ qmm4_kernel(const __grid_constant__ CUtensorMap xmap,
           const int s = it % L::STAGES;
           mbar_wait(&empty[s], ((it / L::STAGES) & 1) ^ 1);
           uint8_t* st = smem + s * L::STAGE;
-          const int k0 = (t0 + it) * Q4_BK;
+          const int k0 = (t0 + it) * QG_BK;
           mbar_expect_tx(&full[s], L::X_BYTES + L::W_BYTES);
           tma_load_2d(st, &xmap, &full[s], k0, m0);
-          tma_load_2d(st + L::X_BYTES, &qmap, &full[s], k0 / 2, n0);
+          tma_load_2d(st + L::X_BYTES, &qmap, &full[s], k0 * BITS / 8, n0);
         }
       }
       return;
@@ -494,7 +415,7 @@ qmm4_kernel(const __grid_constant__ CUtensorMap xmap,
     const int j = warp - 9, nst = t1 - t0;
     uint32_t cur[4][2], nxt[4][2];  // bf16 s and b: [row][s, b], slot 1 high
     auto load_sb = [&](int it, uint32_t(&sb)[4][2]) {
-      const int gi = (t0 + it) * Q4_BK / g;
+      const int gi = ((t0 + it) * QG_BK) >> lg;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int n = n0 + lane + 32 * i;
@@ -513,7 +434,7 @@ qmm4_kernel(const __grid_constant__ CUtensorMap xmap,
     for (int it = j; it < nst; it += 3) {
       if (it + 3 < nst) load_sb(it + 3, nxt);
       const int s = it % L::STAGES;
-      const int k0 = (t0 + it) * Q4_BK;
+      const int k0 = (t0 + it) * QG_BK;
       mbar_wait(&full[s], (it / L::STAGES) & 1);
       uint8_t* st = smem + s * L::STAGE;
       float2* sc = reinterpret_cast<float2*>(st + L::X_BYTES + L::W_BYTES);
@@ -526,8 +447,8 @@ qmm4_kernel(const __grid_constant__ CUtensorMap xmap,
           if (slot < slots) {
             const float sv = slot ? bf16_hi(cur[i][0]) : bf16_lo(cur[i][0]);
             const float bv = slot ? bf16_hi(cur[i][1]) : bf16_lo(cur[i][1]);
-            sc[slot * Q4_BN + lane + 32 * i] =
-                make_float2(sv, fmaf(-128.f, sv, bv));
+            sc[slot * QG_BN + lane + 32 * i] =
+                make_float2(sv, fmaf(-L::OFF, sv, bv));
           }
         }
       }
@@ -535,7 +456,7 @@ qmm4_kernel(const __grid_constant__ CUtensorMap xmap,
       // which another warp writes (that stage is not released before this
       // one is ready)
       const float* first = nullptr;
-      if (slots == 1 && k0 % g != 0) {
+      if (slots == 1 && (k0 & (g - 1)) != 0) {
         const int sp = (it - 1) % L::STAGES;
         mbar_wait(&ready[sp], ((it - 1) / L::STAGES) & 1);
         first = reinterpret_cast<const float*>(
@@ -578,68 +499,242 @@ qmm4_kernel(const __grid_constant__ CUtensorMap xmap,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 208;\n");
   const int wg = warp / 4, w = warp % 4, g8 = lane / 4, t = lane % 4;
   const int r0 = 64 * wg + 16 * w + 2 * g8;  // W row of A row g8 (+1: g8+8)
-  const uint32_t sel = t | ((4 + t) << 4);
 
   Acc<BM> acc, P;
 #pragma unroll
   for (int i = 0; i < BM / 2; ++i) acc.v[i] = P.v[i] = 0.f;
-  // A fragments of two stages: one is built while the other's wgmmas run
+  // A fragments of two steps: one is built while the other's wgmmas run
   uint32_t a0[4][4], a1[4][4];
   int prev = -1;
 
-  // fold the group whose data stage s holds in `slot`, once its wgmmas end
+  // fold partial Pg, whose wgmmas are done, of the group whose data stage
+  // s holds in `slot`
+  auto fold_partial = [&](Acc<BM>& Pg, int s, int slot) {
+#pragma unroll
+    for (int i = 0; i < BM / 2; ++i) fence_reg(Pg.v[i]);
+    const uint8_t* m = smem + s * L::STAGE + L::X_BYTES + L::W_BYTES;
+    qmm_fold<BM>(acc, Pg, reinterpret_cast<const float2*>(m) + slot * QG_BN,
+                 reinterpret_cast<const float*>(m + L::SC_BYTES) + slot * BM,
+                 r0, t);
+  };
+  // fold P once its wgmmas end
   auto fold = [&](int s, int slot) {
     wgmma_wait<0>();
-#pragma unroll
-    for (int i = 0; i < BM / 2; ++i) fence_reg(P.v[i]);
-    const uint8_t* m = smem + s * L::STAGE + L::X_BYTES + L::W_BYTES;
-    q4_fold<BM>(acc, P, reinterpret_cast<const float2*>(m) + slot * Q4_BN,
-                reinterpret_cast<const float*>(m + L::SC_BYTES) + slot * BM,
-                r0, t);
+    fold_partial(P, s, slot);
   };
 
-  auto stage = [&](uint32_t(&a)[4][4], uint32_t(&done)[4][4], int it) {
-    const int s = it % L::STAGES;
-    const int phase = (it / L::STAGES) & 1;
-    mbar_wait(&full[s], phase);
-    mbar_wait(&ready[s], phase);
-    const uint8_t* st = smem + s * L::STAGE;
-    q4_fragments(a, st + L::X_BYTES + r0 * 32, sel);
-    const bool starts = (t0 + it) * Q4_BK % g == 0;
-    // the group that ended with the previous stage is complete: fold it
-    if (starts && prev >= 0) fold(prev, slots - 1);
-    const uint32_t xaddr = smem_u32(st);
-    wgmma_fence();
-    wgmma_rs(P, a[0], x_desc(xaddr), starts ? 0 : 1);
-    wgmma_rs(P, a[1], x_desc(xaddr + 32));
-    if (slots == 2) {  // g = 32: the stage's first group ends here
-      wgmma_commit();
-      fold(s, 0);
+  if constexpr (BITS == 4) {
+    // a step is a stage: four slices, one wgmma each
+    const uint32_t sel = t | ((4 + t) << 4);
+    auto stage = [&](uint32_t(&a)[4][4], uint32_t(&done)[4][4], int it) {
+      const int s = it % L::STAGES;
+      const int phase = (it / L::STAGES) & 1;
+      mbar_wait(&full[s], phase);
+      mbar_wait(&ready[s], phase);
+      const uint8_t* st = smem + s * L::STAGE;
+      q4_fragments(a, st + L::X_BYTES + r0 * 32, sel);
+      const bool starts = ((t0 + it) * QG_BK & (g - 1)) == 0;
+      // the group that ended with the previous stage is complete: fold it
+      if (starts && prev >= 0) fold(prev, slots - 1);
+      const uint32_t xaddr = smem_u32(st);
       wgmma_fence();
-      wgmma_rs(P, a[2], x_desc(xaddr + 64), 0);
-    } else {
-      wgmma_rs(P, a[2], x_desc(xaddr + 64));
-    }
-    wgmma_rs(P, a[3], x_desc(xaddr + 96));
-    wgmma_commit();
-    wgmma_wait<1>();
-    // the previous stage's wgmmas are done: its registers and stage are free
+      wgmma_rs(P, a[0], x_desc(xaddr), starts ? 0 : 1);
+      wgmma_rs(P, a[1], x_desc(xaddr + 32));
+      if (slots == 2) {  // g = 32: the stage's first group ends here
+        wgmma_commit();
+        fold(s, 0);
+        wgmma_fence();
+        wgmma_rs(P, a[2], x_desc(xaddr + 64), 0);
+      } else {
+        wgmma_rs(P, a[2], x_desc(xaddr + 64));
+      }
+      wgmma_rs(P, a[3], x_desc(xaddr + 96));
+      wgmma_commit();
+      wgmma_wait<1>();
+      // the previous stage's wgmmas are done: its registers and stage are
+      // free
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) fence_reg(done[kk][r]);
-    __syncwarp();
-    if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-    prev = s;
-  };
+        for (int r = 0; r < 4; ++r) fence_reg(done[kk][r]);
+      __syncwarp();
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = s;
+    };
 
-  int it = 0;
-  for (; t0 + it + 1 < t1; it += 2) {
-    stage(a0, a1, it);
-    stage(a1, a0, it + 1);
+    int it = 0;
+    for (; t0 + it + 1 < t1; it += 2) {
+      stage(a0, a1, it);
+      stage(a1, a0, it + 1);
+    }
+    if (t0 + it < t1) stage(a0, a1, it);
+    fold(prev, slots - 1);
+  } else {
+    const uint32_t sel = (2 * t) | ((2 * t + 1) << 8);
+    const int sw = g8 & 3;  // (r0 / 2) % 4
+    if constexpr (BM == 64) {
+      // A step is a stage, as at 4 bits (its fragments are 32 registers),
+      // and two partials, P and Q, take turns by group, so that a group is
+      // folded while the next group's wgmmas run.  ptxas serializes the
+      // wgmmas wherever a partial that is read might be one still in
+      // flight, so the partials' roles are fixed in the code (the loop is
+      // unrolled over two groups, the kernel built for each g) and no wgmma
+      // is in flight across the loop's back edge.
+      Acc<BM> Q;
+#pragma unroll
+      for (int i = 0; i < BM / 2; ++i) Q.v[i] = 0.f;
+      uint32_t b0[8][4], b1[8][4];
+      // stage it into partial Pc (`starts`: its group's first stage); the
+      // group that ended with the previous stage is in Pp and is folded
+      // once this stage's wgmmas run.  `split` (g = 32): slices 0-1 are a
+      // group into Pc and slices 2-3 one into Pp, each folded while the
+      // other's wgmmas run.
+      auto stage = [&](uint32_t(&a)[8][4], uint32_t(&done)[8][4],
+                       Acc<BM>& Pc, Acc<BM>& Pp, int it, bool starts,
+                       bool split) {
+        const int s = it % L::STAGES;
+        const int phase = (it / L::STAGES) & 1;
+        mbar_wait(&full[s], phase);
+        mbar_wait(&ready[s], phase);
+        const uint8_t* st = smem + s * L::STAGE;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          q8_slice(a[2 * i], a[2 * i + 1], st + L::X_BYTES + r0 * 64, sw, i,
+                   sel);
+        const uint32_t xaddr = smem_u32(st);
+        wgmma_fence();
+        wgmma_rs(Pc, a[0], x_desc(xaddr), starts ? 0 : 1);
+        wgmma_rs(Pc, a[1], x_desc(xaddr));
+        wgmma_rs(Pc, a[2], x_desc(xaddr + 32));
+        wgmma_rs(Pc, a[3], x_desc(xaddr + 32));
+        if (split) {
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous stage's second group is done
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) fence_reg(done[kk][r]);
+          if (prev >= 0) fold_partial(Pp, prev, 1);
+          wgmma_fence();
+          wgmma_rs(Pp, a[4], x_desc(xaddr + 64), 0);
+          wgmma_rs(Pp, a[5], x_desc(xaddr + 64));
+          wgmma_rs(Pp, a[6], x_desc(xaddr + 96));
+          wgmma_rs(Pp, a[7], x_desc(xaddr + 96));
+          wgmma_commit();
+          wgmma_wait<1>();
+          fold_partial(Pc, s, 0);  // this stage's first group is done
+        } else {
+          wgmma_rs(Pc, a[4], x_desc(xaddr + 64));
+          wgmma_rs(Pc, a[5], x_desc(xaddr + 64));
+          wgmma_rs(Pc, a[6], x_desc(xaddr + 96));
+          wgmma_rs(Pc, a[7], x_desc(xaddr + 96));
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous stage's wgmmas are done
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) fence_reg(done[kk][r]);
+          if (starts && prev >= 0) fold_partial(Pp, prev, 0);
+        }
+        __syncwarp();
+        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = s;
+      };
+
+      const int nst = t1 - t0;
+      int it = 0;
+      bool tail = false;
+      if constexpr (GT == 32) {
+        for (; it + 2 <= nst; it += 2) {
+          stage(b0, b1, P, Q, it, true, true);
+          stage(b1, b0, P, Q, it + 1, true, true);
+          wgmma_wait<0>();
+        }
+        if (it < nst) stage(b0, b1, P, Q, it, true, true);
+      } else if constexpr (GT == 64) {
+        // four groups between drains: each drain costs a bubble
+        for (; it + 4 <= nst; it += 4) {
+          stage(b0, b1, P, Q, it, true, false);
+          stage(b1, b0, Q, P, it + 1, true, false);
+          stage(b0, b1, P, Q, it + 2, true, false);
+          stage(b1, b0, Q, P, it + 3, true, false);
+          wgmma_wait<0>();
+        }
+        if (it + 2 <= nst) {
+          stage(b0, b1, P, Q, it, true, false);
+          stage(b1, b0, Q, P, it + 1, true, false);
+          wgmma_wait<0>();
+          it += 2;
+        }
+        tail = it < nst;
+        if (tail) stage(b0, b1, P, Q, it, true, false);
+      } else {
+        for (; it + 4 <= nst; it += 4) {
+          stage(b0, b1, P, Q, it, true, false);
+          stage(b1, b0, P, Q, it + 1, false, false);
+          stage(b0, b1, Q, P, it + 2, true, false);
+          stage(b1, b0, Q, P, it + 3, false, false);
+          wgmma_wait<0>();
+        }
+        tail = it < nst;  // one group of two stages
+        if (tail) {
+          stage(b0, b1, P, Q, it, true, false);
+          stage(b1, b0, P, Q, it + 1, false, false);
+        }
+      }
+      // the last group: Q at g = 32 (slot 1), else P after a tail group
+      wgmma_wait<0>();
+      if (tail)
+        fold_partial(P, prev, 0);
+      else
+        fold_partial(Q, prev, GT == 32 ? 1 : 0);
+    } else {
+      // a step is half a stage: two slices, two wgmmas each (lo and hi
+      // parts), so that two steps' fragments fit beside acc and P at BM =
+      // 128; a fold waits for the wgmmas to drain
+      int prev_slot = 0;
+      auto step = [&](uint32_t(&a)[4][4], uint32_t(&done)[4][4], int j) {
+        const int it = j >> 1, h = j & 1;
+        const int s = it % L::STAGES;
+        if (h == 0) {
+          const int phase = (it / L::STAGES) & 1;
+          mbar_wait(&full[s], phase);
+          mbar_wait(&ready[s], phase);
+        }
+        const uint8_t* st = smem + s * L::STAGE;
+        const uint8_t* w = st + L::X_BYTES + r0 * 64;
+        q8_slice(a[0], a[1], w, sw, 2 * h, sel);
+        q8_slice(a[2], a[3], w, sw, 2 * h + 1, sel);
+        const bool starts = (((t0 + it) * QG_BK + 32 * h) & (g - 1)) == 0;
+        // the group that ended with the previous step is complete: fold it
+        if (starts && prev >= 0) fold(prev, prev_slot);
+        const uint32_t xaddr = smem_u32(st) + 64 * h;
+        wgmma_fence();
+        wgmma_rs(P, a[0], x_desc(xaddr), starts ? 0 : 1);
+        wgmma_rs(P, a[1], x_desc(xaddr));
+        wgmma_rs(P, a[2], x_desc(xaddr + 32));
+        wgmma_rs(P, a[3], x_desc(xaddr + 32));
+        wgmma_commit();
+        wgmma_wait<1>();
+        // the previous step's wgmmas are done: its registers are free, and
+        // its stage too where it was the stage's second half
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) fence_reg(done[kk][r]);
+        __syncwarp();
+        if (h == 0 && prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = s;
+        prev_slot = slots == 2 ? h : 0;
+      };
+
+      for (int j = 0; j < 2 * (t1 - t0); j += 2) {
+        step(a0, a1, j);
+        step(a1, a0, j + 1);
+      }
+      fold(prev, prev_slot);
+    }
   }
-  if (t0 + it < t1) stage(a0, a1, it);
-  fold(prev, slots - 1);
 
   // ---- epilogue: acc.v[4i + e] is W row r0 + (e >> 1), x row 8i + 2t +
   // (e & 1) of the tile
@@ -675,24 +770,30 @@ qmm4_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-template <int BM>
-cudaError_t launch_q4(const void* x, const void* q, const __nv_bfloat16* s,
-                      const __nv_bfloat16* b, __nv_bfloat16* y, float* part,
-                      int M, int K, int N, int g, int splits,
-                      cudaStream_t st) {
+template <int BITS, int BM, int GT>
+cudaError_t launch_qmm(const void* x, const void* q, const __nv_bfloat16* s,
+                       const __nv_bfloat16* b, __nv_bfloat16* y, float* part,
+                       int M, int K, int N, int g, int splits,
+                       cudaStream_t st) {
   CUtensorMap xmap, qmap;
   if (!tensor_map(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, BM,
-                  Q4_BK, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !tensor_map(&qmap, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K / 2, Q4_BN,
-                  Q4_BK / 2, CU_TENSOR_MAP_SWIZZLE_NONE))
+                  QG_BK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&qmap, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N,
+                  K * BITS / 8, QG_BN, QG_BK * BITS / 8,
+                  BITS == 4 ? CU_TENSOR_MAP_SWIZZLE_NONE
+                            : CU_TENSOR_MAP_SWIZZLE_64B))
     return cudaErrorInvalidValue;
-  const int smem = Q4Layout<BM>::SMEM;
+  const int smem = QmmLayout<BITS, BM>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      qmm4_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      qmm_gemm_kernel<BITS, BM, GT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((M + BM - 1) / BM, (N + Q4_BN - 1) / Q4_BN, splits);
-  qmm4_kernel<BM><<<grid, Q4_THREADS, smem, st>>>(xmap, qmap, s, b, y, part,
-                                                  M, K, N, g, splits);
+  dim3 grid((M + BM - 1) / BM, (N + QG_BN - 1) / QG_BN, splits);
+  const int lg = g == 32 ? 5 : g == 64 ? 6 : 7;
+  const uint32_t split_m =
+      splits > 1 ? (uint32_t)(((1ULL << 32) + splits - 1) / splits) : 0u;
+  qmm_gemm_kernel<BITS, BM, GT><<<grid, QG_THREADS, smem, st>>>(
+      xmap, qmap, s, b, y, part, M, K, N, lg, splits, split_m);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const long long total = (long long)M * N;
@@ -751,14 +852,6 @@ __host__ __device__ inline QmvSmem qmv_smem(int M, int K, int bits, int g,
   r.xstride = (kc * 2 + 127) / 128 * 128 + 16;  // x rows 16 bytes apart
   r.bytes = 8 * MV_WARP_RING + r.sb_slots * 2 * (16 << lrt) * r.sbw * 2 +
             M * r.xstride + kc / g * 8 * 4;
-  return r;
-}
-
-__device__ __forceinline__ uint32_t and_or(uint32_t v, uint32_t mask,
-                                           uint32_t bits) {
-  uint32_t r;  // one LOP3: (v & mask) | bits
-  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(r) : "r"(v), "r"(mask),
-      "r"(bits));
   return r;
 }
 
@@ -1193,24 +1286,6 @@ cudaError_t launch_qmv(const __nv_bfloat16* x, const uint8_t* q,
 
 }  // namespace
 
-// The int8 GEMM route (M > 8): x [M, K] bf16 (16-byte aligned rows); q
-// [N, K] u8; scales and biases [N, K/group_size] bf16; y [M, N] bf16.
-// group_size in {32, 64, 128}, K a multiple of group_size.  The wrapper
-// checks all of it.
-extern "C" int mvt_qmatmul(const void* x, const void* q, const void* scales,
-                           const void* biases, void* y, int M, int K, int N,
-                           int bits, int group_size, void* stream) {
-  if (M <= 8 || bits != 8 || group_size % BK || K % group_size)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  qmm8_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
-      static_cast<const __nv_bfloat16*>(scales),
-      static_cast<const __nv_bfloat16*>(biases),
-      static_cast<__nv_bfloat16*>(y), M, K, N, group_size);
-  return (int)cudaGetLastError();
-}
-
 // The GEMV route (1 <= M <= 8, both widths): x [M, K] bf16 (16-byte
 // aligned); q [N, K*bits/8] u8 (8-byte aligned rows); scales and biases
 // [N, K/group_size] bf16 (4-byte aligned); y [M, N] bf16.  bits in {4, 8};
@@ -1248,29 +1323,34 @@ extern "C" int mvt_qmatmul_gemv(const void* x, const void* q,
   return (int)cudaErrorInvalidValue;
 }
 
-// The int4 GEMM route (M > 8): x [M, K] bf16, q [N, K/2] u8, scales and
-// biases [N, K/g] bf16, y [M, N] bf16, part [splits, M, N] f32 scratch when
-// splits > 1.  g in {32, 64, 128}, K % (2 g) == 0, bm 64 or 128, splits at
-// most K / max(g, 64); x and q 16-byte aligned.  The wrapper's plan
-// (ops/qmatmul.py:qmatmul_plan) picks bm and splits.
-extern "C" int mvt_qmatmul_int4_gemm(const void* x, const void* q,
-                                     const void* scales, const void* biases,
-                                     void* y, void* part, int M, int K, int N,
-                                     int group_size, int bm, int splits,
-                                     void* stream) {
+// The GEMM route (M > 8, both widths): x [M, K] bf16, q [N, K * bits / 8]
+// u8, scales and biases [N, K/g] bf16, y [M, N] bf16, part [splits, M, N]
+// f32 scratch when splits > 1.  g in {32, 64, 128}; K a multiple of 2 g at
+// 4 bits, of max(g, 64) at 8; bm 64 or 128, splits at most K / max(g, 64);
+// x and q 16-byte aligned, scales and biases 4-byte aligned.  The
+// wrapper's plan (ops/qmatmul.py:qmatmul_plan) picks bm and splits.
+extern "C" int mvt_qmatmul_gemm(const void* x, const void* q,
+                                const void* scales, const void* biases,
+                                void* y, void* part, int M, int K, int N,
+                                int bits, int group_size, int bm, int splits,
+                                void* stream) {
   const auto* sp = static_cast<const __nv_bfloat16*>(scales);
   const auto* bp = static_cast<const __nv_bfloat16*>(biases);
   auto* yp = static_cast<__nv_bfloat16*>(y);
   auto* pp = static_cast<float*>(part);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int g = group_size;
-  if (M <= 0 || N <= 0 || (g != 32 && g != 64 && g != 128) || K % (2 * g) ||
-      splits < 1 || splits > K / (g > Q4_BK ? g : Q4_BK) ||
-      (splits > 1 && !part))
+  const int g = group_size, unit = g > QG_BK ? g : QG_BK;
+  if (M <= 0 || N <= 0 || (g != 32 && g != 64 && g != 128) ||
+      K % (bits == 4 ? 2 * g : unit) || K % unit || splits < 1 ||
+      splits > K / unit || (splits > 1 && !part) ||
+      (unsigned long long)(K / unit) * splits * splits >= (1ULL << 32))
     return (int)cudaErrorInvalidValue;
-  if (bm == 64)
-    return (int)launch_q4<64>(x, q, sp, bp, yp, pp, M, K, N, g, splits, st);
-  if (bm == 128)
-    return (int)launch_q4<128>(x, q, sp, bp, yp, pp, M, K, N, g, splits, st);
+#define MVT_QMM(B, BM_, GT)                                               \
+  if (bits == B && bm == BM_ && (GT == 0 || g == GT))                     \
+    return (int)launch_qmm<B, BM_, GT>(x, q, sp, bp, yp, pp, M, K, N, g,  \
+                                       splits, st);
+  MVT_QMM(4, 64, 0) MVT_QMM(4, 128, 0) MVT_QMM(8, 128, 0)
+  MVT_QMM(8, 64, 32) MVT_QMM(8, 64, 64) MVT_QMM(8, 64, 128)
+#undef MVT_QMM
   return (int)cudaErrorInvalidValue;
 }

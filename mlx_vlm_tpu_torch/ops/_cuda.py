@@ -54,13 +54,12 @@ _SIGNATURES = {
     # part_acc, tickets, out, 2 x (d, kbits, vbits), nseg, BH, G, C,
     # tokens, warps, combiners, smem, scale, stream
     "mvt_tq_kv_attention": (_P,) * 19 + (_I,) * 14 + (_F, _P),
-    # x, q, scales, biases, y, M, K, N, bits, group_size, stream
-    "mvt_qmatmul": (_P,) * 5 + (_I,) * 5 + (_P,),
     # x, q, scales, biases, y, M, K, N, bits, group_size, row_tiles, chunks,
     # stream
     "mvt_qmatmul_gemv": (_P,) * 5 + (_I,) * 7 + (_P,),
-    # x, q, scales, biases, y, part, M, K, N, group_size, bm, splits, stream
-    "mvt_qmatmul_int4_gemm": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # x, q, scales, biases, y, part, M, K, N, bits, group_size, bm, splits,
+    # stream
+    "mvt_qmatmul_gemm": (_P,) * 6 + (_I,) * 7 + (_P,),
 }
 
 

@@ -3,19 +3,18 @@
 Port of mlx_vlm_tpu/ops/qmatmul.py (`quantized_matmul_pallas` :174,
 `_qmm_2d` :118 with its Pallas kernels `_qmm4_kernel` :53 and `_qmm8_kernel`
 :83).  K5, one CUDA source written for Hopper (csrc/qmatmul.cu), takes
-their place for every linear of an "exact" model, by three entry points:
+their place for every linear of an "exact" model, by two entry points:
 
 - up to 8 rows (decode steps, the lm_head row), both widths: a GEMV on
   `mma.sync` with the codes exact as bf16 operands, one launch per call;
   `qmatmul_gemv_plan` picks its row tiles per block and its chunks of K;
-- more than 8 rows at 4 bits (prefill chunks): a `wgmma` kernel on K1's
-  pipeline with the codes exact in registers (`qmatmul_plan` picks its row
-  tile and K split);
-- more than 8 rows at 8 bits: an `mma.sync` GEMM with the codes in shared
-  memory.
+- more than 8 rows (prefill chunks), both widths: a `wgmma` kernel on K1's
+  pipeline with the codes exact in registers (an 8-bit code as two exact
+  parts, two products into one partial); `qmatmul_plan` picks its row tile
+  and K split, and a split K takes a second, ordered pass.
 
-Each folds a group's f32 partial as s P + (b - c s) sum x and rounds once
-to bf16 (see the .cu header).
+Each folds a group's f32 partial as s P + (b - c s) sum x (c = 128 at 4
+bits, 384 at 8) and rounds once to bf16 (see the .cu header).
 
 W is a 2-D QuantizedTensor: q uint8 [N, K * bits / 8] (4-bit: byte j of a
 row holds code 2j in its low nibble and 2j+1 in its high nibble; 8-bit: one
@@ -54,6 +53,13 @@ GEMV_BIG_ROWS = 4
 GEMV_WARP_RING = 2 * 16 * (4 * 32 + 16)
 GEMV_STEP = 32
 GEMV_RING_STEPS = 2 * 4  # MV_RING stages of MV_SS steps
+
+# csrc/qmatmul.cu's GEMM constants: codes of K per ring stage, W rows per
+# block, and the ring's stages per (bits, row tile) (QmmLayout::STAGES)
+GEMM_BK = 64
+GEMM_BN = 128
+GEMM_STAGES = {(4, 64): 12, (4, 128): 8, (8, 64): 11, (8, 128): 8}
+SMEM_PER_BLOCK = 232448  # an H100 block's shared memory at most (227 KB)
 
 launches = {"qmatmul_int4": 0, "qmatmul_int8": 0}
 
@@ -107,47 +113,74 @@ def _check_args(x: torch.Tensor, t: QuantizedTensor) -> None:
         raise ValueError("quantized_matmul: q must be 16-byte aligned")
 
 
-def qmatmul_plan(M: int, K: int, N: int, group_size: int) -> tuple:
-    """The int4 GEMM route's (row tile, split-K count) for x [M, K] and a
-    weight of N rows.  A block computes a row tile of x against 128 weight
-    rows.  The row tile is 128 if that is less than twice M and still gives
-    SMS / 8 tiles or more, else 64 (a taller tile reads each weight tile for
-    more rows).  When the tiles would leave SMs idle, K splits into S
-    slices of whole units of max(group_size, 64) codes, S the largest that
-    keeps the blocks at SMS or fewer (and at most the unit count).  Raises
+def _gemm_smem(bits: int, bm: int) -> int:
+    """Dynamic shared memory of a GEMM block, as csrc/qmatmul.cu's
+    QmmLayout lays it out: per stage x (bm x 64 bf16), the codes (128 rows
+    x 64 * bits / 8 bytes) and the group data (two slots of (s, b - c s)
+    per W row and of sums of x per x row, in whole KB); plus 1 KB of
+    alignment slack."""
+    meta = -(-(2 * GEMM_BN * 8 + 2 * bm * 4) // 1024) * 1024
+    stage = bm * GEMM_BK * 2 + GEMM_BN * GEMM_BK * bits // 8 + meta
+    return GEMM_STAGES[(bits, bm)] * stage + 1024
+
+
+def qmatmul_plan(M: int, K: int, N: int, group_size: int,
+                 bits: int = 4) -> tuple:
+    """The GEMM route's (row tile, split-K count) for x [M, K] and a weight
+    of N rows of `bits`-bit codes.  A block computes a row tile of x
+    against 128 weight rows.  The row tile is 128 if that is less than
+    twice M and still gives SMS / 8 tiles or more, else 64 (a taller tile
+    reads each weight tile for more rows).  When the tiles would leave SMs
+    idle, K splits into S slices of whole units of max(group_size, 64)
+    codes, S the largest that keeps the blocks at SMS or fewer (and at most
+    the unit count).  At 8 bits with a row tile of 64, tiles that pass one
+    wave of SMS blocks but leave the last wave part empty split K in two
+    where half-length blocks need fewer half waves than twice the full
+    waves (a 58-row chunk's 148 gate/up tiles: three half waves, not two
+    full ones); the partials of so few rows cost little to add.  Raises
     for what the kernel does not take."""
     if M <= MAX_GEMV_ROWS:
         raise ValueError(f"qmatmul_plan: {M} rows take the GEMV route")
-    if group_size not in GROUP_SIZES or K % (2 * group_size):
-        raise ValueError(f"qmatmul_plan: group_size {group_size} at K={K} "
-                         f"not taken (group {GROUP_SIZES}, K a multiple of "
-                         f"2 * group_size)")
-    cols = -(-N // 128)
+    if bits not in (4, 8) or group_size not in GROUP_SIZES:
+        raise ValueError(f"qmatmul_plan: bits {bits} / group_size "
+                         f"{group_size} not taken (bits 4 or 8, group "
+                         f"{GROUP_SIZES})")
+    # whole 64-code ring stages and whole groups: whole units of max(g, 64)
+    # codes, the K split's unit (at 4 bits whole group pairs, as before)
+    step = 2 * group_size if bits == 4 else max(group_size, GEMM_BK)
+    if K % step:
+        raise ValueError(f"qmatmul_plan: K={K} not taken at bits {bits} / "
+                         f"group_size {group_size} (K a whole number of "
+                         f"{step}-code units)")
+    cols = -(-N // GEMM_BN)
     bm = 128 if 128 < 2 * M and -(-M // 128) * cols >= SMS // 8 else 64
     tiles = -(-M // bm) * cols
-    units = K // max(group_size, 64)
+    units = K // max(group_size, GEMM_BK)
+    if (bits == 8 and bm == 64 and tiles > SMS and units >= 2
+            and -(-2 * tiles // SMS) < 2 * -(-tiles // SMS)):
+        return bm, 2
     return bm, max(1, min(SMS // tiles, units))
 
 
-def _int4_gemm(x: torch.Tensor, t: QuantizedTensor, K: int, N: int):
-    """K5's int4 GEMM route for x [M > 8, K] bf16 on the card."""
+def _gemm(x: torch.Tensor, t: QuantizedTensor, K: int, N: int):
+    """K5's GEMM route for x [M > 8, K] bf16 on the card, both widths."""
     M = x.shape[0]
-    bm, splits = qmatmul_plan(M, K, N, t.group_size)
+    bm, splits = qmatmul_plan(M, K, N, t.group_size, t.bits)
     if any(a.data_ptr() % 16 for a in (x, t.q)) or any(
             a.data_ptr() % 4 for a in (t.scales, t.biases)):
         raise ValueError("quantized_matmul: x and q must be 16-byte aligned "
-                         "(the int4 GEMM reads them by TMA), scales and "
-                         "biases 4-byte aligned")
+                         "(the GEMM reads them by TMA), scales and biases "
+                         "4-byte aligned")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     part = None
     if splits > 1:
         part = torch.empty((splits, M, N), dtype=torch.float32,
                            device=x.device)
-    err = _cuda.library().mvt_qmatmul_int4_gemm(
+    err = _cuda.library().mvt_qmatmul_gemm(
         x.data_ptr(), t.q.data_ptr(), t.scales.data_ptr(),
         t.biases.data_ptr(), y.data_ptr(),
-        None if part is None else part.data_ptr(), M, K, N, t.group_size, bm,
-        splits, _cuda.stream_handle(x.device))
+        None if part is None else part.data_ptr(), M, K, N, t.bits,
+        t.group_size, bm, splits, _cuda.stream_handle(x.device))
     _cuda.check(err, "qmatmul")
     return y
 
@@ -249,16 +282,7 @@ def quantized_matmul_kernel(x: torch.Tensor, t: QuantizedTensor) -> torch.Tensor
     x = x.contiguous()
     if x.shape[0] <= MAX_GEMV_ROWS:
         y = _gemv(x, t, K, N)
-    elif t.bits == 4:
-        y = _int4_gemm(x, t, K, N)
     else:
-        if x.data_ptr() % 16:
-            x = x.clone()
-        y = torch.empty((x.shape[0], N), dtype=x.dtype, device=x.device)
-        err = _cuda.library().mvt_qmatmul(
-            x.data_ptr(), t.q.data_ptr(), t.scales.data_ptr(),
-            t.biases.data_ptr(), y.data_ptr(), x.shape[0], K, N, t.bits,
-            t.group_size, _cuda.stream_handle(x.device))
-        _cuda.check(err, "qmatmul")
+        y = _gemm(x, t, K, N)
     launches[f"qmatmul_int{t.bits}"] += 1
     return y.reshape(*lead, N)

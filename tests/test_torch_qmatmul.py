@@ -5,12 +5,17 @@ interpret mode (as tests/test_qmatmul.py runs it), for 4- and 8-bit codes,
 group sizes 32 / 64 / 128, 1 to 70 rows, leading dims, and x in float32 and
 bfloat16.  The port's route rule is held to the reference's, and the
 dequantize route to the reference's `quantized_matmul` on the CPU.  The
-int4 GEMM route's fold (codes as bf16 128 + q, per-group f32 partials,
-s P + (b - 128 s) sum x, split-K slices added in order) is emulated in
-plain PyTorch and held to the Pallas kernel too, and so is the GEMV
-route's (codes as exact bf16 operands, two partial chains per step, the
-fold per group, K parts per warp and per chunk added in order); both
-plans and the wrapper's refusals are checked on CPU tensors.  Inputs are
+GEMM route's fold at both widths (codes as bf16 128 + q, or at 8 bits as
+two exact parts 128 + low nibble and 256 + 16 high nibble into one
+partial; per-group f32 partials, s P + (b - c s) sum x, split-K slices
+added in order) is emulated in plain PyTorch and held to the Pallas
+kernels too, and so is the GEMV route's (codes as exact bf16 operands,
+two partial chains per step, the fold per group, K parts per warp and per
+chunk added in order).  The 8-bit GEMM's A fragments (their bit patterns
+and their gather from the swizzled code box) are replayed in numpy
+against the wgmma fragment layout; both plans, their mirror of the
+kernel's layout constants and the wrapper's refusals are checked on CPU
+tensors.  Inputs are
 made with numpy from a seed and handed to both packages.  Tests marked
 `cuda` hold the CUDA kernels to their plain version on a GPU and skip
 without one.
@@ -200,7 +205,7 @@ def test_cuda_wrapper_refusals_before_any_launch():
         k5.qmatmul_plan(16, 192, N, 64)
     buf = torch.empty(16 * K + 1, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        k5._int4_gemm(buf[1:].view(16, K), t, K, N)
+        k5._gemm(buf[1:].view(16, K), t, K, N)
     qbuf = torch.empty(t.q.numel() + 1, dtype=torch.uint8)
     qbuf[1:] = t.q.reshape(-1)
     moved = tq.QuantizedTensor(q=qbuf[1:].view(t.q.shape), scales=t.scales,
@@ -250,17 +255,170 @@ def test_qmatmul_plan_at_7b_shapes():
             k5.qmatmul_plan(M, 3584, 3584, 64)
 
 
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("K,N", PLAN_SHAPES)
+@pytest.mark.parametrize("M", [58, 512])
+def test_qmatmul_plan_8bit(M, K, N, g):
+    """The 8-bit GEMM's plans at an 8-bit model's prefill chunks (a 58-row
+    chunk and a 512-row one) over Qwen2-VL-7B's seven linears (q/o, k/v,
+    gate/up, down): a row tile the kernel instantiates, K slices of whole
+    max(g, 64)-code units, a split grid within the 132 SMs or, past one
+    wave at a row tile of 64, two slices where their half waves are fewer
+    than twice the full ones (148 tiles at N = 18944: 3 half waves against
+    2 full), and the block's ring within the 227 KB an H100 block may take
+    beside the kernel's barrier arrays."""
+    bm, splits = k5.qmatmul_plan(M, K, N, g, bits=8)
+    assert bm in (64, 128)
+    unit = max(g, 64)
+    assert K % unit == 0
+    assert 1 <= splits <= K // unit
+    tiles = -(-M // bm) * -(-N // 128)
+    waves = -(-tiles // k5.SMS)
+    if tiles > k5.SMS:
+        halves = -(-2 * tiles // k5.SMS)
+        want = 2 if bm == 64 and halves < 2 * waves else 1
+        assert splits == want
+    else:
+        assert tiles * splits <= k5.SMS
+    assert k5._gemm_smem(8, bm) + 3 * 12 * 8 <= k5.SMEM_PER_BLOCK
+
+
+def test_qmatmul_plan_8bit_at_7b_shapes():
+    """A 58-row chunk (the 8-bit smoke request's prompt) splits K over 4
+    slices at 3584^2 and K = 18944 (112 blocks) and 33 at N = 512 (132
+    blocks); gate/up's 148 tiles split K in two (296 blocks in three half
+    waves).  At 512 rows the plans are the 4-bit ones: K splits only at
+    N = 512."""
+    plan = k5.qmatmul_plan
+    assert plan(58, 3584, 3584, 64, bits=8) == (64, 4)
+    assert plan(58, 3584, 512, 64, bits=8) == (64, 33)
+    assert plan(58, 3584, 18944, 64, bits=8) == (64, 2)
+    assert plan(58, 3584, 18944, 64) == (64, 1)  # 4 bits: unchanged
+    assert plan(58, 18944, 3584, 64, bits=8) == (64, 4)
+    for K, N in PLAN_SHAPES:
+        assert plan(512, K, N, 64, bits=8) == plan(512, K, N, 64)
+    assert plan(512, 3584, 512, 64, bits=8) == (128, 8)
+    assert plan(9, 64, 128, 32, bits=8) == (64, 1)  # one 64-code unit
+
+
+def test_gemm_layout_mirrors_the_kernel():
+    """ops/qmatmul.py's GEMM constants and _gemm_smem against
+    csrc/qmatmul.cu's: QG_BK, QG_BN, QmmLayout's stages per width and row
+    tile, its stage formula, and the kernel's own static check of the
+    227 KB; every instance fits."""
+    import re
+    from pathlib import Path
+
+    src = (Path(k5.__file__).parent.parent / "csrc/qmatmul.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (QG_\w+) = (\d+);", src))
+    assert int(consts["QG_BK"]) == k5.GEMM_BK
+    assert int(consts["QG_BN"]) == k5.GEMM_BN
+    m = re.search(r"STAGES =\s+BITS == 4 \? \(BM == 64 \? (\d+) : (\d+)\) : "
+                  r"\(BM == 64 \? (\d+) : (\d+)\);", src)
+    assert m is not None
+    assert tuple(map(int, m.groups())) == (
+        k5.GEMM_STAGES[(4, 64)], k5.GEMM_STAGES[(4, 128)],
+        k5.GEMM_STAGES[(8, 64)], k5.GEMM_STAGES[(8, 128)])
+    for line in ("X_BYTES = BM * QG_BK * 2;",
+                 "W_BYTES = QG_BN * QG_BK * BITS / 8;",
+                 "SC_BYTES = 2 * QG_BN * 8;", "XS_BYTES = 2 * BM * 4;",
+                 "META = (SC_BYTES + XS_BYTES + 1023) / 1024 * 1024;",
+                 "STAGE = X_BYTES + W_BYTES + META;",
+                 "SMEM = STAGES * STAGE + 1024;",
+                 "SMEM + 3 * QG_MAX_STAGES * 8 <= 232448"):
+        assert line in src, line
+    barriers = 3 * int(consts["QG_MAX_STAGES"]) * 8
+    for (bits, bm), stages in k5.GEMM_STAGES.items():
+        assert stages <= int(consts["QG_MAX_STAGES"])
+        assert k5._gemm_smem(bits, bm) + barriers <= k5.SMEM_PER_BLOCK
+        # the 8-bit rings fill the 227 KB: one more stage would not fit
+        stage = (k5._gemm_smem(bits, bm) - 1024) // stages
+        assert bits == 4 or ((stages + 1) * stage + 1024 + barriers
+                             > k5.SMEM_PER_BLOCK)
+    assert k5._gemm_smem(8, 64) == 11 * 19456 + 1024
+    assert k5._gemm_smem(8, 128) == 8 * 27648 + 1024
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_gemm_split_bounds_divide_exactly(bits):
+    """The kernel finds its K slice [z U / S, (z + 1) U / S) with no
+    integer division (whose code converts integers to floats): as
+    div_magic, the high word of n * ceil(2^32 / S), exact while U S^2 <
+    2^32, which mvt_qmatmul_gemm checks.  Held to floor division at every
+    plan of the 7B shapes and the ragged ones, and at the widest K slices
+    the 132 SMs allow."""
+    cases = [(k5.qmatmul_plan(M, Kp, Np, g, bits)[1], Kp // max(g, 64))
+             for M in (9, 58, 100, 512) for g in (32, 64, 128)
+             for Kp, Np in PLAN_SHAPES + ((3584, 1000), (1024, 130))]
+    cases += [(splits, units) for splits in (2, 33, 131, 132)
+              for units in (splits, 296, 4096, 65536)]
+    for splits, units in cases:
+        assert units * splits * splits < 2**32
+        m = -(-2**32 // splits) if splits > 1 else 0
+        for z in range(splits + 1):
+            n = z * units
+            got = (n * m) >> 32 if m else n
+            assert got == n // splits, (splits, units, z)
+
+
+def test_int8_gemm_refusals_before_any_launch():
+    """The 8-bit GEMM refuses non-bf16 x, K not a whole number of the
+    plan's 64-code units (K = 96 at g = 32 is whole groups, which the
+    plain version and the GEMV take), x or q not 16-byte aligned and
+    scales or biases not 4-byte aligned, before it reaches the kernel
+    library (CPU tensors show it), and counts no launch."""
+    before = dict(k5.launches)
+    q, s, b = mlx_weight(8, 32, seed=12, bf16=True)
+    _, t = both(q, s, b, 8, 32)
+    x = torch.ones((16, K), dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        k5._check_args(torch.ones((16, K)), t)
+    q3, s3, b3 = mlx_weight(8, 32, seed=12, k=96, bf16=True)
+    _, t3 = both(q3, s3, b3, 8, 32)
+    x3 = torch.ones((16, 96), dtype=torch.bfloat16)
+    k5._check_args(x3, t3)  # whole groups: the shape checks pass
+    with pytest.raises(ValueError, match="64-code units"):
+        k5._gemm(x3, t3, 96, N)
+    with pytest.raises(ValueError, match="128-code units"):
+        k5.qmatmul_plan(16, 192, N, 128, bits=8)
+    buf = torch.empty(16 * K + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        k5._gemm(buf[1:].view(16, K), t, K, N)
+
+    def moved(a):
+        out = torch.empty(a.numel() + 1, dtype=a.dtype)
+        out[1:] = a.reshape(-1)
+        return out[1:].view(a.shape)
+
+    for field in ("q", "scales", "biases"):
+        arrays = {"q": t.q, "scales": t.scales, "biases": t.biases}
+        arrays[field] = moved(arrays[field])
+        bad = tq.QuantizedTensor(**arrays, bits=8, group_size=32,
+                                 out_dtype="bfloat16")
+        with pytest.raises(ValueError, match="byte aligned"):
+            k5._gemm(x, bad, K, N)
+    assert k5.launches == before
+
+
 def fold_emulation(x, t, splits=1):
-    """The int4 GEMM route's arithmetic in plain PyTorch: codes as bf16
-    128 + q (exact), per-group f32 partials P = sum x (128 + q) and sums of
-    x, each group folded as acc += s P + (b - 128 s) sum x in f32; K split
-    into `splits` slices of whole max(g, 64)-code units whose f32 partials
-    are added in slice order; one rounding to bf16."""
+    """The GEMM route's arithmetic in plain PyTorch.  4-bit codes as bf16
+    128 + q (exact); each 8-bit code as two exact bf16 parts, lo = 128 +
+    (low nibble) and hi = 256 + 16 (high nibble), both multiplied into the
+    same partial, so that it sums x (384 + q).  Per-group f32 partials P
+    and sums of x, each group folded as acc += s P + (b - c s) sum x in
+    f32 (c = 128 or 384); K split into `splits` slices of whole max(g,
+    64)-code units whose f32 partials are added in slice order; one
+    rounding to bf16."""
     g = t.group_size
     n, kb = t.q.shape
-    k = 2 * kb
-    codes = torch.stack([t.q & 0xF, t.q >> 4], dim=-1).reshape(n, k)
-    c128 = (128 + codes.float()).to(torch.bfloat16).float()
+    if t.bits == 4:
+        k, off = 2 * kb, 128.0
+        codes = torch.stack([t.q & 0xF, t.q >> 4], dim=-1).reshape(n, k)
+        parts = [(128 + codes.float()).to(torch.bfloat16).float()]
+    else:
+        k, off = kb, 384.0
+        parts = [(128 + (t.q & 0xF).float()).to(torch.bfloat16).float(),
+                 (256 + 16 * (t.q >> 4).float()).to(torch.bfloat16).float()]
     xf = x.float()
     s, b = t.scales.float(), t.biases.float()
     units = k // max(g, 64)
@@ -271,9 +429,11 @@ def fold_emulation(x, t, splits=1):
         acc = torch.zeros((x.shape[0], n))
         for j in range(k0 // g, k1 // g):
             sl = slice(j * g, (j + 1) * g)
-            P = xf[:, sl] @ c128[:, sl].T
+            P = xf[:, sl] @ parts[0][:, sl].T
+            for part in parts[1:]:
+                P = P + xf[:, sl] @ part[:, sl].T
             sx = xf[:, sl].sum(dim=1, keepdim=True)
-            acc = acc + s[:, j] * P + (b[:, j] - 128 * s[:, j]) * sx
+            acc = acc + s[:, j] * P + (b[:, j] - off * s[:, j]) * sx
         total = acc if total is None else total + acc
     return total.to(torch.bfloat16)
 
@@ -296,6 +456,125 @@ def test_int4_fold_emulation_matches_pallas(g, M, splits):
     ref = ref.astype(np.float32)
     np.testing.assert_allclose(got.float().numpy(), ref, rtol=0,
                                atol=1e-2 * float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("splits", [1, 2])
+@pytest.mark.parametrize("M", [9, 58, 100])
+@pytest.mark.parametrize("g", [32, 64, 128])
+def test_int8_fold_emulation_matches_pallas(g, M, splits):
+    """The 8-bit GEMM's numerics before the chip: two exact parts into one
+    partial, the fold with b - 384 s, split slices added in order, against
+    the reference's _qmm8_kernel in interpret mode, bf16 x and weights as
+    on the card, within K5_TOL = 1e-2 * max|ref| (both round once to bf16;
+    the sums differ by f32 reassociation only)."""
+    q, s, b = mlx_weight(8, g, seed=8000 + g + M, bf16=True)
+    ref_t, t = both(q, s, b, 8, g)
+    x = _x((M, K), "bfloat16", seed=13 * M + g)
+    ref = np.asarray(jqmm.quantized_matmul_pallas(jnp.asarray(x), ref_t,
+                                                  interpret=True))
+    got = fold_emulation(_torch(x), t, splits)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == ref.shape
+    ref = ref.astype(np.float32)
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0,
+                               atol=1e-2 * float(np.abs(ref).max()))
+
+
+def _and_or(v, mask, bits):
+    """csrc/qmatmul.cu's and_or (one LOP3): (v & mask) | bits."""
+    return (v & mask) | bits
+
+
+def _prmt(a, b, sel):
+    """PTX prmt.b32 (default mode): byte i of the result is byte
+    sel[4i:4i+4] & 7 of the pair (b:a), sign-replicated if bit 3 is set."""
+    src = [(a >> (8 * i)) & 0xFF for i in range(4)]
+    src += [(b >> (8 * i)) & 0xFF for i in range(4)]
+    out = 0
+    for i in range(4):
+        n = (sel >> (4 * i)) & 0xF
+        byte = src[n & 7]
+        if n & 8:
+            byte = 0xFF if byte & 0x80 else 0
+        out |= byte << (8 * i)
+    return out
+
+
+def _bf16_halves(w):
+    """The two bf16 values of a 32-bit word (low half first) as floats."""
+    h = np.array([w & 0xFFFF, w >> 16], dtype=np.uint16)
+    return h.view(ml_dtypes.bfloat16).astype(np.float32)
+
+
+@pytest.mark.parametrize("half", [0, 1])
+def test_int8_parts_are_exact(half):
+    """For all 256 code bytes, in either half of a pair register (with the
+    junk that the PRMT leaves in bytes 1 and 3 and the pair's other code
+    beside it), the kernel's two LOP3 patterns decode to exactly 128 + low
+    nibble (bf16 0x4300 | l) and 256 + 16 high nibble (bf16 0x4380 | h << 3),
+    which sum to 384 + the byte."""
+    for byte in range(256):
+        v = (0xA5 << 8) | (0x5A << 24) | (0xC3 << (16 * (1 - half)))
+        v |= byte << (16 * half)
+        lo = _bf16_halves(_and_or(v, 0x000F000F, 0x43004300))[half]
+        hi = _bf16_halves(_and_or(v >> 1, 0x00780078, 0x43804380))[half]
+        assert lo == 128 + (byte & 0xF)
+        assert hi == 256 + 16 * (byte >> 4)
+        assert lo + hi == 384 + byte
+
+
+def test_int8_fragments_match_the_wgmma_layout():
+    """q8_fragments replayed in numpy for every consumer thread of a block
+    and both halves of a stage: a 128 x 64-byte code box as TMA's 64-byte
+    swizzle lays it out (16-byte chunk c of row r at chunk c ^ ((r >> 1) %
+    4)), the thread's 16-byte reads, PRMT with sel = 2t | (2t + 1) << 8 and
+    the two LOP3s, held to the wgmma A fragment of slice kk: register j
+    holds W row r0 + (j & 1) at k = 16 kk + 2t + 8 (j >> 1) (+1 in the high
+    half), lo parts in a[2i], hi parts in a[2i + 1].  Each quarter warp's
+    distinct 16-byte reads fall on distinct bank groups."""
+    codes = np.random.default_rng(14).integers(0, 256, (128, 64),
+                                               dtype=np.uint8)
+    box = np.zeros(128 * 64, dtype=np.uint8)
+    for r in range(128):
+        for c in range(4):
+            at = 64 * r + 16 * (c ^ ((r >> 1) & 3))
+            box[at:at + 16] = codes[r, 16 * c:16 * c + 16]
+    words = box.view("<u4").astype(np.int64)
+    for warp in range(8):
+        wg, w = warp // 4, warp % 4
+        for h in range(2):
+            reads = {}
+            for lane in range(32):
+                g8, t = lane // 4, lane % 4
+                r0, sw = 64 * wg + 16 * w + 2 * g8, g8 & 3
+                sel = (2 * t) | ((2 * t + 1) << 8)
+                a = [[0] * 4 for _ in range(4)]
+                for i in range(2):
+                    c = (2 * h + i) ^ sw
+                    for row in range(2):
+                        at = 64 * (r0 + row) + 16 * c
+                        reads.setdefault((lane // 8, i, row), set()).add(at)
+                        u = words[at // 4:at // 4 + 4]
+                        v0, v1 = _prmt(u[0], u[1], sel), _prmt(u[2], u[3], sel)
+                        a[2 * i][row] = _and_or(v0, 0x000F000F, 0x43004300)
+                        a[2 * i][2 + row] = _and_or(v1, 0x000F000F,
+                                                    0x43004300)
+                        a[2 * i + 1][row] = _and_or(v0 >> 1, 0x00780078,
+                                                    0x43804380)
+                        a[2 * i + 1][2 + row] = _and_or(v1 >> 1, 0x00780078,
+                                                        0x43804380)
+                for i in range(2):
+                    kk = 2 * h + i
+                    for j in range(4):
+                        row = r0 + (j & 1)
+                        k0 = 16 * kk + 2 * t + 8 * (j >> 1)
+                        want = codes[row, k0:k0 + 2].astype(np.float32)
+                        np.testing.assert_array_equal(
+                            _bf16_halves(a[2 * i][j]), 128 + want % 16)
+                        np.testing.assert_array_equal(
+                            _bf16_halves(a[2 * i + 1][j]),
+                            256 + 16 * (want // 16))
+            for ats in reads.values():
+                assert len({at % 128 // 16 for at in ats}) == len(ats)
 
 
 def gemv_emulation(x, t, rt=1, chunks=1):
@@ -625,6 +904,59 @@ def test_cuda_k5_int4_gemm_split_is_repeatable(cuda_device):
                            biases=t.biases.to(cuda_device), bits=4,
                            group_size=g, out_dtype="bfloat16")
     x = _torch(_x((M, Kb), "bfloat16", seed=3)).to(cuda_device)
+    first = k5.quantized_matmul_kernel(x, t)
+    for _ in range(3):
+        assert torch.equal(k5.quantized_matmul_kernel(x, t), first)
+    ref = k5.qmatmul_plain(x, t)
+    torch.cuda.synchronize()
+    err = float((first.float() - ref.float()).abs().max())
+    assert err <= 1e-2 * float(ref.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [9, 58, 512])
+@pytest.mark.parametrize("g", [32, 64, 128])
+def test_cuda_k5_int8_gemm(cuda_device, g, M):
+    """The 8-bit GEMM route at ragged N (1000) against the plain version
+    (1e-2 * max|ref|, as above) and the fold emulation, one counted call,
+    and a repeated call bit-identical (the split-K slices are added in a
+    fixed order)."""
+    q, s, b = mlx_weight(8, g, seed=150 + g + M, n=1000, k=1024, bf16=True)
+    _, t = both(q, s, b, 8, g)
+    t = tq.QuantizedTensor(q=t.q.to(cuda_device), scales=t.scales.to(cuda_device),
+                           biases=t.biases.to(cuda_device), bits=8,
+                           group_size=g, out_dtype="bfloat16")
+    x = _torch(_x((M, 1024), "bfloat16", seed=M + 8)).to(cuda_device)
+    n0 = k5.launches["qmatmul_int8"]
+    got = k5.quantized_matmul_kernel(x, t)
+    again = k5.quantized_matmul_kernel(x, t)
+    ref = k5.qmatmul_plain(x, t)
+    torch.cuda.synchronize()
+    assert k5.launches["qmatmul_int8"] == n0 + 2
+    assert torch.equal(got, again)
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= 1e-2 * float(ref.float().abs().max())
+    _, splits = k5.qmatmul_plan(M, 1024, 1000, g, bits=8)
+    emu = fold_emulation(x.cpu(), tq.QuantizedTensor(
+        q=t.q.cpu(), scales=t.scales.cpu(), biases=t.biases.cpu(), bits=8,
+        group_size=g, out_dtype="bfloat16"), splits)
+    err = float((got.cpu().float() - emu.float()).abs().max())
+    assert err <= 1e-2 * float(emu.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Kb,Nb,g", [(512, 3584, 512, 32),
+                                       (58, 3584, 512, 64)])
+def test_cuda_k5_int8_gemm_split_is_repeatable(cuda_device, M, Kb, Nb, g):
+    """A narrow weight splits K (8 slices at M = 512, 33 at a 58-row chunk)
+    and gives the same bits on every call."""
+    assert k5.qmatmul_plan(M, Kb, Nb, g, bits=8)[1] > 1
+    q, s, b = mlx_weight(8, g, seed=19, n=Nb, k=Kb, bf16=True)
+    _, t = both(q, s, b, 8, g)
+    t = tq.QuantizedTensor(q=t.q.to(cuda_device), scales=t.scales.to(cuda_device),
+                           biases=t.biases.to(cuda_device), bits=8,
+                           group_size=g, out_dtype="bfloat16")
+    x = _torch(_x((M, Kb), "bfloat16", seed=5)).to(cuda_device)
     first = k5.quantized_matmul_kernel(x, t)
     for _ in range(3):
         assert torch.equal(k5.quantized_matmul_kernel(x, t), first)
