@@ -7,8 +7,9 @@ Phases (any failure exits non-zero):
      mlx_vlm_tpu_torch/csrc with nvcc (one process per source, in
      parallel) and prints ptxas's registers, static shared memory and
      spills of every kernel (K3, K4, K5's GEMV and its GEMM at both widths,
-     and K7/K8's tq_attention_kernel must not spill) and the I2F count of
-     K5's GEMV and GEMM in cuobjdump -sass (must be 0);
+     K6's kv4_attention_kernel and K7/K8's tq_attention_kernel must not
+     spill) and the I2F count of K5's GEMV and GEMM in cuobjdump -sass
+     (must be 0);
   2. each kernel (K1 int4_matmul, K2 int4_matvec, K3 fused_decode, K4
      flash_attention, K5 qmatmul_int4 / qmatmul_int8, K6
      int4_kv_attention, K7 tq_kv_attention, K8 tq_kv_attention_split)
@@ -33,11 +34,12 @@ Phases (any failure exits non-zero):
      kernels per call, a bit-identical repeat and its bytes per second
      beside the bound's;
      K6-K8: 4 KV heads of 7 query rows over an 8704-slot cache at offsets
-     1, 300 and 8545, left_pad 100 and per-row cursors, K8 also at
-     kv_bits 3.05 and 3.95 (8-dim segments); K7 and K8 each timed cold
-     (`graph_ms` over copies of the codes and scales) and warm, with their
-     plan, kernels per call (must be 1), a bit-identical repeat and their
-     bytes per second beside the bound's), each with its device time, the
+     1, 300 and 8545, left_pad 100 and per-row cursors, K6 also with NaN
+     scales past the cursor (bit-identical to 1e3 there), K8 also at
+     kv_bits 3.05 and 3.95 (8-dim segments); each timed cold (`graph_ms`
+     over copies of the codes, scales and query) and warm, with its plan,
+     kernels per call (must be 1), a bit-identical repeat and its bytes
+     per second beside the bound's), each with its device time, the
      least
      time the card could take (`bound_ms`, from bytes at 3.35 TB/s or
      operations at 989 TFLOP/s) and, where one exists, the time of one
@@ -209,10 +211,11 @@ def phase_environment() -> None:
     for source, log in _cuda.BUILD_LOG.items():
         for name, regs, spills in ptxas_report(log):
             print(f"  ptxas {source} {name}: {regs}; {spills}", flush=True)
-            # K5's GEMV and GEMM (both widths), K4, K3, K7 and K8 keep
+            # K5's GEMV and GEMM (both widths), K4, K3, K6, K7 and K8 keep
             # their operands and accumulators in registers
             if name.startswith(("qmv_kernel", "qmm_gemm_kernel",
                                 "flash_fwd_kernel", "fused_decode_kernel",
+                                "kv4_attention_kernel",
                                 "tq_attention_kernel")) and (
                     "0 bytes spill stores, 0 bytes spill loads" not in spills):
                 fail(f"ptxas spills in {name}: {spills}")
@@ -1058,13 +1061,13 @@ def split_dims(kv_bits: float, D: int) -> tuple:
     return lo, hi, D - d_hi, d_hi
 
 
-def check_tq_case(results: list, run, arrays, nbytes: float, plan) -> None:
-    """K7's or K8's further checks of the case _check just recorded: the
-    kernels one call puts on the device (one), a bit-identical repeat, and
-    a cold time: `graph_ms` over `cold_copies` of the codes and scales
-    (`run(*arrays)` is the call), as a decode step reads each layer's cache
-    cold; the warm time is device_ms's.  Prints the bytes per second beside
-    the bound's."""
+def check_kv_case(results: list, run, arrays, nbytes: float, plan) -> None:
+    """K6's, K7's or K8's further checks of the case _check just recorded:
+    the kernels one call puts on the device (one), a bit-identical repeat,
+    and a cold time: `graph_ms` over `cold_copies` of the codes, scales and
+    query (`run(*arrays)` is the call), as a decode step reads each layer's
+    cache cold; the warm time is device_ms's.  Prints the bytes per second
+    beside the bound's."""
     import functools
 
     import torch
@@ -1091,14 +1094,96 @@ def check_tq_case(results: list, run, arrays, nbytes: float, plan) -> None:
           f"{same} {'ok' if r['ok'] else 'MISMATCH'}", flush=True)
 
 
+def kv_codes(width: int, gen, dev):
+    """Random code bytes [KV_HEADS, KV_CAPACITY, width] on the card."""
+    import torch
+
+    return torch.randint(0, 256, (KV_HEADS, KV_CAPACITY, width),
+                         generator=gen, dtype=torch.uint8).to(dev)
+
+
+def kv_scales(off, lo: float, hi: float, gen, dev):
+    """Per-token f32 scales [KV_HEADS, KV_CAPACITY] uniform in [lo, hi),
+    and 1e3 from each row's cursor on (a read past the cursor shows)."""
+    import torch
+
+    x = lo + (hi - lo) * torch.rand((KV_HEADS, KV_CAPACITY), generator=gen)
+    col = torch.arange(KV_CAPACITY)[None]
+    return torch.where(col >= off.cpu()[:, None].long(),
+                       torch.full_like(x, 1e3), x).to(dev)
+
+
+def k6_inputs(off, gen, dev) -> tuple:
+    """K6's inputs at KV_HEADS x KV_ROWS x KV_DIM over KV_CAPACITY: int8
+    query codes of q x 4 with their (sum, qs), random 4-bit codes, and
+    per-token scales and biases that are 1e3 from each row's cursor on."""
+    import torch
+
+    q = torch.randn((KV_HEADS, KV_ROWS, KV_DIM), generator=gen) * 4
+    qs = q.abs().amax(-1) / 127.0
+    q8 = torch.round(q / qs[..., None])
+    meta = torch.stack([q8.sum(-1), qs], -1).to(dev)
+    q8 = q8.to(torch.int8).to(dev)
+    k4, v4 = kv_codes(KV_DIM // 2, gen, dev), kv_codes(KV_DIM // 2, gen, dev)
+    ks, vs = (kv_scales(off, 0.02, 0.3, gen, dev) for _ in range(2))
+    kb, vb = (kv_scales(off, -2.0, 0.0, gen, dev) for _ in range(2))
+    return q8, meta, k4, ks, kb, v4, vs, vb
+
+
+def k6_work(off, lp) -> tuple:
+    """(bytes, operations) of a K6 call at KV_CASES' shapes: D + 16 bytes
+    of codes and scales per visible token; the query codes, their (sum,
+    qs), the cursors and the f32 output per head."""
+    G, D = KV_ROWS, KV_DIM
+    return kv_work(off, lp, D + 16, G * D + 8 * G + G * D * 4 + 8)
+
+
+def time_k6(dev, cases=KV_CASES) -> None:
+    """Cold (graph_ms over cold_copies of the inputs) and warm (device_ms)
+    times of K6's wrapper at `cases` (KV_CASES entries), one printed line a
+    case.  It calls only `int4_kv_decode_attention`, so it times the K6 of
+    whichever tree the package is imported from: run from an unpacked
+    parent, it puts the parent's times beside this tree's in one call."""
+    import functools
+
+    import torch
+
+    from mlx_vlm_tpu_torch.ops import int4_kv_attention as k6
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    scale = KV_DIM ** -0.5
+    for off_v, lp_v in cases:
+        off, lp, shape = _kv_case(off_v, lp_v, dev)
+        a6 = k6_inputs(off, gen, dev)
+
+        def run(*arrays, off=off, lp=lp):
+            return k6.int4_kv_decode_attention(*arrays, off, scale,
+                                               left_pad=lp)
+
+        size = sum(a.numel() * a.element_size() for a in a6)
+        copies = [a6] + [tuple(a.clone() for a in a6)
+                         for _ in range(cold_copies(size) - 1)]
+        cold = graph_ms([functools.partial(run, *c) for c in copies], iters=5)
+        del copies
+        warm = device_ms(lambda: run(*a6))
+        bound_ms, bound_by = bound(*k6_work(off, lp))
+        print(f"  time_k6 int4_kv_attention {shape}: kernel_ms={cold:.4f} "
+              f"cold {warm:.4f} warm bound_ms={bound_ms:.5f} ({bound_by})",
+              flush=True)
+
+
 def check_kv_kernels(results: list, gen, dev) -> None:
     """K6, K7 (3-bit keys, 4-bit values) and K8 (K8_CASES) against their
     plain versions at the shapes of requests (d)-(f): 4 KV heads of 7
     query rows, C = 8704, q x 4.  The codes past each cursor are random and
-    their scales 1e3, so that a read past the cursor breaks the check.
-    Tolerance KV_TOL * max|ref|: the kernels round p * vs to bf16 against
-    split-local softmax maxima.  K7 and K8 also record their plan, kernels
-    per call, a bit-identical repeat and a cold time (check_tq_case)."""
+    their scales 1e3, so that a read past the cursor breaks the check; K6
+    also runs at offset 8545 with NaN scales and biases past the cursor,
+    held to its plain version on the same inputs with 1e3 there (the plain
+    version multiplies the masked p = 0 by them) and to its own output
+    there, bit for bit.  Tolerance KV_TOL * max|ref|: the kernels round
+    p * vs to bf16 against split-local softmax maxima.  Each case also
+    records its plan, kernels per call, a bit-identical repeat and a cold
+    time (check_kv_case)."""
     import torch
 
     from mlx_vlm_tpu_torch.core.turboquant import _levels
@@ -1108,39 +1193,49 @@ def check_kv_kernels(results: list, gen, dev) -> None:
     BH, G, D, C = KV_HEADS, KV_ROWS, KV_DIM, KV_CAPACITY
     scale = D ** -0.5
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan6 = k6.int4_kv_attention_plan(BH, G, C, D, sms)
 
     def codes(width):
-        return torch.randint(0, 256, (BH, C, width), generator=gen,
-                             dtype=torch.uint8).to(dev)
+        return kv_codes(width, gen, dev)
 
     def scales(off, lo, hi):
-        x = lo + (hi - lo) * torch.rand((BH, C), generator=gen)
-        col = torch.arange(C)[None]
-        return torch.where(col >= off.cpu()[:, None].long(),
-                           torch.full_like(x, 1e3), x).to(dev)
+        return kv_scales(off, lo, hi, gen, dev)
+
+    def k6_case(off, lp, shape, a6, ref_inputs):
+        def run(*arrays, off=off, lp=lp):
+            return k6.int4_kv_decode_attention(*arrays, off, scale,
+                                               left_pad=lp)
+
+        def plain(a=ref_inputs, off=off, lp=lp):
+            return k6.int4_kv_decode_attention_plain(*a, off, scale, lp)
+
+        out = run(*a6)
+        _check(results, "int4_kv_attention", shape, out, plain(), KV_TOL,
+               lambda: run(*a6), plain, floor=0.0, work=k6_work(off, lp))
+        check_kv_case(results, run, a6, k6_work(off, lp)[0], plan6)
+        return out
 
     luts = (_levels(3), _levels(4))
     head_out = G * D * 4 + 8  # output f32, offset and left_pad
     queries = {}
     for off_v, lp_v in KV_CASES:
         off, lp, shape = _kv_case(off_v, lp_v, dev)
-        q = torch.randn((BH, G, D), generator=gen) * 4
-        qs = q.abs().amax(-1) / 127.0
-        q8 = torch.round(q / qs[..., None])
-        meta = torch.stack([q8.sum(-1), qs], -1).to(dev)
-        q8 = q8.to(torch.int8).to(dev)
-        k4, v4 = codes(D // 2), codes(D // 2)
-        ks, vs = scales(off, 0.02, 0.3), scales(off, 0.02, 0.3)
-        kb, vb = scales(off, -2.0, 0.0), scales(off, -2.0, 0.0)
-        a6 = (q8, meta, k4, ks, kb, v4, vs, vb)
-        _check(results, "int4_kv_attention", shape,
-               k6.int4_kv_decode_attention(*a6, off, scale, left_pad=lp),
-               k6.int4_kv_decode_attention_plain(*a6, off, scale, lp), KV_TOL,
-               lambda: k6.int4_kv_decode_attention(*a6, off, scale,
-                                                   left_pad=lp),
-               lambda: k6.int4_kv_decode_attention_plain(*a6, off, scale, lp),
-               floor=0.0,
-               work=kv_work(off, lp, D + 16, G * D + 8 * G + head_out))
+        a6 = k6_inputs(off, gen, dev)
+        k6_case(off, lp, shape, a6, a6)
+        if (off_v, lp_v) == (8545, 0):
+            # the same inputs with NaN past the cursor
+            nan6 = tuple(a.clone() for a in a6)
+            col = torch.arange(C, device=dev)[None]
+            for a in nan6[3:5] + nan6[6:8]:
+                a[col >= off[:, None]] = float("nan")
+            got = k6_case(off, lp, shape + " past=nan", nan6, a6)
+            same = bool(torch.equal(got, k6.int4_kv_decode_attention(
+                *a6, off, scale, left_pad=lp)))
+            r = results[-1]
+            r["ok"] = r["ok"] and same
+            print(f"  int4_kv_attention {r['shape']}: bit-identical to the "
+                  f"1e3 case {same} {'ok' if r['ok'] else 'MISMATCH'}",
+                  flush=True)
         qr = queries[(off_v, lp_v)] = (
             torch.randn((BH, G, D), generator=gen) * 4).to(dev)
         a7 = (codes(D * 3 // 8), scales(off, 0.5, 1.5), codes(D // 2),
@@ -1157,7 +1252,7 @@ def check_kv_kernels(results: list, gen, dev) -> None:
         work = kv_work(off, lp, D * 7 // 8 + 8, G * D * 4 + head_out)
         _check(results, "tq_kv_attention", shape, k7(*a7), p7(), KV_TOL,
                lambda: k7(*a7), p7, floor=0.0, work=work)
-        check_tq_case(results, k7, a7, work[0], tk.tq_kv_attention_plan(
+        check_kv_case(results, k7, a7, work[0], tk.tq_kv_attention_plan(
             BH, G, C, [(D, 3, 4)], sms))
     for kv_bits, cases in K8_CASES:
         lo, hi, DA, DB = split_dims(kv_bits, D)
@@ -1185,7 +1280,7 @@ def check_kv_kernels(results: list, gen, dev) -> None:
             work = kv_work(off, lp, token, G * D * 4 + head_out)
             _check(results, "tq_kv_attention_split", shape, k8(*a8), p8(),
                    KV_TOL, lambda: k8(*a8), p8, floor=0.0, work=work)
-            check_tq_case(results, k8, a8, work[0], tk.tq_kv_attention_plan(
+            check_kv_case(results, k8, a8, work[0], tk.tq_kv_attention_plan(
                 BH, G, C, [(DA, lo, lo), (DB, hi, hi)], sms))
 
 

@@ -339,11 +339,14 @@ def init_int8_cache(num_layers: int, batch_size: int, num_kv_heads: int,
 
 
 def int4_kv_route(S: int, D: int) -> bool:
-    """A 4-bit cache's attend runs K6 for a decode step (S == 1) with an
-    even head dim.  The reference's further rules ((D/2) % 128 == 0,
-    C % 128 == 0, g * S <= 8: cache.py:887-892) are Mosaic tiling and row
-    padding limits of its TPU kernel; the port's kernel has neither."""
-    return S == 1 and D % 2 == 0
+    """A 4-bit cache's attend runs K6 for a decode step (S == 1) with a head
+    dim that is a multiple of 8, so that each token's D/2 code bytes are
+    whole 32-bit words for the kernel; other steps take the integer-domain
+    attend (`_integer_attend`).  The reference's own rule ((D/2) % 128 == 0,
+    C % 128 == 0, g * S <= 8: cache.py:887-892), which sends even D = 128
+    to that route, holds Mosaic tiling and row padding limits of its TPU
+    kernel, which the port's kernel does not have."""
+    return S == 1 and D % 8 == 0
 
 
 @dataclasses.dataclass

@@ -1,6 +1,7 @@
 // Shared by the kernels that stream tiles through shared memory with TMA
 // (K1 int4_matmul.cu, K2 int4_matvec.cu, K5's int4 GEMM in qmatmul.cu, K4
-// flash_attention.cu, K3 fused_decode.cu, K7 and K8 tq_kv_attention.cu):
+// flash_attention.cu, K3 fused_decode.cu, K6 int4_kv_attention.cu, K7 and
+// K8 tq_kv_attention.cu):
 // mbarrier and bulk-copy wrappers
 // for the device, and the host code that encodes 2-D and 3-D tensor maps.
 

@@ -48,8 +48,9 @@ _SIGNATURES = {
     # dynamic shared memory bytes
     "mvt_fused_decode_grid": (_I,),
     # q8, qmeta, k4, ks, kb, v4, vs, vb, offset, left_pad, part_ml, part_acc,
-    # out, BH, G, C, D, scale, stream
-    "mvt_int4_kv_attention": (_P,) * 13 + (_I,) * 4 + (_F, _P),
+    # tickets, out, BH, G, C, D, tokens, warps, combiners, smem, scale,
+    # stream
+    "mvt_int4_kv_attention": (_P,) * 14 + (_I,) * 8 + (_F, _P),
     # q, 2 x (kq, ks, vq, vs, klut, vlut), offset, left_pad, part_ml,
     # part_acc, tickets, out, 2 x (d, kbits, vbits), nseg, BH, G, C,
     # tokens, warps, combiners, smem, scale, stream

@@ -17,9 +17,13 @@ rank-1 term sum_c p_c * vb_c; a row that sees nothing divides by 1e-30
 (and is 0).
 
 Bound on the H100: device-memory bytes (D + 16 bytes per visible token and
-KV head at 4 bits).  The kernel splits the history over blocks of 128
-tokens, each serving every query row of its KV head, and combines their
-(max, sum, acc, bias) partials in a second pass.  See the .cu header.
+KV head at 4 bits).  One launch a call: the kernel cuts each KV head's
+capacity into splits of `int4_kv_attention_plan`'s tokens, one block each,
+which stages its codes and scales by bulk copies, takes the integer key
+dots on `mma.sync` with s8 operands and the values on bf16 `mma.sync`, for
+every query row of its head; each split's softmax runs against its own
+maximum, and the last blocks of a head combine the live splits.  See the
+.cu header.
 
 On CPU tensors the wrapper computes the plain PyTorch version
 `int4_kv_decode_attention_plain`; on CUDA tensors it launches the kernel or
@@ -28,6 +32,8 @@ raises.  `launches` counts calls that launched the kernel.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional, Union
 
 import torch
@@ -36,7 +42,122 @@ from . import _cuda
 
 launches = {"int4_kv_attention": 0}
 
-TC = 128  # history tokens per block (csrc/int4_kv_attention.cu)
+# Mirrors of csrc/int4_kv_attention.cu's constants
+TILE = 16          # tokens of one mma tile; a split is whole tiles
+MAX_NT = 2         # n-tiles of 8 query rows a block serves
+MAX_WARPS = 12     # 8 at two n-tiles
+ARRAY_SLACK = 48
+MAX_COMBINERS = 8
+KEY_BYTES = 16     # code bytes of a token per key k-step
+GROUP_BYTES = 32   # code bytes of a token per group of 4 value m-tiles
+# The plan's choices (shared with ops/tq_kv_attention.py): blocks per SM
+# the grid aims at, the longest split, and the shared memory a block may
+# take on the H100
+BLOCKS_PER_SM = 1
+MAX_TOKENS = 512
+SMEM_BYTES = 232448
+H100_SMS = 132
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def key_steps(D: int) -> int:
+    """k-steps of the key dot: KEY_BYTES code bytes of a token each."""
+    return _cdiv(D // 2, KEY_BYTES)
+
+
+def _smem_bytes(T: int, D: int, nt: int, warps: int) -> int:
+    """A block's dynamic shared memory: the kernel's `kv4_layout`."""
+    rows, h = 8 * nt, D // 2
+    n = _align16(rows * D + ARRAY_SLACK) + _align16(rows * 8 + ARRAY_SLACK)
+    n += nt * key_steps(D) * 32 * 8
+    n += rows * T * 4 + rows * T * 2 + _align16(rows * 8) + _align16(rows * 4)
+    n += rows * D * 4 + warps * rows * D * 4
+    for width in (h, 4, 4, 4, 4, h):
+        n += _align16(T * width + ARRAY_SLACK)
+    return n
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    tokens: int      # T: tokens of one split (one block), a multiple of 16
+    splits: int      # NS = ceil(C / T) splits per KV head
+    combiners: int   # the last blocks of a head to arrive, which combine
+    warps: int       # warps per block
+    n_tiles: int     # 8-row n-tiles of query rows a block serves
+    row_groups: int  # blocks per split along the query rows
+    smem_bytes: int
+
+
+def split_plan(BH: int, G: int, C: int, smem_bytes, sms: int) -> SplitPlan:
+    """The grid and block of a split decode-attention kernel (K6, K7, K8)
+    for BH KV heads of G query rows over a capacity of C tokens on a card
+    of `sms` SMs; `smem_bytes(T, nt, warps)` is a block's shared memory.
+    The grid is sized from C (not the cursor) for about BLOCKS_PER_SM
+    blocks per SM: each KV head's capacity is cut into NS splits of T
+    tokens (whole 16-token tiles, at most MAX_TOKENS), one block each; on
+    the card a row's NS splits cover its history [0, min(C, offset)) in
+    whole tiles of at most T tokens.  A block takes the fewest warps (at
+    most MAX_WARPS, 8 with two n-tiles) that leave no warp more tiles than
+    that many warps would; T halves while a block's shared memory passes
+    SMEM_BYTES.  G <= 8 rows take one n-tile, more take two, and past 16
+    the rows are cut into groups of 16.  The last `combiners` blocks of a
+    head to arrive combine its splits: at most MAX_COMBINERS and SMs /
+    heads, so that the blocks waiting for the rest can never hold every
+    SM."""
+    nt = 1 if G <= 8 else MAX_NT
+    Z = _cdiv(G, 8 * nt)
+    per_head = max(1, BLOCKS_PER_SM * sms // (BH * Z))
+    T = min(MAX_TOKENS, _cdiv(_cdiv(C, per_head), TILE) * TILE)
+    most = MAX_WARPS if nt == 1 else 8
+    while True:
+        tiles = T // TILE
+        warps = _cdiv(tiles, _cdiv(tiles, most))
+        smem = smem_bytes(T, nt, warps)
+        if smem <= SMEM_BYTES:
+            NS = _cdiv(C, T)
+            K = min(MAX_COMBINERS, NS, max(1, sms // (BH * Z)))
+            return SplitPlan(T, NS, K, warps, nt, Z, smem)
+        if T == TILE:
+            raise ValueError(f"split_plan: {smem} bytes of shared memory at "
+                             f"16 tokens a split")
+        T = max(TILE, T // 2 // TILE * TILE)
+
+
+def int4_kv_attention_plan(BH: int, G: int, C: int, D: int,
+                           sms: int = H100_SMS) -> SplitPlan:
+    """K6's grid and block (`split_plan`) for BH KV heads of G query rows
+    over C tokens of head dim D; D must be a multiple of 8, so that every
+    token's code row is whole 32-bit words."""
+    if G < 1 or C < 1 or BH < 1 or D < 8 or D % 8:
+        raise ValueError(f"int4_kv_attention_plan: BH={BH}, G={G}, C={C}, "
+                         f"D={D}")
+    return split_plan(BH, G, C,
+                      lambda T, nt, warps: _smem_bytes(T, D, nt, warps), sms)
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(dev, n: int) -> torch.Tensor:
+    """The card's ticket counters, shared by K6, K7 and K8: zeroed once,
+    and every launch leaves them as it found them."""
+    t = _TICKETS.get(dev.index)
+    if t is None or t.numel() < n:
+        t = _TICKETS[dev.index] = torch.zeros(max(n, 4096),
+                                              dtype=torch.int32, device=dev)
+    return t
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def visible(offset: torch.Tensor, left_pad: torch.Tensor, C: int):
@@ -108,9 +229,10 @@ def int4_kv_decode_attention(q8: torch.Tensor, qsum_qs: torch.Tensor,
     if q8.device.type != "cuda":
         raise TypeError("int4_kv_decode_attention: the kernel runs on CUDA "
                         "tensors")
-    if D % 2 or k4.shape != (BH, C, D // 2) or v4.shape != k4.shape:
+    if D % 8 or k4.shape != (BH, C, D // 2) or v4.shape != k4.shape:
         raise ValueError(f"int4_kv_decode_attention: unsupported shapes "
-                         f"q8 {tuple(q8.shape)} k4 {tuple(k4.shape)}")
+                         f"q8 {tuple(q8.shape)} k4 {tuple(k4.shape)} (D a "
+                         f"multiple of 8)")
     for a, dt, shape in ((q8, torch.int8, None), (qsum_qs, torch.float32,
                                                   (BH, g, 2)),
                          (k4, torch.uint8, None), (v4, torch.uint8, None),
@@ -125,17 +247,24 @@ def int4_kv_decode_attention(q8: torch.Tensor, qsum_qs: torch.Tensor,
         if shape is not None and a.shape != shape:
             raise ValueError(f"int4_kv_decode_attention: shape "
                              f"{tuple(a.shape)}, expected {shape}")
-    n_split = (C + TC - 1) // TC
-    f32 = dict(dtype=torch.float32, device=q8.device)
-    part_ml = torch.empty((n_split, BH, g, 3), **f32)  # m, l, bias
-    part_acc = torch.empty((n_split, BH, g, D), **f32)
+    if q8.data_ptr() % 4 or k4.data_ptr() % 4 or v4.data_ptr() % 4:
+        raise ValueError("int4_kv_decode_attention: q8, k4 and v4 must be "
+                         "4-byte aligned")
+    dev = q8.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    plan = int4_kv_attention_plan(BH, g, C, D, _sms(index))
+    f32 = dict(dtype=torch.float32, device=dev)
+    part_ml = torch.empty((plan.splits, BH, g, 2), **f32)  # max, sum of p
+    part_acc = torch.empty((plan.splits, BH, g, D), **f32)
     out = torch.empty((BH, g, D), **f32)
+    tickets = _tickets(dev, 2 * BH * plan.row_groups)
     err = _cuda.library().mvt_int4_kv_attention(
         q8.data_ptr(), qsum_qs.data_ptr(), k4.data_ptr(), ks.data_ptr(),
         kb.data_ptr(), v4.data_ptr(), vs.data_ptr(), vb.data_ptr(),
         off.data_ptr(), lp.data_ptr(), part_ml.data_ptr(),
-        part_acc.data_ptr(), out.data_ptr(), BH, g, C, D, float(scale),
-        _cuda.stream_handle(q8.device))
+        part_acc.data_ptr(), tickets.data_ptr(), out.data_ptr(), BH, g, C, D,
+        plan.tokens, plan.warps, plan.combiners, plan.smem_bytes,
+        float(scale), _cuda.stream_handle(dev))
     _cuda.check(err, "int4_kv_decode_attention")
     launches["int4_kv_attention"] += 1
     return out

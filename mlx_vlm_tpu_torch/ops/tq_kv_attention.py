@@ -43,29 +43,21 @@ import torch
 
 from ..core.turboquant import unpack_codes
 from . import _cuda
-from .int4_kv_attention import _rows, bf16_round, online_softmax_out, visible
+# (MAX_COMBINERS, MAX_NT, MAX_TOKENS, MAX_WARPS and SMEM_BYTES stand here
+# as mirrors of this kernel's constants and the plan's choices)
+from .int4_kv_attention import (H100_SMS, MAX_COMBINERS, MAX_NT,  # noqa: F401
+                                MAX_TOKENS, MAX_WARPS, SMEM_BYTES, TILE,
+                                SplitPlan, _align16, _cdiv, _rows, _sms,
+                                _tickets, bf16_round, online_softmax_out,
+                                split_plan, visible)
 
 launches = {"tq_kv_attention": 0, "tq_kv_attention_split": 0}
 
-# Mirrors of csrc/tq_kv_attention.cu's constants
-TILE = 16          # tokens of one mma tile; a split is whole tiles
+# Mirrors of csrc/tq_kv_attention.cu's other constants
 MAX_SEGS = 2
-MAX_NT = 2         # n-tiles of 8 query rows a block serves
-MAX_WARPS = 12     # 8 at two n-tiles
 LUT_ENTRIES = 256
 GROUP_TILES = 8
 ARRAY_SLACK = 32
-MAX_COMBINERS = 8
-# The plan's choices: blocks per SM the grid aims at, the longest split,
-# and the shared memory a block may take on the H100
-BLOCKS_PER_SM = 1
-MAX_TOKENS = 512
-SMEM_BYTES = 232448
-H100_SMS = 132
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,10 +89,6 @@ def _code_width(d: int, bits: int) -> int:
     return d if bits == 8 else d // 8 * bits
 
 
-def _align16(x: int) -> int:
-    return (x + 15) & ~15
-
-
 def _smem_bytes(segs, T: int, D: int, nt: int, warps: int) -> int:
     """A block's dynamic shared memory: the kernel's `tq_layout`."""
     rows = 8 * nt
@@ -116,72 +104,22 @@ def _smem_bytes(segs, T: int, D: int, nt: int, warps: int) -> int:
     return n
 
 
-@dataclasses.dataclass(frozen=True)
-class TqPlan:
-    tokens: int      # T: tokens of one split (one block), a multiple of 16
-    splits: int      # NS = ceil(C / T) splits per KV head
-    combiners: int   # the last blocks of a head to arrive, which combine
-    warps: int       # warps per block
-    n_tiles: int     # 8-row n-tiles of query rows a block serves
-    row_groups: int  # blocks per split along the query rows
-    smem_bytes: int
+TqPlan = SplitPlan
 
 
 def tq_kv_attention_plan(BH: int, G: int, C: int, segs,
                          sms: int = H100_SMS) -> TqPlan:
-    """The kernel's grid and block for BH KV heads of G query rows over a
-    capacity of C tokens on a card of `sms` SMs; `segs` lists each
-    segment's (dims, key bits, value bits).  The grid is sized from C (not
-    the cursor) for about BLOCKS_PER_SM blocks per SM: each KV head's
-    capacity is cut into NS splits of T tokens (whole 16-token tiles, at
-    most MAX_TOKENS), one block each; on the card a row's NS splits cover
-    its history [0, min(C, offset)) in whole tiles of at most T tokens.
-    A block takes the fewest warps (at most MAX_WARPS, 8 with two n-tiles)
-    that leave no warp more tiles than that many warps would; T halves
-    while a block's shared memory passes SMEM_BYTES.  G <= 8 rows take one
-    n-tile, more take two, and past 16 the rows are cut into groups of
-    16.  The last `combiners` blocks of a head to arrive combine
-    its splits: at most MAX_COMBINERS and SMs / heads, so that the blocks
-    waiting for the rest can never hold every SM."""
+    """The kernel's grid and block (ops/int4_kv_attention.py:split_plan)
+    for BH KV heads of G query rows over a capacity of C tokens on a card
+    of `sms` SMs; `segs` lists each segment's (dims, key bits, value
+    bits)."""
     if not segs or len(segs) > MAX_SEGS or G < 1 or C < 1:
         raise ValueError(f"tq_kv_attention_plan: {len(segs)} segments, "
                          f"G={G}, C={C}")
-    nt = 1 if G <= 8 else MAX_NT
-    Z = _cdiv(G, 8 * nt)
     D = sum(d for d, _, _ in segs)
-    per_head = max(1, BLOCKS_PER_SM * sms // (BH * Z))
-    T = min(MAX_TOKENS, _cdiv(_cdiv(C, per_head), TILE) * TILE)
-    most = MAX_WARPS if nt == 1 else 8
-    while True:
-        tiles = T // TILE
-        warps = _cdiv(tiles, _cdiv(tiles, most))
-        smem = _smem_bytes(segs, T, D, nt, warps)
-        if smem <= SMEM_BYTES:
-            NS = _cdiv(C, T)
-            K = min(MAX_COMBINERS, NS, max(1, sms // (BH * Z)))
-            return TqPlan(T, NS, K, warps, nt, Z, smem)
-        if T == TILE:
-            raise ValueError(f"tq_kv_attention_plan: {smem} bytes of shared "
-                             f"memory at 16 tokens a split")
-        T = max(TILE, T // 2 // TILE * TILE)
-
-
-_TICKETS: dict = {}
-
-
-def _tickets(dev, n: int) -> torch.Tensor:
-    """The card's ticket counters: zeroed once, and every launch leaves
-    them as it found them."""
-    t = _TICKETS.get(dev.index)
-    if t is None or t.numel() < n:
-        t = _TICKETS[dev.index] = torch.zeros(max(n, 4096),
-                                              dtype=torch.int32, device=dev)
-    return t
-
-
-@functools.cache
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+    return split_plan(BH, G, C,
+                      lambda T, nt, warps: _smem_bytes(segs, T, D, nt, warps),
+                      sms)
 
 
 @functools.cache

@@ -6,8 +6,13 @@ reference's decision tree, and the whole slice (tiny Qwen2-VL with head
 dim 128) to the JAX package for kv_bits 8, 4, 3.5 and 3.5 split.  Inputs
 are made with numpy from a seed and handed to both packages; both run in
 float32 on the CPU.  Tests marked `cuda` hold the CUDA kernel K6 to its
-plain version on a GPU and skip without one.
+plain version on a GPU and skip without one.  K6's host plan, its mirror
+of the kernel's shared-memory layout, and plain emulations of the kernel's
+key and value slot orders run on the CPU.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -422,6 +427,209 @@ def test_slice_matches_reference(slice_models, monkeypatch, kv_bits,
             break
 
 
+# ------------------------------------------------------------ K6's kernel
+
+KERNEL_SOURCE = (Path(k6.__file__).resolve().parent.parent / "csrc"
+                 / "int4_kv_attention.cu")
+HEADER_SOURCE = KERNEL_SOURCE.parent / "kv_decode_common.cuh"
+
+
+def key_slot_dim(D, st, slot):
+    """Head dim of slot `slot` (0..31) of key k-step `st`, or -1 for a pad
+    slot (csrc/int4_kv_attention.cu's key slot order): slots 4 tig + e
+    take the low nibbles of code word 4 st + tig (dims 16 st + 4 tig + e),
+    slots 16 + 4 tig + e its high nibbles (dims D/2 + 16 st + 4 tig + e)."""
+    h = D // 2
+    byte = st * k6.KEY_BYTES + (slot & 15)
+    if byte >= h:
+        return -1
+    return byte + (h if slot >= 16 else 0)
+
+
+def value_slot_dims(D, mt, gid):
+    """(dim of m-slot gid, dim of m-slot gid + 8) of value m-tile mt, -1
+    past D/2: the low and high nibble of code byte 32 (mt // 4) + 4 gid +
+    mt % 4."""
+    h = D // 2
+    b = k6.GROUP_BYTES * (mt // 4) + 4 * gid + mt % 4
+    return (b, h + b) if b < h else (-1, -1)
+
+
+def prmt(a, b, sel):
+    """PTX prmt.b32 (default mode) on uint32 numpy arrays."""
+    pool = [(a >> (8 * i)) & 0xFF for i in range(4)]
+    pool += [(b >> (8 * i)) & 0xFF for i in range(4)]
+    out = np.zeros_like(a)
+    for i in range(4):
+        out |= pool[(sel >> (4 * i)) & 7] << (8 * i)
+    return out
+
+
+def bf16_pair_values(x):
+    """uint32 words as two bf16 values each (low half first) -> f32."""
+    lo = (x & 0xFFFF).astype(np.uint32) << 16
+    hi = (x >> 16).astype(np.uint32) << 16
+    return lo.view(np.float32), hi.view(np.float32)
+
+
+@pytest.mark.parametrize("D", [128, 256, 80, 8])
+def test_k6_key_slots_emulation_is_exact(D):
+    """int32 emulation of the kernel's key dot: each token's packed code
+    words cut by the two LOP3 masks (x & 0x0F0F0F0F, (x >> 4) &
+    0x0F0F0F0F) against the query codes laid out in the same slot order,
+    zero in pad slots, over every k-step.  The bytes past D/2 in a padded
+    k-step are the next row's (random here), and must cancel.  It must
+    equal q8 . k exactly."""
+    rng = np.random.default_rng(D)
+    h, n, g = D // 2, 37, 7
+    steps = k6.key_steps(D)
+    q8 = rng.integers(-127, 128, (g, D)).astype(np.int32)
+    codes = rng.integers(0, 16, (n, D)).astype(np.int32)
+    packed = (codes[:, :h] | (codes[:, h:] << 4)).astype(np.uint8)
+    # each row as the kernel reads it: whole k-steps, bytes past h from
+    # whatever follows
+    rows = np.concatenate([packed, rng.integers(
+        0, 256, (n, steps * k6.KEY_BYTES - h), dtype=np.uint8)], axis=1)
+    words = rows.view("<u4").astype(np.int64)               # [n, 4 steps]
+    qf = np.zeros((g, steps, 32), np.int64)
+    for st in range(steps):
+        for slot in range(32):
+            dim = key_slot_dim(D, st, slot)
+            if dim >= 0:
+                qf[:, st, slot] = q8[:, dim]
+    got = np.zeros((g, n), np.int64)
+    for st in range(steps):
+        for tig in range(4):
+            x = words[:, 4 * st + tig]
+            for e in range(4):
+                lo = ((x & 0x0F0F0F0F) >> (8 * e)) & 0xFF
+                hi = (((x >> 4) & 0x0F0F0F0F) >> (8 * e)) & 0xFF
+                got += qf[:, st, 4 * tig + e, None] * lo[None]
+                got += qf[:, st, 16 + 4 * tig + e, None] * hi[None]
+    np.testing.assert_array_equal(got, q8.astype(np.int64) @ codes.T)
+    # every dim in exactly one slot
+    dims = [key_slot_dim(D, st, sl) for st in range(steps)
+            for sl in range(32)]
+    assert sorted(d for d in dims if d >= 0) == list(range(D))
+
+
+@pytest.mark.parametrize("D", [128, 256, 80])
+def test_k6_value_operands_emulation(D):
+    """The value m-tiles cover each dim once, and the kernel's operand
+    build -- prmt of byte k of two tokens' words, then (t & 0x000F000F) |
+    0x43004300 (after t >> 4 for the high nibbles) as bf16 minus 128 --
+    gives each m-slot's code exactly."""
+    h = D // 2
+    groups = -(-h // k6.GROUP_BYTES)
+    dims = [d for mt in range(4 * groups) for gid in range(8)
+            for d in value_slot_dims(D, mt, gid) if d >= 0]
+    assert sorted(dims) == list(range(D))
+    rng = np.random.default_rng(D + 1)
+    w0, w1 = (rng.integers(0, 2**32, 64, dtype=np.uint64).astype(np.uint32)
+              for _ in range(2))
+    for k in range(4):
+        t = prmt(w0, w1, 0x4400 + 0x1111 * k)
+        for shift, nib in ((0, lambda x: x & 15), (4, lambda x: x >> 4)):
+            x = ((t >> shift) & 0x000F000F) | 0x43004300
+            lo, hi = bf16_pair_values(x.astype(np.uint32))
+            byte0, byte1 = (w0 >> (8 * k)) & 0xFF, (w1 >> (8 * k)) & 0xFF
+            # bf16(128 + q) - 128 is exact
+            np.testing.assert_array_equal(lo - 128, nib(byte0))
+            np.testing.assert_array_equal(hi - 128, nib(byte1))
+
+
+def test_k6_plan_at_request_f():
+    """(f) kv_bits 4 on Qwen2-VL-7B's 4 KV heads of 7 query rows over an
+    8704-slot cache at D = 128: 32 splits of 272 tokens (one block per SM
+    of 132, 128 blocks), 9 warps for 17 tiles, 8 combiners."""
+    p = k6.int4_kv_attention_plan(4, 7, 8704, 128)
+    assert p == k6.SplitPlan(tokens=272, splits=32, combiners=8, warps=9,
+                             n_tiles=1, row_groups=1, smem_bytes=95776)
+    # 2B's 2 KV heads of 6 rows
+    two_b = k6.int4_kv_attention_plan(2, 6, 8704, 128)
+    assert (two_b.tokens, two_b.splits, two_b.warps) == (144, 61, 9)
+
+
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("C", [250, 8704, 32768])
+@pytest.mark.parametrize("G", [1, 7, 8, 9, 16, 17])
+@pytest.mark.parametrize("BH", [1, 4])
+def test_k6_plan_covers_and_fits(D, C, G, BH):
+    """The splits cover [0, C) in whole tiles, a block's shared memory
+    fits, at most min(8, SMs / (heads * row groups)) combiners, and G
+    rows take one n-tile up to 8, two up to 16, then groups of 16."""
+    p = k6.int4_kv_attention_plan(BH, G, C, D)
+    assert p.tokens % k6.TILE == 0 and p.tokens <= k6.MAX_TOKENS
+    assert p.splits * p.tokens >= C > (p.splits - 1) * p.tokens
+    assert p.smem_bytes == k6._smem_bytes(p.tokens, D, p.n_tiles, p.warps)
+    assert p.smem_bytes <= k6.SMEM_BYTES
+    assert 1 <= p.combiners <= min(k6.MAX_COMBINERS, p.splits,
+                                   max(1, 132 // (BH * p.row_groups)))
+    assert p.n_tiles == (1 if G <= 8 else 2)
+    assert p.row_groups == -(-G // (8 * p.n_tiles))
+    assert 1 <= p.warps <= (k6.MAX_WARPS if p.n_tiles == 1 else 8)
+    assert p.warps * -(-(p.tokens // 16) // p.warps) >= p.tokens // 16
+
+
+def test_k6_plan_refuses():
+    """D must be a multiple of 8 (whole code words a token); no rows, no
+    capacity."""
+    for args in ((4, 7, 8704, 12), (4, 7, 8704, 130), (4, 0, 8704, 128),
+                 (4, 7, 0, 128)):
+        with pytest.raises(ValueError):
+            k6.int4_kv_attention_plan(*args)
+
+
+def test_k6_plan_mirrors_kernel_constants_and_layout():
+    """The Python constants equal csrc/int4_kv_attention.cu's, and
+    `kv4_layout` lays out the regions `_smem_bytes` counts, in its order;
+    the two-pass design and its combine kernel are gone, and the split's
+    end (arrival and combine) is kv_decode_common.cuh's, shared with
+    K7 / K8."""
+    src = KERNEL_SOURCE.read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    for name in ("TILE", "MAX_NT", "MAX_WARPS", "ARRAY_SLACK",
+                 "MAX_COMBINERS", "KEY_BYTES", "GROUP_BYTES"):
+        assert int(consts[name]) == getattr(k6, name), name
+    layout = src[src.index("inline Kv4Layout kv4_layout("):]
+    layout = layout[:layout.index("L.bytes = o;")]
+    assert re.findall(r"L\.(\w+)(?:\[j\])? = o;", layout) == [
+        "qraw", "meta", "qf", "S", "pv", "ml", "bias", "part", "red", "arr"]
+    assert "kv4_layout(T, D, nt, warps).bytes != smem" in src
+    assert "finish_split(" in src
+    header = HEADER_SOURCE.read_text()
+    for gone in ("int4_kv_split_kernel", "combine_kernel", "block_softmax",
+                 "live_range"):
+        assert gone not in src and gone not in header, gone
+    tq_src = (KERNEL_SOURCE.parent / "tq_kv_attention.cu").read_text()
+    assert "finish_split(" in tq_src
+    assert "void combine_splits(" in header
+    assert "combine_splits(" not in src and "void combine_splits(" \
+        not in tq_src
+
+
+def test_int4_route_takes_whole_word_rows(monkeypatch):
+    """A decode step runs K6 when D is a multiple of 8; another D takes the
+    integer-domain attend, which agrees with the reference's attend (its
+    XLA route) in f32 -- and K6 is never called for it."""
+    assert tcache.int4_kv_route(1, 128) and tcache.int4_kv_route(1, 256)
+    assert tcache.int4_kv_route(1, 80)
+    assert not tcache.int4_kv_route(1, 12)
+    assert not tcache.int4_kv_route(1, 130)
+    assert not tcache.int4_kv_route(2, 128)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("K6 called at D = 12")
+
+    monkeypatch.setattr(k6, "int4_kv_decode_attention", refuse)
+    D, nkv = 12, 2
+    j = jcache.init_int4_cache(1, 1, nkv, D, C,
+                               left_pad=jnp.asarray([3], jnp.int32))
+    t = tcache.init_int4_cache(1, 1, nkv, D, C, left_pad=torch.tensor([3]))
+    outs, j, t = cache_steps(j, t, D, seed=12)
+    _check_outputs(outs, PREFILL)
+
+
 def test_loader_defaults_to_the_card():
     """Without `device`, the loaders load onto the GPU: on a host without
     one they raise before reading anything."""
@@ -480,3 +688,125 @@ def test_cuda_k6_matches_plain(cuda_device, D, rows):
     torch.cuda.synchronize()
     assert k6.launches["int4_kv_attention"] == n0 + 1
     assert float((got - ref).abs().max()) <= 1e-2 * float(ref.abs().max())
+
+
+def k6_card_inputs(device, D=128, g=G, c=C, seed=0, q_scale=4.0):
+    """K6 inputs of BH heads x g rows x c slots (k6_inputs' recipe) on the
+    card."""
+    rng = np.random.default_rng(seed)
+    qf = rng.standard_normal((BH, g, D)).astype(np.float32) * q_scale
+    qs = np.abs(qf).max(-1) / 127.0
+    q8 = np.round(qf / qs[..., None]).astype(np.int8)
+    meta = np.stack([q8.astype(np.int32).sum(-1).astype(np.float32), qs],
+                    -1).astype(np.float32)
+    k4, v4 = (rng.integers(0, 256, (BH, c, D // 2), dtype=np.uint8)
+              for _ in range(2))
+    ks, vs = (rng.uniform(0.05, 0.3, (BH, c)).astype(np.float32)
+              for _ in range(2))
+    kb, vb = (rng.uniform(-2, 0, (BH, c)).astype(np.float32)
+              for _ in range(2))
+    return [torch.from_numpy(a).to(device)
+            for a in (q8, meta, k4, ks, kb, v4, vs, vb)]
+
+
+def _card_cursors(device, c=C):
+    """Per-row cursors inside a capacity of c: row 1 sees [5, 37), row 2
+    nothing."""
+    off = torch.tensor([min(200, c), 37, 100], dtype=torch.int32)
+    lp = torch.tensor([0, 5, 100], dtype=torch.int32)
+    return off.to(device), lp.to(device)
+
+
+def _k6_close(got, ref):
+    assert torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= 1e-2 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("g", [1, 7, 8, 9, 16, 17])
+def test_cuda_k6_rows_and_dims(cuda_device, D, g):
+    """One n-tile (g <= 8), two (9..16) and row groups (17), at both head
+    dims, against the plain version; tolerance as test_cuda_k6_matches_plain
+    (bf16(p * vs) against split-local maxima)."""
+    arrs = k6_card_inputs(cuda_device, D=D, g=g, seed=D + g)
+    off, lp = _card_cursors(cuda_device)
+    got = k6.int4_kv_decode_attention(*arrs, off, D ** -0.5, left_pad=lp)
+    ref = k6.int4_kv_decode_attention_plain(*arrs, off, D ** -0.5, lp)
+    torch.cuda.synchronize()
+    assert got.shape == (BH, g, D)
+    assert not got[2].any()  # row 2 sees nothing -> 0
+    _k6_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_k6_ragged_capacity(cuda_device):
+    """C = 250, not a multiple of 16: the last tile is cut at the capacity,
+    and the f32 scale runs of a head start unaligned (250 * 4 bytes)."""
+    arrs = k6_card_inputs(cuda_device, c=250, seed=250)
+    off = torch.tensor([250, 249, 17], dtype=torch.int32, device=cuda_device)
+    lp = torch.tensor([0, 3, 0], dtype=torch.int32, device=cuda_device)
+    got = k6.int4_kv_decode_attention(*arrs, off, 128 ** -0.5, left_pad=lp)
+    ref = k6.int4_kv_decode_attention_plain(*arrs, off, 128 ** -0.5, lp)
+    torch.cuda.synchronize()
+    _k6_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_k6_ignores_nan_past_the_cursor(cuda_device):
+    """NaN scales and biases past each cursor do not reach the output: it
+    is bit-identical to the output with finite values there (the kernel
+    masks by select), and within tolerance of the plain version on those."""
+    arrs = k6_card_inputs(cuda_device, seed=11)
+    off, lp = _card_cursors(cuda_device)
+    nan = [a.clone() for a in arrs]
+    col = torch.arange(C, device=cuda_device)[None]
+    for i in (3, 4, 6, 7):
+        nan[i][col >= off[:, None]] = float("nan")
+    got = k6.int4_kv_decode_attention(*nan, off, 128 ** -0.5, left_pad=lp)
+    fin = k6.int4_kv_decode_attention(*arrs, off, 128 ** -0.5, left_pad=lp)
+    ref = k6.int4_kv_decode_attention_plain(*arrs, off, 128 ** -0.5, lp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fin)
+    _k6_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_k6_one_kernel_repeat_and_counters(cuda_device):
+    """One call puts one kernel on the device (CUDA graph nodes), a second
+    call gives the same bits (the splits are combined in a fixed order),
+    and the per-card counters it shares with K7 / K8 are back at zero."""
+    from chip_smoke import kernels_per_call
+    from mlx_vlm_tpu_torch.ops import tq_kv_attention as tk
+
+    arrs = k6_card_inputs(cuda_device, c=8704, seed=5)
+    off = torch.tensor([8545, 300, 1], dtype=torch.int32, device=cuda_device)
+    lp = torch.tensor([0, 100, 0], dtype=torch.int32, device=cuda_device)
+
+    def call():
+        return k6.int4_kv_decode_attention(*arrs, off, 128 ** -0.5,
+                                           left_pad=lp)
+
+    outs = [call() for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert kernels_per_call(call) == 1
+    assert k6._tickets is tk._tickets
+    assert not k6._tickets(cuda_device, 1).any()
+    _k6_close(outs[0], k6.int4_kv_decode_attention_plain(
+        *arrs, off, 128 ** -0.5, lp))
+
+
+@pytest.mark.cuda
+def test_cuda_k6_refuses_before_launching(cuda_device):
+    """On the card the wrapper launches or raises first: a head dim that is
+    not a multiple of 8, or codes of the wrong dtype, launch nothing."""
+    n0 = k6.launches["int4_kv_attention"]
+    arrs = k6_card_inputs(cuda_device, D=12, seed=1)
+    with pytest.raises(ValueError):
+        k6.int4_kv_decode_attention(*arrs, 10, 0.1)
+    arrs = k6_card_inputs(cuda_device, seed=1)
+    arrs[2] = arrs[2].to(torch.int16)
+    with pytest.raises(TypeError):
+        k6.int4_kv_decode_attention(*arrs, 10, 0.1)
+    assert k6.launches["int4_kv_attention"] == n0
