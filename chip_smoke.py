@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch / CUDA port on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases (any failure exits non-zero):
   1. environment: card, power limit, versions; builds the CUDA kernels from
@@ -22,7 +22,10 @@ Phases (any failure exits non-zero):
      32 and 128 and a ragged N = 1000 (timed cold and warm), its GEMM at
      both widths at M = 512, on a ragged chunk (M = 100, N = 1000) and a
      narrow one at g = 32, and at 8 bits on request (h)'s 58-row chunk at
-     the four linear shapes (timed cold and warm), every case with its
+     the four linear shapes (timed cold and warm), and at 8 bits and g =
+     128 with an odd number of groups a row (Qwen2-VL-72B's down_proj, K
+     = 29568, on the GEMV in chunks and on the GEMM; K = 3712 on a one-
+     chunk and a persistent GEMV; N even and odd), every case with its
      plan, kernels per call and a bit-identical repeat;
      K4 at the 8k rows (offset 7680; left_pad 100; window 1024), at (c)'s
      first, middle and last chunk (S = 512 against C = 8704 at offsets 0,
@@ -30,9 +33,12 @@ Phases (any failure exits non-zero):
      left_pads, each timed cold (`graph_ms` over copies of k/v) and warm,
      with its kernels per call and a bit-identical repeat;
      K3: 4 decoder layers and the int4 head at offsets 1, 300 and 8545
-     with 1e3 past the cursor and at 8545 with NaN past it, each with its
-     kernels per call, a bit-identical repeat and its bytes per second
-     beside the bound's;
+     with 1e3 past the cursor and at 8545 with NaN past it (the cursor a
+     device word, the K/V tensor maps over the whole capacity), each with
+     its kernels per call, a bit-identical repeat and its bytes per second
+     beside the bound's; then one K3 launch captured in a CUDA graph and
+     replayed with its cursor word rewritten between replays (300, then
+     8545), each replay bit-identical to an eager call at that cursor;
      K6-K8: 4 KV heads of 7 query rows over an 8704-slot cache at offsets
      1, 300 and 8545, left_pad 100 and per-row cursors, K6 also with NaN
      scales past the cursor (bit-identical to 1e3 there), K8 also at
@@ -52,18 +58,32 @@ Phases (any failure exits non-zero):
      K6, K7 and K8 with kv_bits 4, 3.5 and 3.5 split (CPU in bf16, 4
      steps); then the runtime quantization modes (2 steps each): exact
      4-bit (K5) and w8chan 8-bit against f32 CPU runs, exact 8-bit (K5)
-     with the 8-bit group-affine KV cache against a bf16 CPU run;
+     with the 8-bit group-affine KV cache against a bf16 CPU run; for each
+     of those caches (and the bf16 cache on the per-linear route, and a
+     seeded sampled request) the graph-replayed block decode on the card
+     against the same request decoded with eager steps on the card:
+     tokens and logprobs bit-identical;
   4. the main path at full Qwen2-VL-7B width (random mlx-format weights,
      28 decoder layers, 32 vision blocks): eight greedy requests through
      load_model_from_weights and stream_generate, each with the kernels'
-     launch counters set to 0 just before it and read just after.
+     launch counters set to 0 just before it and read just after.  Each
+     request decodes in blocks of 32 steps: the first step eager, then one
+     captured CUDA graph replayed per token under sync debug mode "error",
+     one host fetch per block and one for the first token (checked); it
+     prints its first-step and capture seconds, replays, fetches, ms per
+     token and ms per replayed token (first step and capture taken out),
+     and each kernel's launches are held to the decode steps that ran;
+     after it, its captured step is replayed alone between CUDA events
+     (device ms per step beside the ms per replayed token) and, with
+     --profile, under torch.profiler (the step's kernels by device time).
      Requests (a)-(f) run 4-bit weights in the default w4grp layout: (a)
-     and (c) decode through K3; (b) runs with MLX_VLM_TPU_FUSED_DECODE=0,
-     the per-linear route (K2); (d), (e) and (f) take (c)'s image and
-     ~8.2k-token prompt with kv_bits 3.5 (K7), 3.5 and
-     MLX_VLM_TPU_TQ_SCHEME=split (K8) and 4 (K6).  Then one 28-layer K3
-     step and its plain version are timed on the loaded model.  Requests
-     (g) and (h) each load their own model with
+     (100 tokens) and (c) decode through K3; (b) (100 tokens) runs with
+     MLX_VLM_TPU_FUSED_DECODE=0, the per-linear route (K2); (d), (e) and
+     (f) take (c)'s image and ~8.2k-token prompt with kv_bits 3.5 (K7),
+     3.5 and MLX_VLM_TPU_TQ_SCHEME=split (K8) and 4 (K6).  Then one
+     28-layer K3 step and its plain version are timed on the loaded model
+     (beside the times of the design that took its offset from the host).
+     Requests (g) and (h) each load their own model with
      MLX_VLM_TPU_RUNTIME_QUANT=exact, so every linear and the lm_head run
      K5: (g) (a)'s 4-bit checkpoint, image and prompt; (h) an 8-bit
      checkpoint, text only, kv_bits 8 with MLX_VLM_TPU_KV_SCHEME=affine.
@@ -534,7 +554,14 @@ K5_CASES = (tuple((bits, 64, M, K, N) for bits in (4, 8) for M in (1, 512)
                     for g in (32, 128))
             + tuple(case for bits in (4, 8)
                     for case in ((bits, 64, 100, 3584, 1000),
-                                 (bits, 32, 512, 3584, 512))))
+                                 (bits, 32, 512, 3584, 512)))
+            # an odd number of groups a row (Qwen2-VL-72B's 8-bit down_proj,
+            # K = 29568 at g = 128: 231; 29 at K = 3712): the GEMV in 2 / 8
+            # chunks and in one (a persistent grid at N = 18945), N even and
+            # odd (the arrays' last value copied alone), and the GEMM
+            + tuple((8, 128, M, 29568, N) for M, N in ((1, 8192), (8, 8192),
+                                                       (5, 1001), (58, 8192)))
+            + tuple((8, 128, 1, 3712, N) for N in (1001, 18945)))
 K5_TOL = 1e-2
 
 
@@ -965,7 +992,9 @@ def check_fused_decode(results: list, gen, dev) -> None:
         k[:, :, :, off:] = fill
         v[:, :, :, off:] = fill
         kr, vr, kf, vf = k.clone(), v.clone(), k.clone(), v.clone()
-        out = fd.fused_decode_step(params, args, h, cos, sin, k, v, off)
+        # the cursor is a device word, as a cache's
+        word = torch.tensor(off, dtype=torch.int32, device=dev)
+        out = fd.fused_decode_step(params, args, h, cos, sin, k, v, word)
         if len(out) != 4:
             fail("fused_decode: the head did not run inside the step")
         ref = fd.fused_decode_step_plain(params, args, h, cos, sin, kr, vr,
@@ -985,18 +1014,18 @@ def check_fused_decode(results: list, gen, dev) -> None:
                           float((noise[name] - want[name]).abs().max()))
             ok = ok and err <= rel * scale
         step = lambda: fd.fused_decode_step(params, args, h, cos, sin, k, v,
-                                            off)
+                                            word)
         again = step()
         same = all(bool(torch.equal(x, y)) for x, y in zip(out, again))
         kernels = kernels_per_call(step)
-        plan = fd.step_plan(params, args, off, dev)
+        plan = fd.step_plan(params, args, dev)
         ok = ok and same and kernels == 1
         shape = (f"L={L} D={D} I={args.intermediate_size} H=28 KVH=4 "
                  f"V={args.vocab_size} C={C} offset={off} q_scale=4"
                  + ("" if fill == 1e3 else f" past={fill}"))
         ms = device_ms(step)
         plain_ms = device_ms(lambda: fd.fused_decode_step_plain(
-            params, args, h, cos, sin, kr, vr, off), iters=5)
+            params, args, h, cos, sin, kr, vr, word), iters=5)
         call = call_ms(step)
         nbytes = fused_step_bytes(params, args, off)
         bound_ms, bound_by = bound(nbytes, fused_step_ops(params, args, off))
@@ -1008,8 +1037,9 @@ def check_fused_decode(results: list, gen, dev) -> None:
             f"{nbytes / bound_ms / 1e9:.3f} ({bound_ms / ms:.1%}) "
             f"bound_ms={bound_ms:.5f} ({bound_by}) kernel_call_ms={call:.4f}; "
             f"kernels per call {kernels} (graph nodes), repeat bit-identical "
-            f"{same}, {plan.barriers} grid barriers, {plan.chunks} attention "
-            f"chunks per kv head {'ok' if ok else 'MISMATCH'}", flush=True)
+            f"{same}, {plan.barriers} grid barriers, {plan.chunks_at(off)} "
+            f"attention chunks per kv head {'ok' if ok else 'MISMATCH'}",
+            flush=True)
         results.append({"name": "fused_decode", "shape": shape,
                         "err": max(e for e, _, _ in errs.values()),
                         "tol": min(t for _, t, _ in errs.values()), "ms": ms,
@@ -1017,7 +1047,77 @@ def check_fused_decode(results: list, gen, dev) -> None:
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None, "kernels_per_call": kernels,
                         "repeat_identical": same, "ok": ok})
+    results.append(check_fused_cursor_replay(params, args, h, rope, gen, dev))
     del params
+
+
+# The cursors that one captured K3 launch is replayed at
+REPLAY_OFFSETS = (300, 8545)
+
+
+def check_fused_cursor_replay(params, args, h, rope, gen, dev) -> dict:
+    """K3 reads its cursor from the device word when it runs: one launch
+    captured in a CUDA graph (ops/_cuda.Graph) is replayed with the word
+    rewritten between the replays (300, then 8545), the cache restored
+    before each; each replay's outputs and written rows must be
+    bit-identical to an eager call at that cursor on the same cache, and
+    each replay counts one launch."""
+    import torch
+
+    from mlx_vlm_tpu_torch.ops import _cuda
+    from mlx_vlm_tpu_torch.ops import fused_decode as fd
+
+    L, C = FUSED_LAYERS, FUSED_CAPACITY
+    nkv = args.num_key_value_heads
+    hd = args.hidden_size // args.num_attention_heads
+    base_k = torch.randn((L, 1, nkv, C, hd), generator=gen).to(
+        dev, torch.bfloat16)
+    base_v = torch.randn((L, 1, nkv, C, hd), generator=gen).to(
+        dev, torch.bfloat16)
+    k, v = base_k.clone(), base_v.clone()
+    cos, sin = rope.cos_sin(torch.full((3, 1, 1), 300, device=dev))
+    cos, sin = cos[0, 0].contiguous(), sin[0, 0].contiguous()
+    word = torch.tensor(REPLAY_OFFSETS[0], dtype=torch.int32, device=dev)
+
+    def call():
+        return fd.fused_decode_step(params, args, h, cos, sin, k, v, word)
+
+    def run(fn, off):
+        k.copy_(base_k)
+        v.copy_(base_v)
+        word.fill_(off)
+        # cloned: a replay's outputs are rewritten by the next replay
+        outs = [t.clone() for t in fn()]
+        return outs + [k[:, :, :, off].clone(), v[:, :, :, off].clone()]
+
+    call()  # the library, the plan and the sync words exist before capture
+    torch.cuda.synchronize()
+    graph = _cuda.Graph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    outs = {}
+    graph.capture(lambda: outs.setdefault("captured", call()), side)
+    torch.cuda.current_stream().wait_stream(side)
+    before = fd.launches["fused_decode"]
+    ok, notes = len(graph.tally) == 1, []
+    for off in REPLAY_OFFSETS:
+        replayed = run(lambda: (graph.replay(), outs["captured"])[1], off)
+        eager = run(call, off)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(replayed, eager))
+        notes.append(f"offset {off}: replay bit-identical to eager {same}")
+        ok = ok and same
+    counted = fd.launches["fused_decode"] - before
+    ok = ok and counted == 2 * len(REPLAY_OFFSETS)  # replays + eager calls
+    torch.cuda.synchronize()
+    del graph
+    print(f"  fused_decode cursor word: one captured launch replayed at "
+          f"{', '.join(notes)}; launches counted {counted} (want "
+          f"{2 * len(REPLAY_OFFSETS)}: one per replay and eager call) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    return {"name": "fused_decode", "shape": "cursor replay", "err": 0.0,
+            "tol": 0.0, "ms": None, "plain_ms": None, "call_ms": None,
+            "bound_ms": None, "bound_by": None, "library_ms": None,
+            "kernels_per_call": 1, "repeat_identical": ok, "ok": ok}
 
 
 KV_HEADS, KV_ROWS, KV_DIM, KV_CAPACITY = 4, 7, 128, 8704
@@ -1374,7 +1474,7 @@ def teacher_forced_logits(model, inputs: dict, forced=None,
         tok = int(np.argmax(out[-1])) if forced is None else forced[s]
         toks.append(tok)
         emb = lm.embed(lp, torch.tensor([[tok]], device=dev))
-        p = torch.full((3, 1, 1), cache.offset + int(deltas[0, 0]),
+        p = torch.full((3, 1, 1), int(cache.offset) + int(deltas[0, 0]),
                        dtype=torch.int64, device=dev)
         out.append(lm.step_logits(lp, emb, cache, p)[0, 0].float().cpu()
                    .numpy())
@@ -1392,6 +1492,66 @@ def parity_rule(ref: np.ndarray, got: np.ndarray) -> tuple:
     same = got.argmax(-1) == ref.argmax(-1)
     ok = err <= tol and bool(np.all(same[margin_ok]))
     return ok, err, tol, int(margin_ok.sum())
+
+
+def eager_blocks():
+    """generate/ar.py's DecodeBlocks with every step eager on the card: the
+    reference that phase 3 holds the replayed steps to."""
+    from mlx_vlm_tpu_torch.generate import ar
+
+    class Eager(ar.DecodeBlocks):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.use_graph = False
+
+    return Eager
+
+
+def replay_matches_eager(model, label: str, kv_bits=None,
+                         sampled: bool = False, n: int = 12,
+                         block: int = 4) -> bool:
+    """A text-only request through generate_step on the card twice: each
+    decode step a replay of the captured step (the default), and every step
+    eager (`EagerBlocks` in place of the decode loop's `DecodeBlocks`);
+    their tokens and logprobs must be bit-identical.
+    Greedy, or seeded sampling (temperature 0.8, top-p 0.9) with
+    `sampled`.  n tokens in blocks of `block`: the last block is partial.
+    The caller sets the environment that picks the cache."""
+    import torch
+
+    from mlx_vlm_tpu_torch.core.sampling import make_sampler
+    from mlx_vlm_tpu_torch.generate import ar
+
+    ids = torch.tensor([list(range(40, 61))], device=model.device)
+    emb = model.get_input_embeddings(model.params, ids)
+    runs = {}
+    blocks, EagerBlocks = ar.DecodeBlocks, eager_blocks()
+    for graph in (True, False):
+        sampler = make_sampler(0.8, top_p=0.9) if sampled else None
+        ar.DecodeBlocks = blocks if graph else EagerBlocks
+        try:
+            pairs = list(ar.generate_step(emb, model, max_tokens=n,
+                                          sampler=sampler, seed=5,
+                                          block_size=block, kv_bits=kv_bits))
+        finally:
+            ar.DecodeBlocks = blocks
+        runs[graph] = (np.stack([t for t, _ in pairs]),
+                       np.stack([lp for _, lp in pairs]),
+                       dict(ar.last_decode.stats))
+    (tg, lg, sg), (te, le, se) = runs[True], runs[False]
+    same = (tg.shape == te.shape == (n, 1) and np.array_equal(tg, te)
+            and np.array_equal(lg.view(np.uint32), le.view(np.uint32)))
+    blocks = -(-(n - 1) // block)
+    stats_ok = (sg["replays"] == n - 2 and sg["steps"] == se["steps"] == n - 1
+                and sg["fetches"] == se["fetches"] == blocks + 1
+                and se["replays"] == 0)
+    print(f"  replay vs eager, {label}{', sampled' if sampled else ''}: "
+          f"{n} tokens in blocks of {block}: tokens and logprobs "
+          f"bit-identical {same}; capture {sg['capture_s']:.4f} s, replays "
+          f"{sg['replays']}, fetches {sg['fetches']} (eager: {se['steps']} "
+          f"steps, {se['fetches']} fetches) "
+          f"{'ok' if same and stats_ok else 'MISMATCH'}", flush=True)
+    return same and stats_ok
 
 
 # (kv_bits, MLX_VLM_TPU_TQ_SCHEME, the kernel each decode step runs,
@@ -1462,6 +1622,18 @@ def phase_slice_parity() -> bool:
               f"{n_steps} steps; {kernel} launches {n} (want {want}); "
               f"{'ok' if ok and n == want else 'MISMATCH'}", flush=True)
         all_ok = all_ok and ok and n == want
+    # the graph-replayed block decode against eager steps, for each cache
+    for kv_bits, tq, kernel, _, _, _ in PARITY_CASES:
+        with env_vars(MLX_VLM_TPU_TQ_SCHEME=tq):
+            all_ok = replay_matches_eager(
+                gpu, f"kv_bits={kv_bits} tq_scheme={tq} ({kernel})",
+                kv_bits) and all_ok
+    all_ok = replay_matches_eager(gpu, "bf16 cache (fused_decode)",
+                                  sampled=True) and all_ok
+    gpu.language_model.fused_decode = False
+    all_ok = replay_matches_eager(gpu, "bf16 cache, per-linear (int4_matvec)"
+                                  ) and all_ok
+    gpu.language_model.fused_decode = True
     del gpu, weights
     torch.cuda.empty_cache()
     print(f"  fused route on all: {route} ({time.perf_counter() - t0:.1f} s)",
@@ -1539,6 +1711,8 @@ def phase_quant_parity(n_layers: int = 2) -> bool:
         layouts_ok = layouts == {"QuantizedTensor" if mode == "exact"
                                  else "ChannelQuantizedTensor"}
         layouts_ok = layouts_ok and not gpu.language_model.fused_decode
+        with env_vars(MLX_VLM_TPU_KV_SCHEME=scheme):
+            replay_ok = replay_matches_eager(gpu, label, kv_bits)
         del gpu
         torch.cuda.empty_cache()
         want = {k: 0 for k in NOT_ON_QUANT_PATH + ("qmatmul_int4",
@@ -1554,7 +1728,7 @@ def phase_quant_parity(n_layers: int = 2) -> bool:
               f"{time.perf_counter() - t0:.1f} s; "
               f"{'ok' if ok and counts_ok and layouts_ok else 'MISMATCH'}",
               flush=True)
-        all_ok = all_ok and ok and counts_ok and layouts_ok
+        all_ok = all_ok and ok and counts_ok and layouts_ok and replay_ok
     return all_ok
 
 
@@ -1580,15 +1754,45 @@ def prefill_chunks(S: int, max_tokens: int, step: int = 512,
     return -(-S // step)
 
 
+# `python3 chip_smoke.py --profile`: phase 4 also traces each request's
+# captured step under torch.profiler (a diagnostic; no check reads it)
+PROFILE = "--profile" in sys.argv[1:]
+
+
+def profile_step(graph) -> tuple:
+    """The kernels that a torch.profiler trace of three replays of a
+    captured step sees: ([(name, ms per step, launches per step)] by device
+    time, the trace's ms per step or None where it saw no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((e.key, us / 3e3, e.count / 3))
+    rows.sort(key=lambda r: -r[1])
+    return rows, (sum(r[1] for r in rows) if rows else None)
+
+
 def run_request(model, proc, cfg, name: str, route: str, text: str, image,
                 n_img: int, max_tokens: int, kv_bits, env: dict) -> tuple:
     """One greedy request through stream_generate with `env` set, the
     kernels' launch counters set to 0 just before it and read just after;
-    prints its metrics and returns (launch counts, generated tokens, prompt
-    tokens)."""
+    prints its metrics (with the decode loop's first-step and capture
+    seconds, graph replays and host fetches, which must be one per block
+    and one for the first token) and returns (launch counts, generated
+    tokens, prompt tokens, decode steps run)."""
     import torch
 
     from mlx_vlm_tpu_torch import apply_chat_template, stream_generate
+    from mlx_vlm_tpu_torch.generate import ar
 
     prompt = apply_chat_template(proc, cfg, text, num_images=n_img)
     torch.cuda.reset_peak_memory_stats()
@@ -1605,19 +1809,60 @@ def run_request(model, proc, cfg, name: str, route: str, text: str, image,
         counts = read_counts()
     if last is None:
         fail(f"{name}: no tokens")
+    decode = ar.last_decode
+    stats = decode.stats
     n = last.generation_tokens
     if not (n == max_tokens or last.finish_reason == "stop"):
         fail(f"{name}: {n} tokens, finish_reason {last.finish_reason}")
+    block = min(32, max_tokens)
+    steps, blocks = stats["steps"], stats["blocks"]
+    # every step runs n - 1 times unless the request stopped on EOS, when
+    # the block in flight and the one after may have run past it
+    if not (steps == n - 1 or (last.finish_reason == "stop"
+                               and n - 1 <= steps <= n - 1 + 2 * block)):
+        fail(f"{name}: {steps} decode steps ran for {n} tokens")
+    if n > 1 and not (stats["replays"] == steps - 1
+                      and stats["fetches"] == blocks + 1
+                      and blocks == -(-steps // block)):
+        fail(f"{name}: decode counts {stats}, want one capture, "
+             f"{steps - 1} replays and one fetch per block of {block} and "
+             f"one for the first token")
     ttft = times[0] - tic
     tps = (n - 1) / (times[-1] - times[0]) if n > 1 else 0.0
-    steps_ms = 1e3 * np.diff(times) if n > 1 else np.zeros(1)
+    ms_token = 1e3 * (times[-1] - times[0]) / max(n - 1, 1)
+    # tokens 2 .. n - 1 are replays: the first decode step (waited for)
+    # and the capture taken out of the time, the rest over n - 2 replays
+    first_s, capture_s = stats["first_s"], stats["capture_s"]
+    ms_replayed = 1e3 * (times[-1] - times[0] - first_s - capture_s
+                         ) / max(n - 2, 1)
     print(f"  {name} ({route} decode): prompt {last.prompt_tokens} "
           f"tokens, TTFT {ttft:.4f} s, decode {tps:.2f} tok/s over {n} "
-          f"tokens (step ms min {steps_ms.min():.1f} median "
-          f"{np.median(steps_ms):.1f} max {steps_ms.max():.1f}), peak "
+          f"tokens: {ms_token:.4f} ms per token, {ms_replayed:.4f} ms per "
+          f"replayed token (first step {first_s:.4f} s and capture "
+          f"{capture_s:.4f} s taken out, over {max(n - 2, 1)} replays); "
+          f"{steps} decode steps ({stats['replays']} replays) in {blocks} "
+          f"blocks of {block} under sync debug mode \"error\", "
+          f"{stats['fetches']} host fetches; peak "
           f"{last.peak_memory:.2f} GiB, finish_reason "
           f"{last.finish_reason}; launches {counts}", flush=True)
-    return counts, n, last.prompt_tokens
+    if decode.graph is not None:
+        # the captured step replayed alone, 10 times between CUDA events
+        # (the cursor moves on by 10, inside the capacity's slack of
+        # block_size + 1 rows; replayed directly, so no launch is counted)
+        dev_ms = _events_ms(decode.graph.graph.replay, 10)
+        print(f"    replayed step on the device: {dev_ms:.4f} ms (CUDA "
+              f"events over 10 replays; {dev_ms / ms_replayed:.1%} of the "
+              f"ms per replayed token)", flush=True)
+        if PROFILE:
+            rows, traced = profile_step(decode.graph.graph)
+            top = "; ".join(f"{k[:48]} {t:.4f} ms x{c:g}"
+                            for k, t, c in rows[:6])
+            print("    torch.profiler over 3 replays: " + (
+                f"{traced:.4f} ms of kernels a step in "
+                f"{sum(c for _, _, c in rows):g} launches, most: {top}"
+                if traced is not None else "no device time seen"),
+                flush=True)
+    return counts, n, last.prompt_tokens, steps
 
 
 def expect(name: str, counts: dict, want: dict, total: dict) -> None:
@@ -1660,9 +1905,9 @@ def phase_main_path() -> dict:
     requests = [  # (name, text, image, images, max_tokens, fused route,
         #             kv_bits, MLX_VLM_TPU_TQ_SCHEME)
         ("(a) image 448x448 + short prompt", "Describe this image in detail.",
-         _image(448), 1, 32, True, None, None),
+         _image(448), 1, 100, True, None, None),
         ("(b) text only", "Write a short story about a lighthouse.", None, 0,
-         32, False, None, None),
+         100, False, None, None),
         ("(c) image + ~8.2k-token prompt", long_text, _image(448), 1, 16,
          True, None, None),
         ("(d) as (c), kv_bits 3.5", long_text, _image(448), 1, 16, True, 3.5,
@@ -1680,13 +1925,15 @@ def phase_main_path() -> dict:
             fail(f"{name}: the fused route did not switch to {fused}")
         kv_kernel = KV_KERNEL.get((kv_bits, tq))
         route = kv_kernel if kv_kernel else "K3" if fused else "per-linear"
-        counts, n, _ = run_request(model, proc, cfg, name, route, text, image,
-                                   n_img, max_tokens, kv_bits,
-                                   {"MLX_VLM_TPU_TQ_SCHEME": tq})
+        counts, n, _, steps = run_request(
+            model, proc, cfg, name, route, text, image, n_img, max_tokens,
+            kv_bits, {"MLX_VLM_TPU_TQ_SCHEME": tq})
+        # each decode step that ran (the first eager, the rest replays of
+        # the captured step) launches its kernels once
         want = {k: 0 for k in KV_KERNEL.values()}
-        want["fused_decode"] = (n - 1) if fused and kv_bits is None else 0
+        want["fused_decode"] = steps if fused and kv_bits is None else 0
         if kv_kernel:
-            want[kv_kernel] = n_layers * (n - 1)
+            want[kv_kernel] = n_layers * steps
         expect(name, counts, want, total)
     del os.environ["MLX_VLM_TPU_FUSED_DECODE"]
     decide_fused_decode(model)
@@ -1745,17 +1992,23 @@ def exact_requests(proc, cfg4: dict, weights4: dict, total: dict) -> None:
         print(f"  {name}: checkpoint built in {t1 - t0:.1f} s, loaded in "
               f"{t2 - t1:.1f} s; device memory "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
-        counts, n, S = run_request(
+        counts, n, S, steps = run_request(
             model, proc, cfg, name, f"per-linear, qmatmul_int{bits}", text,
             image, n_img, max_tokens, kv_bits,
             {"MLX_VLM_TPU_KV_SCHEME": scheme})
         want = {k: 0 for k in zero + ("qmatmul_int4", "qmatmul_int8")}
         want[f"qmatmul_int{bits}"] = (
             prefill_chunks(S, max_tokens) * 7 * n_layers + 1
-            + (n - 1) * (7 * n_layers + 1))
+            + steps * (7 * n_layers + 1))
         expect(name, counts, want, total)
         del model, lp, head
         torch.cuda.empty_cache()
+
+
+# K3's 28-layer step at offsets 300 and 8545 when the host passed the
+# offset (PERF.md's kernel table, NVIDIA H100 80GB HBM3 at 700 W), printed
+# beside this run's
+HOST_OFFSET_STEP_MS = (3.2420, 3.5668)
 
 
 def time_full_step(model) -> None:
@@ -1770,22 +2023,25 @@ def time_full_step(model) -> None:
     dev = model.device
     cache = lm.init_cache(1, FUSED_CAPACITY, torch.bfloat16, device=dev)
     h = lm.embed(lp, torch.tensor([[42]], device=dev))
-    for off in (300, 8545):
+    for off, before in zip((300, 8545), HOST_OFFSET_STEP_MS):
         cos, sin = lm.rope.cos_sin(torch.full((3, 1, 1), off, device=dev))
-        args = (lp, lm.args, h, cos[0, 0], sin[0, 0], cache.k, cache.v, off)
+        cache.offset.fill_(off)
+        args = (lp, lm.args, h, cos[0, 0], sin[0, 0], cache.k, cache.v,
+                cache.offset)
         ms = device_ms(lambda: fd.fused_decode_step(*args))
         plain_ms = device_ms(lambda: fd.fused_decode_step_plain(*args),
                              iters=3)
         call = call_ms(lambda: fd.fused_decode_step(*args))
         nbytes = fused_step_bytes(lp, lm.args, off)
         bound_ms, bound_by = bound(nbytes, fused_step_ops(lp, lm.args, off))
-        plan = fd.step_plan(lp, lm.args, off, dev)
-        print(f"  28-layer K3 step, offset {off}: kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} (device time) kernel_call_ms="
-              f"{call:.4f}; {nbytes / 1e9:.3f} GB read, "
+        plan = fd.step_plan(lp, lm.args, dev)
+        print(f"  28-layer K3 step, offset {off} (cursor from the device "
+              f"word): kernel_ms={ms:.4f} (offset passed by the host: "
+              f"{before:.4f}) plain_ms={plain_ms:.4f} (device time) "
+              f"kernel_call_ms={call:.4f}; {nbytes / 1e9:.3f} GB read, "
               f"{nbytes / ms / 1e9:.3f} TB/s; bound_ms={bound_ms:.4f} "
               f"({bound_by}, {bound_ms / ms:.1%} of it); {plan.barriers} grid "
-              f"barriers, {plan.chunks} attention chunks per kv head",
+              f"barriers, {plan.chunks_at(off)} attention chunks per kv head",
               flush=True)
 
 

@@ -5,11 +5,16 @@ init_cache :149, update_layer :169, QuantizedKVCache :301,
 init_quantized_cache :389, Int8KVCache :608, _update_scalar_auto :743,
 init_int8_cache :762, Int4KVCache :795, init_int4_cache :965).  A
 cache holds every layer's K and V in preallocated buffers
-[L, B, n_kv_heads, capacity, ...]; rows share one write cursor `offset` and
-mask their unused prefix with `left_pad`.  Unlike the reference's immutable
-arrays, writes happen IN PLACE at `offset`: `update_layer` and each cache's
-`attend(layer, q, k, v, scale, mask)` mutate the buffers they are given,
-and `advance` moves the cursor.
+[L, B, n_kv_heads, capacity, ...]; rows share one write cursor `offset`, an
+int32 0-dim tensor on the cache's device as the reference's is (:83-89),
+and mask their unused prefix with `left_pad`.  Unlike the reference's
+immutable arrays, writes happen IN PLACE at rows offset + arange(S), by
+index: `update_layer` and each cache's `attend(layer, q, k, v, scale,
+mask)` mutate the buffers they are given, and `advance` adds to the cursor
+in place.  Nothing here reads the cursor on the host, so a decode step can
+be captured in a CUDA graph and replayed; the capacity is checked by the
+caller, which knows every position it will write (generate/ar.py
+`check_capacity`).
 
 The group-affine QuantizedKVCache stores mlx-style codes along the head dim
 (the `quantize` / `dequantize` of QuantizedTensor) and attends by
@@ -35,6 +40,7 @@ from .quant import (QuantizedTensor, _check_bits, dequantize, dtype_name,
                     quantize)
 
 __all__ = ["KVCache", "init_cache", "update_layer", "flash_eligible",
+           "new_cursor",
            "QuantizedKVCache", "init_quantized_cache", "Int8KVCache",
            "init_int8_cache", "Int4KVCache", "init_int4_cache"]
 
@@ -54,24 +60,30 @@ def flash_eligible(q: torch.Tensor, k_buf: torch.Tensor) -> bool:
     return S >= 256 and C >= 8192 and C % 128 == 0
 
 
+def new_cursor(device=None) -> torch.Tensor:
+    """A cache's write cursor at 0: an int32 0-dim tensor on `device`."""
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
 def update_layer(k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 k_new: torch.Tensor, v_new: torch.Tensor, offset: int):
-    """Write S new tokens at `offset` into one layer's [B, H, C, ...]
-    buffers, in place.  Raises if the write does not fit (no silent
-    clamping)."""
-    S = k_new.shape[2]
-    C = k_cache.shape[2]
-    if offset < 0 or offset + S > C:
-        raise ValueError(f"cache write [{offset}, {offset + S}) exceeds capacity {C}")
-    k_cache[:, :, offset:offset + S] = k_new.to(k_cache.dtype)
-    v_cache[:, :, offset:offset + S] = v_new.to(v_cache.dtype)
+                 k_new: torch.Tensor, v_new: torch.Tensor,
+                 offset: torch.Tensor):
+    """Write S new tokens at rows offset + arange(S) of one layer's
+    [B, H, C, ...] buffers, in place, by index (the cursor is never read on
+    the host).  The caller checks the capacity first; a row past C raises
+    on the CPU and faults on the card, it is never clamped."""
+    rows = offset.long() + torch.arange(k_new.shape[2], device=offset.device)
+    k_cache.index_copy_(2, rows, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(2, rows, v_new.to(v_cache.dtype))
     return k_cache, v_cache
 
 
 def _update_scalar(a_cache: torch.Tensor, b_cache: torch.Tensor,
-                   a_new: torch.Tensor, b_new: torch.Tensor, offset: int):
+                   a_new: torch.Tensor, b_new: torch.Tensor,
+                   offset: torch.Tensor):
     """Write per-token scalars [B, H, S] at `offset` into [B, H, C] buffers,
-    in place (the reference's _update_scalar_auto for a scalar cursor)."""
+    in place, by index (the reference's _update_scalar_auto for a scalar
+    cursor)."""
     return update_layer(a_cache[..., None], b_cache[..., None],
                         a_new[..., None], b_new[..., None], offset)
 
@@ -89,13 +101,14 @@ class KVCache:
     """All-layer KV cache.
 
     k, v:     [L, B, n_kv_heads, capacity, head_dim]
-    offset:   tokens written so far (host int, the shared write cursor)
+    offset:   tokens written so far: the shared write cursor, an int32
+              0-dim tensor on the cache's device
     left_pad: int32 [B] on the cache's device
     """
 
     k: torch.Tensor
     v: torch.Tensor
-    offset: int
+    offset: torch.Tensor
     left_pad: torch.Tensor
 
     @property
@@ -103,7 +116,7 @@ class KVCache:
         return self.k.shape[3]
 
     def advance(self, new_tokens: int) -> None:
-        self.offset += new_tokens
+        self.offset.add_(new_tokens)
 
     def attend(self, layer: int, q, k, v, scale: float, mask) -> torch.Tensor:
         """Write this layer's new k/v at `offset` (in place) and attend.
@@ -117,9 +130,7 @@ class KVCache:
         if flash_eligible(q, k_buf):
             from ..ops.flash_attention import flash_attention
 
-            B = q.shape[0]
-            off = torch.full((B,), self.offset, dtype=torch.int32,
-                             device=q.device)
+            off = self.offset.expand(q.shape[0])
             return flash_attention(q, k_buf, v_buf, off, self.left_pad, scale)
         return sdpa(q, k_buf, v_buf, scale, mask)
 
@@ -132,7 +143,7 @@ def init_cache(num_layers: int, batch_size: int, num_kv_heads: int,
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
-        offset=0,
+        offset=new_cursor(device),
         left_pad=cursor(left_pad, batch_size, device),
     )
 
@@ -155,7 +166,7 @@ class QuantizedKVCache:
     vq: torch.Tensor
     vs: torch.Tensor
     vb: torch.Tensor
-    offset: int
+    offset: torch.Tensor
     left_pad: torch.Tensor
     bits: int
     group_size: int
@@ -165,7 +176,7 @@ class QuantizedKVCache:
         return self.kq.shape[3]
 
     def advance(self, new_tokens: int) -> None:
-        self.offset += new_tokens
+        self.offset.add_(new_tokens)
 
     def _dequantize(self, q, s, b, dtype) -> torch.Tensor:
         t = QuantizedTensor(q=q, scales=s, biases=b, bits=self.bits,
@@ -210,7 +221,8 @@ def init_quantized_cache(num_layers: int, batch_size: int, num_kv_heads: int,
         vq=torch.zeros(packed, dtype=torch.uint8, device=device),
         vs=torch.zeros(groups, dtype=dtype, device=device),
         vb=torch.zeros(groups, dtype=dtype, device=device),
-        offset=0, left_pad=cursor(left_pad, batch_size, device), bits=bits,
+        offset=new_cursor(device),
+        left_pad=cursor(left_pad, batch_size, device), bits=bits,
         group_size=group_size)
 
 
@@ -284,7 +296,7 @@ class Int8KVCache:
     v8: torch.Tensor
     vs: torch.Tensor
     vb: torch.Tensor
-    offset: int
+    offset: torch.Tensor
     left_pad: torch.Tensor
 
     @property
@@ -292,7 +304,7 @@ class Int8KVCache:
         return self.k8.shape[3]
 
     def advance(self, new_tokens: int) -> None:
-        self.offset += new_tokens
+        self.offset.add_(new_tokens)
 
     @staticmethod
     def _quantize_tokens(x: torch.Tensor):
@@ -334,7 +346,7 @@ def init_int8_cache(num_layers: int, batch_size: int, num_kv_heads: int,
     p = _cache_planes(num_layers, batch_size, num_kv_heads, capacity,
                       head_dim, torch.int8, device)
     return Int8KVCache(k8=p["k"], ks=p["ks"], kb=p["kb"], v8=p["v"],
-                       vs=p["vs"], vb=p["vb"], offset=0,
+                       vs=p["vs"], vb=p["vb"], offset=new_cursor(device),
                        left_pad=cursor(left_pad, batch_size, device))
 
 
@@ -370,7 +382,7 @@ class Int4KVCache:
     v4: torch.Tensor
     vs: torch.Tensor
     vb: torch.Tensor
-    offset: int
+    offset: torch.Tensor
     left_pad: torch.Tensor
 
     @property
@@ -378,7 +390,7 @@ class Int4KVCache:
         return self.k4.shape[3]
 
     def advance(self, new_tokens: int) -> None:
-        self.offset += new_tokens
+        self.offset.add_(new_tokens)
 
     @staticmethod
     def _quantize_tokens(x: torch.Tensor):
@@ -429,5 +441,5 @@ def init_int4_cache(num_layers: int, batch_size: int, num_kv_heads: int,
     p = _cache_planes(num_layers, batch_size, num_kv_heads, capacity,
                       head_dim // 2, torch.uint8, device)
     return Int4KVCache(k4=p["k"], ks=p["ks"], kb=p["kb"], v4=p["v"],
-                       vs=p["vs"], vb=p["vb"], offset=0,
+                       vs=p["vs"], vb=p["vb"], offset=new_cursor(device),
                        left_pad=cursor(left_pad, batch_size, device))

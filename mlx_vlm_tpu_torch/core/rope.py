@@ -83,12 +83,26 @@ class Rope:
             if "mrope_section" in scaling:
                 self.section_map = mrope_section_map(scaling["mrope_section"])
         self.inv_freq = np.asarray(default_inv_freq(dim, base), dtype=np.float32)
+        self._on_device: dict = {}
+
+    def _tables(self, device) -> tuple:
+        """(inv_freq, section map or None) on `device`, made once per
+        device: a fresh host-to-device copy on every forward would stall
+        the host on each decode step and cannot be captured in a CUDA
+        graph."""
+        key = str(torch.device(device))
+        t = self._on_device.get(key)
+        if t is None:
+            smap = self.section_map
+            t = self._on_device[key] = (
+                torch.from_numpy(self.inv_freq).to(device),
+                None if smap is None else torch.from_numpy(smap).to(device))
+        return t
 
     def cos_sin(self, position_ids: torch.Tensor):
         """position_ids: [B, S] (1-D rope) or [3, B, S] (M-RoPE)."""
-        inv = torch.from_numpy(self.inv_freq).to(position_ids.device)
-        if self.section_map is not None and position_ids.dim() == 3:
-            smap = torch.from_numpy(self.section_map).to(position_ids.device)
+        inv, smap = self._tables(position_ids.device)
+        if smap is not None and position_ids.dim() == 3:
             return mrope_cos_sin(position_ids, inv, smap)
         if position_ids.dim() == 3:
             position_ids = position_ids[0]

@@ -4,7 +4,10 @@ Port of mlx_vlm_tpu/core/sampling.py (make_sampler :94,
 make_logits_processors :210) for temperature, top-k, top-p and min-p
 sampling and the logit-bias and repetition-penalty processors.
 A sampler is `(logits [B, V] f32, generator) -> tokens [B] int64`; random
-draws come from the `torch.Generator` it is given.  The batched samplers,
+draws come from the `torch.Generator` it is given.  Every sampler and
+processor built here reads nothing on the host and uploads nothing after
+its first call on a device, so a decode step that runs them can be
+captured in a CUDA graph (generate/ar.py).  The batched samplers,
 presence/frequency penalties and the other filters are not ported.
 """
 
@@ -49,7 +52,11 @@ def make_sampler(temp: float = 0.0, top_p: float = 0.0, min_p: float = 0.0,
 
     temp == 0 is greedy (argmax).  Otherwise filters apply in the
     reference's order (top_k -> top_p -> min_p), then a categorical draw at
-    temperature `temp` from the generator."""
+    temperature `temp` from the generator, as an exponential race
+    argmax(p / E) with E ~ Exp(1): `torch.multinomial`'s own one-sample
+    draw (the same tokens from the same generator), without its check of
+    the probabilities on the host, which a CUDA graph cannot capture.  The
+    reference's `jax.random.categorical` is the same race in Gumbel form."""
 
     def sample(logits: torch.Tensor,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -63,7 +70,8 @@ def make_sampler(temp: float = 0.0, top_p: float = 0.0, min_p: float = 0.0,
         if min_p > 0.0:
             x = _apply_min_p(x, min_p)
         probs = torch.softmax(x / temp, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        race = torch.empty_like(probs).exponential_(1, generator=generator)
+        return torch.argmax(probs / race, dim=-1)
 
     return sample
 
@@ -80,12 +88,18 @@ def make_logits_processors(logit_bias: Optional[dict] = None,
     if logit_bias:
         ids = list(logit_bias.keys())
         vals = list(logit_bias.values())
+        tables = {}  # (device, dtype) -> (ids, values), made once
 
         def bias_proc(history, logits):
-            out = logits.clone()
-            out[..., ids] += torch.tensor(vals, dtype=logits.dtype,
-                                          device=logits.device)
-            return out
+            key = (logits.device, logits.dtype)
+            if key not in tables:
+                tables[key] = (
+                    torch.tensor(ids, dtype=torch.int64, device=logits.device),
+                    torch.tensor(vals, dtype=logits.dtype,
+                                 device=logits.device))
+            idx, val = tables[key]
+            return logits.index_add(-1, idx, val.expand(*logits.shape[:-1],
+                                                        -1))
 
         processors.append(bias_proc)
 

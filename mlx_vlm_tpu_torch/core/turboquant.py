@@ -16,7 +16,9 @@ Decode attention (S == 1) runs on the packed codes through
 ops/tq_kv_attention.py (K7 for `TurboQuantKVCache`, K8 for the split
 cache) with the query rotated once outside; `MLX_VLM_TPU_TQ_FUSED=0` takes
 the dequantize + `sdpa` route instead, as in the reference.  The caches
-write in place at the host-int `offset`, like `KVCache`.
+write in place by index at their device cursor `offset`, like `KVCache`,
+and hand the kernels the cursor and the device codebooks (`_codebook`), so
+that a decode step reads nothing on the host.
 """
 
 from __future__ import annotations
@@ -228,7 +230,8 @@ def fused_route_on() -> bool:
     return os.environ.get("MLX_VLM_TPU_TQ_FUSED", "1") not in ("0", "false")
 
 
-def _write(codes, scales, new_codes, new_scales, offset: int) -> None:
+def _write(codes, scales, new_codes, new_scales,
+           offset: torch.Tensor) -> None:
     """Write S new tokens' (k, v) codes [B, H, S, w] and scales [B, H, S]
     at `offset`, in place."""
     cache_lib.update_layer(*codes, *new_codes, offset)
@@ -259,7 +262,7 @@ class TurboQuantKVCache:
     kscale: torch.Tensor
     vq: torch.Tensor
     vscale: torch.Tensor
-    offset: int
+    offset: torch.Tensor
     left_pad: torch.Tensor
     k_bits: int
     v_bits: int
@@ -270,7 +273,7 @@ class TurboQuantKVCache:
         return self.kq.shape[3]
 
     def advance(self, new_tokens: int) -> None:
-        self.offset += new_tokens
+        self.offset.add_(new_tokens)
 
     def attend(self, layer: int, q, k, v, scale: float, mask) -> torch.Tensor:
         from ..ops.attention import sdpa
@@ -293,7 +296,8 @@ class TurboQuantKVCache:
                 kq.reshape(BH, C, -1), ksc.reshape(BH, C),
                 vq.reshape(BH, C, -1), vsc.reshape(BH, C),
                 self.offset + S, scale, self.k_bits, self.v_bits,
-                _levels(self.k_bits), _levels(self.v_bits),
+                _codebook(self.k_bits, q.device),
+                _codebook(self.v_bits, q.device),
                 left_pad=self.left_pad.repeat_interleave(nkv))
             # probabilities were accumulated over rotated values: one
             # inverse rotation recovers the real-domain output
@@ -324,7 +328,7 @@ def init_turboquant_cache(num_layers: int, batch_size: int,
         vq=torch.zeros((*shape, p2 * v_bits // 8), dtype=torch.uint8,
                        device=device),
         vscale=torch.zeros(shape, dtype=torch.float32, device=device),
-        offset=0,
+        offset=cache_lib.new_cursor(device),
         left_pad=cache_lib.cursor(left_pad, batch_size, device),
         k_bits=k_bits, v_bits=v_bits, head_dim=head_dim)
 
@@ -345,7 +349,7 @@ class SplitTurboQuantKVCache:
     vsa: torch.Tensor
     vqb: torch.Tensor
     vsb: torch.Tensor
-    offset: int
+    offset: torch.Tensor
     left_pad: torch.Tensor
     lo_bits: int
     hi_bits: int
@@ -357,7 +361,7 @@ class SplitTurboQuantKVCache:
         return self.kqa.shape[3]
 
     def advance(self, new_tokens: int) -> None:
-        self.offset += new_tokens
+        self.offset.add_(new_tokens)
 
     def attend(self, layer: int, q, k, v, scale: float, mask) -> torch.Tensor:
         from ..ops.attention import sdpa
@@ -388,7 +392,8 @@ class SplitTurboQuantKVCache:
                 vqa.reshape(BH, C, -1), vsa.reshape(BH, C),
                 vqb.reshape(BH, C, -1), vsb.reshape(BH, C),
                 self.offset + S, scale, self.lo_bits, self.hi_bits,
-                _levels(self.lo_bits), _levels(self.hi_bits),
+                _codebook(self.lo_bits, q.device),
+                _codebook(self.hi_bits, q.device),
                 left_pad=self.left_pad.repeat_interleave(nkv))
             return _ungroup(out, signs, B, nh, self.head_dim, q.dtype)
         k_full = tq_decode_split(kqa, ksa, kqb, ksb, self.lo_bits,
@@ -426,7 +431,8 @@ def init_turboquant_split_cache(num_layers: int, batch_size: int,
         kqb=codes(d_hi * hi // 8), ksb=scales(),
         vqa=codes(da * lo // 8), vsa=scales(),
         vqb=codes(d_hi * hi // 8), vsb=scales(),
-        offset=0, left_pad=cache_lib.cursor(left_pad, batch_size, device),
+        offset=cache_lib.new_cursor(device),
+        left_pad=cache_lib.cursor(left_pad, batch_size, device),
         lo_bits=lo, hi_bits=hi, d_hi=d_hi, head_dim=head_dim)
 
 

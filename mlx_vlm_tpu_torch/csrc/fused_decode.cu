@@ -12,8 +12,8 @@
 //
 // Bound on the H100: device-memory bandwidth.  A Qwen2-VL-7B step reads about
 // 4.4 GB: 4.08 GB of int4 codes and f32 scale planes for the 28 x 7 linears,
-// 0.34 GB of int4 lm_head and the bf16 KV history up to `offset` (17 MB at 300
-// tokens, 0.49 GB at 8.5k).  At 3.35 TB/s that is about 1.3 ms.
+// 0.34 GB of int4 lm_head and the bf16 KV history up to the cursor (17 MB at
+// 300 tokens, 0.49 GB at 8.5k).  At 3.35 TB/s that is about 1.3 ms.
 //
 // Design: one cooperative launch of one block per SM: two consumer
 // warpgroups and a producer warpgroup; phases separated by grid barriers
@@ -21,7 +21,7 @@
 //   QKV   q|k|v GEMV, x = rms_norm1(h)
 //   ATTN  per (kv head, history chunk): sum the unit's q|k|v pieces, bias,
 //         RoPE (the chunk-0 unit writes k_new, v_new and the cache row at
-//         `offset`), then attention over the chunk on mma.sync
+//         the cursor), then attention over the chunk on mma.sync
 //   O     o GEMV, x = the chunks combined; the reduce epilogue adds the
 //         residual: h += o
 //   GU    gate|up GEMV, x = rms_norm2(h); the epilogue writes silu(gate) up
@@ -39,7 +39,7 @@
 //   codes, with the four scale planes of each group that ends in it by
 //   cp.async.bulk, one copy per lane; after a layer's q|k|v pieces come
 //   its attention unit's history tiles, 64 tokens x 64 dims of K or V a
-//   stage, from 3-D maps whose rows stop at `offset`.  The four producer
+//   stage, from 3-D maps over the whole capacity.  The four producer
 //   warps take the stages in turn and wait only for a free stage, never for
 //   x or a barrier, so they cross phase boundaries, grid barriers and
 //   layers, as the reference's cross-kind lookahead does (:665-686): while
@@ -72,13 +72,21 @@
 // - Attention on mma.sync: S = q k^T with the gq <= 8 q heads of a kv head
 //   as the M rows (padded to 16), then O^T += V^T P^T, so that P stays in
 //   the registers where S landed (the B operand) and O^T holds only real
-//   heads.  Rows at or past the cursor read as zeros (a masked score is
-//   -inf and its value 0, never garbage times 0).  Warpgroup 0 takes the
+//   heads.  Rows at or past the cursor are kept out of both products: their
+//   scores are set to -inf, and their value rows are read as zeros (the
+//   lanes of the P V ldmatrix that address such a row point at a zero row
+//   in shared memory instead; 0 x NaN would be NaN), so whatever the cache
+//   holds past the cursor never reaches a sum.  Warpgroup 0 takes the
 //   tiles, each warp 16 tokens with its own online softmax; q, history k/v
 //   and probabilities are rounded to bf16, the current token's score and
 //   value stay f32 (reference :826-851).  The chunk count gives every block
 //   a unit where the history allows; each unit's (m, l, acc) is combined in
 //   order in the o staging.
+// - The cursor is a device word (`cursor`), read once per launch: the
+//   history length, the row the step writes and the attention chunks,
+//   min(max_chunks, ceil(offset / T_TILE)), all come from it, so one
+//   launch captured in a CUDA graph serves every step as the word advances.
+//   Everything the host passes is fixed per cache and plan.
 // - Scratch written in the kernel is read with __ldcg (L2), never through
 //   the non-coherent path.  Waits time out after 2 s and trap, so a fault
 //   ends the launch with an error instead of a hang.
@@ -147,11 +155,12 @@ struct FusedDecodeArgs {
   void* attn_acc;                    // [n_heads, max_chunks, HD] f32
   void* sumsq;                       // [2][D / 256] f32: h^2 per strip
   void* sync;                        // u32: grid barrier, then the tickets
+  const int* cursor;                 // int32: history rows, the write row
   int n2p[8];
   int pmax[5];                       // pieces a strip has at most, per phase
-  int L, D, I, n_heads, n_kv, group_size, capacity, offset, vocab;
+  int L, D, I, n_heads, n_kv, group_size, capacity, vocab;
   int has_head, small_bf16;
-  int grid, stages, slots, xrows, seg_rows, unit_rows, chunks, max_chunks;
+  int grid, stages, slots, xrows, seg_rows, unit_rows, max_chunks;
   int smem_bytes;
   float eps, scale;
 };
@@ -160,7 +169,7 @@ struct FusedDecodeArgs {
 struct Params {
   FusedDecodeArgs a;
   CUtensorMap wmap[8];               // codes [L * K, N2p] u8 (head: [K, N2p])
-  CUtensorMap kmap, vmap;            // history [L * n_kv, offset, HD] bf16
+  CUtensorMap kmap, vmap;            // history [L * n_kv, capacity, HD] bf16
 };
 static_assert(sizeof(Params) <= 4096, "kernel parameters fit in 4 KB");
 
@@ -173,6 +182,8 @@ struct Static {
   float cs[HD];                      // RoPE's cos, then sin
   float inv;                         // 1 / rms of h
   int last;                          // this block closed a ticket
+  int offset, chunks;                // the cursor and the attention chunks
+  uint4 zero;                        // a zero row of 8 bf16 for ldmatrix
 };
 
 struct Phase {
@@ -279,6 +290,14 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A word of shared memory, loaded where it is used: a value the kernel set
+// once (the cursor, the chunk count) need not hold a register across loops
+__device__ __forceinline__ int lds(const int* p) {
+  int v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(smem_u32(p)));
+  return v;
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
@@ -449,12 +468,12 @@ __device__ void produce(const Params& p, uint8_t* ring, Static& st) {
   };
   // the history tiles of this block's attention units: per 64-token tile
   // four stages, K's dims [0, 64) and [64, 128), then V's
-  const int nsub = (a.offset + T_TILE - 1) / T_TILE;
+  const int nsub = (st.offset + T_TILE - 1) / T_TILE, nch = st.chunks;
   auto issue_attn = [&](int l) {
-    for (int u = blockIdx.x; u < a.n_kv * a.chunks; u += a.grid) {
+    for (int u = blockIdx.x; u < a.n_kv * nch; u += a.grid) {
       const int kvh = u % a.n_kv, ch = u / a.n_kv;
-      const int t1 = (int)((unsigned)(ch + 1) * nsub / a.chunks);
-      for (int tile = (int)((unsigned)ch * nsub / a.chunks); tile < t1; ++tile)
+      const int t1 = (int)((unsigned)(ch + 1) * nsub / nch);
+      for (int tile = (int)((unsigned)ch * nsub / nch); tile < t1; ++tile)
         for (int q = 0; q < 4; ++q) {
           if (turn == pw && lane == 0) {
             wait_bar(&st.empty[s], ph ^ 1);
@@ -514,7 +533,7 @@ __device__ void stage_x(Ctx& c, int mode, int l, bool in, int which,
     // weights exp(m_c - M) / L into wc[w], then every thread the rows
     const float* ml = static_cast<const float*>(a.attn_ml);
     const float* acc = static_cast<const float*>(a.attn_acc);
-    const int nch = a.chunks, h0 = r0 / HD, h1 = (r1 + HD - 1) / HD;
+    const int nch = lds(&c.st.chunks), h0 = r0 / HD, h1 = (r1 + HD - 1) / HD;
     for (int hb = h0; hb < h1; hb += CWARPS) {
       const int hh = hb + warp;
       if (hh < h1) {
@@ -879,13 +898,13 @@ __device__ void attention(Ctx& c, int l) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wg = warp >> 2, cw = warp & 3;
   const int r8 = lane >> 2, t = lane & 3;
-  const int nkv = a.n_kv, gq = a.n_heads / nkv, nch = a.chunks;
-  const int nsub = (a.offset + T_TILE - 1) / T_TILE;
+  const int nkv = a.n_kv, gq = a.n_heads / nkv;
   float* buf = reinterpret_cast<float*>(c.xreg);  // [gq + 2][HD]
   const float* part = static_cast<const float*>(a.part);
   const Phase qkv = phase_of(a, P_QKV);
-  for (int u = blockIdx.x; u < nkv * nch; u += a.grid) {
-    const int kvh = u % nkv, ch = u / nkv;
+  for (int u = blockIdx.x; u < nkv * lds(&c.st.chunks); u += a.grid) {
+    const int kvh = u % nkv, ch = u / nkv, nch = lds(&c.st.chunks);
+    const int nsub = (lds(&c.st.offset) + T_TILE - 1) / T_TILE;
     const int s0 = (int)((long long)ch * nsub / nch);
     const int ntiles = (int)((long long)(ch + 1) * nsub / nch) - s0;
     consumer_sync();  // the previous unit is done with buf
@@ -985,7 +1004,8 @@ __device__ void attention(Ctx& c, int l) {
       const int nk = nkv * HD;
       float* kn = static_cast<float*>(a.k_new) + (size_t)l * nk + kvh * HD;
       float* vn = static_cast<float*>(a.v_new) + (size_t)l * nk + kvh * HD;
-      const size_t row = (((size_t)l * nkv + kvh) * a.capacity + a.offset) * HD;
+      const size_t row =
+          (((size_t)l * nkv + kvh) * a.capacity + lds(&c.st.offset)) * HD;
       for (int dd = tid; dd < HD; dd += CONSUMERS) {
         kn[dd] = kcur[dd];
         vn[dd] = vcur[dd];
@@ -1031,8 +1051,6 @@ __device__ void attention(Ctx& c, int l) {
       if (wg != 0) continue;
 #pragma unroll
       for (int q = 0; q < 4; ++q) wait_bar(&c.st.full[ss[q]], pp[q]);
-      if (i == 0) {
-      }
       const uint32_t kb[2] = {smem_u32(c.ring + ss[0] * sb),
                               smem_u32(c.ring + ss[1] * sb)};
       const uint32_t vb[2] = {smem_u32(c.ring + ss[2] * sb),
@@ -1055,14 +1073,15 @@ __device__ void attention(Ctx& c, int l) {
         }
       }
       // scores (row r8, tokens 2t, 2t + 1 of each 8-token block); columns
-      // at or past the cursor read as zero and are masked
-      const int tb = (s0 + i) * T_TILE + 16 * cw + 2 * t;
+      // at or past the cursor (whatever the cache holds there) are masked
+      const int past =
+          lds(&c.st.offset) - ((s0 + i) * T_TILE + 16 * cw + 2 * t);
       float mx = -INFINITY;
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          if (tb + 8 * nb + e >= a.offset) sc[nb][e] = -INFINITY;
+          if (8 * nb + e >= past) sc[nb][e] = -INFINITY;
           mx = fmaxf(mx, sc[nb][e]);
         }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -1093,10 +1112,14 @@ __device__ void attention(Ctx& c, int l) {
       const uint32_t pb1 = pack_bf16(p[1][0], p[1][1]);
       const int mi = lane >> 3;  // the ldmatrix this lane addresses
       const int vtok = 16 * cw + (mi >> 1) * 8 + (lane & 7);
+      // a value row at or past the cursor is read from the zero row
+      const bool vlive = (s0 + i) * T_TILE + vtok < lds(&c.st.offset);
 #pragma unroll
       for (int mb = 0; mb < 8; ++mb) {
         uint32_t r[4];
-        ldsm_x4_t(kv_at(vb, vtok, 2 * mb + (mi & 1)), r);
+        ldsm_x4_t(vlive ? kv_at(vb, vtok, 2 * mb + (mi & 1))
+                        : smem_u32(&c.st.zero),
+                  r);
         mma_bf16(o[mb], r, pb0, pb1);
       }
       __syncwarp();
@@ -1171,6 +1194,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(&st.empty[s], 4);  // one arrival per warp of its warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // the cursor word: a row past the capacity would be written out of
+    // bounds, so the launch stops there (the host checks it beforehand)
+    const int off = *a.cursor;
+    if (off < 0 || off >= a.capacity) __trap();
+    const int nsub = (off + T_TILE - 1) / T_TILE;
+    st.offset = off;
+    st.chunks = max(1, min(a.max_chunks, nsub));
+    st.zero = make_uint4(0u, 0u, 0u, 0u);
   }
   __syncthreads();
 
@@ -1229,13 +1260,13 @@ bool valid(const FusedDecodeArgs& a) {
   for (int i = 0; i < (a.has_head ? 5 : 4); ++i)
     if (a.pmax[i] < 1) return false;
   if (a.has_head && a.vocab > 2 * a.n2p[W_HEAD]) return false;
-  if (a.chunks < 1 || a.chunks > MAX_CHUNKS || a.chunks > a.max_chunks)
+  if (a.max_chunks < 1 || a.max_chunks > MAX_CHUNKS || !a.cursor)
     return false;
   const int sb = Q_BYTES + a.slots * SLOT_BYTES;
   if (a.smem_bytes < a.stages * sb +
                          max(a.xrows * 6 + a.xrows / 16 * 8, ATT_SCRATCH) + 1024)
     return false;
-  return a.offset >= 0 && a.offset < a.capacity;
+  return a.capacity > 0;
 }
 
 }  // namespace
@@ -1276,14 +1307,14 @@ extern "C" int mvt_fused_decode(const void* args, void* stream) {
                     rows, a.n2p[i], BK, STRIP, CU_TENSOR_MAP_SWIZZLE_128B))
       return (int)cudaErrorInvalidValue;
   }
-  // history rows [0, offset) only: rows past the cursor read as zeros
-  const int rows = a.offset > 0 ? a.offset : 1;
+  // the whole capacity: the kernel keeps rows at or past the cursor out of
+  // its sums, so the maps do not depend on the step
   if (!tensor_map_3d(&p.kmap, a.k_cache, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                     a.L * a.n_kv, rows, HD, T_TILE, 64,
-                     CU_TENSOR_MAP_SWIZZLE_128B, a.capacity) ||
+                     a.L * a.n_kv, a.capacity, HD, T_TILE, 64,
+                     CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tensor_map_3d(&p.vmap, a.v_cache, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                     a.L * a.n_kv, rows, HD, T_TILE, 64,
-                     CU_TENSOR_MAP_SWIZZLE_128B, a.capacity))
+                     a.L * a.n_kv, a.capacity, HD, T_TILE, 64,
+                     CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       fused_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -67,8 +67,12 @@
 //     one, and the next tile's values go to a second slot, so the last
 //     wave of blocks does not run alone on a few SMs.  No atomics: a
 //     repeated call is bit-identical.
-//   * Ragged N: rows >= N are not copied and not stored.  K a whole number
-//     of group pairs (the values are copied as 32-bit words).
+//   * Ragged N: rows >= N are not copied and not stored.  Any number of
+//     groups a row, odd too (Qwen2-VL-72B's down_proj at 8 bits and g =
+//     128: 231): the values are copied as 32-bit words of the array, a
+//     chunk's copy of a row from the word that holds its first group (one
+//     group early where that group is a word's high half), and the array's
+//     last value alone by a plain load where the values are odd in all.
 // - M > 8, both widths (prefill chunks of an exact model), entry
 //   mvt_qmatmul_gemm, one kernel qmm_gemm_kernel<BITS, BM, GT>: bound by
 //   tensor-core operations at 512 rows (2 M N K at 989 TFLOP/s bf16, twice
@@ -834,7 +838,7 @@ struct Qmv {
 // ([slots][2][16 RT rows][sbw values]: with one chunk, the rows as they
 // lie in memory, sbw = K / g, in two slots when the grid is persistent;
 // with more, the 32-bit words that hold the chunk's groups, one more group
-// where a chunk starts at an odd one); x of a chunk, M rows of xstride
+// where a row's copy starts a group early); x of a chunk, M rows of xstride
 // bytes; the sums of x, 8 per group of a chunk.
 struct QmvSmem {
   int sbw, sb_slots, xstride, bytes;
@@ -965,17 +969,31 @@ qmv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
     }
   };
 
+  // the first group of row r's values that a chunk's copy from group cg0
+  // starts at: cg0, or the group before where cg0 is the high half of a
+  // 32-bit word of the array (row r of a tile starts at an odd value where
+  // r and the groups per row are odd)
+  auto sb_first = [&](int r, int cg0) {
+    return cg0 - (((r & ngroups) + cg0) & 1);
+  };
+
   // every thread: the scales and biases of tile `tile`'s rows for groups
-  // [cg0, cg0 + ng) into values slot `slot` (the caller commits)
+  // [cg0, cg0 + ng) into values slot `slot` (the caller commits).  The
+  // copies are cp.async words; a value that would end a word past the
+  // array's end (an odd number of values in all) is copied by a plain load
+  // and store, which the barrier before the values are read makes visible.
   auto issue_sb = [&](int tile, int slot, int cg0, int ng) {
     const int nb0 = tile << (4 + lrt), nrows = min(16 << lrt, N - nb0);
     const uint32_t base = smem_u32(sbs) + slot * 2 * sb_array * 2;
+    const size_t total = (size_t)N * ngroups;  // values of each array
 #pragma unroll
     for (int a = 0; a < 2; ++a) {
-      const __nv_bfloat16* src = (a ? biases : scales) + (size_t)nb0 * ngroups;
+      const __nv_bfloat16* arr = a ? biases : scales;
+      const __nv_bfloat16* src = arr + (size_t)nb0 * ngroups;
       const uint32_t dst = base + a * sb_array * 2;
+      __nv_bfloat16* dsv = sbs + (slot * 2 + a) * sb_array;
       if (lnc == 0) {  // whole rows: one span, 16-byte copies where aligned
-        const int bytes = nrows * ngroups * 2;
+        const int vals = nrows * ngroups, bytes = vals * 2;
         const int n16 =
             reinterpret_cast<uintptr_t>(src) % 16 ? 0 : bytes / 16;
         for (int i = threadIdx.x; i < n16; i += MV_THREADS)
@@ -983,15 +1001,21 @@ qmv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
                      reinterpret_cast<const uint8_t*>(src) + 16 * i);
         for (int i = 4 * n16 + threadIdx.x; i < bytes / 4; i += MV_THREADS)
           cp_async4(dst + 4 * i, reinterpret_cast<const uint8_t*>(src) + 4 * i);
-      } else {  // a chunk of each row: its words (rows start at even values)
-        const int par = cg0 & 1, words = (ng + par + 1) >> 1;
-        int lw = 0;  // words per row, rounded up to a power of two
-        while ((1 << lw) < words) ++lw;
+        if ((vals & 1) && threadIdx.x == 0) dsv[vals - 1] = src[vals - 1];
+      } else {  // a chunk of each row: the words that hold its groups,
+                // from group sb_first(r, cg0) at the row's value 0
+        int lw = 0;  // words per row at most, rounded up to a power of two
+        while ((1 << lw) < (ng + 2) >> 1) ++lw;
         for (int i = threadIdx.x; i < (nrows << lw); i += MV_THREADS) {
           const int r = i >> lw, w = i & ((1 << lw) - 1);
-          if (w < words)
-            cp_async4(dst + (r * L.sbw + 2 * w) * 2,
-                      src + (size_t)r * ngroups + cg0 - par + 2 * w);
+          const int e0 = sb_first(r, cg0);
+          if (w < (cg0 + ng - e0 + 1) >> 1) {
+            const size_t e = (size_t)(nb0 + r) * ngroups + e0 + 2 * w;
+            if (e + 1 < total)
+              cp_async4(dst + (r * L.sbw + 2 * w) * 2, arr + e);
+            else
+              dsv[r * L.sbw + 2 * w] = arr[e];
+          }
         }
       }
     }
@@ -1225,7 +1249,8 @@ qmv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
       for (int stg = 0; stg < stages; ++stg) {
         cp_async_wait<MV_RING - 1>();  // this stage
         __syncwarp();
-        consume(stg, stg % MV_RING, s0, nst, cbyte0, cg0 - (cg0 & 1), 0);
+        consume(stg, stg % MV_RING, s0, nst, cbyte0,
+                sb_first(16 * rt + g8, cg0), 0);
         __syncwarp();  // the stage is read: refill its slot
         issue(tile, stg + MV_RING, stg % MV_RING, s0, nst);
         cp_async_commit();
@@ -1289,8 +1314,8 @@ cudaError_t launch_qmv(const __nv_bfloat16* x, const uint8_t* q,
 // The GEMV route (1 <= M <= 8, both widths): x [M, K] bf16 (16-byte
 // aligned); q [N, K*bits/8] u8 (8-byte aligned rows); scales and biases
 // [N, K/group_size] bf16 (4-byte aligned); y [M, N] bf16.  bits in {4, 8};
-// group_size in {32, 64, 128}; K a multiple of 2 * group_size (4-bit) or of
-// group_size (8-bit), so of the K unit max(group bytes, 32) too; row_tiles
+// group_size in {32, 64, 128}; K a multiple of the K unit, max(group bytes,
+// 32) of codes (8-bit: a group; 4-bit: a group pair at g = 32); row_tiles
 // in {1, 2, 4, 8} and chunks a power of two, at most the K units, from the
 // plan (ops/qmatmul.py:qmatmul_gemv_plan).
 extern "C" int mvt_qmatmul_gemv(const void* x, const void* q,
@@ -1309,7 +1334,7 @@ extern "C" int mvt_qmatmul_gemv(const void* x, const void* q,
     return (int)cudaErrorInvalidValue;
   const int gb = g * bits / 8;
   const int unit = (gb > MV_STEP ? gb : MV_STEP) * 8 / bits;  // codes
-  if (M < 1 || M > 8 || N < 1 || K < 1 || K % unit || K % (2 * g) ||
+  if (M < 1 || M > 8 || N < 1 || K < 1 || K % unit ||
       row_tiles < 1 || row_tiles > 8 || (row_tiles & (row_tiles - 1)) ||
       chunks < 1 || (chunks & (chunks - 1)) || chunks > K / unit)
     return (int)cudaErrorInvalidValue;

@@ -1,6 +1,7 @@
-"""Autoregressive decode: chunked prefill, then one decode step per token.
+"""Autoregressive decode: chunked prefill, then decode blocks.
 
-Port of mlx_vlm_tpu/generate/ar.py (make_cache :222, generate_step :305).
+Port of mlx_vlm_tpu/generate/ar.py (make_cache :222, generate_step :305,
+DecodeEngine.decode_block_fn :137).
 `make_cache` picks the KV cache from `kv_bits` and the environment as the
 reference does: bf16 `KVCache`, `Int8KVCache` (8), `Int4KVCache` (4), the
 rotated int4 cache (4 with MLX_VLM_TPU_KV_SCHEME=turboquant), the
@@ -8,13 +9,31 @@ TurboQuant caches (fractional bits; MLX_VLM_TPU_TQ_SCHEME=split for the
 per-channel split) and the group-affine `QuantizedKVCache` (other integer
 bits, or 4 / 8 with MLX_VLM_TPU_KV_SCHEME=affine).
 The prompt is prefilled in `prefill_step_size` chunks, padded as in the
-reference (:357-397) so every chunk has the same length; the cache's
-capacity must hold the padded prompt, which is checked before any write.
-Decoding runs one eager step per token through `step_logits`: the
-whole-stack fused decode kernel (K3) when the model's route is on and the
-cache is a plain `KVCache`, else the per-linear path, whose attention runs
-K6, K7 or K8 on a quantized cache.  The reference's multi-step decode
-blocks and prompt caches are not ported.
+reference (:357-397) so every chunk has the same length; the cache must
+hold the padded prompt and every decode step's row, which
+`check_capacity` checks before any write.
+
+Decoding runs in blocks of `block_size` steps, the reference's
+`decode_block_fn` (one `lax.scan` program per block, one host fetch per
+block) in PyTorch's idiom (`DecodeBlocks`): every piece of decode state
+lives on the device (the token, the cache's cursor, the token-history
+ring, the sampler's generator and an output row counter), and one step
+(embed -> `step_logits` -> processors -> sampler -> history) writes its
+token and logprob into a row of a device ring of two blocks.  On the card
+the first decode step runs eagerly (it makes the lazy device state: rope
+and codebook tables, K3's buffers, the kernels' ticket words) and the next
+is captured once as a CUDA graph, which each later step replays; a block's
+replays are dispatched under `torch.cuda.set_sync_debug_mode("error")`,
+and its rows come back in one non-blocking copy into pinned memory, waited
+on through an event.  Block k + 1 is dispatched before block k is read, as
+the reference's loop does (:413-438), and the last block replays only the
+steps still needed.  A capture that fails raises: nothing falls back to
+eager steps.  On the CPU the same step runs eagerly, with the same state
+tensors and the same one fetch per block.  Each step runs K3 when the
+model's route is on and the cache is a plain `KVCache`, else the
+per-linear path, whose attention runs K6, K7 or K8 on a quantized cache.
+Prompt caches, and reusing a captured step across requests, are not
+ported.
 """
 
 from __future__ import annotations
@@ -33,6 +52,10 @@ from .common import round_up
 
 CACHE_BUCKET = 256
 HISTORY_SIZE = 64  # ring of recent tokens for repetition/frequency penalties
+
+# The last request's decode state (its `DecodeBlocks`: the cache, the
+# captured step and `stats`), held until the next request starts
+last_decode = None
 
 
 def _pad_axis(x: np.ndarray, axis: int, target: int):
@@ -98,6 +121,163 @@ def make_cache(model, batch_size: int, capacity: int, dtype,
     return lm.init_cache(batch_size, capacity, dtype, device=device)
 
 
+def check_capacity(capacity: int, S_pad: int, S: int,
+                   max_tokens: int) -> None:
+    """Raise before any write unless a cache of `capacity` rows holds a
+    request's writes: the padded prompt's rows [0, S_pad) and the rows
+    S .. S + max_tokens - 2 of its decode steps.  The caches write by index
+    at a cursor that no step reads on the host, so this is where a write
+    past the capacity is refused (it would not be clamped)."""
+    end = max(S_pad, S + max(max_tokens - 1, 0))
+    if end > capacity:
+        raise ValueError(f"kv capacity {capacity} too small for padded prompt "
+                         f"{S_pad} and {max(max_tokens - 1, 0)} decode steps "
+                         f"after {S} prompt tokens")
+
+
+class _NoSync:
+    """torch.cuda.set_sync_debug_mode("error") for the duration of a with
+    block on a CUDA device (nothing elsewhere): any call that waits for the
+    card raises."""
+
+    def __init__(self, device):
+        self.on = device.type == "cuda"
+
+    def __enter__(self):
+        if self.on:
+            self.mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        if self.on:
+            torch.cuda.set_sync_debug_mode(self.mode)
+
+
+class DecodeBlocks:
+    """The decode loop's device state and its blocks of steps.
+
+    State tensors, all on the cache's device: `tok` [B] (the last token),
+    `history` [B, HISTORY_SIZE] (the token ring the processors read), the
+    cache (with its cursor), `deltas` [B] (the rope deltas), the sampler's
+    generator, `out` [2 * block_size, 2, B] f64 (each step's token and
+    chosen logprob, a ring of two blocks) and `row` (its next row).  On a
+    CUDA device (`use_graph`) the first step runs eagerly on a side stream
+    and the next is captured there (`ops/_cuda.Graph`, which counts the
+    captured kernel launches at each replay); every later step replays it.
+    `stats`: the first step's and the capture's host seconds (`first_s`,
+    `capture_s`), the decode steps run, graph replays, host fetches and
+    blocks."""
+
+    def __init__(self, model, cache, deltas, sampler, processors, gen,
+                 block_size: int):
+        B = deltas.shape[0]
+        dev = deltas.device
+        self.lm = model.language_model
+        self.params = model.params["language_model"]
+        self.cache, self.deltas = cache, deltas
+        self.sampler, self.processors, self.gen = sampler, processors, gen
+        self.block_size, self.dev = block_size, dev
+        self.use_graph = dev.type == "cuda"
+        self.graph = None
+        self.tok = torch.zeros((B,), dtype=torch.int64, device=dev)
+        self.history = torch.full((B, HISTORY_SIZE), -1, dtype=torch.int64,
+                                  device=dev)
+        self.out = torch.zeros((2 * block_size, 2, B), dtype=torch.float64,
+                               device=dev)
+        self.row = torch.zeros((), dtype=torch.int64, device=dev)
+        pinned = dev.type == "cuda"
+        self.host = [torch.empty((block_size, 2, B), dtype=torch.float64,
+                                 pin_memory=pinned) for _ in range(2)]
+        self.events = [torch.cuda.Event() if pinned else None
+                       for _ in range(2)]
+        self.stats = dict(first_s=0.0, capture_s=0.0, steps=0, replays=0,
+                          fetches=0, blocks=0)
+
+    def pick(self, logits: torch.Tensor):
+        """Sample from f32 logits [B, V]; push the token into `history` and
+        `tok` in place.  Returns (token [B], its logprob [B])."""
+        logprobs = torch.log_softmax(logits, dim=-1)
+        tok = self.sampler(logits, self.gen)
+        self.history.copy_(torch.cat([self.history[:, 1:], tok[:, None]],
+                                     dim=1))
+        self.tok.copy_(tok)
+        return tok, logprobs.gather(1, tok[:, None])[:, 0]
+
+    def step(self) -> None:
+        """One decode step on the state tensors: embed `tok`, its logits at
+        the cache's cursor, the processors, the sampler; the token and its
+        logprob land in row `row` of `out`.  Its positions are the cursor
+        plus the rope deltas, made on the device."""
+        B = self.tok.shape[0]
+        emb = self.lm.embed(self.params, self.tok[:, None])
+        pos = (self.cache.offset + self.deltas)[None, :, None].expand(3, B, 1)
+        logits = self.lm.step_logits(self.params, emb, self.cache,
+                                     pos)[:, 0].float()
+        for proc in self.processors:
+            logits = proc(self.history, logits)
+        tok, lp = self.pick(logits)
+        pair = torch.stack([tok.double(), lp.double()])[None]
+        self.out.index_copy_(0, self.row.reshape(1), pair)
+        self.row.add_(1).remainder_(2 * self.block_size)
+
+    def _capture(self) -> None:
+        """Run the first step eagerly, then capture the next, both on a side
+        stream (the capture's own), the eager step making every lazy piece
+        of device state first.  The eager step is waited for, so that
+        `first_s` holds it and `capture_s` the capture alone."""
+        from ..ops._cuda import Graph
+
+        tic = time.perf_counter()
+        main = torch.cuda.current_stream(self.dev)
+        side = torch.cuda.Stream(self.dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self.step()
+        side.synchronize()
+        toc = time.perf_counter()
+        self.graph = Graph()
+        self.graph.capture(self.step, side, generators=(self.gen,))
+        main.wait_stream(side)
+        self.stats["first_s"] = toc - tic
+        self.stats["capture_s"] = time.perf_counter() - toc
+
+    def dispatch(self, n: int):
+        """Put the next block's n steps on the device (nothing waits for
+        them) and start the copy of its rows to the host; returns what
+        `fetch` takes."""
+        slot = self.stats["blocks"] % 2
+        done = 0
+        if self.use_graph and self.graph is None:
+            self._capture()
+            done = 1
+        with _NoSync(self.dev):
+            for _ in range(done, n):
+                if self.use_graph:
+                    self.graph.replay()
+                else:
+                    self.step()
+            rows = self.out[slot * self.block_size:slot * self.block_size + n]
+            self.host[slot][:n].copy_(rows, non_blocking=True)
+            if self.events[slot] is not None:
+                self.events[slot].record()
+        self.stats["steps"] += n
+        self.stats["replays"] += n - done if self.use_graph else 0
+        self.stats["blocks"] += 1
+        return slot, n
+
+    def fetch(self, block) -> Generator[Tuple[np.ndarray, np.ndarray],
+                                        None, None]:
+        """Wait for a dispatched block's rows and yield its (token [B],
+        logprob [B]) pairs."""
+        slot, n = block
+        if self.events[slot] is not None:
+            self.events[slot].synchronize()
+        self.stats["fetches"] += 1
+        rows = self.host[slot][:n].numpy().copy()
+        for i in range(n):
+            yield rows[i, 0].astype(np.int64), rows[i, 1].astype(np.float32)
+
+
 def generate_step(
     inputs_embeds: torch.Tensor,  # [B, S, D]
     model,
@@ -117,12 +297,17 @@ def generate_step(
 
     The prompt embeddings must already contain the merged vision features.
     `block_size` is the reference's count of decode steps per device
-    program; here it sizes the cache as the reference does (ar.py:344-352),
-    and decoding runs one token per step."""
+    program: the steps of one host fetch (`DecodeBlocks`); it also sizes
+    the cache as the reference does (ar.py:344-352).  On a CUDA device each
+    step after the first replays one captured CUDA graph; on the CPU every
+    step runs eagerly, with the same state and fetches.  The request's
+    `DecodeBlocks` stays in `last_decode` until the next request."""
     lm = model.language_model
     lm_params = model.params["language_model"]
     B, S, _ = inputs_embeds.shape
     dev = inputs_embeds.device
+    global last_decode
+    last_decode = None
 
     if position_ids is None:
         pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
@@ -136,17 +321,16 @@ def generate_step(
     capacity = round_up(S + max_tokens + block_size + 1, CACHE_BUCKET)
     cache = make_cache(model, B, capacity, inputs_embeds.dtype, kv_bits,
                        kv_group_size, device=dev)
+    capacity = cache.capacity
 
-    # ---- chunked prefill; the padded chunks must fit the cache, since an
-    # out-of-range index write would not be clamped
+    # ---- chunked prefill; the padded chunks and the decode steps must fit
+    # the cache, since an out-of-range index write would not be clamped
     step_sz = min(prefill_step_size, round_up(S, CACHE_BUCKET))
     S_pad = round_up(S, step_sz)
     while S_pad > capacity and step_sz > 64:
         step_sz = max(64, step_sz // 2)
         S_pad = round_up(S, step_sz)
-    if S_pad > capacity:
-        raise ValueError(f"kv capacity {capacity} too small for padded prompt "
-                         f"{S_pad}")
+    check_capacity(capacity, S_pad, S, max_tokens)
     embeds = inputs_embeds
     if S_pad != S:
         embeds = F.pad(embeds, (0, 0, 0, S_pad - S))
@@ -162,30 +346,31 @@ def generate_step(
             h_last = hidden[:, last - c0:last - c0 + 1]
             logits = lm.logits(lm_params, h_last)[:, 0].float()
     # the padding wrote rows past S; they stay masked once the cursor is S
-    cache.offset = S
-
-    sampler = sampler or make_sampler()
-    processors = tuple(logits_processors or ())
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed if seed is not None else time.time_ns() % 2**31)
-    history = torch.full((B, HISTORY_SIZE), -1, dtype=torch.int64, device=dev)
-
-    def pick(logits, history):
-        logprobs = torch.log_softmax(logits, dim=-1)
-        tok = sampler(logits, gen)
-        history = torch.cat([history[:, 1:], tok[:, None]], dim=1)
-        lp = logprobs.gather(1, tok[:, None])[:, 0]
-        return tok, lp, history
+    cache.offset.fill_(S)
 
     if max_tokens <= 0:
         return
-    tok, lp, history = pick(logits, history)
-    yield tok.cpu().numpy(), lp.cpu().numpy()
-    for _ in range(max_tokens - 1):
-        emb = lm.embed(lm_params, tok[:, None])
-        pos = (cache.offset + deltas)[None, :, None].expand(3, B, 1)
-        logits = lm.step_logits(lm_params, emb, cache, pos)[:, 0].float()
-        for proc in processors:
-            logits = proc(history, logits)
-        tok, lp, history = pick(logits, history)
-        yield tok.cpu().numpy(), lp.cpu().numpy()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed if seed is not None else time.time_ns() % 2**31)
+    blocks = last_decode = DecodeBlocks(
+        model, cache, deltas, sampler or make_sampler(),
+        tuple(logits_processors or ()), gen, block_size)
+    # the first token, from the prefill's logits, in one fetch
+    tok, lp = blocks.pick(logits)
+    first = torch.stack([tok.double(), lp.double()]).cpu().numpy()
+    blocks.stats["fetches"] += 1
+    yield first[0].astype(np.int64), first[1].astype(np.float32)
+
+    # ---- decode blocks: block k + 1 is dispatched before block k is read
+    left = max_tokens - 1
+    pending = None
+    while left > 0 or pending is not None:
+        block = None
+        if left > 0:
+            n = min(block_size, left)
+            block = blocks.dispatch(n)
+            left -= n
+        if pending is not None:
+            for pair in blocks.fetch(pending):
+                yield pair
+        pending = block

@@ -2,7 +2,9 @@
 
 Port of mlx_vlm_tpu/generate/dispatch.py (stream_generate :43, generate
 :309) for the autoregressive image + text path.  `kv_bits` picks a
-quantized KV cache (generate/ar.py make_cache).  The arguments of paths that are not
+quantized KV cache (generate/ar.py make_cache); `block_size` is the number
+of decode steps per host fetch (generate/ar.py `DecodeBlocks`: on the card
+each step after the first replays one captured CUDA graph).  The arguments of paths that are not
 ported (audio, video, prefix caching, vision-feature caching, speculative
 drafting) raise NotImplementedError.
 """

@@ -103,7 +103,8 @@ class LanguageModel:
                     position_ids: torch.Tensor) -> torch.Tensor:
         """Logits [B, S, V] of a forward step.  With the fused route on, a
         B=1, S=1 step on a plain KVCache is one whole-stack K3 step, which
-        writes its k/v at `cache.offset` and advances the cursor."""
+        reads the cache's cursor tensor on the device, writes its k/v there
+        and advances the cursor."""
         B, S, _ = inputs_embeds.shape
         if not (self.fused_decode and B == 1 and S == 1
                 and type(cache) is cache_lib.KVCache):

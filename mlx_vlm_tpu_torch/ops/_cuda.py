@@ -7,6 +7,11 @@ shared library with a plain C interface and loaded with ctypes.  The build
 runs at first use, into `mlx_vlm_tpu_torch/build/`, keyed by a hash of the
 sources, headers and flags, so a fresh checkout builds everything the first
 time a kernel launches.  Nothing here runs at import time.
+
+Each wrapper counts its kernel's launches in its module's `launches` by
+`count`, which counts launches that execute: a launch made while a CUDA
+graph is captured only puts the kernel into the graph, so a `Graph` keeps
+it in the tally of its capture and counts it at each replay.
 """
 
 from __future__ import annotations
@@ -141,3 +146,58 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# The launch tallies of the `Graph` captures in progress (innermost last)
+_CAPTURES: list = []
+
+
+def count(launches: dict, name: str) -> None:
+    """Count one launch of kernel `name` in `launches` where it executes: a
+    call made while the current stream is captured adds it to the tally of
+    the `Graph` being captured (a capture made elsewhere, such as a timing
+    graph, counts nothing)."""
+    import torch
+
+    if torch.cuda.is_current_stream_capturing():
+        if _CAPTURES:
+            _CAPTURES[-1].append((launches, name))
+        return
+    launches[name] += 1
+
+
+class Graph:
+    """A CUDA graph of calls whose replays count the kernel launches that
+    the capture recorded, once per replay."""
+
+    def __init__(self):
+        import torch
+
+        self.graph = torch.cuda.CUDAGraph()
+        self.tally: list = []
+
+    def capture(self, fn, stream, generators=()) -> None:
+        """Capture fn() on `stream`; `generators` are the torch.Generators
+        that fn draws from, whose state each replay advances.  The capture
+        begins at once: unlike `torch.cuda.graph`, it does not wait for the
+        card, collect garbage or empty the allocator's cache first, none of
+        which a capture needs and all of which is host time per request."""
+        import torch
+
+        for gen in generators:
+            self.graph.register_generator_state(gen)
+        _CAPTURES.append(self.tally)
+        try:
+            with torch.cuda.stream(stream):
+                self.graph.capture_begin()
+                try:
+                    fn()
+                finally:
+                    self.graph.capture_end()
+        finally:
+            _CAPTURES.pop()
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for launches, name in self.tally:
+            launches[name] += 1

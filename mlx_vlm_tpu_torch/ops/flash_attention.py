@@ -121,5 +121,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(window) if window is not None else 0,
         _cuda.stream_handle(q.device))
     _cuda.check(err, "flash_attention")
-    launches["flash_attention"] += 1
+    _cuda.count(launches, "flash_attention")
     return o

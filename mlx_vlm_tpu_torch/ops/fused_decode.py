@@ -20,7 +20,9 @@ follows the TPU route's math:
   scaled by hd**-0.5 after it;
 - attention rounds q, the history k/v and the probabilities to bf16 for
   the two history dots, keeps the current token's score and value in f32,
-  and reads history [0, offset) only (:826-851; left_pad is not read);
+  and reads history [0, offset) only (:826-851; left_pad is not read):
+  whatever the cache holds past the cursor, NaN included, stays out of
+  every sum;
 - the residual stream stays f32 across all layers of the step;
 - the fused head normalises the f32 h with the final norm (:925-959) and
   returns logits in vocab order.
@@ -37,16 +39,22 @@ and MLX_VLM_TPU_FUSED_V3.
 
 The kernel takes its numbers from `fused_decode_plan`: the grid (one block
 per SM), each phase's K slices and which block streams which weight tile,
-the weight ring's stages and shared memory, the attention chunks at
-`offset` and the barrier count (5 per layer); the CPU tests check the plan
-that the card runs.  The card's SMs and the kernel's residency are queried
-once per card.
+the weight ring's stages and shared memory, the most attention chunks and
+the barrier count (5 per layer); the CPU tests check the plan that the card
+runs.  The plan does not depend on the step: the cursor `offset` is a
+device word (the cache's int32 0-dim cursor) that the kernel reads, and it
+derives the step's attention chunks from it by `FusedDecodePlan.chunks_at`,
+so one launch captured in a CUDA graph serves every step (its outputs and
+scratch, allocated per call, then lie in the graph's own memory pool and
+keep their addresses at every replay).  The card's SMs and the kernel's
+residency are queried once per card.
 
 `fused_decode_step` writes the step's k/v rows into the cache at `offset`
 (in place, in the model's cache dtype) and returns the f32 rows as well;
 the step's own attention uses the f32 rows.  On CPU tensors it runs
 `fused_decode_step_plain`; on CUDA tensors it launches the kernel or
-raises.  `launches` counts kernel launches.
+raises.  `launches` counts kernel launches that execute (a launch captured
+in a CUDA graph counts at each replay, ops/_cuda.py `count`).
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+from typing import Union
 
 import torch
 
@@ -176,13 +185,15 @@ def _bias(p: dict, i: int, n: int, device) -> torch.Tensor:
 def fused_decode_step_plain(params: dict, args, h: torch.Tensor,
                             cos: torch.Tensor, sin: torch.Tensor,
                             k_cache: torch.Tensor, v_cache: torch.Tensor,
-                            offset: int):
+                            offset: Union[int, torch.Tensor]):
     """Plain PyTorch version of K3 (the reference's TPU-route math).
 
     h [1, 1, D]; cos/sin [hd/2] f32; k/v_cache [L, 1, Hkv, C, hd], written
-    in place at `offset`.  Returns (h_out [1, 1, D] f32 before the final
-    norm, k_new [L, Hkv*hd] f32, v_new [L, Hkv*hd] f32) and, when the head
-    is fused, logits [1, V] f32."""
+    in place at `offset` (an int or a 0-dim int tensor, which is never read
+    on the host: the history is the whole capacity with the columns at or
+    past the cursor kept out of both products).  Returns (h_out [1, 1, D]
+    f32 before the final norm, k_new [L, Hkv*hd] f32, v_new [L, Hkv*hd]
+    f32) and, when the head is fused, logits [1, V] f32."""
     mp = params["model"]
     layers = mp["layers"]
     lin = _linears(params)
@@ -192,6 +203,9 @@ def fused_decode_step_plain(params: dict, args, h: torch.Tensor,
     gq = nh // nkv
     L = lin[0]["weight"].qp.shape[0]
     dev = h.device
+    C = k_cache.shape[3]
+    row = torch.as_tensor(offset, device=dev).long().reshape(1)
+    live = torch.arange(C, device=dev) < row  # history columns [0, offset)
     cos, sin = cos.float(), sin.float()
     x = h.reshape(D).float()
     k_new = torch.empty((L, nkv * hd), device=dev)
@@ -206,14 +220,16 @@ def fused_decode_step_plain(params: dict, args, h: torch.Tensor,
         k = _rope(k.view(nkv, hd), cos, sin)
         v = v.view(nkv, hd)
         k_new[l], v_new[l] = k.reshape(-1), v.reshape(-1)
-        kh = k_cache[l, 0, :, :offset].to(torch.bfloat16).float()
-        vh = v_cache[l, 0, :, :offset].to(torch.bfloat16).float()
-        k_cache[l, 0, :, offset] = k.to(k_cache.dtype)
-        v_cache[l, 0, :, offset] = v.to(v_cache.dtype)
+        kh = k_cache[l, 0].to(torch.bfloat16).float()
+        vh = torch.where(live[:, None],
+                         v_cache[l, 0].to(torch.bfloat16).float(), 0.0)
+        k_cache[l, 0].index_copy_(1, row, k[:, None].to(k_cache.dtype))
+        v_cache[l, 0].index_copy_(1, row, v[:, None].to(v_cache.dtype))
         outs = []
         for a in range(nkv):
             qg = q[a * gq:(a + 1) * gq]                          # [gq, hd]
-            s_hist = qg.to(torch.bfloat16).float() @ kh[a].T     # [gq, off]
+            s_hist = torch.where(live, qg.to(torch.bfloat16).float()
+                                 @ kh[a].T, float("-inf"))       # [gq, C]
             s_cur = (qg * k[a]).sum(-1, keepdim=True)            # [gq, 1]
             m = torch.cat([s_hist, s_cur], dim=-1).amax(-1, keepdim=True)
             ph = torch.exp(s_hist - m)
@@ -258,16 +274,15 @@ BARRIERS_PER_LAYER = 5
 
 @dataclasses.dataclass(frozen=True)
 class FusedDecodeShapes:
-    """What the plan needs of the weights and the step: layers, group size,
-    each linear's packed width N2p (q, k, v, o, gate, up, down and, when the
-    head is fused, lm_head), the head's vocab (0: no fused head) and the
-    step's `offset`."""
+    """What the plan needs of the weights: layers, group size, each
+    linear's packed width N2p (q, k, v, o, gate, up, down and, when the
+    head is fused, lm_head) and the head's vocab (0: no fused head).  The
+    step's cursor is not among them: the kernel reads it on the device."""
 
     layers: int
     group_size: int
     n2p: tuple
     vocab: int
-    offset: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -280,8 +295,10 @@ class FusedDecodePlan:
     equal contiguous ranges, one per block, and a range's part in one strip
     is a piece.  Each block streams its pieces, layer after layer, through a
     ring of `stages` stages of `stage_bytes`; a strip's pieces leave partial
-    rows that its last piece adds in order.  Attention runs `chunks` units
-    per kv head, each a whole number of 64-token tiles of [0, offset)."""
+    rows that its last piece adds in order.  Attention at a cursor of
+    `offset` runs `chunks_at(offset)` units per kv head (at most
+    `max_chunks`), each a whole number of 64-token tiles of [0, offset):
+    the kernel derives them from its cursor word by the same rule."""
 
     grid: int
     group_size: int
@@ -296,8 +313,6 @@ class FusedDecodePlan:
     seg_rows: int            # x rows staged at once
     unit_rows: int           # rows a consumer warpgroup takes at a time
     smem_bytes: int          # dynamic shared memory
-    offset: int
-    chunks: int
     max_chunks: int
     n_kv: int
     barriers: int
@@ -361,11 +376,16 @@ class FusedDecodePlan:
             out += [(0, 4, *t[:4]) for t in self.phase_pieces(4, block)]
         return out
 
-    def chunk_tokens(self) -> list:
-        """History tokens [t0, t1) of each attention chunk."""
-        nsub = -(-self.offset // T_TILE)
-        cuts = [c * nsub // self.chunks for c in range(self.chunks + 1)]
-        return [(min(a * T_TILE, self.offset), min(b * T_TILE, self.offset))
+    def chunks_at(self, offset: int) -> int:
+        """Attention units per kv head at a cursor of `offset`: the
+        kernel's min(max_chunks, ceil(offset / T_TILE)), at least 1."""
+        return max(1, min(self.max_chunks, -(-offset // T_TILE)))
+
+    def chunk_tokens(self, offset: int) -> list:
+        """History tokens [t0, t1) of each attention chunk at `offset`."""
+        nsub, chunks = -(-offset // T_TILE), self.chunks_at(offset)
+        cuts = [c * nsub // chunks for c in range(chunks + 1)]
+        return [(min(a * T_TILE, offset), min(b * T_TILE, offset))
                 for a, b in zip(cuts, cuts[1:])]
 
 
@@ -389,7 +409,7 @@ def _ring(D: int, g: int) -> dict:
 
 @functools.lru_cache(maxsize=32)
 def _plan(D, I, nkv, layers, g, n2p, sm_count) -> dict:
-    """The offset-free part of `fused_decode_plan`."""
+    """`fused_decode_plan`, cached by its arguments."""
     if g <= 0 or g % 16 or D % g or I % g:
         raise ValueError(f"fused_decode: group size {g} does not divide "
                          f"{D} and {I} in multiples of 16")
@@ -421,18 +441,14 @@ def _plan(D, I, nkv, layers, g, n2p, sm_count) -> dict:
 def fused_decode_plan(args, shapes: FusedDecodeShapes,
                       sm_count: int) -> FusedDecodePlan:
     """K3's plan for a model (`args`: hidden size, intermediate size, heads)
-    with weights and a step of `shapes` on a card of `sm_count` SMs: the
-    grid, each phase's pieces and which block streams each, the ring's
-    stages and its shared-memory bytes, the attention chunks at
-    `shapes.offset` and the barrier count.  Raises for what the kernel does
-    not take."""
-    nkv = args.num_key_value_heads
-    base = _plan(args.hidden_size, args.intermediate_size, nkv,
-                 shapes.layers, shapes.group_size, tuple(shapes.n2p),
-                 sm_count)
-    nsub = -(-shapes.offset // T_TILE)
-    chunks = max(1, min(base["max_chunks"], nsub))
-    return FusedDecodePlan(offset=shapes.offset, chunks=chunks, **base)
+    with weights of `shapes` on a card of `sm_count` SMs: the grid, each
+    phase's pieces and which block streams each, the ring's stages and its
+    shared-memory bytes, the most attention chunks and the barrier count.
+    It is the same at every step.  Raises for what the kernel does not
+    take."""
+    return FusedDecodePlan(**_plan(
+        args.hidden_size, args.intermediate_size, args.num_key_value_heads,
+        shapes.layers, shapes.group_size, tuple(shapes.n2p), sm_count))
 
 
 # ------------------------------------------------------------ the kernel
@@ -454,17 +470,18 @@ class _Args(ctypes.Structure):
         ("part", ctypes.c_void_p), ("act", ctypes.c_void_p),
         ("attn_ml", ctypes.c_void_p), ("attn_acc", ctypes.c_void_p),
         ("sumsq", ctypes.c_void_p), ("sync", ctypes.c_void_p),
+        ("cursor", ctypes.c_void_p),
         ("n2p", ctypes.c_int * 8),
         ("pmax", ctypes.c_int * 5),  # qkv, o, gate|up, down, head
         ("L", ctypes.c_int), ("D", ctypes.c_int), ("I", ctypes.c_int),
         ("n_heads", ctypes.c_int), ("n_kv", ctypes.c_int),
         ("group_size", ctypes.c_int), ("capacity", ctypes.c_int),
-        ("offset", ctypes.c_int), ("vocab", ctypes.c_int),
+        ("vocab", ctypes.c_int),
         ("has_head", ctypes.c_int), ("small_bf16", ctypes.c_int),
         ("grid", ctypes.c_int), ("stages", ctypes.c_int),
         ("slots", ctypes.c_int), ("xrows", ctypes.c_int),
         ("seg_rows", ctypes.c_int), ("unit_rows", ctypes.c_int),
-        ("chunks", ctypes.c_int), ("max_chunks", ctypes.c_int),
+        ("max_chunks", ctypes.c_int),
         ("smem_bytes", ctypes.c_int),
         ("eps", ctypes.c_float), ("scale", ctypes.c_float),
     ]
@@ -522,9 +539,9 @@ def _sync_words(dev, n: int) -> torch.Tensor:
     return t
 
 
-def step_plan(params: dict, args, offset: int, device) -> FusedDecodePlan:
-    """The plan the kernel runs for a step of this model at `offset` on a
-    card (its SM count and the kernel's residency queried once)."""
+def step_plan(params: dict, args, device) -> FusedDecodePlan:
+    """The plan the kernel runs for every step of this model on a card (its
+    SM count and the kernel's residency queried once)."""
     ws = [p["weight"] for p in _linears(params)]
     head = fused_head(params, args)
     full = ws + ([head] if head is not None else [])
@@ -534,17 +551,20 @@ def step_plan(params: dict, args, offset: int, device) -> FusedDecodePlan:
     dev = torch.device(device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     sms = _device(index, _ring(args.hidden_size, g)["smem_bytes"])
-    shapes = FusedDecodeShapes(L, g, n2p, head.n if head is not None else 0,
-                               offset)
+    shapes = FusedDecodeShapes(L, g, n2p, head.n if head is not None else 0)
     return fused_decode_plan(args, shapes, sms)
 
 
 def fused_decode_step(params: dict, args, h: torch.Tensor, cos: torch.Tensor,
                       sin: torch.Tensor, k_cache: torch.Tensor,
-                      v_cache: torch.Tensor, offset: int):
+                      v_cache: torch.Tensor,
+                      offset: Union[int, torch.Tensor]):
     """K3: one whole-stack decode step (contract of
     `fused_decode_step_plain`).  CPU tensors run the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel or raise.  On the card `offset` is the
+    cache's cursor, an int32 0-dim tensor on the card, which the kernel
+    reads when it runs; the caller keeps it in [0, capacity) (the kernel
+    traps otherwise)."""
     if h.device.type == "cpu":
         return fused_decode_step_plain(params, args, h, cos, sin, k_cache,
                                        v_cache, offset)
@@ -575,14 +595,16 @@ def fused_decode_step(params: dict, args, h: torch.Tensor, cos: torch.Tensor,
             raise ValueError(f"fused_decode: {name} must be contiguous "
                              f"16-byte aligned bfloat16 {shape} on {dev}")
     C = shape[3]
-    if not 0 <= offset < C:
-        raise ValueError(f"fused_decode: offset {offset} outside [0, {C})")
+    if (not isinstance(offset, torch.Tensor) or offset.dtype != torch.int32
+            or offset.dim() != 0 or offset.device != dev):
+        raise TypeError(f"fused_decode: offset must be an int32 0-dim "
+                        f"tensor on {dev} (the cache's cursor)")
     if tuple(h.shape) != (1, 1, D):
         raise ValueError(f"fused_decode: h must be [1, 1, {D}]")
 
     full = ws + ([head] if head is not None else [])
     n2p = tuple(w.qp.shape[-1] for w in full)
-    plan = step_plan(params, args, offset, dev)
+    plan = step_plan(params, args, dev)
 
     a = _Args()
     for i, w in enumerate(full):
@@ -627,20 +649,21 @@ def fused_decode_step(params: dict, args, h: torch.Tensor, cos: torch.Tensor,
     a.attn_ml, a.attn_acc = attn_ml.data_ptr(), attn_acc.data_ptr()
     a.sumsq = sumsq.data_ptr()
     a.sync = _sync_words(dev, plan.sync_words).data_ptr()
+    a.cursor = offset.data_ptr()
     for i, v in enumerate(plan.pmax):
         a.pmax[i] = v
     a.L, a.D, a.I, a.n_heads, a.n_kv = L, D, I, nh, nkv
-    a.group_size, a.capacity, a.offset = g, C, offset
+    a.group_size, a.capacity = g, C
     a.small_bf16 = int(small_dt == torch.bfloat16)
     a.grid, a.stages, a.slots = plan.grid, plan.stages, plan.slots
     a.xrows, a.seg_rows, a.unit_rows = plan.xrows, plan.seg_rows, plan.unit_rows
-    a.chunks, a.max_chunks = plan.chunks, plan.max_chunks
+    a.max_chunks = plan.max_chunks
     a.smem_bytes = plan.smem_bytes
     a.eps, a.scale = eps, hd**-0.5
     err = _cuda.library().mvt_fused_decode(ctypes.addressof(a),
                                            _cuda.stream_handle(dev))
     _cuda.check(err, "fused_decode")
-    launches["fused_decode"] += 1
+    _cuda.count(launches, "fused_decode")
     if head is None:
         return h_out, k_new, v_new
     return h_out, k_new, v_new, logits

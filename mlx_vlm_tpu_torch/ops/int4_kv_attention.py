@@ -27,7 +27,10 @@ maximum, and the last blocks of a head combine the live splits.  See the
 
 On CPU tensors the wrapper computes the plain PyTorch version
 `int4_kv_decode_attention_plain`; on CUDA tensors it launches the kernel or
-raises.  `launches` counts calls that launched the kernel.
+raises.  `launches` counts the kernel's launches that execute (one
+captured in a CUDA graph counts at each replay: ops/_cuda.py `count`).  A
+cache passes its device cursor (`_rows`), which the kernel reads when it
+runs.
 """
 
 from __future__ import annotations
@@ -183,7 +186,9 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def _rows(x, BH: int, device) -> torch.Tensor:
-    """An int or [BH] cursor -> int32 [BH] on `device`."""
+    """A cursor -> int32 [BH] on `device`: a cache's device cursor (0-dim,
+    expanded to every row on the device, never read on the host), a [BH]
+    tensor of per-row cursors, or an int."""
     if isinstance(x, torch.Tensor):
         t = x.to(device=device, dtype=torch.int32).reshape(-1)
         return t.expand(BH).contiguous() if t.numel() == 1 else t.contiguous()
@@ -266,5 +271,5 @@ def int4_kv_decode_attention(q8: torch.Tensor, qsum_qs: torch.Tensor,
         plan.tokens, plan.warps, plan.combiners, plan.smem_bytes,
         float(scale), _cuda.stream_handle(dev))
     _cuda.check(err, "int4_kv_decode_attention")
-    launches["int4_kv_attention"] += 1
+    _cuda.count(launches, "int4_kv_attention")
     return out

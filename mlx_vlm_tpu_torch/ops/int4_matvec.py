@@ -31,8 +31,9 @@ weight is sliced into per-layer views, which copy nothing.
 
 On CPU tensors every wrapper computes its kernel's plain PyTorch version
 (`int4_matmul_plain`, `int4_matvec_plain`); on CUDA tensors it launches the
-kernel or raises.  `launches` counts kernel launches per kernel: one per
-call, K1's split-K second pass included.
+kernel or raises.  `launches` counts kernel launches that execute, per
+kernel: one per call, K1's split-K second pass included (one captured in a
+CUDA graph counts at each replay: ops/_cuda.py `count`).
 """
 
 from __future__ import annotations
@@ -127,7 +128,7 @@ def int4_matmul(x: torch.Tensor, t: Int4GroupedTensor) -> torch.Tensor:
         None if part is None else part.data_ptr(), M, K, n2p, t.n,
         t.group_size, bm, splits, _cuda.stream_handle(x.device))
     _cuda.check(err, "int4_matmul")
-    launches["int4_matmul"] += 1
+    _cuda.count(launches, "int4_matmul")
     return y
 
 
@@ -173,7 +174,7 @@ def int4_matvec_rows(x: torch.Tensor, t: Int4GroupedTensor) -> torch.Tensor:
         t.bl.data_ptr(), t.bh.data_ptr(), y.data_ptr(), M, K, n2p, t.n,
         t.group_size, slices, _cuda.stream_handle(x.device))
     _cuda.check(err, "int4_matvec")
-    launches["int4_matvec"] += 1
+    _cuda.count(launches, "int4_matvec")
     return y
 
 

@@ -26,7 +26,9 @@ interleave lanes) and is not carried over.
 
 On CPU tensors the wrapper computes the plain version (`qmatmul_plain`); on
 CUDA tensors it launches the kernel or raises.  `launches` counts calls
-per bit width (a split int4 GEMM's second pass is part of its call).
+that execute, per bit width (a split GEMM's second pass is part of its
+call; one captured in a CUDA graph counts at each replay: ops/_cuda.py
+`count`).
 """
 
 from __future__ import annotations
@@ -227,16 +229,20 @@ def qmatmul_gemv_plan(M: int, K: int, N: int, bits: int,
     groups and whole 32-byte steps of a row; the chunks, whose x a block
     stages in turn, are the least power of two that keeps a block's shared
     memory within GEMV_SMEM_BYTES.  Raises for what the kernel does not
-    take (its scales and biases are copied as 32-bit words, so K must be a
-    whole number of group pairs at 8 bits too)."""
+    take: K must be a whole number of units (any number of groups at 8
+    bits, an odd one too; at 4 bits and g = 32, group pairs)."""
     if not 1 <= M <= MAX_GEMV_ROWS:
         raise ValueError(f"qmatmul_gemv_plan: {M} rows do not take the GEMV "
                          f"route (1 to {MAX_GEMV_ROWS})")
-    if (bits not in (4, 8) or group_size not in GROUP_SIZES
-            or K % (2 * group_size)):
+    if bits not in (4, 8) or group_size not in GROUP_SIZES:
         raise ValueError(f"qmatmul_gemv_plan: bits {bits} / group_size "
-                         f"{group_size} at K={K} not taken (K a whole number "
-                         f"of group pairs)")
+                         f"{group_size} not taken (bits 4 or 8, group "
+                         f"{GROUP_SIZES})")
+    if K % (max(group_size * bits // 8, GEMV_STEP) * 8 // bits):
+        raise ValueError(f"qmatmul_gemv_plan: K={K} not taken at bits {bits} "
+                         f"/ group_size {group_size} (K a whole number of "
+                         f"{max(group_size, 8 * GEMV_STEP // bits)}-code "
+                         f"units)")
     big = M >= GEMV_BIG_ROWS
     blocks, cap = GEMV_MIN_BLOCKS[big], GEMV_BLOCK_CODES * (2 if big else 1)
     rt = next((r for r in (8, 4, 2) if -(-N // (16 * r)) >= blocks
@@ -284,5 +290,5 @@ def quantized_matmul_kernel(x: torch.Tensor, t: QuantizedTensor) -> torch.Tensor
         y = _gemv(x, t, K, N)
     else:
         y = _gemm(x, t, K, N)
-    launches[f"qmatmul_int{t.bits}"] += 1
+    _cuda.count(launches, f"qmatmul_int{t.bits}")
     return y.reshape(*lead, N)

@@ -29,15 +29,17 @@ head; each split's softmax runs against its own maximum, and the last
 blocks of a head combine the live splits.  See the .cu header.
 
 On CPU tensors the wrappers compute the plain PyTorch versions; on CUDA
-tensors they launch the kernel or raise.  `launches` counts calls that
-launched a kernel.
+tensors they launch the kernel or raise.  `launches` counts calls whose
+kernel executes (one captured in a CUDA graph counts at each replay:
+ops/_cuda.py `count`).  A cache passes its device cursor and its device
+codebooks (core/turboquant.py `_codebook`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Sequence, Union
+from typing import Optional, Union
 
 import torch
 
@@ -127,7 +129,11 @@ def _lut_tensor(lut: tuple, device) -> torch.Tensor:
     return torch.tensor(lut, dtype=torch.float32, device=device)
 
 
-def _lut(lut: Sequence[float], device) -> torch.Tensor:
+def _lut(lut, device) -> torch.Tensor:
+    """A codebook as f32 on `device`: a tensor (a cache's device codebook,
+    core/turboquant.py `_codebook`) as it is, a sequence once per device."""
+    if isinstance(lut, torch.Tensor):
+        return lut.to(device=device, dtype=torch.float32)
     return _lut_tensor(tuple(float(x) for x in lut), device)
 
 
@@ -249,7 +255,7 @@ def tq_kv_decode_attention(q_rot: torch.Tensor, kq: torch.Tensor,
     out = _launch("tq_kv_decode_attention", q_rot,
                   [(kq, ks, vq, vs, k_lut, v_lut, D, k_bits, v_bits)],
                   off, lp, scale)
-    launches["tq_kv_attention"] += 1
+    _cuda.count(launches, "tq_kv_attention")
     return out
 
 
@@ -276,5 +282,5 @@ def tq_kv_decode_attention_split(q_rot: torch.Tensor, kqa, ksa, kqb, ksb,
                   [(kqa, ksa, vqa, vsa, lo_lut, lo_lut, DA, lo_bits, lo_bits),
                    (kqb, ksb, vqb, vsb, hi_lut, hi_lut, D - DA, hi_bits,
                     hi_bits)], off, lp, scale)
-    launches["tq_kv_attention_split"] += 1
+    _cuda.count(launches, "tq_kv_attention_split")
     return out

@@ -311,7 +311,7 @@ def test_plan_owns_every_tile_once_in_order(name, g):
     block's 227 KB."""
     args, L, n2p = _plan_model(name)
     plan = fd.fused_decode_plan(
-        args, fd.FusedDecodeShapes(L, g, n2p, args.vocab_size, 300), 132)
+        args, fd.FusedDecodeShapes(L, g, n2p, args.vocab_size), 132)
     assert plan.grid == 132 and plan.phases == 5
     assert plan.smem_bytes + fd.STATIC_BYTES <= 227 * 1024
     assert 2 <= plan.stages <= fd.MAX_STAGES
@@ -356,15 +356,18 @@ def test_plan_owns_every_tile_once_in_order(name, g):
 @pytest.mark.parametrize("name", ["7b", "tiny"])
 @pytest.mark.parametrize("offset", [0, 1, 63, 64, 65, 300, 8545])
 def test_plan_chunks_cover_history(name, offset):
-    """The attention chunks cover [0, offset) exactly, each a whole number
-    of 64-token tiles but the last, never more units than blocks; at 8.5k
-    tokens every block of the 7B grid gets a unit."""
+    """The attention chunks at a cursor of `offset` (the kernel derives
+    their count from its cursor word by `chunks_at`'s rule) cover
+    [0, offset) exactly, each a whole number of 64-token tiles but the
+    last, never more units than blocks; at 8.5k tokens every block of the
+    7B grid gets a unit."""
     args, L, n2p = _plan_model(name)
     plan = fd.fused_decode_plan(
-        args, fd.FusedDecodeShapes(L, 64, n2p, args.vocab_size, offset), 132)
-    chunks = plan.chunk_tokens()
-    assert len(chunks) == plan.chunks <= plan.max_chunks
-    assert plan.chunks * args.num_key_value_heads <= plan.grid
+        args, fd.FusedDecodeShapes(L, 64, n2p, args.vocab_size), 132)
+    chunks = plan.chunk_tokens(offset)
+    n = plan.chunks_at(offset)
+    assert len(chunks) == n <= plan.max_chunks
+    assert n * args.num_key_value_heads <= plan.grid
     assert chunks[0][0] == 0 and chunks[-1][1] == offset
     for (a0, a1), (b0, _) in zip(chunks, chunks[1:]):
         assert a1 == b0 and a0 % fd.T_TILE == 0
@@ -373,7 +376,7 @@ def test_plan_chunks_cover_history(name, offset):
     else:
         assert chunks == [(0, 0)]
     if name == "7b" and offset == 8545:
-        assert plan.chunks * args.num_key_value_heads == plan.grid
+        assert n * args.num_key_value_heads == plan.grid
 
 
 def _c_fields(src: str) -> list:
@@ -401,7 +404,7 @@ def test_plan_barriers_and_kernel_constants():
     csrc/fused_decode.cu."""
     args, L, n2p = _plan_model("7b")
     plan = fd.fused_decode_plan(
-        args, fd.FusedDecodeShapes(L, 64, n2p, args.vocab_size, 300), 132)
+        args, fd.FusedDecodeShapes(L, 64, n2p, args.vocab_size), 132)
     assert plan.barriers == fd.BARRIERS_PER_LAYER * L <= 5 * L + 2
     src = KERNEL_SOURCE.read_text()
     loop = src[src.index("run_phase(c, P_QKV, l);"):]
@@ -495,7 +498,7 @@ def _route_calls(tm, B, S, monkeypatch):
     emb = lm.embed(lp, torch.arange(B * S).view(B, S) % 250)
     pos = torch.arange(S).view(1, 1, S).expand(3, B, S)
     logits = lm.step_logits(lp, emb, cache, pos)
-    assert logits.shape == (B, S, 256) and cache.offset == S
+    assert logits.shape == (B, S, 256) and int(cache.offset) == S
     assert bool(torch.isfinite(logits).all())
     return len(calls)
 
@@ -560,11 +563,11 @@ def test_step_logits_match_per_linear_path(models):
     for fused in (True, False):
         lm.fused_decode = fused
         cache = lm.init_cache(1, C, torch.float32)
-        cache.offset = 3
+        cache.offset.fill_(3)
         out.append((lm.step_logits(lp, emb, cache, pos), cache))
     lm.fused_decode = True
     (lf, cf), (lr, cr) = out
-    assert cf.offset == cr.offset == 4
+    assert int(cf.offset) == int(cr.offset) == 4
     np.testing.assert_allclose(cf.k.numpy(), cr.k.numpy(), atol=0.05)
     np.testing.assert_allclose(lf.numpy(), lr.float().numpy(), atol=0.08)
 
@@ -588,8 +591,9 @@ def test_cuda_fused_decode_matches_plain(cuda_device, offset):
     order only); the other outputs within 6e-2 * max|ref|: the kernel also
     rounds attention probabilities to bf16 against a running maximum, and a
     last-bit difference can flip a bf16 rounding of x before a weight dot,
-    which the layers amplify.  A second call is bit-identical (sums in a
-    fixed order)."""
+    which the layers amplify.  The kernel reads its cursor from the cache's
+    device word.  A second call is bit-identical (sums in a fixed
+    order)."""
     from mlx_vlm_tpu_torch.utils.loader import load_model_from_weights
     from mlx_vlm_tpu_torch.utils.testing import (mlx_int4_checkpoint,
                                                  tiny_qwen2_vl_config)
@@ -615,8 +619,9 @@ def test_cuda_fused_decode_matches_plain(cuda_device, offset):
                                           device=cuda_device))
     kc, vc = cache.k.clone(), cache.v.clone()
     n0 = fd.launches["fused_decode"]
+    cache.offset.fill_(offset)
     got = fd.fused_decode_step(lp, lm.args, h, cos[0, 0], sin[0, 0], cache.k,
-                               cache.v, offset)
+                               cache.v, cache.offset)
     ref = fd.fused_decode_step_plain(lp, lm.args, h, cos[0, 0], sin[0, 0],
                                      kc, vc, offset)
     torch.cuda.synchronize()
@@ -632,5 +637,5 @@ def test_cuda_fused_decode_matches_plain(cuda_device, offset):
     assert bool((cache.k[:, :, :, offset + 1:] == 1e3).all())
     assert bool((cache.v[:, :, :, offset + 1:] == 1e3).all())
     again = fd.fused_decode_step(lp, lm.args, h, cos[0, 0], sin[0, 0],
-                                 cache.k, cache.v, offset)
+                                 cache.k, cache.v, cache.offset)
     assert all(torch.equal(x, y) for x, y in zip(got, again))

@@ -180,7 +180,7 @@ def test_int_caches_match_reference(bits, D, decode_tol):
                                    left_pad=torch.tensor([3]))
         fields = ("k4", "ks", "kb", "v4", "vs", "vb")
     outs, j, t = cache_steps(j, t, D, seed=bits + D)
-    assert t.offset == int(j.offset) == 42
+    assert int(t.offset) == int(j.offset) == 42
     _buffers_equal(j, t, fields)
     _check_outputs(outs, decode_tol)
 
@@ -261,7 +261,7 @@ def test_make_cache_follows_reference(monkeypatch, kv_bits, kv_scheme,
             assert str(a.dtype).removeprefix("torch.") == str(b.dtype), f
         elif f != "offset":
             assert a == b, f
-    assert got.offset == int(ref.offset) == 0
+    assert int(got.offset) == int(ref.offset) == 0
 
 
 @pytest.mark.parametrize("kv_bits,kv_scheme", [(4, "affine"), (8, "affine"),
@@ -294,7 +294,7 @@ def test_make_cache_group_affine_raises(monkeypatch, kv_bits, kv_scheme):
         a = getattr(got, f)
         assert tuple(a.shape) == tuple(b.shape), f
         assert str(a.dtype).removeprefix("torch.") == str(b.dtype), f
-    assert got.offset == int(ref.offset) == 0
+    assert int(got.offset) == int(ref.offset) == 0
 
 
 # ------------------------------------------------------------ the slice
@@ -384,7 +384,7 @@ def _port_forced_logits(tm, kv_bits, toks):
     logits = tm(tm.params, lm.embed(lp, torch.tensor([PROMPT])), cache, pos)
     out = [logits[0, -1].numpy()]
     for tok in toks:
-        p = torch.full((3, 1, 1), cache.offset)
+        p = torch.full((3, 1, 1), int(cache.offset))
         out.append(tm(tm.params, lm.embed(lp, torch.tensor([[tok]])), cache,
                       p)[0, 0].numpy())
     return np.stack(out), type(cache).__name__

@@ -707,16 +707,18 @@ def test_qmatmul_gemv_plan_at_7b_shapes():
 
 
 def test_gemv_refusals_before_any_launch():
-    """The GEMV takes 1 to 8 rows, K a whole number of group pairs at both
-    widths (its scales and biases travel as 32-bit words) and 4-byte
-    aligned scales and biases; it refuses anything else before it reaches
-    the kernel library (CPU tensors show it)."""
+    """The GEMV takes 1 to 8 rows, K a whole number of its units (whole
+    groups and whole 32-byte steps of a row: any number of groups at 8
+    bits, group pairs at 4 bits and g = 32) and 4-byte aligned scales and
+    biases (they travel as 32-bit words); it refuses anything else before
+    it reaches the kernel library (CPU tensors show it)."""
     for M in (0, 9):
         with pytest.raises(ValueError, match="GEMV"):
             k5.qmatmul_gemv_plan(M, K, N, 4, 64)
-    with pytest.raises(ValueError, match="group pairs"):
-        k5.qmatmul_gemv_plan(1, 96, N, 8, 32)
+    with pytest.raises(ValueError, match="64-code units"):
+        k5.qmatmul_gemv_plan(1, 96, N, 4, 32)
     k5.qmatmul_gemv_plan(1, 64, N, 8, 32)  # two groups: taken
+    k5.qmatmul_gemv_plan(1, 96, N, 8, 32)  # three groups: taken
     q, s, b = mlx_weight(8, 32, seed=5, bf16=True)
     _, t = both(q, s, b, 8, 32)
     buf = torch.empty(t.scales.numel() + 1, dtype=torch.bfloat16)

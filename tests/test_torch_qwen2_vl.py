@@ -151,13 +151,13 @@ def _port_steps(tm, ids, pix, forced, capacity=128):
     cache = lm.init_cache(1, capacity, torch.float32)
     logits = tm(tm.params, e, cache, torch.from_numpy(pos.astype(np.int64)))
     out = [logits[0, -1].numpy()]
-    offsets = [cache.offset]
+    offsets = [int(cache.offset)]
     for tok in forced:
         emb = lm.embed(tm.params["language_model"], torch.tensor([[tok]]))
-        p = torch.full((3, 1, 1), cache.offset + int(deltas[0, 0]))
+        p = torch.full((3, 1, 1), int(cache.offset) + int(deltas[0, 0]))
         logits = tm(tm.params, emb, cache, p)
         out.append(logits[0, 0].numpy())
-        offsets.append(cache.offset)
+        offsets.append(int(cache.offset))
     return np.stack(out), offsets
 
 
@@ -371,7 +371,8 @@ def test_block_size_sizes_the_cache_as_the_reference(models, monkeypatch):
 
 def test_block_size_is_accepted_and_keeps_the_tokens(models):
     """block_size=8 through stream_generate and generate gives the default's
-    tokens: decoding stays one token per step."""
+    tokens: the block size changes how many steps a host fetch takes, not
+    the steps."""
     from mlx_vlm_tpu_torch.utils.testing import ByteTokenizer
 
     _, tm, _ = models

@@ -330,7 +330,7 @@ def _port_forced(tm, inputs, toks, kv_bits=None, kv_group_size=64):
     out = [tm(tm.params, e, cache, torch.from_numpy(pos.astype(np.int64)))[
         0, -1].numpy()]
     for tok in toks:
-        p = torch.full((3, 1, 1), cache.offset + int(deltas[0, 0]))
+        p = torch.full((3, 1, 1), int(cache.offset) + int(deltas[0, 0]))
         out.append(tm(tm.params, lm.embed(lp, torch.tensor([[tok]])), cache,
                       p)[0, 0].numpy())
     return np.stack(out), cache
@@ -364,7 +364,7 @@ def test_slice_teacher_forced_logits(slice_models, monkeypatch):
     calls = _count_plain(monkeypatch)
     before = dict(k5.launches)
     got, cache = _port_forced(tm, inputs, toks)
-    assert cache.offset == inputs["input_ids"].shape[1] + N_STEPS - 1
+    assert int(cache.offset) == inputs["input_ids"].shape[1] + N_STEPS - 1
     assert np.abs(got - ref).max() <= _f32_bound(ref)
     L = cfg["num_hidden_layers"]
     want = 0 if name == "w8chan8" else N_STEPS * (7 * L + 1)
@@ -453,7 +453,7 @@ def test_quantized_kv_cache_matches_reference(kv_bits, scheme):
         np.testing.assert_allclose(got.numpy(), ref, rtol=0,
                                    atol=1e-5 * np.abs(ref).max())
         _buffers_equal(j, t)
-    assert t.offset == int(j.offset) == 42
+    assert int(t.offset) == int(j.offset) == 42
 
 
 @pytest.mark.parametrize("kv_bits,scheme", AFFINE_CASES)
@@ -474,5 +474,5 @@ def test_quantized_kv_slice_matches_reference(monkeypatch, kv_bits, scheme):
     assert type(jc).__name__ == type(tc).__name__ == "QuantizedKVCache"
     assert tc.bits == jc.bits == kv_bits and tc.group_size == 16
     assert np.abs(got - ref).max() <= _f32_bound(ref)
-    assert tc.offset == int(jc.offset) == ids.shape[1] + N_STEPS - 1
+    assert int(tc.offset) == int(jc.offset) == ids.shape[1] + N_STEPS - 1
     _buffers_equal(jc, tc, rel=1e-6)

@@ -222,7 +222,7 @@ def test_tq_caches_match_reference(kind, kv_bits):
         t = ttq.init_turboquant_cache(1, 1, 2, D, C, kv_bits, **LP_T)
         fields = ("kq", "kscale", "vq", "vscale")
     outs, j, t = cache_steps(j, t, D, seed=int(kv_bits * 10))
-    assert t.offset == int(j.offset) == 42
+    assert int(t.offset) == int(j.offset) == 42
     _buffers_equal(j, t, fields)
     _check_outputs(outs, PALLAS)
 
