@@ -16,8 +16,9 @@ Phases (any failure exits non-zero):
      against its plain PyTorch version on the card at Qwen2-VL-7B shapes
      (K1 also at groups of 32 and 128 and on a ragged 100-row chunk that
      splits K; K2 at M = 1, 2, 4 and 8, groups of 32 and 128 and a ragged
-     n = 1000, timed also with its weights cold in L2 (`graph_ms` over
-     copies of the weight), and its
+     n = 1000 and on a 4-row lm_head (a 4-slot batch step), timed also
+     with its weights cold in L2 (`graph_ms` over copies of the weight),
+     and its
      kernels per call counted; K5's GEMV at M = 1, 2, 4 and 8, groups of
      32 and 128 and a ragged N = 1000 (timed cold and warm), its GEMM at
      both widths at M = 512, on a ragged chunk (M = 100, N = 1000) and a
@@ -62,7 +63,18 @@ Phases (any failure exits non-zero):
      of those caches (and the bf16 cache on the per-linear route, and a
      seeded sampled request) the graph-replayed block decode on the card
      against the same request decoded with eager steps on the card:
-     tokens and logprobs bit-identical;
+     tokens and logprobs bit-identical; then a 3-slot BatchGenerator (a
+     text prompt and the image prompt admitted together with 3 tokens
+     each, a text prompt with 2 admitted after the first cycle, blocks of
+     1 step, prefill chunks of 128 rows) with
+     the bf16 cache and with kv_bits 4 (K6 on per-row cursors): its
+     logits on the card, teacher-forced with the CPU's greedy tokens, held
+     to the CPU's (f32 and bf16) request by request, over its admission
+     and each decode step, by the parity rule, with K1 / K2 / K6 launches
+     held to the chunks and steps that ran; and the generator's
+     graph-replayed steps (one capture across both admissions) against
+     its eager steps on the card, tokens and logprobs bit-identical.  The
+     phase prints the seconds of each of its parts;
   4. the main path at full Qwen2-VL-7B width (random mlx-format weights,
      28 decoder layers, 32 vision blocks): eight greedy requests through
      load_model_from_weights and stream_generate, each with the kernels'
@@ -87,6 +99,23 @@ Phases (any failure exits non-zero):
      MLX_VLM_TPU_RUNTIME_QUANT=exact, so every linear and the lm_head run
      K5: (g) (a)'s 4-bit checkpoint, image and prompt; (h) an 8-bit
      checkpoint, text only, kv_bits 8 with MLX_VLM_TPU_KV_SCHEME=affine.
+     Before those, on (a)-(f)'s model, continuous batching: (i)
+     batch_generate of five prompts (three text prompts of different
+     lengths and two images) into 4 slots, 32 tokens each, blocks of 8,
+     greedy, bf16 batch cache, its texts naming every token, and (j) the
+     same requests through BatchGenerator(kv_bits=4) (K6 on per-row
+     cursors): each prints its tokens and aggregate tokens/s, its ms per
+     replayed batch step, its capture (must be one per generator),
+     replays, fetches (blocks + admissions) and launches, held to what ran
+     (K2 = 197 per batch step + one head per prefill chunk holding a
+     row's last token, K1 = 196 per prefill chunk, K6 = 28 per step in
+     (j), K3 = 0); (j) also replays its captured step alone between CUDA
+     events (and profiles it with --profile).  (i)'s requests then run
+     again with eager steps, their texts equal to (i)'s, and each row's
+     logits are held by the parity rule, at every step, to its prompt
+     run alone on the per-linear route (a B = 1 cache, K2 at M = 1)
+     teacher-forced with the row's tokens; with --profile, three of
+     those eager batch steps are traced too.
 Each phase prints its seconds.  The line before the last is the kernel
 report, the last line the result.  Needs no network and imports nothing of
 JAX.
@@ -446,7 +475,9 @@ K2_CASES = (tuple((1, K, N, 64) for K, N in K2_SHAPES)
             + tuple((M, K, N, 64) for M in (2, 4, 8)
                     for K, N in ((3584, 3584), (3584, 18944)))
             + tuple((1, 3584, 3584, g) for g in (32, 128))
-            + ((1, 3584, 1000, 64),))
+            + ((1, 3584, 1000, 64),)
+            # the lm_head of a 4-slot batch decode step (phase 4 (i), (j))
+            + ((4, 3584, 152064, 64),))
 K2_TOL = 1e-3
 
 
@@ -1387,12 +1418,20 @@ def check_kv_kernels(results: list, gen, dev) -> None:
 # ------------------------------------------------------------ phase 3
 
 
-def _processor():
+def _processor(name_ids: bool = False):
+    """The Qwen2-VL processor over utils/testing.py's ByteTokenizer; with
+    `name_ids`, its decode writes every id as "<id>", so that a text shows
+    each token that random weights generate (most ids are not bytes)."""
     from mlx_vlm_tpu_torch.utils.processing import (Qwen2VLImageProcessor,
                                                     Qwen2VLProcessor)
     from mlx_vlm_tpu_torch.utils.testing import ByteTokenizer
 
-    return Qwen2VLProcessor(ByteTokenizer(), Qwen2VLImageProcessor())
+    class NamingTokenizer(ByteTokenizer):
+        def decode(self, ids, skip_special_tokens: bool = False) -> str:
+            return "".join(f"<{i}>" for i in np.asarray(ids).reshape(-1))
+
+    tok = NamingTokenizer() if name_ids else ByteTokenizer()
+    return Qwen2VLProcessor(tok, Qwen2VLImageProcessor())
 
 
 def _image(size: int) -> np.ndarray:
@@ -1452,18 +1491,13 @@ def teacher_forced_logits(model, inputs: dict, forced=None,
     import torch
 
     from mlx_vlm_tpu_torch.generate.ar import make_cache
+    from mlx_vlm_tpu_torch.generate.common import embed_prompt
 
     dev = model.device
     lm = model.language_model
     lp = model.params["language_model"]
-    ids = torch.from_numpy(inputs["input_ids"].astype(np.int64)).to(dev)
-    aux = model.vision_aux_inputs(inputs["image_grid_thw"])
-    embeds = model.get_input_embeddings(
-        model.params, ids, torch.from_numpy(inputs["pixel_values"]).to(dev),
-        rotary_freqs=torch.from_numpy(aux["rotary_freqs"]).to(dev),
-        segment_ids=torch.from_numpy(aux["segment_ids"]).to(dev))
-    pos, deltas = model.prepare_position_ids(
-        inputs["input_ids"], inputs["image_grid_thw"])
+    embeds, pos, deltas = embed_prompt(model, inputs)
+    ids = inputs["input_ids"]
     S = ids.shape[1]
     cache = make_cache(model, 1, 256 * ((S + n_steps + 255) // 256),
                        embeds.dtype, kv_bits, device=dev)
@@ -1554,6 +1588,201 @@ def replay_matches_eager(model, label: str, kv_bits=None,
     return same and stats_ok
 
 
+# Phase 3's batch: three requests (a text prompt, an image prompt, and a
+# text prompt inserted after the first cycle) in 3 slots, in blocks of 1
+# step: the first two admitted together and given 3 tokens, the third
+# admitted alone and given 2, so that the first step runs with the third
+# slot idle and the second with all three live at different cursors;
+# prefill chunks of 128 rows, so that a short prompt is padded to 128
+# rows, not 256.  Each plain prefill chunk or decode step, and each head,
+# costs the CPU reference about 2 s at 7B widths on 8 CPU threads (its
+# int4 weights dequantized at each call), so the batch runs few: 2
+# chunks, 2 steps, 4 heads (3 tokens each in 64-row chunks ran 6 of each:
+# 25.0 s a case against 17.9 s on the same CPU)
+BATCH_SLOTS, BATCH_BLOCK, BATCH_PREFILL = 3, 1, 128
+BATCH_TOKENS = (3, 3, 2)
+BATCH_TEXTS = ("Write a haiku about the sea.", "What is in this image?",
+               "Name three colors.")
+# (kv_bits, the kernel each layer's decode attention runs, its launches
+# per layer and step, the CPU reference's dtype, as in PARITY_CASES)
+BATCH_CASES = ((None, "int4_matvec", 0, "float32"),
+               (4, "int4_kv_attention", 1, "bfloat16"))
+
+
+class Recorder:
+    """A batched sampler that keeps, for every call of a BatchGenerator's
+    sampler, the logits (a device copy, so no host read inside a block),
+    the tokens it returned and the uid of each row (None for a row that no
+    live request owns: an idle slot or a padding row of a batched
+    admission), and returns its own greedy tokens or, with `forced`, the
+    tokens of the same call of another run.  Admissions take the requests
+    in the order they were inserted (`order`, their uids)."""
+
+    def __init__(self, order, forced=None):
+        from mlx_vlm_tpu_torch.core.sampling import make_batched_sampler
+
+        self.real = make_batched_sampler()
+        self.order, self.admitted = list(order), 0
+        self.forced = forced
+        self.calls = []
+        self.gen = None
+
+    def __call__(self, logits, params, generator):
+        gen, rows = self.gen, logits.shape[0]
+        if params is gen.params:  # a decode step over the slots
+            uids = [s.req.uid if s is not None and gen.active[i] else None
+                    for i, s in enumerate(gen.slots)]
+        else:  # an admission's first tokens (batched: >= 2 requests)
+            n = 1 if rows == 1 else min(len(gen._free_slots()), 8,
+                                        len(gen.queue))
+            uids = self.order[self.admitted:self.admitted + n]
+            uids += [None] * (rows - n)
+            self.admitted += n
+        toks = (self.real(logits, params, generator) if self.forced is None
+                else self.forced[len(self.calls)])
+        self.calls.append((logits.float().clone(), toks.clone(), uids))
+        return toks
+
+    def results(self) -> list:
+        return [(lg.cpu().numpy(), t.cpu().numpy(), u)
+                for lg, t, u in self.calls]
+
+
+def per_request(calls: list, n_tokens: dict) -> dict:
+    """{uid: logits [n, V]}: each request's rows of a Recorder's calls in
+    order (its admission's, then one a decode step), cut to its n tokens."""
+    rows: dict = {}
+    for logits, _, uids in calls:
+        for r, u in enumerate(uids):
+            if u is not None:
+                rows.setdefault(u, []).append(logits[r])
+    return {u: np.stack(v[:n_tokens[u]]) for u, v in rows.items()}
+
+
+def batch_requests(model, proc, cfg, inputs_img: dict) -> list:
+    """Phase 3's three BatchRequests, embedded by `model` (fresh objects:
+    a generator caps their max_tokens in place)."""
+    from mlx_vlm_tpu_torch import apply_chat_template
+    from mlx_vlm_tpu_torch.generate.batch import BatchRequest
+    from mlx_vlm_tpu_torch.generate.common import embed_prompt
+    from mlx_vlm_tpu_torch.utils.processing import prepare_inputs
+
+    reqs = []
+    for uid, text in enumerate(BATCH_TEXTS):
+        if uid == 1:
+            inputs = inputs_img
+        else:
+            inputs = prepare_inputs(proc, apply_chat_template(
+                proc, cfg, text, num_images=0))
+        embeds, pos, deltas = embed_prompt(model, inputs)
+        reqs.append(BatchRequest(uid=uid, inputs_embeds=embeds,
+                                 max_tokens=BATCH_TOKENS[uid],
+                                 position_ids=pos,
+                                 rope_delta=int(deltas[0, 0])))
+    return reqs
+
+
+def drive_batch(model, reqs: list, late=(), graph: bool = True,
+                recorder=None, **kw) -> tuple:
+    """`reqs` through a BatchGenerator(model, **kw): the requests whose
+    index is in `late` inserted after the first cycle, the others before
+    it, drained.  `graph` False runs every step eagerly on the card; a
+    `recorder` stands in for the sampler.  Returns ({uid: [(token,
+    logprob)]}, the generator)."""
+    from mlx_vlm_tpu_torch.generate import batch
+
+    real = batch.make_batched_sampler
+    if recorder is not None:
+        batch.make_batched_sampler = lambda: recorder
+    try:
+        gen = batch.BatchGenerator(
+            model, dtype=reqs[0].inputs_embeds.dtype, **kw)
+    finally:
+        batch.make_batched_sampler = real
+    if recorder is not None:
+        recorder.gen = gen
+    gen.decode.use_graph = graph and gen.decode.use_graph
+    out = {r.uid: [] for r in reqs}
+
+    def cycle():
+        for uid, pairs in gen.next().items():
+            out[uid].extend(pairs)
+
+    for i, r in enumerate(reqs):
+        if i not in late:
+            gen.insert(r)
+    cycle()
+    for i in late:
+        gen.insert(reqs[i])
+    while gen.num_active or gen.queue:
+        cycle()
+    return out, gen
+
+
+def batch_scenario(model, reqs: list, kv_bits, graph: bool = True,
+                   recorder=None) -> tuple:
+    """Phase 3's batch through drive_batch: reqs[0] and reqs[1] inserted
+    together (one batched admission), reqs[2] after the first cycle (a
+    single admission)."""
+    return drive_batch(model, reqs, late=(2,), graph=graph,
+                       recorder=recorder, num_slots=BATCH_SLOTS,
+                       capacity=512, block_size=BATCH_BLOCK,
+                       prefill_step_size=BATCH_PREFILL, kv_bits=kv_bits)
+
+
+def batch_parity(ref_calls: list, got_calls: list, n_tokens: dict) -> tuple:
+    """Phase 3's batch on the card against the CPU, request by request:
+    its admission's logits and its decode steps' by the parity rule, both
+    runs' calls serving the same rows.  Returns (ok, worst err, its tol,
+    steps with argmax checked, rows compared)."""
+    same_calls = (len(ref_calls) == len(got_calls) and all(
+        ru == gu for (_, _, ru), (_, _, gu) in zip(ref_calls, got_calls)))
+    ref = per_request(ref_calls, n_tokens)
+    got = per_request(got_calls, n_tokens)
+    ok, worst, worst_tol, checked, rows = same_calls, 0.0, 1.0, 0, 0
+    for u in ref:
+        good, err, tol, n = parity_rule(ref[u], got[u])
+        ok = ok and good
+        if err / tol >= worst / worst_tol:
+            worst, worst_tol = err, tol
+        checked += n
+        rows += ref[u].shape[0]
+    return ok, worst, worst_tol, checked, rows
+
+
+def same_pairs(a: dict, b: dict) -> bool:
+    """Two runs' {uid: [(token, logprob)]}: tokens equal and logprobs
+    bit-identical."""
+    return a.keys() == b.keys() and all(
+        [t for t, _ in a[u]] == [t for t, _ in b[u]]
+        and np.array_equal(np.float32([lp for _, lp in a[u]]).view(
+            np.uint32), np.float32([lp for _, lp in b[u]]).view(np.uint32))
+        for u in a)
+
+
+def batch_replay_matches_eager(model, reqs_fn, label: str, kv_bits) -> bool:
+    """Phase 3's batch on the card twice: the generator's decode step
+    captured once and replayed (the default), and every step eager; tokens
+    and logprobs bit-identical, one capture across both admissions."""
+    runs = {}
+    for graph in (True, False):
+        out, gen = batch_scenario(model, reqs_fn(), kv_bits, graph=graph)
+        runs[graph] = (out, dict(gen.stats))
+    (og, sg), (oe, se) = runs[True], runs[False]
+    same = same_pairs(og, oe)
+    stats_ok = (sg["captures"] == 1 and sg["replays"] == sg["steps"] - 1
+                and se["captures"] == 0 and se["replays"] == 0
+                and sg["steps"] == se["steps"]
+                and sg["fetches"] == sg["blocks"] + sg["admissions"])
+    print(f"  batch replay vs eager, {label}: {len(og)} requests, tokens "
+          f"{[len(v) for v in og.values()]}: tokens and logprobs "
+          f"bit-identical {same}; {sg['captures']} capture "
+          f"({sg['capture_s']:.4f} s), {sg['replays']} replays over "
+          f"{sg['admissions']} admissions, {sg['fetches']} fetches "
+          f"{'ok' if same and stats_ok else 'MISMATCH'}", flush=True)
+    return same and stats_ok
+
+
 # (kv_bits, MLX_VLM_TPU_TQ_SCHEME, the kernel each decode step runs,
 # launches per layer and step, the CPU reference's dtype, teacher-forced
 # steps).  The bf16 cache is held to an f32 CPU run.  A quantized cache is
@@ -1586,6 +1815,12 @@ def phase_slice_parity() -> bool:
           f"versions), Qwen2-VL-7B widths, {n_layers} decoder layers, "
           f"teacher-forced, for each cache", flush=True)
     t0 = time.perf_counter()
+    clock = [t0]
+
+    def lap(what: str) -> None:
+        clock.append(time.perf_counter())
+        print(f"  ({what}: {clock[-1] - clock[-2]:.1f} s)", flush=True)
+
     cfg = qwen2_vl_7b_config()
     cfg["num_hidden_layers"] = n_layers
     cfg, weights = mlx_int4_checkpoint(cfg, seed=SEED + 1)
@@ -1593,7 +1828,8 @@ def phase_slice_parity() -> bool:
     prompt = apply_chat_template(proc, cfg, "What is in this image?",
                                  num_images=1)
     inputs = prepare_inputs(proc, prompt, images=_image(224))
-    refs, route = {}, True
+    lap("checkpoint")
+    refs, batch_refs, route = {}, {}, True
     for dtype in ("float32", "bfloat16"):
         cpu = load_model_from_weights(cfg, weights, getattr(torch, dtype),
                                       "cpu")
@@ -1603,10 +1839,21 @@ def phase_slice_parity() -> bool:
                 with env_vars(MLX_VLM_TPU_TQ_SCHEME=tq):
                     refs[kv_bits, tq] = teacher_forced_logits(
                         cpu, inputs, n_steps=n_steps, kv_bits=kv_bits)
+        lap(f"CPU {dtype} load and single-stream references")
+        for kv_bits, _, _, ref_dtype in BATCH_CASES:
+            if ref_dtype == dtype:
+                rec = Recorder(range(len(BATCH_TEXTS)))
+                out, _ = batch_scenario(
+                    cpu, batch_requests(cpu, proc, cfg, inputs), kv_bits,
+                    recorder=rec)
+                batch_refs[kv_bits] = (rec.results(),
+                                       {u: len(v) for u, v in out.items()})
+                lap(f"CPU batch reference, kv_bits={kv_bits}")
         del cpu
     gpu = load_model_from_weights(cfg, weights, torch.bfloat16, "cuda")
     route = route and gpu.language_model.fused_decode
     all_ok = route
+    lap("card load")
     for kv_bits, tq, kernel, per_layer, ref_dtype, n_steps in PARITY_CASES:
         ref, toks = refs[kv_bits, tq]
         reset_counts()
@@ -1622,6 +1869,41 @@ def phase_slice_parity() -> bool:
               f"{n_steps} steps; {kernel} launches {n} (want {want}); "
               f"{'ok' if ok and n == want else 'MISMATCH'}", flush=True)
         all_ok = all_ok and ok and n == want
+    lap("card single-stream cases")
+    # the batch (K2 at M = 3, per-row cursors) held to the CPU, teacher-
+    # forced with the CPU's greedy tokens, every step eager on the card
+    for kv_bits, kernel, per_layer, ref_dtype in BATCH_CASES:
+        ref, n_tokens = batch_refs[kv_bits]
+        rec = Recorder(range(len(BATCH_TEXTS)),
+                       [torch.from_numpy(t).to(gpu.device) for _, t, _ in ref])
+        reset_counts()
+        _, gen = batch_scenario(gpu, batch_requests(gpu, proc, cfg, inputs),
+                                kv_bits, graph=False, recorder=rec)
+        counts = read_counts()
+        st = gen.stats
+        want = {"int4_matvec": (7 * n_layers + 1) * st["steps"]
+                + st["prefill_heads"],
+                "int4_matmul": 7 * n_layers * st["prefill_chunks"],
+                "fused_decode": 0,
+                "int4_kv_attention": n_layers * st["steps"] * per_layer}
+        counts_ok = all(counts[k] == v for k, v in want.items())
+        ok, err, tol, n_margin, rows = batch_parity(ref, rec.results(),
+                                                    n_tokens)
+        print(f"  batch of {BATCH_SLOTS} slots ({', '.join(BATCH_TEXTS)}; "
+              f"the last admitted late), kv_bits={kv_bits}, eager on the "
+              f"card vs the CPU in {ref_dtype}: {rows} logit rows over "
+              f"{len(ref)} sampler calls; worst max|cuda - cpu| = "
+              f"{err:.4e}, tol {tol:.4e}; argmax checked on {n_margin} "
+              f"rows; {st['steps']} decode steps, {st['admissions']} "
+              f"admissions, {st['prefill_chunks']} prefill chunks; launches "
+              f"{ {k: counts[k] for k in want} } (want {want}); "
+              f"{'ok' if ok and counts_ok else 'MISMATCH'}", flush=True)
+        all_ok = all_ok and ok and counts_ok
+        lap(f"card batch, kv_bits={kv_bits}, teacher-forced")
+        all_ok = batch_replay_matches_eager(
+            gpu, lambda: batch_requests(gpu, proc, cfg, inputs),
+            f"kv_bits={kv_bits} ({kernel})", kv_bits) and all_ok
+        lap(f"card batch, kv_bits={kv_bits}, replay and eager")
     # the graph-replayed block decode against eager steps, for each cache
     for kv_bits, tq, kernel, _, _, _ in PARITY_CASES:
         with env_vars(MLX_VLM_TPU_TQ_SCHEME=tq):
@@ -1634,6 +1916,7 @@ def phase_slice_parity() -> bool:
     all_ok = replay_matches_eager(gpu, "bf16 cache, per-linear (int4_matvec)"
                                   ) and all_ok
     gpu.language_model.fused_decode = True
+    lap("card single-stream replay vs eager")
     del gpu, weights
     torch.cuda.empty_cache()
     print(f"  fused route on all: {route} ({time.perf_counter() - t0:.1f} s)",
@@ -1759,16 +2042,17 @@ def prefill_chunks(S: int, max_tokens: int, step: int = 512,
 PROFILE = "--profile" in sys.argv[1:]
 
 
-def profile_step(graph) -> tuple:
-    """The kernels that a torch.profiler trace of three replays of a
-    captured step sees: ([(name, ms per step, launches per step)] by device
-    time, the trace's ms per step or None where it saw no device time)."""
+def print_profile(run, what: str = "replays") -> None:
+    """Prints the kernels that a torch.profiler trace of three calls of
+    `run` (a captured step's replay, or an eager step) sees: the trace's
+    kernel ms and launches a step and the six longest kernels by device
+    time, or that it saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
-            graph.replay()
+            run()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -1778,7 +2062,11 @@ def profile_step(graph) -> tuple:
         if us > 0:
             rows.append((e.key, us / 3e3, e.count / 3))
     rows.sort(key=lambda r: -r[1])
-    return rows, (sum(r[1] for r in rows) if rows else None)
+    top = "; ".join(f"{k[:48]} {t:.4f} ms x{n:g}" for k, t, n in rows[:6])
+    print(f"    torch.profiler over 3 {what}: " + (
+        f"{sum(r[1] for r in rows):.4f} ms of kernels a step in "
+        f"{sum(r[2] for r in rows):g} launches, most: {top}"
+        if rows else "no device time seen"), flush=True)
 
 
 def run_request(model, proc, cfg, name: str, route: str, text: str, image,
@@ -1854,15 +2142,209 @@ def run_request(model, proc, cfg, name: str, route: str, text: str, image,
               f"events over 10 replays; {dev_ms / ms_replayed:.1%} of the "
               f"ms per replayed token)", flush=True)
         if PROFILE:
-            rows, traced = profile_step(decode.graph.graph)
-            top = "; ".join(f"{k[:48]} {t:.4f} ms x{c:g}"
-                            for k, t, c in rows[:6])
-            print("    torch.profiler over 3 replays: " + (
-                f"{traced:.4f} ms of kernels a step in "
-                f"{sum(c for _, _, c in rows):g} launches, most: {top}"
-                if traced is not None else "no device time seen"),
-                flush=True)
+            print_profile(decode.graph.graph.replay)
     return counts, n, last.prompt_tokens, steps
+
+
+# Requests (i) and (j): five prompts into four slots (the fifth waits for a
+# free slot): three text prompts of different lengths and two images
+# (text, image size or None)
+BATCH_PROMPTS = (
+    ("Write a short story about a lighthouse.", None),
+    ("Describe this image in detail.", 448),
+    ("List the planets of the solar system in order, and give one fact "
+     "about each of them.", None),
+    ("What is in this image?", 224),
+    ("Hi.", None),
+)
+# (batch_generate's generator decodes in blocks of its default 8 steps)
+BATCH_MAX_TOKENS, BATCH_STEP_BLOCK, BATCH_NUM_SLOTS = 32, 8, 4
+
+
+def batch_prompts(proc, cfg) -> tuple:
+    """BATCH_PROMPTS as batch_generate takes them: (prompts, images)."""
+    from mlx_vlm_tpu_torch import apply_chat_template
+
+    return ([apply_chat_template(proc, cfg, text,
+                                 num_images=int(size is not None))
+             for text, size in BATCH_PROMPTS],
+            [None if size is None else _image(size)
+             for _, size in BATCH_PROMPTS])
+
+
+def batch_prompt_requests(model, proc, cfg) -> tuple:
+    """BATCH_PROMPTS made into BatchRequests as batch_generate makes them
+    (greedy, BATCH_MAX_TOKENS each, the model's and processor's EOS ids).
+    Returns (requests, each one's prepare_inputs arrays, the EOS ids)."""
+    from mlx_vlm_tpu_torch.generate.batch import BatchRequest
+    from mlx_vlm_tpu_torch.generate.common import embed_prompt
+    from mlx_vlm_tpu_torch.generate.dispatch import _get_eos_ids
+    from mlx_vlm_tpu_torch.utils.processing import prepare_inputs
+
+    eos = tuple(_get_eos_ids(model, proc))
+    reqs, arrays = [], []
+    for uid, (prompt, image) in enumerate(zip(*batch_prompts(proc, cfg))):
+        inputs = prepare_inputs(proc, prompt, images=image)
+        embeds, pos, deltas = embed_prompt(model, inputs)
+        reqs.append(BatchRequest(
+            uid=uid, inputs_embeds=embeds, max_tokens=BATCH_MAX_TOKENS,
+            position_ids=pos, rope_delta=int(deltas[0, 0]), eos_ids=eos))
+        arrays.append(inputs)
+    return reqs, arrays, eos
+
+
+def report_batch(name: str, st: dict, counts: dict, tokens: str, n_gen: int,
+                 prompt_tokens: int, wall: float, kv_bits, n_layers: int,
+                 total: dict) -> float:
+    """Checks a batch request's generator counters (one capture, a replay
+    per step after the first, a fetch per block and admission) and holds
+    each kernel's launches to the steps and prefill chunks that ran (K2 =
+    197 a step + one head per prefill chunk holding a row's last token, K1
+    = 196 a chunk, K6 = 28 a step at kv_bits 4, the rest 0); prints its
+    metrics.  Returns the host ms per replayed batch step."""
+    import torch
+
+    if not 0 < n_gen <= len(BATCH_PROMPTS) * BATCH_MAX_TOKENS:
+        fail(f"{name}: {n_gen} tokens generated")
+    if not (st["captures"] == 1 and st["replays"] == st["steps"] - 1
+            and st["steps"] == BATCH_STEP_BLOCK * st["blocks"]
+            and st["fetches"] == st["blocks"] + st["admissions"]):
+        fail(f"{name}: decode counts {st}, want one capture, a replay per "
+             f"step after the first and a fetch per block and admission")
+    ms_replayed = 1e3 * (st["decode_s"] - st["first_s"] - st["capture_s"]
+                         ) / max(st["replays"], 1)
+    print(f"  {name}: {len(BATCH_PROMPTS)} prompts ({prompt_tokens} tokens) "
+          f"in {BATCH_NUM_SLOTS} slots: {n_gen} tokens{tokens} in "
+          f"{wall:.4f} s, {n_gen / wall:.2f} tok/s aggregate; "
+          f"{st['steps']} batch steps in {st['blocks']} blocks of "
+          f"{BATCH_STEP_BLOCK}: {st['captures']} capture, {st['replays']} "
+          f"replays, {st['fetches']} fetches ({st['blocks']} blocks + "
+          f"{st['admissions']} admissions), first step {st['first_s']:.4f} s, "
+          f"capture {st['capture_s']:.4f} s, {ms_replayed:.4f} ms per "
+          f"replayed batch step ({st['decode_s']:.4f} s of blocks); "
+          f"{st['prefill_chunks']} prefill chunks; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{counts}", flush=True)
+    want = {k: 0 for k in counts}
+    want["int4_matvec"] = (7 * n_layers + 1) * st["steps"] + st["prefill_heads"]
+    want["int4_matmul"] = 7 * n_layers * st["prefill_chunks"]
+    if kv_bits == 4:
+        want["int4_kv_attention"] = n_layers * st["steps"]
+    expect(name, counts, want, total)
+    return ms_replayed
+
+
+def run_batch_generate(model, proc, cfg, total: dict) -> list:
+    """Request (i): BATCH_PROMPTS through batch_generate (greedy, bf16
+    batch cache), the kernels' launch counters set to 0 just before it and
+    read just after.  Returns its texts."""
+    import torch
+
+    from mlx_vlm_tpu_torch import batch_generate
+
+    prompts, images = batch_prompts(proc, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = batch_generate(model, proc, prompts, images=images,
+                         max_tokens=BATCH_MAX_TOKENS,
+                         num_slots=BATCH_NUM_SLOTS)
+    counts = read_counts()
+    if len(res.texts) != len(prompts):
+        fail(f"(i): {len(res.texts)} texts for {len(prompts)} prompts")
+    report_batch("(i) batch_generate", res.generator_stats, counts, "",
+                 res.stats["generation_tokens"], res.stats["prompt_tokens"],
+                 res.stats["wall_s"], None,
+                 model.language_model.args.num_hidden_layers, total)
+    return res.texts
+
+
+def run_batch_generator(model, proc, cfg, total: dict) -> None:
+    """Request (j): BATCH_PROMPTS through BatchGenerator(kv_bits=4), its
+    requests made as batch_generate makes them, timed from preprocessing
+    to the last block as (i) is, the counters set to 0 just before it and
+    read just after; then its captured batch step replayed alone between
+    CUDA events (and profiled with --profile)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    tic = time.perf_counter()
+    reqs, arrays, _ = batch_prompt_requests(model, proc, cfg)
+    out, gen = drive_batch(model, reqs, num_slots=BATCH_NUM_SLOTS,
+                           block_size=BATCH_STEP_BLOCK, kv_bits=4)
+    wall = time.perf_counter() - tic
+    counts = read_counts()
+    lens = [len(out[r.uid]) for r in reqs]
+    if not all(np.isfinite(lp) for v in out.values() for _, lp in v):
+        fail("(j): non-finite logprobs")
+    if not all(0 < n <= BATCH_MAX_TOKENS for n in lens):
+        fail(f"(j): tokens {lens}")
+    ms_replayed = report_batch(
+        "(j) as (i), BatchGenerator(kv_bits=4)", gen.stats, counts,
+        f" {lens}", sum(lens), sum(a["input_ids"].shape[1] for a in arrays),
+        wall, 4, model.language_model.args.num_hidden_layers, total)
+    # the captured batch step replayed alone, 10 times between CUDA events
+    # (every slot is free: idle rows write at their parked cursor 0)
+    dev_ms = _events_ms(gen.decode.graph.graph.replay, 10)
+    print(f"    replayed batch step on the device: {dev_ms:.4f} ms (CUDA "
+          f"events over 10 replays; {dev_ms / ms_replayed:.1%} of the ms per "
+          f"replayed batch step)", flush=True)
+    if PROFILE:
+        print_profile(gen.decode.graph.graph.replay)
+
+
+def batch_vs_single(model, proc, cfg, texts: list) -> None:
+    """Each row of request (i) against its prompt run alone.  The five
+    requests run again through a BatchGenerator as batch_generate runs
+    them, every step eager so that a Recorder keeps each step's logits;
+    its texts must equal (i)'s, token for token (`proc` names every id;
+    replayed steps are bit-identical to eager ones, phase 3).  Each row's prompt then runs alone on the single-stream
+    path (a B = 1 cache, MLX_VLM_TPU_FUSED_DECODE=0: K2 at M = 1), teacher-
+    forced with the row's tokens, and the row's logits are held to the
+    single run's by the parity rule at every step."""
+    from mlx_vlm_tpu_torch.generate.batch import detokenize
+    from mlx_vlm_tpu_torch.utils.loader import decide_fused_decode
+
+    t0 = time.perf_counter()
+    os.environ["MLX_VLM_TPU_FUSED_DECODE"] = "0"
+    decide_fused_decode(model)
+    try:
+        reqs, arrays, eos = batch_prompt_requests(model, proc, cfg)
+        rec = Recorder([r.uid for r in reqs])
+        out, gen = drive_batch(model, reqs, graph=False, recorder=rec,
+                               num_slots=BATCH_NUM_SLOTS,
+                               block_size=BATCH_STEP_BLOCK)
+        eager = [detokenize(proc, [t for t, _ in out[r.uid]], eos)
+                 for r in reqs]
+        print(f"  (i) again with eager steps: tokens "
+              f"{[len(out[r.uid]) for r in reqs]}, texts (every token "
+              f"named) equal to (i)'s: {eager == texts}", flush=True)
+        if eager != texts:
+            fail("(i)'s texts differ from the same batch with eager steps")
+        rows = per_request(rec.results(),
+                           {u: len(v) for u, v in out.items()})
+        for req, inputs in zip(reqs, arrays):
+            toks = [t for t, _ in out[req.uid]]
+            single, _ = teacher_forced_logits(model, inputs,
+                                              forced=toks[:-1],
+                                              n_steps=len(toks))
+            ok, err, tol, n_margin = parity_rule(single, rows[req.uid])
+            print(f"  (i) row {req.uid} vs its prompt alone (per-linear, K2 "
+                  f"at M = 1), teacher-forced with the row's {len(toks)} "
+                  f"tokens: max|batch - alone| = {err:.4e}, tol {tol:.4e} "
+                  f"over all {len(toks)} steps; argmax checked on "
+                  f"{n_margin} steps {'ok' if ok else 'MISMATCH'}",
+                  flush=True)
+            if not ok:
+                fail(f"(i) row {req.uid} differs from its single-stream run")
+        print(f"  (i) against its prompts alone: {time.perf_counter() - t0:.1f}"
+              f" s", flush=True)
+        if PROFILE:  # (i)'s batch step, run eagerly: the same kernels
+            print_profile(gen.decode.step, "eager steps of (i)'s batch "
+                          "(one more copy: the recorder's)")
+    finally:
+        del os.environ["MLX_VLM_TPU_FUSED_DECODE"]
+        decide_fused_decode(model)
 
 
 def expect(name: str, counts: dict, want: dict, total: dict) -> None:
@@ -1938,6 +2420,11 @@ def phase_main_path() -> dict:
     del os.environ["MLX_VLM_TPU_FUSED_DECODE"]
     decide_fused_decode(model)
     time_full_step(model)
+    # (i)'s texts name every token, so that they can be held to a run
+    naming = _processor(name_ids=True)
+    texts = run_batch_generate(model, naming, cfg, total)
+    batch_vs_single(model, naming, cfg, texts)
+    run_batch_generator(model, proc, cfg, total)
     del model
     torch.cuda.empty_cache()
     exact_requests(proc, cfg, weights, total)

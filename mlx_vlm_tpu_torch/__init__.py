@@ -5,13 +5,18 @@ The JAX package `mlx_vlm_tpu` is the reference; module paths here mirror it
 This slice runs Qwen2-VL with 4-bit group-64 weights (the halves-packed
 grouped-int4 layout) end to end: load -> chat template -> inputs -> vision
 tower -> M-RoPE -> chunked prefill -> decode, with a bf16 KV cache or a
-quantized one (`kv_bits` 8, 4 or 3.5).  Its kernels are CUDA C++
-written for Hopper (mlx_vlm_tpu_torch/csrc), built with nvcc at first use.
+quantized one (`kv_bits` 8, 4 or 3.5), one request at a time
+(`generate`, `stream_generate`) or several in fixed batch slots
+(`batch_generate`, `BatchGenerator`: continuous batching on per-row cache
+cursors, `kv_bits` 8 or 4).  Its kernels are CUDA C++ written for Hopper
+(mlx_vlm_tpu_torch/csrc), built with nvcc at first use.
 Importing the package needs neither JAX nor transformers, PIL,
 safetensors, tokenizers or triton.
 """
 
 from .generate import GenerationResult, generate, generate_step, stream_generate
+from .generate.batch import (BatchGenerator, BatchRequest, SamplingParams,
+                             batch_generate)
 from .prompt_utils import apply_chat_template
 from .utils.loader import load, load_config, load_model
 from .utils.processing import prepare_inputs
@@ -23,6 +28,10 @@ __all__ = [
     "generate",
     "stream_generate",
     "generate_step",
+    "batch_generate",
+    "BatchGenerator",
+    "BatchRequest",
+    "SamplingParams",
     "GenerationResult",
     "apply_chat_template",
     "prepare_inputs",

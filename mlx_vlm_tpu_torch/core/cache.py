@@ -1,20 +1,25 @@
 """KV caches: fixed-capacity buffers written by index.
 
 Port of mlx_vlm_tpu/core/cache.py (_flash_eligible :47, KVCache :79,
-init_cache :149, update_layer :169, QuantizedKVCache :301,
-init_quantized_cache :389, Int8KVCache :608, _update_scalar_auto :743,
-init_int8_cache :762, Int4KVCache :795, init_int4_cache :965).  A
-cache holds every layer's K and V in preallocated buffers
-[L, B, n_kv_heads, capacity, ...]; rows share one write cursor `offset`, an
-int32 0-dim tensor on the cache's device as the reference's is (:83-89),
-and mask their unused prefix with `left_pad`.  Unlike the reference's
-immutable arrays, writes happen IN PLACE at rows offset + arange(S), by
+init_cache :149, update_layer :169, BatchKVCache :193, init_batch_cache
+:224, update_layer_rows :241, update_layer_auto :259, insert_row :266,
+QuantizedKVCache :301, init_quantized_cache :389, Int8KVCache :608,
+_update_scalar_auto :743, init_int8_cache :762, Int4KVCache :795,
+init_int4_cache :965).  A cache holds every layer's K and V in
+preallocated buffers [L, B, n_kv_heads, capacity, ...]; rows share one
+write cursor `offset`, an int32 0-dim tensor on the cache's device as the
+reference's is (:83-89), and mask their unused prefix with `left_pad`.  A
+cache built with `per_row=True` (and `BatchKVCache`, the continuous-
+batching cache) has one cursor per row instead, an int32 [B] tensor on the
+device, written by index (`insert_row`) and never read on the host.
+Unlike the reference's immutable arrays, writes happen IN PLACE at rows
+offset + arange(S) (each row at its own cursor for a [B] cursor), by
 index: `update_layer` and each cache's `attend(layer, q, k, v, scale,
 mask)` mutate the buffers they are given, and `advance` adds to the cursor
 in place.  Nothing here reads the cursor on the host, so a decode step can
 be captured in a CUDA graph and replayed; the capacity is checked by the
 caller, which knows every position it will write (generate/ar.py
-`check_capacity`).
+`check_capacity`, generate/batch.py's cap on `max_tokens`).
 
 The group-affine QuantizedKVCache stores mlx-style codes along the head dim
 (the `quantize` / `dequantize` of QuantizedTensor) and attends by
@@ -40,7 +45,8 @@ from .quant import (QuantizedTensor, _check_bits, dequantize, dtype_name,
                     quantize)
 
 __all__ = ["KVCache", "init_cache", "update_layer", "flash_eligible",
-           "new_cursor",
+           "new_cursor", "BatchKVCache", "init_batch_cache",
+           "update_layer_rows", "insert_row",
            "QuantizedKVCache", "init_quantized_cache", "Int8KVCache",
            "init_int8_cache", "Int4KVCache", "init_int4_cache"]
 
@@ -60,9 +66,11 @@ def flash_eligible(q: torch.Tensor, k_buf: torch.Tensor) -> bool:
     return S >= 256 and C >= 8192 and C % 128 == 0
 
 
-def new_cursor(device=None) -> torch.Tensor:
-    """A cache's write cursor at 0: an int32 0-dim tensor on `device`."""
-    return torch.zeros((), dtype=torch.int32, device=device)
+def new_cursor(device=None, rows: Optional[int] = None) -> torch.Tensor:
+    """A cache's write cursor at 0: an int32 0-dim tensor on `device`, or
+    one per row (int32 [rows]) for a per-row cache."""
+    shape = () if rows is None else (rows,)
+    return torch.zeros(shape, dtype=torch.int32, device=device)
 
 
 def update_layer(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -70,11 +78,30 @@ def update_layer(k_cache: torch.Tensor, v_cache: torch.Tensor,
                  offset: torch.Tensor):
     """Write S new tokens at rows offset + arange(S) of one layer's
     [B, H, C, ...] buffers, in place, by index (the cursor is never read on
-    the host).  The caller checks the capacity first; a row past C raises
-    on the CPU and faults on the card, it is never clamped."""
+    the host); a per-row cursor [B] writes each row at its own
+    (`update_layer_rows`, the reference's update_layer_auto).  The caller
+    checks the capacity first; a row past C raises on the CPU and faults
+    on the card, it is never clamped."""
+    if offset.dim() == 1:
+        return update_layer_rows(k_cache, v_cache, k_new, v_new, offset)
     rows = offset.long() + torch.arange(k_new.shape[2], device=offset.device)
     k_cache.index_copy_(2, rows, k_new.to(k_cache.dtype))
     v_cache.index_copy_(2, rows, v_new.to(v_cache.dtype))
+    return k_cache, v_cache
+
+
+def update_layer_rows(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      k_new: torch.Tensor, v_new: torch.Tensor,
+                      offsets: torch.Tensor):
+    """Write row b's S new tokens at offsets[b] + arange(S) of one layer's
+    [B, H, C, ...] buffers, in place: one scatter along the token axis per
+    buffer (the reference's vmapped dynamic_update_slice)."""
+    B, H, S = k_new.shape[:3]
+    rows = offsets.long()[:, None] + torch.arange(S, device=offsets.device)
+    rows = rows[:, None, :]
+    for buf, new in ((k_cache, k_new), (v_cache, v_new)):
+        idx = rows.reshape(B, 1, S, *(1,) * (new.dim() - 3))
+        buf.scatter_(2, idx.expand(new.shape), new.to(buf.dtype))
     return k_cache, v_cache
 
 
@@ -82,8 +109,8 @@ def _update_scalar(a_cache: torch.Tensor, b_cache: torch.Tensor,
                    a_new: torch.Tensor, b_new: torch.Tensor,
                    offset: torch.Tensor):
     """Write per-token scalars [B, H, S] at `offset` into [B, H, C] buffers,
-    in place, by index (the reference's _update_scalar_auto for a scalar
-    cursor)."""
+    in place, by index (the reference's _update_scalar_auto): at one shared
+    cursor, or each row at its own."""
     return update_layer(a_cache[..., None], b_cache[..., None],
                         a_new[..., None], b_new[..., None], offset)
 
@@ -149,6 +176,53 @@ def init_cache(num_layers: int, batch_size: int, num_kv_heads: int,
 
 
 @dataclasses.dataclass
+class BatchKVCache(KVCache):
+    """Continuous-batching cache: one write cursor per row.
+
+    Rows live in fixed slots; `offset[b]` (int32 [B] on the device) counts
+    the valid tokens of row b, and `insert_row` recycles a slot without
+    touching the others.  Its own class, as in the reference, so the fused
+    decode route (which takes a plain `KVCache` only) never takes it, even
+    with one slot.  `advance` adds to every row; generate/batch.py takes
+    the step back from the rows that were idle."""
+
+
+def init_batch_cache(num_layers: int, batch_size: int, num_kv_heads: int,
+                     head_dim: int, capacity: int, dtype=torch.bfloat16,
+                     device=None) -> BatchKVCache:
+    shape = (num_layers, batch_size, num_kv_heads, capacity, head_dim)
+    return BatchKVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        offset=new_cursor(device, batch_size),
+        left_pad=cursor(None, batch_size, device),
+    )
+
+
+def cache_buffers(cache) -> list:
+    """A cache's per-layer buffers [L, B, H, C, ...], in field order (every
+    tensor field but the cursor and left_pad)."""
+    return [getattr(cache, f.name) for f in dataclasses.fields(cache)
+            if f.name not in ("offset", "left_pad")
+            and isinstance(getattr(cache, f.name), torch.Tensor)]
+
+
+def insert_row(batch, row, slot: int, prompt_len: int,
+               src_row: int = 0) -> None:
+    """Copy rows [0, cp) of row `src_row` of a prefilled cache into slot
+    `slot` of `batch`, a per-row cache of the same class, IN PLACE (a
+    captured decode step keeps reading the same buffers), cp being the
+    smaller capacity; set the slot's cursor to `prompt_len` and its
+    left_pad to 0.  Code planes [L, B, H, C, w] and per-token planes
+    [L, B, H, C] alike (the reference's rank-generic copy, :285-288)."""
+    for b_buf, r_buf in zip(cache_buffers(batch), cache_buffers(row)):
+        cp = min(r_buf.shape[3], b_buf.shape[3])
+        b_buf[:, slot, :, :cp].copy_(r_buf[:, src_row, :, :cp])
+    batch.offset[slot] = prompt_len
+    batch.left_pad[slot] = 0
+
+
+@dataclasses.dataclass
 class QuantizedKVCache:
     """Group-affine quantized KV cache (1, 2, 4 or 8 bits along head_dim).
 
@@ -203,6 +277,7 @@ def init_quantized_cache(num_layers: int, batch_size: int, num_kv_heads: int,
                          head_dim: int, capacity: int, dtype=torch.bfloat16,
                          bits: int = 8, group_size: int = 64,
                          left_pad: Optional[torch.Tensor] = None,
+                         per_row: bool = False,
                          device=None) -> QuantizedKVCache:
     """Zeroed group-affine cache; raises for bits or a group size that
     `quantize` does not take (the reference raises the same errors at the
@@ -221,7 +296,7 @@ def init_quantized_cache(num_layers: int, batch_size: int, num_kv_heads: int,
         vq=torch.zeros(packed, dtype=torch.uint8, device=device),
         vs=torch.zeros(groups, dtype=dtype, device=device),
         vb=torch.zeros(groups, dtype=dtype, device=device),
-        offset=new_cursor(device),
+        offset=new_cursor(device, batch_size if per_row else None),
         left_pad=cursor(left_pad, batch_size, device), bits=bits,
         group_size=group_size)
 
@@ -342,11 +417,13 @@ def _cache_planes(num_layers, batch_size, num_kv_heads, capacity, width,
 def init_int8_cache(num_layers: int, batch_size: int, num_kv_heads: int,
                     head_dim: int, capacity: int,
                     left_pad: Optional[torch.Tensor] = None,
-                    device=None) -> Int8KVCache:
+                    per_row: bool = False, device=None) -> Int8KVCache:
     p = _cache_planes(num_layers, batch_size, num_kv_heads, capacity,
                       head_dim, torch.int8, device)
     return Int8KVCache(k8=p["k"], ks=p["ks"], kb=p["kb"], v8=p["v"],
-                       vs=p["vs"], vb=p["vb"], offset=new_cursor(device),
+                       vs=p["vs"], vb=p["vb"],
+                       offset=new_cursor(device,
+                                         batch_size if per_row else None),
                        left_pad=cursor(left_pad, batch_size, device))
 
 
@@ -424,22 +501,26 @@ class Int4KVCache:
                                    self._unpack(v4), vs, vb, scale, mask,
                                    q.dtype)
         BH, g = B * nkv, nh // nkv
+        off = self.offset + S
+        if off.dim() == 1:  # per-row cursors: one per (row, KV head)
+            off = off.repeat_interleave(nkv)
         out = int4_kv_decode_attention(
             q8.to(torch.int8).reshape(BH, g, D),
             torch.stack([qsum.reshape(BH, g), qs.reshape(BH, g)], dim=-1),
             k4.reshape(BH, C, D // 2), ks.reshape(BH, C), kb.reshape(BH, C),
             v4.reshape(BH, C, D // 2), vs.reshape(BH, C), vb.reshape(BH, C),
-            self.offset + S, scale,
-            left_pad=self.left_pad.repeat_interleave(nkv))
+            off, scale, left_pad=self.left_pad.repeat_interleave(nkv))
         return out.reshape(B, nh, S, D).to(q.dtype)
 
 
 def init_int4_cache(num_layers: int, batch_size: int, num_kv_heads: int,
                     head_dim: int, capacity: int,
                     left_pad: Optional[torch.Tensor] = None,
-                    device=None) -> Int4KVCache:
+                    per_row: bool = False, device=None) -> Int4KVCache:
     p = _cache_planes(num_layers, batch_size, num_kv_heads, capacity,
                       head_dim // 2, torch.uint8, device)
     return Int4KVCache(k4=p["k"], ks=p["ks"], kb=p["kb"], v4=p["v"],
-                       vs=p["vs"], vb=p["vb"], offset=new_cursor(device),
+                       vs=p["vs"], vb=p["vb"],
+                       offset=new_cursor(device,
+                                         batch_size if per_row else None),
                        left_pad=cursor(left_pad, batch_size, device))

@@ -3,7 +3,8 @@
 Port of mlx_vlm_tpu/core/turboquant.py (Lloyd-Max levels :31-87,
 pack_codes :92, unpack_codes :122, hadamard_transform :143, _signs :164,
 tq_encode :169, tq_decode :188, TurboQuantKVCache :211, tq_encode_split
-:363, SplitTurboQuantKVCache :411, make_rotated_int4_cache :598).
+:363, SplitTurboQuantKVCache :411, make_rotated_int4_cache :598, its
+`per_row` :599-608).
 
 Keys and values are rotated (random sign flips, then the normalized
 Walsh-Hadamard transform), scaled per token to unit RMS and encoded against
@@ -465,14 +466,16 @@ class RotatedInt4KVCache(cache_lib.Int4KVCache):
 
 
 def make_rotated_int4_cache(num_layers, batch_size, num_kv_heads, head_dim,
-                            capacity, left_pad=None,
+                            capacity, left_pad=None, per_row=False,
                             device=None) -> RotatedInt4KVCache:
-    """Build the rotated int4 cache (head_dim must be a power of 2)."""
+    """Build the rotated int4 cache (head_dim must be a power of 2); with
+    `per_row` it has one cursor per row, the only TurboQuant cache the
+    reference builds so (:599-608)."""
     if head_dim & (head_dim - 1):
         raise ValueError(
             f"rotated int4 cache needs a pow-2 head dim, got {head_dim}")
     base = cache_lib.init_int4_cache(num_layers, batch_size, num_kv_heads,
                                      head_dim, capacity, left_pad=left_pad,
-                                     device=device)
+                                     per_row=per_row, device=device)
     return RotatedInt4KVCache(**{f.name: getattr(base, f.name)
                                  for f in dataclasses.fields(base)})

@@ -90,9 +90,15 @@ def check_kv_bits(kv_bits) -> None:
 
 def make_cache(model, batch_size: int, capacity: int, dtype,
                kv_bits: Optional[float] = None, kv_group_size: int = 64,
-               device=None):
+               per_row: bool = False, device=None):
     """The KV cache for `kv_bits`, by the reference's decision tree
-    (ar.py:244-302)."""
+    (ar.py:222-302).  `per_row` gives the quantized caches one cursor per
+    row (continuous batching), on the branches where the reference passes
+    it down; the bf16 branch ignores it, as there (generate/batch.py builds
+    its `BatchKVCache` itself).  The reference passes it to no TurboQuant
+    codebook cache, whose 0-dim cursor then fails the batch's first
+    admission (an IndexError in `insert_row`): here such a request raises
+    before any buffer is made."""
     from ..core import cache as cache_lib
     from ..core import turboquant as tq
 
@@ -104,7 +110,11 @@ def make_cache(model, batch_size: int, capacity: int, dtype,
     if kv_bits and (fractional or kv_scheme == "turboquant"):
         hd = lm.head_dim
         if float(kv_bits) == 4.0 and hd & (hd - 1) == 0:
-            return tq.make_rotated_int4_cache(*dims, device=device)
+            return tq.make_rotated_int4_cache(*dims, per_row=per_row,
+                                              device=device)
+        if per_row:
+            raise ValueError(f"kv_bits {kv_bits} builds a TurboQuant codebook "
+                             f"cache, which has no per-row cursors")
         if fractional and os.environ.get("MLX_VLM_TPU_TQ_SCHEME") == "split":
             return tq.init_turboquant_split_cache(
                 *dims, kv_bits=float(kv_bits), device=device)
@@ -113,11 +123,13 @@ def make_cache(model, batch_size: int, capacity: int, dtype,
     if _group_affine(kv_bits, lm.head_dim):
         return cache_lib.init_quantized_cache(
             *dims, dtype, bits=int(kv_bits), group_size=kv_group_size,
-            device=device)
+            per_row=per_row, device=device)
     if kv_bits == 8:
-        return cache_lib.init_int8_cache(*dims, device=device)
+        return cache_lib.init_int8_cache(*dims, per_row=per_row,
+                                         device=device)
     if kv_bits == 4:
-        return cache_lib.init_int4_cache(*dims, device=device)
+        return cache_lib.init_int4_cache(*dims, per_row=per_row,
+                                         device=device)
     return lm.init_cache(batch_size, capacity, dtype, device=device)
 
 

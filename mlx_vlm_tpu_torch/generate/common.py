@@ -1,6 +1,8 @@
 """Shared generation types and helpers.
 
-Port of mlx_vlm_tpu/generate/common.py (round_up :16, GenerationResult :30).
+Port of mlx_vlm_tpu/generate/common.py (round_up :16, GenerationResult :30),
+and `embed_prompt`, the step from a prompt's arrays to the language model's
+inputs that stream_generate and batch_generate share.
 """
 
 from __future__ import annotations
@@ -8,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 
@@ -21,6 +24,30 @@ def device_peak_memory_gb(device) -> float:
     if device.type != "cuda":
         return 0.0
     return torch.cuda.max_memory_allocated(device) / (1024**3)
+
+
+def embed_prompt(model, inputs: dict) -> tuple:
+    """prepare_inputs' arrays -> (input embeddings [1, S, D] on the model's
+    device with any image merged by the vision tower, M-RoPE position ids
+    [3, 1, S], rope deltas [1, 1])."""
+    dev = torch.device(model.device or "cpu")
+    input_ids = np.asarray(inputs["input_ids"])
+    ids = torch.from_numpy(input_ids.astype(np.int64)).to(dev)
+    pixel_values = inputs.get("pixel_values")
+    grid_thw = None
+    if pixel_values is None:
+        embeds = model.get_input_embeddings(model.params, ids)
+    else:
+        grid_thw = np.asarray(inputs["image_grid_thw"])
+        aux = model.vision_aux_inputs(grid_thw)
+        embeds = model.get_input_embeddings(
+            model.params, ids,
+            torch.from_numpy(np.asarray(pixel_values)).to(dev),
+            rotary_freqs=torch.from_numpy(aux["rotary_freqs"]).to(dev),
+            segment_ids=torch.from_numpy(aux["segment_ids"]).to(dev))
+    position_ids, rope_deltas = model.prepare_position_ids(
+        input_ids, grid_thw, None, inputs.get("attention_mask"))
+    return embeds, position_ids, rope_deltas
 
 
 @dataclasses.dataclass

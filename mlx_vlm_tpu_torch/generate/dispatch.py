@@ -15,13 +15,12 @@ import time
 from typing import Any, Generator, List, Optional, Union
 
 import numpy as np
-import torch
 
 from ..core.sampling import make_logits_processors, make_sampler
 from ..utils.processing import prepare_inputs
 from ..utils.tokenizer import make_detokenizer
 from .ar import check_kv_bits, generate_step
-from .common import GenerationResult, device_peak_memory_gb
+from .common import GenerationResult, device_peak_memory_gb, embed_prompt
 
 __all__ = ["stream_generate", "generate"]
 
@@ -78,25 +77,10 @@ def stream_generate(
 
     inputs = prepare_inputs(processor, prompt, images=image)
     input_ids = np.asarray(inputs["input_ids"])
-    pixel_values = inputs.get("pixel_values")
-    grid_thw = inputs.get("image_grid_thw")
-    attention_mask = inputs.get("attention_mask")
     dev = model.device
 
     tic = time.perf_counter()
-    ids = torch.from_numpy(input_ids.astype(np.int64)).to(dev)
-    if pixel_values is not None:
-        aux = model.vision_aux_inputs(np.asarray(grid_thw))
-        embeds = model.get_input_embeddings(
-            model.params, ids, torch.from_numpy(np.asarray(pixel_values)).to(dev),
-            rotary_freqs=torch.from_numpy(aux["rotary_freqs"]).to(dev),
-            segment_ids=torch.from_numpy(aux["segment_ids"]).to(dev))
-    else:
-        embeds = model.get_input_embeddings(model.params, ids)
-
-    position_ids, rope_deltas = model.prepare_position_ids(
-        input_ids, None if grid_thw is None else np.asarray(grid_thw), None,
-        attention_mask)
+    embeds, position_ids, rope_deltas = embed_prompt(model, inputs)
 
     sampler = make_sampler(temperature, top_p, min_p, top_k)
     processors = make_logits_processors(logit_bias, repetition_penalty,
