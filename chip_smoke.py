@@ -9,7 +9,8 @@ Phases (any failure exits non-zero):
      spills of every kernel (K3, K4, K5's GEMV and its GEMM at both widths,
      K6's kv4_attention_kernel and K7/K8's tq_attention_kernel must not
      spill) and the I2F count of K5's GEMV and GEMM in cuobjdump -sass
-     (must be 0);
+     (must be 0), and whether PIL imports (the server part's image goes
+     over HTTP as a PNG data URI only where it does);
   2. each kernel (K1 int4_matmul, K2 int4_matvec, K3 fused_decode, K4
      flash_attention, K5 qmatmul_int4 / qmatmul_int8, K6
      int4_kv_attention, K7 tq_kv_attention, K8 tq_kv_attention_split)
@@ -115,7 +116,33 @@ Phases (any failure exits non-zero):
      logits are held by the parity rule, at every step, to its prompt
      run alone on the per-linear route (a B = 1 cache, K2 at M = 1)
      teacher-forced with the row's tokens; with --profile, three of
-     those eager batch steps are traced too.
+     those eager batch steps are traced too.  Then the server part, on
+     the same model and the byte tokenizer: create_server (4 slots of 4096
+     rows, blocks of 8) served from a thread, /health, /v1/models and
+     /metrics checked, then six requests sent at once from client threads:
+     (k1) a chat with logprobs, (k2) a streamed chat, (k3) a 448x448 image
+     chat (a PNG data URI, or through the engine where PIL is missing),
+     (k4) /v1/messages, (k5) a fifth chat that waits for a slot, each 32
+     tokens, and (k6) a json_schema chat (24 tokens, every step an eager
+     K3 launch with the automaton picking on the host); then a second
+     server with kv_bits=4 and two 16-token chats at once.  Every answer
+     200 and well formed (SSE ends in [DONE]), usage counting its tokens,
+     its text its tokens' text, (k6)'s content a JSON object satisfying
+     the schema; one capture per generator; launches held to what ran (K1
+     196 a prefill chunk, K2 197 a batch step + one head per chunk holding
+     a prompt's last token, K3 = (k6)'s decode steps, K6 28 a step in the
+     second server, 0 in the first; (k6)'s decode steps one for each of
+     its recorded picks after the first); each request's ttft_s and
+     generation_tps from /metrics, the aggregate tokens/s and the part's
+     seconds printed; both servers shut down, then each answer's logits
+     (kept on the card by a recording sampler inside the captured step)
+     held at every step by the parity rule to its prompt run alone on the
+     single stream, teacher-forced with its tokens (bf16 rows on the
+     per-linear route, (k6) on K3, the kv_bits=4 rows with their prompts
+     prefilled in their admission's own padded layout and copied into a
+     one-row 4-bit cache, so that none of the generator's code runs; the
+     same prompts prefilled in one unpadded chunk are printed beside,
+     with the share of 4-bit codes that the layout flips).
 Each phase prints its seconds.  The line before the last is the kernel
 report, the last line the result.  Needs no network and imports nothing of
 JAX.
@@ -123,6 +150,7 @@ JAX.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import os
@@ -252,6 +280,10 @@ def phase_environment() -> None:
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"driver {driver} nvcc: {nvcc} python {sys.version.split()[0]}")
+    # the server part sends its image as a PNG data URI only where the
+    # server can decode it (openai._decode_image needs PIL)
+    pil = importlib.util.find_spec("PIL") is not None
+    print(f"PIL importable: {pil}", flush=True)
     t0 = time.perf_counter()
     _cuda.library()
     build_s = time.perf_counter() - t0
@@ -1488,6 +1520,14 @@ def teacher_forced_logits(model, inputs: dict, forced=None,
     prefill chunk, then n_steps - 1 decode steps (the fused route when it is
     on and the cache is bf16) fed `forced` tokens, or the greedy argmax when
     `forced` is None.  `kv_bits` picks the cache as generate does."""
+    return forced_steps(model, *prefill_unpadded(model, inputs, n_steps,
+                                                 kv_bits), forced, n_steps)
+
+
+def prefill_unpadded(model, inputs: dict, n_steps: int, kv_bits) -> tuple:
+    """The prompt in one unpadded prefill chunk into a one-row cache with
+    room for n_steps more: (the cache, the prefill's logits [V], the rope
+    delta)."""
     import torch
 
     from mlx_vlm_tpu_torch.generate.ar import make_cache
@@ -1497,22 +1537,94 @@ def teacher_forced_logits(model, inputs: dict, forced=None,
     lm = model.language_model
     lp = model.params["language_model"]
     embeds, pos, deltas = embed_prompt(model, inputs)
-    ids = inputs["input_ids"]
-    S = ids.shape[1]
+    S = embeds.shape[1]
     cache = make_cache(model, 1, 256 * ((S + n_steps + 255) // 256),
                        embeds.dtype, kv_bits, device=dev)
     h = lm(lp, embeds, cache, torch.from_numpy(pos.astype(np.int64)).to(dev))
-    out = [lm.logits(lp, h[:, -1:])[0, 0].float().cpu().numpy()]
+    first = lm.logits(lp, h[:, -1:])[0, 0].float().cpu().numpy()
+    return cache, first, int(deltas[0, 0])
+
+
+def forced_steps(model, cache, first: np.ndarray, delta: int, forced,
+                 n_steps: int) -> tuple:
+    """`first` (the prefill's logits [V]), then n_steps - 1 decode steps of
+    one row on `cache` (its cursor at the prompt's end) fed `forced`
+    tokens, or the greedy argmax when `forced` is None: (logits
+    [n_steps, V], the tokens fed)."""
+    import torch
+
+    dev = model.device
+    lm = model.language_model
+    lp = model.params["language_model"]
+    out = [first]
     toks = []
     for s in range(n_steps - 1):
         tok = int(np.argmax(out[-1])) if forced is None else forced[s]
         toks.append(tok)
         emb = lm.embed(lp, torch.tensor([[tok]], device=dev))
-        p = torch.full((3, 1, 1), int(cache.offset) + int(deltas[0, 0]),
+        p = torch.full((3, 1, 1), int(cache.offset) + delta,
                        dtype=torch.int64, device=dev)
         out.append(lm.step_logits(lp, emb, cache, p)[0, 0].float().cpu()
                    .numpy())
     return np.stack(out), toks
+
+
+def admission_layout_logits(model, prompts: list, row: int, layout: tuple,
+                            forced: list, kv_bits) -> tuple:
+    """The prompt in row `row` of an admission, prefilled as that admission
+    prefilled it (layout (rows, padded length, chunk): the admitted prompts
+    `prompts`, each embed_prompt's (embeds [1, S, D], position ids
+    [3, 1, S], rope deltas [1, 1]), right-padded
+    with zeros into a [rows, padded length] batch, in chunks, the head run
+    on each chunk that holds a prompt's last token), then its rows of the
+    prefilled cache copied into a one-row cache of the same kind and
+    decoded there on the single stream, teacher-forced with `forced`:
+    (logits [len(forced) + 1, V], the one-row cache).  None of the
+    generator's code runs: not its admission, not insert_row, not its
+    per-row cursors or its batch step."""
+    import torch
+
+    from mlx_vlm_tpu_torch.core.cache import cache_buffers
+    from mlx_vlm_tpu_torch.generate.ar import make_cache
+    from mlx_vlm_tpu_torch.generate.batch import prefill_rows
+
+    dev = model.device
+    lm = model.language_model
+    lp = model.params["language_model"]
+    n, S_pad, step = layout
+    dtype, D = prompts[0][0].dtype, prompts[0][0].shape[2]
+    embeds = torch.zeros((n, S_pad, D), dtype=dtype, device=dev)
+    pos = np.zeros((3, n, S_pad), np.int64)
+    last = np.zeros(n, np.int64)
+    for i, (e, p, _) in enumerate(prompts):
+        embeds[i, :e.shape[1]] = e[0]
+        pos[:, i, :e.shape[1]] = p[:, 0]
+        last[i] = e.shape[1] - 1
+    S = int(last[row]) + 1
+    cache = make_cache(model, n, 256 * ((S_pad + 255) // 256), dtype,
+                       kv_bits, device=dev)
+    first = None
+    for c0 in range(0, S_pad, step):
+        chunk = torch.from_numpy(np.ascontiguousarray(
+            pos[:, :, c0:c0 + step])).to(dev)
+        in_chunk = (last >= c0) & (last < c0 + step)
+        if not in_chunk.any():
+            lm(lp, embeds[:, c0:c0 + step], cache, chunk)
+            continue
+        logits = prefill_rows(model, cache, embeds[:, c0:c0 + step], chunk,
+                              torch.from_numpy(np.where(in_chunk, last - c0,
+                                                        0)))
+        if in_chunk[row]:
+            first = logits[row].cpu().numpy()
+    n_steps = len(forced) + 1
+    single = make_cache(model, 1, 256 * ((S + n_steps + 255) // 256), dtype,
+                        kv_bits, device=dev)
+    for src, dst in zip(cache_buffers(cache), cache_buffers(single)):
+        dst[:, 0, :, :S] = src[:, row, :, :S]
+    single.offset.fill_(S)
+    logits, _ = forced_steps(model, single, first, int(prompts[row][2][0, 0]),
+                             forced, n_steps)
+    return logits, single
 
 
 def parity_rule(ref: np.ndarray, got: np.ndarray) -> tuple:
@@ -2347,6 +2459,568 @@ def batch_vs_single(model, proc, cfg, texts: list) -> None:
         decide_fused_decode(model)
 
 
+# ------------------------------------------------------------ phase 4, server
+
+
+# The server part: (k1)-(k6) sent at once to one server (4 slots of 4096
+# rows, blocks of 8 steps) on (a)-(f)'s model: (label, route, user text,
+# image size or None, streamed, logprobs, response_format, max_tokens)
+SERVER_SLOTS, SERVER_CAPACITY, SERVER_BLOCK = 4, 4096, 8
+JSON_SCHEMA = {"type": "object", "properties": {
+    "name": {"type": "string"}, "age": {"type": "integer"}},
+    "required": ["name"], "additionalProperties": False}
+SERVER_REQUESTS = (
+    ("(k1)", "chat", "Write a short story about a lighthouse.", None, False,
+     True, None, 32),
+    ("(k2)", "chat", "List the planets of the solar system in order.", None,
+     True, False, None, 32),
+    ("(k3)", "chat", "Describe this image in detail.", 448, False, False,
+     None, 32),
+    ("(k4)", "messages", "Name three colors.", None, False, False, None, 32),
+    ("(k5)", "chat", "Hi.", None, False, False, None, 32),
+    ("(k6)", "chat", "Give a name and an age.", None, False, False,
+     {"type": "json_schema", "json_schema": {"schema": JSON_SCHEMA}}, 24),
+)
+# then a second server with kv_bits=4: two text chats at once
+KV4_REQUESTS = (
+    ("(l1)", "chat", "Write a haiku about the sea.", None, False, False,
+     None, 16),
+    ("(l2)", "chat", "What is the capital of France?", None, False, False,
+     None, 16),
+)
+# decode steps the recorder keeps per server (the first server runs about
+# 70: five requests of 32 tokens in four slots, blocks of 8)
+RECORD_STEPS = 160
+
+
+class ServerRecorder:
+    """The batched sampler of a server's BatchGenerator, recording what it
+    is given without a host read: each decode step's logits [B, V] and
+    tokens [B] go into device rings at a device counter (the step is
+    captured once and replayed, so the recording is part of the graph),
+    and the slot owners of each dispatched block are kept on the host; each
+    admission's first-token logits are kept with the uids of its requests
+    (through the generator's `_first`) and its layout (`admitted`: uid ->
+    (its row, the uids of its admission's rows, (rows, padded length,
+    chunk)), through the generator's `_prefill`).  Returns the real
+    sampler's tokens."""
+
+    def __init__(self, vocab: int, dev):
+        import torch
+
+        from mlx_vlm_tpu_torch.core.sampling import make_batched_sampler
+
+        self.real = make_batched_sampler()
+        self.logits = torch.zeros((RECORD_STEPS, SERVER_SLOTS, vocab),
+                                  dtype=torch.float32, device=dev)
+        self.tokens = torch.zeros((RECORD_STEPS, SERVER_SLOTS),
+                                  dtype=torch.int64, device=dev)
+        self.step = torch.zeros((), dtype=torch.int64, device=dev)
+        self.blocks, self.admissions, self.uids = [], [], None
+        self.admitted, self.layout, self.gen = {}, None, None
+
+    def attach(self, gen) -> None:
+        """Hook the generator's admissions and block dispatches."""
+        prefill, first, dispatch = gen._prefill, gen._first, gen.decode.dispatch
+
+        def prefill_hook(cache, embeds, pos, last_idx, step):
+            self.layout = (embeds.shape[0], embeds.shape[1], step)
+            return prefill(cache, embeds, pos, last_idx, step)
+
+        def first_hook(logits, reqs):
+            self.uids = [r.uid for r in reqs]
+            for i, u in enumerate(self.uids):
+                self.admitted[u] = (i, self.uids, self.layout)
+            return first(logits, reqs)
+
+        def dispatch_hook(n):
+            self.blocks.append((n, [
+                s.req.uid if s is not None and gen.active[i] else None
+                for i, s in enumerate(gen.slots)]))
+            return dispatch(n)
+
+        gen._prefill, gen._first = prefill_hook, first_hook
+        gen.decode.dispatch = dispatch_hook
+        self.gen = gen
+
+    def __call__(self, logits, params, generator):
+        toks = self.real(logits, params, generator)
+        if params is self.gen.params:  # a decode step over the slots
+            at = self.step.reshape(1)
+            self.logits.index_copy_(0, at, logits.float()[None])
+            self.tokens.index_copy_(0, at, toks[None])
+            self.step.add_(1)
+        else:
+            self.admissions.append((logits.float().clone(), toks.clone(),
+                                    list(self.uids)))
+        return toks
+
+    def rows(self) -> dict:
+        """{uid: (logits [n, V] numpy, tokens [n])}: each request's
+        admission row, then its row of every step it held a slot in."""
+        import torch
+
+        steps = int(self.step)
+        if steps > RECORD_STEPS:
+            fail(f"the server ran {steps} steps; the recorder keeps "
+                 f"{RECORD_STEPS}")
+        out: dict = {}
+        for logits, toks, uids in self.admissions:
+            for r, u in enumerate(uids):
+                out[u] = ([logits[r]], [int(toks[r])])
+        s = 0
+        for n, owners in self.blocks:
+            for r, u in enumerate(owners):
+                if u is not None:
+                    out[u][0].extend(self.logits[s:s + n, r])
+                    out[u][1].extend(self.tokens[s:s + n, r].tolist())
+            s += n
+        if s != steps:
+            fail(f"the server's blocks hold {s} steps, its rings {steps}")
+        return {u: (torch.stack(lg).cpu().numpy(), t)
+                for u, (lg, t) in out.items()}
+
+
+def _http(url: str, path: str, body=None) -> tuple:
+    """(status, content type, body bytes) of one request to the server."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data,
+                                 headers={"Content-Type": "application/json"},
+                                 method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
+
+
+def _png_data_uri(arr) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return "data:image/png;base64," + base64.b64encode(
+        buf.getvalue()).decode()
+
+
+def server_body(req) -> dict:
+    """A request's HTTP body (the image as a PNG data URI)."""
+    label, route, text, size, stream, logprobs, fmt, n = req
+    content = text
+    if size is not None:
+        content = [{"type": "text", "text": text}]
+        if route == "chat":
+            content.append({"type": "image_url", "image_url": {
+                "url": _png_data_uri(_image(size))}})
+    body = {"messages": [{"role": "user", "content": content}],
+            "max_tokens": n, "stream": stream}
+    if logprobs:
+        body["logprobs"] = True
+    if fmt is not None:
+        body["response_format"] = fmt
+    return body
+
+
+def client(url: str, req, generator, http_image: bool, proc, cfg) -> dict:
+    """Send one request and read its whole answer: {status, errors, text,
+    finish, the usage's completion tokens, logprobs where asked, whether
+    an SSE stream ended in [DONE], seconds}."""
+    label, route, text, size, stream, logprobs, fmt, n = req
+    t0 = time.perf_counter()
+    if size is not None and not http_image:
+        # no PIL on this machine: the image request enters at the engine,
+        # with a uint8 array, as normalize_chat_request would build it
+        from mlx_vlm_tpu_torch import apply_chat_template
+        from mlx_vlm_tpu_torch.server.engine import GenerationArguments
+
+        prompt = apply_chat_template(
+            proc, cfg, [{"role": "user", "content": [
+                {"type": "text", "text": text}, {"type": "image"}]}],
+            add_generation_prompt=True, num_images=1)
+        toks = list(generator.generate(GenerationArguments(
+            prompt=prompt, images=[_image(size)], max_tokens=n)))
+        errors = [t.error for t in toks if t.error]
+        return {"status": 500 if errors else 200, "errors": errors,
+                "text": "".join(t.text for t in toks),
+                "finish": toks[-1].finish_reason,
+                "completion": sum(t.token is not None for t in toks),
+                "done": True,
+                "s": time.perf_counter() - t0}
+    path = "/v1/messages" if route == "messages" else "/v1/chat/completions"
+    status, _, raw = _http(url, path, server_body(req))
+    out = {"status": status, "s": time.perf_counter() - t0, "done": True,
+           "errors": []}
+    if status != 200:
+        out["errors"] = [raw.decode(errors="replace")[:300]]
+        return out
+    if stream:
+        events = [line[6:] for line in raw.decode().splitlines()
+                  if line.startswith("data: ")]
+        out["done"] = events[-1:] == ["[DONE]"]
+        chunks = [json.loads(e) for e in events if e != "[DONE]"]
+        out["errors"] = [c["error"] for c in chunks if "error" in c]
+        if out["errors"]:
+            return out
+        out["text"] = "".join(c["choices"][0]["delta"].get("content", "")
+                              for c in chunks)
+        out["finish"] = chunks[-1]["choices"][0]["finish_reason"]
+        out["completion"] = chunks[-1]["usage"]["completion_tokens"]
+        return out
+    answer = json.loads(raw)
+    if route == "messages":
+        out["text"] = answer["content"][0]["text"]
+        out["finish"] = answer["stop_reason"]
+        out["completion"] = answer["usage"]["output_tokens"]
+        return out
+    choice = answer["choices"][0]
+    out["text"] = choice["message"]["content"]
+    out["finish"] = choice["finish_reason"]
+    out["completion"] = answer["usage"]["completion_tokens"]
+    if logprobs:
+        out["logprobs"] = [t["logprob"] for t in choice["logprobs"]["content"]]
+    return out
+
+
+def serve_requests(model, proc, cfg, requests, kv_bits) -> tuple:
+    """One server (create_server on the loaded model, served from a thread)
+    answering `requests`, sent at once from client threads after /health,
+    /v1/models and /metrics were checked; the kernels' launch counters set
+    to 0 just before the requests and read once every answer is in.  The
+    server and its generator are shut down before it returns.  Returns
+    (answers by label, each label's GenerationArguments, the batch's
+    ServerRecorder, the constrained request's (logits, token) picks, the
+    launch counts, the generator's stats, /metrics after the requests,
+    the requests' seconds, the constrained request's DecodeBlocks,
+    whether the image went over HTTP)."""
+    import socket
+    import threading
+
+    import torch
+
+    from mlx_vlm_tpu_torch import structured
+    from mlx_vlm_tpu_torch.generate import ar, batch
+    from mlx_vlm_tpu_torch.server.app import create_server
+
+    vocab = model.language_model.args.vocab_size
+    rec = ServerRecorder(vocab, model.device)
+    constrained = []  # (logits, token) of each automaton pick
+    real_make, real_constrained = (batch.make_batched_sampler,
+                                   structured.make_constrained_sampler)
+
+    def recording_constrained(proc_):
+        sampler = real_constrained(proc_)
+
+        def rec_sampler(logits, generator=None):
+            toks = sampler(logits, generator)
+            constrained.append((logits.float()[0].cpu().numpy(),
+                                int(toks[0])))
+            return toks
+
+        rec_sampler.on_host = True
+        return rec_sampler
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    batch.make_batched_sampler = lambda: rec
+    try:
+        httpd = create_server(model, proc, model_name="qwen2-vl-7b-random",
+                              host="127.0.0.1", port=port,
+                              num_slots=SERVER_SLOTS,
+                              capacity=SERVER_CAPACITY,
+                              block_size=SERVER_BLOCK, kv_bits=kv_bits)
+    finally:
+        batch.make_batched_sampler = real_make
+    generator = httpd.state.generator
+    rec.attach(generator.batch)
+    seen_args = []
+    real_generate = generator.generate
+
+    def logging_generate(args):
+        seen_args.append(args)
+        return real_generate(args)
+
+    generator.generate = logging_generate
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{port}"
+    http_image = importlib.util.find_spec("PIL") is not None
+    try:
+        for path, key in (("/health", "status"), ("/v1/models", "data"),
+                          ("/metrics", "requests_total")):
+            status, _, raw = _http(url, path)
+            if status != 200 or key not in json.loads(raw):
+                fail(f"server: GET {path} answered {status}: {raw[:200]}")
+        structured.make_constrained_sampler = recording_constrained
+        answers = {}
+        reset_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(
+            target=lambda r=r: answers.__setitem__(r[0], client(
+                url, r, generator, http_image, proc, cfg)))
+            for r in requests]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if any(t.is_alive() for t in threads):
+            fail("server: a request did not finish in 600 s")
+        status, _, raw = _http(url, "/metrics")
+        metrics = json.loads(raw)
+    finally:
+        structured.make_constrained_sampler = real_constrained
+        httpd.shutdown()
+        generator.shutdown()
+        server.join(timeout=30)
+    stats = dict(generator.batch.stats)
+    decode = ar.last_decode
+    if generator._thread.is_alive():
+        fail("server: the generator's owner thread did not stop")
+    labels = {}
+    for args in seen_args:
+        label = next(r[0] for r in requests if r[2] in args.prompt)
+        labels[label] = args
+    del httpd, generator
+    torch.cuda.empty_cache()
+    return (answers, labels, rec, constrained, counts, stats, metrics, wall,
+            decode, http_image)
+
+
+def served_text(proc, toks: list, eos) -> str:
+    """What the engine streams for `toks`: each token's segment of a
+    detokenizer that skips special tokens, and its tail unless an EOS
+    ended the answer."""
+    from mlx_vlm_tpu_torch.utils.tokenizer import make_detokenizer
+
+    detok = make_detokenizer(proc.tokenizer, skip_special_tokens=True)
+    text = ""
+    for t in toks:
+        if t in eos:
+            return text
+        detok.add_token(t)
+        text += detok.last_segment()
+    return text + detok.finalize()
+
+
+def check_json_answer(text: str) -> None:
+    """(k6)'s content: one JSON object satisfying JSON_SCHEMA."""
+    from mlx_vlm_tpu_torch.structured import schema_complete
+
+    try:
+        obj = json.loads(text)
+    except json.JSONDecodeError:
+        fail(f"(k6): content is not JSON: {text!r}")
+    ok = (isinstance(obj, dict) and set(obj) <= {"name", "age"}
+          and isinstance(obj.get("name"), str)
+          and type(obj.get("age", 0)) is int
+          and schema_complete(text, JSON_SCHEMA))
+    print(f"  (k6) content {text!r}: JSON object satisfying the schema "
+          f"{ok}", flush=True)
+    if not ok:
+        fail(f"(k6): {text!r} does not satisfy the schema")
+
+
+def unpadded_layout_effect(model, inputs: dict, toks: list, kv_bits,
+                           ref: np.ndarray, single) -> None:
+    """Print what the prefill's layout does to a 4-bit cache: the prompt
+    prefilled in one unpadded chunk (teacher_forced_logits' layout) against
+    the admission's layout (`ref`, its one-row cache `single`): the share
+    of the prompt's 4-bit codes that differ after the prefill, and the
+    logits' distance at the prefill and over the teacher-forced steps.  A
+    measurement, not a check."""
+    from mlx_vlm_tpu_torch.core.cache import cache_buffers
+
+    import torch
+
+    cache, first, delta = prefill_unpadded(model, inputs, len(toks), kv_bits)
+    S = inputs["input_ids"].shape[1]
+    flips = total = 0
+    for a, b in zip(cache_buffers(cache), cache_buffers(single)):
+        if a.dtype == torch.uint8:  # two codes a byte
+            x = a[:, 0, :, :S] ^ b[:, 0, :, :S]
+            flips += int(((x & 0xF) != 0).sum() + ((x >> 4) != 0).sum())
+            total += 2 * x.numel()
+    got, _ = forced_steps(model, cache, first, delta, toks[:-1], len(toks))
+    print(f"    the same prompt prefilled in one unpadded chunk of {S} rows "
+          f"instead: {flips} of {total} 4-bit K/V codes differ "
+          f"({100 * flips / total:.4f}%), logits at the prefill "
+          f"{float(np.abs(got[0] - ref[0]).max()):.4e} and over the "
+          f"{len(toks)} steps {float(np.abs(got - ref).max()):.4e} away "
+          f"(the layout's effect, not a check)", flush=True)
+
+
+def run_server(model, cfg, total: dict) -> None:
+    """The server part: (k1)-(k6) at once to a server on the loaded model,
+    then (l1)-(l2) to one with kv_bits=4 (K6 on per-row cursors).  Every
+    answer must be 200 and well formed (an SSE stream ends in [DONE]), its
+    usage must count the tokens it received, and its text must be its
+    tokens' text; (k6)'s content must parse and satisfy JSON_SCHEMA.  The
+    generator must capture its step once; the launches are held to what
+    ran (K1 = 196 a prefill chunk, K2 = 197 a batch step + one head per
+    chunk holding a prompt's last token, K3 = (k6)'s decode steps, all
+    eager, one a recorded pick after the first, K6 = 28 a batch step in the
+    kv_bits=4 server).  Then, with no server running, each answer's logits
+    are held at every step by the parity rule to its prompt run alone on
+    the single stream, teacher-forced with the answer's tokens: the bf16
+    rows on the per-linear route (K2 at M = 1, as (i)'s rows are), (k6) on
+    the fused route (K3), and the kv_bits=4 rows with their prompts
+    prefilled as their admission prefilled them (admission_layout_logits:
+    a 4-bit code flips where bf16 K/V round otherwise, so the prefill's
+    layout moves the logits; the same prompt in one unpadded chunk is
+    printed beside it, with the codes that differ, as that layout's
+    effect)."""
+    from mlx_vlm_tpu_torch.generate.common import embed_prompt
+    from mlx_vlm_tpu_torch.generate.dispatch import _get_eos_ids
+    from mlx_vlm_tpu_torch.utils.loader import decide_fused_decode
+    from mlx_vlm_tpu_torch.utils.processing import prepare_inputs
+
+    t_part = time.perf_counter()
+    proc = _processor()
+    eos = tuple(_get_eos_ids(model, proc))
+    n_layers = model.language_model.args.num_hidden_layers
+    held = []  # (label, logits [n, V], tokens, inputs, kv_bits, fused,
+    #            the admission: (row, uids, layout) or None)
+    inputs_by_uid = {}
+    for requests, kv_bits in ((SERVER_REQUESTS, None), (KV4_REQUESTS, 4)):
+        name = "server" if kv_bits is None else "server, kv_bits=4"
+        (answers, labels, rec, constrained, counts, st, metrics, wall,
+         decode, http_image) = serve_requests(model, proc, cfg, requests,
+                                              kv_bits)
+        envs = {e.get("request_id"): e for e in metrics["recent"]}
+        rows = rec.rows()
+        n_total, k6_chunks, k6_steps = 0, 0, 0
+        for req in requests:
+            label, route, text, size, stream, logprobs, fmt, max_tokens = req
+            ans, args = answers.get(label), labels.get(label)
+            if ans is None or args is None or ans["status"] != 200 \
+                    or ans["errors"] or not ans["done"]:
+                fail(f"{name} {label}: {ans}")
+            env = envs[args.request_id]
+            n = env["generation_tokens"]
+            inputs = prepare_inputs(proc, args.prompt,
+                                    images=args.images or None)
+            inputs_by_uid[args.request_id] = inputs
+            S = inputs["input_ids"].shape[1]
+            if fmt is not None:
+                picks = constrained[:n]
+                logits = np.stack([lg for lg, _ in picks])
+                toks = [t for _, t in picks]
+                check_json_answer(ans["text"])
+                k6_chunks = prefill_chunks(S, max_tokens, block_size=1)
+                k6_steps = decode.stats["steps"]
+                # each pick after the prefill's is one decode step; the
+                # loop may run one step past the answer's last token
+                if not (k6_steps == len(constrained) - 1
+                        and n <= len(constrained) <= n + (n < max_tokens)):
+                    fail(f"{label}: {k6_steps} decode steps for "
+                         f"{len(constrained)} recorded picks and {n} "
+                         f"tokens in the answer")
+                if (decode.use_graph or decode.graph is not None
+                        or decode.stats["replays"] or not decode.host_sampler):
+                    fail(f"{label}: the constrained steps were not all "
+                         f"eager: {decode.stats}")
+            else:
+                logits, toks = rows[args.request_id]
+                logits, toks = logits[:n], toks[:n]
+                if ans["text"] != served_text(proc, toks, eos):
+                    fail(f"{name} {label}: the answer's text is not its "
+                         f"tokens' text")
+            ended_eos = bool(toks) and toks[-1] in eos
+            if len(toks) != n or ans["completion"] != n - ended_eos:
+                fail(f"{name} {label}: {ans['completion']} tokens in the "
+                     f"usage, {n} generated, {len(toks)} recorded")
+            if not (n == max_tokens or ended_eos or fmt is not None):
+                fail(f"{name} {label}: {n} of {max_tokens} tokens, finish "
+                     f"{ans['finish']}")
+            if logprobs:
+                lse = np.log(np.exp(logits - logits.max(-1, keepdims=True))
+                             .sum(-1)) + logits.max(-1)
+                want = [logits[i, t] - lse[i] for i, t in enumerate(toks)]
+                got = np.asarray(ans["logprobs"])
+                if not (got[0] == 0.0 and np.allclose(
+                        got[1:], want[1:len(got)], atol=1e-3)):
+                    fail(f"{name} {label}: served logprobs {got} differ from "
+                         f"the recorded logits' {want}")
+            n_total += ans["completion"]
+            print(f"  {name} {label} ({route}{', streamed' if stream else ''}"
+                  f"{', image' if size else ''}"
+                  f"{', ' + fmt['type'] if fmt else ''}): prompt {S} tokens,"
+                  f" {ans['completion']} tokens, finish {ans['finish']}, "
+                  f"{ans['s']:.4f} s; /metrics: ttft_s {env['ttft_s']:.4f}, "
+                  f"generation_tps {env['generation_tps']:.2f}", flush=True)
+            held.append((f"{name} {label}", logits, toks, inputs, kv_bits,
+                         fmt is not None, rec.admitted.get(args.request_id)))
+        steps = st["steps"]
+        if not (st["captures"] == 1 and st["replays"] == steps - 1
+                and steps == SERVER_BLOCK * st["blocks"]
+                and st["fetches"] == st["blocks"] + st["admissions"]):
+            fail(f"{name}: generator counts {st}, want one capture, a replay "
+                 f"per step after the first and a fetch per block and "
+                 f"admission")
+        ms_replayed = 1e3 * (st["decode_s"] - st["first_s"] - st["capture_s"]
+                             ) / max(st["replays"], 1)
+        print(f"  {name}: {len(requests)} requests at once (image "
+              f"{'over HTTP' if http_image else 'through the engine: no PIL'}"
+              f"), {n_total} tokens in {wall:.4f} s, {n_total / wall:.2f} "
+              f"tok/s aggregate; {steps} batch steps in {st['blocks']} blocks "
+              f"of {SERVER_BLOCK}: {st['captures']} capture, {st['replays']} "
+              f"replays, {st['fetches']} fetches ({st['blocks']} blocks + "
+              f"{st['admissions']} admissions), {st['prefill_chunks']} "
+              f"prefill chunks, {ms_replayed:.4f} ms per replayed batch step"
+              f"{f'; (k6) {k6_steps} eager steps' if kv_bits is None else ''}"
+              f"; launches {counts}", flush=True)
+        want = {k: 0 for k in counts}
+        want["int4_matvec"] = ((7 * n_layers + 1) * steps + st["prefill_heads"]
+                               + (1 if kv_bits is None else 0))
+        want["int4_matmul"] = 7 * n_layers * (st["prefill_chunks"] + k6_chunks)
+        want["fused_decode"] = k6_steps
+        if kv_bits == 4:
+            want["int4_kv_attention"] = n_layers * steps
+        expect(name, counts, want, total)
+    # every answer against its prompt alone, no server running
+    try:
+        for label, logits, toks, inputs, kv_bits, fused, admitted in held:
+            os.environ["MLX_VLM_TPU_FUSED_DECODE"] = "1" if fused else "0"
+            decide_fused_decode(model)
+            route = "K3" if fused else "per-linear, K2 at M = 1"
+            if kv_bits:
+                row, uids, layout = admitted
+                ref, single = admission_layout_logits(
+                    model, [embed_prompt(model, inputs_by_uid[u])
+                            for u in uids], row, layout, toks[:-1], kv_bits)
+                what = (f"on the single stream ({route}, kv_bits {kv_bits}),"
+                        f" prefilled as its admission was ({layout[0]} rows "
+                        f"of {layout[1]}, chunks of {layout[2]})")
+            else:
+                ref, _ = teacher_forced_logits(model, inputs,
+                                               forced=toks[:-1],
+                                               n_steps=len(toks))
+                what = f"on the single stream ({route})"
+            ok, err, tol, n_margin = parity_rule(ref, logits)
+            print(f"  {label} vs its prompt alone {what}, teacher-forced with "
+                  f"its {len(toks)} tokens: max|served - alone| = {err:.4e}, "
+                  f"tol {tol:.4e}; argmax checked on {n_margin} steps "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                fail(f"{label} differs from its prompt run alone")
+            if kv_bits:
+                unpadded_layout_effect(model, inputs, toks, kv_bits, ref,
+                                       single)
+    finally:
+        del os.environ["MLX_VLM_TPU_FUSED_DECODE"]
+        decide_fused_decode(model)
+    print(f"  server part: {time.perf_counter() - t_part:.1f} s", flush=True)
+
+
 def expect(name: str, counts: dict, want: dict, total: dict) -> None:
     """Fail unless each counter in `want` holds its count; add the request's
     counts to `total`."""
@@ -2425,6 +3099,7 @@ def phase_main_path() -> dict:
     texts = run_batch_generate(model, naming, cfg, total)
     batch_vs_single(model, naming, cfg, texts)
     run_batch_generator(model, proc, cfg, total)
+    run_server(model, cfg, total)
     del model
     torch.cuda.empty_cache()
     exact_requests(proc, cfg, weights, total)

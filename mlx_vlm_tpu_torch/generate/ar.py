@@ -149,11 +149,11 @@ def check_capacity(capacity: int, S_pad: int, S: int,
 
 class _NoSync:
     """torch.cuda.set_sync_debug_mode("error") for the duration of a with
-    block on a CUDA device (nothing elsewhere): any call that waits for the
-    card raises."""
+    block on a CUDA device when `on` (nothing elsewhere): any call that
+    waits for the card raises."""
 
-    def __init__(self, device):
-        self.on = device.type == "cuda"
+    def __init__(self, device, on: bool = True):
+        self.on = on and device.type == "cuda"
 
     def __enter__(self):
         if self.on:
@@ -178,7 +178,15 @@ class DecodeBlocks:
     captured kernel launches at each replay); every later step replays it.
     `stats`: the first step's and the capture's host seconds (`first_s`,
     `capture_s`), the decode steps run, graph replays, host fetches and
-    blocks."""
+    blocks.
+
+    Host samplers: a sampler that carries `on_host = True`
+    (structured.make_constrained_sampler) reads each step's logits on the
+    host and picks the token there, so its request runs every step eagerly
+    (`use_graph` False: a captured graph would replay the one token its
+    capture picked) and outside sync debug mode (its copy to the host waits
+    for the card).  On the fused route (B = 1, bf16 cache) each such step
+    is one eager K3 launch."""
 
     def __init__(self, model, cache, deltas, sampler, processors, gen,
                  block_size: int):
@@ -189,7 +197,8 @@ class DecodeBlocks:
         self.cache, self.deltas = cache, deltas
         self.sampler, self.processors, self.gen = sampler, processors, gen
         self.block_size, self.dev = block_size, dev
-        self.use_graph = dev.type == "cuda"
+        self.host_sampler = getattr(sampler, "on_host", False)
+        self.use_graph = dev.type == "cuda" and not self.host_sampler
         self.graph = None
         self.tok = torch.zeros((B,), dtype=torch.int64, device=dev)
         self.history = torch.full((B, HISTORY_SIZE), -1, dtype=torch.int64,
@@ -262,7 +271,7 @@ class DecodeBlocks:
         if self.use_graph and self.graph is None:
             self._capture()
             done = 1
-        with _NoSync(self.dev):
+        with _NoSync(self.dev, on=not self.host_sampler):
             for _ in range(done, n):
                 if self.use_graph:
                     self.graph.replay()

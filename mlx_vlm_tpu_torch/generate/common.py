@@ -26,10 +26,13 @@ def device_peak_memory_gb(device) -> float:
     return torch.cuda.max_memory_allocated(device) / (1024**3)
 
 
-def embed_prompt(model, inputs: dict) -> tuple:
+def embed_prompt(model, inputs: dict, vision_cache=None) -> tuple:
     """prepare_inputs' arrays -> (input embeddings [1, S, D] on the model's
     device with any image merged by the vision tower, M-RoPE position ids
-    [3, 1, S], rope deltas [1, 1])."""
+    [3, 1, S], rope deltas [1, 1]).  With a `vision_cache`
+    (vision_cache.VisionFeatureCache), the tower's features are looked up by
+    the image's content and stored there on a miss, as the reference's
+    server does (mlx_vlm_tpu/server/engine.py:247-264)."""
     dev = torch.device(model.device or "cpu")
     input_ids = np.asarray(inputs["input_ids"])
     ids = torch.from_numpy(input_ids.astype(np.int64)).to(dev)
@@ -40,11 +43,21 @@ def embed_prompt(model, inputs: dict) -> tuple:
     else:
         grid_thw = np.asarray(inputs["image_grid_thw"])
         aux = model.vision_aux_inputs(grid_thw)
-        embeds = model.get_input_embeddings(
-            model.params, ids,
-            torch.from_numpy(np.asarray(pixel_values)).to(dev),
-            rotary_freqs=torch.from_numpy(aux["rotary_freqs"]).to(dev),
-            segment_ids=torch.from_numpy(aux["segment_ids"]).to(dev))
+        vision = (torch.from_numpy(np.asarray(pixel_values)).to(dev),
+                  torch.from_numpy(aux["rotary_freqs"]).to(dev),
+                  torch.from_numpy(aux["segment_ids"]).to(dev))
+        if vision_cache is None:
+            embeds = model.get_input_embeddings(
+                model.params, ids, vision[0], rotary_freqs=vision[1],
+                segment_ids=vision[2])
+        else:
+            key = vision_cache.key(pixel_values, grid_thw)
+            feats = vision_cache.get(key)
+            if feats is None:
+                feats = model.vision_features(model.params, *vision)
+                vision_cache.put(key, feats)
+            embeds = model.get_input_embeddings(model.params, ids,
+                                                image_features=feats)
     position_ids, rope_deltas = model.prepare_position_ids(
         input_ids, grid_thw, None, inputs.get("attention_mask"))
     return embeds, position_ids, rope_deltas

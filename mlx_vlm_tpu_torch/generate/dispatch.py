@@ -18,6 +18,7 @@ import numpy as np
 
 from ..core.sampling import make_logits_processors, make_sampler
 from ..utils.processing import prepare_inputs
+from ..utils.profiling import annotate, global_phases
 from ..utils.tokenizer import make_detokenizer
 from .ar import check_kv_bits, generate_step
 from .common import GenerationResult, device_peak_memory_gb, embed_prompt
@@ -97,7 +98,16 @@ def stream_generate(
         max_tokens=max_tokens, sampler=sampler, logits_processors=processors,
         prefill_step_size=prefill_step_size, seed=seed, block_size=block_size,
         kv_bits=kv_bits, kv_group_size=kv_group_size)
-    for token, logprobs in token_iter:
+    phases = global_phases()
+    while True:
+        # the first pull runs the prefill, the rest are decode steps: named
+        # regions in a torch.profiler trace and host time at /metrics
+        with annotate("prefill" if prompt_time is None else "decode",
+                      phases):
+            try:
+                token, logprobs = next(token_iter)
+            except StopIteration:
+                break
         now = time.perf_counter()
         if prompt_time is None:
             prompt_time = now - tic
