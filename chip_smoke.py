@@ -142,7 +142,31 @@ Phases (any failure exits non-zero):
      prefilled in their admission's own padded layout and copied into a
      one-row 4-bit cache, so that none of the generator's code runs; the
      same prompts prefilled in one unpadded chunk are printed beside,
-     with the share of 4-bit codes that the layout flips).
+     with the share of 4-bit codes that the layout flips).  Then the
+     prefix-caching part (apc.py), greedy, 16 tokens a request: (l1) (c)'s
+     image and prompt through stream_generate(apc=APCManager(),
+     vision_cache=...) (every 16-token block of the prompt stored, no
+     hit; the harvest's seconds and bytes), (l2) a second turn (the
+     prompt, (l1)'s reply and ~400 new tokens): the hit the longest shared
+     multiple of 16, the restored rows byte-equal to (l1)'s, K1 and K4
+     launched for the suffix's chunks only (K4 at the restored offset), K3
+     every decode step, the vision tower not run again; (l2c) the same
+     prompt cold without APC in a cache of (l2)'s capacity, teacher-forced
+     with (l2)'s tokens, its logits holding (l2)'s by the parity rule, the
+     two TTFTs printed; (l3) / (l4) exact mode at kv_bits=4: (a)'s image
+     with ~2k tokens of text, then the same prompt with a 64-token
+     follow-up: one hit, the restored snapshot byte-equal to (l3)'s cache
+     in every buffer with its cursor at (l3)'s length, K6 28 a step; (l4)
+     held to its prompt prefilled in its own layout without APC and to
+     (l4c), its prompt cold in a cache of the snapshot's capacity (the
+     4-bit codes that differ in the shared and the suffix rows printed);
+     (m) a server with APC: two chats sharing a ~1,500-token system
+     prompt, one after the other: /v1/cache/stats 2 lookups and one hit,
+     the second chat's K1 launches its suffix's chunks only, one capture,
+     its logits held to its prompt alone on the single stream, and
+     /v1/cache/reset empties the pool.
+Phase 3 folds each checkpoint's mlx weights once for all of its loads in
+one runtime mode (`fold_once`).
 Each phase prints its seconds.  The line before the last is the kernel
 report, the last line the result.  Needs no network and imports nothing of
 JAX.
@@ -1514,6 +1538,49 @@ class env_vars:
                 os.environ[k] = v
 
 
+class fold_once:
+    """utils/loader.py's `_fold_quantized` memoized for the duration of a
+    with block, so that the loads of one checkpoint in one runtime mode
+    (the CPU references' and the card's) fold its mlx triples once rather
+    than once a load: the fold (the host requantization of w4grp's
+    embedding table and of w8chan's every linear, in float64) depends on
+    neither the dtype nor the device, which come after it.  A checkpoint is
+    known by the identity of its packed triples, held by the memo so that
+    no identity is reused."""
+
+    def __enter__(self):
+        from mlx_vlm_tpu_torch.utils import loader
+
+        self.loader, self.real, self.memo = loader, loader._fold_quantized, {}
+
+        def fold(flat, qcfg, default_mode="w8chan"):
+            triples = [k for k, v in flat.items()
+                       if k.endswith((".scales", ".biases"))
+                       or getattr(v, "dtype", None) == np.uint32]
+            key = (loader.runtime_quant_mode(default_mode),
+                   json.dumps(qcfg, sort_keys=True),
+                   tuple((k, id(flat[k])) for k in triples))
+            if key not in self.memo:
+                out = self.real(flat, qcfg, default_mode)
+                folded = {k: v for k, v in out.items()
+                          if v is not flat.get(k)}
+                self.memo[key] = (folded, set(flat) - set(out),
+                                  [flat[k] for k in triples])
+            folded, dropped, _ = self.memo[key]
+            out = dict(folded)
+            for k, v in flat.items():
+                if k not in dropped:
+                    out.setdefault(k, v)
+            return out
+
+        loader._fold_quantized = fold
+        return self
+
+    def __exit__(self, *exc):
+        self.loader._fold_quantized = self.real
+        self.memo.clear()
+
+
 def teacher_forced_logits(model, inputs: dict, forced=None,
                           n_steps: int = 8, kv_bits=None) -> tuple:
     """Per-step last-token logits [n_steps, V] (f32 numpy): the prompt in one
@@ -2136,17 +2203,26 @@ KV_KERNEL = {(3.5, None): "tq_kv_attention", (3.5, "split"):
              "tq_kv_attention_split", (4, None): "int4_kv_attention"}
 
 
-def prefill_chunks(S: int, max_tokens: int, step: int = 512,
-                   bucket: int = 256, block_size: int = 32) -> int:
-    """Prefill chunks of a request, by generate_step's rule: the chunk is
-    the prompt rounded up to the cache bucket, at most `step` rows, halved
-    while the padded prompt overflows the cache."""
+def prefill_chunks(S: int, max_tokens: int, block_size: int = 32) -> int:
+    """Prefill chunks of a request, by generate_step's rule for a cache of
+    round_up(S + max_tokens + min(block_size, max_tokens) + 1, 256) rows
+    (`suffix_chunks` at prefix 0)."""
     block = max(1, min(block_size, max_tokens))
-    capacity = -(-(S + max_tokens + block + 1) // bucket) * bucket
-    step = min(step, -(-S // bucket) * bucket)
-    while -(-S // step) * step > capacity and step > 64:
+    return suffix_chunks(0, S, -(-(S + max_tokens + block + 1) // 256)
+                         * 256)[0]
+
+
+def suffix_chunks(prefix: int, S: int, capacity: int,
+                  step: int = 512) -> tuple:
+    """generate_step's and the batch admission's prefill of [prefix, S)
+    into a cache of `capacity` rows: the chunk is the rows to prefill
+    rounded up to 256, at most `step`, halved while the padded rows
+    overflow the cache behind the prefix.  Returns (chunks, chunk rows)."""
+    suffix = S - prefix
+    step = min(step, -(-suffix // 256) * 256)
+    while prefix + -(-suffix // step) * step > capacity and step > 64:
         step = max(64, step // 2)
-    return -(-S // step)
+    return -(-suffix // step), step
 
 
 # `python3 chip_smoke.py --profile`: phase 4 also traces each request's
@@ -2483,9 +2559,9 @@ SERVER_REQUESTS = (
 )
 # then a second server with kv_bits=4: two text chats at once
 KV4_REQUESTS = (
-    ("(l1)", "chat", "Write a haiku about the sea.", None, False, False,
+    ("(k7)", "chat", "Write a haiku about the sea.", None, False, False,
      None, 16),
-    ("(l2)", "chat", "What is the capital of France?", None, False, False,
+    ("(k8)", "chat", "What is the capital of France?", None, False, False,
      None, 16),
 )
 # decode steps the recorder keeps per server (the first server runs about
@@ -2839,16 +2915,10 @@ def unpadded_layout_effect(model, inputs: dict, toks: list, kv_bits,
     measurement, not a check."""
     from mlx_vlm_tpu_torch.core.cache import cache_buffers
 
-    import torch
-
     cache, first, delta = prefill_unpadded(model, inputs, len(toks), kv_bits)
     S = inputs["input_ids"].shape[1]
-    flips = total = 0
-    for a, b in zip(cache_buffers(cache), cache_buffers(single)):
-        if a.dtype == torch.uint8:  # two codes a byte
-            x = a[:, 0, :, :S] ^ b[:, 0, :, :S]
-            flips += int(((x & 0xF) != 0).sum() + ((x >> 4) != 0).sum())
-            total += 2 * x.numel()
+    flips, total = code_flips(cache_buffers(cache), cache_buffers(single), 0,
+                              S)
     got, _ = forced_steps(model, cache, first, delta, toks[:-1], len(toks))
     print(f"    the same prompt prefilled in one unpadded chunk of {S} rows "
           f"instead: {flips} of {total} 4-bit K/V codes differ "
@@ -2860,7 +2930,7 @@ def unpadded_layout_effect(model, inputs: dict, toks: list, kv_bits,
 
 def run_server(model, cfg, total: dict) -> None:
     """The server part: (k1)-(k6) at once to a server on the loaded model,
-    then (l1)-(l2) to one with kv_bits=4 (K6 on per-row cursors).  Every
+    then (k7)-(k8) to one with kv_bits=4 (K6 on per-row cursors).  Every
     answer must be 200 and well formed (an SSE stream ends in [DONE]), its
     usage must count the tokens it received, and its text must be its
     tokens' text; (k6)'s content must parse and satisfy JSON_SCHEMA.  The
@@ -3021,6 +3091,592 @@ def run_server(model, cfg, total: dict) -> None:
     print(f"  server part: {time.perf_counter() - t_part:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------ phase 4, APC
+
+
+# (c)'s text (about 8.2k tokens with the template and a 448x448 image)
+LONG_TEXT = ("The quick brown fox jumps over the lazy dog. " * 183
+             + "Summarize the text and the image.")
+# The prefix-caching part, on (a)-(f)'s model: greedy, 16 tokens a request
+APC_TOKENS, APC_BLOCK = 16, 16
+# (l2)'s new user turn (about 400 tokens), (l3)'s text (sized so that its
+# prompt is 40 past a multiple of 256: (l3)'s snapshot then holds (l4)'s
+# continuation, see apc_exact) and (l4)'s 64-token follow-up
+APC_TURN2 = ("Now compare the image with the text above, and list three "
+             "details that the text leaves out. " * 5)[:400]
+APC_EXACT_TEXT = "A lighthouse keeper writes a log of ships and weather. "
+APC_FOLLOW_UP = (" And what does the keeper write about the storm that came "
+                 "in the night?")[:64]
+# (m)'s system prompt (about 1,500 tokens) and its two questions
+APC_SYSTEM = ("You are a careful assistant for a shipping company. Answer "
+              "briefly, name your sources, and never invent numbers. " * 14)
+APC_QUESTIONS = ("Which ports do we serve in winter?",
+                 "How heavy may one container be?")
+
+
+class StreamRecorder:
+    """A single-stream sampler (generate_step's `sampler(logits,
+    generator)`, B = 1) that keeps each call's logits in a device ring at a
+    device counter (inside a captured step, so part of the graph; no host
+    read) and returns the greedy token, or with `forced` (int64 [n] on
+    the device) the forced token of that call."""
+
+    def __init__(self, n: int, vocab: int, dev, forced=None):
+        import torch
+
+        self.logits = torch.zeros((n, vocab), dtype=torch.float32, device=dev)
+        self.step = torch.zeros((), dtype=torch.int64, device=dev)
+        self.forced = forced
+
+    def __call__(self, logits, generator=None):
+        at = self.step.reshape(1)
+        self.logits.index_copy_(0, at, logits.float())
+        tok = (logits.argmax(-1) if self.forced is None
+               else self.forced.index_select(0, at))
+        self.step.add_(1)
+        return tok
+
+    def rows(self, n: int) -> np.ndarray:
+        if int(self.step) < n:
+            fail(f"the recorder kept {int(self.step)} steps, want {n}")
+        return self.logits[:n].cpu().numpy()
+
+
+def shared_prefix(a: list, b: list) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def timed(obj, name: str, log: list) -> None:
+    """Wrap obj.name so that each call's seconds and result go to `log`."""
+    real = getattr(obj, name)
+
+    def run(*a, **k):
+        t = time.perf_counter()
+        out = real(*a, **k)
+        log.append((time.perf_counter() - t, out))
+        return out
+
+    setattr(obj, name, run)
+
+
+def pool_bytes(apc) -> int:
+    """Host bytes of an APCManager's blocks and exact snapshots' buffers."""
+    from mlx_vlm_tpu_torch.core.cache import cache_buffers
+
+    n = sum(b.k.nbytes + b.v.nbytes for b in apc.blocks.values())
+    for _, snap, _ in apc._exact.values():
+        n += sum(t.numel() * t.element_size() for t in cache_buffers(snap))
+    return n
+
+
+def forcing(model, tokens: list) -> StreamRecorder:
+    """A StreamRecorder that returns `tokens`, call by call."""
+    import torch
+
+    return StreamRecorder(len(tokens) + 64,
+                          model.language_model.args.vocab_size, model.device,
+                          forced=torch.tensor(tokens + [0] * 64,
+                                              device=model.device))
+
+
+def apc_turn(model, proc, name: str, prompt: str, image, apc, vc,
+             kv_bits=None) -> dict:
+    """One greedy request through stream_generate(apc=, vision_cache=) with
+    a StreamRecorder for its sampler, the counters set to 0 just before it
+    and read just after; checks its tokens and decode counts as
+    run_request does.  Returns {tokens, text, logits, counts, ttft, S,
+    steps, cache (the request's cache, ar.last_decode.cache)}."""
+    import torch
+
+    from mlx_vlm_tpu_torch import stream_generate
+    from mlx_vlm_tpu_torch.generate import ar, dispatch
+
+    rec = StreamRecorder(APC_TOKENS + 64, model.language_model.args.vocab_size,
+                         model.device)
+    real = dispatch.make_sampler
+    dispatch.make_sampler = lambda *a, **k: rec
+    toks, text, last = [], "", None
+    try:
+        reset_counts()
+        tic = time.perf_counter()
+        for res in stream_generate(model, proc, prompt, image=image,
+                                   max_tokens=APC_TOKENS, kv_bits=kv_bits,
+                                   apc=apc, vision_cache=vc):
+            if last is None:
+                ttft = time.perf_counter() - tic
+            if not np.all(np.isfinite(res.logprobs)):
+                fail(f"{name}: non-finite logits")
+            toks.append(res.token)
+            text += res.text
+            last = res
+        if last is None:
+            fail(f"{name}: no tokens")
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        dispatch.make_sampler = real
+    st = ar.last_decode.stats
+    n = len(toks)
+    if not (n == APC_TOKENS or last.finish_reason == "stop"):
+        fail(f"{name}: {n} tokens, finish {last.finish_reason}")
+    replays = st["steps"] - 1 if ar.last_decode.use_graph else 0
+    if not (st["replays"] == replays
+            and st["fetches"] == st["blocks"] + 1):
+        fail(f"{name}: decode counts {st}")
+    return {"tokens": toks, "text": text, "logits": rec.rows(n),
+            "counts": counts, "ttft": ttft, "S": last.prompt_tokens,
+            "steps": st["steps"], "cache": ar.last_decode.cache}
+
+
+def forced_cold(model, inputs: dict, vc, tokens: list, capacity: int,
+                kv_bits=None) -> tuple:
+    """The prompt of `inputs` cold, without APC, through generate_step with
+    `kv_capacity=capacity`, teacher-forced with `tokens` (a forcing
+    StreamRecorder): (its logits [n, V], TTFT from prepare_inputs' arrays
+    to the first token, its cache)."""
+    from mlx_vlm_tpu_torch.generate import ar
+    from mlx_vlm_tpu_torch.generate.common import embed_prompt
+
+    rec = forcing(model, tokens)
+    tic = time.perf_counter()
+    embeds, pos, deltas = embed_prompt(model, inputs, vc)
+    ttft = None
+    for _ in ar.generate_step(embeds, model, position_ids=pos,
+                              rope_deltas=deltas, max_tokens=len(tokens),
+                              sampler=rec, kv_bits=kv_bits,
+                              kv_capacity=capacity):
+        ttft = ttft or time.perf_counter() - tic
+    return rec.rows(len(tokens)), ttft, ar.last_decode.cache
+
+
+def layout_reference(model, inputs: dict, prefix: int, tokens: list,
+                     capacity: int) -> np.ndarray:
+    """A prompt at kv_bits=4 prefilled as a warm exact-mode request
+    prefills it, with no snapshot and no restore: rows [0, prefix) by
+    generate_step into a cold cache of `capacity` rows, then the rest by
+    generate_step on that cache at `prefix`, teacher-forced with `tokens`.
+    Returns its logits [n, V]."""
+    from mlx_vlm_tpu_torch.generate import ar
+    from mlx_vlm_tpu_torch.generate.common import embed_prompt
+
+    embeds, pos, deltas = embed_prompt(model, inputs)
+    held = []
+    first = ar.generate_step(embeds[:, :prefix], model,
+                             position_ids=pos[:, :, :prefix],
+                             rope_deltas=deltas, max_tokens=APC_TOKENS,
+                             kv_bits=4, kv_capacity=capacity,
+                             prompt_cache_callback=held.append)
+    next(first)
+    first.close()
+    rec = forcing(model, tokens)
+    for _ in ar.generate_step(embeds, model, position_ids=pos,
+                              rope_deltas=deltas, max_tokens=len(tokens),
+                              sampler=rec, prompt_cache=held[0],
+                              prefix_len=prefix):
+        pass
+    return rec.rows(len(tokens))
+
+
+def code_flips(a: list, b: list, lo: int, hi: int) -> tuple:
+    """4-bit codes that differ between two caches' buffers (cache_buffers)
+    in rows [lo, hi) of row 0: (flips, codes)."""
+    import torch
+
+    flips = total = 0
+    for x, y in zip(a, b):
+        if x.dtype == torch.uint8:  # two codes a byte
+            d = x[:, 0, :, lo:hi] ^ y[:, 0, :, lo:hi]
+            flips += int(((d & 0xF) != 0).sum() + ((d >> 4) != 0).sum())
+            total += 2 * d.numel()
+    return flips, total
+
+
+def apc_want(counts: dict, n_layers: int, chunks: int, flash: int,
+             fused_steps: int = 0, k6_steps: int = 0,
+             k2_steps: int = 0) -> dict:
+    """The launches of one single-stream request: K1 196 a prefill chunk,
+    K4 28 a chunk that takes it, K2 one head for the prefill (and 197 a
+    per-linear decode step), K3 a fused decode step, K6 28 a step."""
+    want = {k: 0 for k in counts}
+    want["int4_matmul"] = 7 * n_layers * chunks
+    want["flash_attention"] = n_layers * flash
+    want["int4_matvec"] = 1 + (7 * n_layers + 1) * k2_steps
+    want["fused_decode"] = fused_steps
+    want["int4_kv_attention"] = n_layers * k6_steps
+    return want
+
+
+def apc_block(model, proc, cfg, total: dict) -> None:
+    """(l1) (c)'s image and ~8.5k-token prompt cold through
+    stream_generate(apc=APCManager(), vision_cache=...): every full block of
+    16 tokens stored, no hit; (l2) a second turn (the prompt, (l1)'s reply
+    and ~400 new tokens): the hit is the longest shared multiple of 16, the
+    restored rows byte-equal to (l1)'s, K1 / K4 only on the suffix's
+    chunks (K4 at offset = the prefix), K3 every decode step, the vision
+    tower not run again; (l2c) (l2)'s prompt cold without APC in a cache of
+    (l2)'s capacity, teacher-forced with (l2)'s tokens: its logits hold
+    (l2)'s by the parity rule, the two TTFTs side by side."""
+    import torch
+
+    from mlx_vlm_tpu_torch.generate.common import round_up
+    from mlx_vlm_tpu_torch import apc as apc_mod
+    from mlx_vlm_tpu_torch import apply_chat_template
+    from mlx_vlm_tpu_torch.utils.processing import prepare_inputs
+    from mlx_vlm_tpu_torch.vision_cache import VisionFeatureCache
+
+    n_layers = model.language_model.args.num_hidden_layers
+    apc, vc = apc_mod.APCManager(), VisionFeatureCache()
+    harvests, restores = [], []
+    timed(apc, "commit", harvests)
+    timed(apc, "make_warm_cache", restores)
+    image = _image(448)
+    msgs = [{"role": "user", "content": [{"type": "image"},
+                                         {"type": "text", "text": LONG_TEXT}]}]
+    p1 = apply_chat_template(proc, cfg, msgs, num_images=1)
+    r1 = apc_turn(model, proc, "(l1)", p1, image, apc, vc)
+    S1 = r1["S"]
+    snap = apc.snapshot()
+    block_bytes = sum(b.k.nbytes + b.v.nbytes for b in apc.blocks.values())
+    cap1 = round_up(S1 + APC_TOKENS + 32 + 65, 256)
+    chunks1, step1 = suffix_chunks(0, S1, cap1)
+    print(f"  (l1) block mode, cold: prompt {S1} tokens, TTFT "
+          f"{r1['ttft']:.4f} s; harvest {harvests[0][0]:.4f} s for "
+          f"{harvests[0][1]} blocks, {block_bytes / 1e6:.1f} MB to the host "
+          f"(warm-cache build at prefix 0 {restores[0][0]:.4f} s); pool "
+          f"{snap['used_blocks']} blocks, {pool_bytes(apc) / 1e6:.1f} MB of "
+          f"host memory; stats {apc.stats.as_dict()}; launches "
+          f"{r1['counts']}", flush=True)
+    if not (snap["used_blocks"] == snap["stores"] == S1 // APC_BLOCK
+            and snap["hits"] == 0 and snap["lookups"] == 1):
+        fail(f"(l1): pool {snap}, want {S1 // APC_BLOCK} blocks, no hit")
+    expect("(l1)", r1["counts"], apc_want(
+        r1["counts"], n_layers, chunks1, chunks1 * (step1 >= 256),
+        fused_steps=r1["steps"]), total)
+    k1 = r1["cache"].k[:, 0, :, :S1].clone()
+    v1 = r1["cache"].v[:, 0, :, :S1].clone()
+    tok1 = prepare_inputs(proc, p1, images=image)["input_ids"][0].tolist()
+
+    # the conversation continued in Qwen2-VL's chat format, the image left
+    # in the first turn (apply_chat_template puts a message list's images
+    # in its last user turn, which would move it)
+    p2 = (f"{p1}{r1['text']}<|im_end|>\n<|im_start|>user\n{APC_TURN2}"
+          f"<|im_end|>\n<|im_start|>assistant\n")
+    inputs2 = prepare_inputs(proc, p2, images=image)
+    tok2 = inputs2["input_ids"][0].tolist()
+    r2 = apc_turn(model, proc, "(l2)", p2, image, apc, vc)
+    S2 = r2["S"]
+    prefix = min(shared_prefix(tok1, tok2), S1, S2 - 1) // APC_BLOCK \
+        * APC_BLOCK
+    cap2 = round_up(S2 + APC_TOKENS + 32 + 65, 256)
+    chunks2, step2 = suffix_chunks(prefix, S2, cap2)
+    same_rows = (torch.equal(r2["cache"].k[:, 0, :, :prefix], k1[:, :, :prefix])
+                 and torch.equal(r2["cache"].v[:, 0, :, :prefix],
+                                 v1[:, :, :prefix]))
+    print(f"  (l2) block mode, warm: prompt {S2} tokens, hit "
+          f"{apc.stats.hit_tokens} tokens (want {prefix}), suffix "
+          f"{S2 - prefix} rows in {chunks2} chunk(s) of {step2}; TTFT "
+          f"{r2['ttft']:.4f} s, restore {restores[-1][0]:.4f} s, harvest "
+          f"{harvests[-1][0]:.4f} s for {harvests[-1][1]} new blocks; "
+          f"restored rows [0, {prefix}) byte-equal to (l1)'s {same_rows}; "
+          f"vision tower runs {vc.misses}, cache hits {vc.hits}; pool "
+          f"{len(apc.blocks)} blocks, {pool_bytes(apc) / 1e6:.1f} MB; "
+          f"launches {r2['counts']}", flush=True)
+    if not (apc.stats.hits == 1 and apc.stats.hit_tokens == prefix > 0):
+        fail(f"(l2): stats {apc.stats.as_dict()}, want one hit of {prefix}")
+    if not same_rows:
+        fail("(l2): the restored rows differ from (l1)'s")
+    if (vc.misses, vc.hits) != (1, 1):
+        fail(f"(l2): the vision tower ran {vc.misses} times")
+    expect("(l2)", r2["counts"], apc_want(
+        r2["counts"], n_layers, chunks2, chunks2 * (step2 >= 256),
+        fused_steps=r2["steps"]), total)
+    del k1, v1, r1
+
+    toks2 = r2["tokens"]
+    ref, ttft_c, _ = forced_cold(model, inputs2, vc, toks2, cap2)
+    ok, err, tol, n_margin = parity_rule(ref, r2["logits"])
+    print(f"  (l2c) (l2)'s prompt cold, no APC, kv_capacity {cap2}, teacher-"
+          f"forced with (l2)'s {len(toks2)} tokens: max|warm - cold| = "
+          f"{err:.4e}, tol {tol:.4e}; argmax checked on {n_margin} steps "
+          f"{'ok' if ok else 'MISMATCH'}; TTFT warm {r2['ttft']:.4f} s vs "
+          f"cold {ttft_c:.4f} s", flush=True)
+    if not ok:
+        fail("(l2) differs from its prompt prefilled cold")
+
+
+def apc_exact(model, proc, cfg, total: dict) -> None:
+    """Exact mode at kv_bits=4 (K6): (l3) (a)'s image with ~2k tokens of
+    text, its prompt sized to 40 past a multiple of 256 so that its
+    snapshot (round_up(S3 + 16 + 16 + 1, 256) rows) holds (l4)'s
+    continuation (lookup_exact asks round_up(S4 + 16 + 32 + 65, 256));
+    (l4) the same prompt with a 64-token follow-up: one hit of S3, the
+    restored cache byte-equal to (l3)'s in every buffer's rows [0, S3) with
+    its cursor at S3, K6 28 a step; (l4c) (l4) cold with kv_capacity the
+    snapshot's: the share of differing 4-bit codes in the shared rows and
+    in the suffix rows printed, its logits held to (l4)'s by the parity
+    rule."""
+    import torch
+
+    from mlx_vlm_tpu_torch.generate.common import round_up
+    from mlx_vlm_tpu_torch import apc as apc_mod
+    from mlx_vlm_tpu_torch import apply_chat_template
+    from mlx_vlm_tpu_torch.core.cache import cache_buffers
+    from mlx_vlm_tpu_torch.utils.processing import prepare_inputs
+
+    n_layers = model.language_model.args.num_hidden_layers
+    image = _image(448)
+
+    def prompt(n_chars: int) -> str:
+        text = (APC_EXACT_TEXT * 60)[:n_chars]
+        return apply_chat_template(proc, cfg, text, num_images=1)
+
+    n = 2000
+    S = prepare_inputs(proc, prompt(n), images=image)["input_ids"].shape[1]
+    n += (40 - S) % 256
+    p3 = prompt(n)
+    S3 = prepare_inputs(proc, p3, images=image)["input_ids"].shape[1]
+    p4 = p3 + APC_FOLLOW_UP[:64]
+    inputs4 = prepare_inputs(proc, p4, images=image)
+    S4 = inputs4["input_ids"].shape[1]
+    snap_cap = round_up(S3 + APC_TOKENS + APC_TOKENS + 1, 256)
+    if not (S3 % 256 == 40 and S4 == S3 + 64
+            and snap_cap >= round_up(S4 + APC_TOKENS + 32 + 65, 256)):
+        fail(f"(l3)/(l4): prompts of {S3} and {S4} tokens do not fit a "
+             f"snapshot of {snap_cap} rows")
+    apc = apc_mod.APCManager()
+    restored = []
+    real_lookup = apc.lookup_exact
+
+    def lookup(*a, **k):
+        n_hit, cache = real_lookup(*a, **k)
+        if cache is not None:  # its cursor as restored, before any prefill
+            restored.append(int(cache.offset))
+        return n_hit, cache
+
+    apc.lookup_exact = lookup
+    stores = []
+    timed(apc, "store_exact", stores)
+    r3 = apc_turn(model, proc, "(l3)", p3, image, apc, None, kv_bits=4)
+    chunks3, _ = suffix_chunks(0, S3, snap_cap)
+    want3 = apc_want(r3["counts"], n_layers, chunks3, 0, k6_steps=r3["steps"],
+                     k2_steps=r3["steps"])
+    expect("(l3)", r3["counts"], want3, total)
+    (_, snap, cap), = apc._exact.values()
+    rows3 = [t[:, 0, :, :S3].clone() for t in cache_buffers(r3["cache"])]
+    print(f"  (l3) exact mode, kv_bits=4, cold: prompt {S3} tokens, TTFT "
+          f"{r3['ttft']:.4f} s, {chunks3} prefill chunks; snapshot "
+          f"{stores[0][0]:.4f} s, {pool_bytes(apc) / 1e6:.1f} MB on the "
+          f"host, {cap} rows (its buffers'), cursor {int(snap.offset)}; "
+          f"launches {r3['counts']}", flush=True)
+    if cap != snap_cap or int(snap.offset) != S3:
+        fail(f"(l3): snapshot of {cap} rows at {int(snap.offset)}, want "
+             f"{snap_cap} at {S3}")
+    del r3
+
+    r4 = apc_turn(model, proc, "(l4)", p4, image, apc, None, kv_bits=4)
+    chunks4, step4 = suffix_chunks(S3, S4, snap_cap)
+    same = restored == [S3] and all(
+        torch.equal(t[:, 0, :, :S3], r)
+        for t, r in zip(cache_buffers(r4["cache"]), rows3))
+    print(f"  (l4) exact mode, warm: prompt {S4} tokens, hit "
+          f"{apc.stats.hit_tokens} tokens, suffix {S4 - S3} rows in "
+          f"{chunks4} chunk(s) of {step4}; TTFT {r4['ttft']:.4f} s; restored "
+          f"cursor {restored}, every buffer's rows [0, {S3}) byte-equal to "
+          f"(l3)'s {same}; launches {r4['counts']}", flush=True)
+    if not (apc.stats.hits == 1 and apc.stats.hit_tokens == S3):
+        fail(f"(l4): stats {apc.stats.as_dict()}, want one hit of {S3}")
+    if not same:
+        fail("(l4): the restored cache differs from (l3)'s")
+    expect("(l4)", r4["counts"], apc_want(
+        r4["counts"], n_layers, chunks4, 0, k6_steps=r4["steps"],
+        k2_steps=r4["steps"]), total)
+    warm = [t[:, :, :, :S4].clone() for t in cache_buffers(r4["cache"])]
+    del r4["cache"]
+
+    toks4 = r4["tokens"]
+    layout = layout_reference(model, inputs4, S3, toks4, snap_cap)
+    ok, err, tol, n_margin = parity_rule(layout, r4["logits"])
+    print(f"  (l4) vs its prompt prefilled in (l4)'s own layout without "
+          f"APC ([0, {S3}) as (l3) prefilled it, then the suffix in one "
+          f"chunk at {S3}), teacher-forced with its {len(toks4)} tokens: "
+          f"max|warm - layout| = {err:.4e}, tol {tol:.4e}; argmax checked "
+          f"on {n_margin} steps {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("(l4) differs from its prompt prefilled in its own layout")
+    ref, ttft_c, cold = forced_cold(model, inputs4, None, toks4, snap_cap,
+                                    kv_bits=4)
+    shared = code_flips(warm, cache_buffers(cold), 0, S3)
+    suffix = code_flips(warm, cache_buffers(cold), S3, S4)
+    ok, err, tol, n_margin = parity_rule(ref, r4["logits"])
+    print(f"  (l4c) (l4)'s prompt cold at kv_bits=4, kv_capacity {snap_cap}"
+          f": 4-bit codes differing from (l4)'s cache: shared rows "
+          f"{shared[0]} of {shared[1]} ({100 * shared[0] / shared[1]:.4f}%), "
+          f"the {S4 - S3} suffix rows {suffix[0]} of {suffix[1]} "
+          f"({100 * suffix[0] / suffix[1]:.4f}%); teacher-forced with (l4)'s "
+          f"{len(toks4)} tokens: max|warm - cold| = {err:.4e}, tol "
+          f"{tol:.4e}; argmax checked on {n_margin} steps "
+          f"{'ok' if ok else 'MISMATCH'}; TTFT warm {r4['ttft']:.4f} s vs "
+          f"cold {ttft_c:.4f} s", flush=True)
+    if not ok:
+        fail("(l4) differs from its prompt prefilled cold")
+
+
+def apc_server(model, cfg, total: dict) -> None:
+    """(m) create_server(apc=APCManager(), 4 slots of 4096 rows, blocks of
+    8): (m1) a chat with a ~1,500-token system prompt, then, once it has
+    answered, (m2) the same system prompt with another question.
+    /v1/cache/stats shows 2 lookups and 1 hit of the shared multiple of 16;
+    (m2)'s K1 launches cover its suffix's chunks only; one capture; (m2)'s
+    logits held by the parity rule to its prompt alone on the single stream
+    (per-linear, K2 at M = 1), teacher-forced with its tokens;
+    /v1/cache/reset empties the pool."""
+    import socket
+    import threading
+
+    from mlx_vlm_tpu_torch.generate.common import round_up
+    from mlx_vlm_tpu_torch import apc as apc_mod
+    from mlx_vlm_tpu_torch.generate import batch
+    from mlx_vlm_tpu_torch.server.app import create_server
+    from mlx_vlm_tpu_torch.utils.loader import decide_fused_decode
+    from mlx_vlm_tpu_torch.utils.processing import prepare_inputs
+
+    proc = _processor()
+    n_layers = model.language_model.args.num_hidden_layers
+    rec = ServerRecorder(model.language_model.args.vocab_size, model.device)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    real_make = batch.make_batched_sampler
+    batch.make_batched_sampler = lambda: rec
+    apc = apc_mod.APCManager()
+    try:
+        httpd = create_server(model, proc, model_name="qwen2-vl-7b-random",
+                              host="127.0.0.1", port=port,
+                              num_slots=SERVER_SLOTS,
+                              capacity=SERVER_CAPACITY,
+                              block_size=SERVER_BLOCK, apc=apc)
+    finally:
+        batch.make_batched_sampler = real_make
+    generator = httpd.state.generator
+    rec.attach(generator.batch)
+    seen = []
+    real_generate = generator.generate
+    generator.generate = lambda args: (seen.append(args),
+                                       real_generate(args))[1]
+    restores = []
+    timed(apc, "make_warm_cache", restores)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{port}"
+    out = []
+    try:
+        for i, q in enumerate(APC_QUESTIONS):
+            body = {"messages": [{"role": "system", "content": APC_SYSTEM},
+                                 {"role": "user", "content": q}],
+                    "max_tokens": APC_TOKENS}
+            chunks0 = generator.batch.stats["prefill_chunks"]
+            reset_counts()
+            t0 = time.perf_counter()
+            status, _, raw = _http(url, "/v1/chat/completions", body)
+            wall = time.perf_counter() - t0
+            if status != 200:
+                fail(f"(m{i + 1}): answered {status}: {raw[:300]}")
+            answer = json.loads(raw)
+            # the owner thread records the request's metrics after its
+            # last token: wait for them before the counters are read
+            for _ in range(500):
+                recent = json.loads(_http(url, "/metrics")[2])["recent"]
+                if len(recent) > i:
+                    break
+                time.sleep(0.01)
+            counts = read_counts()
+            out.append((answer, counts, wall, recent[i],
+                        generator.batch.stats["prefill_chunks"] - chunks0))
+        status, _, raw = _http(url, "/v1/cache/stats")
+        stats = json.loads(raw)
+        status, _, raw = _http(url, "/v1/cache/reset", {})
+        status, _, raw2 = _http(url, "/v1/cache/stats")
+        after = json.loads(raw2)
+    finally:
+        httpd.shutdown()
+        generator.shutdown()
+        server.join(timeout=30)
+    st = dict(generator.batch.stats)
+    rows = rec.rows()
+    inputs = [prepare_inputs(proc, a.prompt) for a in seen]
+    toks = [i["input_ids"][0].tolist() for i in inputs]
+    S = [len(t) for t in toks]
+    prefix = min(shared_prefix(*toks), S[0], S[1] - 1) // APC_BLOCK \
+        * APC_BLOCK
+    want_chunks = [suffix_chunks(0, S[0], round_up(S[0] + 65, 256))[0],
+                   suffix_chunks(prefix, S[1], round_up(S[1] + 65, 256))[0]]
+    for i, (answer, counts, wall, env, chunks) in enumerate(out):
+        n = answer["usage"]["completion_tokens"]
+        print(f"  (m{i + 1}) server with APC: prompt {S[i]} tokens, {n} "
+              f"tokens in {wall:.4f} s; /metrics ttft_s {env['ttft_s']:.4f}, "
+              f"generation_tps {env['generation_tps']:.2f}; {chunks} prefill "
+              f"chunk(s) (want {want_chunks[i]}); warm-cache build "
+              f"{restores[i][0]:.4f} s; launches {counts}", flush=True)
+        if chunks != want_chunks[i]:
+            fail(f"(m{i + 1}): {chunks} prefill chunks, want {want_chunks[i]}")
+        if (counts["int4_matmul"] != 7 * n_layers * chunks
+                or counts["fused_decode"] or env["generation_tokens"] != n
+                + (answer["choices"][0]["finish_reason"] == "stop")):
+            fail(f"(m{i + 1}): K1 launched {counts['int4_matmul']} times "
+                 f"(want {7 * n_layers * chunks}), K3 "
+                 f"{counts['fused_decode']} (want 0); {n} tokens answered, "
+                 f"{env['generation_tokens']} generated")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    print(f"  (m) /v1/cache/stats {stats}; after /v1/cache/reset "
+          f"used_blocks {after['used_blocks']}; generator: "
+          f"{st['captures']} capture, {st['steps']} steps, "
+          f"{st['admissions']} admissions", flush=True)
+    if not (stats["lookups"] == 2 and stats["hits"] == 1
+            and stats["hit_tokens"] == prefix > 0
+            and after["used_blocks"] == 0
+            and st["captures"] == int(generator.batch.decode.use_graph)):
+        fail(f"(m): cache stats {stats}, after reset {after}, want 2 "
+             f"lookups and one hit of {prefix}; generator {st}")
+    uid = seen[1].request_id
+    logits, rtoks = rows[uid]
+    n = out[1][3]["generation_tokens"]
+    logits, rtoks = logits[:n], rtoks[:n]
+    os.environ["MLX_VLM_TPU_FUSED_DECODE"] = "0"
+    decide_fused_decode(model)
+    try:
+        ref, _ = teacher_forced_logits(model, inputs[1], forced=rtoks[:-1],
+                                       n_steps=len(rtoks))
+    finally:
+        del os.environ["MLX_VLM_TPU_FUSED_DECODE"]
+        decide_fused_decode(model)
+    ok, err, tol, n_margin = parity_rule(ref, logits)
+    print(f"  (m2) vs its prompt alone on the single stream (per-linear, K2 "
+          f"at M = 1), teacher-forced with its {len(rtoks)} tokens: "
+          f"max|served - alone| = {err:.4e}, tol {tol:.4e}; argmax checked "
+          f"on {n_margin} steps {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("(m2) differs from its prompt run alone")
+
+
+def run_apc(model, cfg, total: dict) -> None:
+    """The prefix-caching part: block mode (l1)/(l2)/(l2c), exact mode
+    (l3)/(l4)/(l4c) and the server (m); prints its seconds."""
+    t0 = time.perf_counter()
+    proc = _processor()
+    apc_block(model, proc, cfg, total)
+    apc_exact(model, proc, cfg, total)
+    apc_server(model, cfg, total)
+    print(f"  prefix-caching part: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def expect(name: str, counts: dict, want: dict, total: dict) -> None:
     """Fail unless each counter in `want` holds its count; add the request's
     counts to `total`."""
@@ -3054,8 +3710,7 @@ def phase_main_path() -> dict:
           f"upload) in {t2 - t1:.1f} s; device memory "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     proc = _processor()
-    long_text = ("The quick brown fox jumps over the lazy dog. " * 183
-                 + "Summarize the text and the image.")
+    long_text = LONG_TEXT
     if not model.language_model.fused_decode:
         fail("the 7B model did not take the fused decode route")
     requests = [  # (name, text, image, images, max_tokens, fused route,
@@ -3100,6 +3755,7 @@ def phase_main_path() -> dict:
     batch_vs_single(model, naming, cfg, texts)
     run_batch_generator(model, proc, cfg, total)
     run_server(model, cfg, total)
+    run_apc(model, cfg, total)
     del model
     torch.cuda.empty_cache()
     exact_requests(proc, cfg, weights, total)
@@ -3252,10 +3908,12 @@ def main() -> None:
     bad = [r for r in results if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks disagree with their plain versions")
-    if not phase_slice_parity():
-        fail("the slice on the card disagrees with the slice on the CPU")
-    if not phase_quant_parity():
-        fail("a runtime quantization mode on the card disagrees with the CPU")
+    with fold_once():
+        if not phase_slice_parity():
+            fail("the slice on the card disagrees with the slice on the CPU")
+        if not phase_quant_parity():
+            fail("a runtime quantization mode on the card disagrees with the "
+                 "CPU")
     lap("phase 3")
     launches = phase_main_path()
     lap("phase 4")

@@ -1,18 +1,20 @@
 """`python -m mlx_vlm_tpu_torch <command>` — port of mlx_vlm_tpu/__main__.py.
 
-The port has the `server` command.  Any other command, the reference's
-included, gets the reference's usage exit (code 2) and a line naming what
-is ported.
+The port has the `generate`, `server` and `chat` commands.  Any other
+command, the reference's included, gets the reference's usage exit (code
+2) and a line naming what is ported.
 """
 
 import importlib
 import sys
 
 _COMMANDS = {
+    "generate": "mlx_vlm_tpu_torch.generate.cli",
     "server": "mlx_vlm_tpu_torch.server.cli",
+    "chat": "mlx_vlm_tpu_torch.chat",
 }
 # the reference's commands that the port does not have yet
-_NOT_PORTED = ("generate", "convert", "chat", "lora", "detect", "sft")
+_NOT_PORTED = ("convert", "lora", "detect", "sft")
 
 
 def main():

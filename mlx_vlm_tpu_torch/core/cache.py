@@ -46,7 +46,8 @@ from .quant import (QuantizedTensor, _check_bits, dequantize, dtype_name,
 
 __all__ = ["KVCache", "init_cache", "update_layer", "flash_eligible",
            "new_cursor", "BatchKVCache", "init_batch_cache",
-           "update_layer_rows", "insert_row",
+           "update_layer_rows", "insert_row", "snapshot", "restore",
+           "row_view",
            "QuantizedKVCache", "init_quantized_cache", "Int8KVCache",
            "init_int8_cache", "Int4KVCache", "init_int4_cache"]
 
@@ -205,6 +206,55 @@ def cache_buffers(cache) -> list:
     return [getattr(cache, f.name) for f in dataclasses.fields(cache)
             if f.name not in ("offset", "left_pad")
             and isinstance(getattr(cache, f.name), torch.Tensor)]
+
+
+def _map_tensors(obj, fn):
+    """`obj` with `fn` applied to every tensor it holds: a cache
+    dataclass's fields (other fields kept), dict values, list and tuple
+    items."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: _map_tensors(getattr(obj, f.name), fn)
+            for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, dict):
+        return {k: _map_tensors(v, fn) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_tensors(v, fn) for v in obj)
+    return obj
+
+
+def snapshot(cache):
+    """A host copy of a cache: every buffer of `cache_buffers`, the cursor
+    and left_pad copied to CPU tensors (the reference's
+    `jax.device_get(cache)`).  Always a copy, also of a CPU cache, whose
+    `.cpu()` would alias the buffers that the next decode step writes in
+    place.  The copy from the card waits for it."""
+    return _map_tensors(cache, lambda t: t.detach().to("cpu", copy=True))
+
+
+def restore(snap, device):
+    """A cache of fresh tensors on `device` from a `snapshot` (the
+    reference's `tree_map(jnp.asarray, snap)`): always a copy, so that
+    the snapshot stays as it was stored while the restored cache is
+    written."""
+    return _map_tensors(snap, lambda t: t.to(device, copy=True))
+
+
+def row_view(cache, row: int, offset: int):
+    """One row of a multi-row cache as a cache of the same class: its
+    buffers' row `row` (views, no copy), a new 0-dim cursor at `offset`
+    and its left_pad (the reference's one-row harvest view, batch.py
+    :367-375)."""
+    bufs = {f.name: getattr(cache, f.name)[:, row:row + 1]
+            for f in dataclasses.fields(cache)
+            if f.name not in ("offset", "left_pad")
+            and isinstance(getattr(cache, f.name), torch.Tensor)}
+    return dataclasses.replace(
+        cache, **bufs, left_pad=cache.left_pad[row:row + 1],
+        offset=torch.full((), offset, dtype=torch.int32,
+                          device=cache.left_pad.device))
 
 
 def insert_row(batch, row, slot: int, prompt_len: int,

@@ -32,8 +32,8 @@ eager steps.  On the CPU the same step runs eagerly, with the same state
 tensors and the same one fetch per block.  Each step runs K3 when the
 model's route is on and the cache is a plain `KVCache`, else the
 per-linear path, whose attention runs K6, K7 or K8 on a quantized cache.
-Prompt caches, and reusing a captured step across requests, are not
-ported.
+A prompt cache (apc.py's warm cache or restored snapshot) holds a prefix
+already computed, and only the rest of the prompt is prefilled into it.
 """
 
 from __future__ import annotations
@@ -313,16 +313,33 @@ def generate_step(
     block_size: int = 32,
     kv_bits: Optional[float] = None,
     kv_group_size: int = 64,
+    kv_capacity: Optional[int] = None,
+    prompt_cache=None,
+    prefix_len: int = 0,
+    prompt_cache_callback: Optional[Callable] = None,
+    prompt_progress_callback: Optional[Callable] = None,
 ) -> Generator[Tuple[np.ndarray, np.ndarray], None, None]:
     """Yield (token [B], chosen-token logprob [B]) numpy pairs.
 
     The prompt embeddings must already contain the merged vision features.
     `block_size` is the reference's count of decode steps per device
     program: the steps of one host fetch (`DecodeBlocks`); it also sizes
-    the cache as the reference does (ar.py:344-352).  On a CUDA device each
+    the cache as the reference does (ar.py:344-352), unless `kv_capacity`
+    gives its rows.  On a CUDA device each
     step after the first replays one captured CUDA graph; on the CPU every
     step runs eagerly, with the same state and fetches.  The request's
-    `DecodeBlocks` stays in `last_decode` until the next request."""
+    `DecodeBlocks` stays in `last_decode` until the next request.
+
+    Prefix caching (the reference's :345-399): a `prompt_cache` whose
+    cursor is at `prefix_len` (apc.py's warm cache or restored snapshot)
+    holds the prompt's first `prefix_len` rows; only [prefix_len, S) is
+    prefilled, into that cache, at positions sliced from `prefix_len`,
+    with the chunk halved until the padded suffix fits behind the prefix
+    (a padded write must never land on cached rows).
+    `prompt_cache_callback(cache)` runs once the cursor is at S, before
+    any decode step is captured, so that its copy to the host falls
+    outside every replay window; `prompt_progress_callback(done, S)` after
+    each prefill chunk."""
     lm = model.language_model
     lm_params = model.params["language_model"]
     B, S, _ = inputs_embeds.shape
@@ -339,26 +356,34 @@ def generate_step(
         np.asarray(rope_deltas, np.int64).reshape(-1)[:B].copy()).to(dev)
 
     block_size = max(1, min(block_size, max_tokens))
-    capacity = round_up(S + max_tokens + block_size + 1, CACHE_BUCKET)
-    cache = make_cache(model, B, capacity, inputs_embeds.dtype, kv_bits,
-                       kv_group_size, device=dev)
+    if prompt_cache is not None:
+        cache = prompt_cache
+    else:
+        prefix_len = 0
+        capacity = kv_capacity or round_up(S + max_tokens + block_size + 1,
+                                           CACHE_BUCKET)
+        cache = make_cache(model, B, capacity, inputs_embeds.dtype, kv_bits,
+                           kv_group_size, device=dev)
     capacity = cache.capacity
 
-    # ---- chunked prefill; the padded chunks and the decode steps must fit
-    # the cache, since an out-of-range index write would not be clamped
-    step_sz = min(prefill_step_size, round_up(S, CACHE_BUCKET))
-    S_pad = round_up(S, step_sz)
-    while S_pad > capacity and step_sz > 64:
+    # ---- chunked prefill of the uncached suffix; the padded chunks and
+    # the decode steps must fit the cache, since an out-of-range index
+    # write would not be clamped
+    suffix = S - prefix_len
+    step_sz = min(prefill_step_size, round_up(suffix, CACHE_BUCKET))
+    S_pad = round_up(suffix, step_sz)
+    while prefix_len + S_pad > capacity and step_sz > 64:
         step_sz = max(64, step_sz // 2)
-        S_pad = round_up(S, step_sz)
-    check_capacity(capacity, S_pad, S, max_tokens)
-    embeds = inputs_embeds
-    if S_pad != S:
-        embeds = F.pad(embeds, (0, 0, 0, S_pad - S))
-    pos_pad = _pad_axis(np.asarray(position_ids, np.int64), 2, S_pad)
+        S_pad = round_up(suffix, step_sz)
+    check_capacity(capacity, prefix_len + S_pad, S, max_tokens)
+    embeds = inputs_embeds[:, prefix_len:]
+    if S_pad != suffix:
+        embeds = F.pad(embeds, (0, 0, 0, S_pad - suffix))
+    pos_pad = _pad_axis(np.asarray(position_ids, np.int64)[:, :, prefix_len:],
+                        2, S_pad)
 
     logits = None
-    last = S - 1
+    last = suffix - 1
     for c0 in range(0, S_pad, step_sz):
         pchunk = torch.from_numpy(
             np.ascontiguousarray(pos_pad[:, :, c0:c0 + step_sz])).to(dev)
@@ -366,8 +391,12 @@ def generate_step(
         if c0 <= last < c0 + step_sz:
             h_last = hidden[:, last - c0:last - c0 + 1]
             logits = lm.logits(lm_params, h_last)[:, 0].float()
+        if prompt_progress_callback:
+            prompt_progress_callback(prefix_len + min(c0 + step_sz, suffix), S)
     # the padding wrote rows past S; they stay masked once the cursor is S
     cache.offset.fill_(S)
+    if prompt_cache_callback is not None:
+        prompt_cache_callback(cache)
 
     if max_tokens <= 0:
         return

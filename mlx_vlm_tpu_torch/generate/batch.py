@@ -24,8 +24,11 @@ compute and are masked on the host; their cursors do not move, and a
 freed slot's cursor is parked at 0.  Decode-first scheduling: admit
 queued requests while slots are free (cold prompts in one batched
 prefill when two or more wait), then run one block of `block_size`
-steps.  Prefix caching (`prompt_cache`) is not ported: such a request
-raises NotImplementedError.
+steps.  Prefix caching: a request with a `prompt_cache` (apc.py's warm
+cache, its cursor at `prefix_len`) takes the single-row admission and
+prefills only its uncached suffix into that cache before the row is
+copied into its slot; `prompt_cache_callback` gets the row's cache with
+its cursor at the prompt's length (the harvest).
 """
 
 from __future__ import annotations
@@ -68,7 +71,8 @@ class BatchRequest:
     sampling: SamplingParams = dataclasses.field(
         default_factory=SamplingParams)
     eos_ids: Tuple[int, ...] = ()
-    # prefix caching (not ported: a request that sets either raises)
+    # prefix caching: a one-row cache whose cursor is at prefix_len (apc.py
+    # `make_warm_cache`), and the harvest hook (`APCManager.commit`)
     prompt_cache: Any = None
     prefix_len: int = 0
     prompt_cache_callback: Optional[Callable] = None
@@ -198,9 +202,6 @@ class BatchGenerator:
 
     # ------------------------------------------------------------ lifecycle
     def insert(self, req: BatchRequest) -> None:
-        if req.prompt_cache is not None or req.prompt_cache_callback:
-            raise NotImplementedError("prefix caching (prompt_cache) is not "
-                                      "ported")
         self.queue.append(req)
 
     def _free_slots(self) -> List[int]:
@@ -274,15 +275,34 @@ class BatchGenerator:
         embeds = self._embeds(req)
         S = embeds.shape[1]
         self._cap_tokens(req, S)
-        step = min(self.prefill_step, round_up(S, 256))
-        S_pad = round_up(S, step)
-        row_cache = make_cache(self.model, 1, round_up(S_pad, 256),
-                               self.dtype, self.kv_bits, self.kv_group_size,
-                               device=self.dev)
+        # a warm request prefills its uncached suffix into its prompt
+        # cache, unless the padded suffix would overwrite the prefix: then
+        # the whole prompt, cold, into a fresh cache (reference :207-223)
+        row_cache = req.prompt_cache
+        prefix = req.prefix_len if row_cache is not None else 0
+        step = min(self.prefill_step, round_up(S - prefix, 256))
+        S_pad = round_up(S - prefix, step)
+        if row_cache is not None:
+            while prefix + S_pad > row_cache.capacity and step > 64:
+                step = max(64, step // 2)
+                S_pad = round_up(S - prefix, step)
+            if prefix + S_pad > row_cache.capacity:
+                row_cache, prefix = None, 0
+                step = min(self.prefill_step, round_up(S, 256))
+                S_pad = round_up(S, step)
+        if row_cache is None:
+            row_cache = make_cache(self.model, 1, round_up(S_pad, 256),
+                                   self.dtype, self.kv_bits,
+                                   self.kv_group_size, device=self.dev)
+        suffix = S - prefix
         pos = np.zeros((3, 1, S_pad), np.int64)
-        pos[:, :, :S] = self._positions(req, S)
-        logits = self._prefill(row_cache, F.pad(embeds, (0, 0, 0, S_pad - S)),
-                               pos, np.array([S - 1]), step)
+        pos[:, :, :suffix] = self._positions(req, S)[:, :, prefix:]
+        logits = self._prefill(
+            row_cache, F.pad(embeds[:, prefix:], (0, 0, 0, S_pad - suffix)),
+            pos, np.array([suffix - 1]), step)
+        row_cache.offset.fill_(S)
+        if req.prompt_cache_callback is not None:
+            req.prompt_cache_callback(row_cache)
         first = self._first(logits, [req])
         cache_lib.insert_row(self.cache, row_cache, slot, S)
         del row_cache
@@ -290,13 +310,16 @@ class BatchGenerator:
         return True
 
     def _admit_batch(self) -> bool:
-        """Batched admission (reference :289): cold prompts right-padded to
-        one chunked length, rows padded to a power of two, prefilled
-        together, then inserted row by row."""
+        """Batched admission (reference :289): cold prompts (no prompt
+        cache) right-padded to one chunked length, rows padded to a power
+        of two, prefilled together, then inserted row by row; a request's
+        harvest hook gets a one-row view of the prefilled cache, its
+        cursor at the prompt's length."""
         free = self._free_slots()
-        if len(free) < 2 or len(self.queue) < 2:
+        cold = [r for r in self.queue if r.prompt_cache is None]
+        if len(free) < 2 or len(cold) < 2:
             return False
-        reqs = self.queue[:min(len(free), 8)]
+        reqs = cold[:min(len(free), 8)]
         embeds_l = [self._embeds(r) for r in reqs]
         lens = [e.shape[1] for e in embeds_l]
         S_pad = round_up(max(lens), 64)
@@ -323,6 +346,8 @@ class BatchGenerator:
             self.queue.remove(r)
             slot = self._free_slots()[0]
             self._cap_tokens(r, lens[i])
+            if r.prompt_cache_callback is not None:
+                r.prompt_cache_callback(cache_lib.row_view(cache, i, lens[i]))
             cache_lib.insert_row(self.cache, cache, slot, lens[i], src_row=i)
             self._register(slot, r, int(first[i]), lens[i])
         return True

@@ -4,13 +4,16 @@ Port of mlx_vlm_tpu/generate/dispatch.py (stream_generate :43, generate
 :309) for the autoregressive image + text path.  `kv_bits` picks a
 quantized KV cache (generate/ar.py make_cache); `block_size` is the number
 of decode steps per host fetch (generate/ar.py `DecodeBlocks`: on the card
-each step after the first replays one captured CUDA graph).  The arguments of paths that are not
-ported (audio, video, prefix caching, vision-feature caching, speculative
-drafting) raise NotImplementedError.
+each step after the first replays one captured CUDA graph).  `apc`
+reuses a cached prompt prefix (the reference's :148-194) and
+`vision_cache` the vision tower's features.  The arguments of paths that
+are not ported (audio, video, speculative drafting) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Generator, List, Optional, Union
 
@@ -21,7 +24,8 @@ from ..utils.processing import prepare_inputs
 from ..utils.profiling import annotate, global_phases
 from ..utils.tokenizer import make_detokenizer
 from .ar import check_kv_bits, generate_step
-from .common import GenerationResult, device_peak_memory_gb, embed_prompt
+from .common import (GenerationResult, device_peak_memory_gb, embed_prompt,
+                     round_up)
 
 __all__ = ["stream_generate", "generate"]
 
@@ -41,6 +45,45 @@ def _get_eos_ids(model, processor) -> set:
     if tid is not None:
         eos.add(int(tid))
     return eos
+
+
+def _apc_lookup(apc, model, inputs: dict, dtype, max_tokens: int,
+                block_size: int, kv_bits, kv_group_size: int) -> tuple:
+    """The reference's APC lookup (dispatch.py:148-194): (prompt cache or
+    None, prefix length, the callback that stores the prompt)."""
+    from ..apc import media_safe_prefix_min, prompt_key
+    from ..apc_adapters import model_apc_mode
+
+    tokens, extra = prompt_key(model, inputs)
+    S = len(tokens)
+    capacity = round_up(S + max_tokens + block_size + 65, 256)
+    mode = model_apc_mode(model, kv_bits=kv_bits, kv_group_size=kv_group_size)
+    if mode == "exact":
+        guard = max(1, int(os.environ.get("APC_EXACT_PREFIX_GUARD_TOKENS",
+                                          "16")))
+        prefix_len, cache = apc.lookup_exact(
+            tokens, extra,
+            min_prefix_tokens=media_safe_prefix_min(tokens,
+                                                    apc.media_token_ids),
+            max_prefix_tokens=S - guard, min_capacity=capacity,
+            device=model.device or "cpu")
+
+        def store(c):
+            apc.store_exact(tokens, c, extra, capacity=capacity)
+
+        return cache, prefix_len, store
+    if mode == "block":
+        prefix_len, blocks = apc.lookup(tokens, extra)
+        try:
+            cache = apc.make_warm_cache(blocks, model, capacity, dtype)
+        finally:
+            apc.release(blocks)
+
+        def commit(c):
+            apc.commit(tokens, c, extra, upto=S)
+
+        return cache, prefix_len, commit
+    return None, 0, None
 
 
 def stream_generate(
@@ -68,9 +111,19 @@ def stream_generate(
     vision_cache=None,
     draft_model=None,
 ) -> Generator[GenerationResult, None, None]:
-    """Stream GenerationResult chunks, one per generated token."""
-    for name, val in (("audio", audio), ("video", video), ("apc", apc),
-                      ("vision_cache", vision_cache),
+    """Stream GenerationResult chunks, one per generated token.
+
+    `vision_cache` (vision_cache.VisionFeatureCache) keeps the vision
+    tower's features by image content.  `apc` (apc.APCManager) reuses the
+    longest cached prefix of the prompt in the mode `model_apc_mode` gives
+    for `kv_bits`: "block" restores the prefix's K/V blocks into a warm
+    cache and commits the prompt's blocks once it is prefilled; "exact"
+    restores the longest stored snapshot that leaves at least
+    APC_EXACT_PREFIX_GUARD_TOKENS (default 16) tokens to prefill and fits
+    the continuation, and stores the prompt's snapshot.  The whole prompt
+    is embedded first (the vision tower included, unless `vision_cache`
+    holds its features), as in the reference."""
+    for name, val in (("audio", audio), ("video", video),
                       ("draft_model", draft_model)):
         if val is not None:
             raise NotImplementedError(f"{name} is not ported")
@@ -81,7 +134,13 @@ def stream_generate(
     dev = model.device
 
     tic = time.perf_counter()
-    embeds, position_ids, rope_deltas = embed_prompt(model, inputs)
+    embeds, position_ids, rope_deltas = embed_prompt(model, inputs,
+                                                     vision_cache)
+    prompt_cache, prefix_len, prompt_cache_callback = None, 0, None
+    if apc is not None:
+        prompt_cache, prefix_len, prompt_cache_callback = _apc_lookup(
+            apc, model, inputs, embeds.dtype, max_tokens, block_size,
+            kv_bits, kv_group_size)
 
     sampler = make_sampler(temperature, top_p, min_p, top_k)
     processors = make_logits_processors(logit_bias, repetition_penalty,
@@ -97,7 +156,9 @@ def stream_generate(
         embeds, model, position_ids=position_ids, rope_deltas=rope_deltas,
         max_tokens=max_tokens, sampler=sampler, logits_processors=processors,
         prefill_step_size=prefill_step_size, seed=seed, block_size=block_size,
-        kv_bits=kv_bits, kv_group_size=kv_group_size)
+        kv_bits=kv_bits, kv_group_size=kv_group_size,
+        prompt_cache=prompt_cache, prefix_len=prefix_len,
+        prompt_cache_callback=prompt_cache_callback)
     phases = global_phases()
     while True:
         # the first pull runs the prefill, the rest are decode steps: named

@@ -180,13 +180,21 @@ class Graph:
         """Capture fn() on `stream`; `generators` are the torch.Generators
         that fn draws from, whose state each replay advances.  The capture
         begins at once: unlike `torch.cuda.graph`, it does not wait for the
-        card, collect garbage or empty the allocator's cache first, none of
-        which a capture needs and all of which is host time per request."""
+        card, collect garbage or empty the allocator's cache first, which
+        is host time per request.  Python's garbage collector is kept off
+        while it runs: a collection there could free an unreachable object
+        that holds CUDA events or a captured graph (a generator left in a
+        reference cycle), and destroying those is an operation that a
+        capture in "global" mode refuses, which invalidates the capture."""
+        import gc
+
         import torch
 
         for gen in generators:
             self.graph.register_generator_state(gen)
         _CAPTURES.append(self.tally)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.stream(stream):
                 self.graph.capture_begin()
@@ -196,6 +204,8 @@ class Graph:
                     self.graph.capture_end()
         finally:
             _CAPTURES.pop()
+            if collecting:
+                gc.enable()
 
     def replay(self) -> None:
         self.graph.replay()

@@ -11,8 +11,10 @@ queue, and the engine's owner thread runs everything on the card
 (server/engine.py).  The audio routes answer as the reference's do for a
 model with no audio tower (server/audio.py); the image-generation and
 detection routes answer 400 as the reference's do with no such model
-loaded.  Automatic prefix caching (APC_ENABLED), image generation,
-detection and draft models are not ported, and extra models for the
+loaded.  `create_server` builds the APC manager from the environment
+(APC_ENABLED, apc.py `from_env`) unless the caller passes `apc`; the
+cache routes serve it.  Image generation, detection and draft models are
+not ported, and extra models for the
 hot-swap registry (server/registry.py) are not served: the registry
 loads a model on a handler thread and gives it an owner thread of its
 own, whose CUDA work could land inside the first owner's graph capture.
@@ -268,11 +270,10 @@ def create_server(
             "image generation and detection services are not ported "
             "(ROADMAP Queue 1 item 5)")
     _refuse_extra_models(extra_models)
-    if "apc" not in engine_kwargs and os.environ.get(
-            "APC_ENABLED", "0") in ("1", "true", "True"):
-        raise NotImplementedError(
-            "APC_ENABLED: automatic prefix caching is not ported (ROADMAP "
-            "Queue 1 item 6)")
+    if "apc" not in engine_kwargs:
+        from .. import apc as apc_mod
+
+        engine_kwargs["apc"] = apc_mod.from_env()
     if "vision_cache" not in engine_kwargs:
         from ..vision_cache import VisionFeatureCache
 

@@ -21,8 +21,12 @@ generate/ar.py's route for host samplers: every step eager (on the fused
 route one K3 launch a step), the JSON automaton picking each token on the
 host (structured.py).  Its metrics envelope carries `request_id`, `ttft_s`
 and `generation_tps` as a batch request's does (the reference's has only
-the token counts).  Automatic prefix caching (`apc`) and speculative
-serving (`draft_model`) are not ported: both raise NotImplementedError.
+the token counts).  Automatic prefix caching (`apc`, an
+apc.APCManager): `_prepare` looks the prompt up, restores its cached
+prefix into a warm one-row cache and sets the harvest, all on the owner
+thread and outside any capture, so every APC request takes the batch's
+single-row admission.  Speculative serving (`draft_model`) is not ported:
+it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -150,10 +154,6 @@ class ResponseGenerator:
         from ..generate.batch import BatchGenerator
         from ..generate.dispatch import _get_eos_ids
 
-        if apc is not None:
-            raise NotImplementedError(
-                "automatic prefix caching (apc) is not ported (ROADMAP "
-                "Queue 1 item 6)")
         if draft_model is not None:
             raise NotImplementedError(
                 "speculative serving (draft_model) is not ported (ROADMAP "
@@ -161,6 +161,8 @@ class ResponseGenerator:
         self.model = model
         self.processor = processor
         self.vision_cache = vision_cache
+        self.apc = apc
+        self.kv_bits, self.kv_group_size = kv_bits, kv_group_size
         self.eos_ids = tuple(_get_eos_ids(model, processor))
         self.max_context = max_context or capacity
         self.capacity = capacity
@@ -240,6 +242,7 @@ class ResponseGenerator:
             args.max_tokens = self.max_context - ids.shape[1]
         embeds, pos, deltas = embed_prompt(self.model, inputs,
                                            self.vision_cache)
+        prompt_cache, prefix_len, harvest = self._apc(inputs, embeds.dtype)
         self._meta[args.request_id] = {
             "prompt_tokens": int(ids.shape[1]),
             "t_submit": time.time(),
@@ -260,8 +263,41 @@ class ResponseGenerator:
                 min_p=args.min_p, top_k=args.top_k,
             ),
             eos_ids=self.eos_ids,
+            prompt_cache=prompt_cache,
+            prefix_len=prefix_len,
+            prompt_cache_callback=harvest,
             input_ids=ids,
         )
+
+    def _apc(self, inputs: dict, dtype) -> tuple:
+        """The reference's APC step of `_prepare` (:273-300), on the owner
+        thread: the longest cached prefix's blocks restored into a warm
+        one-row cache of round_up(S + 65, 256) rows (also at prefix 0, so
+        that every request takes the single-row admission), and the
+        harvest that commits the prompt's blocks.  Returns (warm cache,
+        prefix length, harvest), or (None, 0, None) without APC or when
+        the batch's cache is not a block cache (`model_apc_mode` for
+        `kv_bits`): the reference builds a bf16 warm cache there too, and
+        its admission fails copying it into the quantized batch cache."""
+        from ..apc import prompt_key
+        from ..apc_adapters import model_apc_mode
+        from ..generate.common import round_up
+
+        if self.apc is None or model_apc_mode(
+                self.model, self.kv_bits, self.kv_group_size) != "block":
+            return None, 0, None
+        tokens, extra = prompt_key(self.model, inputs)
+        prefix_len, blocks = self.apc.lookup(tokens, extra)
+        try:
+            warm = self.apc.make_warm_cache(
+                blocks, self.model, round_up(len(tokens) + 65, 256), dtype)
+        finally:
+            self.apc.release(blocks)
+
+        def harvest(cache):
+            self.apc.commit(tokens, cache, extra, upto=len(tokens))
+
+        return warm, prefix_len, harvest
 
     def _make_detok(self):
         from ..utils.tokenizer import make_detokenizer

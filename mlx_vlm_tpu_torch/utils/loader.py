@@ -52,6 +52,8 @@ __all__ = [
     "load_model_from_weights",
     "load_config",
     "read_safetensors",
+    "read_safetensors_metadata",
+    "write_safetensors",
     "params_from_jax",
     "runtime_quant_mode",
     "decide_fused_decode",
@@ -127,6 +129,40 @@ def read_safetensors(path) -> dict:
                 meta["shape"]).copy()
             out[key] = _bf16_tensor(arr) if meta["dtype"] == "BF16" else arr
     return out
+
+
+def read_safetensors_metadata(path) -> dict:
+    """The `__metadata__` strings of one .safetensors file ({} when none)."""
+    with open(path, "rb") as fh:
+        (hlen,) = struct.unpack("<Q", fh.read(8))
+        return dict(json.loads(fh.read(hlen)).get("__metadata__") or {})
+
+
+def write_safetensors(path, tensors: dict, metadata: Optional[dict] = None,
+                      bf16: tuple = ()) -> None:
+    """Write numpy arrays as one .safetensors file (the layout that
+    `safetensors.numpy.save_file` writes: a little-endian header length,
+    the JSON header padded with spaces to 8 bytes, the tensors' bytes in
+    header order), with string `metadata`.  The arrays named in `bf16`
+    are uint16 arrays that hold bfloat16 bits and are written as BF16."""
+    names = {np.dtype(v): k for k, v in _ST_DTYPES.items() if k != "BF16"}
+    header, blobs, at = {}, [], 0
+    for key, arr in tensors.items():
+        arr = np.ascontiguousarray(arr)
+        dtype = "BF16" if key in bf16 else names[arr.dtype]
+        header[key] = {"dtype": dtype, "shape": list(arr.shape),
+                       "data_offsets": [at, at + arr.nbytes]}
+        blobs.append(arr.tobytes())
+        at += arr.nbytes
+    if metadata:
+        header["__metadata__"] = {k: str(v) for k, v in metadata.items()}
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(raw)))
+        fh.write(raw)
+        for b in blobs:
+            fh.write(b)
 
 
 def _read_checkpoint(model_path: Path) -> dict:

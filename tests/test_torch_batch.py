@@ -21,7 +21,7 @@ src_row 0 and 1 (source capacity below and above the batch's), the
 per-row scatter of `update_layer` against `update_layer_rows`, the
 per-row cursors `make_cache` builds, the TurboQuant rule (the reference's
 batch fails at its first admission, the port refuses at construction),
-`prompt_cache` refused, K3 never taken by a batch cache, a batch decode
+K3 never taken by a batch cache, a batch decode
 block reading nothing on the host, and the captured state rewritten in
 place across admissions.
 """
@@ -470,18 +470,6 @@ def test_turboquant_batch_is_refused(hd256, scheme):
         with pytest.raises(ValueError, match="per-row"):
             tbatch.BatchGenerator(tm, num_slots=2, capacity=256,
                                   dtype=torch.float32, kv_bits=3.5)
-
-
-def test_prompt_cache_is_refused(hd256):
-    tm = hd256[1]
-    gen = tbatch.BatchGenerator(tm, num_slots=2, capacity=256,
-                                dtype=torch.float32)
-    e = _api("torch", tm).embeds(PROMPTS[0])
-    for kw in (dict(prompt_cache=object(), prefix_len=4),
-               dict(prompt_cache_callback=lambda c: None)):
-        with pytest.raises(NotImplementedError, match="prompt_cache"):
-            gen.insert(tbatch.BatchRequest(uid=0, inputs_embeds=e, **kw))
-    assert not gen.queue
 
 
 def test_batch_cache_never_takes_k3(hd256, monkeypatch):

@@ -401,6 +401,40 @@ def test_captured_launches_count_at_each_replay(monkeypatch):
     assert launches == {"k": 7}
 
 
+@pytest.mark.parametrize("fails", [False, True])
+def test_no_garbage_collection_inside_a_capture(monkeypatch, fails):
+    """`Graph.capture` keeps Python's garbage collector off from the
+    capture's begin to its end (a collection there could destroy another
+    generator's CUDA events or graph, which invalidates the capture on the
+    card), and restores it afterwards, also when the captured call
+    raises."""
+    import gc
+
+    seen = []
+
+    class FakeGraph:
+        def capture_begin(self):
+            seen.append(("begin", gc.isenabled()))
+
+        def capture_end(self):
+            seen.append(("end", gc.isenabled()))
+
+    def fn():
+        seen.append(("fn", gc.isenabled()))
+        if fails:
+            raise RuntimeError("capture failed")
+
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    g = _cuda.Graph.__new__(_cuda.Graph)
+    g.graph, g.tally = FakeGraph(), []
+    assert gc.isenabled()
+    with contextlib.suppress(RuntimeError):
+        g.capture(fn, None)
+    assert seen == [("begin", False), ("fn", False), ("end", False)]
+    assert gc.isenabled() and not _cuda._CAPTURES
+
+
 def test_cursor_is_a_device_tensor_in_every_cache(pairs):
     """Every cache `make_cache` builds keeps its cursor as an int32 0-dim
     tensor on its device, advanced in place."""

@@ -177,8 +177,8 @@ def test_import_pulls_in_no_jax_or_optional_packages():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-@pytest.mark.parametrize("arg", ["kv_bits", "apc", "vision_cache",
-                                 "draft_model", "audio", "video"])
+@pytest.mark.parametrize("arg", ["kv_bits", "draft_model", "audio",
+                                 "video"])
 def test_unported_arguments_raise(arg):
     """Arguments the port cannot take raise before any work.  `kv_bits` is
     ported; a bit width no cache takes (6) raises the reference's

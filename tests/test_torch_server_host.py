@@ -12,10 +12,11 @@ utils/profiling.py, vision_cache.py, the CLI), and what the port refuses.
   detokenizer, the same in both packages: the host-side stop-sequence scan
   across segment boundaries, EOS, length exhaustion, cancellation and the
   metrics envelope;
-- APC, draft models, image and detection models and extra models for the
+- draft models, image and detection models and extra models for the
   hot-swap registry raise NotImplementedError;
-- importing `mlx_vlm_tpu_torch.server.app` pulls in no jax, no mlx_vlm_tpu
-  and no pydantic.
+- importing `mlx_vlm_tpu_torch.server.app` (and apc.py, apc_adapters.py,
+  the chat and generate commands) pulls in no jax, no mlx_vlm_tpu and no
+  pydantic.
 """
 
 import base64
@@ -534,7 +535,7 @@ def test_generation_arguments_defaults_match_jax():
 
 
 # ------------------------------------------------------------ refusals
-@pytest.mark.parametrize("kw", [{"apc": object()}, {"draft_model": object()}])
+@pytest.mark.parametrize("kw", [{"draft_model": object()}])
 def test_engine_refuses_unported_features(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         teng.ResponseGenerator(None, None, **kw)
@@ -581,14 +582,6 @@ def test_cli_refuses_extra_model():
                   "other=/nonexistent/other"])
 
 
-def test_create_server_refuses_apc(monkeypatch):
-    from mlx_vlm_tpu_torch.server.app import create_server
-
-    monkeypatch.setenv("APC_ENABLED", "1")
-    with pytest.raises(NotImplementedError, match="APC_ENABLED"):
-        create_server(None, None)
-
-
 @pytest.mark.parametrize("flag", ["--draft-model", "--image-model",
                                   "--detect-model"])
 def test_cli_refuses_unported_flags(flag):
@@ -610,7 +603,9 @@ def test_server_import_pulls_in_no_jax():
     res = _python(
         "import sys, mlx_vlm_tpu_torch.server.app, "
         "mlx_vlm_tpu_torch.server.cli, mlx_vlm_tpu_torch.structured, "
-        "mlx_vlm_tpu_torch.tool_parsers, mlx_vlm_tpu_torch.vision_cache\n"
+        "mlx_vlm_tpu_torch.tool_parsers, mlx_vlm_tpu_torch.vision_cache, "
+        "mlx_vlm_tpu_torch.apc, mlx_vlm_tpu_torch.apc_adapters, "
+        "mlx_vlm_tpu_torch.chat, mlx_vlm_tpu_torch.generate.cli\n"
         "from mlx_vlm_tpu_torch.server import openai, anthropic, responses, "
         "registry, schemas, audio, webui\n"
         "bad = [m for m in ('jax', 'mlx_vlm_tpu', 'pydantic', 'PIL', "
@@ -620,10 +615,11 @@ def test_server_import_pulls_in_no_jax():
 
 
 def test_main_routes_server_and_refuses_the_rest():
-    res = _python("", "-m", "mlx_vlm_tpu_torch", "chat")
+    res = _python("", "-m", "mlx_vlm_tpu_torch", "convert")
     assert res.returncode == 2
-    assert "usage: python -m mlx_vlm_tpu_torch {server}" in res.stdout
-    assert "ported: server" in res.stdout
+    assert ("usage: python -m mlx_vlm_tpu_torch {generate,server,chat}"
+            in res.stdout)
+    assert "ported: generate, server, chat" in res.stdout
     res = _python("", "-m", "mlx_vlm_tpu_torch", "server", "--help")
     assert res.returncode == 0 and "--max-concurrency" in res.stdout
 
