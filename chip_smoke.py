@@ -15,9 +15,13 @@ Phases (any failure exits non-zero):
      flash_attention, K5 qmatmul_int4 / qmatmul_int8, K6
      int4_kv_attention, K7 tq_kv_attention, K8 tq_kv_attention_split)
      against its plain PyTorch version on the card at Qwen2-VL-7B shapes
-     (K1 also at groups of 32 and 128 and on a ragged 100-row chunk that
-     splits K; K2 at M = 1, 2, 4 and 8, groups of 32 and 128 and a ragged
-     n = 1000 and on a 4-row lm_head (a 4-slot batch step), timed also
+     (K1 also at groups of 32 and 128, on a ragged 100-row chunk that
+     splits K and at M = 20 through every 7B linear and the lm_head (the
+     batched speculative verify); K2 at M = 1, 2, 4 and 8, groups of 32
+     and 128 and a ragged n = 1000, on a 4-row lm_head (a 4-slot batch
+     step), at M = 5 through every 7B linear and the lm_head (the
+     single-stream speculative verify) and at M = 1 through Qwen2-VL-2B's
+     linears and lm_head (a drafter step), timed also
      with its weights cold in L2 (`graph_ms` over copies of the weight),
      and its
      kernels per call counted; K5's GEMV at M = 1, 2, 4 and 8, groups of
@@ -31,8 +35,9 @@ Phases (any failure exits non-zero):
      plan, kernels per call and a bit-identical repeat;
      K4 at the 8k rows (offset 7680; left_pad 100; window 1024), at (c)'s
      first, middle and last chunk (S = 512 against C = 8704 at offsets 0,
-     4096, 8192) and at two batch rows with their own offsets and
-     left_pads, each timed cold (`graph_ms` over copies of k/v) and warm,
+     4096, 8192), at two batch rows with their own offsets and
+     left_pads and at 12 heads over 2 KV heads (the 2B drafter's last
+     chunk of (c)'s prompt), each timed cold (`graph_ms` over copies of k/v) and warm,
      with its kernels per call and a bit-identical repeat;
      K3: 4 decoder layers and the int4 head at offsets 1, 300 and 8545
      with 1e3 past the cursor and at 8545 with NaN past it (the cursor a
@@ -74,8 +79,13 @@ Phases (any failure exits non-zero):
      and each decode step, by the parity rule, with K1 / K2 / K6 launches
      held to the chunks and steps that ran; and the generator's
      graph-replayed steps (one capture across both admissions) against
-     its eager steps on the card, tokens and logprobs bit-identical.  The
-     phase prints the seconds of each of its parts;
+     its eager steps on the card, tokens and logprobs bit-identical; and
+     speculative decoding against a 2-layer drafter at the 2B's widths:
+     the single-stream rounds (greedy and sampled) and the batched rounds
+     (three requests, one admitted late), each round after the first a
+     replay of the round captured once, against every round eager: tokens,
+     logprobs and both models' caches bit-identical.  The phase prints the
+     seconds of each of its parts;
   4. the main path at full Qwen2-VL-7B width (random mlx-format weights,
      28 decoder layers, 32 vision blocks): eight greedy requests through
      load_model_from_weights and stream_generate, each with the kernels'
@@ -164,7 +174,29 @@ Phases (any failure exits non-zero):
      prompt, one after the other: /v1/cache/stats 2 lookups and one hit,
      the second chat's K1 launches its suffix's chunks only, one capture,
      its logits held to its prompt alone on the single stream, and
-     /v1/cache/reset empties the pool.
+     /v1/cache/reset empties the pool.  Then the speculative part
+     (speculative/), k = 4, against a drafter at Qwen2-VL-2B's widths with
+     the 7B's vocabulary (random mlx 4-bit weights, built and folded once):
+     (s1) (a)'s image and prompt, greedy, 64 tokens; (s2) the target as its
+     own drafter, 32 tokens; (s3) (c)'s image and ~8.2k-token prompt, 16
+     tokens (K4 on both models); (s4) temperature 0.7 with a seed; each
+     request's launches held to its rounds and chunks, one capture and a
+     replay a round after the first, its rounds, drafted and accepted
+     tokens, and a round's device ms (draft and verify each captured
+     alone) beside its host ms; the greedy ones' verify logits (recorded
+     on the card inside the captured round) held by the parity rule to
+     their prompt alone, prefilled in the request's own layout, through
+     plain greedy decoding on the per-linear route (K2 at M = 1, the
+     verify's layers), teacher-forced (the unpadded prompt's distances on
+     that route and on the fused route, K3, printed beside);
+     one plain decode step's device ms beside a round's, and the per-draft
+     acceptance at which a round pays for itself; (s5) a server with the
+     drafter answering four chats at once (two greedy, two at 0.7): every
+     answer well formed with "speculative" in its /metrics envelope, one
+     round capture, launches held to the rounds and chunks, the greedy
+     answers held by the parity rule to their prompts alone, prefilled in
+     their admission's layout and decoded in their verify's (K1 at M =
+     20; the per-linear route at M = 1 printed beside).
 Phase 3 folds each checkpoint's mlx weights once for all of its loads in
 one runtime mode (`fold_once`).
 Each phase prints its seconds.  The line before the last is the kernel
@@ -387,7 +419,14 @@ K2_SHAPES = K1_SHAPES + ((3584, 152064),)
 # K1's further cases (M, K, N, group size): mlx's other group sizes, and a
 # ragged row count on the narrow shape, which takes the split-K pass
 K1_EXTRA = ((512, 3584, 3584, 32), (512, 3584, 3584, 128), (100, 3584, 512, 64))
+# and the batched speculative verify's shapes: [4 rows, k + 1 = 5] tokens,
+# so M = 20, through every 7B linear and the lm_head
+K1_EXTRA += tuple((20, K, N, 64) for K, N in K2_SHAPES)
 K1_TOL = 1e-2
+# Qwen2-VL-2B's linears and lm_head (at the 7B's vocabulary, as phase 4's
+# drafter has it): hidden 1536, k/v 2 x 128, intermediate 8960
+K2_2B_SHAPES = ((1536, 1536), (1536, 256), (1536, 8960), (8960, 1536),
+                (1536, 152064))
 
 
 def random_int4(K: int, N: int, gen, device, g: int = 64) -> "object":
@@ -533,7 +572,12 @@ K2_CASES = (tuple((1, K, N, 64) for K, N in K2_SHAPES)
             + tuple((1, 3584, 3584, g) for g in (32, 128))
             + ((1, 3584, 1000, 64),)
             # the lm_head of a 4-slot batch decode step (phase 4 (i), (j))
-            + ((4, 3584, 152064, 64),))
+            + ((4, 3584, 152064, 64),)
+            # the single-stream speculative verify: k + 1 = 5 rows through
+            # every 7B linear and the lm_head
+            + tuple((5, K, N, 64) for K, N in K2_SHAPES)
+            # a 2B drafter's step: one row through its linears and head
+            + tuple((1, K, N, 64) for K, N in K2_2B_SHAPES))
 K2_TOL = 1e-3
 
 
@@ -833,15 +877,16 @@ def phase_kernels() -> list:
     return results
 
 
-# K4's cases: (B, C, offsets, left_pads, window, q_scale), all at H = 28,
-# KVH = 4, D = 128, S = 512.  The first three are the 8k rows: offset 7680,
+# K4's cases: (B, C, offsets, left_pads, window, q_scale, (H, KVH)), all
+# at D = 128, S = 512, H = 28 and KVH = 4 but the last (12 and 2, the 2B
+# drafter's heads).  The first three are the 8k rows: offset 7680,
 # then left_pad 100, then a 1024-column window.  Then (c)'s first, middle
 # and last 512-row chunk against its 8704-slot cache (offset 0 cuts the
 # causal diagonal through every block), and two batch rows with their own
 # offsets and a left_pad inside a tile.  q_scale 4 sharpens the scores (std
 # 4), so that a cache column masked wrongly (left_pad, window) moves the
 # output far past the tolerance; every row sees at least one key.
-FLASH_CASES = (
+FLASH_CASES = tuple(case + ((28, 4),) for case in (
     (1, 8192, (7680,), (0,), None, 1),
     (1, 8192, (7680,), (100,), None, 4),
     (1, 8192, (7680,), (100,), 1024, 4),
@@ -849,6 +894,10 @@ FLASH_CASES = (
     (1, 8704, (4096,), (0,), None, 1),
     (1, 8704, (8192,), (0,), None, 1),
     (2, 8704, (4096, 2900), (0, 1061), None, 4),
+)) + (
+    # the 2B drafter's last chunk of (s3)'s prompt: 12 heads over 2 KV
+    # heads, a GQA group of 6
+    (1, 8704, (8192,), (0,), None, 1, (12, 2)),
 )
 FLASH_TOL = 2e-2
 
@@ -872,11 +921,12 @@ def check_flash_attention(results: list, gen, dev) -> None:
 
     from mlx_vlm_tpu_torch.ops import flash_attention as fa
 
-    H, KVH, D, S = 28, 4, 128, 512
+    D, S = 128, 512
     scale = D ** -0.5
     q1 = kv = None
-    for B, C, offs, lps, window, q_scale in FLASH_CASES:
-        if q1 is None or q1.shape[0] != B or kv[0].shape[2] != C:
+    for B, C, offs, lps, window, q_scale, (H, KVH) in FLASH_CASES:
+        if q1 is None or q1.shape[:2] != (B, H) or kv[0].shape[1:3] != (KVH,
+                                                                         C):
             q1 = torch.randn((B, H, S, D), generator=gen)
             kv = [torch.randn((B, KVH, C, D), generator=gen).to(
                 dev, torch.bfloat16) for _ in range(2)]
@@ -1962,6 +2012,135 @@ def batch_replay_matches_eager(model, reqs_fn, label: str, kv_bits) -> bool:
     return same and stats_ok
 
 
+# drafted tokens a speculative round (phase 3's check and phase 4's part)
+SPEC_K = 4
+
+
+def spec_drafter(n_layers=None, vision_depth=None, seed: int = SEED + 4):
+    """A random mlx 4-bit drafter at qwen2_vl_2b_config()'s widths (hidden
+    1536, 12 / 2 heads, intermediate 8960; 28 layers unless `n_layers`)
+    with the 7B's vocabulary, 152064: both packages refuse the published
+    2B vocabulary (151936) beside the 7B target, since
+    validate_drafter_compatibility compares vocab sizes.  Loaded onto the
+    card in bf16 (w4grp)."""
+    import torch
+
+    from mlx_vlm_tpu_torch.utils.loader import load_model_from_weights
+    from mlx_vlm_tpu_torch.utils.testing import (mlx_int4_checkpoint,
+                                                 qwen2_vl_2b_config)
+
+    cfg = qwen2_vl_2b_config()
+    cfg["vocab_size"] = 152064
+    if n_layers:
+        cfg["num_hidden_layers"] = n_layers
+    if vision_depth:
+        cfg["vision_config"] = dict(cfg["vision_config"], depth=vision_depth)
+    cfg, weights = mlx_int4_checkpoint(cfg, seed=seed)
+    return load_model_from_weights(cfg, weights, torch.bfloat16, "cuda")
+
+
+def spec_replay_matches_eager(model) -> bool:
+    """Speculative rounds on the card twice, each round after the first a
+    replay of the round captured once (the default) and every round eager
+    (`use_graph` False), against a 2-layer drafter at the 2B's widths:
+    the single-stream rounds (greedy, and seeded sampling at temperature
+    0.8; 24 tokens) and the batched rounds (three requests in three
+    slots, the third admitted after the first cycle, the second sampled at
+    0.8): tokens, the batch's logprobs and both models' caches (every K/V
+    byte and the cursors) bit-identical; one capture per request and per
+    generator, none eager."""
+    import torch
+
+    from mlx_vlm_tpu_torch.generate.batch import BatchRequest, SamplingParams
+    from mlx_vlm_tpu_torch.speculative import batch as sb
+    from mlx_vlm_tpu_torch.speculative import utils as su
+
+    drafter = spec_drafter(n_layers=2, vision_depth=1, seed=SEED + 5)
+    dev = model.device
+
+    def same_caches(a: list, b: list) -> bool:
+        return all(torch.equal(getattr(x, f), getattr(y, f))
+                   for x, y in zip(a, b) for f in ("k", "v", "offset"))
+
+    def embeds(ids):
+        return model.get_input_embeddings(
+            model.params, torch.from_numpy(ids).to(dev))
+
+    ok = True
+    ids = np.arange(40, 61)[None]
+    for temp in (0.0, 0.8):
+        runs = {}
+        for graph in (True, False):
+            real = su.SpeculativeRounds
+
+            class Eager(real):
+                def __init__(self, *args):
+                    super().__init__(*args)
+                    self.use_graph = False
+
+            su.SpeculativeRounds = real if graph else Eager
+            try:
+                toks = [int(t[0]) for t, _ in su.speculative_generate_step(
+                    embeds(ids), model, drafter, input_ids=ids, max_tokens=24,
+                    num_draft=SPEC_K, temperature=temp, seed=5)]
+            finally:
+                su.SpeculativeRounds = real
+            r = su.last_rounds
+            runs[graph] = (toks, [r.cache, r.d_cache], dict(r.stats))
+        (tg, cg, sg), (te, ce, se) = runs[True], runs[False]
+        same = tg == te and len(tg) == 24 and same_caches(cg, ce)
+        counts_ok = (sg["captures"] == 1 and sg["replays"] == sg["rounds"] - 1
+                     and se["captures"] == se["replays"] == 0
+                     and sg["rounds"] == se["rounds"])
+        print(f"  speculative replay vs eager, single stream, temperature "
+              f"{temp}: 24 tokens in {sg['rounds']} rounds of k = {SPEC_K}: "
+              f"tokens and both caches bit-identical {same}; capture "
+              f"{sg['capture_s']:.4f} s, {sg['replays']} replays "
+              f"{'ok' if same and counts_ok else 'MISMATCH'}", flush=True)
+        ok = ok and same and counts_ok
+    prompts = [(np.arange(40, 61)[None], 12, 0.0),
+               (np.arange(100, 133)[None], 12, 0.8),
+               (np.arange(7, 19)[None], 8, 0.0)]
+    runs = {}
+    for graph in (True, False):
+        gen = sb.SpeculativeBatchGenerator(
+            model, drafter, num_draft=SPEC_K, num_slots=3, capacity=512,
+            prefill_step_size=128, dtype=torch.bfloat16)
+        gen.decode.use_graph = graph and gen.decode.use_graph
+        reqs = [BatchRequest(uid=u, inputs_embeds=embeds(p), max_tokens=n,
+                             input_ids=p, sampling=SamplingParams(temp=t))
+                for u, (p, n, t) in enumerate(prompts)]
+        out = {u: [] for u in range(len(reqs))}
+
+        def cycle():
+            for uid, pairs in gen.next().items():
+                out[uid].extend(pairs)
+
+        gen.insert(reqs[0])
+        gen.insert(reqs[1])
+        cycle()
+        gen.insert(reqs[2])
+        while gen.num_active or gen.queue:
+            cycle()
+        runs[graph] = (out, [gen.cache, gen.d_cache], dict(gen.decode.stats))
+    (og, cg, sg), (oe, ce, se) = runs[True], runs[False]
+    same = same_pairs(og, oe) and same_caches(cg, ce)
+    counts_ok = (sg["captures"] == 1 and sg["replays"] == sg["rounds"] - 1
+                 and se["captures"] == se["replays"] == 0
+                 and sg["rounds"] == se["rounds"]
+                 and [len(v) for v in og.values()] == [12, 12, 8])
+    print(f"  speculative replay vs eager, batch of 3 slots (one admitted "
+          f"late, one sampled): tokens {[len(v) for v in og.values()]} in "
+          f"{sg['rounds']} rounds over {sg['admissions']} admissions: tokens, "
+          f"logprobs and both caches bit-identical {same}; "
+          f"{sg['captures']} capture ({sg['capture_s']:.4f} s), "
+          f"{sg['replays']} replays {'ok' if same and counts_ok else 'MISMATCH'}",
+          flush=True)
+    del drafter
+    su.last_rounds = None
+    return ok and same and counts_ok
+
+
 # (kv_bits, MLX_VLM_TPU_TQ_SCHEME, the kernel each decode step runs,
 # launches per layer and step, the CPU reference's dtype, teacher-forced
 # steps).  The bf16 cache is held to an f32 CPU run.  A quantized cache is
@@ -2096,6 +2275,8 @@ def phase_slice_parity() -> bool:
                                   ) and all_ok
     gpu.language_model.fused_decode = True
     lap("card single-stream replay vs eager")
+    all_ok = spec_replay_matches_eager(gpu) and all_ok
+    lap("card speculative rounds, replay vs eager")
     del gpu, weights
     torch.cuda.empty_cache()
     print(f"  fused route on all: {route} ({time.perf_counter() - t0:.1f} s)",
@@ -3677,6 +3858,612 @@ def run_apc(model, cfg, total: dict) -> None:
           flush=True)
 
 
+# ------------------------------------------------------------ phase 4, speculative
+
+
+# verify calls a RoundRecorder keeps (a request's rounds; a server's)
+SPEC_ROUNDS = 80
+
+
+class RoundRecorder:
+    """What a speculative request's rounds computed, kept without a host
+    read inside a round: each call of the target's head on k + 1 positions
+    (the verify) copies its f32 logits into a device ring at a device
+    counter, so a captured round records at every replay; each round's
+    result and, for a batch (`gen`), the owner of each slot are kept on
+    the host (CapturedRounds.run wrapped); the first token's logits are
+    kept too: the single stream's prefill head (the target's first head
+    call) or, for a batch, each admission's rows (the generator's `_first`
+    wrapped), with each admission's layout (`admitted`: uid -> (its row,
+    the uids of its admission's rows, (rows, padded length, chunk)), the
+    generator's `_prefill` wrapped).  A with block installs the hooks; the
+    ring must outlive any replay of a round captured inside it."""
+
+    def __init__(self, model, rows: int, gen=None):
+        import torch
+
+        self.lm = model.language_model
+        self.ring = torch.zeros(
+            (SPEC_ROUNDS, rows, SPEC_K + 1, self.lm.args.vocab_size),
+            dtype=torch.float32, device=model.device)
+        self.count = torch.zeros((), dtype=torch.int64, device=model.device)
+        self.gen, self.rounds, self.first = gen, [], {}
+        self.admitted, self.layout = {}, None
+        if gen is not None:
+            prefill, first = gen._prefill, gen._first
+
+            def prefill_hook(cache, embeds, pos, last_idx, step):
+                self.layout = (embeds.shape[0], embeds.shape[1], step)
+                return prefill(cache, embeds, pos, last_idx, step)
+
+            def first_hook(logits, reqs):
+                toks = first(logits, reqs)
+                uids = [r.uid for r in reqs]
+                for i, r in enumerate(reqs):
+                    self.first[r.uid] = (logits[i].float().cpu().numpy(),
+                                         int(toks[i]))
+                    self.admitted[r.uid] = (i, uids, self.layout)
+                return toks
+
+            gen._prefill, gen._first = prefill_hook, first_hook
+
+    def __enter__(self):
+        from mlx_vlm_tpu_torch.speculative import utils as su
+
+        real_logits, real_run = self.lm.logits, su.CapturedRounds.run
+        self.su, self.real_run = su, real_run
+
+        def logits(params, hidden):
+            out = real_logits(params, hidden)
+            if hidden.shape[1] == SPEC_K + 1:
+                at = self.count.clamp(max=SPEC_ROUNDS - 1).reshape(1)
+                self.ring.index_copy_(0, at, out.float()[None])
+                self.count.add_(1)
+            elif self.gen is None and not self.first:
+                self.first[0] = (out[0, -1].float().cpu().numpy(), None)
+            return out
+
+        def run(rounds):
+            gen = self.gen
+            owners = [0] if gen is None else [
+                s.req.uid if s is not None and gen.active[i] else None
+                for i, s in enumerate(gen.slots)]
+            res = real_run(rounds)
+            self.rounds.append((owners, res))
+            return res
+
+        self.lm.logits = logits
+        su.CapturedRounds.run = run
+        return self
+
+    def __exit__(self, *exc):
+        del self.lm.logits
+        self.su.CapturedRounds.run = self.real_run
+
+    def rows(self, n_tokens: dict) -> dict:
+        """{uid: (logits [n, V], tokens [n])}: its first token's, then, for
+        each round it was live in, the verify's rows up to its accept count
+        (its committed tokens), cut to its n tokens."""
+        count = int(self.count)
+        if count != len(self.rounds) or count > SPEC_ROUNDS:
+            fail(f"speculative recorder: {count} verify calls for "
+                 f"{len(self.rounds)} rounds (room for {SPEC_ROUNDS})")
+        out = {u: ([lg], [t]) for u, (lg, t) in self.first.items()}
+        for r, (owners, res) in enumerate(self.rounds):
+            verify = self.ring[r].cpu().numpy()
+            for i, u in enumerate(owners):
+                if u is None:
+                    continue
+                n_acc = int(res[i, -1])
+                out[u][0].extend(verify[i, :n_acc + 1])
+                out[u][1].extend(int(t) for t in res[i, :n_acc + 1])
+        return {u: (np.stack(lg[:n_tokens[u]]), t[:n_tokens[u]])
+                for u, (lg, t) in out.items() if u in n_tokens}
+
+
+def part_ms(fn, gen, iters: int = 10) -> float:
+    """Device ms of fn() captured alone in a CUDA graph (drawing from the
+    registered generator `gen`) and replayed between CUDA events."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    ms = _events_ms(graph.replay, iters)
+    del graph
+    return ms
+
+
+def time_round(rounds, S: int) -> dict:
+    """Device ms of one single-stream round (its captured graph replayed)
+    and of its draft (k drafter steps) and its verify (the target's
+    forward, both models' filtered probabilities, the walk and the rewind)
+    each captured alone; every replay starts with both cursors put back to
+    S + 1.  The round's graph also holds the recorder's copy of its verify
+    logits (k + 1 rows of V f32, 3 MB)."""
+    import torch
+
+    e = rounds.engine
+    at = torch.full((), S + 1, dtype=torch.int32, device=rounds.dev)
+
+    def restore():
+        rounds.cache.offset.copy_(at)
+        rounds.d_cache.offset.copy_(at)
+
+    restore()
+    d_toks, d_logits = e.draft(rounds.d_cache, rounds.tok, rounds.sp,
+                               rounds.gen)
+    draft = part_ms(lambda: (restore(), e.draft(
+        rounds.d_cache, rounds.tok, rounds.sp, rounds.gen)), rounds.gen)
+    verify = part_ms(lambda: (restore(), e.verify(
+        rounds.cache, rounds.tok, d_toks, d_logits, rounds.deltas, rounds.sp,
+        rounds.gen)), rounds.gen)
+    whole = _events_ms(lambda: (restore(), rounds.graph.graph.replay()), 10)
+    return {"round": whole, "draft": draft, "verify": verify}
+
+
+def break_even(ratio: float, k: int):
+    """The per-draft acceptance a at which a round of device time `ratio`
+    plain decode steps pays for itself: its expected tokens (1 - a^(k+1))
+    / (1 - a) (Leviathan et al., independent acceptances) equal `ratio`;
+    None when even full acceptance (k + 1 tokens) does not."""
+    if ratio <= 1.0:
+        return 0.0
+    if ratio > k + 1:
+        return None
+    lo, hi = 0.0, 1.0
+    for _ in range(60):
+        a = (lo + hi) / 2
+        if sum(a ** i for i in range(k + 1)) < ratio:
+            lo = a
+        else:
+            hi = a
+    return lo
+
+
+def spec_want(st: dict, n_layers: int, d_layers: int, flash: bool) -> dict:
+    """Launches of a single-stream speculative request: both models'
+    prefill chunks on K1 (and K4 on every layer where the cache takes the
+    flash route), the target's prefill head on K2, and per round k drafter
+    steps (linears and head) and the sync (linears) at M = 1 and the
+    verify (linears and head) at M = k + 1, all on K2."""
+    want = {k: 0 for k in read_counts()}
+    C = st["prefill_chunks"]
+    want["int4_matmul"] = 7 * (n_layers + d_layers) * C
+    want["int4_matvec"] = 1 + st["rounds"] * (
+        SPEC_K * (7 * d_layers + 1) + 7 * d_layers + 7 * n_layers + 1)
+    want["flash_attention"] = (n_layers + d_layers) * C if flash else 0
+    return want
+
+
+def spec_request(model, drafter, proc, cfg, name: str, text: str, image,
+                 max_tokens: int, total: dict, temperature: float = 0.0,
+                 step_ms=None) -> dict:
+    """One speculative request through stream_generate(draft_model=), the
+    counters set to 0 just before it and read just after; its rounds'
+    verify logits recorded.  Checks its launches (spec_want), one capture,
+    a replay per round after the first and one fetch per round and one for
+    the first token; greedy, its logits are held by the parity rule to its
+    prompt alone through plain greedy decoding (spec_parity).  Prints its rounds, drafted and accepted tokens and its
+    times; returns its stats and numbers."""
+    import torch
+
+    from mlx_vlm_tpu_torch import apply_chat_template, stream_generate
+    from mlx_vlm_tpu_torch.generate.common import embed_prompt
+    from mlx_vlm_tpu_torch.speculative import utils as su
+    from mlx_vlm_tpu_torch.utils.processing import prepare_inputs
+
+    n_img = int(image is not None)
+    prompt = apply_chat_template(proc, cfg, text, num_images=n_img)
+    inputs = prepare_inputs(proc, prompt, images=image)
+    S = inputs["input_ids"].shape[1]
+    rec = RoundRecorder(model, 1)
+    times, toks = [], []
+    with rec:
+        reset_counts()
+        tic = time.perf_counter()
+        for res in stream_generate(model, proc, prompt, image=image,
+                                   max_tokens=max_tokens, draft_model=drafter,
+                                   num_draft_tokens=SPEC_K,
+                                   temperature=temperature, seed=5):
+            times.append(time.perf_counter())
+            toks.append(res.token)
+        counts = read_counts()
+        rounds = su.last_rounds
+        st = dict(rounds.stats)
+        n = len(toks)
+        logits, rec_toks = rec.rows({0: n})[0]
+        n_acc = [int(r[0, -1]) for _, r in rec.rounds]
+        parts = time_round(rounds, S)
+    lm = model.language_model
+    flash = rounds.cache.capacity >= 8192
+    want = spec_want(st, lm.args.num_hidden_layers,
+                     drafter.language_model.args.num_hidden_layers, flash)
+    expect(name, counts, want, total)
+    accepted, drafted = sum(n_acc), SPEC_K * len(n_acc)
+    V = lm.args.vocab_size
+    finished = n == max_tokens or toks[-1] in _eos(model, proc)
+    # the recorder knows the first token's logits, not its token
+    if not (finished and rec_toks[1:] == toks[1:]
+            and all(0 <= t < V for t in toks)
+            and st["captures"] == 1 and st["replays"] == st["rounds"] - 1
+            and st["fetches"] == st["rounds"] + 1
+            and len(n_acc) == st["rounds"]
+            and sum(n_acc) + len(n_acc) >= n - 1):
+        fail(f"{name}: {n} tokens, recorded {rec_toks[:8]}..., stats {st}, "
+             f"accepts {n_acc}")
+    host_ms = 1e3 * (st["round_s"] - st["first_s"] - st["capture_s"]) / max(
+        st["replays"], 1)
+    print(f"  {name}: prompt {S} tokens, {n} tokens in {st['rounds']} rounds "
+          f"of k = {SPEC_K}: drafted {drafted}, accepted {accepted} "
+          f"(acceptance {accepted / max(drafted, 1):.4f}, "
+          f"{n / max(st['rounds'], 1):.3f} tokens a round); TTFT "
+          f"{times[0] - tic:.4f} s, {(n - 1) / (times[-1] - times[0]):.2f} "
+          f"tok/s; first round {st['first_s']:.4f} s, capture "
+          f"{st['capture_s']:.4f} s, {st['replays']} replays, "
+          f"{st['fetches']} fetches; a round: {parts['round']:.4f} ms on the "
+          f"device (draft {parts['draft']:.4f} ms and verify "
+          f"{parts['verify']:.4f} ms, each captured alone; the sync and "
+          f"the rewinds the rest), {host_ms:.4f} ms on the host per "
+          f"replayed round (dispatch to its tokens fetched); launches "
+          f"{counts}", flush=True)
+    if temperature == 0.0:
+        layout = spec_layout(S, rounds.cache.capacity)
+        if layout[1] // layout[2] != st["prefill_chunks"]:
+            fail(f"{name}: {st['prefill_chunks']} prefill chunks, the layout "
+                 f"{layout} has {layout[1] // layout[2]}")
+        spec_parity(model, [embed_prompt(model, inputs) + (inputs,)], 0,
+                    layout, toks, logits, name)
+    if step_ms is not None:
+        ratio = parts["round"] / step_ms
+        a = break_even(ratio, SPEC_K)
+        print(f"    a round costs {ratio:.3f} plain decode steps "
+              f"({step_ms:.4f} ms a step on the device): it pays for itself "
+              f"from a per-draft acceptance of "
+              f"{'none (k + 1 tokens do not cover it)' if a is None else f'{a:.4f}'}"
+              f" (this request's {accepted / max(drafted, 1):.4f} with random "
+              f"weights)", flush=True)
+    su.last_rounds = None
+    return {"stats": st, "accepted": accepted, "drafted": drafted,
+            "parts": parts, "tokens": toks}
+
+
+def verify_layout_logits(model, prompts: list, row: int, layout: tuple,
+                         toks: list, accepts: list, rows: int,
+                         capacity: int) -> np.ndarray:
+    """Plain greedy decoding of the prompt in row `row` of an admission,
+    teacher-forced with `toks`, laid out as a batched speculative server
+    ran its verify: the prompt prefilled as its admission prefilled it
+    (admission_layout_logits) and copied into every row of a `rows`-row
+    cache of `capacity` rows, then for each round (`accepts`: the row's
+    accept count in each round it was live) one forward over [the last
+    token, the round's accepted tokens, zeros up to k] in every row, so
+    that each linear runs at the served verify's M = rows * (k + 1) (K1)
+    and each row's arithmetic is the served row's; the cursors advance by
+    the round's committed count.  No drafter, no walk and none of the
+    generator's code runs.  Returns logits [len(toks), V]: the prefill's,
+    then each round's committed positions."""
+    import torch
+
+    from mlx_vlm_tpu_torch.core import cache as cache_lib
+
+    lm = model.language_model
+    lp = model.params["language_model"]
+    first, single = admission_layout_logits(model, prompts, row, layout, [],
+                                            None)
+    S, delta = prompts[row][0].shape[1], int(prompts[row][2][0, 0])
+    cache = cache_lib.init_batch_cache(
+        lm.args.num_hidden_layers, rows, lm.n_kv_heads, lm.head_dim,
+        capacity, prompts[row][0].dtype, device=model.device)
+    for r in range(rows):
+        cache_lib.insert_row(cache, single, r, S)
+    out, at = [first[0]], 1
+    for n_acc in accepts:
+        seq = toks[at - 1:at + n_acc]
+        seq = seq + [0] * (SPEC_K + 1 - len(seq))
+        ids = torch.tensor([seq] * rows, device=model.device)
+        pos = (cache.offset.long() + delta)[:, None] + torch.arange(
+            SPEC_K + 1, device=model.device)
+        hidden = lm(lp, lm.embed(lp, ids), cache,
+                    pos[None].expand(3, rows, SPEC_K + 1))
+        logits = lm.logits(lp, hidden)[0].float().cpu().numpy()
+        cache.offset.sub_(SPEC_K - n_acc)
+        out.extend(logits[:n_acc + 1])
+        at += n_acc + 1
+    return np.stack(out[:len(toks)])
+
+
+def spec_parity(model, prompts: list, row: int, layout: tuple, toks: list,
+                logits: np.ndarray, name: str, accepts=None, rows: int = 1,
+                capacity: int = 0) -> None:
+    """A greedy speculative answer's logits (its first token's, then its
+    rounds' verify rows) held by the parity rule to its prompt alone in
+    plain greedy decoding, teacher-forced with its tokens, its prompt
+    prefilled as the request's or admission's prefill laid it out
+    (`prompts`, each embed_prompt's output and its inputs, `row` its own,
+    `layout` (rows, padded length, chunk)): a single stream decoded on the
+    per-linear route (K2 at M = 1, the verify's own layers at M = k + 1);
+    a batched answer (`accepts` given) in its verify's layout
+    (verify_layout_logits: K1 at M = rows * (k + 1)).  Printed beside it,
+    not held: the per-linear route at M = 1 from the same prefill (for a
+    batched answer), and the prompt prefilled in one unpadded chunk on
+    the per-linear and the fused (K3) routes."""
+    from mlx_vlm_tpu_torch.utils.loader import decide_fused_decode
+
+    inputs = prompts[row][3]
+    embedded = [p[:3] for p in prompts]
+    refs = {}
+    try:
+        with env_vars(MLX_VLM_TPU_FUSED_DECODE="0"):
+            decide_fused_decode(model)
+            refs["per-linear, same prefill"], _ = admission_layout_logits(
+                model, embedded, row, layout, toks[:-1], None)
+            if accepts is not None:
+                refs["held"] = verify_layout_logits(
+                    model, embedded, row, layout, toks, accepts, rows,
+                    capacity)
+            refs["per-linear, unpadded"], _ = teacher_forced_logits(
+                model, inputs, forced=toks[:-1], n_steps=len(toks))
+        with env_vars(MLX_VLM_TPU_FUSED_DECODE="1"):
+            decide_fused_decode(model)
+            refs["K3, unpadded"], _ = teacher_forced_logits(
+                model, inputs, forced=toks[:-1], n_steps=len(toks))
+    finally:
+        decide_fused_decode(model)
+    held = refs.pop("held", None)
+    if held is None:
+        held = refs.pop("per-linear, same prefill")
+        what = "on the per-linear route (K2 at M = 1)"
+    else:
+        what = (f"in its verify's layout ({rows} rows of k + 1, K1 at M = "
+                f"{rows * (SPEC_K + 1)})")
+    ok, err, tol, n_margin = parity_rule(held, logits)
+    at = int(np.abs(logits - held).max(-1).argmax())
+    others = "; ".join(f"{k} {parity_rule(v, logits)[1]:.4e}"
+                       for k, v in refs.items())
+    print(f"    {name} vs its prompt alone, prefilled as it was ({layout[0]} "
+          f"rows of {layout[1]}, chunks of {layout[2]}), plain greedy {what}, "
+          f"teacher-forced with its {len(toks)} tokens: max|verify - plain| "
+          f"= {err:.4e} (at token {at}), tol {tol:.4e}; argmax checked on "
+          f"{n_margin} steps {'ok' if ok else 'MISMATCH'}; not held: {others}",
+          flush=True)
+    if not ok:
+        fail(f"{name}: the speculative tokens fail the parity rule")
+
+
+def spec_layout(S: int, capacity: int) -> tuple:
+    """speculative_generate_step's prefill layout for a prompt of S tokens
+    into caches of `capacity` rows: (1, padded length, chunk)."""
+    step = min(512, 256 * -(-S // 256))
+    S_pad = step * -(-S // step)
+    while S_pad > capacity and step > 64:
+        step = max(64, step // 2)
+        S_pad = step * -(-S // step)
+    return 1, S_pad, step
+
+
+def _eos(model, proc) -> tuple:
+    from mlx_vlm_tpu_torch.generate.dispatch import _get_eos_ids
+
+    return tuple(_get_eos_ids(model, proc))
+
+
+# (s5)'s chats: (text, temperature), 32 tokens each, sent at once
+SPEC_SERVER_CHATS = (("Write a short story about a lighthouse.", 0.0),
+                     ("List the planets of the solar system in order.", 0.0),
+                     ("Name three colors.", 0.7),
+                     ("What is the capital of France?", 0.7))
+
+
+def spec_server(model, drafter, proc, cfg, total: dict) -> None:
+    """(s5): a server with the drafter (create_server(draft_model=), 4
+    slots, blocks of 8, k = 4) answering four chats sent at once, two
+    greedy and two at temperature 0.7.  Every chat answered (200, its text
+    its tokens' text, its usage its tokens), /metrics' envelope of each
+    carrying "speculative"; one round capture for the generator, a replay
+    a round after the first; launches held to what ran (K1: the prefill
+    chunks of both models and per round the drafter's catch-up and the
+    verify at M = 20 with its head; K2: the admissions' heads and per
+    round the catch-up's head and k - 1 drafter steps at M = 4); then each
+    greedy answer's verify logits held by the parity rule to its prompt
+    alone through plain greedy decoding (spec_parity)."""
+    import socket
+    import threading
+
+    from mlx_vlm_tpu_torch.generate.common import embed_prompt
+    from mlx_vlm_tpu_torch.server.app import create_server
+    from mlx_vlm_tpu_torch.utils.processing import prepare_inputs
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    httpd = create_server(model, proc, model_name="qwen2-vl-7b-random",
+                          host="127.0.0.1", port=port, num_slots=4,
+                          capacity=SERVER_CAPACITY, block_size=SERVER_BLOCK,
+                          draft_model=drafter, num_draft=SPEC_K)
+    generator = httpd.state.generator
+    gen = generator.batch
+    rec = RoundRecorder(model, 4, gen)
+    seen_args = []
+    real_generate = generator.generate
+
+    def logging_generate(args):
+        seen_args.append(args)
+        return real_generate(args)
+
+    generator.generate = logging_generate
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{port}"
+    answers = {}
+
+    def chat(i, text, temp):
+        t0 = time.perf_counter()
+        status, _, raw = _http(url, "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": text}],
+            "max_tokens": 32, "temperature": temp})
+        answers[i] = (status, json.loads(raw) if status == 200 else raw,
+                      time.perf_counter() - t0)
+
+    try:
+        with rec:
+            reset_counts()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=chat, args=(i, t, temp))
+                       for i, (t, temp) in enumerate(SPEC_SERVER_CHATS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            if any(t.is_alive() for t in threads):
+                fail("(s5): a chat did not finish in 600 s")
+            metrics = json.loads(_http(url, "/metrics")[2])
+            envs = {e.get("request_id"): e for e in metrics["recent"]}
+            by_text = {a.prompt: a for a in seen_args}
+            n_tokens = {a.request_id: envs[a.request_id]["generation_tokens"]
+                        for a in seen_args}
+            rows = rec.rows(n_tokens)
+    finally:
+        httpd.shutdown()
+        generator.shutdown()
+        server.join(timeout=30)
+    st = dict(gen.decode.stats)
+    if generator._thread.is_alive():
+        fail("(s5): the generator's owner thread did not stop")
+    eos = _eos(model, proc)
+    n_layers = model.language_model.args.num_hidden_layers
+    d_layers = drafter.language_model.args.num_hidden_layers
+    held, n_total = [], 0
+    for i, (text, temp) in enumerate(SPEC_SERVER_CHATS):
+        status, ans, secs = answers.get(i, (None, None, 0.0))
+        args = next((a for p, a in by_text.items() if text in p), None)
+        if status != 200 or args is None:
+            fail(f"(s5) chat {i}: {status} {ans}")
+        env = envs[args.request_id]
+        logits, toks = rows[args.request_id]
+        n = env["generation_tokens"]
+        content = ans["choices"][0]["message"]["content"]
+        done = ans["usage"]["completion_tokens"]
+        ended_eos = bool(toks) and toks[-1] in eos
+        if not ("speculative" in env and len(toks) == n
+                and done == n - ended_eos and (n == 32 or ended_eos)
+                and content == served_text(proc, toks, eos)
+                and all(0 <= t < model.language_model.args.vocab_size
+                        for t in toks)):
+            fail(f"(s5) chat {i}: answer {ans}, {len(toks)} recorded tokens, "
+                 f"envelope {env}")
+        n_total += done
+        spec = env["speculative"]
+        print(f"  (s5) chat {i} (temperature {temp}): {done} tokens, finish "
+              f"{ans['choices'][0]['finish_reason']}, {secs:.4f} s; /metrics:"
+              f" ttft_s {env['ttft_s']:.4f}, generation_tps "
+              f"{env['generation_tps']:.2f}, speculative {spec}", flush=True)
+        if temp == 0.0:
+            held.append((i, args.request_id, logits, toks))
+    R = st["rounds"]
+    want = {k: 0 for k in counts}
+    want["int4_matmul"] = (7 * n_layers * st["prefill_chunks"]
+                           + 7 * d_layers * st["drafter_chunks"]
+                           + R * (7 * d_layers + 7 * n_layers + 1))
+    want["int4_matvec"] = st["prefill_heads"] + R * (
+        1 + (SPEC_K - 1) * (7 * d_layers + 1))
+    if not (st["captures"] == 1 and st["replays"] == R - 1
+            and st["fetches"] == R + st["admissions"]):
+        fail(f"(s5): generator counts {st}, want one capture, a replay per "
+             f"round after the first and a fetch per round and admission")
+    ms_round = 1e3 * (st["decode_s"] - st["first_s"] - st["capture_s"]) / max(
+        st["replays"], 1)
+    print(f"  (s5) server with the drafter, 4 chats at once: {n_total} tokens "
+          f"in {wall:.4f} s, {n_total / wall:.2f} tok/s aggregate; {R} "
+          f"rounds: {st['captures']} capture ({st['capture_s']:.4f} s), "
+          f"{st['replays']} replays, {st['fetches']} fetches ({R} rounds + "
+          f"{st['admissions']} admissions), {ms_round:.4f} ms per replayed "
+          f"round on the host; launches {counts}", flush=True)
+    expect("(s5)", counts, want, total)
+    inputs = {a.request_id: prepare_inputs(proc, a.prompt)
+              for a in seen_args}
+    for i, uid, logits, toks in held:
+        row, uids, layout = rec.admitted[uid]
+        accepts = [int(res[owners.index(uid), -1])
+                   for owners, res in rec.rounds if uid in owners]
+        spec_parity(model, [embed_prompt(model, inputs[u]) + (inputs[u],)
+                            for u in uids], row, layout, toks, logits,
+                    f"(s5) greedy chat {i}", accepts, gen.B, gen.capacity)
+
+
+def plain_step_ms(model, proc, cfg) -> float:
+    """Device ms of one plain greedy decode step of the loaded target (its
+    fused route, K3): a short request's captured step replayed alone
+    between CUDA events."""
+    from mlx_vlm_tpu_torch import apply_chat_template, stream_generate
+    from mlx_vlm_tpu_torch.generate import ar
+
+    prompt = apply_chat_template(proc, cfg, "Name three colors.",
+                                 num_images=0)
+    for _ in stream_generate(model, proc, prompt, max_tokens=8):
+        pass
+    ms = _events_ms(ar.last_decode.graph.graph.replay, 10)
+    ar.last_decode = None
+    return ms
+
+
+def run_speculative(model, cfg, total: dict) -> None:
+    """The speculative part, on (a)-(f)'s model and a drafter at the 2B's
+    widths built and folded once (spec_drafter): (s1) (a)'s image and
+    prompt, greedy, 64 tokens; (s2) the target as its own drafter, text,
+    greedy, 32 tokens (every draft should be accepted, up to the verify's
+    K2 at M = 5 against the drafter's K2 at M = 1 in bf16); (s3) (c)'s
+    image and ~8.2k-token prompt, 16 tokens (K4 on both models' prefill
+    chunks); (s4) temperature 0.7 with a seed, text, 32 tokens; (s5) a
+    server with the drafter, four chats at once.  k = 4 throughout.  The
+    part prints the ms of one plain decode step beside a round's and the
+    per-draft acceptance at which a round pays for itself."""
+    import torch
+
+    t_part = time.perf_counter()
+    proc = _processor()
+    t0 = time.perf_counter()
+    drafter = spec_drafter()
+    d_args = drafter.language_model.args
+    print(f"  speculative part: drafter at Qwen2-VL-2B widths (hidden "
+          f"{d_args.hidden_size}, {d_args.num_hidden_layers} layers, "
+          f"{d_args.num_attention_heads}/{d_args.num_key_value_heads} heads, "
+          f"intermediate {d_args.intermediate_size}) with the 7B's vocab "
+          f"{d_args.vocab_size}: both packages refuse the published 2B vocab "
+          f"151936 beside this target (validate_drafter_compatibility "
+          f"compares vocab sizes); random mlx 4-bit weights built and loaded "
+          f"once in {time.perf_counter() - t0:.1f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    step_ms = plain_step_ms(model, proc, cfg)
+    spec_request(model, drafter, proc, cfg, "(s1) image 448x448 + short "
+                 "prompt, 2B-width drafter", "Describe this image in "
+                 "detail.", _image(448), 64, total, step_ms=step_ms)
+    s2 = spec_request(model, model, proc, cfg, "(s2) text, the target as its "
+                      "own drafter", "Write a short story about a "
+                      "lighthouse.", None, 32, total, step_ms=step_ms)
+    print(f"    (s2) acceptance {s2['accepted'] / max(s2['drafted'], 1):.4f} "
+          f"(expected near 1: the same model drafts)", flush=True)
+    spec_request(model, drafter, proc, cfg, "(s3) image + ~8.2k-token "
+                 "prompt, 2B-width drafter", LONG_TEXT, _image(448), 16,
+                 total)
+    s4 = spec_request(model, drafter, proc, cfg, "(s4) text, temperature 0.7, "
+                      "seed 5, 2B-width drafter", "Write a short story about "
+                      "a lighthouse.", None, 32, total, temperature=0.7)
+    if not (s4["drafted"] == SPEC_K * s4["stats"]["rounds"]
+            and 0 <= s4["accepted"] <= s4["drafted"]):
+        fail(f"(s4): inconsistent stats {s4}")
+    spec_server(model, drafter, proc, cfg, total)
+    del drafter
+    torch.cuda.empty_cache()
+    print(f"  speculative part: {time.perf_counter() - t_part:.1f} s",
+          flush=True)
+
+
 def expect(name: str, counts: dict, want: dict, total: dict) -> None:
     """Fail unless each counter in `want` holds its count; add the request's
     counts to `total`."""
@@ -3756,6 +4543,7 @@ def phase_main_path() -> dict:
     run_batch_generator(model, proc, cfg, total)
     run_server(model, cfg, total)
     run_apc(model, cfg, total)
+    run_speculative(model, cfg, total)
     del model
     torch.cuda.empty_cache()
     exact_requests(proc, cfg, weights, total)

@@ -8,7 +8,8 @@ tower -> M-RoPE -> chunked prefill -> decode, with a bf16 KV cache or a
 quantized one (`kv_bits` 8, 4 or 3.5), one request at a time
 (`generate`, `stream_generate`) or several in fixed batch slots
 (`batch_generate`, `BatchGenerator`: continuous batching on per-row cache
-cursors, `kv_bits` 8 or 4), and behind the HTTP server
+cursors, `kv_bits` 8 or 4), speculatively with a smaller draft model
+(`draft_model=`, speculative/), and behind the HTTP server
 (`python -m mlx_vlm_tpu_torch server`: the OpenAI, Anthropic and
 Responses routes, structured outputs, tool calls; mlx_vlm_tpu_torch/server).
 Its kernels are CUDA C++ written for Hopper

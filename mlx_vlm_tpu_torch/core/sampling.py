@@ -147,7 +147,10 @@ def batched_filtered_probs(logits: torch.Tensor,
     filtered logits over temp, or a one-hot argmax where temp == 0."""
     B, T, V = logits.shape
     x = logits.float().reshape(B * T, V)
-    rep = {k: v.repeat_interleave(T) for k, v in params.items()}
+    # each row's parameters for its T positions, by a view: no host
+    # arithmetic, so a captured speculative round can run it
+    rep = {k: v.reshape(B, 1).expand(B, T).reshape(B * T)
+           for k, v in params.items()}
     filtered = batched_filter_logits(x, rep)
     temp = rep["temp"].reshape(-1, 1)
     safe_temp = torch.where(temp > 0, temp, torch.ones_like(temp))

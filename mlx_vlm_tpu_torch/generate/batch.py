@@ -137,6 +137,13 @@ class _SlotBlocks(DecodeBlocks):
         super().step()
         self.cache.offset.sub_((~self.active).to(torch.int32))
 
+    def admit(self, slot: int, first_tok: int) -> None:
+        """A newly admitted row's last token and history, written on the
+        device in place."""
+        self.tok[slot] = first_tok
+        self.history[slot] = -1
+        self.history[slot, -1] = first_tok
+
     def _capture(self) -> None:
         super()._capture()
         self.stats["captures"] += 1
@@ -240,8 +247,8 @@ class BatchGenerator:
                   "min_p": col("min_p", 0.0, torch.float32),
                   "top_k": col("top_k", -1, torch.int64)}
         toks = self._sampler(logits, params, self.gen).cpu().numpy()
-        self.stats["fetches"] += 1
-        self.stats["admissions"] += 1
+        self.decode.stats["fetches"] += 1
+        self.decode.stats["admissions"] += 1
         return toks
 
     def _prefill(self, cache, embeds: torch.Tensor, pos: np.ndarray,
@@ -254,7 +261,7 @@ class BatchGenerator:
             pchunk = torch.from_numpy(
                 np.ascontiguousarray(pos[:, :, c0:c0 + step])).to(self.dev)
             in_chunk = (last_idx >= c0) & (last_idx < c0 + step)
-            self.stats["prefill_chunks"] += 1
+            self.decode.stats["prefill_chunks"] += 1
             if not in_chunk.any():
                 self.lm(self.model.params["language_model"],
                         embeds[:, c0:c0 + step], cache, pchunk)
@@ -262,7 +269,7 @@ class BatchGenerator:
             idx = torch.from_numpy(np.where(in_chunk, last_idx - c0, 0))
             chunks[c0] = prefill_rows(self.model, cache,
                                       embeds[:, c0:c0 + step], pchunk, idx)
-            self.stats["prefill_heads"] += 1
+            self.decode.stats["prefill_heads"] += 1
         return torch.stack([chunks[(int(i) // step) * step][r]
                             for r, i in enumerate(last_idx)])
 
@@ -354,12 +361,10 @@ class BatchGenerator:
 
     def _register(self, slot: int, req: BatchRequest, first_tok: int,
                   S: int) -> None:
-        """Post-prefill bookkeeping of a newly admitted row: its last token
-        and history written on the device in place, its parameters into the
-        host mirrors."""
-        self.decode.tok[slot] = first_tok
-        self.decode.history[slot] = -1
-        self.decode.history[slot, -1] = first_tok
+        """Post-prefill bookkeeping of a newly admitted row: its device state
+        written in place (`decode.admit`), its parameters into the host
+        mirrors."""
+        self.decode.admit(slot, first_tok)
         sp = req.sampling
         self.temp[slot] = sp.temp
         self.top_p[slot] = sp.top_p
@@ -431,7 +436,7 @@ class BatchGenerator:
         self._push()
         tic = time.perf_counter()
         pairs = list(self.decode.fetch(self.decode.dispatch(self.block)))
-        self.stats["decode_s"] += time.perf_counter() - tic
+        self.decode.stats["decode_s"] += time.perf_counter() - tic
         toks_h = np.stack([t for t, _ in pairs], axis=1)  # [B, T]
         lps_h = np.stack([lp for _, lp in pairs], axis=1)
         for i, s in enumerate(self.slots):

@@ -6,9 +6,10 @@ quantized KV cache (generate/ar.py make_cache); `block_size` is the number
 of decode steps per host fetch (generate/ar.py `DecodeBlocks`: on the card
 each step after the first replays one captured CUDA graph).  `apc`
 reuses a cached prompt prefix (the reference's :148-194) and
-`vision_cache` the vision tower's features.  The arguments of paths that
-are not ported (audio, video, speculative drafting) raise
-NotImplementedError.
+`vision_cache` the vision tower's features.  `draft_model` decodes
+speculatively with a vanilla drafter (speculative/utils.py
+`speculative_generate_step`, the reference's :223-241).  The arguments
+of paths that are not ported (audio, video) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -110,6 +111,7 @@ def stream_generate(
     apc=None,
     vision_cache=None,
     draft_model=None,
+    num_draft_tokens: int = 4,
 ) -> Generator[GenerationResult, None, None]:
     """Stream GenerationResult chunks, one per generated token.
 
@@ -122,11 +124,23 @@ def stream_generate(
     APC_EXACT_PREFIX_GUARD_TOKENS (default 16) tokens to prefill and fits
     the continuation, and stores the prompt's snapshot.  The whole prompt
     is embedded first (the vision tower included, unless `vision_cache`
-    holds its features), as in the reference."""
-    for name, val in (("audio", audio), ("video", video),
-                      ("draft_model", draft_model)):
+    holds its features), as in the reference.
+
+    `draft_model` (a vanilla drafter of the target's vocabulary) decodes
+    speculatively, `num_draft_tokens` drafted a round, with the same
+    sampling arguments, as the reference's branch does (:223-241): that
+    branch passes no `kv_bits`, no prompt cache, no logits processors and
+    no `block_size`, so with a drafter both caches are bf16 and `apc`,
+    `kv_bits`, `kv_group_size`, `block_size`, `logit_bias` and
+    `repetition_penalty` are ignored (no APC lookup is made)."""
+    for name, val in (("audio", audio), ("video", video)):
         if val is not None:
             raise NotImplementedError(f"{name} is not ported")
+    if draft_model is not None:
+        from ..speculative.utils import validate_drafter_compatibility
+
+        validate_drafter_compatibility(model, draft_model)
+        apc = kv_bits = None
     check_kv_bits(kv_bits)
 
     inputs = prepare_inputs(processor, prompt, images=image)
@@ -152,13 +166,25 @@ def stream_generate(
     prompt_time = None
     gen_start = None
     n = 0
-    token_iter = generate_step(
-        embeds, model, position_ids=position_ids, rope_deltas=rope_deltas,
-        max_tokens=max_tokens, sampler=sampler, logits_processors=processors,
-        prefill_step_size=prefill_step_size, seed=seed, block_size=block_size,
-        kv_bits=kv_bits, kv_group_size=kv_group_size,
-        prompt_cache=prompt_cache, prefix_len=prefix_len,
-        prompt_cache_callback=prompt_cache_callback)
+    if draft_model is not None:
+        from ..speculative import utils as spec
+
+        token_iter = spec.speculative_generate_step(
+            embeds, model, draft_model, input_ids=input_ids,
+            position_ids=position_ids, rope_deltas=rope_deltas,
+            max_tokens=max_tokens, num_draft=num_draft_tokens,
+            prefill_step_size=prefill_step_size, temperature=temperature,
+            top_p=top_p, min_p=min_p, top_k=top_k, seed=seed)
+    else:
+        token_iter = generate_step(
+            embeds, model, position_ids=position_ids,
+            rope_deltas=rope_deltas, max_tokens=max_tokens, sampler=sampler,
+            logits_processors=processors,
+            prefill_step_size=prefill_step_size, seed=seed,
+            block_size=block_size, kv_bits=kv_bits,
+            kv_group_size=kv_group_size, prompt_cache=prompt_cache,
+            prefix_len=prefix_len,
+            prompt_cache_callback=prompt_cache_callback)
     phases = global_phases()
     while True:
         # the first pull runs the prefill, the rest are decode steps: named

@@ -13,8 +13,11 @@ model with no audio tower (server/audio.py); the image-generation and
 detection routes answer 400 as the reference's do with no such model
 loaded.  `create_server` builds the APC manager from the environment
 (APC_ENABLED, apc.py `from_env`) unless the caller passes `apc`; the
-cache routes serve it.  Image generation, detection and draft models are
-not ported, and extra models for the
+cache routes serve it.  A draft model (`serve(draft_model_path=)`,
+`create_server(draft_model=)`) serves speculatively: `serve` loads it
+before the owner thread starts, and the engine admits its rows there.
+Image generation and detection models are not ported, and extra models
+for the
 hot-swap registry (server/registry.py) are not served: the registry
 loads a model on a handler thread and gives it an owner thread of its
 own, whose CUDA work could land inside the first owner's graph capture.
@@ -299,17 +302,20 @@ def serve(model_path: str, host="0.0.0.0", port=8080,
           draft_model_path: str | None = None,
           image_model_path: str | None = None,
           detect_model_path: str | None = None, **kwargs):
-    """Load `model_path` (onto the card) and serve it until interrupted."""
-    for flag, value, item in (("--draft-model", draft_model_path, 7),
-                              ("--image-model", image_model_path, 5),
-                              ("--detect-model", detect_model_path, 5)):
+    """Load `model_path` (onto the card), and the drafter at
+    `draft_model_path` when one is named, on this thread before the
+    server's owner thread starts, and serve until interrupted."""
+    for flag, value in (("--image-model", image_model_path),
+                        ("--detect-model", detect_model_path)):
         if value:
             raise NotImplementedError(
-                f"{flag} is not ported (ROADMAP Queue 1 item {item})")
+                f"{flag} is not ported (ROADMAP Queue 1 item 5)")
     _refuse_extra_models(kwargs.get("extra_models"))
     from ..utils.loader import load
 
     model, processor = load(model_path)
+    if draft_model_path:
+        kwargs["draft_model"], _ = load(draft_model_path)
     httpd = create_server(model, processor, model_name=model_path,
                           host=host, port=port, **kwargs)
     logger.info("serving %s on %s:%d", model_path, host, port)

@@ -1,9 +1,11 @@
 """`python -m mlx_vlm_tpu_torch server` — port of mlx_vlm_tpu/server/cli.py.
 
-The reference's flags.  The model loads onto the card.  `--draft-model`,
-`--image-model` and `--detect-model` name features that are not ported,
-and `--extra-model` one that the server does not serve yet: they raise
-NotImplementedError before any load (server/app.py `serve`).
+The reference's flags.  The model loads onto the card, and so does the
+drafter that `--draft-model` names: the server then decodes
+speculatively, `--num-draft-tokens` drafted a round.  `--image-model` and
+`--detect-model` name features that are not ported, and `--extra-model`
+one that the server does not serve yet: they raise NotImplementedError
+before any load (server/app.py `serve`).
 """
 
 from __future__ import annotations

@@ -25,8 +25,13 @@ the token counts).  Automatic prefix caching (`apc`, an
 apc.APCManager): `_prepare` looks the prompt up, restores its cached
 prefix into a warm one-row cache and sets the harvest, all on the owner
 thread and outside any capture, so every APC request takes the batch's
-single-row admission.  Speculative serving (`draft_model`) is not ported:
-it raises NotImplementedError.
+single-row admission.  Speculative serving (`draft_model`, the
+reference's :140-150): the batch is a SpeculativeBatchGenerator, whose
+round (catch-up, drafts, verify, walk) is captured once per generator on
+this thread and replayed for every request; the drafter's admission runs
+here too, and /metrics' envelope carries each request's "speculative"
+acceptance (`pop_stats`).  With `kv_bits` it warns, as the reference
+does, and serves bf16 caches.
 """
 
 from __future__ import annotations
@@ -154,10 +159,11 @@ class ResponseGenerator:
         from ..generate.batch import BatchGenerator
         from ..generate.dispatch import _get_eos_ids
 
-        if draft_model is not None:
-            raise NotImplementedError(
-                "speculative serving (draft_model) is not ported (ROADMAP "
-                "Queue 1 item 7)")
+        if draft_model is not None and kv_bits:
+            logger.warning(
+                "--kv-bits is not supported with --draft-model yet; "
+                "serving with full-precision KV")
+            kv_bits = None
         self.model = model
         self.processor = processor
         self.vision_cache = vision_cache
@@ -168,13 +174,23 @@ class ResponseGenerator:
         self.capacity = capacity
         self.token_queue_timeout = token_queue_timeout
         dtype = _param_dtype(model.params)
-        # quantized serving KV (reference BatchQuantizedKVCache): kv_bits
-        # 4 / 8 select the per-row int4 / int8 batch caches (K6 at 4 bits)
-        self.batch = BatchGenerator(
-            model, num_slots=num_slots, capacity=capacity,
-            block_size=block_size, dtype=dtype,
-            kv_bits=kv_bits, kv_group_size=kv_group_size,
-        )
+        if draft_model is not None:
+            from ..speculative.batch import SpeculativeBatchGenerator
+
+            self.batch = SpeculativeBatchGenerator(
+                model, draft_model, num_draft=num_draft,
+                num_slots=num_slots, capacity=capacity,
+                block_size=block_size, dtype=dtype,
+            )
+        else:
+            # quantized serving KV (reference BatchQuantizedKVCache):
+            # kv_bits 4 / 8 select the per-row int4 / int8 batch caches
+            # (K6 at 4 bits)
+            self.batch = BatchGenerator(
+                model, num_slots=num_slots, capacity=capacity,
+                block_size=block_size, dtype=dtype,
+                kv_bits=kv_bits, kv_group_size=kv_group_size,
+            )
         self.metrics = ServerMetricsStore()
         self._requests: "queue.Queue" = queue.Queue()
         self._cancel: set = set()
@@ -521,5 +537,14 @@ class ResponseGenerator:
                             else 0.0
                         ),
                     }
+                    pop_stats = getattr(self.batch, "pop_stats", None)
+                    st = pop_stats(rid) if pop_stats is not None else None
+                    if st is not None and st.rounds:
+                        env["speculative"] = {
+                            "rounds": st.rounds,
+                            "drafted": st.drafted,
+                            "accepted": st.accepted,
+                            "acceptance_rate": round(st.acceptance_rate, 4),
+                        }
                     self.metrics.record(env)
                     self._meta.pop(rid, None)

@@ -1,7 +1,7 @@
 """Random checkpoints and a byte-level tokenizer for tests and smoke runs.
 
-Port of mlx_vlm_tpu/utils/testing.py (tiny_qwen2_vl_config :21 and
-qwen2_vl_7b_config :675 copied; qwen2_vl_hf_weights :59 draws the same
+Port of mlx_vlm_tpu/utils/testing.py (tiny_qwen2_vl_config :21,
+qwen2_vl_2b_config :647 and qwen2_vl_7b_config :675 copied; qwen2_vl_hf_weights :59 draws the same
 arrays for a seed from one list of tensor specs), plus:
 
 - `mlx_quantized_checkpoint`: a random checkpoint in the layout of a 4- or
@@ -70,6 +70,34 @@ def tiny_qwen2_vl_config(**overrides) -> dict:
         cfg["vision_start_token_id"] = 151652 % cfg["vocab_size"]
     cfg.update(overrides)
     return cfg
+
+
+def qwen2_vl_2b_config() -> dict:
+    """Real Qwen2-VL-2B-Instruct dimensions (for benchmarking w/o weights)."""
+    return tiny_qwen2_vl_config(
+        hidden_size=1536,
+        num_hidden_layers=28,
+        intermediate_size=8960,
+        num_attention_heads=12,
+        num_key_value_heads=2,
+        vocab_size=151936,
+        rope_theta=1000000.0,
+        rope_scaling={"type": "mrope", "mrope_section": [16, 24, 24]},
+        image_token_id=151655,
+        video_token_id=151656,
+        vision_start_token_id=151652,
+        vision_config={
+            "depth": 32,
+            "embed_dim": 1280,
+            "hidden_size": 1536,
+            "num_heads": 16,
+            "patch_size": 14,
+            "mlp_ratio": 4.0,
+            "in_channels": 3,
+            "spatial_merge_size": 2,
+            "temporal_patch_size": 2,
+        },
+    )
 
 
 def qwen2_vl_7b_config() -> dict:

@@ -182,10 +182,18 @@ def test_import_pulls_in_no_jax_or_optional_packages():
 def test_unported_arguments_raise(arg):
     """Arguments the port cannot take raise before any work.  `kv_bits` is
     ported; a bit width no cache takes (6) raises the reference's
-    ValueError before any work."""
+    ValueError before any work.  `draft_model` is ported; a drafter of
+    another vocabulary raises ValueError before any work."""
+    import types
+
     from mlx_vlm_tpu_torch.generate.dispatch import stream_generate
 
-    value, exc = (6, ValueError) if arg == "kv_bits" else (1,
-                                                           NotImplementedError)
+    model, value, exc = None, 1, NotImplementedError
+    if arg == "kv_bits":
+        value, exc = 6, ValueError
+    elif arg == "draft_model":
+        model = types.SimpleNamespace(config_dict={"vocab_size": 256})
+        value = types.SimpleNamespace(config_dict={"vocab_size": 300})
+        exc = ValueError
     with pytest.raises(exc):
-        next(stream_generate(None, None, "hi", **{arg: value}))
+        next(stream_generate(model, None, "hi", **{arg: value}))

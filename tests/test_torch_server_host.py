@@ -12,8 +12,9 @@ utils/profiling.py, vision_cache.py, the CLI), and what the port refuses.
   detokenizer, the same in both packages: the host-side stop-sequence scan
   across segment boundaries, EOS, length exhaustion, cancellation and the
   metrics envelope;
-- draft models, image and detection models and extra models for the
-  hot-swap registry raise NotImplementedError;
+- image and detection models and extra models for the hot-swap registry
+  raise NotImplementedError; a draft model of another vocabulary raises
+  ValueError, and `serve` / the CLI pass `--draft-model` on to the load;
 - importing `mlx_vlm_tpu_torch.server.app` (and apc.py, apc_adapters.py,
   the chat and generate commands) pulls in no jax, no mlx_vlm_tpu and no
   pydantic.
@@ -535,20 +536,39 @@ def test_generation_arguments_defaults_match_jax():
 
 
 # ------------------------------------------------------------ refusals
-@pytest.mark.parametrize("kw", [{"draft_model": object()}])
+@pytest.mark.parametrize("kw", [{"draft_model": types.SimpleNamespace(
+    config_dict={"vocab_size": 300}, device="cpu")}])
 def test_engine_refuses_unported_features(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.ResponseGenerator(None, None, **kw)
+    """Speculative serving is ported: a drafter of another vocabulary than
+    the target's is refused before the owner thread starts."""
+    model = types.SimpleNamespace(config_dict={"vocab_size": 256},
+                                  device="cpu", params={})
+    with pytest.raises(ValueError, match="vocab"):
+        teng.ResponseGenerator(model, None, **kw)
 
 
 @pytest.mark.parametrize("kw", ["image_model_path", "detect_model_path",
                                 "draft_model_path"])
-def test_serve_refuses_unported_models(kw):
-    from mlx_vlm_tpu_torch.server.app import serve
+def test_serve_refuses_unported_models(kw, monkeypatch):
+    from mlx_vlm_tpu_torch.server import app
+    from mlx_vlm_tpu_torch.utils import loader
 
+    if kw == "draft_model_path":
+        # ported: both checkpoints are read, the target's first
+        read = []
+
+        def load(path, *a, **k):
+            read.append(path)
+            raise FileNotFoundError(path)
+
+        monkeypatch.setattr(loader, "load", load)
+        with pytest.raises(FileNotFoundError):
+            app.serve("/nonexistent/checkpoint", **{kw: "/nonexistent/other"})
+        assert read == ["/nonexistent/checkpoint"]
+        return
     # refused before the (nonexistent) checkpoint is read
     with pytest.raises(NotImplementedError):
-        serve("/nonexistent/checkpoint", **{kw: "/nonexistent/other"})
+        app.serve("/nonexistent/checkpoint", **{kw: "/nonexistent/other"})
 
 
 @pytest.mark.parametrize("kw", ["image_service", "detection_service"])
@@ -584,9 +604,18 @@ def test_cli_refuses_extra_model():
 
 @pytest.mark.parametrize("flag", ["--draft-model", "--image-model",
                                   "--detect-model"])
-def test_cli_refuses_unported_flags(flag):
-    from mlx_vlm_tpu_torch.server import cli
+def test_cli_refuses_unported_flags(flag, monkeypatch):
+    from mlx_vlm_tpu_torch.server import app, cli
 
+    if flag == "--draft-model":
+        # ported: the flag and --num-draft-tokens reach serve
+        seen = {}
+        monkeypatch.setattr(app, "serve",
+                            lambda model, **kw: seen.update(kw, model=model))
+        cli.main(["--model", "/nonexistent/checkpoint", flag, "/x",
+                  "--num-draft-tokens", "3"])
+        assert seen["draft_model_path"] == "/x" and seen["num_draft"] == 3
+        return
     with pytest.raises(NotImplementedError):
         cli.main(["--model", "/nonexistent/checkpoint", flag, "/x"])
 
