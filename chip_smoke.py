@@ -31,19 +31,24 @@ Phases (any failure exits non-zero):
      the four linear shapes (timed cold and warm), and at 8 bits and g =
      128 with an odd number of groups a row (Qwen2-VL-72B's down_proj, K
      = 29568, on the GEMV in chunks and on the GEMM; K = 3712 on a one-
-     chunk and a persistent GEMV; N even and odd), every case with its
+     chunk and a persistent GEMV; N even and odd), and at 4 bits through
+     Qwen3-VL-8B's linears at M = 1 and 512 and its lm_head (N = 151936)
+     at M = 1, timed cold and warm, every case with its
      plan, kernels per call and a bit-identical repeat;
      K4 at the 8k rows (offset 7680; left_pad 100; window 1024), at (c)'s
      first, middle and last chunk (S = 512 against C = 8704 at offsets 0,
      4096, 8192), at two batch rows with their own offsets and
-     left_pads and at 12 heads over 2 KV heads (the 2B drafter's last
-     chunk of (c)'s prompt), each timed cold (`graph_ms` over copies of k/v) and warm,
+     left_pads, at 12 heads over 2 KV heads (the 2B drafter's last
+     chunk of (c)'s prompt) and at 32 over 8 (Qwen3-VL-8B's last chunk of
+     (q2)'s prompt), each timed cold (`graph_ms` over copies of k/v) and warm,
      with its kernels per call and a bit-identical repeat;
      K3: 4 decoder layers and the int4 head at offsets 1, 300 and 8545
      with 1e3 past the cursor and at 8545 with NaN past it (the cursor a
-     device word, the K/V tensor maps over the whole capacity), each with
-     its kernels per call, a bit-identical repeat and its bytes per second
-     beside the bound's; then one K3 launch captured in a CUDA graph and
+     device word, the K/V tensor maps over the whole capacity), and all
+     28 layers and the head at the 2B drafter's widths (hidden 1536, 12 / 2
+     heads, intermediate 8960, vocab 152064) at offsets 300 and 8545, each
+     with its kernels per call, a bit-identical repeat and its bytes per
+     second beside the bound's; then one K3 launch captured in a CUDA graph and
      replayed with its cursor word rewritten between replays (300, then
      8545), each replay bit-identical to an eager call at that cursor;
      K6-K8: 4 KV heads of 7 query rows over an 8704-slot cache at offsets
@@ -60,7 +65,9 @@ Phases (any failure exits non-zero):
      scaled_dot_product_attention; K1, K2 and 4-bit K5 against
      torch._weight_int4pack_mm after an untimed repack);
   3. the slice on the card (bf16, kernels) against the slice on the CPU
-     (plain versions) at 7B widths with 2 decoder layers, teacher-forced:
+     (plain versions) at 7B widths with 2 decoder layers (the first two of
+     phase 4's checkpoint, which `family_checkpoints` builds here),
+     teacher-forced:
      decode through K3 on the bf16 cache (CPU in f32, 8 steps), and through
      K6, K7 and K8 with kv_bits 4, 3.5 and 3.5 split (CPU in bf16, 4
      steps); then the runtime quantization modes (2 steps each): exact
@@ -84,8 +91,17 @@ Phases (any failure exits non-zero):
      the single-stream rounds (greedy and sampled) and the batched rounds
      (three requests, one admitted late), each round after the first a
      replay of the round captured once, against every round eager: tokens,
-     logprobs and both models' caches bit-identical.  The phase prints the
-     seconds of each of its parts;
+     logprobs and both models' caches bit-identical; then the new
+     families against the CPU, teacher-forced, each in its own
+     prefill layout with its own processor: Qwen2.5-VL at 7B widths (2
+     decoder layers, the whole 32-block windowed tower; w4grp, K1 and K2
+     on the prefill, K3 every step, 8 steps; against a bf16 CPU run, see
+     FAMILY_CASES) and Qwen3-VL at 8B widths (f32 CPU runs)
+     (3 decoder layers, so that all 3 deepstack levels are added; the
+     whole 27-block tower) in its default w8chan mode and in exact (K5),
+     4 steps each, launches held to what ran, and each model's replayed
+     decode against eager steps.  The phase prints the seconds of each of
+     its parts;
   4. the main path at full Qwen2-VL-7B width (random mlx-format weights,
      28 decoder layers, 32 vision blocks): eight greedy requests through
      load_model_from_weights and stream_generate, each with the kernels'
@@ -196,9 +212,22 @@ Phases (any failure exits non-zero):
      round capture, launches held to the rounds and chunks, the greedy
      answers held by the parity rule to their prompts alone, prefilled in
      their admission's layout and decoded in their verify's (K1 at M =
-     20; the per-linear route at M = 1 printed beside).
-Phase 3 folds each checkpoint's mlx weights once for all of its loads in
-one runtime mode (`fold_once`).
+     20; the per-linear route at M = 1 printed beside).  Each
+     single-stream round's k drafter steps and its sync are one K3
+     launch each (the drafter's fused route, with the head inside).
+     Then Qwen2.5-VL-7B (the Qwen2-VL-7B checkpoint's language model and
+     its own 32-block windowed tower), default w4grp: (n1) a 448x448
+     image request of 100 tokens (K1 on the prefill, K3 every decode
+     step), (n2) `batch_generate` of (i)'s prompts, (n3) one image chat
+     through the server; and Qwen3-VL-8B (36 layers, the 27-block
+     deepstack tower) loaded exact: (q1) an image request, (q2) an image
+     and a ~8.5k-token prompt (K4 on every layer of every chunk), (q3)
+     `batch_generate` of a text and an image prompt admitted together
+     (rows of embedding widths D and 4D); each with its load seconds,
+     TTFT, ms per replayed token and peak GiB, its launches held to what
+     ran.
+Phases 3 and 4 fold each mlx triple once for all of its loads in one
+runtime mode (`fold_once`), across the checkpoints that share it.
 Each phase prints its seconds.  The line before the last is the kernel
 report, the last line the result.  Needs no network and imports nothing of
 JAX.
@@ -693,6 +722,15 @@ K5_CASES = (tuple((bits, 64, M, K, N) for bits in (4, 8) for M in (1, 512)
             + tuple((8, 128, M, 29568, N) for M, N in ((1, 8192), (8, 8192),
                                                        (5, 1001), (58, 8192)))
             + tuple((8, 128, 1, 3712, N) for N in (1001, 18945)))
+# Qwen3-VL-8B's linears in the exact mode (phase 4's (q1)-(q3)): q / o
+# 4096^2, k / v N = 1024, gate / up N = 12288, down K = 12288, at M = 1 (a
+# decode step) and 512 (a prefill chunk), and its lm_head (N = 151936) at
+# M = 1; each timed cold and warm
+QWEN3_8B_SHAPES = ((4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096))
+K5_8B_CASES = (tuple((4, 64, M, K, N) for M in (1, 512)
+                     for K, N in QWEN3_8B_SHAPES)
+               + ((4, 64, 1, 4096, 151936),))
+K5_CASES = K5_CASES + K5_8B_CASES
 K5_TOL = 1e-2
 
 
@@ -803,7 +841,8 @@ def check_qmatmul(results: list, dev) -> None:
                lambda: run(t), lambda: k5.qmatmul_plain(x, t), floor=0.0,
                work=qmm_work(M, t), library=lib)
         r = results[-1]
-        if M <= k5.MAX_GEMV_ROWS or M == 58:
+        if (M <= k5.MAX_GEMV_ROWS or M == 58
+                or (bits, g, M, K, N) in K5_8B_CASES):
             r["warm_ms"], r["ms"] = r["ms"], qmm_cold_ms(run, t)
             txt = f"kernel_ms={r['ms']:.4f} cold {r['warm_ms']:.4f} warm"
             if lib is not None:
@@ -873,6 +912,7 @@ def phase_kernels() -> list:
     check_qmatmul(results, dev)
     check_flash_attention(results, gen, dev)
     check_fused_decode(results, gen, dev)
+    check_fused_decode_2b(results, gen, dev)
     check_kv_kernels(results, gen, dev)
     return results
 
@@ -898,6 +938,9 @@ FLASH_CASES = tuple(case + ((28, 4),) for case in (
     # the 2B drafter's last chunk of (s3)'s prompt: 12 heads over 2 KV
     # heads, a GQA group of 6
     (1, 8704, (8192,), (0,), None, 1, (12, 2)),
+    # Qwen3-VL-8B's last chunk of (q2)'s ~8.5k-token prompt: 32 heads over
+    # 8 KV heads
+    (1, 8704, (8192,), (0,), None, 1, (32, 8)),
 )
 FLASH_TOL = 2e-2
 
@@ -1002,17 +1045,18 @@ FUSED_CASES = ((1, 1e3), (300, 1e3), (8545, 1e3), (8545, float("nan")))
 FUSED_EXACT, FUSED_ROUNDED = 1e-4, 6e-2
 
 
-def fused_params(n_layers: int, gen, dev, q_scale: float):
-    """(language-model params, TextConfig) at Qwen2-VL-7B width with
-    `n_layers` random int4 decoder layers and an int4 lm_head; q_proj's
-    planes and bias are scaled by q_scale (sharper attention scores)."""
+def fused_params(n_layers: int, gen, dev, q_scale: float, cfg=None):
+    """(language-model params, TextConfig) at the widths of `cfg` (a
+    Qwen2-VL config dict; Qwen2-VL-7B's by default) with `n_layers` random
+    int4 decoder layers and an int4 lm_head; q_proj's planes and bias are
+    scaled by q_scale (sharper attention scores)."""
     import torch
 
     from mlx_vlm_tpu_torch.core.quant import Int4GroupedTensor
     from mlx_vlm_tpu_torch.models.qwen2_vl import ModelConfig
     from mlx_vlm_tpu_torch.utils.testing import qwen2_vl_7b_config
 
-    cfg = qwen2_vl_7b_config()
+    cfg = dict(cfg or qwen2_vl_7b_config())
     cfg["num_hidden_layers"] = n_layers
     args = ModelConfig.from_dict(cfg).text_config
     D, I = args.hidden_size, args.intermediate_size
@@ -1085,8 +1129,48 @@ def fused_step_ops(params: dict, args, offset: int) -> float:
             + 4.0 * L * args.num_attention_heads * hd * offset)
 
 
-def check_fused_decode(results: list, gen, dev) -> None:
-    """K3 against its plain version: 4 layers at 7B width with the int4
+# K3 at the 2B drafter's widths (the single-stream drafter's steps in
+# phase 4's speculative part): hidden 1536, 12 / 2 heads (6 q heads a kv
+# head), intermediate 8960, the 7B's vocabulary 152064, all 28 layers and
+# the head, at two offsets
+FUSED_2B_CASES = ((300, 1e3), (8545, 1e3))
+
+
+def drafter_config() -> dict:
+    """qwen2_vl_2b_config() with the 7B target's vocabulary, 152064: both
+    packages refuse the published 2B vocabulary (151936) beside the 7B
+    target, since validate_drafter_compatibility compares vocab sizes."""
+    from mlx_vlm_tpu_torch.utils.testing import qwen2_vl_2b_config
+
+    cfg = qwen2_vl_2b_config()
+    cfg["vocab_size"] = 152064
+    return cfg
+
+
+def check_fused_decode_2b(results: list, gen, dev) -> None:
+    """K3 at the drafter's widths (check_fused_decode at FUSED_2B_CASES
+    with all 28 layers and the head), after printing the kernel's refusal
+    rule and its ring plan at that width."""
+    from mlx_vlm_tpu_torch.models.qwen2_vl import ModelConfig
+    from mlx_vlm_tpu_torch.ops import fused_decode as fd
+
+    cfg = drafter_config()
+    args = ModelConfig.from_dict(cfg).text_config
+    refusal = fd.kernel_refusal(args, 64, args.intermediate_size)
+    print(f"  fused_decode at the 2B's widths: kernel_refusal {refusal}; "
+          f"ring {fd._ring(args.hidden_size, 64)}", flush=True)
+    if refusal is not None:
+        fail(f"K3 refuses the drafter's widths: {refusal}")
+    check_fused_decode(results, gen, dev, cfg=cfg,
+                       n_layers=cfg["num_hidden_layers"],
+                       cases=FUSED_2B_CASES)
+
+
+def check_fused_decode(results: list, gen, dev, cfg=None,
+                       n_layers: int = FUSED_LAYERS,
+                       cases=FUSED_CASES) -> None:
+    """K3 against its plain version: 4 layers at 7B width (or `n_layers`
+    at `cfg`'s widths) with the int4
     head and q sharpened by 4, C = 8704, the cache past `offset` filled
     with 1e3 (and, in the last case, NaN) so that a read past the cursor
     breaks the check.  Tolerances: FUSED_EXACT and FUSED_ROUNDED above.
@@ -1100,8 +1184,8 @@ def check_fused_decode(results: list, gen, dev) -> None:
     from mlx_vlm_tpu_torch.core.rope import make_rope
     from mlx_vlm_tpu_torch.ops import fused_decode as fd
 
-    params, args = fused_params(FUSED_LAYERS, gen, dev, q_scale=4.0)
-    L, C = FUSED_LAYERS, FUSED_CAPACITY
+    params, args = fused_params(n_layers, gen, dev, q_scale=4.0, cfg=cfg)
+    L, C = n_layers, FUSED_CAPACITY
     D = args.hidden_size
     nkv, hd = args.num_key_value_heads, D // args.num_attention_heads
     rope = make_rope(hd, args.rope_theta, args.rope_scaling)
@@ -1119,7 +1203,7 @@ def check_fused_decode(results: list, gen, dev) -> None:
         return bool((rest.isnan() if math.isnan(fill) else rest == fill)
                     .all())
 
-    for off, fill in FUSED_CASES:
+    for off, fill in cases:
         cos, sin = rope.cos_sin(torch.full((3, 1, 1), off, device=dev))
         cos, sin = cos[0, 0], sin[0, 0]
         k = torch.randn((L, 1, nkv, C, hd), generator=gen).to(
@@ -1157,7 +1241,8 @@ def check_fused_decode(results: list, gen, dev) -> None:
         kernels = kernels_per_call(step)
         plan = fd.step_plan(params, args, dev)
         ok = ok and same and kernels == 1
-        shape = (f"L={L} D={D} I={args.intermediate_size} H=28 KVH=4 "
+        shape = (f"L={L} D={D} I={args.intermediate_size} "
+                 f"H={args.num_attention_heads} KVH={nkv} "
                  f"V={args.vocab_size} C={C} offset={off} q_scale=4"
                  + ("" if fill == 1e3 else f" past={fill}"))
         ms = device_ms(step)
@@ -1184,7 +1269,9 @@ def check_fused_decode(results: list, gen, dev) -> None:
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None, "kernels_per_call": kernels,
                         "repeat_identical": same, "ok": ok})
-    results.append(check_fused_cursor_replay(params, args, h, rope, gen, dev))
+    if cfg is None:
+        results.append(check_fused_cursor_replay(params, args, h, rope, gen,
+                                                 dev))
     del params
 
 
@@ -1524,12 +1611,14 @@ def check_kv_kernels(results: list, gen, dev) -> None:
 # ------------------------------------------------------------ phase 3
 
 
-def _processor(name_ids: bool = False):
-    """The Qwen2-VL processor over utils/testing.py's ByteTokenizer; with
-    `name_ids`, its decode writes every id as "<id>", so that a text shows
-    each token that random weights generate (most ids are not bytes)."""
-    from mlx_vlm_tpu_torch.utils.processing import (Qwen2VLImageProcessor,
-                                                    Qwen2VLProcessor)
+def _processor(name_ids: bool = False, model=None):
+    """The Qwen2-VL processor over utils/testing.py's ByteTokenizer, its
+    image processor `model`'s (`image_processor_for`: patch 16 for
+    Qwen3-VL, else Qwen2-VL's patch 14); with `name_ids`, its decode writes
+    every id as "<id>", so that a text shows each token that random weights
+    generate (most ids are not bytes)."""
+    from mlx_vlm_tpu_torch.utils.processing import (Qwen2VLProcessor,
+                                                    image_processor_for)
     from mlx_vlm_tpu_torch.utils.testing import ByteTokenizer
 
     class NamingTokenizer(ByteTokenizer):
@@ -1537,7 +1626,7 @@ def _processor(name_ids: bool = False):
             return "".join(f"<{i}>" for i in np.asarray(ids).reshape(-1))
 
     tok = NamingTokenizer() if name_ids else ByteTokenizer()
-    return Qwen2VLProcessor(tok, Qwen2VLImageProcessor())
+    return Qwen2VLProcessor(tok, image_processor_for(model))
 
 
 def _image(size: int) -> np.ndarray:
@@ -1589,46 +1678,84 @@ class env_vars:
 
 
 class fold_once:
-    """utils/loader.py's `_fold_quantized` memoized for the duration of a
-    with block, so that the loads of one checkpoint in one runtime mode
-    (the CPU references' and the card's) fold its mlx triples once rather
-    than once a load: the fold (the host requantization of w4grp's
-    embedding table and of w8chan's every linear, in float64) depends on
-    neither the dtype nor the device, which come after it.  A checkpoint is
-    known by the identity of its packed triples, held by the memo so that
-    no identity is reused."""
+    """utils/loader.py's `_fold_triple` memoized for the duration of a with
+    block, so that an mlx triple folds once in a runtime mode, whichever
+    loads and checkpoints hold it: the CPU references' and the card's
+    loads of one checkpoint, and checkpoints that share arrays (phase 3's
+    2- and 3-layer slices and phase 4's Qwen2.5-VL-7B hold the arrays of
+    the full-depth checkpoints, `family_checkpoints`).  The fold (the host
+    requantization of w4grp's embedding table and of w8chan's every
+    linear, in float64; w4grp's relayout) depends on neither the dtype nor
+    the device, which come after it.  A triple is known by the identity of
+    its arrays, held by the memo so that no identity is reused."""
 
     def __enter__(self):
         from mlx_vlm_tpu_torch.utils import loader
 
-        self.loader, self.real, self.memo = loader, loader._fold_quantized, {}
+        self.loader, self.real, self.memo = loader, loader._fold_triple, {}
 
-        def fold(flat, qcfg, default_mode="w8chan"):
-            triples = [k for k, v in flat.items()
-                       if k.endswith((".scales", ".biases"))
-                       or getattr(v, "dtype", None) == np.uint32]
-            key = (loader.runtime_quant_mode(default_mode),
-                   json.dumps(qcfg, sort_keys=True),
-                   tuple((k, id(flat[k])) for k in triples))
+        def fold(w, scales, biases, bits, group_size, mode, is_embed,
+                 pool=None):
+            key = (id(w), id(scales), id(biases), bits, group_size, mode,
+                   is_embed)
             if key not in self.memo:
-                out = self.real(flat, qcfg, default_mode)
-                folded = {k: v for k, v in out.items()
-                          if v is not flat.get(k)}
-                self.memo[key] = (folded, set(flat) - set(out),
-                                  [flat[k] for k in triples])
-            folded, dropped, _ = self.memo[key]
-            out = dict(folded)
-            for k, v in flat.items():
-                if k not in dropped:
-                    out.setdefault(k, v)
-            return out
+                self.memo[key] = (self.real(w, scales, biases, bits,
+                                            group_size, mode, is_embed, pool),
+                                  (w, scales, biases))
+            return self.memo[key][0]
 
-        loader._fold_quantized = fold
+        loader._fold_triple = fold
         return self
 
     def __exit__(self, *exc):
-        self.loader._fold_quantized = self.real
+        self.loader._fold_triple = self.real
         self.memo.clear()
+
+
+def family_checkpoints() -> dict:
+    """The random mlx 4-bit checkpoints of phases 3 and 4 at the published
+    widths, built once: "qwen2_vl_7b" (seed SEED + 2), "qwen2_5_vl_7b"
+    (Qwen2.5-VL-7B: the same language-model arrays, whose widths are
+    Qwen2-VL-7B's, and its own windowed vision tower, seed SEED + 6) and
+    "qwen3_vl_8b" (seed SEED + 7).  Each is (config, weights)."""
+    from mlx_vlm_tpu_torch.utils.testing import (is_vision_key,
+                                                 mlx_int4_checkpoint,
+                                                 mlx_quantized_checkpoint,
+                                                 qwen2_5_vl_7b_config,
+                                                 qwen2_vl_7b_config,
+                                                 qwen3_vl_8b_config)
+
+    t0 = time.perf_counter()
+    out = {"qwen2_vl_7b": mlx_int4_checkpoint(qwen2_vl_7b_config(),
+                                              seed=SEED + 2)}
+    cfg25, vision = mlx_quantized_checkpoint(qwen2_5_vl_7b_config(),
+                                             seed=SEED + 6, vision_only=True)
+    lm = {k: v for k, v in out["qwen2_vl_7b"][1].items()
+          if not is_vision_key(k)}
+    out["qwen2_5_vl_7b"] = (cfg25, {**lm, **vision})
+    out["qwen3_vl_8b"] = mlx_int4_checkpoint(qwen3_vl_8b_config(),
+                                             seed=SEED + 7)
+    print(f"  checkpoints (Qwen2-VL-7B, Qwen2.5-VL-7B's vision tower, "
+          f"Qwen3-VL-8B) built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
+def sliced(ckpt: tuple, n_layers: int) -> tuple:
+    """A checkpoint cut to its first `n_layers` decoder layers: the same
+    arrays (so `fold_once` folds them once for both)."""
+    import re
+
+    cfg, w = ckpt
+    pat = re.compile(r"(?:^|\.)layers\.(\d+)\.")
+    keep = {k: v for k, v in w.items()
+            if (m := pat.search(k)) is None or int(m.group(1)) < n_layers}
+    cfg = json.loads(json.dumps(cfg))
+    if "text_config" in cfg:
+        cfg["text_config"]["num_hidden_layers"] = n_layers
+    else:
+        cfg["num_hidden_layers"] = n_layers
+    return cfg, keep
 
 
 def teacher_forced_logits(model, inputs: dict, forced=None,
@@ -2026,11 +2153,9 @@ def spec_drafter(n_layers=None, vision_depth=None, seed: int = SEED + 4):
     import torch
 
     from mlx_vlm_tpu_torch.utils.loader import load_model_from_weights
-    from mlx_vlm_tpu_torch.utils.testing import (mlx_int4_checkpoint,
-                                                 qwen2_vl_2b_config)
+    from mlx_vlm_tpu_torch.utils.testing import mlx_int4_checkpoint
 
-    cfg = qwen2_vl_2b_config()
-    cfg["vocab_size"] = 152064
+    cfg = drafter_config()
     if n_layers:
         cfg["num_hidden_layers"] = n_layers
     if vision_depth:
@@ -2156,17 +2281,16 @@ PARITY_CASES = (
 )
 
 
-def phase_slice_parity() -> bool:
+def phase_slice_parity(ckpt: tuple) -> bool:
     """The slice on the card (bf16, kernels) vs on the CPU (plain versions),
-    7B widths with 2 decoder layers, same random checkpoint, for the bf16
-    cache (K3) and the quantized caches (K6, K7, K8)."""
+    7B widths with 2 decoder layers (the first two of `ckpt`, phase 4's
+    Qwen2-VL-7B checkpoint), for the bf16 cache (K3) and the quantized
+    caches (K6, K7, K8)."""
     import torch
 
     from mlx_vlm_tpu_torch import apply_chat_template
     from mlx_vlm_tpu_torch.utils.loader import load_model_from_weights
     from mlx_vlm_tpu_torch.utils.processing import prepare_inputs
-    from mlx_vlm_tpu_torch.utils.testing import (mlx_int4_checkpoint,
-                                                 qwen2_vl_7b_config)
 
     n_layers = 2
     print(f"phase 3: slice on the card (bf16, kernels) vs on the CPU (plain "
@@ -2179,9 +2303,7 @@ def phase_slice_parity() -> bool:
         clock.append(time.perf_counter())
         print(f"  ({what}: {clock[-1] - clock[-2]:.1f} s)", flush=True)
 
-    cfg = qwen2_vl_7b_config()
-    cfg["num_hidden_layers"] = n_layers
-    cfg, weights = mlx_int4_checkpoint(cfg, seed=SEED + 1)
+    cfg, weights = sliced(ckpt, n_layers)
     proc = _processor()
     prompt = apply_chat_template(proc, cfg, "What is in this image?",
                                  num_images=1)
@@ -2281,6 +2403,108 @@ def phase_slice_parity() -> bool:
     torch.cuda.empty_cache()
     print(f"  fused route on all: {route} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
+    return all_ok
+
+
+# The new families on the card against the CPU: (label, checkpoint,
+# decoder layers, MLX_VLM_TPU_RUNTIME_QUANT (None: the default), the
+# layout its linears load in, the CPU reference's dtype, teacher-forced
+# steps).  Qwen3-VL keeps 3 decoder layers, so that each of its 3
+# deepstack levels is added.  Qwen2.5-VL is held to a CPU run in the
+# card's working type, bf16: its image features (std about 1.4, some 70
+# times the text embeddings' on these random weights) carry the 32-block
+# tower's bf16 roundings (1.2% of their scale after 8 blocks, as
+# Qwen2-VL's tower) into the residual stream, and against an f32 run the
+# card measured 0.3149 past the tolerance of 0.3018 (NVIDIA H100 80GB
+# HBM3, 700 W), where Qwen2-VL's image prompt measures 0.19 of 0.35.
+FAMILY_CASES = (
+    ("Qwen2.5-VL, w4grp (K3 decode)", "qwen2_5_vl_7b", 2, None,
+     "Int4GroupedTensor", "bfloat16", 8),
+    ("Qwen3-VL, w8chan", "qwen3_vl_8b", 3, None, "ChannelQuantizedTensor",
+     "float32", 4),
+    ("Qwen3-VL, exact (K5)", "qwen3_vl_8b", 3, "exact", "QuantizedTensor",
+     "float32", 4),
+)
+
+
+def family_want(label: str, lm, n_steps: int) -> dict:
+    """Launches of FAMILY_CASES' teacher-forced run (one unpadded prefill
+    chunk with its head at M = 1, then n_steps - 1 decode steps): on the
+    fused route K1 for the chunk's linears, K2 for its head and K3 each
+    step; exact K5 on every linear and the head of the chunk and of each
+    step; w8chan no kernel (K4 takes no chunk this short)."""
+    want = {k: 0 for k in read_counts()}
+    L = lm.args.num_hidden_layers
+    if lm.fused_decode:
+        want.update(int4_matmul=7 * L, int4_matvec=1,
+                    fused_decode=n_steps - 1)
+    elif "exact" in label:
+        want["qmatmul_int4"] = n_steps * (7 * L + 1)
+    return want
+
+
+def phase_family_parity(ckpts: dict) -> bool:
+    """Qwen2.5-VL at 7B widths (2 decoder layers, its whole windowed tower)
+    and Qwen3-VL at 8B widths (3 decoder layers, its whole deepstack tower)
+    on the card (bf16, kernels) against the CPU (plain versions, in f32 or
+    bf16 by FAMILY_CASES), each
+    on its own image prompt and processor (patch 14; 16), teacher-forced by
+    the parity rule, its launches held to what ran; then each model's
+    graph-replayed decode against eager steps on the card."""
+    import torch
+
+    from mlx_vlm_tpu_torch import apply_chat_template
+    from mlx_vlm_tpu_torch.generate.common import embed_prompt
+    from mlx_vlm_tpu_torch.utils.loader import load_model_from_weights
+    from mlx_vlm_tpu_torch.utils.processing import prepare_inputs
+
+    print("phase 3: Qwen2.5-VL (7B widths) and Qwen3-VL (8B widths) on the "
+          "card vs the CPU, teacher-forced", flush=True)
+    all_ok = True
+    for (label, name, n_layers, mode, layout, ref_dtype,
+         n_steps) in FAMILY_CASES:
+        t0 = time.perf_counter()
+        cfg, weights = sliced(ckpts[name], n_layers)
+        with env_vars(MLX_VLM_TPU_RUNTIME_QUANT=mode):
+            cpu = load_model_from_weights(cfg, weights,
+                                          getattr(torch, ref_dtype), "cpu")
+            proc = _processor(model=cpu)
+            prompt = apply_chat_template(proc, cfg, "What is in this image?",
+                                         num_images=1)
+            inputs = prepare_inputs(proc, prompt, images=_image(224))
+            ref, toks = teacher_forced_logits(cpu, inputs, n_steps=n_steps)
+            del cpu
+            t1 = time.perf_counter()
+            gpu = load_model_from_weights(cfg, weights, torch.bfloat16,
+                                          "cuda")
+            reset_counts()
+            got, _ = teacher_forced_logits(gpu, inputs, forced=toks,
+                                           n_steps=n_steps)
+            counts = read_counts()
+        lm = gpu.language_model
+        lp = gpu.params["language_model"]
+        kind = type(lp["model"]["layers"]["mlp"]["up_proj"]["weight"]).__name__
+        layout_ok = kind == layout and lm.fused_decode == (
+            layout == "Int4GroupedTensor")
+        want = family_want(label, lm, n_steps)
+        counts_ok = counts == want
+        ok, err, tol, n_margin = parity_rule(ref, got)
+        print(f"  {label}, {n_layers} decoder layers, vision depth "
+              f"{gpu.config.vision_config.depth}: prompt "
+              f"{inputs['input_ids'].shape[1]} tokens, grid "
+              f"{inputs['image_grid_thw'].tolist()}, embeddings width "
+              f"{embed_prompt(gpu, inputs)[0].shape[-1]}; "
+              f"{kind}, fused route {lm.fused_decode}; vs the CPU in "
+              f"{ref_dtype}: max|cuda - cpu| = {err:.4e}, tol {tol:.4e}; argmax checked on {n_margin}/"
+              f"{n_steps} steps; launches {counts} (want {want}); CPU "
+              f"{t1 - t0:.1f} s, card {time.perf_counter() - t1:.1f} s "
+              f"{'ok' if ok and counts_ok and layout_ok else 'MISMATCH'}",
+              flush=True)
+        with env_vars(MLX_VLM_TPU_RUNTIME_QUANT=mode):
+            replay_ok = replay_matches_eager(gpu, label)
+        all_ok = all_ok and ok and counts_ok and layout_ok and replay_ok
+        del gpu, weights
+        torch.cuda.empty_cache()
     return all_ok
 
 
@@ -2603,7 +2827,8 @@ def report_batch(name: str, st: dict, counts: dict, tokens: str, n_gen: int,
     return ms_replayed
 
 
-def run_batch_generate(model, proc, cfg, total: dict) -> list:
+def run_batch_generate(model, proc, cfg, total: dict,
+                       name: str = "(i) batch_generate") -> list:
     """Request (i): BATCH_PROMPTS through batch_generate (greedy, bf16
     batch cache), the kernels' launch counters set to 0 just before it and
     read just after.  Returns its texts."""
@@ -2619,8 +2844,8 @@ def run_batch_generate(model, proc, cfg, total: dict) -> list:
                          num_slots=BATCH_NUM_SLOTS)
     counts = read_counts()
     if len(res.texts) != len(prompts):
-        fail(f"(i): {len(res.texts)} texts for {len(prompts)} prompts")
-    report_batch("(i) batch_generate", res.generator_stats, counts, "",
+        fail(f"{name}: {len(res.texts)} texts for {len(prompts)} prompts")
+    report_batch(name, res.generator_stats, counts, "",
                  res.stats["generation_tokens"], res.stats["prompt_tokens"],
                  res.stats["wall_s"], None,
                  model.language_model.args.num_hidden_layers, total)
@@ -4027,13 +4252,14 @@ def spec_want(st: dict, n_layers: int, d_layers: int, flash: bool) -> dict:
     """Launches of a single-stream speculative request: both models'
     prefill chunks on K1 (and K4 on every layer where the cache takes the
     flash route), the target's prefill head on K2, and per round k drafter
-    steps (linears and head) and the sync (linears) at M = 1 and the
-    verify (linears and head) at M = k + 1, all on K2."""
+    steps and the sync, each one K3 launch with the head inside (the
+    drafter's fused route), and the verify (linears and head) at
+    M = k + 1 on K2."""
     want = {k: 0 for k in read_counts()}
     C = st["prefill_chunks"]
     want["int4_matmul"] = 7 * (n_layers + d_layers) * C
-    want["int4_matvec"] = 1 + st["rounds"] * (
-        SPEC_K * (7 * d_layers + 1) + 7 * d_layers + 7 * n_layers + 1)
+    want["int4_matvec"] = 1 + st["rounds"] * (7 * n_layers + 1)
+    want["fused_decode"] = st["rounds"] * (SPEC_K + 1)
     want["flash_attention"] = (n_layers + d_layers) * C if flash else 0
     return want
 
@@ -4416,8 +4642,8 @@ def run_speculative(model, cfg, total: dict) -> None:
     """The speculative part, on (a)-(f)'s model and a drafter at the 2B's
     widths built and folded once (spec_drafter): (s1) (a)'s image and
     prompt, greedy, 64 tokens; (s2) the target as its own drafter, text,
-    greedy, 32 tokens (every draft should be accepted, up to the verify's
-    K2 at M = 5 against the drafter's K2 at M = 1 in bf16); (s3) (c)'s
+    greedy, 32 tokens (most drafts should be accepted, up to the verify's
+    K2 at M = 5 against the drafter's K3 steps in bf16); (s3) (c)'s
     image and ~8.2k-token prompt, 16 tokens (K4 on both models' prefill
     chunks); (s4) temperature 0.7 with a seed, text, 32 tokens; (s5) a
     server with the drafter, four chats at once.  k = 4 throughout.  The
@@ -4447,7 +4673,8 @@ def run_speculative(model, cfg, total: dict) -> None:
                       "own drafter", "Write a short story about a "
                       "lighthouse.", None, 32, total, step_ms=step_ms)
     print(f"    (s2) acceptance {s2['accepted'] / max(s2['drafted'], 1):.4f} "
-          f"(expected near 1: the same model drafts)", flush=True)
+          f"(the same model drafts, its steps on K3 and the verify on K2 at "
+          f"M = 5: they round differently, so near 1, not 1)", flush=True)
     spec_request(model, drafter, proc, cfg, "(s3) image + ~8.2k-token "
                  "prompt, 2B-width drafter", LONG_TEXT, _image(448), 16,
                  total)
@@ -4474,26 +4701,25 @@ def expect(name: str, counts: dict, want: dict, total: dict) -> None:
         total[k] = total.get(k, 0) + v
 
 
-def phase_main_path() -> dict:
-    """Qwen2-VL-7B at full width through the public entry points; returns
-    the kernels' launch counts summed over the requests, each request's
-    counted from 0."""
+def phase_main_path(ckpts: dict) -> dict:
+    """Qwen2-VL-7B, then Qwen2.5-VL-7B and Qwen3-VL-8B, at full width
+    through the public entry points; returns the kernels' launch counts
+    summed over the requests, each request's counted from 0."""
     import torch
 
     from mlx_vlm_tpu_torch.utils.loader import (decide_fused_decode,
                                                 load_model_from_weights)
-    from mlx_vlm_tpu_torch.utils.testing import (mlx_int4_checkpoint,
-                                                 qwen2_vl_7b_config)
 
     print("phase 4: main path, Qwen2-VL-7B full width (28 decoder layers, 32 "
           "vision blocks), random mlx 4-bit weights, greedy", flush=True)
     t0 = time.perf_counter()
-    cfg, weights = mlx_int4_checkpoint(qwen2_vl_7b_config(), seed=SEED + 2)
+    cfg, weights = ckpts["qwen2_vl_7b"]
     t1 = time.perf_counter()
     model = load_model_from_weights(cfg, weights, torch.bfloat16, "cuda")
     t2 = time.perf_counter()
     n_layers = model.language_model.args.num_hidden_layers
-    print(f"  checkpoint built in {t1 - t0:.1f} s, loaded (fold + stack + "
+    print(f"  checkpoint built in phase 3 (family_checkpoints), loaded "
+          f"(fold of the layers phase 3 did not fold + stack + "
           f"upload) in {t2 - t1:.1f} s; device memory "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     proc = _processor()
@@ -4547,11 +4773,154 @@ def phase_main_path() -> dict:
     del model
     torch.cuda.empty_cache()
     exact_requests(proc, cfg, weights, total)
+    run_qwen2_5_vl(ckpts["qwen2_5_vl_7b"], total)
+    run_qwen3_vl(ckpts["qwen3_vl_8b"], total)
     print(f"  kernel launches on the main path: {total}", flush=True)
     for k, v in total.items():
         if v <= 0:
             fail(f"kernel {k} was not launched on the main path")
     return total
+
+
+def load_timed(name: str, cfg: dict, weights: dict, mode=None):
+    """load_model_from_weights onto the card in bf16 with
+    MLX_VLM_TPU_RUNTIME_QUANT=`mode`, its seconds and memory printed."""
+    import torch
+
+    from mlx_vlm_tpu_torch.utils.loader import load_model_from_weights
+
+    t0 = time.perf_counter()
+    with env_vars(MLX_VLM_TPU_RUNTIME_QUANT=mode):
+        model = load_model_from_weights(cfg, weights, torch.bfloat16, "cuda")
+    lm = model.language_model
+    kind = type(model.params["language_model"]["model"]["layers"]["mlp"]
+                ["up_proj"]["weight"]).__name__
+    print(f"  {name}: loaded (fold + stack + upload) in "
+          f"{time.perf_counter() - t0:.1f} s, {kind} linears, fused route "
+          f"{lm.fused_decode}, {lm.args.num_hidden_layers} decoder layers, "
+          f"vision depth {model.config.vision_config.depth}; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return model
+
+
+def exact_want(counts: dict, n_layers: int, chunks: int, heads: int,
+               steps: int, flash: int = 0) -> dict:
+    """Launches of an exact-mode 4-bit model: K5 on each linear of each
+    prefill chunk and each decode step and on each head (prefill heads and
+    one a step), K4 `flash` times, every other kernel 0."""
+    want = {k: 0 for k in counts}
+    want["qmatmul_int4"] = 7 * n_layers * (chunks + steps) + heads + steps
+    want["flash_attention"] = flash
+    return want
+
+
+def run_qwen2_5_vl(ckpt: tuple, total: dict) -> None:
+    """Qwen2.5-VL-7B at full width and depth (28 decoder layers, the 32-block
+    windowed tower), default w4grp: (n1) an image request of 100 tokens
+    (K1 on the prefill, K3 every decode step), (n2) batch_generate of
+    BATCH_PROMPTS (text and image prompts admitted together), (n3) one
+    image chat through the server."""
+    import torch
+
+    cfg, weights = ckpt
+    model = load_timed("Qwen2.5-VL-7B (n1)-(n3)", cfg, weights)
+    if not model.language_model.fused_decode:
+        fail("Qwen2.5-VL-7B did not take the fused decode route")
+    L = model.language_model.args.num_hidden_layers
+    proc = _processor(model=model)
+    name = "(n1) Qwen2.5-VL-7B, image 448x448 + short prompt"
+    counts, n, S, steps = run_request(
+        model, proc, cfg, name, "K3", "Describe this image in detail.",
+        _image(448), 1, 100, None, {})
+    want = {k: 0 for k in counts}
+    want.update(fused_decode=steps, int4_matvec=1,
+                int4_matmul=7 * L * prefill_chunks(S, 100))
+    expect(name, counts, want, total)
+    run_batch_generate(model, proc, cfg, total,
+                       name="(n2) Qwen2.5-VL-7B batch_generate")
+    req = ("(n3)", "chat", "Describe this image in detail.", 448, False,
+           False, None, 16)
+    answers, _, _, _, counts, st, metrics, wall, _, http = serve_requests(
+        model, proc, cfg, [req], None)
+    ans = answers.get("(n3)") or {}
+    env = (metrics.get("recent") or [{}])[-1]
+    want = {k: 0 for k in counts}
+    want["int4_matvec"] = (7 * L + 1) * st["steps"] + st["prefill_heads"]
+    want["int4_matmul"] = 7 * L * st["prefill_chunks"]
+    via = "a PNG data URI over HTTP" if http else "through the engine"
+    print(f"  (n3) Qwen2.5-VL-7B server, image chat ({via}): status "
+          f"{ans.get('status')}, {ans.get('completion')} tokens, finish "
+          f"{ans.get('finish')}, {wall:.4f} s; /metrics ttft_s "
+          f"{env.get('ttft_s')}, generation_tps "
+          f"{env.get('generation_tps')}; {st['steps']} batch steps, "
+          f"{st['prefill_chunks']} prefill chunks; launches {counts}",
+          flush=True)
+    if ans.get("status") != 200 or ans.get("errors") or not (
+            ans.get("completion") == 16 or ans.get("finish") == "stop"):
+        fail(f"(n3): answer {ans}")
+    expect("(n3)", counts, want, total)
+    del model
+    torch.cuda.empty_cache()
+
+
+def run_qwen3_vl(ckpt: tuple, total: dict) -> None:
+    """Qwen3-VL-8B at full width and depth (36 decoder layers, the 27-block
+    deepstack tower), MLX_VLM_TPU_RUNTIME_QUANT=exact (K5 on every linear
+    and the head): (q1) an image request, (q2) an image and a ~8.5k-token
+    prompt (K4 on every layer of every prefill chunk), (q3) batch_generate
+    of a text prompt and an image prompt admitted together (rows of widths
+    D and 4D in one admission)."""
+    import torch
+
+    from mlx_vlm_tpu_torch import apply_chat_template, batch_generate
+
+    cfg, weights = ckpt
+    model = load_timed("Qwen3-VL-8B (q1)-(q3)", cfg, weights, mode="exact")
+    lm = model.language_model
+    head = model.params["language_model"]["lm_head"]["weight"]
+    if type(head).__name__ != "QuantizedTensor" or lm.fused_decode:
+        fail("Qwen3-VL-8B did not load exact 4-bit weights")
+    L = lm.args.num_hidden_layers
+    proc = _processor(model=model)
+    for name, text, max_tokens in (
+            ("(q1) Qwen3-VL-8B exact, image 448x448 + short prompt",
+             "Describe this image in detail.", 32),
+            ("(q2) Qwen3-VL-8B exact, image + ~8.5k-token prompt", LONG_TEXT,
+             16)):
+        counts, n, S, steps = run_request(
+            model, proc, cfg, name, "per-linear, qmatmul_int4", text,
+            _image(448), 1, max_tokens, None, {})
+        chunks = prefill_chunks(S, max_tokens)
+        capacity = -(-(S + max_tokens + min(32, max_tokens) + 1) // 256) * 256
+        flash = L * chunks if capacity >= 8192 else 0
+        expect(name, counts, exact_want(counts, L, chunks, 1, steps, flash),
+               total)
+    name = "(q3) Qwen3-VL-8B exact, batch_generate: a text and an image row"
+    prompts = [apply_chat_template(proc, cfg, t, num_images=k) for t, k in (
+        ("Write a short story about a lighthouse.", 0),
+        ("What is in this image?", 1))]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = batch_generate(model, proc, prompts, images=[None, _image(448)],
+                         max_tokens=24, num_slots=2)
+    counts = read_counts()
+    st = res.generator_stats
+    n_gen = res.stats["generation_tokens"]
+    print(f"  {name}: {res.stats['prompt_tokens']} prompt tokens, {n_gen} "
+          f"tokens in {res.stats['wall_s']:.4f} s "
+          f"({n_gen / res.stats['wall_s']:.2f} tok/s aggregate); "
+          f"{st['admissions']} admission(s), {st['prefill_chunks']} prefill "
+          f"chunks, {st['steps']} batch steps ({st['replays']} replays); "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches {counts}", flush=True)
+    if st["admissions"] != 1 or not 0 < n_gen <= 48:
+        fail(f"{name}: want both rows in one admission, stats {st}")
+    want = {k: 0 for k in counts}
+    want["qmatmul_int4"] = (7 * L * st["prefill_chunks"]
+                            + st["prefill_heads"] + (7 * L + 1) * st["steps"])
+    expect(name, counts, want, total)
+    del model, head
+    torch.cuda.empty_cache()
 
 
 def exact_requests(proc, cfg4: dict, weights4: dict, total: dict) -> None:
@@ -4697,14 +5066,17 @@ def main() -> None:
     if bad:
         fail(f"{len(bad)} kernel checks disagree with their plain versions")
     with fold_once():
-        if not phase_slice_parity():
+        ckpts = family_checkpoints()
+        if not phase_slice_parity(ckpts["qwen2_vl_7b"]):
             fail("the slice on the card disagrees with the slice on the CPU")
         if not phase_quant_parity():
             fail("a runtime quantization mode on the card disagrees with the "
                  "CPU")
-    lap("phase 3")
-    launches = phase_main_path()
-    lap("phase 4")
+        if not phase_family_parity(ckpts):
+            fail("Qwen2.5-VL or Qwen3-VL on the card disagrees with the CPU")
+        lap("phase 3")
+        launches = phase_main_path(ckpts)
+        lap("phase 4")
     report = []
     for name, source, replaces, shape in KERNELS:
         mine = [r for r in results if r["name"] == name]

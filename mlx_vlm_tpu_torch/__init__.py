@@ -2,8 +2,10 @@
 
 The JAX package `mlx_vlm_tpu` is the reference; module paths here mirror it
 (this file: mlx_vlm_tpu/__init__.py).
-This slice runs Qwen2-VL with 4-bit group-64 weights (the halves-packed
-grouped-int4 layout) end to end: load -> chat template -> inputs -> vision
+It runs the Qwen2-VL, Qwen2.5-VL and Qwen3-VL families (the loader picks
+the model by its config's model_type) with 4-bit group-64 weights (the
+halves-packed grouped-int4 layout for the first two, per-channel int8 or
+the mlx codes for Qwen3-VL) end to end: load -> chat template -> inputs -> vision
 tower -> M-RoPE -> chunked prefill -> decode, with a bf16 KV cache or a
 quantized one (`kv_bits` 8, 4 or 3.5), one request at a time
 (`generate`, `stream_generate`) or several in fixed batch slots

@@ -175,15 +175,16 @@ class Int4GroupedTensor:
             bh=self.bh[i])
 
 
-def to_channel_quantized(t: QuantizedTensor,
-                         chunk_rows: int = 8192) -> ChannelQuantizedTensor:
+def to_channel_quantized(t: QuantizedTensor, chunk_rows: int = 8192,
+                         pool=None) -> ChannelQuantizedTensor:
     """Requantize a group-affine [N, K] tensor to per-channel int8 [K, N].
 
     Exact dequant of the source (float64), then per output row:
     q8 = round((w - min_n) / s_n) - 128 with s_n = (max_n - min_n) / 255.
     Rows are independent, so they are processed `chunk_rows` at a time to
-    bound host memory on vocab-sized tables; the result does not depend on
-    the chunk size."""
+    bound host memory on vocab-sized tables, on the threads of `pool` (a
+    concurrent.futures executor) when one is given; the result depends on
+    neither."""
     q = host_array(t.q)
     if q.ndim != 2:
         raise ValueError("to_channel_quantized takes a 2-D weight")
@@ -197,7 +198,8 @@ def to_channel_quantized(t: QuantizedTensor,
     q8 = np.empty((K, N), np.int8)
     s_out = np.empty((1, N), np.float64)
     b_out = np.empty((1, N), np.float64)
-    for r0 in range(0, N, chunk_rows):
+
+    def rows(r0: int) -> None:
         qc = q[r0:r0 + chunk_rows]
         if per_byte > 1:
             parts = [(qc >> (t.bits * j)) & mask for j in range(per_byte)]
@@ -214,6 +216,14 @@ def to_channel_quantized(t: QuantizedTensor,
             np.clip(np.round((w - mn) / s), 0, 255) - 128.0).T.astype(np.int8)
         s_out[0, r0:r0 + chunk_rows] = s[:, 0]
         b_out[0, r0:r0 + chunk_rows] = (mn + 128.0 * s)[:, 0]
+
+    starts = range(0, N, chunk_rows)
+    if pool is None:
+        for r0 in starts:
+            rows(r0)
+    else:
+        for f in [pool.submit(rows, r0) for r0 in starts]:
+            f.result()
     dt = torch_dtype(t.out_dtype)
     return ChannelQuantizedTensor(
         q8=torch.from_numpy(q8),

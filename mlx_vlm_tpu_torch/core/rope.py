@@ -2,10 +2,11 @@
 
 Port of mlx_vlm_tpu/core/rope.py (default_inv_freq :35, rope_cos_sin :95,
 apply_rope :110, mrope_section_map :159, mrope_cos_sin :183, Rope :205,
-make_rope :283) for Qwen2-VL: cos/sin are computed in f32 from position ids,
-and M-RoPE picks the t/h/w position stream per frequency through a static
-"chunked" section map.  The scaled variants (llama3, yarn, longrope, ...)
-and the interleaved section style are not ported.
+make_rope :283) for the Qwen-VL line: cos/sin are computed in f32 from
+position ids, and M-RoPE picks the t/h/w position stream per frequency
+through a static section map, "chunked" (Qwen2-VL, Qwen2.5-VL) or
+"interleaved" (Qwen3-VL).  The scaled variants (llama3, yarn, longrope,
+...) are not ported.
 """
 
 from __future__ import annotations
@@ -54,11 +55,22 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
     return q_out.to(dtype), k_out.to(dtype)
 
 
-def mrope_section_map(sections: Sequence[int]) -> np.ndarray:
-    """Frequency index -> section id (t/h/w): contiguous chunks of the given
-    sizes (Qwen2-VL's "chunked" style)."""
-    return np.concatenate(
-        [np.full(s, i, dtype=np.int32) for i, s in enumerate(sections)])
+def mrope_section_map(sections: Sequence[int],
+                      style: str = "chunked") -> np.ndarray:
+    """Frequency index -> section id (t/h/w).  "chunked": contiguous chunks
+    of the given sizes (Qwen2-VL); "interleaved": index i % 3 == 1 -> h (up
+    to 3 * sections[1]), i % 3 == 2 -> w (up to 3 * sections[2]), every
+    other index t (Qwen3-VL)."""
+    if style == "chunked":
+        return np.concatenate(
+            [np.full(s, i, dtype=np.int32) for i, s in enumerate(sections)])
+    if style != "interleaved":
+        raise ValueError(f"unknown mrope style {style}")
+    n = int(sum(sections))
+    out = np.zeros(n, dtype=np.int32)
+    for dim, offset in enumerate((1, 2), start=1):
+        out[offset:min(sections[dim] * 3, n):3] = dim
+    return out
 
 
 def mrope_cos_sin(position_ids: torch.Tensor, inv_freq: torch.Tensor,
@@ -73,7 +85,7 @@ class Rope:
     """Host-side descriptor producing cos/sin for position ids."""
 
     def __init__(self, dim: int, base: float = 10000.0,
-                 scaling: Optional[dict] = None):
+                 scaling: Optional[dict] = None, mrope_style: str = "chunked"):
         self.dim = dim
         self.section_map = None
         if scaling:
@@ -81,7 +93,8 @@ class Rope:
             if typ not in ("mrope", "default"):
                 raise NotImplementedError(f"rope scaling type {typ} is not ported")
             if "mrope_section" in scaling:
-                self.section_map = mrope_section_map(scaling["mrope_section"])
+                self.section_map = mrope_section_map(
+                    scaling["mrope_section"], mrope_style)
         self.inv_freq = np.asarray(default_inv_freq(dim, base), dtype=np.float32)
         self._on_device: dict = {}
 
@@ -109,5 +122,6 @@ class Rope:
         return rope_cos_sin(position_ids, inv)
 
 
-def make_rope(dim: int, base: float, scaling: Optional[dict] = None) -> Rope:
-    return Rope(dim, base, scaling)
+def make_rope(dim: int, base: float, scaling: Optional[dict] = None,
+              mrope_style: str = "chunked") -> Rope:
+    return Rope(dim, base, scaling, mrope_style)

@@ -336,11 +336,18 @@ class BatchGenerator:
             return False  # a prompt past the capacity: admitted alone
         n = len(reqs)
         n_pad = 1 << (n - 1).bit_length()
-        embeds = torch.zeros((n_pad, S_pad, embeds_l[0].shape[2]),
-                             dtype=self.dtype, device=self.dev)
+        # rows of different widths (Qwen3-VL: a text prompt [1, S, D] beside
+        # an image prompt's channel-packed deepstack [1, S, D * (1 + n_ds)])
+        # share the widest layout; a narrower row's missing channels are
+        # zeros, so that its layers' deepstack add is a no-op, as the
+        # model's own packing does at text positions.  The reference sizes
+        # every row from the first one's width and fails on such a batch.
+        width = max(e.shape[2] for e in embeds_l)
+        embeds = torch.zeros((n_pad, S_pad, width), dtype=self.dtype,
+                             device=self.dev)
         pos = np.zeros((3, n_pad, S_pad), np.int64)
         for i, (r, e) in enumerate(zip(reqs, embeds_l)):
-            embeds[i, :lens[i]] = e[0]
+            embeds[i, :lens[i], :e.shape[2]] = e[0]
             pos[:, i, :lens[i]] = self._positions(r, lens[i])[:, 0]
         cache = make_cache(self.model, n_pad, round_up(S_pad, 256),
                            self.dtype, self.kv_bits, self.kv_group_size,

@@ -28,11 +28,16 @@ def device_peak_memory_gb(device) -> float:
 
 def embed_prompt(model, inputs: dict, vision_cache=None) -> tuple:
     """prepare_inputs' arrays -> (input embeddings [1, S, D] on the model's
-    device with any image merged by the vision tower, M-RoPE position ids
-    [3, 1, S], rope deltas [1, 1]).  With a `vision_cache`
-    (vision_cache.VisionFeatureCache), the tower's features are looked up by
-    the image's content and stored there on a miss, as the reference's
-    server does (mlx_vlm_tpu/server/engine.py:247-264)."""
+    device with any image merged by the vision tower (channel-packed
+    [1, S, D * (1 + n_ds)] for a Qwen3-VL image prompt), M-RoPE position
+    ids [3, 1, S], rope deltas [1, 1]).  The family's host-side vision
+    inputs (`vision_aux_inputs`) go to the tower as a whole, as the
+    reference passes them (generate/dispatch.py:118-140).  With a
+    `vision_cache` (vision_cache.VisionFeatureCache) and a model that has
+    `vision_features`, the tower's output is looked up by the image's
+    content and stored there on a miss, as the reference's server does
+    (mlx_vlm_tpu/server/engine.py:247-264); a model without it (Qwen2.5-VL)
+    runs its tower every time, as there."""
     dev = torch.device(model.device or "cpu")
     input_ids = np.asarray(inputs["input_ids"])
     ids = torch.from_numpy(input_ids.astype(np.int64)).to(dev)
@@ -42,19 +47,17 @@ def embed_prompt(model, inputs: dict, vision_cache=None) -> tuple:
         embeds = model.get_input_embeddings(model.params, ids)
     else:
         grid_thw = np.asarray(inputs["image_grid_thw"])
-        aux = model.vision_aux_inputs(grid_thw)
-        vision = (torch.from_numpy(np.asarray(pixel_values)).to(dev),
-                  torch.from_numpy(aux["rotary_freqs"]).to(dev),
-                  torch.from_numpy(aux["segment_ids"]).to(dev))
-        if vision_cache is None:
-            embeds = model.get_input_embeddings(
-                model.params, ids, vision[0], rotary_freqs=vision[1],
-                segment_ids=vision[2])
+        aux = {k: torch.from_numpy(np.asarray(v)).to(dev)
+               for k, v in model.vision_aux_inputs(grid_thw).items()}
+        pixels = torch.from_numpy(np.asarray(pixel_values)).to(dev)
+        if vision_cache is None or not hasattr(model, "vision_features"):
+            embeds = model.get_input_embeddings(model.params, ids, pixels,
+                                                **aux)
         else:
             key = vision_cache.key(pixel_values, grid_thw)
             feats = vision_cache.get(key)
             if feats is None:
-                feats = model.vision_features(model.params, *vision)
+                feats = model.vision_features(model.params, pixels, **aux)
                 vision_cache.put(key, feats)
             embeds = model.get_input_embeddings(model.params, ids,
                                                 image_features=feats)

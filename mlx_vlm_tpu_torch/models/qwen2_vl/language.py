@@ -43,6 +43,10 @@ Cache = Union[cache_lib.KVCache, cache_lib.QuantizedKVCache,
 
 
 class LanguageModel:
+    # the loader's default w4grp layout and the fused decode route (K3)
+    # apply to this language model (reference :37)
+    supports_fused_decode = True
+
     def __init__(self, args: TextConfig, config: Optional[ModelConfig] = None):
         self.args = args
         self.config = config

@@ -10,8 +10,9 @@ DFlash, DDTree) need `forward_captured` on the target's language model,
 which Qwen2-VL lacks in the JAX package too; they are not ported.
 
 A round is the reference's two programs on device tensors: k drafter
-steps (`SpeculativeEngine.draft`, each through the drafter's per-linear
-layer stack and `make_batched_sampler`), then one target forward over
+steps (`SpeculativeEngine.draft`, each through the drafter's `step_logits`:
+one K3 launch when its fused route is on, else its per-linear layer
+stack; then `make_batched_sampler`), then one target forward over
 [prev, d1..dk] at M-RoPE positions cursor + rope delta + arange(k + 1),
 `batched_filtered_probs` of both models, the rejection walk and the
 target's rewind to cursor + n_acc + 1 (`SpeculativeEngine.verify`).  The
@@ -179,17 +180,17 @@ class SpeculativeEngine:
         self.dlp = drafter.params["language_model"]
         self.sampler = make_batched_sampler()
 
-    def sync(self, d_cache, tok: torch.Tensor) -> torch.Tensor:
-        """One drafter forward through its per-linear layer stack, writing
-        `tok`'s [B] K/V at the drafter's cursor (which advances by one) ->
-        the hidden state [B, 1, D]."""
-        emb = self.dlm.embed(self.dlp, tok[:, None])
-        return self.dlm(self.dlp, emb, d_cache,
-                        _rows_positions(d_cache.offset, tok.shape[0], 1))
-
     def drafter_logits(self, d_cache, tok: torch.Tensor) -> torch.Tensor:
-        """One drafter step (`sync`) -> f32 logits [B, V]."""
-        return self.dlm.logits(self.dlp, self.sync(d_cache, tok))[:, 0].float()
+        """One drafter step through its `step_logits`, writing `tok`'s [B]
+        K/V at the drafter's cursor (which advances by one) -> f32 logits
+        [B, V].  At B = 1 on a plain KVCache with the drafter's fused route
+        on, that is one K3 launch with the head inside (the reference's
+        `lm(...)` at :236 and its `sync` at :263); otherwise (the batch's
+        per-row cache) the per-linear path."""
+        emb = self.dlm.embed(self.dlp, tok[:, None])
+        return self.dlm.step_logits(
+            self.dlp, emb, d_cache,
+            _rows_positions(d_cache.offset, tok.shape[0], 1))[:, 0].float()
 
     def draft(self, d_cache, tok: torch.Tensor, sp: dict,
               gen: torch.Generator) -> tuple:
@@ -313,9 +314,9 @@ class SpeculativeRounds(CapturedRounds):
         d_toks, d_logits = e.draft(self.d_cache, self.tok, self.sp, self.gen)
         out, n_acc = e.verify(self.cache, self.tok, d_toks, d_logits,
                               self.deltas, self.sp, self.gen)
-        # d_k's K/V at start + k (kept only by a full accept), then the
-        # drafter's cursor at start + n_acc + 1
-        e.sync(self.d_cache, out[:, k - 1])
+        # the sync: d_k's K/V at start + k (kept only by a full accept; its
+        # logits unused), then the drafter's cursor at start + n_acc + 1
+        e.drafter_logits(self.d_cache, out[:, k - 1])
         self.d_cache.offset.copy_(self.d_start + n_acc.max().to(torch.int32)
                                   + 1)
         self.tok.copy_(out.gather(1, n_acc[:, None])[:, 0])

@@ -1,21 +1,27 @@
-"""Model loading: checkpoints -> torch parameter trees (Qwen2-VL only).
+"""Model loading: checkpoints -> torch parameter trees.
 
-Port of mlx_vlm_tpu/utils/loader.py (load_config :107, _nest :143,
-_stack_layers :154, runtime_quant_mode :290, _fold_quantized :323,
-_to_device :375, load_model_from_weights :548, load_model :759, load :773)
-for the qwen2_vl family.  Safetensors are parsed in numpy (bfloat16 read as
-uint16 and viewed as torch.bfloat16), so loading needs neither
+Port of mlx_vlm_tpu/utils/loader.py (get_model_and_args :125,
+load_config :107, _nest :143, _stack_layers :154, runtime_quant_mode :290,
+_fold_quantized :323, _to_device :375, load_model_from_weights :548,
+load_model :759, load :773) for the qwen2_vl, qwen2_5_vl and qwen3_vl
+families, each picked by its config's model_type.  Safetensors are parsed
+in numpy (bfloat16 read as uint16 and viewed as torch.bfloat16), so
+loading needs neither
 `safetensors` nor `ml_dtypes`.  mlx group-affine triples fold by the
 runtime mode (MLX_VLM_TPU_RUNTIME_QUANT, the reference's default rule when
 unset): "w4grp" keeps 4-bit linears bit-exact in the halves-packed
 Int4GroupedTensor layout and requantizes the rest to per-channel int8,
 "w8chan" requantizes every 2-D triple to per-channel int8 and "exact" keeps
-every triple as a QuantizedTensor in the mlx byte layout.  Per-layer weights
-are stacked on a leading axis.  The whole-stack fused decode route is
+every triple as a QuantizedTensor in the mlx byte layout.  The unset mode
+is w4grp only for a 4-bit checkpoint whose language model has the fused
+decode step (`supports_fused_decode`: Qwen2-VL's, which Qwen2.5-VL
+shares), else w8chan, as in the reference.  Per-layer weights are stacked
+on a leading axis.  The whole-stack fused decode route is
 decided at load time, as the reference decides whether to build its pack
 (:655, :697): on unless MLX_VLM_TPU_FUSED_DECODE is 0 or false, and only for
-weights that pass the reference's eligibility rule (w4grp layers only; an
-exact or w8chan model decodes per linear).  No pack is built: the fused
+a language model with `supports_fused_decode` whose weights pass the
+reference's eligibility rule (w4grp layers only; an exact or w8chan model
+decodes per linear).  No pack is built: the fused
 kernel reads the same stacked weights as the per-linear path.
 
 `params_from_jax` carries a parameter tree of the JAX package (numpy
@@ -27,10 +33,12 @@ from the pack (the reference's `stacked_params_from_pack`).
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import os
 import re
 import struct
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -94,14 +102,20 @@ def load_config(model_path: Path) -> dict:
     return config
 
 
-def get_model_and_args(config: dict):
-    model_type = config["model_type"]
-    if model_type != "qwen2_vl":
-        raise NotImplementedError(
-            f"model type {model_type} is not ported (qwen2_vl only)")
-    from ..models import qwen2_vl
+# the model types the port has, each its own package under models/
+PORTED_MODEL_TYPES = ("qwen2_vl", "qwen2_5_vl", "qwen3_vl")
 
-    return qwen2_vl, model_type
+
+def get_model_and_args(config: dict):
+    """The model package for config["model_type"] (reference :125-136);
+    a type the port lacks raises, with no text-only fallback."""
+    model_type = config["model_type"]
+    if model_type not in PORTED_MODEL_TYPES:
+        raise NotImplementedError(
+            f"model type {model_type} is not ported (the port has "
+            f"{', '.join(PORTED_MODEL_TYPES)})")
+    return importlib.import_module(
+        f"mlx_vlm_tpu_torch.models.{model_type}"), model_type
 
 
 def _bf16_tensor(u16: np.ndarray) -> torch.Tensor:
@@ -244,6 +258,31 @@ def runtime_quant_mode(default: str = "w8chan") -> str:
     return mode
 
 
+def _fold_workers() -> int:
+    """Host threads of the fold: the cores this process may use, at most 8
+    (each thread holds about a GB of float64 temporaries at vocab sizes)."""
+    try:
+        n = len(os.sched_getaffinity(0))
+    except AttributeError:
+        n = os.cpu_count() or 1
+    return max(1, min(8, n))
+
+
+def _fold_triple(w: np.ndarray, scales, biases, bits: int, group_size: int,
+                 mode: str, is_embed: bool, pool=None):
+    """One mlx triple in the runtime `mode`'s layout: Int4GroupedTensor for
+    an eligible 4-bit linear under w4grp, ChannelQuantizedTensor for other
+    2-D triples under w4grp and w8chan, else the QuantizedTensor as it is.
+    `pool` runs the rows of a per-channel requantization on its threads."""
+    qt = from_mlx_packed(w, scales, biases, bits, group_size)
+    if (mode == "w4grp" and bits == 4 and qt.q.ndim == 2 and not is_embed
+            and (qt.q.shape[1] * 2) % group_size == 0):
+        return to_int4_grouped(qt)
+    if mode in ("w8chan", "w4grp") and qt.q.ndim == 2:
+        return to_channel_quantized(qt, pool=pool)
+    return qt
+
+
 def _fold_quantized(flat: dict, qcfg: dict,
                     default_mode: str = "w8chan") -> dict:
     """Fold mlx-style (weight: packed uint32, scales, biases) triples by the
@@ -251,12 +290,16 @@ def _fold_quantized(flat: dict, qcfg: dict,
     and other 2-D triples (embedding tables included) ->
     ChannelQuantizedTensor; under "w8chan" every 2-D triple ->
     ChannelQuantizedTensor; under "exact" every triple stays a
-    QuantizedTensor."""
+    QuantizedTensor.  The triples are independent: the int4 repacks run on
+    a pool of host threads, and each per-channel requantization spreads its
+    rows over the same pool (`_fold_workers`); every result is what one
+    thread computes."""
     bits = qcfg.get("bits", 4)
     group_size = qcfg.get("group_size", 64)
     mode = runtime_quant_mode(default_mode)
     out = {}
     handled = set()
+    jobs = []  # (weight key, the triple's arguments to _fold_triple)
     for k in list(flat.keys()):
         if not k.endswith(".scales"):
             continue
@@ -283,15 +326,22 @@ def _fold_quantized(flat: dict, qcfg: dict,
         if biases is None:
             biases = np.zeros_like(flat[k]) if isinstance(flat[k], np.ndarray) \
                 else torch.zeros_like(flat[k])
-        qt = from_mlx_packed(w, flat[k], biases, b, g)
         is_embed = "embed_tokens" in base or "wte" in base
-        if (mode == "w4grp" and b == 4 and qt.q.ndim == 2 and not is_embed
-                and (qt.q.shape[1] * 2) % g == 0):
-            qt = to_int4_grouped(qt)
-        elif mode in ("w8chan", "w4grp") and qt.q.ndim == 2:
-            qt = to_channel_quantized(qt)
-        out[wk] = qt
+        jobs.append((wk, (w, flat[k], biases, b, g, mode, is_embed)))
         handled.update({wk, k, bk})
+    with ThreadPoolExecutor(_fold_workers()) as pool:
+        # int4 repacks go to the pool whole; a requantization (run here)
+        # puts its row chunks on the pool behind them, so no task waits on
+        # another
+        pending = {}
+        for wk, args in jobs:
+            if mode == "w4grp" and args[3] == 4 and not args[6]:
+                pending[wk] = pool.submit(_fold_triple, *args)
+            else:
+                out[wk] = _fold_triple(*args, pool=pool)
+        for wk, f in pending.items():
+            out[wk] = f.result()
+    out = {wk: out[wk] for wk, _ in jobs}  # the checkpoint's key order
     for k, v in flat.items():
         if k not in handled:
             out.setdefault(k, v)
@@ -373,8 +423,10 @@ def load_model_from_weights(config: dict, weights: dict,
     if qcfg:
         # the reference's default (:566-577): w4grp for a 4-bit checkpoint
         # whose language model has the fused decode step, else w8chan
-        default = "w4grp" if qcfg.get("bits", 4) == 4 else "w8chan"
-        weights = _fold_quantized(weights, qcfg, default)
+        fused_ok = (getattr(model.language_model, "supports_fused_decode",
+                            False) and qcfg.get("bits", 4) == 4)
+        weights = _fold_quantized(weights, qcfg,
+                                  "w4grp" if fused_ok else "w8chan")
     weights = _stack_layers(weights, tuple(model.stack_patterns))
     model.params = _nest(_to_device(weights, dtype, device))
     model.config_dict = config
@@ -391,7 +443,8 @@ def decide_fused_decode(model) -> bool:
 
     lm = model.language_model
     lm.fused_decode = (
-        os.environ.get("MLX_VLM_TPU_FUSED_DECODE", "1") not in ("0", "false")
+        getattr(lm, "supports_fused_decode", False)
+        and os.environ.get("MLX_VLM_TPU_FUSED_DECODE", "1") not in ("0", "false")
         and fused_decode_eligible(model.params["language_model"], lm.args,
                                   model.device))
     return lm.fused_decode

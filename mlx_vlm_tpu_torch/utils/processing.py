@@ -1,10 +1,12 @@
-"""Preprocessing: images -> patch arrays, prompt -> token ids (Qwen2-VL).
+"""Preprocessing: images -> patch arrays, prompt -> token ids (Qwen-VL line).
 
 Port of mlx_vlm_tpu/utils/processing.py (load_image :24, smart_resize :127,
 Qwen2VLImageProcessor :150, Qwen2VLProcessor :273, load_processor :390,
-prepare_inputs :420) for images and text.  PIL and transformers are imported
-only inside the functions that use them: a uint8 [H, W, 3] array whose size
-already meets the resize rule goes through without PIL.  Audio and video
+prepare_inputs :420) for images and text; the image processor's patch,
+merge and temporal sizes follow the checkpoint (`image_processor_for`).
+PIL and transformers are imported only inside the functions that use them:
+a uint8 [H, W, 3] array whose size already meets the resize rule goes
+through without PIL.  Audio and video
 inputs are not ported.
 """
 
@@ -169,10 +171,42 @@ class Qwen2VLProcessor:
         return self.tokenizer.apply_chat_template(messages, **kwargs)
 
 
+def image_processor_for(model=None, model_path=None) -> Qwen2VLImageProcessor:
+    """The numpy image processor of a checkpoint: the sizes and the
+    normalization of its preprocessor_config.json when it has one, else its
+    vision config's patch, merge and temporal sizes (Qwen3-VL's patch is 16,
+    so its merged tokens cover 32 x 32 pixels) with Qwen2-VL's defaults
+    for the rest.  The reference's fallback builds Qwen2VLImageProcessor()
+    (patch 14) for every model (ROADMAP's known faults in the reference)."""
+    kw = {}
+    vc = getattr(getattr(model, "config", None), "vision_config", None)
+    if vc is not None:
+        kw = {"patch_size": vc.patch_size,
+              "merge_size": vc.spatial_merge_size,
+              "temporal_patch_size": vc.temporal_patch_size}
+    pre = Path(model_path) / "preprocessor_config.json" if model_path else None
+    if pre is not None and pre.exists():
+        import json
+
+        with open(pre) as f:
+            pc = json.load(f)
+        for k in ("patch_size", "merge_size", "temporal_patch_size",
+                  "min_pixels", "max_pixels", "image_mean", "image_std"):
+            if pc.get(k) is not None:
+                kw[k] = pc[k]
+        size = pc.get("size") or {}
+        if size.get("shortest_edge") is not None and "min_pixels" not in pc:
+            kw["min_pixels"] = size["shortest_edge"]
+        if size.get("longest_edge") is not None and "max_pixels" not in pc:
+            kw["max_pixels"] = size["longest_edge"]
+    return Qwen2VLImageProcessor(**kw)
+
+
 def load_processor(model_path, model=None, **kwargs):
     """The HF AutoProcessor when transformers can build one with an image
     processor; otherwise the numpy Qwen2VLProcessor around the checkpoint's
-    tokenizer."""
+    tokenizer, with the checkpoint's image processor
+    (`image_processor_for`)."""
     model_path = Path(model_path)
     try:
         from transformers import AutoProcessor
@@ -180,12 +214,13 @@ def load_processor(model_path, model=None, **kwargs):
         proc = AutoProcessor.from_pretrained(str(model_path), **kwargs)
         if hasattr(proc, "image_processor"):
             return proc
-        return Qwen2VLProcessor(proc, Qwen2VLImageProcessor())
+        return Qwen2VLProcessor(proc, image_processor_for(model, model_path))
     except Exception:  # noqa: BLE001 — no transformers, or no processor files
         pass
     from .tokenizer import load_tokenizer
 
-    return Qwen2VLProcessor(load_tokenizer(model_path), Qwen2VLImageProcessor())
+    return Qwen2VLProcessor(load_tokenizer(model_path),
+                            image_processor_for(model, model_path))
 
 
 def prepare_inputs(processor, prompts: Union[str, List[int], np.ndarray],

@@ -1,17 +1,23 @@
 """Random checkpoints and a byte-level tokenizer for tests and smoke runs.
 
 Port of mlx_vlm_tpu/utils/testing.py (tiny_qwen2_vl_config :21,
-qwen2_vl_2b_config :647 and qwen2_vl_7b_config :675 copied; qwen2_vl_hf_weights :59 draws the same
-arrays for a seed from one list of tensor specs), plus:
+tiny_qwen2_5_vl_config :139, qwen2_vl_2b_config :647 and
+qwen2_vl_7b_config :675 copied; qwen2_vl_hf_weights :59 and
+qwen2_5_vl_hf_weights :178 draw the same arrays for a seed), plus:
 
-- `mlx_quantized_checkpoint`: a random checkpoint in the layout of a 4- or
-  8-bit mlx-community conversion (every language-model linear, lm_head and
-  embed_tokens as uint32 codes + bf16 scales and biases; the vision tower
-  dense bf16), drawn directly in that layout so that no float weights of
-  full size are ever quantized on the host; `mlx_int4_checkpoint` is its
-  4-bit case;
-- `ByteTokenizer`: Qwen2-VL's special tokens at their public ids and one id
-  per UTF-8 byte otherwise, so a processor works without `transformers`.
+- `tiny_qwen3_vl_config` / `qwen3_vl_hf_weights`: the JAX package's Qwen3-VL
+  test model (tests/test_qwen3_vl.py:16-116), copied;
+- `qwen2_5_vl_7b_config` and `qwen3_vl_8b_config`: the published widths of
+  Qwen/Qwen2.5-VL-7B-Instruct and Qwen/Qwen3-VL-8B-Instruct (config.json);
+- `mlx_quantized_checkpoint`: a random checkpoint of any of the three
+  families in the layout of a 4- or 8-bit mlx-community conversion (every
+  language-model linear, lm_head and embed_tokens as uint32 codes + bf16
+  scales and biases; the vision tower dense bf16), drawn directly in that
+  layout so that no float weights of full size are ever quantized on the
+  host; `mlx_int4_checkpoint` is its 4-bit case;
+- `ByteTokenizer`: Qwen2-VL's special tokens at their public ids (Qwen2.5-VL
+  and Qwen3-VL keep them) and one id per UTF-8 byte otherwise, so a
+  processor works without `transformers`.
 
 Everything is numpy on the host and made from a seed.
 """
@@ -193,13 +199,10 @@ def qwen2_vl_tensor_specs(config: dict) -> list:
     return specs
 
 
-def qwen2_vl_hf_weights(config: dict, seed: int = 0,
-                        scale: float = 0.05) -> dict:
-    """Random f32 weights with HF qwen2-vl checkpoint keys (visual.*,
-    model.*); the same arrays as the reference's builder for a seed."""
-    rng = np.random.default_rng(seed)
+def _draw(specs: list, rng, scale: float) -> dict:
+    """f32 arrays for `specs`, "rand" ones drawn from `rng` in order."""
     w = {}
-    for key, shape, fill in qwen2_vl_tensor_specs(config):
+    for key, shape, fill in specs:
         if fill == "rand":
             w[key] = (rng.standard_normal(shape) * scale).astype(np.float32)
         else:
@@ -207,17 +210,330 @@ def qwen2_vl_hf_weights(config: dict, seed: int = 0,
     return w
 
 
+def qwen2_vl_hf_weights(config: dict, seed: int = 0,
+                        scale: float = 0.05) -> dict:
+    """Random f32 weights with HF qwen2-vl checkpoint keys (visual.*,
+    model.*); the same arrays as the reference's builder for a seed."""
+    return _draw(qwen2_vl_tensor_specs(config), np.random.default_rng(seed),
+                 scale)
+
+
+def tiny_qwen2_5_vl_config(**overrides) -> dict:
+    cfg = {
+        "model_type": "qwen2_5_vl",
+        "hidden_size": 64,
+        "num_hidden_layers": 2,
+        "intermediate_size": 128,
+        "num_attention_heads": 4,
+        "num_key_value_heads": 2,
+        "rms_norm_eps": 1e-6,
+        "vocab_size": 256,
+        "rope_theta": 10000.0,
+        "rope_scaling": {"type": "mrope", "mrope_section": [2, 3, 3]},
+        "tie_word_embeddings": False,
+        "max_position_embeddings": 1024,
+        "image_token_id": 151655 % 256,
+        "video_token_id": 151656 % 256,
+        "vision_start_token_id": 151652 % 256,
+        "vision_config": {
+            "depth": 3,
+            "hidden_size": 32,
+            "intermediate_size": 64,
+            "out_hidden_size": 64,
+            "num_heads": 4,
+            "patch_size": 14,
+            "in_channels": 3,
+            "spatial_merge_size": 2,
+            "temporal_patch_size": 2,
+            "window_size": 56,  # vit_ws = 56/2/14 = 2 merged tokens per side
+            "fullatt_block_indexes": [1],
+        },
+    }
+    cfg.update(overrides)
+    return cfg
+
+
+def qwen2_5_vl_7b_config() -> dict:
+    """Qwen/Qwen2.5-VL-7B-Instruct's published widths (config.json): the
+    text model is Qwen2-VL-7B's."""
+    return tiny_qwen2_5_vl_config(
+        hidden_size=3584,
+        num_hidden_layers=28,
+        intermediate_size=18944,
+        num_attention_heads=28,
+        num_key_value_heads=4,
+        vocab_size=152064,
+        rope_theta=1000000.0,
+        rope_scaling={"type": "mrope", "mrope_section": [16, 24, 24]},
+        max_position_embeddings=128000,
+        image_token_id=151655,
+        video_token_id=151656,
+        vision_start_token_id=151652,
+        vision_config={
+            "depth": 32,
+            "hidden_size": 1280,
+            "intermediate_size": 3420,
+            "out_hidden_size": 3584,
+            "num_heads": 16,
+            "patch_size": 14,
+            "in_channels": 3,
+            "spatial_merge_size": 2,
+            "temporal_patch_size": 2,
+            "tokens_per_second": 2,
+            "window_size": 112,
+            "fullatt_block_indexes": [7, 15, 23, 31],
+        },
+    )
+
+
+def _qwen2_5_vl_vision_specs(config: dict) -> list:
+    vc = config["vision_config"]
+    E = vc["hidden_size"]
+    I = vc["intermediate_size"]
+    P = vc.get("patch_size", 14)
+    T = vc.get("temporal_patch_size", 2)
+    C = vc.get("in_channels", 3)
+    m = vc.get("spatial_merge_size", 2)
+    out_d = vc["out_hidden_size"]
+    specs = [("visual.patch_embed.proj.weight", (E, C, T, P, P), "rand")]
+    for i in range(vc["depth"]):
+        p = f"visual.blocks.{i}."
+        specs += [
+            (p + "norm1.weight", (E,), "ones"),
+            (p + "norm2.weight", (E,), "ones"),
+            (p + "attn.qkv.weight", (3 * E, E), "rand"),
+            (p + "attn.qkv.bias", (3 * E,), "rand"),
+            (p + "attn.proj.weight", (E, E), "rand"),
+            (p + "attn.proj.bias", (E,), "rand"),
+            (p + "mlp.gate_proj.weight", (I, E), "rand"),
+            (p + "mlp.gate_proj.bias", (I,), "rand"),
+            (p + "mlp.up_proj.weight", (I, E), "rand"),
+            (p + "mlp.up_proj.bias", (I,), "rand"),
+            (p + "mlp.down_proj.weight", (E, I), "rand"),
+            (p + "mlp.down_proj.bias", (E,), "rand"),
+        ]
+    hidden_m = E * m * m
+    specs += [
+        ("visual.merger.ln_q.weight", (E,), "ones"),
+        ("visual.merger.mlp.0.weight", (hidden_m, hidden_m), "rand"),
+        ("visual.merger.mlp.0.bias", (hidden_m,), "rand"),
+        ("visual.merger.mlp.2.weight", (out_d, hidden_m), "rand"),
+        ("visual.merger.mlp.2.bias", (out_d,), "rand"),
+    ]
+    return specs
+
+
+def qwen2_5_vl_hf_weights(config: dict, seed: int = 0,
+                          scale: float = 0.05) -> dict:
+    """Random f32 weights with HF qwen2.5-vl checkpoint keys; the same
+    arrays as the reference's builder for a seed (its language part is
+    qwen2_vl_hf_weights' with a tiny Qwen2-VL vision config swapped in,
+    the vision tower drawn from a fresh generator of the same seed)."""
+    lang_cfg = dict(config)
+    lang_cfg["vision_config"] = tiny_qwen2_vl_config()["vision_config"]
+    w = {k: v for k, v in qwen2_vl_hf_weights(lang_cfg, seed, scale).items()
+         if not k.startswith("visual.")}
+    w.update(_draw(_qwen2_5_vl_vision_specs(config),
+                   np.random.default_rng(seed), scale))
+    return w
+
+
+def tiny_qwen3_vl_config(**overrides) -> dict:
+    cfg = {
+        "model_type": "qwen3_vl",
+        "image_token_id": 64,
+        "video_token_id": 65,
+        "vision_start_token_id": 66,
+        "text_config": {
+            "model_type": "qwen3_vl_text",
+            "hidden_size": 48,
+            "num_hidden_layers": 4,
+            "intermediate_size": 96,
+            "num_attention_heads": 4,
+            "num_key_value_heads": 2,
+            "head_dim": 16,
+            "rms_norm_eps": 1e-6,
+            "vocab_size": 256,
+            "rope_theta": 10000.0,
+            "max_position_embeddings": 1024,
+            "rope_scaling": {"type": "default", "mrope_section": [4, 2, 2]},
+        },
+        "vision_config": {
+            "model_type": "qwen3_vl",
+            "depth": 3,
+            "hidden_size": 32,
+            "intermediate_size": 64,
+            "out_hidden_size": 48,
+            "num_heads": 4,
+            "patch_size": 14,
+            "temporal_patch_size": 2,
+            "spatial_merge_size": 2,
+            "num_position_embeddings": 16,
+            "deepstack_visual_indexes": [0, 1],
+        },
+    }
+    cfg.update(overrides)
+    return cfg
+
+
+def qwen3_vl_8b_config() -> dict:
+    """Qwen/Qwen3-VL-8B-Instruct's published widths (config.json)."""
+    return tiny_qwen3_vl_config(
+        image_token_id=151655,
+        video_token_id=151656,
+        vision_start_token_id=151652,
+        vision_end_token_id=151653,
+        tie_word_embeddings=False,
+        text_config={
+            "model_type": "qwen3_vl_text",
+            "hidden_size": 4096,
+            "num_hidden_layers": 36,
+            "intermediate_size": 12288,
+            "num_attention_heads": 32,
+            "num_key_value_heads": 8,
+            "head_dim": 128,
+            "rms_norm_eps": 1e-6,
+            "vocab_size": 151936,
+            "rope_theta": 5000000.0,
+            "max_position_embeddings": 262144,
+            "tie_word_embeddings": False,
+            "attention_bias": False,
+            "rope_scaling": {"rope_type": "default", "mrope_interleaved": True,
+                             "mrope_section": [24, 20, 20]},
+        },
+        vision_config={
+            "model_type": "qwen3_vl",
+            "depth": 27,
+            "hidden_size": 1152,
+            "intermediate_size": 4304,
+            "out_hidden_size": 4096,
+            "num_heads": 16,
+            "patch_size": 16,
+            "in_channels": 3,
+            "temporal_patch_size": 2,
+            "spatial_merge_size": 2,
+            "num_position_embeddings": 2304,
+            "deepstack_visual_indexes": [8, 16, 24],
+            "hidden_act": "gelu_pytorch_tanh",
+        },
+    )
+
+
+def qwen3_vl_tensor_specs(config: dict) -> list:
+    """(HF key, shape, fill) of every tensor of a Qwen3-VL checkpoint
+    (model.language_model.*, model.visual.*, lm_head), in the draw order of
+    the JAX package's test builder."""
+    tc, vc = config["text_config"], config["vision_config"]
+    D, V, I = tc["hidden_size"], tc["vocab_size"], tc["intermediate_size"]
+    nh, nkv, hd = (tc["num_attention_heads"], tc["num_key_value_heads"],
+                   tc["head_dim"])
+    specs = [("model.language_model.embed_tokens.weight", (V, D), "rand"),
+             ("model.language_model.norm.weight", (D,), "ones")]
+    if not tc.get("tie_word_embeddings"):
+        specs.append(("lm_head.weight", (V, D), "rand"))
+    for i in range(tc["num_hidden_layers"]):
+        p = f"model.language_model.layers.{i}."
+        specs += [
+            (p + "input_layernorm.weight", (D,), "ones"),
+            (p + "post_attention_layernorm.weight", (D,), "ones"),
+            (p + "self_attn.q_proj.weight", (nh * hd, D), "rand"),
+            (p + "self_attn.k_proj.weight", (nkv * hd, D), "rand"),
+            (p + "self_attn.v_proj.weight", (nkv * hd, D), "rand"),
+            (p + "self_attn.o_proj.weight", (D, nh * hd), "rand"),
+            (p + "self_attn.q_norm.weight", (hd,), "ones"),
+            (p + "self_attn.k_norm.weight", (hd,), "ones"),
+            (p + "mlp.gate_proj.weight", (I, D), "rand"),
+            (p + "mlp.up_proj.weight", (I, D), "rand"),
+            (p + "mlp.down_proj.weight", (D, I), "rand"),
+        ]
+    E = vc["hidden_size"]
+    P, T, C = vc["patch_size"], vc["temporal_patch_size"], 3
+    Iv = vc["intermediate_size"]
+    mu = vc["spatial_merge_size"] ** 2
+    out_d = vc["out_hidden_size"]
+    p = "model.visual."
+    specs += [(p + "patch_embed.proj.weight", (E, C, T, P, P), "rand"),
+              (p + "patch_embed.proj.bias", (E,), "rand"),
+              (p + "pos_embed.weight", (vc["num_position_embeddings"], E),
+               "rand")]
+    for i in range(vc["depth"]):
+        q = p + f"blocks.{i}."
+        for nm in ("norm1", "norm2"):
+            specs += [(q + nm + ".weight", (E,), "ones"),
+                      (q + nm + ".bias", (E,), "zeros")]
+        specs += [
+            (q + "attn.qkv.weight", (3 * E, E), "rand"),
+            (q + "attn.qkv.bias", (3 * E,), "rand"),
+            (q + "attn.proj.weight", (E, E), "rand"),
+            (q + "attn.proj.bias", (E,), "rand"),
+            (q + "mlp.linear_fc1.weight", (Iv, E), "rand"),
+            (q + "mlp.linear_fc1.bias", (Iv,), "rand"),
+            (q + "mlp.linear_fc2.weight", (E, Iv), "rand"),
+            (q + "mlp.linear_fc2.bias", (E,), "rand"),
+        ]
+    mergers = [p + "merger."] + [
+        p + f"deepstack_merger_list.{j}."
+        for j in range(len(vc["deepstack_visual_indexes"]))]
+    for q in mergers:
+        n = mu * E if "deepstack" in q else E
+        specs += [
+            (q + "norm.weight", (n,), "ones"),
+            (q + "norm.bias", (n,), "zeros"),
+            (q + "linear_fc1.weight", (mu * E, mu * E), "rand"),
+            (q + "linear_fc1.bias", (mu * E,), "rand"),
+            (q + "linear_fc2.weight", (out_d, mu * E), "rand"),
+            (q + "linear_fc2.bias", (out_d,), "rand"),
+        ]
+    return specs
+
+
+def qwen3_vl_hf_weights(config: dict, seed: int = 0,
+                        scale: float = 0.05) -> dict:
+    """Random f32 weights with HF qwen3-vl checkpoint keys; the same arrays
+    as the JAX package's test builder (tests/test_qwen3_vl.py:55) for a
+    seed."""
+    return _draw(qwen3_vl_tensor_specs(config), np.random.default_rng(seed),
+                 scale)
+
+
+def tensor_specs(config: dict) -> list:
+    """(HF key, shape, fill) of every tensor of a checkpoint of
+    config["model_type"] (qwen2_vl, qwen2_5_vl or qwen3_vl)."""
+    kind = config.get("model_type", "qwen2_vl")
+    if kind == "qwen2_vl":
+        return qwen2_vl_tensor_specs(config)
+    if kind == "qwen2_5_vl":
+        lang_cfg = dict(config)
+        lang_cfg["vision_config"] = tiny_qwen2_vl_config()["vision_config"]
+        return ([s for s in qwen2_vl_tensor_specs(lang_cfg)
+                 if not s[0].startswith("visual.")]
+                + _qwen2_5_vl_vision_specs(config))
+    if kind == "qwen3_vl":
+        return qwen3_vl_tensor_specs(config)
+    raise NotImplementedError(f"no tensor specs for model type {kind}")
+
+
+def is_vision_key(key: str) -> bool:
+    """Whether an HF checkpoint key belongs to the vision tower."""
+    return key.startswith(("visual.", "model.visual."))
+
+
 def _is_quantized_in_mlx(key: str) -> bool:
-    """Keys an mlx-community Qwen2-VL conversion stores quantized: the
-    language model's linears, lm_head and embed_tokens."""
+    """Keys an mlx-community conversion of these families stores quantized:
+    the language model's linears, lm_head and embed_tokens."""
+    if key.startswith("model.language_model."):
+        key = "model." + key[len("model.language_model."):]
     return key in ("model.embed_tokens.weight", "lm_head.weight") or (
         key.startswith("model.layers.") and key.endswith("_proj.weight"))
 
 
 def mlx_quantized_checkpoint(config: dict, bits: int = 4, group_size: int = 64,
-                             seed: int = 0, std: float = 0.02):
-    """(config, weights) of a random `bits`-bit mlx-format Qwen2-VL
-    checkpoint (bits 4 or 8).
+                             seed: int = 0, std: float = 0.02,
+                             vision_only: bool = False):
+    """(config, weights) of a random `bits`-bit mlx-format checkpoint of
+    config["model_type"] (Qwen2-VL, Qwen2.5-VL or Qwen3-VL; bits 4 or 8);
+    with `vision_only`, the vision tower's tensors alone (drawn from the
+    seed's generator in the same way).
 
     Quantized tensors: `<key>.weight` uint32 [out, in * bits / 32] (codes
     packed low bits first), `<key>.scales` and `<key>.biases` bf16
@@ -233,7 +549,9 @@ def mlx_quantized_checkpoint(config: dict, bits: int = 4, group_size: int = 64,
     levels = 2**bits
     s_mean = std / float(np.sqrt((levels**2 - 1) / 12.0))  # uniform codes
     w = {}
-    for key, shape, fill in qwen2_vl_tensor_specs(config):
+    for key, shape, fill in tensor_specs(config):
+        if vision_only and not is_vision_key(key):
+            continue
         if _is_quantized_in_mlx(key):
             n, k = shape
             if k % group_size or (k * bits) % 32:

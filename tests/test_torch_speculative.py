@@ -523,3 +523,41 @@ def test_speculative_import_pulls_in_no_jax():
                          env={**os.environ, "PYTHONPATH": str(repo)},
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_single_stream_drafter_takes_step_logits(tiny, monkeypatch):
+    """With the drafter's fused route on (an int4 drafter, its plain K3 on
+    the CPU), each of a round's k drafter steps and its sync is one call of
+    the drafter's `step_logits` taking the whole-stack step, as the
+    reference's `lm(...)` at B = 1 takes its fused step; the tokens and
+    SpecStats equal the JAX package's (whose drafter runs its fused step)
+    and the same drafter's on the per-linear route."""
+    from mlx_vlm_tpu_torch.models.qwen2_vl import language as language_mod
+    from mlx_vlm_tpu_torch.utils.loader import decide_fused_decode
+    from test_torch_fused_decode import _models
+
+    jt, tt = tiny["target"]
+    jd, td, _ = _models(2, seed=13)
+    assert "fused_decode" in jd.params["language_model"]
+    assert decide_fused_decode(td)
+    fused, steps = [], []
+    step = language_mod.fused_decode_step
+    monkeypatch.setattr(language_mod, "fused_decode_step",
+                        lambda *a: fused.append(1) or step(*a))
+    real = td.language_model.step_logits
+    monkeypatch.setattr(td.language_model, "step_logits",
+                        lambda *a: steps.append(a[1].shape) or real(*a))
+    ref, ref_stats = _jax_spec(jt, jd, IDS, 12)
+    got, got_stats = _port_spec(tt, td, IDS, 12)
+    n_fused = len(fused)
+    td.language_model.fused_decode = False
+    try:
+        plain, plain_stats = _port_spec(tt, td, IDS, 12)
+    finally:
+        td.language_model.fused_decode = True
+    assert got == ref == plain
+    assert _same_stats(got_stats, ref_stats) and _same_stats(got_stats,
+                                                            plain_stats)
+    assert n_fused == got_stats.rounds * (K + 1) > 0
+    assert len(fused) == n_fused  # the per-linear run took no fused step
+    assert len(steps) == 2 * n_fused and set(steps) == {(1, 1, 128)}
