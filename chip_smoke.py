@@ -33,8 +33,19 @@ Phases (any failure exits non-zero):
      = 29568, on the GEMV in chunks and on the GEMM; K = 3712 on a one-
      chunk and a persistent GEMV; N even and odd), and at 4 bits through
      Qwen3-VL-8B's linears at M = 1 and 512 and its lm_head (N = 151936)
-     at M = 1, timed cold and warm, every case with its
-     plan, kernels per call and a bit-identical repeat;
+     at M = 1, timed cold and warm, and through Qwen3-VL-30B-A3B's
+     experts (4 bits: gate / up K = 2048 N = 768, down K = 768 N = 2048)
+     at M = 1, 8 and 32 and its 8-bit router (N = 128) at M = 1 and 512,
+     and the 8-bit GEMM's trailing half stage at g = 32 (K = 3616 and 96,
+     odd multiples of 32), every case with its
+     plan, kernels per call and a bit-identical repeat; K5's
+     expert-indexed entry (`qmatmul_experts`) at those expert stacks (128
+     experts) for 8, 32 and 40 (token, expert) pairs with two pairs on
+     expert 127, timed cold (copies of the stack) and warm, with kernels
+     per call (1), a repeat and bytes per second; the route rules at the
+     shapes their kernels refused (K4 at head size 64 takes `sdpa`, K5 at
+     group 16 the dequantize route, the w4grp fold at group 24
+     per-channel int8), each held to its plain version;
      K4 at the 8k rows (offset 7680; left_pad 100; window 1024), at (c)'s
      first, middle and last chunk (S = 512 against C = 8704 at offsets 0,
      4096, 8192), at two batch rows with their own offsets and
@@ -99,9 +110,12 @@ Phases (any failure exits non-zero):
      FAMILY_CASES) and Qwen3-VL at 8B widths (f32 CPU runs)
      (3 decoder layers, so that all 3 deepstack levels are added; the
      whole 27-block tower) in its default w8chan mode and in exact (K5),
-     4 steps each, launches held to what ran, and each model's replayed
-     decode against eager steps.  The phase prints the seconds of each of
-     its parts;
+     4 steps each, and Qwen3-VL-MoE at 30B-A3B widths (2 decoder layers of
+     128 experts, top-8, the whole tower; its routers at 8 bits) in its
+     default mode (w8chan linears, the experts on K5) and in exact, 4
+     steps each, launches held to what ran (the experts by `moe_want`),
+     and each model's replayed decode against eager steps.  The phase
+     prints the seconds of each of its parts;
   4. the main path at full Qwen2-VL-7B width (random mlx-format weights,
      28 decoder layers, 32 vision blocks): eight greedy requests through
      load_model_from_weights and stream_generate, each with the kernels'
@@ -223,9 +237,15 @@ Phases (any failure exits non-zero):
      deepstack tower) loaded exact: (q1) an image request, (q2) an image
      and a ~8.5k-token prompt (K4 on every layer of every chunk), (q3)
      `batch_generate` of a text and an image prompt admitted together
-     (rows of embedding widths D and 4D); each with its load seconds,
-     TTFT, ms per replayed token and peak GiB, its launches held to what
-     ran.
+     (rows of embedding widths D and 4D); and Qwen3-VL-30B-A3B (48 layers
+     of 128 experts, top-8, the 27-block tower, random 4-bit weights with
+     8-bit routers) in its default mode: (u1) an image request of 64
+     tokens, (u2) (i)'s prompts through `batch_generate`, (u3) an image
+     chat through the server, (u4) an image and a ~8.5k-token prompt (K4);
+     each with its load seconds, TTFT, ms per replayed token and peak GiB,
+     its launches held to what ran (the expert layers: one
+     expert-indexed launch a projection at decode, K5 per expert with
+     rows in long prefill chunks).
 Phases 3 and 4 fold each mlx triple once for all of its loads in one
 runtime mode (`fold_once`), across the checkpoints that share it.
 Each phase prints its seconds.  The line before the last is the kernel
@@ -730,24 +750,38 @@ QWEN3_8B_SHAPES = ((4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096))
 K5_8B_CASES = (tuple((4, 64, M, K, N) for M in (1, 512)
                      for K, N in QWEN3_8B_SHAPES)
                + ((4, 64, 1, 4096, 151936),))
-K5_CASES = K5_CASES + K5_8B_CASES
+# Qwen3-VL-30B-A3B's experts (4 bits, g = 64): gate / up [768, 2048] and
+# down [2048, 768] an expert, on the GEMV and the GEMM at M = 1, 8 and 32
+# (an expert's rows in a 512-token prefill chunk: 512 * 8 / 128), and its
+# 8-bit router [128, 2048] at M = 1 and 512; each timed cold and warm
+MOE_SHAPES = ((2048, 768), (768, 2048))
+K5_MOE_CASES = (tuple((4, 64, M, K, N) for M in (1, 8, 32)
+                      for K, N in MOE_SHAPES)
+                + tuple((8, 64, M, 2048, 128) for M in (1, 512)))
+# the 8-bit GEMM's trailing half stage (g = 32, K an odd multiple of 32):
+# K = 3616 (113 groups) at a 58-row chunk (row tile 64), at 512 rows (row
+# tile 128), on a ragged 100-row chunk that splits K (N = 1000), and K = 96
+K5_HALF_CASES = ((8, 32, 58, 3616, 3584), (8, 32, 512, 3616, 3584),
+                 (8, 32, 100, 3616, 1000), (8, 32, 16, 96, 512))
+K5_CASES = K5_CASES + K5_8B_CASES + K5_MOE_CASES + K5_HALF_CASES
 K5_TOL = 1e-2
 
 
-def random_mlx(bits: int, g: int, K: int, N: int, gen, dev):
-    """Random mlx-layout weight [N, K], as utils/testing's
-    mlx_quantized_checkpoint draws them: codes uniform over [0, 2**bits),
-    bf16 scales around the value that gives the dequantized weights std
-    0.02, biases -((2**bits - 1) / 2) * scale."""
+def random_mlx(bits: int, g: int, K: int, N: int, gen, dev,
+               lead: tuple = ()):
+    """Random mlx-layout weight [*lead, N, K] (lead (E,): a stack of E
+    experts), as utils/testing's mlx_quantized_checkpoint draws them: codes
+    uniform over [0, 2**bits), bf16 scales around the value that gives the
+    dequantized weights std 0.02, biases -((2**bits - 1) / 2) * scale."""
     import torch
 
     from mlx_vlm_tpu_torch.core.quant import QuantizedTensor
 
     levels = 2**bits
     s_mean = 0.02 / math.sqrt((levels**2 - 1) / 12.0)
-    q = torch.randint(0, 256, (N, K * bits // 8), generator=gen, device=dev,
-                      dtype=torch.uint8)
-    s = s_mean * (0.75 + 0.5 * torch.rand((N, K // g), generator=gen,
+    q = torch.randint(0, 256, (*lead, N, K * bits // 8), generator=gen,
+                      device=dev, dtype=torch.uint8)
+    s = s_mean * (0.75 + 0.5 * torch.rand((*lead, N, K // g), generator=gen,
                                           device=dev))
     return QuantizedTensor(q=q, scales=s.to(torch.bfloat16),
                            biases=(-(levels - 1) / 2 * s).to(torch.bfloat16),
@@ -842,7 +876,7 @@ def check_qmatmul(results: list, dev) -> None:
                work=qmm_work(M, t), library=lib)
         r = results[-1]
         if (M <= k5.MAX_GEMV_ROWS or M == 58
-                or (bits, g, M, K, N) in K5_8B_CASES):
+                or (bits, g, M, K, N) in K5_8B_CASES + K5_MOE_CASES):
             r["warm_ms"], r["ms"] = r["ms"], qmm_cold_ms(run, t)
             txt = f"kernel_ms={r['ms']:.4f} cold {r['warm_ms']:.4f} warm"
             if lib is not None:
@@ -870,6 +904,174 @@ def check_qmatmul(results: list, dev) -> None:
               f"(graph nodes; want {want}), repeat bit-identical {same} "
               f"{'ok' if r['ok'] else 'MISMATCH'}", flush=True)
         del t, x, lib, out
+
+
+# K5's expert-indexed entry at Qwen3-VL-30B-A3B's expert stacks (128
+# experts, 4 bits, g = 64): the pairs of a B = 1 decode step (1 token x 8
+# experts), a 4-slot batch step (32) and a speculative verify at M = 5 (40)
+MOE_EXPERTS, MOE_TOP_K = 128, 8
+EXPERT_PAIRS = (8, 32, 40)
+
+
+def expert_work(t, experts, x_rows: int) -> tuple:
+    """(bytes, operations) of one expert-indexed call: the codes, scales
+    and biases of each expert the pairs name read once (this run's
+    experts), x's rows read once, y [P, N] bf16 written once; 2 N K
+    operations a pair."""
+    E, N, K = t.shape
+    distinct = len(set(experts.tolist()))
+    per_expert = (t.q[0].numel() + 2 * t.scales[0].numel() * 2)
+    P = experts.numel()
+    return (distinct * per_expert + x_rows * K * 2 + P * N * 2,
+            2.0 * P * N * K)
+
+
+def check_qmatmul_experts(results: list, dev) -> None:
+    """K5's expert-indexed entry (`quantized_matmul_experts`) against its
+    plain version at gate / up [128, 768, 2048] (x: the tokens' rows, pair
+    p reading token p // 8) and down [128, 2048, 768] (x: one row a pair),
+    at EXPERT_PAIRS pairs, two pairs on expert 127; tolerance K5_TOL *
+    max|ref| (both round once to bf16 after f32 sums).  Each case is timed
+    cold (`graph_ms` over copies of the stack that together pass
+    COLD_BYTES of the experts it reads) and warm, with its kernels per call
+    (must be 1), a bit-identical repeat and its bytes per second beside the
+    bound.  No PyTorch call gathers experts from mlx-affine codes, so there
+    is no library time."""
+    import functools
+
+    import torch
+
+    from mlx_vlm_tpu_torch.ops import qmatmul as k5
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    stacks = {(K, N): random_mlx(4, 64, K, N, gen, dev, (MOE_EXPERTS,))
+              for K, N in MOE_SHAPES}
+    for P in EXPERT_PAIRS:
+        experts = torch.randint(0, MOE_EXPERTS, (P,), generator=gen,
+                                device=dev, dtype=torch.int32)
+        experts[0] = experts[1] = MOE_EXPERTS - 1
+        tokens = P // MOE_TOP_K
+        token_rows = (torch.arange(P, device=dev) // MOE_TOP_K).to(
+            torch.int32)
+        for (K, N), t in stacks.items():
+            rows = token_rows if N == 768 else None
+            x = torch.randn((tokens if rows is not None else P, K),
+                            generator=gen, device=dev).to(torch.bfloat16)
+            run = functools.partial(k5.quantized_matmul_experts, x,
+                                    experts=experts, rows=rows)
+            out = run(t)
+            name = "qmatmul_experts"
+            shape = f"P={P} E={MOE_EXPERTS} K={K} N={N} g=64"
+            work = expert_work(t, experts, x.shape[0])
+            _check(results, name, shape, out,
+                   k5.qmatmul_experts_plain(x, t, experts, rows), K5_TOL,
+                   lambda: run(t),
+                   lambda: k5.qmatmul_experts_plain(x, t, experts, rows),
+                   floor=0.0, work=work)
+            r = results[-1]
+            copies = [t] + [clone_mlx(t) for _ in range(
+                cold_copies(work[0]) - 1)]
+            r["warm_ms"] = r["ms"]
+            r["ms"] = graph_ms([functools.partial(run, c) for c in copies],
+                               iters=5)
+            del copies
+            kernels = kernels_per_call(lambda: run(t))
+            same = bool(torch.equal(run(t), out))
+            r["kernels_per_call"], r["repeat_identical"] = kernels, same
+            r["ok"] = r["ok"] and same and kernels == 1
+            print(f"  {name} {shape}: kernel_ms={r['ms']:.4f} cold "
+                  f"{r['warm_ms']:.4f} warm (device time); "
+                  f"{len(set(experts.tolist()))} experts read, "
+                  f"{work[0] / 1e6:.3f} MB, {work[0] / r['ms'] / 1e9:.3f} "
+                  f"TB/s cold against the bound's 3.35; kernels per call "
+                  f"{kernels} (want 1), repeat bit-identical {same} "
+                  f"{'ok' if r['ok'] else 'MISMATCH'}", flush=True)
+    del stacks
+
+
+def check_route_repairs(dev) -> bool:
+    """The route rules held to their kernels' limits, each at the shape
+    that its kernel refused, on the card: K4 (flash_eligible) sends head
+    size 64 to `sdpa`, which matches K4's plain version; K5's rule sends
+    group 16 to the dequantize route, which matches K5's plain version;
+    the w4grp fold makes a 4-bit triple of group 24 per-channel int8, whose
+    product on the card matches its plain version on the CPU.  (The 8-bit
+    GEMM's half stage is among K5_HALF_CASES.)"""
+    import numpy as np
+    import torch
+
+    from mlx_vlm_tpu_torch.core import cache as cache_lib
+    from mlx_vlm_tpu_torch.core import quant as tq
+    from mlx_vlm_tpu_torch.core.mask import causal_cache_mask
+    from mlx_vlm_tpu_torch.ops import flash_attention as fa
+    from mlx_vlm_tpu_torch.ops import qmatmul as k5
+    from mlx_vlm_tpu_torch.utils import loader
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    ok = True
+    # K4: head size 64 against a cache of 8192, a 512-row chunk at 7680
+    B, H, KVH, S, C, D = 1, 8, 2, 512, 8192, 64
+    cache = cache_lib.init_cache(1, B, KVH, D, C, torch.bfloat16, device=dev)
+    cache.offset.fill_(7680)
+    q, k, v = (torch.randn((B, n, S, D), generator=gen, device=dev).to(
+        torch.bfloat16) for n in (H, KVH, KVH))
+    before = fa.launches["flash_attention"]
+    routed = cache_lib.flash_eligible(q, cache.k[0])
+    mask = causal_cache_mask(cache.offset, cache.left_pad, S, C)
+    out = cache.attend(0, q, k, v, D ** -0.5, mask)
+    ref = fa.flash_attention_plain(q, cache.k[0], cache.v[0],
+                                   cache.offset.expand(B), cache.left_pad,
+                                   D ** -0.5)
+    err = float((out.float() - ref.float()).abs().max())
+    tol = FLASH_TOL * float(ref.float().abs().max())
+    k4_ok = (not routed and fa.launches["flash_attention"] == before
+             and err <= tol)
+    wide = cache_lib.flash_eligible(q.new_empty((B, H, S, 128)), cache.k[0])
+    k4_ok = k4_ok and wide
+    print(f"  route repair K4: head_dim {D}, S={S} C={C}: flash_eligible "
+          f"{routed} (at head_dim 128: {wide}); sdpa vs K4's plain version "
+          f"max_abs_err={err:.3e} tol={tol:.3e} "
+          f"{'ok' if k4_ok else 'MISMATCH'}", flush=True)
+    ok = ok and k4_ok
+    # K5: group 16 takes the dequantize route
+    t = random_mlx(4, 16, 2048, 512, gen, dev)
+    x = torch.randn((8, 2048), generator=gen, device=dev).to(torch.bfloat16)
+    before = dict(k5.launches)
+    out = tq.quantized_matmul(x, t)
+    ref = k5.qmatmul_plain(x, t)
+    err = float((out.float() - ref.float()).abs().max())
+    tol = K5_TOL * float(ref.float().abs().max())
+    k5_ok = (not tq.qmm_kernel_route(t) and k5.launches == before
+             and err <= tol)
+    print(f"  route repair K5: group 16, M=8 K=2048 N=512: qmm_kernel_route "
+          f"{tq.qmm_kernel_route(t)}, dequantize route vs K5's plain version "
+          f"max_abs_err={err:.3e} tol={tol:.3e} "
+          f"{'ok' if k5_ok else 'MISMATCH'}", flush=True)
+    ok = ok and k5_ok
+    # K1 / K2: a 4-bit triple of group 24 folds per-channel under w4grp
+    rng = np.random.default_rng(SEED + 16)
+    w = rng.integers(0, 2**32, (256, 96 * 4 // 32), dtype=np.uint32)
+    s = torch.from_numpy(rng.uniform(1e-3, 2e-3, (256, 4)).astype(
+        np.float32)).to(torch.bfloat16)
+    folded = loader._fold_triple(w, s, -7.5 * s, 4, 24, "w4grp", False)
+    x = torch.randn((3, 96)).to(torch.bfloat16)
+
+    def on(device):
+        return tq.ChannelQuantizedTensor(
+            q8=folded.q8.to(device), scales=folded.scales.to(device),
+            biases=folded.biases.to(device), src_bits=4,
+            out_dtype="bfloat16")
+
+    out = tq.channel_quantized_matmul(x.to(dev), on(dev)).cpu().float()
+    ref = tq.channel_quantized_matmul(x, on("cpu")).float()
+    err = float((out - ref).abs().max())
+    tol = K5_TOL * float(ref.abs().max())
+    k12_ok = isinstance(folded, tq.ChannelQuantizedTensor) and err <= tol
+    print(f"  route repair K1/K2: 4-bit group 24 under w4grp folds to "
+          f"{type(folded).__name__}; its product on the card vs the CPU's "
+          f"f32 max_abs_err={err:.3e} tol={tol:.3e} "
+          f"{'ok' if k12_ok else 'MISMATCH'}", flush=True)
+    return ok and k12_ok
 
 
 def phase_kernels() -> list:
@@ -910,6 +1112,10 @@ def phase_kernels() -> list:
     del k1_cases, weights
     check_int4_matvec(results, gen, dev)
     check_qmatmul(results, dev)
+    check_qmatmul_experts(results, dev)
+    if not check_route_repairs(dev):
+        fail("a route rule sends a shape its kernel refuses, or its route "
+             "disagrees with the plain version")
     check_flash_attention(results, gen, dev)
     check_fused_decode(results, gen, dev)
     check_fused_decode_2b(results, gen, dev)
@@ -1648,9 +1854,29 @@ def counters() -> list:
 
 
 def reset_counts() -> None:
-    for c in counters():
+    """Every kernel's launch counter to 0, and core/moe.py's tallies of its
+    prefill route (calls, experts run), which `moe_want` reads."""
+    from mlx_vlm_tpu_torch.core import moe
+
+    for c in counters() + [moe.stats]:
         for k in c:
             c[k] = 0
+
+
+def moe_want(counts: dict, n_layers: int, forwards: int) -> dict:
+    """Launches of the expert layers of a Qwen3-VL-MoE run of `forwards`
+    forward passes (prefill chunks and decode steps) through `n_layers`
+    layers, each layer call on the decode route (one expert-indexed launch
+    per projection) or on the prefill route (core/moe.py `stats`: one K5
+    call per projection and expert that had rows); every other counter 0
+    (the caller adds what its mode runs beside)."""
+    from mlx_vlm_tpu_torch.core import moe
+
+    want = {k: 0 for k in counts}
+    want["qmatmul_experts"] = 3 * (n_layers * forwards
+                                   - moe.stats["grouped_calls"])
+    want["qmatmul_int4"] = 3 * moe.stats["grouped_experts"]
+    return want
 
 
 def read_counts() -> dict:
@@ -1716,14 +1942,18 @@ def family_checkpoints() -> dict:
     """The random mlx 4-bit checkpoints of phases 3 and 4 at the published
     widths, built once: "qwen2_vl_7b" (seed SEED + 2), "qwen2_5_vl_7b"
     (Qwen2.5-VL-7B: the same language-model arrays, whose widths are
-    Qwen2-VL-7B's, and its own windowed vision tower, seed SEED + 6) and
-    "qwen3_vl_8b" (seed SEED + 7).  Each is (config, weights)."""
+    Qwen2-VL-7B's, and its own windowed vision tower, seed SEED + 6),
+    "qwen3_vl_8b" (seed SEED + 7) and "qwen3_vl_moe_30b_a3b"
+    (Qwen3-VL-30B-A3B, its 128 experts a layer in the mlx fused layout and
+    its routers at 8 bits under per-path entries, seed SEED + 8).  Each is
+    (config, weights)."""
     from mlx_vlm_tpu_torch.utils.testing import (is_vision_key,
                                                  mlx_int4_checkpoint,
                                                  mlx_quantized_checkpoint,
                                                  qwen2_5_vl_7b_config,
                                                  qwen2_vl_7b_config,
-                                                 qwen3_vl_8b_config)
+                                                 qwen3_vl_8b_config,
+                                                 qwen3_vl_moe_30b_a3b_config)
 
     t0 = time.perf_counter()
     out = {"qwen2_vl_7b": mlx_int4_checkpoint(qwen2_vl_7b_config(),
@@ -1735,9 +1965,12 @@ def family_checkpoints() -> dict:
     out["qwen2_5_vl_7b"] = (cfg25, {**lm, **vision})
     out["qwen3_vl_8b"] = mlx_int4_checkpoint(qwen3_vl_8b_config(),
                                              seed=SEED + 7)
+    t1 = time.perf_counter()
+    out["qwen3_vl_moe_30b_a3b"] = mlx_quantized_checkpoint(
+        qwen3_vl_moe_30b_a3b_config(), seed=SEED + 8, router_bits=8)
     print(f"  checkpoints (Qwen2-VL-7B, Qwen2.5-VL-7B's vision tower, "
-          f"Qwen3-VL-8B) built in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+          f"Qwen3-VL-8B; Qwen3-VL-30B-A3B in {time.perf_counter() - t1:.1f} "
+          f"s) built in {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -2424,6 +2657,10 @@ FAMILY_CASES = (
      "float32", 4),
     ("Qwen3-VL, exact (K5)", "qwen3_vl_8b", 3, "exact", "QuantizedTensor",
      "float32", 4),
+    ("Qwen3-VL-MoE, default (w8chan; experts on K5)", "qwen3_vl_moe_30b_a3b",
+     2, None, "ChannelQuantizedTensor", "float32", 4),
+    ("Qwen3-VL-MoE, exact (K5; 8-bit router)", "qwen3_vl_moe_30b_a3b", 2,
+     "exact", "QuantizedTensor", "float32", 4),
 )
 
 
@@ -2432,10 +2669,17 @@ def family_want(label: str, lm, n_steps: int) -> dict:
     chunk with its head at M = 1, then n_steps - 1 decode steps): on the
     fused route K1 for the chunk's linears, K2 for its head and K3 each
     step; exact K5 on every linear and the head of the chunk and of each
-    step; w8chan no kernel (K4 takes no chunk this short)."""
+    step; w8chan no kernel (K4 takes no chunk this short).  Qwen3-VL-MoE:
+    its expert layers by `moe_want`, and in exact K5 on the 4 attention
+    linears and the head (4 bits) and the router (8 bits)."""
     want = {k: 0 for k in read_counts()}
     L = lm.args.num_hidden_layers
-    if lm.fused_decode:
+    if hasattr(lm, "top_k"):  # the MoE language model
+        want = moe_want(want, L, n_steps)
+        if "exact" in label:
+            want["qmatmul_int4"] += n_steps * (4 * L + 1)
+            want["qmatmul_int8"] = n_steps * L
+    elif lm.fused_decode:
         want.update(int4_matmul=7 * L, int4_matvec=1,
                     fused_decode=n_steps - 1)
     elif "exact" in label:
@@ -2444,11 +2688,12 @@ def family_want(label: str, lm, n_steps: int) -> dict:
 
 
 def phase_family_parity(ckpts: dict) -> bool:
-    """Qwen2.5-VL at 7B widths (2 decoder layers, its whole windowed tower)
-    and Qwen3-VL at 8B widths (3 decoder layers, its whole deepstack tower)
-    on the card (bf16, kernels) against the CPU (plain versions, in f32 or
-    bf16 by FAMILY_CASES), each
-    on its own image prompt and processor (patch 14; 16), teacher-forced by
+    """Qwen2.5-VL at 7B widths (2 decoder layers, its whole windowed tower),
+    Qwen3-VL at 8B widths (3 decoder layers, its whole deepstack tower) and
+    Qwen3-VL-MoE at 30B-A3B widths (2 decoder layers of 128 experts, top-8,
+    the whole tower; default mode and exact, its 8-bit routers) on the card
+    (bf16, kernels) against the CPU (plain versions, in f32 or bf16 by
+    FAMILY_CASES), each on its own image prompt and processor (patch 14; 16), teacher-forced by
     the parity rule, its launches held to what ran; then each model's
     graph-replayed decode against eager steps on the card."""
     import torch
@@ -2458,8 +2703,9 @@ def phase_family_parity(ckpts: dict) -> bool:
     from mlx_vlm_tpu_torch.utils.loader import load_model_from_weights
     from mlx_vlm_tpu_torch.utils.processing import prepare_inputs
 
-    print("phase 3: Qwen2.5-VL (7B widths) and Qwen3-VL (8B widths) on the "
-          "card vs the CPU, teacher-forced", flush=True)
+    print("phase 3: Qwen2.5-VL (7B widths), Qwen3-VL (8B widths) and "
+          "Qwen3-VL-MoE (30B-A3B widths) on the card vs the CPU, "
+          "teacher-forced", flush=True)
     all_ok = True
     for (label, name, n_layers, mode, layout, ref_dtype,
          n_steps) in FAMILY_CASES:
@@ -2483,7 +2729,8 @@ def phase_family_parity(ckpts: dict) -> bool:
             counts = read_counts()
         lm = gpu.language_model
         lp = gpu.params["language_model"]
-        kind = type(lp["model"]["layers"]["mlp"]["up_proj"]["weight"]).__name__
+        kind = type(lp["model"]["layers"]["self_attn"]["q_proj"]["weight"]
+                    ).__name__
         layout_ok = kind == layout and lm.fused_decode == (
             layout == "Int4GroupedTensor")
         want = family_want(label, lm, n_steps)
@@ -2788,13 +3035,14 @@ def batch_prompt_requests(model, proc, cfg) -> tuple:
 
 def report_batch(name: str, st: dict, counts: dict, tokens: str, n_gen: int,
                  prompt_tokens: int, wall: float, kv_bits, n_layers: int,
-                 total: dict) -> float:
+                 total: dict, want=None) -> float:
     """Checks a batch request's generator counters (one capture, a replay
     per step after the first, a fetch per block and admission) and holds
     each kernel's launches to the steps and prefill chunks that ran (K2 =
     197 a step + one head per prefill chunk holding a row's last token, K1
-    = 196 a chunk, K6 = 28 a step at kv_bits 4, the rest 0); prints its
-    metrics.  Returns the host ms per replayed batch step."""
+    = 196 a chunk, K6 = 28 a step at kv_bits 4, the rest 0; or `want`,
+    where the caller gives the launches); prints its metrics.  Returns the
+    host ms per replayed batch step."""
     import torch
 
     if not 0 < n_gen <= len(BATCH_PROMPTS) * BATCH_MAX_TOKENS:
@@ -2818,11 +3066,13 @@ def report_batch(name: str, st: dict, counts: dict, tokens: str, n_gen: int,
           f"{st['prefill_chunks']} prefill chunks; peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
           f"{counts}", flush=True)
-    want = {k: 0 for k in counts}
-    want["int4_matvec"] = (7 * n_layers + 1) * st["steps"] + st["prefill_heads"]
-    want["int4_matmul"] = 7 * n_layers * st["prefill_chunks"]
-    if kv_bits == 4:
-        want["int4_kv_attention"] = n_layers * st["steps"]
+    if want is None:
+        want = {k: 0 for k in counts}
+        want["int4_matvec"] = ((7 * n_layers + 1) * st["steps"]
+                               + st["prefill_heads"])
+        want["int4_matmul"] = 7 * n_layers * st["prefill_chunks"]
+        if kv_bits == 4:
+            want["int4_kv_attention"] = n_layers * st["steps"]
     expect(name, counts, want, total)
     return ms_replayed
 
@@ -4775,6 +5025,7 @@ def phase_main_path(ckpts: dict) -> dict:
     exact_requests(proc, cfg, weights, total)
     run_qwen2_5_vl(ckpts["qwen2_5_vl_7b"], total)
     run_qwen3_vl(ckpts["qwen3_vl_8b"], total)
+    run_qwen3_vl_moe(ckpts["qwen3_vl_moe_30b_a3b"], total)
     print(f"  kernel launches on the main path: {total}", flush=True)
     for k, v in total.items():
         if v <= 0:
@@ -4793,8 +5044,8 @@ def load_timed(name: str, cfg: dict, weights: dict, mode=None):
     with env_vars(MLX_VLM_TPU_RUNTIME_QUANT=mode):
         model = load_model_from_weights(cfg, weights, torch.bfloat16, "cuda")
     lm = model.language_model
-    kind = type(model.params["language_model"]["model"]["layers"]["mlp"]
-                ["up_proj"]["weight"]).__name__
+    kind = type(model.params["language_model"]["model"]["layers"]
+                ["self_attn"]["q_proj"]["weight"]).__name__
     print(f"  {name}: loaded (fold + stack + upload) in "
           f"{time.perf_counter() - t0:.1f} s, {kind} linears, fused route "
           f"{lm.fused_decode}, {lm.args.num_hidden_layers} decoder layers, "
@@ -4923,6 +5174,124 @@ def run_qwen3_vl(ckpt: tuple, total: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def profile_prefill(model, proc, cfg, text: str) -> None:
+    """With --profile: one eager prefill of `text` and a 448x448 image (the
+    embedding and tower, then the language model in one chunk into a fresh
+    cache) timed on the host three times, then traced (print_profile): the
+    share of its wall time the card is busy."""
+    import torch
+
+    from mlx_vlm_tpu_torch import apply_chat_template
+    from mlx_vlm_tpu_torch.generate.ar import make_cache
+    from mlx_vlm_tpu_torch.generate.common import embed_prompt
+    from mlx_vlm_tpu_torch.utils.processing import prepare_inputs
+
+    inputs = prepare_inputs(proc, apply_chat_template(proc, cfg, text,
+                                                      num_images=1),
+                            images=_image(448))
+    lm, lp = model.language_model, model.params["language_model"]
+
+    def prefill():
+        embeds, pos, _ = embed_prompt(model, inputs)
+        cache = make_cache(model, 1, -(-embeds.shape[1] // 256) * 256,
+                           embeds.dtype, None, device=model.device)
+        lm(lp, embeds, cache,
+           torch.from_numpy(pos.astype(np.int64)).to(model.device))
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        print(f"    eager prefill of {inputs['input_ids'].shape[1]} tokens: "
+              f"{time.perf_counter() - t0:.4f} s of wall time", flush=True)
+    print_profile(prefill, "eager prefills")
+
+
+def run_qwen3_vl_moe(ckpt: tuple, total: dict) -> None:
+    """Qwen3-VL-30B-A3B at full width and depth (48 decoder layers of 128
+    experts, top-8; the 27-block deepstack tower), the loader's default
+    mode (w8chan linears and 8-bit routers, the expert stacks exact on K5):
+    (u1) an image request of 64 tokens through stream_generate on decode
+    blocks, (u2) BATCH_PROMPTS through batch_generate in 4 slots, (u3) an
+    image chat through the server, (u4) an image and a ~8.5k-token prompt
+    (K4 on every layer of every chunk).  Each request's expert layers are
+    held to `moe_want` (decode steps and short chunks one expert-indexed
+    launch a projection, long chunks K5 per expert with rows)."""
+    import torch
+
+    from mlx_vlm_tpu_torch import batch_generate
+    from mlx_vlm_tpu_torch.core import moe
+
+    cfg, weights = ckpt
+    model = load_timed("Qwen3-VL-30B-A3B (u1)-(u4)", cfg, weights)
+    lm = model.language_model
+    layers = model.params["language_model"]["model"]["layers"]
+    experts = layers["mlp"]["experts"]["gate_proj"]["weight"]
+    router = layers["mlp"]["gate"]["weight"]
+    if (type(experts).__name__ != "QuantizedTensor" or experts.bits != 4
+            or tuple(experts.shape[:2]) != (48, 128)
+            or type(router).__name__ != "ChannelQuantizedTensor"
+            or router.src_bits != 8 or lm.top_k != 8):
+        fail("Qwen3-VL-30B-A3B did not load 4-bit expert stacks [48, 128, "
+             "...] on K5 beside w8chan linears and 8-bit routers, top-8")
+    L = lm.args.num_hidden_layers
+    proc = _processor(model=model)
+    for name, text, max_tokens in (
+            ("(u1) Qwen3-VL-30B-A3B, image 448x448 + short prompt",
+             "Describe this image in detail.", 64),
+            ("(u4) Qwen3-VL-30B-A3B, image + ~8.5k-token prompt", LONG_TEXT,
+             16)):
+        counts, n, S, steps = run_request(
+            model, proc, cfg, name, "per-linear, experts on K5", text,
+            _image(448), 1, max_tokens, None, {})
+        chunks = prefill_chunks(S, max_tokens)
+        capacity = -(-(S + max_tokens + min(32, max_tokens) + 1) // 256) * 256
+        want = moe_want(counts, L, chunks + steps)
+        want["flash_attention"] = L * chunks if capacity >= 8192 else 0
+        calls, runs = moe.stats["grouped_calls"], moe.stats["grouped_experts"]
+        print(f"    {name}: prefill route on {calls} layer calls, {runs} "
+              f"expert runs ({runs / max(1, calls):.1f} experts a layer "
+              f"and chunk)", flush=True)
+        expect(name, counts, want, total)
+        if PROFILE and max_tokens == 64:
+            profile_prefill(model, proc, cfg, text)
+    name = "(u2) Qwen3-VL-30B-A3B batch_generate"
+    prompts, images = batch_prompts(proc, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = batch_generate(model, proc, prompts, images=images,
+                         max_tokens=BATCH_MAX_TOKENS,
+                         num_slots=BATCH_NUM_SLOTS)
+    counts = read_counts()
+    st = res.generator_stats
+    report_batch(name, st, counts, "", res.stats["generation_tokens"],
+                 res.stats["prompt_tokens"], res.stats["wall_s"], None, L,
+                 total, want=moe_want(counts, L, st["prefill_chunks"]
+                                      + st["steps"]))
+    req = ("(u3)", "chat", "Describe this image in detail.", 448, False,
+           False, None, 16)
+    answers, _, _, _, counts, st, metrics, wall, _, http = serve_requests(
+        model, proc, cfg, [req], None)
+    ans = answers.get("(u3)") or {}
+    env = (metrics.get("recent") or [{}])[-1]
+    via = "a PNG data URI over HTTP" if http else "through the engine"
+    print(f"  (u3) Qwen3-VL-30B-A3B server, image chat ({via}): status "
+          f"{ans.get('status')}, {ans.get('completion')} tokens, finish "
+          f"{ans.get('finish')}, {wall:.4f} s; /metrics ttft_s "
+          f"{env.get('ttft_s')}, generation_tps "
+          f"{env.get('generation_tps')}; {st['steps']} batch steps, "
+          f"{st['prefill_chunks']} prefill chunks; launches {counts}",
+          flush=True)
+    if ans.get("status") != 200 or ans.get("errors") or not (
+            ans.get("completion") == 16 or ans.get("finish") == "stop"):
+        fail(f"(u3): answer {ans}")
+    expect("(u3)", counts, moe_want(counts, L, st["prefill_chunks"]
+                                    + st["steps"]), total)
+    del model, experts, router, layers
+    torch.cuda.empty_cache()
+
+
 def exact_requests(proc, cfg4: dict, weights4: dict, total: dict) -> None:
     """Requests (g) and (h): each on its own full-width model loaded with
     MLX_VLM_TPU_RUNTIME_QUANT=exact, so that every decoder linear (7 per
@@ -5038,6 +5407,9 @@ KERNELS = (
      "mlx_vlm_tpu/ops/qmatmul.py:53", "M=512 K=3584 N=18944 g=64"),
     ("qmatmul_int8", "mlx_vlm_tpu_torch/csrc/qmatmul.cu",
      "mlx_vlm_tpu/ops/qmatmul.py:83", "M=512 K=3584 N=18944 g=64"),
+    ("qmatmul_experts", "mlx_vlm_tpu_torch/csrc/qmatmul.cu",
+     "mlx_vlm_tpu/ops/qmatmul.py:53",
+     f"P=8 E={MOE_EXPERTS} K=2048 N=768 g=64"),
     ("int4_kv_attention", "mlx_vlm_tpu_torch/csrc/int4_kv_attention.cu",
      "mlx_vlm_tpu/ops/int4_kv_attention.py:104", KV_SHAPE),
     ("tq_kv_attention", "mlx_vlm_tpu_torch/csrc/tq_kv_attention.cu",

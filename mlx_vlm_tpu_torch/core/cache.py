@@ -58,13 +58,17 @@ def flash_eligible(q: torch.Tensor, k_buf: torch.Tensor) -> bool:
     """Route a prefill chunk to the flash-attention kernel (K4).
 
     The reference's rule with "tensor is on CUDA" in place of its TPU check:
-    S >= 256 query rows, capacity C >= 8192 and a multiple of 128.  A dtype
-    or head size the kernel does not take makes `flash_attention` raise; it
-    is not rerouted to `sdpa`."""
+    S >= 256 query rows, capacity C >= 8192 and a multiple of 128; and,
+    decided by shape as the rest, the head size K4 takes (HEAD_DIM, 128).
+    The reference's kernel takes any head size; the port's other sizes go to
+    `sdpa` (ROADMAP Queue 3, divergences).  A dtype the kernel does not take
+    makes `flash_attention` raise; it is not rerouted to `sdpa`."""
+    from ..ops.flash_attention import HEAD_DIM
+
     if q.device.type != "cuda":
         return False
-    S, C = q.shape[2], k_buf.shape[2]
-    return S >= 256 and C >= 8192 and C % 128 == 0
+    S, C, D = q.shape[2], k_buf.shape[2], q.shape[-1]
+    return S >= 256 and C >= 8192 and C % 128 == 0 and D == HEAD_DIM
 
 
 def new_cursor(device=None, rows: Optional[int] = None) -> torch.Tensor:

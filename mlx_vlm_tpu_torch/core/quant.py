@@ -309,8 +309,13 @@ def dequantize(t: QuantizedTensor, dtype=None) -> torch.Tensor:
 def qmm_kernel_route(t: QuantizedTensor, transpose: bool = True) -> bool:
     """Whether x @ dequant(t).T runs K5 (ops/qmatmul.py): the reference's
     rule (:256-260) for a 2-D 4- or 8-bit weight whose packed row holds whole
-    groups.  Its TPU check and its MLX_VLM_TPU_QMM switch are not ported."""
+    groups, and a group size that K5 takes (`GROUP_SIZES`: 32, 64, 128;
+    others take the dequantize route, ROADMAP Queue 3, divergences).  Its
+    TPU check and its MLX_VLM_TPU_QMM switch are not ported."""
+    from ..ops.qmatmul import GROUP_SIZES
+
     return (transpose and t.ndim == 2 and t.bits in (4, 8)
+            and t.group_size in GROUP_SIZES
             and t.q.shape[1] % max(t.group_size, 2) == 0)
 
 

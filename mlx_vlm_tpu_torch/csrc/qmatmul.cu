@@ -171,8 +171,12 @@
 //     write f32 partials that splitk_reduce adds in slice order and rounds
 //     once.  No atomics: a repeated call is bit-identical.
 //   * Ragged edges: TMA fills x rows >= M and W rows >= N with zeros; the
-//     epilogue masks them.  Any M, any N; K % (2 g) == 0 at 4 bits, K %
-//     max(g, 64) == 0 at 8.
+//     epilogue masks them.  Any M, any N; K % (2 g) == 0 at 4 bits, K % g
+//     == 0 at 8.  At 8 bits and g = 32, K an odd multiple of 32 ends in a
+//     half stage: TMA fills its x and code columns past K with zeros, and
+//     the group-data warp gives the missing second group s = b = 0, so
+//     that group's fold adds nothing (the stage's last unit counts as a
+//     whole one in the K split).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -375,7 +379,8 @@ qmm_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
   const int g = GT ? GT : 1 << lg, G = K >> lg;
   const int lu = lg > 6 ? lg : 6;  // a unit is 1 << lu codes: max(g, 64)
   const int per_unit = 1 << (lu - 6);  // stages per unit
-  const int units = K >> lu;
+  // whole units, and at 8 bits and g = 32 a trailing half stage as one
+  const int units = (K + (1 << lu) - 1) >> lu;
   const int t0 = div_magic(blockIdx.z * units, split_m) * per_unit;
   const int t1 = div_magic((blockIdx.z + 1) * units, split_m) * per_unit;
   const int slots = g == 32 ? 2 : 1;  // groups that end in one stage
@@ -425,9 +430,21 @@ qmm_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
         const int n = n0 + lane + 32 * i;
         const size_t at = (size_t)n * G + gi;
         sb[i][0] = sb[i][1] = 0u;
-        if (n < N && slots == 2) {  // two groups: one aligned 32-bit read
+        if (n < N && slots == 2 && !(G & 1)) {  // two groups: one aligned
+                                                // 32-bit read
           sb[i][0] = *reinterpret_cast<const uint32_t*>(scales + at);
           sb[i][1] = *reinterpret_cast<const uint32_t*>(biases + at);
+        } else if (n < N && slots == 2) {  // an odd group count: 16-bit
+          // reads, the second group 0 past the row's last (a half stage)
+          const uint32_t hi = gi + 1 < G;
+          sb[i][0] = *reinterpret_cast<const uint16_t*>(scales + at) |
+                     (hi ? (uint32_t)*reinterpret_cast<const uint16_t*>(
+                               scales + at + 1) << 16
+                         : 0u);
+          sb[i][1] = *reinterpret_cast<const uint16_t*>(biases + at) |
+                     (hi ? (uint32_t)*reinterpret_cast<const uint16_t*>(
+                               biases + at + 1) << 16
+                         : 0u);
         } else if (n < N) {
           sb[i][0] = *reinterpret_cast<const uint16_t*>(scales + at);
           sb[i][1] = *reinterpret_cast<const uint16_t*>(biases + at);
@@ -926,14 +943,34 @@ __device__ __forceinline__ void cp_async_wait() {
 // other of two slots; with NC = 1 << lnc chunks, x of a chunk at a time,
 // the grid holds one block per tile.  Shared memory as qmv_smem lays it
 // out.
+//
+// The expert-indexed entry (`experts` set, M = 1): W is a stack of E
+// experts [E, N, K * BITS / 8] (scales and biases [E, N, K / G]) and the
+// grid's second axis runs over pairs: the blocks of row p read the pair's
+// expert e = experts[p] and x row rows[p] (p where rows is null) from the
+// device, offset the codes, scales and biases by e experts and x by that
+// row, and write row p of y [pairs, N].  Nothing of the pairs is read on
+// the host, so the launch can be captured in a CUDA graph and replayed
+// with other pairs.  An expert index outside [0, E) traps.
 template <int BITS, int G>
 __global__ void __launch_bounds__(MV_THREADS, 2)
 qmv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
            const __nv_bfloat16* __restrict__ scales,
            const __nv_bfloat16* __restrict__ biases,
            __nv_bfloat16* __restrict__ y, int M, int K, int N, int lrt,
-           int lnc) {
+           int lnc, const int* __restrict__ experts,
+           const int* __restrict__ rows, int E) {
   using C = Qmv<BITS, G>;
+  if (experts) {
+    const int p = blockIdx.y, e = experts[p];
+    if (e < 0 || e >= E) __trap();
+    const size_t values = (size_t)N * (K / G);  // scales of one expert
+    q += (size_t)e * N * (K / 8 * BITS);
+    scales += e * values;
+    biases += e * values;
+    x += (size_t)(rows ? rows[p] : p) * K;
+    y += (size_t)p * N;
+  }
   extern __shared__ __align__(16) uint8_t mv_smem[];
   __shared__ float red[MV_THREADS / 32][16][8];  // each warp's partial
   const int tiles = (N + (16 << lrt) - 1) >> (4 + lrt);
@@ -1274,11 +1311,14 @@ inline int sm_count(int dev) {
   return count[dev];
 }
 
+// `pairs` rows of blocks: 1, or the pairs of the expert-indexed entry
+// (experts and rows as qmv_kernel reads them, E experts in the stack)
 template <int BITS, int G>
 cudaError_t launch_qmv(const __nv_bfloat16* x, const uint8_t* q,
                        const __nv_bfloat16* s, const __nv_bfloat16* b,
                        __nv_bfloat16* y, int M, int K, int N, int lrt,
-                       int lnc, cudaStream_t st) {
+                       int lnc, cudaStream_t st, const int* experts = nullptr,
+                       const int* rows = nullptr, int E = 0, int pairs = 1) {
   using C = Qmv<BITS, G>;
   const int tiles = (N + (16 << lrt) - 1) >> (4 + lrt);
   // persistent (2 blocks an SM) with one chunk and more tiles than that,
@@ -1303,9 +1343,9 @@ cudaError_t launch_qmv(const __nv_bfloat16* x, const uint8_t* q,
     if (err != cudaSuccess) return err;
     sized[dev] = true;
   }
-  const int blocks = persistent ? 2 * sms : tiles;
-  qmv_kernel<BITS, G><<<blocks, MV_THREADS, smem, st>>>(x, q, s, b, y, M, K,
-                                                        N, lrt, lnc);
+  const dim3 grid(persistent ? 2 * sms : tiles, pairs);
+  qmv_kernel<BITS, G><<<grid, MV_THREADS, smem, st>>>(
+      x, q, s, b, y, M, K, N, lrt, lnc, experts, rows, E);
   return cudaGetLastError();
 }
 
@@ -1348,12 +1388,59 @@ extern "C" int mvt_qmatmul_gemv(const void* x, const void* q,
   return (int)cudaErrorInvalidValue;
 }
 
+// The expert-indexed GEMV (the experts of a mixture-of-experts layer at
+// decode): y [pairs, N] bf16, y[p] = x[rows[p]] @ dequant(W[experts[p]])^T.
+// x [R, K] bf16 (16-byte aligned); q [E, N, K*bits/8] u8; scales and biases
+// [E, N, K/group_size] bf16 (4-byte aligned, N * K / group_size even, so
+// that every expert's values start on a 32-bit word); experts and rows
+// int32 [pairs] on the device (rows null: x row p), read by the kernel.
+// One launch: the GEMV's grid of row tiles for one x row, times the pairs.
+// bits, group_size, K, row_tiles and chunks as mvt_qmatmul_gemv takes them
+// at M = 1 (ops/qmatmul.py:qmatmul_gemv_plan(1, ...)).
+extern "C" int mvt_qmatmul_gemv_experts(const void* x, const void* q,
+                                        const void* scales,
+                                        const void* biases, void* y,
+                                        const void* experts, const void* rows,
+                                        int pairs, int E, int K, int N,
+                                        int bits, int group_size,
+                                        int row_tiles, int chunks,
+                                        void* stream) {
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* qp = static_cast<const uint8_t*>(q);
+  const auto* sp = static_cast<const __nv_bfloat16*>(scales);
+  const auto* bp = static_cast<const __nv_bfloat16*>(biases);
+  auto* yp = static_cast<__nv_bfloat16*>(y);
+  const auto* ep = static_cast<const int*>(experts);
+  const auto* rp = static_cast<const int*>(rows);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int g = group_size;
+  if ((bits != 4 && bits != 8) || (g != 32 && g != 64 && g != 128) || !ep)
+    return (int)cudaErrorInvalidValue;
+  const int gb = g * bits / 8;
+  const int unit = (gb > MV_STEP ? gb : MV_STEP) * 8 / bits;  // codes
+  if (pairs < 1 || pairs > 65535 || E < 1 || N < 1 || K < 1 || K % unit ||
+      ((long long)N * (K / g)) % 2 || row_tiles < 1 || row_tiles > 8 ||
+      (row_tiles & (row_tiles - 1)) || chunks < 1 ||
+      (chunks & (chunks - 1)) || chunks > K / unit)
+    return (int)cudaErrorInvalidValue;
+  const int lrt = __builtin_ctz(row_tiles), lnc = __builtin_ctz(chunks);
+#define MVT_QMVE(B, G)                                                   \
+  if (bits == B && g == G)                                               \
+    return (int)launch_qmv<B, G>(xp, qp, sp, bp, yp, 1, K, N, lrt, lnc, st, \
+                                 ep, rp, E, pairs);
+  MVT_QMVE(4, 32) MVT_QMVE(4, 64) MVT_QMVE(4, 128)
+  MVT_QMVE(8, 32) MVT_QMVE(8, 64) MVT_QMVE(8, 128)
+#undef MVT_QMVE
+  return (int)cudaErrorInvalidValue;
+}
+
 // The GEMM route (M > 8, both widths): x [M, K] bf16, q [N, K * bits / 8]
 // u8, scales and biases [N, K/g] bf16, y [M, N] bf16, part [splits, M, N]
 // f32 scratch when splits > 1.  g in {32, 64, 128}; K a multiple of 2 g at
-// 4 bits, of max(g, 64) at 8; bm 64 or 128, splits at most K / max(g, 64);
-// x and q 16-byte aligned, scales and biases 4-byte aligned.  The
-// wrapper's plan (ops/qmatmul.py:qmatmul_plan) picks bm and splits.
+// 4 bits, of g at 8; bm 64 or 128, splits at most the units of max(g, 64)
+// codes (a trailing half stage counted as one); x and q 16-byte aligned,
+// scales and biases 4-byte aligned.  The wrapper's plan
+// (ops/qmatmul.py:qmatmul_plan) picks bm and splits.
 extern "C" int mvt_qmatmul_gemm(const void* x, const void* q,
                                 const void* scales, const void* biases,
                                 void* y, void* part, int M, int K, int N,
@@ -1365,10 +1452,11 @@ extern "C" int mvt_qmatmul_gemm(const void* x, const void* q,
   auto* pp = static_cast<float*>(part);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int g = group_size, unit = g > QG_BK ? g : QG_BK;
-  if (M <= 0 || N <= 0 || (g != 32 && g != 64 && g != 128) ||
-      K % (bits == 4 ? 2 * g : unit) || K % unit || splits < 1 ||
-      splits > K / unit || (splits > 1 && !part) ||
-      (unsigned long long)(K / unit) * splits * splits >= (1ULL << 32))
+  const int units = (K + unit - 1) / unit;
+  if (M <= 0 || N <= 0 || (g != 32 && g != 64 && g != 128) || K <= 0 ||
+      K % (bits == 4 ? 2 * g : g) || splits < 1 || splits > units ||
+      (splits > 1 && !part) ||
+      (unsigned long long)units * splits * splits >= (1ULL << 32))
     return (int)cudaErrorInvalidValue;
 #define MVT_QMM(B, BM_, GT)                                               \
   if (bits == B && bm == BM_ && (GT == 0 || g == GT))                     \

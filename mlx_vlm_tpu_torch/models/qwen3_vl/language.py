@@ -2,7 +2,7 @@
 dimension) with interleaved M-RoPE and deepstack visual injection.
 
 Port of mlx_vlm_tpu/models/qwen3_vl/language.py (LanguageModel :38,
-__call__ :52-132, _qkv :137, logits :147, init_cache :155,
+__call__ :52-132, _mlp :127, _qkv :137, logits :147, init_cache :155,
 get_rope_index :162).  Deepstack features arrive channel-packed in the
 embeddings, [B, S, D * (1 + n_ds)]: decoder layer i < n_ds adds slice i
 to its output (the reference's :220-229 in the upstream model), so that
@@ -81,12 +81,15 @@ class LanguageModel:
             x = rms_norm(lp["input_layernorm"], h, eps)
             h = h + self._attention(lp["self_attn"], x, cos, sin, mask, cache, i)
             x = rms_norm(lp["post_attention_layernorm"], h, eps)
-            h = h + swiglu_mlp(lp["mlp"], x)
+            h = h + self._mlp(lp["mlp"], x)
             if ds is not None and i < ds.shape[2]:
                 h = h + ds[:, :, i].to(h.dtype)
         if cache is not None:
             cache.advance(S)
         return rms_norm(mp["norm"], h, eps)
+
+    def _mlp(self, p, x):  # the reference's hook (:127), which the MoE
+        return swiglu_mlp(p, x)  # variant overrides
 
     def _attention(self, p, x, cos, sin, mask, cache, layer):
         B, S, _ = x.shape

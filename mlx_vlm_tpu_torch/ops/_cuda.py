@@ -66,6 +66,9 @@ _SIGNATURES = {
     # x, q, scales, biases, y, part, M, K, N, bits, group_size, bm, splits,
     # stream
     "mvt_qmatmul_gemm": (_P,) * 6 + (_I,) * 7 + (_P,),
+    # x, q, scales, biases, y, experts, rows, pairs, E, K, N, bits,
+    # group_size, row_tiles, chunks, stream
+    "mvt_qmatmul_gemv_experts": (_P,) * 7 + (_I,) * 8 + (_P,),
 }
 
 

@@ -16,6 +16,15 @@ their place for every linear of an "exact" model, by two entry points:
 Each folds a group's f32 partial as s P + (b - c s) sum x (c = 128 at 4
 bits, 384 at 8) and rounds once to bf16 (see the .cu header).
 
+A third entry, `quantized_matmul_experts`, is the GEMV indexed by expert
+for a mixture-of-experts layer (core/moe.py): one launch computes y[p] =
+x[rows[p]] @ dequant(W[experts[p]]).T for every (row, expert) pair of a
+stacked weight [E, N, K * bits / 8], the pairs read from int32 device
+tensors by the kernel, so that a decode step holding it can be captured
+in a CUDA graph.  The reference runs K5 on each expert's 2-D slice in
+turn (core/moe.py:111-119, a masked scan over all E experts); the function
+of each pair is K5's on that slice.
+
 W is a 2-D QuantizedTensor: q uint8 [N, K * bits / 8] (4-bit: byte j of a
 row holds code 2j in its low nibble and 2j+1 in its high nibble; 8-bit: one
 code per byte), scales and biases [N, K / group_size].  The function is the
@@ -63,7 +72,7 @@ GEMM_BN = 128
 GEMM_STAGES = {(4, 64): 12, (4, 128): 8, (8, 64): 11, (8, 128): 8}
 SMEM_PER_BLOCK = 232448  # an H100 block's shared memory at most (227 KB)
 
-launches = {"qmatmul_int4": 0, "qmatmul_int8": 0}
+launches = {"qmatmul_int4": 0, "qmatmul_int8": 0, "qmatmul_experts": 0}
 
 
 def qmatmul_plain(x: torch.Tensor, t: QuantizedTensor) -> torch.Tensor:
@@ -135,8 +144,10 @@ def qmatmul_plan(M: int, K: int, N: int, group_size: int,
     reads each weight tile for more rows).  When the tiles would leave SMs
     idle, K splits into S slices of whole units of max(group_size, 64)
     codes, S the largest that keeps the blocks at SMS or fewer (and at most
-    the unit count).  At 8 bits with a row tile of 64, tiles that pass one
-    wave of SMS blocks but leave the last wave part empty split K in two
+    the unit count; at 8 bits and g = 32 a K that is an odd multiple of 32
+    ends in a half stage, counted as a unit).  At 8 bits with a row tile of
+    64, tiles that pass one wave of SMS blocks but leave the last wave part
+    empty split K in two
     where half-length blocks need fewer half waves than twice the full
     waves (a 58-row chunk's 148 gate/up tiles: three half waves, not two
     full ones); the partials of so few rows cost little to add.  Raises
@@ -147,9 +158,9 @@ def qmatmul_plan(M: int, K: int, N: int, group_size: int,
         raise ValueError(f"qmatmul_plan: bits {bits} / group_size "
                          f"{group_size} not taken (bits 4 or 8, group "
                          f"{GROUP_SIZES})")
-    # whole 64-code ring stages and whole groups: whole units of max(g, 64)
-    # codes, the K split's unit (at 4 bits whole group pairs, as before)
-    step = 2 * group_size if bits == 4 else max(group_size, GEMM_BK)
+    # whole groups (at 4 bits whole group pairs); the K split's unit is
+    # max(g, 64) codes, a trailing half stage counted as one
+    step = 2 * group_size if bits == 4 else group_size
     if K % step:
         raise ValueError(f"qmatmul_plan: K={K} not taken at bits {bits} / "
                          f"group_size {group_size} (K a whole number of "
@@ -157,7 +168,7 @@ def qmatmul_plan(M: int, K: int, N: int, group_size: int,
     cols = -(-N // GEMM_BN)
     bm = 128 if 128 < 2 * M and -(-M // 128) * cols >= SMS // 8 else 64
     tiles = -(-M // bm) * cols
-    units = K // max(group_size, GEMM_BK)
+    units = -(-K // max(group_size, GEMM_BK))
     if (bits == 8 and bm == 64 and tiles > SMS and units >= 2
             and -(-2 * tiles // SMS) < 2 * -(-tiles // SMS)):
         return bm, 2
@@ -292,3 +303,113 @@ def quantized_matmul_kernel(x: torch.Tensor, t: QuantizedTensor) -> torch.Tensor
         y = _gemm(x, t, K, N)
     _cuda.count(launches, f"qmatmul_int{t.bits}")
     return y.reshape(*lead, N)
+
+
+def qmatmul_experts_plain(x: torch.Tensor, t: QuantizedTensor,
+                          experts: torch.Tensor,
+                          rows=None) -> torch.Tensor:
+    """Plain version of K5's expert-indexed entry: y [P, N] in x.dtype with
+    y[p] = x[rows[p]] @ dequant(t[experts[p]]).T (rows None: x row p), from
+    each pair's f32 dequantized expert and an f32 product."""
+    xr = x if rows is None else x[rows.long()]
+    e = experts.long()
+    w = dequantize(QuantizedTensor(
+        q=t.q[e], scales=t.scales[e], biases=t.biases[e], bits=t.bits,
+        group_size=t.group_size, out_dtype=t.out_dtype), torch.float32)
+    return torch.bmm(w, xr.float().unsqueeze(-1)).squeeze(-1).to(x.dtype)
+
+
+def experts_kernel_route(t) -> bool:
+    """Whether a stacked expert weight t [E, N, K * bits / 8] runs K5's
+    expert-indexed entry, decided by shape alone: a 3-D 4- or 8-bit
+    QuantizedTensor whose group size K5 takes, K a whole number of the
+    GEMV's units (`qmatmul_gemv_plan` takes it), and an even number of
+    values an expert (N * K / g), so that each expert's scales start on a
+    32-bit word."""
+    if not (isinstance(t, QuantizedTensor) and t.ndim == 3
+            and t.bits in (4, 8) and t.group_size in GROUP_SIZES):
+        return False
+    _, N, K = t.shape
+    unit = max(t.group_size * t.bits // 8, GEMV_STEP) * 8 // t.bits
+    return K % unit == 0 and N * (K // t.group_size) % 2 == 0
+
+
+def _check_experts(x: torch.Tensor, t: QuantizedTensor,
+                   experts: torch.Tensor, rows) -> None:
+    """Raise on anything the expert-indexed kernel does not take; reads
+    shapes, dtypes, devices and addresses only, never a value."""
+    if x.device.type != "cuda":
+        raise TypeError("quantized_matmul_experts: the kernel runs on CUDA "
+                        "tensors")
+    _check_experts_args(x, t, experts, rows)
+
+
+def _check_experts_args(x: torch.Tensor, t: QuantizedTensor,
+                        experts: torch.Tensor, rows) -> None:
+    """_check_experts' tests of dtypes, shapes and layout, which hold on any
+    device."""
+    if x.dtype != torch.bfloat16 or x.dim() != 2:
+        raise TypeError("quantized_matmul_experts: the kernel takes a 2-D "
+                        "bfloat16 x")
+    if not experts_kernel_route(t):
+        raise ValueError(f"quantized_matmul_experts: a stacked weight of "
+                         f"shape {tuple(t.shape)}, bits {t.bits}, group "
+                         f"{t.group_size} is not taken")
+    E, N, K = t.shape
+    if x.shape[1] != K:
+        raise ValueError(f"quantized_matmul_experts: x {tuple(x.shape)} does "
+                         f"not match K={K}")
+    idx = [experts] if rows is None else [experts, rows]
+    for a in idx:
+        if (a.dtype != torch.int32 or a.dim() != 1 or a.device != x.device
+                or not a.is_contiguous() or a.shape != experts.shape):
+            raise ValueError("quantized_matmul_experts: experts and rows "
+                             "must be contiguous int32 [P] tensors on x's "
+                             "device")
+    if rows is None and experts.shape[0] != x.shape[0]:
+        raise ValueError("quantized_matmul_experts: without rows, x has one "
+                         "row a pair")
+    if not 1 <= experts.shape[0] <= 65535:
+        raise ValueError(f"quantized_matmul_experts: {experts.shape[0]} pairs "
+                         f"(1 to 65535)")
+    for a in (t.q, t.scales, t.biases):
+        if a.device != x.device or not a.is_contiguous():
+            raise ValueError("quantized_matmul_experts: weight arrays must be "
+                             "contiguous, on x's device")
+    for a in (t.scales, t.biases):
+        if a.dtype != torch.bfloat16 or a.shape != (E, N, K // t.group_size):
+            raise ValueError("quantized_matmul_experts: scales and biases "
+                             "must be bfloat16 [E, N, K / group_size]")
+    if t.q.data_ptr() % 16 or any(a.data_ptr() % 4
+                                  for a in (t.scales, t.biases)):
+        raise ValueError("quantized_matmul_experts: q must be 16-byte "
+                         "aligned, scales and biases 4-byte aligned")
+
+
+def quantized_matmul_experts(x: torch.Tensor, t: QuantizedTensor,
+                             experts: torch.Tensor,
+                             rows=None) -> torch.Tensor:
+    """K5's expert-indexed entry: y [P, N] in x.dtype, y[p] = x[rows[p]] @
+    dequant(t[experts[p]]).T, for x [R, K], a stacked t [E, N, K * bits /
+    8] and int32 [P] `experts` and `rows` (rows None: row p of x, R = P).
+    One launch on the card, whatever the pairs hold: the kernel reads them,
+    so nothing here reads a value on the host and the call can be captured
+    in a CUDA graph.  Its plan is the GEMV's at one row of x
+    (`qmatmul_gemv_plan(1, ...)`), times the pairs."""
+    if x.device.type == "cpu":
+        return qmatmul_experts_plain(x, t, experts, rows)
+    _check_experts(x, t, experts, rows)
+    E, N, K = t.shape
+    rt, chunks = qmatmul_gemv_plan(1, K, N, t.bits, t.group_size)
+    x = x if x.data_ptr() % 16 == 0 and x.is_contiguous() else x.clone(
+        memory_format=torch.contiguous_format)
+    P = experts.shape[0]
+    y = torch.empty((P, N), dtype=x.dtype, device=x.device)
+    err = _cuda.library().mvt_qmatmul_gemv_experts(
+        x.data_ptr(), t.q.data_ptr(), t.scales.data_ptr(),
+        t.biases.data_ptr(), y.data_ptr(), experts.data_ptr(),
+        None if rows is None else rows.data_ptr(), P, E, K, N, t.bits,
+        t.group_size, rt, chunks, _cuda.stream_handle(x.device))
+    _cuda.check(err, "qmatmul_experts")
+    _cuda.count(launches, "qmatmul_experts")
+    return y

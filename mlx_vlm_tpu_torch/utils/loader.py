@@ -3,16 +3,18 @@
 Port of mlx_vlm_tpu/utils/loader.py (get_model_and_args :125,
 load_config :107, _nest :143, _stack_layers :154, runtime_quant_mode :290,
 _fold_quantized :323, _to_device :375, load_model_from_weights :548,
-load_model :759, load :773) for the qwen2_vl, qwen2_5_vl and qwen3_vl
-families, each picked by its config's model_type.  Safetensors are parsed
-in numpy (bfloat16 read as uint16 and viewed as torch.bfloat16), so
-loading needs neither
-`safetensors` nor `ml_dtypes`.  mlx group-affine triples fold by the
+load_model :759, load :773) for the qwen2_vl, qwen2_5_vl, qwen3_vl and
+qwen3_vl_moe families, each picked by its config's model_type.
+Safetensors are parsed in numpy (bfloat16 read as uint16 and viewed as
+torch.bfloat16), so loading needs neither `safetensors` nor `ml_dtypes`.  mlx group-affine triples fold by the
 runtime mode (MLX_VLM_TPU_RUNTIME_QUANT, the reference's default rule when
 unset): "w4grp" keeps 4-bit linears bit-exact in the halves-packed
 Int4GroupedTensor layout and requantizes the rest to per-channel int8,
 "w8chan" requantizes every 2-D triple to per-channel int8 and "exact" keeps
-every triple as a QuantizedTensor in the mlx byte layout.  The unset mode
+every triple as a QuantizedTensor in the mlx byte layout; a 3-D triple (a
+stack of experts) stays exact in every mode, as in the reference (:362-366),
+and per-path entries of the quantization config (an 8-bit router beside
+4-bit linears) set a triple's own bits and group.  The unset mode
 is w4grp only for a 4-bit checkpoint whose language model has the fused
 decode step (`supports_fused_decode`: Qwen2-VL's, which Qwen2.5-VL
 shares), else w8chan, as in the reference.  Per-layer weights are stacked
@@ -103,7 +105,8 @@ def load_config(model_path: Path) -> dict:
 
 
 # the model types the port has, each its own package under models/
-PORTED_MODEL_TYPES = ("qwen2_vl", "qwen2_5_vl", "qwen3_vl")
+PORTED_MODEL_TYPES = ("qwen2_vl", "qwen2_5_vl", "qwen3_vl",
+                      "qwen3_vl_moe")
 
 
 def get_model_and_args(config: dict):
@@ -273,10 +276,14 @@ def _fold_triple(w: np.ndarray, scales, biases, bits: int, group_size: int,
     """One mlx triple in the runtime `mode`'s layout: Int4GroupedTensor for
     an eligible 4-bit linear under w4grp, ChannelQuantizedTensor for other
     2-D triples under w4grp and w8chan, else the QuantizedTensor as it is.
-    `pool` runs the rows of a per-channel requantization on its threads."""
+    Eligible: the reference's rule (whole groups a row) and a group size
+    that K1 and K2 take (a multiple of 16); the reference's fold repacks
+    any group size (ROADMAP Queue 3, divergences).  `pool` runs the rows of
+    a per-channel requantization on its threads."""
     qt = from_mlx_packed(w, scales, biases, bits, group_size)
     if (mode == "w4grp" and bits == 4 and qt.q.ndim == 2 and not is_embed
-            and (qt.q.shape[1] * 2) % group_size == 0):
+            and (qt.q.shape[1] * 2) % group_size == 0
+            and group_size % 16 == 0):
         return to_int4_grouped(qt)
     if mode in ("w8chan", "w4grp") and qt.q.ndim == 2:
         return to_channel_quantized(qt, pool=pool)

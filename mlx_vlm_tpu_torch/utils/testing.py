@@ -9,12 +9,19 @@ qwen2_5_vl_hf_weights :178 draw the same arrays for a seed), plus:
   test model (tests/test_qwen3_vl.py:16-116), copied;
 - `qwen2_5_vl_7b_config` and `qwen3_vl_8b_config`: the published widths of
   Qwen/Qwen2.5-VL-7B-Instruct and Qwen/Qwen3-VL-8B-Instruct (config.json);
-- `mlx_quantized_checkpoint`: a random checkpoint of any of the three
+- `tiny_qwen3_vl_moe_config` / `qwen3_vl_moe_hf_weights`: the JAX package's
+  Qwen3-VL-MoE test model (tests/test_qwen3_vl_moe.py:14-50, both fused
+  expert layouts), copied; `qwen3_vl_moe_30b_a3b_config`: the published
+  widths of Qwen/Qwen3-VL-30B-A3B-Instruct (config.json);
+- `mlx_quantized_checkpoint`: a random checkpoint of any of the four
   families in the layout of a 4- or 8-bit mlx-community conversion (every
   language-model linear, lm_head and embed_tokens as uint32 codes + bf16
-  scales and biases; the vision tower dense bf16), drawn directly in that
-  layout so that no float weights of full size are ever quantized on the
-  host; `mlx_int4_checkpoint` is its 4-bit case;
+  scales and biases; Qwen3-VL-MoE's routers and its `switch_mlp` expert
+  stacks too, the routers optionally at 8 bits under per-path entries, as
+  mlx-community's MoE conversions write them; the vision tower dense
+  bf16), drawn directly in that layout so that no float weights of full
+  size are ever quantized on the host; `mlx_int4_checkpoint` is its 4-bit
+  case;
 - `ByteTokenizer`: Qwen2-VL's special tokens at their public ids (Qwen2.5-VL
   and Qwen3-VL keep them) and one id per UTF-8 byte otherwise, so a
   processor works without `transformers`.
@@ -25,6 +32,7 @@ Everything is numpy on the host and made from a seed.
 from __future__ import annotations
 
 import re
+from typing import Optional
 
 import numpy as np
 import torch
@@ -496,9 +504,113 @@ def qwen3_vl_hf_weights(config: dict, seed: int = 0,
                  scale)
 
 
+def tiny_qwen3_vl_moe_config(**overrides) -> dict:
+    """The JAX package's Qwen3-VL-MoE test model (tests/test_qwen3_vl_moe.py
+    `tiny_moe_config`): the tiny Qwen3-VL with 4 experts of width 32, 2 a
+    token."""
+    cfg = tiny_qwen3_vl_config(model_type="qwen3_vl_moe")
+    cfg["text_config"].update(
+        model_type="qwen3_vl_moe_text", num_experts=4, num_experts_per_tok=2,
+        moe_intermediate_size=32, norm_topk_prob=True)
+    cfg.update(overrides)
+    return cfg
+
+
+def qwen3_vl_moe_30b_a3b_config() -> dict:
+    """Qwen/Qwen3-VL-30B-A3B-Instruct's published widths (config.json):
+    Qwen3-VL-8B's tower with out_hidden_size 2048, and a 48-layer MoE
+    decoder of hidden 2048, 32 / 4 heads of 128, 128 experts of width 768,
+    8 a token."""
+    cfg = qwen3_vl_8b_config()
+    cfg["model_type"] = "qwen3_vl_moe"
+    cfg["text_config"] = {
+        "model_type": "qwen3_vl_moe_text",
+        "hidden_size": 2048,
+        "num_hidden_layers": 48,
+        "intermediate_size": 6144,
+        "num_attention_heads": 32,
+        "num_key_value_heads": 4,
+        "head_dim": 128,
+        "rms_norm_eps": 1e-6,
+        "vocab_size": 151936,
+        "rope_theta": 5000000.0,
+        "max_position_embeddings": 262144,
+        "tie_word_embeddings": False,
+        "attention_bias": False,
+        "rope_scaling": {"rope_type": "default", "mrope_interleaved": True,
+                         "mrope_section": [24, 20, 20]},
+        "num_experts": 128,
+        "num_experts_per_tok": 8,
+        "moe_intermediate_size": 768,
+        "norm_topk_prob": True,
+        "decoder_sparse_step": 1,
+        "mlp_only_layers": [],
+    }
+    cfg["vision_config"] = dict(cfg["vision_config"], out_hidden_size=2048)
+    return cfg
+
+
+def qwen3_vl_moe_tensor_specs(config: dict) -> list:
+    """(HF key, shape, fill) of every tensor of a Qwen3-VL-MoE checkpoint in
+    the mlx conversions' fused layout: Qwen3-VL's, each layer's dense MLP
+    replaced by its router `mlp.gate` [E, D] and the expert stacks
+    `mlp.switch_mlp.{gate,up}_proj` [E, I, D] and `down_proj` [E, D, I]."""
+    tc = config["text_config"]
+    D, E, I = tc["hidden_size"], tc["num_experts"], tc["moe_intermediate_size"]
+    specs = []
+    for key, shape, fill in qwen3_vl_tensor_specs(config):
+        if key.endswith((".mlp.up_proj.weight", ".mlp.down_proj.weight")):
+            continue
+        if key.endswith(".mlp.gate_proj.weight"):
+            p = key[: -len("gate_proj.weight")]
+            specs += [(p + "gate.weight", (E, D), "rand"),
+                      (p + "switch_mlp.gate_proj.weight", (E, I, D), "rand"),
+                      (p + "switch_mlp.up_proj.weight", (E, I, D), "rand"),
+                      (p + "switch_mlp.down_proj.weight", (E, D, I), "rand")]
+            continue
+        specs.append((key, shape, fill))
+    return specs
+
+
+def qwen3_vl_moe_hf_weights(config: dict, seed: int = 0,
+                            layout: str = "hf") -> dict:
+    """Random f32 weights of a Qwen3-VL-MoE checkpoint; the same arrays as
+    the JAX package's test weights (tests/test_qwen3_vl_moe.py
+    `tiny_moe_weights`) for a seed: Qwen3-VL's weights without the dense
+    MLPs, then from a second generator of the seed each layer's router,
+    gate, up and down, fused as HF writes them (`layout="hf"`:
+    `experts.gate_up_proj` [E, D, 2I], `experts.down_proj` [E, I, D]) or as
+    the mlx conversions do (`"mlx"`: `switch_mlp.*` [E, I, D] / [E, D,
+    I])."""
+    rng = np.random.default_rng(seed)
+    w = qwen3_vl_hf_weights(config, seed)
+    tc = config["text_config"]
+    D, E, I = tc["hidden_size"], tc["num_experts"], tc["moe_intermediate_size"]
+
+    def rand(*shape):
+        return (rng.standard_normal(shape) * 0.05).astype(np.float32)
+
+    for i in range(tc["num_hidden_layers"]):
+        p = f"model.language_model.layers.{i}.mlp."
+        for nm in ("gate_proj", "up_proj", "down_proj"):
+            w.pop(p + nm + ".weight")
+        w[p + "gate.weight"] = rand(E, D)
+        gate, up, down = rand(E, I, D), rand(E, I, D), rand(E, D, I)
+        if layout == "hf":
+            w[p + "experts.gate_up_proj"] = np.concatenate(
+                [gate.transpose(0, 2, 1), up.transpose(0, 2, 1)], axis=-1)
+            w[p + "experts.down_proj"] = down.transpose(0, 2, 1)
+        else:
+            w[p + "switch_mlp.gate_proj"] = gate
+            w[p + "switch_mlp.up_proj"] = up
+            w[p + "switch_mlp.down_proj"] = down
+    return w
+
+
 def tensor_specs(config: dict) -> list:
     """(HF key, shape, fill) of every tensor of a checkpoint of
-    config["model_type"] (qwen2_vl, qwen2_5_vl or qwen3_vl)."""
+    config["model_type"] (qwen2_vl, qwen2_5_vl, qwen3_vl or qwen3_vl_moe;
+    the last in the mlx conversions' fused expert layout)."""
     kind = config.get("model_type", "qwen2_vl")
     if kind == "qwen2_vl":
         return qwen2_vl_tensor_specs(config)
@@ -510,6 +622,8 @@ def tensor_specs(config: dict) -> list:
                 + _qwen2_5_vl_vision_specs(config))
     if kind == "qwen3_vl":
         return qwen3_vl_tensor_specs(config)
+    if kind == "qwen3_vl_moe":
+        return qwen3_vl_moe_tensor_specs(config)
     raise NotImplementedError(f"no tensor specs for model type {kind}")
 
 
@@ -520,25 +634,33 @@ def is_vision_key(key: str) -> bool:
 
 def _is_quantized_in_mlx(key: str) -> bool:
     """Keys an mlx-community conversion of these families stores quantized:
-    the language model's linears, lm_head and embed_tokens."""
+    the language model's linears (Qwen3-VL-MoE's expert stacks and routers
+    too), lm_head and embed_tokens."""
     if key.startswith("model.language_model."):
         key = "model." + key[len("model.language_model."):]
     return key in ("model.embed_tokens.weight", "lm_head.weight") or (
-        key.startswith("model.layers.") and key.endswith("_proj.weight"))
+        key.startswith("model.layers.")
+        and key.endswith(("_proj.weight", ".mlp.gate.weight")))
 
 
 def mlx_quantized_checkpoint(config: dict, bits: int = 4, group_size: int = 64,
                              seed: int = 0, std: float = 0.02,
-                             vision_only: bool = False):
+                             vision_only: bool = False,
+                             router_bits: Optional[int] = None):
     """(config, weights) of a random `bits`-bit mlx-format checkpoint of
-    config["model_type"] (Qwen2-VL, Qwen2.5-VL or Qwen3-VL; bits 4 or 8);
-    with `vision_only`, the vision tower's tensors alone (drawn from the
-    seed's generator in the same way).
+    config["model_type"] (Qwen2-VL, Qwen2.5-VL, Qwen3-VL or Qwen3-VL-MoE;
+    bits 4 or 8); with `vision_only`, the vision tower's tensors alone
+    (drawn from the seed's generator in the same way).  With
+    `router_bits`, Qwen3-VL-MoE's routers (`mlp.gate`) are drawn at those
+    bits and the config's quantization gets a per-path entry for each
+    ("language_model.model.layers.{i}.mlp.gate": {"bits", "group_size"}),
+    as mlx-community's MoE conversions keep the router at 8 bits.
 
-    Quantized tensors: `<key>.weight` uint32 [out, in * bits / 32] (codes
-    packed low bits first), `<key>.scales` and `<key>.biases` bf16
-    [out, in/group].  Codes are uniform in [0, 2**bits) and each group's bias
-    is -((2**bits - 1) / 2) * scale, with scales drawn so the dequantized
+    Quantized tensors: `<key>.weight` uint32 [..., out, in * bits / 32]
+    (codes packed low bits first), `<key>.scales` and `<key>.biases` bf16
+    [..., out, in/group] (an expert stack has a leading expert axis).
+    Codes are uniform in [0, 2**bits) and each group's bias is
+    -((2**bits - 1) / 2) * scale, with scales drawn so the dequantized
     weights have standard deviation ~std.  The vision tower, the q/k/v biases
     and the norms are dense bf16 (weights and biases ~ N(0, std), norms
     1 / 0).  Returns the config with its `quantization` entry added and a
@@ -546,21 +668,29 @@ def mlx_quantized_checkpoint(config: dict, bits: int = 4, group_size: int = 64,
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     rng = np.random.default_rng(seed)
-    levels = 2**bits
-    s_mean = std / float(np.sqrt((levels**2 - 1) / 12.0))  # uniform codes
+    qcfg = {"group_size": group_size, "bits": bits}
     w = {}
     for key, shape, fill in tensor_specs(config):
         if vision_only and not is_vision_key(key):
             continue
         if _is_quantized_in_mlx(key):
-            n, k = shape
-            if k % group_size or (k * bits) % 32:
+            b = bits
+            if router_bits and key.endswith(".mlp.gate.weight"):
+                b = router_bits
+                path = "language_model.model." + key[len(
+                    "model.language_model."):-len(".weight")]
+                qcfg[path] = {"group_size": group_size, "bits": b}
+            levels = 2**b
+            s_mean = std / float(np.sqrt((levels**2 - 1) / 12.0))  # uniform
+            *lead, n, k = shape
+            if k % group_size or (k * b) % 32:
                 raise ValueError(f"{key}: in-features {k} not a multiple of "
                                  f"the group {group_size} or of a word")
             s = rng.uniform(0.75 * s_mean, 1.25 * s_mean,
-                            size=(n, k // group_size)).astype(np.float32)
+                            size=(*lead, n, k // group_size)).astype(
+                                np.float32)
             base = key[: -len(".weight")]
-            w[key] = rng.integers(0, 2**32, size=(n, k * bits // 32),
+            w[key] = rng.integers(0, 2**32, size=(*lead, n, k * b // 32),
                                   dtype=np.uint32)
             w[base + ".scales"] = torch.from_numpy(s).to(torch.bfloat16)
             w[base + ".biases"] = torch.from_numpy(
@@ -572,7 +702,7 @@ def mlx_quantized_checkpoint(config: dict, bits: int = 4, group_size: int = 64,
         else:
             w[key] = (torch.ones if fill == "ones" else torch.zeros)(
                 shape, dtype=torch.bfloat16)
-    cfg = {**config, "quantization": {"group_size": group_size, "bits": bits}}
+    cfg = {**config, "quantization": qcfg}
     return cfg, w
 
 

@@ -173,6 +173,47 @@ def test_flash_attention_refuses_before_launch(B, H, KVH, S, C, D):
     assert fa.launches == before
 
 
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
+def test_flash_route_takes_k4_head_size(D):
+    """K4 takes head size 128 only (`flash_attention_plan` refuses others):
+    the route rule decides it by shape, before any launch, so a prefill
+    chunk of head size 64, 80 or 256 that passes the reference's rule (S
+    >= 256, C >= 8192 and a multiple of 128) takes `sdpa`, and the cache's
+    attend there matches K4's plain version (1e-5 abs / 1e-4 rel, f32).
+    CUDA is claimed by stand-ins, as the rule reads devices and shapes
+    only."""
+    from types import SimpleNamespace
+
+    from mlx_vlm_tpu_torch.core import cache as tcache
+
+    B, H, KVH, S, C = 1, 4, 2, 256, 8192
+
+    def on_cuda(shape):
+        return SimpleNamespace(device=SimpleNamespace(type="cuda"),
+                               shape=shape)
+
+    routed = tcache.flash_eligible(on_cuda((B, H, S, D)),
+                                   on_cuda((B, KVH, C, D)))
+    assert routed == (D == fa.HEAD_DIM)
+    if D != fa.HEAD_DIM:
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention_plan(B, H, KVH, S, C, D)
+    rng = np.random.default_rng(D)
+    cache = tcache.init_cache(1, B, KVH, D, C, torch.float32)
+    cache.offset.fill_(300)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, n, S, D)).astype(
+        np.float32)) for n in (H, KVH, KVH))
+    mask = causal_cache_mask(cache.offset, cache.left_pad, S, C)
+    before = dict(fa.launches)
+    got = cache.attend(0, q, k, v, D**-0.5, mask)
+    ref = fa.flash_attention_plain(q, cache.k[0], cache.v[0],
+                                   cache.offset.expand(B), cache.left_pad,
+                                   D**-0.5)
+    assert fa.launches == before
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL,
+                               rtol=RTOL)
+
+
 def test_sdpa_matches_reference():
     rng = np.random.default_rng(2)
     q = rng.standard_normal((2, 4, 5, 8)).astype(np.float32)

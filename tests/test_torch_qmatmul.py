@@ -175,7 +175,14 @@ def test_cpu_calls_leave_k5_counters_at_zero():
     _, t = both(q, s, b, 4, 64)
     before = dict(k5.launches)
     k5.quantized_matmul_kernel(torch.ones((2, K)), t)
-    assert k5.launches == before == {"qmatmul_int4": 0, "qmatmul_int8": 0}
+    stack = tq.QuantizedTensor(q=t.q[None], scales=t.scales[None],
+                               biases=t.biases[None], bits=4, group_size=64,
+                               out_dtype=t.out_dtype)
+    k5.quantized_matmul_experts(torch.ones((2, K)), stack,
+                                torch.zeros(3, dtype=torch.int32),
+                                torch.tensor([0, 1, 1], dtype=torch.int32))
+    assert k5.launches == before == {"qmatmul_int4": 0, "qmatmul_int8": 0,
+                                     "qmatmul_experts": 0}
 
 
 def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take():
@@ -362,9 +369,9 @@ def test_gemm_split_bounds_divide_exactly(bits):
 
 
 def test_int8_gemm_refusals_before_any_launch():
-    """The 8-bit GEMM refuses non-bf16 x, K not a whole number of the
-    plan's 64-code units (K = 96 at g = 32 is whole groups, which the
-    plain version and the GEMV take), x or q not 16-byte aligned and
+    """The 8-bit GEMM refuses non-bf16 x, K not a whole number of groups
+    (K = 96 at g = 32 is three groups: the plan takes it, two 64-code
+    stages, the second a half stage), x or q not 16-byte aligned and
     scales or biases not 4-byte aligned, before it reaches the kernel
     library (CPU tensors show it), and counts no launch."""
     before = dict(k5.launches)
@@ -377,8 +384,9 @@ def test_int8_gemm_refusals_before_any_launch():
     _, t3 = both(q3, s3, b3, 8, 32)
     x3 = torch.ones((16, 96), dtype=torch.bfloat16)
     k5._check_args(x3, t3)  # whole groups: the shape checks pass
-    with pytest.raises(ValueError, match="64-code units"):
-        k5._gemm(x3, t3, 96, N)
+    assert k5.qmatmul_plan(16, 96, N, 32, bits=8) == (64, 2)
+    with pytest.raises(ValueError, match="32-code units"):
+        k5.qmatmul_plan(16, 80, N, 32, bits=8)
     with pytest.raises(ValueError, match="128-code units"):
         k5.qmatmul_plan(16, 192, N, 128, bits=8)
     buf = torch.empty(16 * K + 1, dtype=torch.bfloat16)
@@ -421,11 +429,11 @@ def fold_emulation(x, t, splits=1):
                  (256 + 16 * (t.q >> 4).float()).to(torch.bfloat16).float()]
     xf = x.float()
     s, b = t.scales.float(), t.biases.float()
-    units = k // max(g, 64)
+    units = -(-k // max(g, 64))  # a trailing half stage counts as a unit
     total = None
     for z in range(splits):
         k0 = z * units // splits * max(g, 64)
-        k1 = (z + 1) * units // splits * max(g, 64)
+        k1 = min((z + 1) * units // splits * max(g, 64), k)
         acc = torch.zeros((x.shape[0], n))
         for j in range(k0 // g, k1 // g):
             sl = slice(j * g, (j + 1) * g)
@@ -477,6 +485,34 @@ def test_int8_fold_emulation_matches_pallas(g, M, splits):
     ref = ref.astype(np.float32)
     np.testing.assert_allclose(got.float().numpy(), ref, rtol=0,
                                atol=1e-2 * float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("M", [9, 58, 100])
+@pytest.mark.parametrize("K_", [96, 3616])
+def test_int8_half_stage_emulation_matches_pallas(K_, M, splits):
+    """The 8-bit GEMM at g = 32 with K an odd multiple of 32 (3 and 113
+    groups): the last stage is half a stage whose missing group adds
+    nothing (zero x and codes, s = b = 0), and the split counts it as a
+    unit; the fold emulation with that split against the reference's
+    _qmm8_kernel in interpret mode, within K5_TOL = 1e-2 * max|ref|."""
+    g = 32
+    assert K_ % 64 == 32
+    units = -(-K_ // 64)
+    if splits > units:
+        splits = units
+    q, s, b = mlx_weight(8, g, seed=8100 + K_ + M, k=K_, bf16=True)
+    ref_t, t = both(q, s, b, 8, g)
+    x = _x((M, K_), "bfloat16", seed=17 * M + K_)
+    ref = np.asarray(jqmm.quantized_matmul_pallas(jnp.asarray(x), ref_t,
+                                                  interpret=True))
+    got = fold_emulation(_torch(x), t, splits)
+    assert tuple(got.shape) == ref.shape
+    ref = ref.astype(np.float32)
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0,
+                               atol=1e-2 * float(np.abs(ref).max()))
+    bm, plan_splits = k5.qmatmul_plan(M, K_, 512, g, bits=8)
+    assert 1 <= plan_splits <= units
 
 
 def _and_or(v, mask, bits):
@@ -942,6 +978,34 @@ def test_cuda_k5_int8_gemm(cuda_device, g, M):
     emu = fold_emulation(x.cpu(), tq.QuantizedTensor(
         q=t.q.cpu(), scales=t.scales.cpu(), biases=t.biases.cpu(), bits=8,
         group_size=g, out_dtype="bfloat16"), splits)
+    err = float((got.cpu().float() - emu.float()).abs().max())
+    assert err <= 1e-2 * float(emu.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [9, 58, 100, 512])
+@pytest.mark.parametrize("Kh", [96, 3616])
+def test_cuda_k5_int8_gemm_half_stage(cuda_device, Kh, M):
+    """K an odd multiple of 32 at g = 32 (3 and 113 groups): the GEMM's
+    trailing half stage against the plain version and the fold emulation
+    (1e-2 * max|ref|), bit-identical on a repeat, at both row tiles and
+    with K split."""
+    q, s, b = mlx_weight(8, 32, seed=170 + Kh + M, n=1000, k=Kh, bf16=True)
+    _, t = both(q, s, b, 8, 32)
+    t = tq.QuantizedTensor(q=t.q.to(cuda_device), scales=t.scales.to(cuda_device),
+                           biases=t.biases.to(cuda_device), bits=8,
+                           group_size=32, out_dtype="bfloat16")
+    x = _torch(_x((M, Kh), "bfloat16", seed=M + 31)).to(cuda_device)
+    got = k5.quantized_matmul_kernel(x, t)
+    assert torch.equal(k5.quantized_matmul_kernel(x, t), got)
+    ref = k5.qmatmul_plain(x, t)
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= 1e-2 * float(ref.float().abs().max())
+    _, splits = k5.qmatmul_plan(M, Kh, 1000, 32, bits=8)
+    emu = fold_emulation(x.cpu(), tq.QuantizedTensor(
+        q=t.q.cpu(), scales=t.scales.cpu(), biases=t.biases.cpu(), bits=8,
+        group_size=32, out_dtype="bfloat16"), splits)
     err = float((got.cpu().float() - emu.float()).abs().max())
     assert err <= 1e-2 * float(emu.float().abs().max())
 

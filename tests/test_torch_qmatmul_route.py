@@ -10,9 +10,10 @@ group early where that group is a word's high half (csrc/qmatmul.cu
 reference's rule, the value staging to the arrays it copies (a numpy
 replay of the kernel's copies and reads), and the port's result at that
 shape to the JAX package's `quantized_matmul`, the weight and x made with
-numpy from a seed.  One residue stays open (ROADMAP Queue 3): the 8-bit
-GEMM (more than 8 rows) at g = 32 takes only K a whole number of 64-code
-units, and raises for K an odd multiple of 32.
+numpy from a seed.  The 8-bit GEMM (more than 8 rows) at g = 32 takes K
+an odd multiple of 32 too, by a trailing half stage; and the route sends
+K5 only the group sizes it takes (32, 64, 128), the others to the
+dequantize route, whose values match K5's plain version.
 """
 
 import numpy as np
@@ -77,20 +78,41 @@ LIMIT_CASES = [(4, 64, 128), (4, 64, 192), (4, 128, 29568), (8, 32, 96),
 @pytest.mark.parametrize("bits,g,k", LIMIT_CASES)
 @pytest.mark.parametrize("rows", [1, 8, 64])
 def test_plans_take_what_the_route_sends(bits, g, k, rows):
-    """Every weight that the reference's rule sends to K5 is taken by the
-    plan of the route that x's rows take, but for the open GEMM residue
-    (8 bits, g = 32, K an odd multiple of 32, more than 8 rows), which
-    raises; a weight the rule keeps off K5 never reaches a plan."""
+    """Every weight that the rule sends to K5 is taken by the plan of the
+    route that x's rows take: the 8-bit GEMM at g = 32 and K an odd
+    multiple of 32 too (its half stage).  A weight the rule keeps off K5
+    (not whole groups, or a group size K5 does not take, whose plans
+    raise) never reaches a plan."""
     _, t = _weight(bits, g, k, 4)
     if not tq.qmm_kernel_route(t):
-        assert k % (2 * g if bits == 4 else g)
+        assert k % (2 * g if bits == 4 else g) or g not in k5.GROUP_SIZES
+        if g not in k5.GROUP_SIZES:
+            with pytest.raises(ValueError):
+                _plan(rows, k, 256, bits, g)
         return
-    residue = (bits == 8 and g == 32 and k % 64 and rows > k5.MAX_GEMV_ROWS)
-    if residue or g not in k5.GROUP_SIZES:
-        with pytest.raises(ValueError):
-            _plan(rows, k, 256, bits, g)
-    else:
-        _plan(rows, k, 256, bits, g)
+    _plan(rows, k, 256, bits, g)
+
+
+@pytest.mark.parametrize("rows", [1, 9])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_route_takes_k5_group_sizes(bits, rows):
+    """A group of 16 passes the reference's rule (whole groups a row) but
+    not K5's group sizes: the port's route sends it to the dequantize
+    route, whose values match K5's plain version and the JAX package's
+    quantized_matmul (its XLA route on the CPU), to f32 rounding."""
+    ref_t, t = _weight(bits, 16, 128, 48)
+    assert t.q.shape[1] % 16 == 0 and not tq.qmm_kernel_route(t)
+    x = np.random.default_rng(bits + rows).standard_normal(
+        (rows, 128)).astype(np.float32)
+    want = np.asarray(jq.quantized_matmul(jnp.asarray(x), ref_t))
+    xt = torch.from_numpy(x)
+    before = dict(k5.launches)
+    got = tq.quantized_matmul(xt, t).numpy()
+    assert k5.launches == before
+    atol = 1e-5 * max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+    np.testing.assert_allclose(got, k5.qmatmul_plain(xt, t).numpy(), rtol=0,
+                               atol=atol)
 
 
 def _staged_values(arr, M, K, N, bits, g):

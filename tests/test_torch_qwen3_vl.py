@@ -161,11 +161,11 @@ def test_published_config_parses_as_the_reference():
             got.vision_config.patch_size) == (4096, 36, 16)
 
 
-@pytest.mark.parametrize("model_type", ["llava", "qwen3_vl_moe", "qwen2"])
+@pytest.mark.parametrize("model_type", ["llava", "qwen3_moe", "qwen2"])
 def test_unported_model_types_raise(model_type):
     with pytest.raises(NotImplementedError, match=model_type):
         get_model_and_args({"model_type": model_type})
-    for t in ("qwen2_vl", "qwen2_5_vl", "qwen3_vl"):
+    for t in ("qwen2_vl", "qwen2_5_vl", "qwen3_vl", "qwen3_vl_moe"):
         assert get_model_and_args({"model_type": t})[0].__name__.endswith(t)
 
 

@@ -140,6 +140,36 @@ def test_fold_and_stack_match_reference(monkeypatch, bits, g, mode):
         _walk_same(ref[k], got[k], k)
 
 
+@pytest.mark.parametrize("g", [8, 24, 16, 48])
+def test_w4grp_fold_takes_k1_k2_group_sizes(g):
+    """K1 and K2 take group sizes that are multiples of 16; the reference's
+    w4grp rule repacks any g with whole groups a row.  The port's fold
+    makes a 4-bit linear of group 8 or 24 per-channel int8 instead, byte
+    for byte the JAX package's w8chan fold of the same triple, whose
+    product matches that layout's plain version; g = 16 and 48 stay
+    w4grp, equal to the reference's repack."""
+    rng = np.random.default_rng(g)
+    N, K = 64, 96
+    w = rng.integers(0, 2**32, (N, K * 4 // 32), dtype=np.uint32)
+    s = rng.uniform(1e-3, 2e-3, (N, K // g)).astype(np.float32)
+    b = (-7.5 * s).astype(np.float32)
+    got = tl._fold_triple(w, torch.from_numpy(s), torch.from_numpy(b), 4, g,
+                          "w4grp", False)
+    want_mode = "w4grp" if g % 16 == 0 else "w8chan"
+    ref = jl._fold_quantized(
+        {"x.weight": w, "x.scales": s, "x.biases": b},
+        {"bits": 4, "group_size": g}, want_mode)["x.weight"]
+    kind = "Int4GroupedTensor" if g % 16 == 0 else "ChannelQuantizedTensor"
+    assert type(got).__name__ == type(ref).__name__ == kind
+    _walk_same(ref, got)
+    if g % 16:
+        x = torch.from_numpy(rng.standard_normal((3, K)).astype(np.float32))
+        y = tq.channel_quantized_matmul(x, got)
+        dense = (got.q8.float() * got.scales.float() + got.biases.float())
+        np.testing.assert_allclose(y.numpy(), (x @ dense).numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("mode", [None, "w8chan", "exact"])
 @pytest.mark.parametrize("bits,g", [(4, 32), (8, 64)])
 def test_load_and_params_from_jax_match_reference(monkeypatch, bits, g, mode):
