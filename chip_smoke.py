@@ -37,7 +37,10 @@ Phases (any failure exits non-zero):
      experts (4 bits: gate / up K = 2048 N = 768, down K = 768 N = 2048)
      at M = 1, 8 and 32 and its 8-bit router (N = 128) at M = 1 and 512,
      and the 8-bit GEMM's trailing half stage at g = 32 (K = 3616 and 96,
-     odd multiples of 32), every case with its
+     odd multiples of 32), and at 4 bits through Llama-3.1-8B's gate / up
+     (N = 14336), down (K = 14336) and lm_head (N = 128256) and
+     LLaVA-1.5-7B's gate / up (N = 11008), down (K = 11008) and lm_head
+     (N = 32064) at M = 1 and 512, timed cold and warm, every case with its
      plan, kernels per call and a bit-identical repeat; K5's
      expert-indexed entry (`qmatmul_experts`) at those expert stacks (128
      experts) for 8, 32 and 40 (token, expert) pairs with two pairs on
@@ -114,6 +117,11 @@ Phases (any failure exits non-zero):
      128 experts, top-8, the whole tower; its routers at 8 bits) in its
      default mode (w8chan linears, the experts on K5) and in exact, 4
      steps each, launches held to what ran (the experts by `moe_want`),
+     and each model's replayed decode against eager steps; and
+     Llama-3.1-8B (2 decoder layers, text only) and LLaVA-1.5-7B (2
+     decoder layers, the whole 24-block CLIP tower, a 336x336 image) at
+     their published widths, each in its default w8chan mode and in exact
+     (K5), 4 steps each against f32 CPU runs, launches held to what ran,
      and each model's replayed decode against eager steps.  The phase
      prints the seconds of each of its parts;
   4. the main path at full Qwen2-VL-7B width (random mlx-format weights,
@@ -205,8 +213,9 @@ Phases (any failure exits non-zero):
      the second chat's K1 launches its suffix's chunks only, one capture,
      its logits held to its prompt alone on the single stream, and
      /v1/cache/reset empties the pool.  Then the speculative part
-     (speculative/), k = 4, against a drafter at Qwen2-VL-2B's widths with
-     the 7B's vocabulary (random mlx 4-bit weights, built and folded once):
+     (speculative/), k = 4, against a drafter at Qwen2-VL-2B's widths (14
+     of its 28 layers) with the 7B's vocabulary (random mlx 4-bit weights,
+     built and folded once):
      (s1) (a)'s image and prompt, greedy, 64 tokens; (s2) the target as its
      own drafter, 32 tokens; (s3) (c)'s image and ~8.2k-token prompt, 16
      tokens (K4 on both models); (s4) temperature 0.7 with a seed; each
@@ -237,15 +246,23 @@ Phases (any failure exits non-zero):
      deepstack tower) loaded exact: (q1) an image request, (q2) an image
      and a ~8.5k-token prompt (K4 on every layer of every chunk), (q3)
      `batch_generate` of a text and an image prompt admitted together
-     (rows of embedding widths D and 4D); and Qwen3-VL-30B-A3B (48 layers
-     of 128 experts, top-8, the 27-block tower, random 4-bit weights with
-     8-bit routers) in its default mode: (u1) an image request of 64
+     (rows of embedding widths D and 4D); and Qwen3-VL-30B-A3B (12 of
+     its 48 layers of 128 experts, top-8, the 27-block tower, random 4-bit
+     weights with 8-bit routers) in its default mode: (u1) an image request of 64
      tokens, (u2) (i)'s prompts through `batch_generate`, (u3) an image
      chat through the server, (u4) an image and a ~8.5k-token prompt (K4);
+     and Llama-3.1-8B (32 layers, its llama3 rope scaling, text only)
+     loaded exact: (t1) a short chat of 32 tokens, then the same prompt
+     with kv_bits=4, 16 tokens (K6 on every layer and step), (t2) a
+     ~8.3k-token prompt, 16 tokens (K4 on every layer of every chunk),
+     (t3) `batch_generate` of (i)'s texts; and LLaVA-1.5-7B (32 decoder
+     layers, the 24-block CLIP tower) loaded exact: (v1) a 336x336 image
+     and a short prompt, 32 tokens, (v2) an image chat through the server;
      each with its load seconds, TTFT, ms per replayed token and peak GiB,
      its launches held to what ran (the expert layers: one
      expert-indexed launch a projection at decode, K5 per expert with
-     rows in long prefill chunks).
+     rows in long prefill chunks; the exact models K5 on every linear and
+     head).
 Phases 3 and 4 fold each mlx triple once for all of its loads in one
 runtime mode (`fold_once`), across the checkpoints that share it.
 Each phase prints its seconds.  The line before the last is the kernel
@@ -763,7 +780,20 @@ K5_MOE_CASES = (tuple((4, 64, M, K, N) for M in (1, 8, 32)
 # tile 128), on a ragged 100-row chunk that splits K (N = 1000), and K = 96
 K5_HALF_CASES = ((8, 32, 58, 3616, 3584), (8, 32, 512, 3616, 3584),
                  (8, 32, 100, 3616, 1000), (8, 32, 16, 96, 512))
-K5_CASES = K5_CASES + K5_8B_CASES + K5_MOE_CASES + K5_HALF_CASES
+# Llama-3.1-8B's linears and head in the exact mode ((t1)-(t3)): k / v
+# N = 1024 (Qwen3-VL-8B's k / v rows above), gate / up N = 14336, down
+# K = 14336, its lm_head N = 128256; LLaVA-1.5-7B's ((v1), (v2); q / k / v /
+# o 4096^2 as Qwen3-VL-8B's q / o): gate / up N = 11008, down K = 11008,
+# its lm_head N = 32064; each at M = 1 and 512, timed cold and warm
+LLAMA_8B_SHAPES = ((4096, 1024), (4096, 14336), (14336, 4096),
+                   (4096, 128256))
+LLAVA_7B_SHAPES = ((4096, 11008), (11008, 4096), (4096, 32064))
+K5_LLAMA_CASES = tuple(
+    (4, 64, M, K, N) for M in (1, 512)
+    for K, N in LLAMA_8B_SHAPES + LLAVA_7B_SHAPES
+    if (4, 64, M, K, N) not in K5_8B_CASES)
+K5_CASES = (K5_CASES + K5_8B_CASES + K5_MOE_CASES + K5_HALF_CASES
+            + K5_LLAMA_CASES)
 K5_TOL = 1e-2
 
 
@@ -876,7 +906,8 @@ def check_qmatmul(results: list, dev) -> None:
                work=qmm_work(M, t), library=lib)
         r = results[-1]
         if (M <= k5.MAX_GEMV_ROWS or M == 58
-                or (bits, g, M, K, N) in K5_8B_CASES + K5_MOE_CASES):
+                or (bits, g, M, K, N) in (K5_8B_CASES + K5_MOE_CASES
+                                          + K5_LLAMA_CASES)):
             r["warm_ms"], r["ms"] = r["ms"], qmm_cold_ms(run, t)
             txt = f"kernel_ms={r['ms']:.4f} cold {r['warm_ms']:.4f} warm"
             if lib is not None:
@@ -1818,21 +1849,29 @@ def check_kv_kernels(results: list, gen, dev) -> None:
 
 
 def _processor(name_ids: bool = False, model=None):
-    """The Qwen2-VL processor over utils/testing.py's ByteTokenizer, its
-    image processor `model`'s (`image_processor_for`: patch 16 for
-    Qwen3-VL, else Qwen2-VL's patch 14); with `name_ids`, its decode writes
-    every id as "<id>", so that a text shows each token that random weights
-    generate (most ids are not bytes)."""
-    from mlx_vlm_tpu_torch.utils.processing import (Qwen2VLProcessor,
-                                                    image_processor_for)
-    from mlx_vlm_tpu_torch.utils.testing import ByteTokenizer
+    """`model`'s processor (utils/processing.py `processor_for`: LLaVA's
+    CLIP processor, which expands each <image> into 576 tokens, else the
+    Qwen2-VL processor with `model`'s image processor, patch 16 for
+    Qwen3-VL and 14 otherwise) over utils/testing.py's ByteTokenizer with
+    the family's special tokens (Llama-3.1's and LLaVA-1.5's ids, else
+    Qwen2-VL's); with `name_ids`, its decode writes every id as "<id>", so
+    that a text shows each token that random weights generate (most ids
+    are not bytes)."""
+    from mlx_vlm_tpu_torch.utils.processing import processor_for
+    from mlx_vlm_tpu_torch.utils.testing import (LLAMA3_SPECIAL_TOKENS,
+                                                 LLAVA_SPECIAL_TOKENS,
+                                                 ByteTokenizer)
 
     class NamingTokenizer(ByteTokenizer):
         def decode(self, ids, skip_special_tokens: bool = False) -> str:
             return "".join(f"<{i}>" for i in np.asarray(ids).reshape(-1))
 
-    tok = NamingTokenizer() if name_ids else ByteTokenizer()
-    return Qwen2VLProcessor(tok, image_processor_for(model))
+    kind = getattr(getattr(model, "config", None), "model_type", "")
+    specials = {"llama": (LLAMA3_SPECIAL_TOKENS, "<|eot_id|>",
+                          "<|end_of_text|>"),
+                "llava": (LLAVA_SPECIAL_TOKENS, "</s>", "<pad>")}.get(kind, ())
+    tok = (NamingTokenizer if name_ids else ByteTokenizer)(*specials)
+    return processor_for(tok, model)
 
 
 def _image(size: int) -> np.ndarray:
@@ -1938,16 +1977,29 @@ class fold_once:
         self.memo.clear()
 
 
+# Qwen3-VL-30B-A3B's decoder layers in phase 4: its published 48 cut to
+# 12, so that the run, with the llama family added, stays near 1050 s of
+# its 1200 s limit; phase 3 holds 2 of them to the CPU
+MOE_LAYERS = 12
+
+
 def family_checkpoints() -> dict:
     """The random mlx 4-bit checkpoints of phases 3 and 4 at the published
-    widths, built once: "qwen2_vl_7b" (seed SEED + 2), "qwen2_5_vl_7b"
-    (Qwen2.5-VL-7B: the same language-model arrays, whose widths are
-    Qwen2-VL-7B's, and its own windowed vision tower, seed SEED + 6),
-    "qwen3_vl_8b" (seed SEED + 7) and "qwen3_vl_moe_30b_a3b"
-    (Qwen3-VL-30B-A3B, its 128 experts a layer in the mlx fused layout and
-    its routers at 8 bits under per-path entries, seed SEED + 8).  Each is
-    (config, weights)."""
+    widths, built once, each on a thread of its own (the draws release the
+    interpreter lock, and each checkpoint has its own seed, so the arrays
+    are those of a sequential build): "qwen2_vl_7b" (seed SEED + 2),
+    "qwen2_5_vl_7b" (Qwen2.5-VL-7B: the same language-model arrays, whose
+    widths are Qwen2-VL-7B's, and its own windowed vision tower, seed
+    SEED + 6), "qwen3_vl_8b" (seed SEED + 7), "qwen3_vl_moe_30b_a3b"
+    (Qwen3-VL-30B-A3B at MOE_LAYERS decoder layers, its 128 experts a layer
+    in the mlx fused layout and its routers at 8 bits under per-path
+    entries, seed SEED + 8), "llama_3_1_8b" (seed SEED + 9) and
+    "llava_1_5_7b" (seed SEED + 10).  Each is (config, weights)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from mlx_vlm_tpu_torch.utils.testing import (is_vision_key,
+                                                 llama_3_1_8b_config,
+                                                 llava_1_5_7b_config,
                                                  mlx_int4_checkpoint,
                                                  mlx_quantized_checkpoint,
                                                  qwen2_5_vl_7b_config,
@@ -1955,32 +2007,46 @@ def family_checkpoints() -> dict:
                                                  qwen3_vl_8b_config,
                                                  qwen3_vl_moe_30b_a3b_config)
 
+    moe = qwen3_vl_moe_30b_a3b_config()
+    moe["text_config"]["num_hidden_layers"] = MOE_LAYERS
+    builds = {
+        "qwen2_vl_7b": lambda: mlx_int4_checkpoint(qwen2_vl_7b_config(),
+                                                   seed=SEED + 2),
+        "qwen2_5_vl_vision": lambda: mlx_quantized_checkpoint(
+            qwen2_5_vl_7b_config(), seed=SEED + 6, vision_only=True),
+        "qwen3_vl_8b": lambda: mlx_int4_checkpoint(qwen3_vl_8b_config(),
+                                                   seed=SEED + 7),
+        "qwen3_vl_moe_30b_a3b": lambda: mlx_quantized_checkpoint(
+            moe, seed=SEED + 8, router_bits=8),
+        "llama_3_1_8b": lambda: mlx_int4_checkpoint(llama_3_1_8b_config(),
+                                                    seed=SEED + 9),
+        "llava_1_5_7b": lambda: mlx_int4_checkpoint(llava_1_5_7b_config(),
+                                                    seed=SEED + 10),
+    }
     t0 = time.perf_counter()
-    out = {"qwen2_vl_7b": mlx_int4_checkpoint(qwen2_vl_7b_config(),
-                                              seed=SEED + 2)}
-    cfg25, vision = mlx_quantized_checkpoint(qwen2_5_vl_7b_config(),
-                                             seed=SEED + 6, vision_only=True)
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futures = {k: pool.submit(build) for k, build in builds.items()}
+        out = {k: f.result() for k, f in futures.items()}
+    cfg25, vision = out.pop("qwen2_5_vl_vision")
     lm = {k: v for k, v in out["qwen2_vl_7b"][1].items()
           if not is_vision_key(k)}
     out["qwen2_5_vl_7b"] = (cfg25, {**lm, **vision})
-    out["qwen3_vl_8b"] = mlx_int4_checkpoint(qwen3_vl_8b_config(),
-                                             seed=SEED + 7)
-    t1 = time.perf_counter()
-    out["qwen3_vl_moe_30b_a3b"] = mlx_quantized_checkpoint(
-        qwen3_vl_moe_30b_a3b_config(), seed=SEED + 8, router_bits=8)
     print(f"  checkpoints (Qwen2-VL-7B, Qwen2.5-VL-7B's vision tower, "
-          f"Qwen3-VL-8B; Qwen3-VL-30B-A3B in {time.perf_counter() - t1:.1f} "
-          f"s) built in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"Qwen3-VL-8B, Qwen3-VL-30B-A3B at {MOE_LAYERS} layers, "
+          f"Llama-3.1-8B, LLaVA-1.5-7B) built in "
+          f"{time.perf_counter() - t0:.1f} s on {len(builds)} threads",
+          flush=True)
     return out
 
 
 def sliced(ckpt: tuple, n_layers: int) -> tuple:
-    """A checkpoint cut to its first `n_layers` decoder layers: the same
-    arrays (so `fold_once` folds them once for both)."""
+    """A checkpoint cut to its first `n_layers` decoder layers (a vision
+    tower's layers kept): the same arrays (so `fold_once` folds them once
+    for both)."""
     import re
 
     cfg, w = ckpt
-    pat = re.compile(r"(?:^|\.)layers\.(\d+)\.")
+    pat = re.compile(r"(?:^|\.)(?:model|language_model)\.layers\.(\d+)\.")
     keep = {k: v for k, v in w.items()
             if (m := pat.search(k)) is None or int(m.group(1)) < n_layers}
     cfg = json.loads(json.dumps(cfg))
@@ -2376,6 +2442,11 @@ def batch_replay_matches_eager(model, reqs_fn, label: str, kv_bits) -> bool:
 SPEC_K = 4
 
 
+# the phase-4 drafter's decoder layers: the 2B's 28 cut to 14, for the
+# run's time as MOE_LAYERS; phase 2 runs K3 at all 28
+SPEC_DRAFTER_LAYERS = 14
+
+
 def spec_drafter(n_layers=None, vision_depth=None, seed: int = SEED + 4):
     """A random mlx 4-bit drafter at qwen2_vl_2b_config()'s widths (hidden
     1536, 12 / 2 heads, intermediate 8960; 28 layers unless `n_layers`)
@@ -2661,7 +2732,25 @@ FAMILY_CASES = (
      2, None, "ChannelQuantizedTensor", "float32", 4),
     ("Qwen3-VL-MoE, exact (K5; 8-bit router)", "qwen3_vl_moe_30b_a3b", 2,
      "exact", "QuantizedTensor", "float32", 4),
+    ("Llama-3.1-8B, w8chan", "llama_3_1_8b", 2, None,
+     "ChannelQuantizedTensor", "float32", 4),
+    ("Llama-3.1-8B, exact (K5)", "llama_3_1_8b", 2, "exact",
+     "QuantizedTensor", "float32", 4),
+    ("LLaVA-1.5-7B, w8chan", "llava_1_5_7b", 2, None,
+     "ChannelQuantizedTensor", "float32", 4),
+    ("LLaVA-1.5-7B, exact (K5)", "llava_1_5_7b", 2, "exact",
+     "QuantizedTensor", "float32", 4),
 )
+# each checkpoint's phase-3 image: the Qwen-VL line's 224 x 224 (no
+# resize at patch 14 or 16), LLaVA's 336 x 336 (its crop size, so the
+# processor needs no PIL), none for the text-only Llama
+FAMILY_IMAGE = {"llama_3_1_8b": None, "llava_1_5_7b": 336}
+
+
+def vision_depth(model) -> int:
+    """The vision tower's blocks (0 for a text-only model)."""
+    vc = getattr(model.config, "vision_config", None)
+    return getattr(vc, "depth", getattr(vc, "num_hidden_layers", 0))
 
 
 def family_want(label: str, lm, n_steps: int) -> dict:
@@ -2689,13 +2778,17 @@ def family_want(label: str, lm, n_steps: int) -> dict:
 
 def phase_family_parity(ckpts: dict) -> bool:
     """Qwen2.5-VL at 7B widths (2 decoder layers, its whole windowed tower),
-    Qwen3-VL at 8B widths (3 decoder layers, its whole deepstack tower) and
+    Qwen3-VL at 8B widths (3 decoder layers, its whole deepstack tower),
     Qwen3-VL-MoE at 30B-A3B widths (2 decoder layers of 128 experts, top-8,
-    the whole tower; default mode and exact, its 8-bit routers) on the card
-    (bf16, kernels) against the CPU (plain versions, in f32 or bf16 by
-    FAMILY_CASES), each on its own image prompt and processor (patch 14; 16), teacher-forced by
-    the parity rule, its launches held to what ran; then each model's
-    graph-replayed decode against eager steps on the card."""
+    the whole tower; default mode and exact, its 8-bit routers),
+    Llama-3.1-8B (2 decoder layers, text only) and LLaVA-1.5-7B (2 decoder
+    layers, the whole 24-block CLIP tower), the last two in their default
+    w8chan mode and in exact, on the card (bf16, kernels) against the CPU
+    (plain versions, in f32 or bf16 by FAMILY_CASES), each on its own
+    prompt (an image one but for Llama, FAMILY_IMAGE) and processor (patch
+    14; 16; CLIP's 336 crop), teacher-forced by the parity rule, its
+    launches held to what ran; then each model's graph-replayed decode
+    against eager steps on the card."""
     import torch
 
     from mlx_vlm_tpu_torch import apply_chat_template
@@ -2703,9 +2796,9 @@ def phase_family_parity(ckpts: dict) -> bool:
     from mlx_vlm_tpu_torch.utils.loader import load_model_from_weights
     from mlx_vlm_tpu_torch.utils.processing import prepare_inputs
 
-    print("phase 3: Qwen2.5-VL (7B widths), Qwen3-VL (8B widths) and "
-          "Qwen3-VL-MoE (30B-A3B widths) on the card vs the CPU, "
-          "teacher-forced", flush=True)
+    print("phase 3: Qwen2.5-VL (7B widths), Qwen3-VL (8B widths), "
+          "Qwen3-VL-MoE (30B-A3B widths), Llama-3.1-8B and LLaVA-1.5-7B on "
+          "the card vs the CPU, teacher-forced", flush=True)
     all_ok = True
     for (label, name, n_layers, mode, layout, ref_dtype,
          n_steps) in FAMILY_CASES:
@@ -2715,9 +2808,11 @@ def phase_family_parity(ckpts: dict) -> bool:
             cpu = load_model_from_weights(cfg, weights,
                                           getattr(torch, ref_dtype), "cpu")
             proc = _processor(model=cpu)
+            size = FAMILY_IMAGE.get(name, 224)
             prompt = apply_chat_template(proc, cfg, "What is in this image?",
-                                         num_images=1)
-            inputs = prepare_inputs(proc, prompt, images=_image(224))
+                                         num_images=int(size is not None))
+            inputs = prepare_inputs(proc, prompt, images=None if size is None
+                                    else _image(size))
             ref, toks = teacher_forced_logits(cpu, inputs, n_steps=n_steps)
             del cpu
             t1 = time.perf_counter()
@@ -2736,10 +2831,14 @@ def phase_family_parity(ckpts: dict) -> bool:
         want = family_want(label, lm, n_steps)
         counts_ok = counts == want
         ok, err, tol, n_margin = parity_rule(ref, got)
+        image = (f"grid {inputs['image_grid_thw'].tolist()}"
+                 if "image_grid_thw" in inputs else
+                 f"pixels {list(inputs['pixel_values'].shape)}"
+                 if "pixel_values" in inputs else "no image")
         print(f"  {label}, {n_layers} decoder layers, vision depth "
-              f"{gpu.config.vision_config.depth}: prompt "
-              f"{inputs['input_ids'].shape[1]} tokens, grid "
-              f"{inputs['image_grid_thw'].tolist()}, embeddings width "
+              f"{vision_depth(gpu)}: prompt "
+              f"{inputs['input_ids'].shape[1]} tokens, {image}, embeddings "
+              f"width "
               f"{embed_prompt(gpu, inputs)[0].shape[-1]}; "
               f"{kind}, fused route {lm.fused_decode}; vs the CPU in "
               f"{ref_dtype}: max|cuda - cpu| = {err:.4e}, tol {tol:.4e}; argmax checked on {n_margin}/"
@@ -3001,15 +3100,16 @@ BATCH_PROMPTS = (
 BATCH_MAX_TOKENS, BATCH_STEP_BLOCK, BATCH_NUM_SLOTS = 32, 8, 4
 
 
-def batch_prompts(proc, cfg) -> tuple:
-    """BATCH_PROMPTS as batch_generate takes them: (prompts, images)."""
+def batch_prompts(proc, cfg, images: bool = True) -> tuple:
+    """BATCH_PROMPTS as batch_generate takes them: (prompts, images); with
+    `images` False (a text-only model) their texts alone."""
     from mlx_vlm_tpu_torch import apply_chat_template
 
+    sizes = [size if images else None for _, size in BATCH_PROMPTS]
     return ([apply_chat_template(proc, cfg, text,
                                  num_images=int(size is not None))
-             for text, size in BATCH_PROMPTS],
-            [None if size is None else _image(size)
-             for _, size in BATCH_PROMPTS])
+             for (text, _), size in zip(BATCH_PROMPTS, sizes)],
+            [None if size is None else _image(size) for size in sizes])
 
 
 def batch_prompt_requests(model, proc, cfg) -> tuple:
@@ -4904,7 +5004,7 @@ def run_speculative(model, cfg, total: dict) -> None:
     t_part = time.perf_counter()
     proc = _processor()
     t0 = time.perf_counter()
-    drafter = spec_drafter()
+    drafter = spec_drafter(n_layers=SPEC_DRAFTER_LAYERS)
     d_args = drafter.language_model.args
     print(f"  speculative part: drafter at Qwen2-VL-2B widths (hidden "
           f"{d_args.hidden_size}, {d_args.num_hidden_layers} layers, "
@@ -5026,6 +5126,8 @@ def phase_main_path(ckpts: dict) -> dict:
     run_qwen2_5_vl(ckpts["qwen2_5_vl_7b"], total)
     run_qwen3_vl(ckpts["qwen3_vl_8b"], total)
     run_qwen3_vl_moe(ckpts["qwen3_vl_moe_30b_a3b"], total)
+    run_llama(ckpts["llama_3_1_8b"], total)
+    run_llava(ckpts["llava_1_5_7b"], total)
     print(f"  kernel launches on the main path: {total}", flush=True)
     for k, v in total.items():
         if v <= 0:
@@ -5049,7 +5151,7 @@ def load_timed(name: str, cfg: dict, weights: dict, mode=None):
     print(f"  {name}: loaded (fold + stack + upload) in "
           f"{time.perf_counter() - t0:.1f} s, {kind} linears, fused route "
           f"{lm.fused_decode}, {lm.args.num_hidden_layers} decoder layers, "
-          f"vision depth {model.config.vision_config.depth}; device memory "
+          f"vision depth {vision_depth(model)}; device memory "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     return model
 
@@ -5062,6 +5164,50 @@ def exact_want(counts: dict, n_layers: int, chunks: int, heads: int,
     want = {k: 0 for k in counts}
     want["qmatmul_int4"] = 7 * n_layers * (chunks + steps) + heads + steps
     want["flash_attention"] = flash
+    return want
+
+
+def load_exact(name: str, ckpt: tuple):
+    """A 4-bit checkpoint loaded exact (load_timed), its head checked to be
+    K5's mlx codes and the fused route off: (model, config, decoder
+    layers, the model's processor)."""
+    cfg, weights = ckpt
+    model = load_timed(name, cfg, weights, mode="exact")
+    head = model.params["language_model"]["lm_head"]["weight"]
+    if type(head).__name__ != "QuantizedTensor" or \
+            model.language_model.fused_decode:
+        fail(f"{name} did not load exact 4-bit weights")
+    return (model, cfg, model.language_model.args.num_hidden_layers,
+            _processor(model=model))
+
+
+def run_exact_requests(model, proc, cfg, L: int, requests, total) -> None:
+    """`requests` (name, text, image size or None, max tokens, kv_bits)
+    through run_request on an exact model, each held to exact_want: K5 on
+    every linear and head, K4 on every layer of every chunk where the
+    cache reaches 8192 rows, K6 on every layer and step at kv_bits 4."""
+    for name, text, size, max_tokens, kv_bits in requests:
+        counts, n, S, steps = run_request(
+            model, proc, cfg, name, "per-linear, qmatmul_int4"
+            + (", int4_kv_attention" if kv_bits else ""), text,
+            None if size is None else _image(size), int(size is not None),
+            max_tokens, kv_bits, {})
+        chunks = prefill_chunks(S, max_tokens)
+        capacity = -(-(S + max_tokens + min(32, max_tokens) + 1) // 256) * 256
+        flash = L * chunks if capacity >= 8192 and not kv_bits else 0
+        want = exact_want(counts, L, chunks, 1, steps, flash)
+        if kv_bits == 4:
+            want["int4_kv_attention"] = L * steps
+        expect(name, counts, want, total)
+
+
+def exact_batch_want(counts: dict, L: int, st: dict) -> dict:
+    """Launches of an exact model's batch run: K5 on every linear of each
+    prefill chunk and batch step, on each prefill head and each step's
+    head; every other kernel 0."""
+    want = {k: 0 for k in counts}
+    want["qmatmul_int4"] = (7 * L * st["prefill_chunks"]
+                            + st["prefill_heads"] + (7 * L + 1) * st["steps"])
     return want
 
 
@@ -5125,27 +5271,12 @@ def run_qwen3_vl(ckpt: tuple, total: dict) -> None:
 
     from mlx_vlm_tpu_torch import apply_chat_template, batch_generate
 
-    cfg, weights = ckpt
-    model = load_timed("Qwen3-VL-8B (q1)-(q3)", cfg, weights, mode="exact")
-    lm = model.language_model
-    head = model.params["language_model"]["lm_head"]["weight"]
-    if type(head).__name__ != "QuantizedTensor" or lm.fused_decode:
-        fail("Qwen3-VL-8B did not load exact 4-bit weights")
-    L = lm.args.num_hidden_layers
-    proc = _processor(model=model)
-    for name, text, max_tokens in (
-            ("(q1) Qwen3-VL-8B exact, image 448x448 + short prompt",
-             "Describe this image in detail.", 32),
-            ("(q2) Qwen3-VL-8B exact, image + ~8.5k-token prompt", LONG_TEXT,
-             16)):
-        counts, n, S, steps = run_request(
-            model, proc, cfg, name, "per-linear, qmatmul_int4", text,
-            _image(448), 1, max_tokens, None, {})
-        chunks = prefill_chunks(S, max_tokens)
-        capacity = -(-(S + max_tokens + min(32, max_tokens) + 1) // 256) * 256
-        flash = L * chunks if capacity >= 8192 else 0
-        expect(name, counts, exact_want(counts, L, chunks, 1, steps, flash),
-               total)
+    model, cfg, L, proc = load_exact("Qwen3-VL-8B (q1)-(q3)", ckpt)
+    run_exact_requests(model, proc, cfg, L, (
+        ("(q1) Qwen3-VL-8B exact, image 448x448 + short prompt",
+         "Describe this image in detail.", 448, 32, None),
+        ("(q2) Qwen3-VL-8B exact, image + ~8.5k-token prompt", LONG_TEXT,
+         448, 16, None)), total)
     name = "(q3) Qwen3-VL-8B exact, batch_generate: a text and an image row"
     prompts = [apply_chat_template(proc, cfg, t, num_images=k) for t, k in (
         ("Write a short story about a lighthouse.", 0),
@@ -5166,11 +5297,8 @@ def run_qwen3_vl(ckpt: tuple, total: dict) -> None:
           f"launches {counts}", flush=True)
     if st["admissions"] != 1 or not 0 < n_gen <= 48:
         fail(f"{name}: want both rows in one admission, stats {st}")
-    want = {k: 0 for k in counts}
-    want["qmatmul_int4"] = (7 * L * st["prefill_chunks"]
-                            + st["prefill_heads"] + (7 * L + 1) * st["steps"])
-    expect(name, counts, want, total)
-    del model, head
+    expect(name, counts, exact_batch_want(counts, L, st), total)
+    del model
     torch.cuda.empty_cache()
 
 
@@ -5209,9 +5337,10 @@ def profile_prefill(model, proc, cfg, text: str) -> None:
 
 
 def run_qwen3_vl_moe(ckpt: tuple, total: dict) -> None:
-    """Qwen3-VL-30B-A3B at full width and depth (48 decoder layers of 128
-    experts, top-8; the 27-block deepstack tower), the loader's default
-    mode (w8chan linears and 8-bit routers, the expert stacks exact on K5):
+    """Qwen3-VL-30B-A3B at full width (MOE_LAYERS of its 48 decoder layers
+    of 128 experts, top-8; the 27-block deepstack tower), the loader's
+    default mode (w8chan linears and 8-bit routers, the expert stacks exact
+    on K5):
     (u1) an image request of 64 tokens through stream_generate on decode
     blocks, (u2) BATCH_PROMPTS through batch_generate in 4 slots, (u3) an
     image chat through the server, (u4) an image and a ~8.5k-token prompt
@@ -5230,10 +5359,11 @@ def run_qwen3_vl_moe(ckpt: tuple, total: dict) -> None:
     experts = layers["mlp"]["experts"]["gate_proj"]["weight"]
     router = layers["mlp"]["gate"]["weight"]
     if (type(experts).__name__ != "QuantizedTensor" or experts.bits != 4
-            or tuple(experts.shape[:2]) != (48, 128)
+            or tuple(experts.shape[:2]) != (MOE_LAYERS, 128)
             or type(router).__name__ != "ChannelQuantizedTensor"
             or router.src_bits != 8 or lm.top_k != 8):
-        fail("Qwen3-VL-30B-A3B did not load 4-bit expert stacks [48, 128, "
+        fail(f"Qwen3-VL-30B-A3B did not load 4-bit expert stacks "
+             f"[{MOE_LAYERS}, 128, "
              "...] on K5 beside w8chan linears and 8-bit routers, top-8")
     L = lm.args.num_hidden_layers
     proc = _processor(model=model)
@@ -5289,6 +5419,74 @@ def run_qwen3_vl_moe(ckpt: tuple, total: dict) -> None:
     expect("(u3)", counts, moe_want(counts, L, st["prefill_chunks"]
                                     + st["steps"]), total)
     del model, experts, router, layers
+    torch.cuda.empty_cache()
+
+
+def run_llama(ckpt: tuple, total: dict) -> None:
+    """Llama-3.1-8B at full width and depth (32 layers, its llama3 rope
+    scaling), text only, MLX_VLM_TPU_RUNTIME_QUANT=exact (K5 on every
+    linear and the head): (t1) a short chat of 32 tokens, then the same
+    prompt with kv_bits=4, 16 tokens (K6 on every layer and step); (t2) a
+    ~8.5k-token prompt, 16 tokens (K4 on every layer of every prefill
+    chunk); (t3) batch_generate of BATCH_PROMPTS' texts in 4 slots."""
+    import torch
+
+    from mlx_vlm_tpu_torch import batch_generate
+
+    model, cfg, L, proc = load_exact("Llama-3.1-8B (t1)-(t3)", ckpt)
+    chat = "Write a short story about a lighthouse."
+    run_exact_requests(model, proc, cfg, L, (
+        ("(t1) Llama-3.1-8B exact, short chat", chat, None, 32, None),
+        ("(t1) Llama-3.1-8B exact, short chat, kv_bits 4", chat, None, 16,
+         4),
+        ("(t2) Llama-3.1-8B exact, ~8.5k-token prompt", LONG_TEXT, None, 16,
+         None)), total)
+    name = "(t3) Llama-3.1-8B exact, batch_generate"
+    prompts, images = batch_prompts(proc, cfg, images=False)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = batch_generate(model, proc, prompts, images=images,
+                         max_tokens=BATCH_MAX_TOKENS,
+                         num_slots=BATCH_NUM_SLOTS)
+    counts = read_counts()
+    st = res.generator_stats
+    report_batch(name, st, counts, "", res.stats["generation_tokens"],
+                 res.stats["prompt_tokens"], res.stats["wall_s"], None, L,
+                 total, want=exact_batch_want(counts, L, st))
+    del model
+    torch.cuda.empty_cache()
+
+
+def run_llava(ckpt: tuple, total: dict) -> None:
+    """LLaVA-1.5-7B at full width and depth (32 decoder layers, the
+    24-block CLIP ViT-L/14-336 tower), exact: (v1) a 336x336 image and a
+    short prompt, 32 tokens; (v2) one image chat through the server.  Its
+    4096-position context keeps K4 out."""
+    import torch
+
+    model, cfg, L, proc = load_exact("LLaVA-1.5-7B (v1)-(v2)", ckpt)
+    run_exact_requests(model, proc, cfg, L, (
+        ("(v1) LLaVA-1.5-7B exact, image 336x336 + short prompt",
+         "Describe this image in detail.", 336, 32, None),), total)
+    req = ("(v2)", "chat", "Describe this image in detail.", 336, False,
+           False, None, 16)
+    answers, _, _, _, counts, st, metrics, wall, _, http = serve_requests(
+        model, proc, cfg, [req], None)
+    ans = answers.get("(v2)") or {}
+    env = (metrics.get("recent") or [{}])[-1]
+    via = "a PNG data URI over HTTP" if http else "through the engine"
+    print(f"  (v2) LLaVA-1.5-7B server, image chat ({via}): status "
+          f"{ans.get('status')}, {ans.get('completion')} tokens, finish "
+          f"{ans.get('finish')}, {wall:.4f} s; /metrics ttft_s "
+          f"{env.get('ttft_s')}, generation_tps "
+          f"{env.get('generation_tps')}; {st['steps']} batch steps, "
+          f"{st['prefill_chunks']} prefill chunks; launches {counts}",
+          flush=True)
+    if ans.get("status") != 200 or ans.get("errors") or not (
+            ans.get("completion") == 16 or ans.get("finish") == "stop"):
+        fail(f"(v2): answer {ans}")
+    expect("(v2)", counts, exact_batch_want(counts, L, st), total)
+    del model
     torch.cuda.empty_cache()
 
 

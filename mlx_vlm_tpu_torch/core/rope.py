@@ -1,16 +1,21 @@
-"""Rotary position embeddings: the default and M-RoPE cases.
+"""Rotary position embeddings: the default, scaled and M-RoPE cases.
 
-Port of mlx_vlm_tpu/core/rope.py (default_inv_freq :35, rope_cos_sin :95,
-apply_rope :110, mrope_section_map :159, mrope_cos_sin :183, Rope :205,
-make_rope :283) for the Qwen-VL line: cos/sin are computed in f32 from
-position ids, and M-RoPE picks the t/h/w position stream per frequency
-through a static section map, "chunked" (Qwen2-VL, Qwen2.5-VL) or
-"interleaved" (Qwen3-VL).  The scaled variants (llama3, yarn, longrope,
-...) are not ported.
+Port of mlx_vlm_tpu/core/rope.py (default_inv_freq :35, llama3_inv_freq
+:41, yarn_inv_freq :62, rope_cos_sin :95, apply_rope :110,
+mrope_section_map :159, mrope_cos_sin :183, Rope :205, make_rope :283):
+cos/sin are computed in f32 from position ids; M-RoPE picks the t/h/w
+position stream per frequency through a static section map, "chunked"
+(Qwen2-VL, Qwen2.5-VL) or "interleaved" (Qwen3-VL).  The scaled variants
+of `Rope` (llama3, yarn with its attention scaling, linear, longrope / su,
+proportional) remap the inverse frequencies on the host once, in float64
+as the reference does; the tables then live on each device (`_tables`),
+so a captured decode step reads no host data.  A head dim wider than the
+rotated one (partial rotary) passes its tail lanes through `apply_rope`.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -18,6 +23,8 @@ import torch
 
 __all__ = [
     "default_inv_freq",
+    "llama3_inv_freq",
+    "yarn_inv_freq",
     "rope_cos_sin",
     "apply_rope",
     "mrope_section_map",
@@ -31,10 +38,69 @@ def default_inv_freq(dim: int, base: float = 10000.0) -> np.ndarray:
     return 1.0 / (base ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
 
 
-def rope_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor):
-    """positions [...] int -> cos/sin [..., dim/2] f32."""
+def llama3_inv_freq(dim: int, base: float, scaling: dict) -> np.ndarray:
+    """Llama-3 frequency remapping (reference :41): wavelengths past the
+    original context's low-frequency bound divided by `factor`, those
+    under its high-frequency bound kept, the ones between smoothed."""
+    factor = scaling["factor"]
+    low_freq_factor = scaling.get("low_freq_factor", 1.0)
+    high_freq_factor = scaling.get("high_freq_factor", 4.0)
+    old_ctx = scaling.get("original_max_position_embeddings", 8192)
+
+    inv = default_inv_freq(dim, base)
+    wavelens = 2 * math.pi / inv
+    low_wl = old_ctx / low_freq_factor
+    high_wl = old_ctx / high_freq_factor
+
+    inv_scaled = np.where(wavelens > low_wl, inv / factor, inv)
+    smooth = (old_ctx / wavelens - low_freq_factor) / (
+        high_freq_factor - low_freq_factor)
+    smoothed = inv * ((1 - smooth) / factor + smooth)
+    is_medium = (wavelens > high_wl) & (wavelens < low_wl)
+    return np.where(is_medium, smoothed, inv_scaled)
+
+
+def yarn_inv_freq(dim: int, base: float, scaling: dict) -> tuple:
+    """YaRN (reference :62): (inv_freq, the attention scaling that
+    multiplies cos and sin)."""
+    factor = scaling.get("factor", 1.0)
+    orig_max = scaling.get("original_max_position_embeddings", 4096)
+    beta_fast = scaling.get("beta_fast", 32.0)
+    beta_slow = scaling.get("beta_slow", 1.0)
+    mscale_all_dim = scaling.get("mscale_all_dim", 0.0)
+    mscale = scaling.get("mscale", 1.0)
+
+    def find_dim(num_rot):
+        return (dim * math.log(orig_max / (num_rot * 2 * math.pi))) / (
+            2 * math.log(base))
+
+    low = max(math.floor(find_dim(beta_fast)), 0)
+    high = min(math.ceil(find_dim(beta_slow)), dim - 1)
+
+    inv_extra = default_inv_freq(dim, base) / factor
+    inv_inter = default_inv_freq(dim, base)
+    ramp = np.clip((np.arange(dim // 2, dtype=np.float64) - low)
+                   / max(high - low, 0.001), 0, 1)
+    inv = inv_inter * (1 - ramp) + inv_extra * ramp
+
+    def get_mscale(scale, m=1.0):
+        if scale <= 1:
+            return 1.0
+        return 0.1 * m * math.log(scale) + 1.0
+
+    att_scale = get_mscale(factor, mscale) / get_mscale(factor, mscale_all_dim)
+    return inv, att_scale
+
+
+def rope_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor,
+                 attention_scaling: float = 1.0):
+    """positions [...] int -> cos/sin [..., dim/2] f32, each times
+    `attention_scaling` (YaRN's and longrope's mscale; 1 otherwise)."""
     angles = positions.float()[..., None] * inv_freq.float()[None, :]
-    return torch.cos(angles), torch.sin(angles)
+    if attention_scaling == 1.0:
+        return torch.cos(angles), torch.sin(angles)
+    return (torch.cos(angles) * attention_scaling,
+            torch.sin(angles) * attention_scaling)
 
 
 def _rotate_half(x):
@@ -45,7 +111,14 @@ def _rotate_half(x):
 def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor):
     """Half-split ("NeoX") RoPE.  q, k [B, H, S, D]; cos/sin [B, S, D/2],
-    duplicated to D as in the HF convention; computed in f32."""
+    duplicated to D as in the HF convention; computed in f32.  When cos
+    covers fewer than D/2 angle slots (partial rotary), only the first
+    2 * slots lanes rotate and the tail passes through."""
+    rot = 2 * cos.shape[-1]
+    if rot < q.shape[-1]:
+        q_r, k_r = apply_rope(q[..., :rot], k[..., :rot], cos, sin)
+        return (torch.cat([q_r, q[..., rot:]], dim=-1),
+                torch.cat([k_r, k[..., rot:]], dim=-1))
     cos = torch.cat([cos, cos], dim=-1)[:, None, :, :]
     sin = torch.cat([sin, sin], dim=-1)[:, None, :, :]
     dtype = q.dtype
@@ -74,9 +147,10 @@ def mrope_section_map(sections: Sequence[int],
 
 
 def mrope_cos_sin(position_ids: torch.Tensor, inv_freq: torch.Tensor,
-                  section_map: torch.Tensor):
+                  section_map: torch.Tensor, attention_scaling: float = 1.0):
     """M-RoPE cos/sin [B, S, dim/2] from position ids [3, B, S]."""
-    cos3, sin3 = rope_cos_sin(position_ids, inv_freq)  # [3, B, S, F]
+    cos3, sin3 = rope_cos_sin(position_ids, inv_freq,
+                              attention_scaling)  # [3, B, S, F]
     idx = section_map.long().view(1, 1, 1, -1).expand(1, *cos3.shape[1:])
     return cos3.gather(0, idx)[0], sin3.gather(0, idx)[0]
 
@@ -85,17 +159,51 @@ class Rope:
     """Host-side descriptor producing cos/sin for position ids."""
 
     def __init__(self, dim: int, base: float = 10000.0,
-                 scaling: Optional[dict] = None, mrope_style: str = "chunked"):
+                 scaling: Optional[dict] = None,
+                 max_position_embeddings: int = 131072,
+                 mrope_style: str = "chunked"):
         self.dim = dim
+        self.attention_scaling = 1.0
         self.section_map = None
+        inv = default_inv_freq(dim, base)
         if scaling:
             typ = scaling.get("type") or scaling.get("rope_type") or "default"
-            if typ not in ("mrope", "default"):
-                raise NotImplementedError(f"rope scaling type {typ} is not ported")
-            if "mrope_section" in scaling:
-                self.section_map = mrope_section_map(
-                    scaling["mrope_section"], mrope_style)
-        self.inv_freq = np.asarray(default_inv_freq(dim, base), dtype=np.float32)
+            if typ == "llama3":
+                inv = llama3_inv_freq(dim, base, scaling)
+            elif typ == "yarn":
+                inv, self.attention_scaling = yarn_inv_freq(dim, base,
+                                                            scaling)
+            elif typ == "linear":
+                inv = inv / scaling.get("factor", 1.0)
+            elif typ in ("longrope", "su"):
+                # phi3's per-dim factors (the long ones always apply) and
+                # mscale: an explicit long_mscale wins over the derived one
+                inv = inv / np.asarray(scaling.get("long_factor", 1.0),
+                                       np.float64)
+                orig = scaling.get("original_max_position_embeddings", 4096)
+                mscale = scaling.get("long_mscale")
+                if mscale:
+                    self.attention_scaling = float(mscale)
+                elif max_position_embeddings / orig > 1.0:
+                    s = max_position_embeddings / orig
+                    self.attention_scaling = float(
+                        np.sqrt(1.0 + np.log(s) / np.log(orig)))
+            elif typ == "proportional":
+                # the first partial_rotary_factor share of angle slots
+                # rotates at frequency / factor, the rest not at all
+                factor = float(scaling.get("factor", 1.0))
+                partial = float(scaling.get("partial_rotary_factor", 1.0))
+                angles = int(partial * dim // 2)
+                expo = np.arange(0, 2 * angles, 2, np.float64) / dim
+                inv = np.concatenate([1.0 / (factor * np.power(base, expo)),
+                                      np.zeros(dim // 2 - angles)])
+            elif typ in ("mrope", "default"):
+                if "mrope_section" in scaling:
+                    self.section_map = mrope_section_map(
+                        scaling["mrope_section"], mrope_style)
+            else:
+                raise ValueError(f"unsupported rope scaling type: {typ}")
+        self.inv_freq = np.asarray(inv, dtype=np.float32)
         self._on_device: dict = {}
 
     def _tables(self, device) -> tuple:
@@ -116,12 +224,14 @@ class Rope:
         """position_ids: [B, S] (1-D rope) or [3, B, S] (M-RoPE)."""
         inv, smap = self._tables(position_ids.device)
         if smap is not None and position_ids.dim() == 3:
-            return mrope_cos_sin(position_ids, inv, smap)
+            return mrope_cos_sin(position_ids, inv, smap,
+                                 self.attention_scaling)
         if position_ids.dim() == 3:
             position_ids = position_ids[0]
-        return rope_cos_sin(position_ids, inv)
+        return rope_cos_sin(position_ids, inv, self.attention_scaling)
 
 
 def make_rope(dim: int, base: float, scaling: Optional[dict] = None,
+              max_position_embeddings: int = 131072,
               mrope_style: str = "chunked") -> Rope:
-    return Rope(dim, base, scaling, mrope_style)
+    return Rope(dim, base, scaling, max_position_embeddings, mrope_style)

@@ -37,7 +37,10 @@ def embed_prompt(model, inputs: dict, vision_cache=None) -> tuple:
     `vision_features`, the tower's output is looked up by the image's
     content and stored there on a miss, as the reference's server does
     (mlx_vlm_tpu/server/engine.py:247-264); a model without it (Qwen2.5-VL)
-    runs its tower every time, as there."""
+    runs its tower every time, as there.  An image processor without a
+    grid (LLaVA's CLIP processor: pixel_values [B, 3, H, W] and no
+    `image_grid_thw`) gives the family's vision inputs and the cache's key
+    a grid of None, and its model's positions take none."""
     dev = torch.device(model.device or "cpu")
     input_ids = np.asarray(inputs["input_ids"])
     ids = torch.from_numpy(input_ids.astype(np.int64)).to(dev)
@@ -46,7 +49,8 @@ def embed_prompt(model, inputs: dict, vision_cache=None) -> tuple:
     if pixel_values is None:
         embeds = model.get_input_embeddings(model.params, ids)
     else:
-        grid_thw = np.asarray(inputs["image_grid_thw"])
+        if inputs.get("image_grid_thw") is not None:
+            grid_thw = np.asarray(inputs["image_grid_thw"])
         aux = {k: torch.from_numpy(np.asarray(v)).to(dev)
                for k, v in model.vision_aux_inputs(grid_thw).items()}
         pixels = torch.from_numpy(np.asarray(pixel_values)).to(dev)

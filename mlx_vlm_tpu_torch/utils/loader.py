@@ -3,8 +3,11 @@
 Port of mlx_vlm_tpu/utils/loader.py (get_model_and_args :125,
 load_config :107, _nest :143, _stack_layers :154, runtime_quant_mode :290,
 _fold_quantized :323, _to_device :375, load_model_from_weights :548,
-load_model :759, load :773) for the qwen2_vl, qwen2_5_vl, qwen3_vl and
-qwen3_vl_moe families, each picked by its config's model_type.
+load_model :759, load :773) for the qwen2_vl, qwen2_5_vl, qwen3_vl,
+qwen3_vl_moe, llama and llava families, each picked by its config's
+model_type (after the reference's remapping, `MODEL_REMAPPING`), and the
+text-only fallback (models/text_only.py) for mistral and the other
+llama-architecture text checkpoints.
 Safetensors are parsed in numpy (bfloat16 read as uint16 and viewed as
 torch.bfloat16), so loading needs neither `safetensors` nor `ml_dtypes`.  mlx group-affine triples fold by the
 runtime mode (MLX_VLM_TPU_RUNTIME_QUANT, the reference's default rule when
@@ -106,19 +109,36 @@ def load_config(model_path: Path) -> dict:
 
 # the model types the port has, each its own package under models/
 PORTED_MODEL_TYPES = ("qwen2_vl", "qwen2_5_vl", "qwen3_vl",
-                      "qwen3_vl_moe")
+                      "qwen3_vl_moe", "llama", "llava")
+
+# model_type -> module overrides: the reference's entries (:42-75) for the
+# ported families
+MODEL_REMAPPING = {
+    "llava_next": "llava",  # CLIP tower + llama decoder path
+    "qwen3": "llama",  # qk-norm + head_dim picked up from keys/config
+    "qwen2": "llama",  # text-only qwen2 checkpoints (biases via keys)
+}
 
 
 def get_model_and_args(config: dict):
-    """The model package for config["model_type"] (reference :125-136);
-    a type the port lacks raises, with no text-only fallback."""
-    model_type = config["model_type"]
-    if model_type not in PORTED_MODEL_TYPES:
-        raise NotImplementedError(
-            f"model type {model_type} is not ported (the port has "
-            f"{', '.join(PORTED_MODEL_TYPES)})")
-    return importlib.import_module(
-        f"mlx_vlm_tpu_torch.models.{model_type}"), model_type
+    """(model package, model type) for config["model_type"] (reference
+    :125-136): the type remapped, its package when the port has it, else
+    the text-only fallback for a text config of its architectures
+    (models/text_only.py, which refuses gemma); any other type raises."""
+    model_type = MODEL_REMAPPING.get(config["model_type"],
+                                     config["model_type"])
+    if model_type in PORTED_MODEL_TYPES:
+        return importlib.import_module(
+            f"mlx_vlm_tpu_torch.models.{model_type}"), model_type
+    from ..models import text_only
+
+    if text_only.is_text_only_config(config):
+        text_only.text_arch(model_type)
+        return text_only, model_type
+    raise NotImplementedError(
+        f"model type {model_type} is not ported (the port has "
+        f"{', '.join(PORTED_MODEL_TYPES)} and text-only llama, mistral, "
+        f"qwen2 and qwen3)")
 
 
 def _bf16_tensor(u16: np.ndarray) -> torch.Tensor:

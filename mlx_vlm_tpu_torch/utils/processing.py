@@ -1,13 +1,16 @@
-"""Preprocessing: images -> patch arrays, prompt -> token ids (Qwen-VL line).
+"""Preprocessing: images -> pixel arrays, prompt -> token ids.
 
 Port of mlx_vlm_tpu/utils/processing.py (load_image :24, smart_resize :127,
 Qwen2VLImageProcessor :150, Qwen2VLProcessor :273, load_processor :390,
 prepare_inputs :420) for images and text; the image processor's patch,
 merge and temporal sizes follow the checkpoint (`image_processor_for`).
+LLaVA gets a CLIP image processor and a processor that expands each image
+token (`ClipImageProcessor`, `LlavaProcessor`, picked by model type in
+`load_processor`): the reference has none and gives LLaVA the Qwen2-VL
+fallback, whose patch rows the CLIP tower cannot take (ROADMAP Queue 3).
 PIL and transformers are imported only inside the functions that use them:
 a uint8 [H, W, 3] array whose size already meets the resize rule goes
-through without PIL.  Audio and video
-inputs are not ported.
+through without PIL.  Audio and video inputs are not ported.
 """
 
 from __future__ import annotations
@@ -202,11 +205,148 @@ def image_processor_for(model=None, model_path=None) -> Qwen2VLImageProcessor:
     return Qwen2VLImageProcessor(**kw)
 
 
+class ClipImageProcessor:
+    """Numpy CLIP image processor (HF CLIPImageProcessor's defaults): the
+    shortest edge resized to `size` (bicubic), a center crop of
+    `crop_size`, rescale by 1/255 (in float64, then float32, as HF does),
+    normalize with the mean and std.  Returns pixel_values [N, 3, H, W]
+    float32 and no grid."""
+
+    def __init__(self, size: int = 336, crop_size=(336, 336),
+                 image_mean=OPENAI_CLIP_MEAN, image_std=OPENAI_CLIP_STD,
+                 rescale_factor: float = 1 / 255):
+        self.size = int(size)
+        self.crop_size = tuple(int(c) for c in crop_size)
+        self.image_mean = np.asarray(image_mean, np.float32)
+        self.image_std = np.asarray(image_std, np.float32)
+        self.rescale_factor = rescale_factor
+
+    def _preprocess_one(self, img: np.ndarray) -> np.ndarray:
+        h, w = img.shape[:2]
+        short, long = (w, h) if w <= h else (h, w)
+        new_long = int(self.size * long / short)
+        hb, wb = (new_long, self.size) if w <= h else (self.size, new_long)
+        if (hb, wb) != (h, w):  # PIL returns an identical copy otherwise
+            from PIL import Image
+
+            img = np.asarray(Image.fromarray(img).resize((wb, hb),
+                                                         Image.BICUBIC))
+        ch, cw = self.crop_size
+        if ch > hb or cw > wb:  # HF pads a short image with zeros
+            H, W = max(ch, hb), max(cw, wb)
+            top, left = -(-(H - hb) // 2), -(-(W - wb) // 2)
+            pad = np.zeros((H, W, 3), img.dtype)
+            pad[top:top + hb, left:left + wb] = img
+            img, hb, wb = pad, H, W
+        top, left = (hb - ch) // 2, (wb - cw) // 2
+        img = img[top:top + ch, left:left + cw]
+        x = (img.astype(np.float64) * self.rescale_factor).astype(np.float32)
+        x = (x - self.image_mean) / self.image_std
+        return x.transpose(2, 0, 1)
+
+    def __call__(self, images) -> dict:
+        if not isinstance(images, (list, tuple)):
+            images = [images]
+        return {"pixel_values": np.stack([
+            self._preprocess_one(np.asarray(load_image(im)))
+            for im in images]).astype(np.float32)}
+
+
+class LlavaProcessor:
+    """Text + image processor for LLaVA: each `image_token` in the text
+    becomes `num_image_tokens` of them, one for each feature the tower and
+    projector give an image ((image_size / patch)^2 patches, and CLS
+    unless the "default" strategy drops it: 576 at 336 / 14)."""
+
+    def __init__(self, tokenizer, image_processor: ClipImageProcessor,
+                 image_token: str = "<image>", num_image_tokens: int = 576):
+        self.tokenizer = tokenizer
+        self.image_processor = image_processor
+        self.image_token = image_token
+        self.num_image_tokens = num_image_tokens
+
+    def __call__(self, text=None, images=None, videos=None, padding=True,
+                 audio=None, **kw):
+        if videos is not None or audio is not None:
+            raise NotImplementedError("video and audio inputs are not ported")
+        out = {}
+        texts = [text] if isinstance(text, str) else list(text)
+        if images is not None:
+            out.update(self.image_processor(images))
+            texts = [t.replace(self.image_token,
+                               self.image_token * self.num_image_tokens)
+                     for t in texts]
+        enc = self.tokenizer(texts, return_tensors="np", padding=padding,
+                             padding_side="left")
+        out["input_ids"] = np.asarray(enc["input_ids"])
+        out["attention_mask"] = np.asarray(enc["attention_mask"])
+        return out
+
+    def apply_chat_template(self, messages, **kwargs):
+        return self.tokenizer.apply_chat_template(messages, **kwargs)
+
+
+def clip_image_processor_for(model=None,
+                             model_path=None) -> ClipImageProcessor:
+    """A checkpoint's CLIP image processor: its preprocessor_config.json's
+    size, crop size, mean, std and rescale factor when it has one, else
+    its vision config's image size with the CLIP mean and std."""
+    vc = getattr(getattr(model, "config", None), "vision_config", None)
+    side = getattr(vc, "image_size", 336)
+    kw = {"size": side, "crop_size": (side, side)}
+    pre = Path(model_path) / "preprocessor_config.json" if model_path else None
+    if pre is not None and pre.exists():
+        import json
+
+        with open(pre) as f:
+            pc = json.load(f)
+        size = pc.get("size")
+        if size is not None:
+            kw["size"] = (size.get("shortest_edge", side)
+                          if isinstance(size, dict) else size)
+        crop = pc.get("crop_size")
+        if isinstance(crop, dict):
+            kw["crop_size"] = (crop["height"], crop["width"])
+        elif crop is not None:
+            kw["crop_size"] = (crop, crop)
+        for k in ("image_mean", "image_std", "rescale_factor"):
+            if pc.get(k) is not None:
+                kw[k] = pc[k]
+    return ClipImageProcessor(**kw)
+
+
+def _llava_processor(tokenizer, model, model_path) -> LlavaProcessor:
+    """LlavaProcessor for a LLaVA model: its image token is the tokenizer's
+    token at the config's `image_token_index`, its count the tower's patch
+    grid (less CLS under the "default" strategy)."""
+    cfg = model.config
+    vc = cfg.vision_config
+    n = (vc.image_size // vc.patch_size) ** 2
+    if cfg.vision_feature_select_strategy != "default":
+        n += 1
+    token = None
+    if hasattr(tokenizer, "convert_ids_to_tokens"):
+        token = tokenizer.convert_ids_to_tokens(cfg.image_token_index)
+    return LlavaProcessor(tokenizer,
+                          clip_image_processor_for(model, model_path),
+                          image_token=token or "<image>", num_image_tokens=n)
+
+
+def processor_for(tokenizer, model=None, model_path=None):
+    """The numpy processor of `model`'s family around `tokenizer`:
+    LlavaProcessor for LLaVA, else Qwen2VLProcessor with the checkpoint's
+    image processor."""
+    if getattr(getattr(model, "config", None), "model_type", "") == "llava":
+        return _llava_processor(tokenizer, model, model_path)
+    return Qwen2VLProcessor(tokenizer, image_processor_for(model, model_path))
+
+
 def load_processor(model_path, model=None, **kwargs):
     """The HF AutoProcessor when transformers can build one with an image
-    processor; otherwise the numpy Qwen2VLProcessor around the checkpoint's
-    tokenizer, with the checkpoint's image processor
-    (`image_processor_for`)."""
+    processor; otherwise the numpy processor of the model's family around
+    the checkpoint's tokenizer: LlavaProcessor with the CLIP image
+    processor for LLaVA, else Qwen2VLProcessor with the checkpoint's image
+    processor (`image_processor_for`)."""
     model_path = Path(model_path)
     try:
         from transformers import AutoProcessor
@@ -214,13 +354,12 @@ def load_processor(model_path, model=None, **kwargs):
         proc = AutoProcessor.from_pretrained(str(model_path), **kwargs)
         if hasattr(proc, "image_processor"):
             return proc
-        return Qwen2VLProcessor(proc, image_processor_for(model, model_path))
+        return processor_for(proc, model, model_path)
     except Exception:  # noqa: BLE001 — no transformers, or no processor files
         pass
     from .tokenizer import load_tokenizer
 
-    return Qwen2VLProcessor(load_tokenizer(model_path),
-                            image_processor_for(model, model_path))
+    return processor_for(load_tokenizer(model_path), model, model_path)
 
 
 def prepare_inputs(processor, prompts: Union[str, List[int], np.ndarray],

@@ -22,8 +22,15 @@ qwen2_5_vl_hf_weights :178 draw the same arrays for a seed), plus:
   bf16), drawn directly in that layout so that no float weights of full
   size are ever quantized on the host; `mlx_int4_checkpoint` is its 4-bit
   case;
+- `tiny_llama_config` / `llama_hf_weights` and `tiny_llava_config` /
+  `llava_hf_weights`: the JAX package's llama and LLaVA test models
+  (mlx_vlm_tpu/utils/testing.py:228-382), copied (the same arrays for a
+  seed); `llama_3_1_8b_config` and `llava_1_5_7b_config`: the published
+  widths of meta-llama/Llama-3.1-8B-Instruct and llava-hf/llava-1.5-7b-hf
+  (config.json);
 - `ByteTokenizer`: Qwen2-VL's special tokens at their public ids (Qwen2.5-VL
-  and Qwen3-VL keep them) and one id per UTF-8 byte otherwise, so a
+  and Qwen3-VL keep them), or another family's (`LLAMA3_SPECIAL_TOKENS`,
+  `LLAVA_SPECIAL_TOKENS`), and one id per UTF-8 byte otherwise, so a
   processor works without `transformers`.
 
 Everything is numpy on the host and made from a seed.
@@ -46,6 +53,15 @@ QWEN2_VL_SPECIAL_TOKENS = {
     "<|vision_end|>": 151653, "<|vision_pad|>": 151654,
     "<|image_pad|>": 151655, "<|video_pad|>": 151656,
 }
+# Llama-3.1's (tokenizer_config.json of meta-llama/Llama-3.1-8B-Instruct)
+LLAMA3_SPECIAL_TOKENS = {
+    "<|begin_of_text|>": 128000, "<|end_of_text|>": 128001,
+    "<|start_header_id|>": 128006, "<|end_header_id|>": 128007,
+    "<|eom_id|>": 128008, "<|eot_id|>": 128009,
+}
+# LLaVA-1.5's (llava-hf/llava-1.5-7b-hf: Llama-2's and <image>, <pad>)
+LLAVA_SPECIAL_TOKENS = {"<s>": 1, "</s>": 2, "<image>": 32000,
+                        "<pad>": 32001}
 
 
 def tiny_qwen2_vl_config(**overrides) -> dict:
@@ -607,11 +623,212 @@ def qwen3_vl_moe_hf_weights(config: dict, seed: int = 0,
     return w
 
 
+def tiny_llama_config(**overrides) -> dict:
+    cfg = {
+        "model_type": "llama",
+        "hidden_size": 64,
+        "num_hidden_layers": 2,
+        "intermediate_size": 128,
+        "num_attention_heads": 4,
+        "num_key_value_heads": 2,
+        "rms_norm_eps": 1e-5,
+        "vocab_size": 256,
+        "rope_theta": 10000.0,
+        "tie_word_embeddings": False,
+        "max_position_embeddings": 1024,
+    }
+    cfg.update(overrides)
+    return cfg
+
+
+def llama_3_1_8b_config() -> dict:
+    """meta-llama/Llama-3.1-8B-Instruct's published widths (config.json):
+    hidden 4096, 32 layers, 32 / 8 heads of 128, intermediate 14336, vocab
+    128256, rope theta 500000 with its llama3 scaling, untied head."""
+    return tiny_llama_config(
+        hidden_size=4096,
+        num_hidden_layers=32,
+        intermediate_size=14336,
+        num_attention_heads=32,
+        num_key_value_heads=8,
+        head_dim=128,
+        rms_norm_eps=1e-5,
+        vocab_size=128256,
+        rope_theta=500000.0,
+        rope_scaling={"factor": 8.0, "low_freq_factor": 1.0,
+                      "high_freq_factor": 4.0,
+                      "original_max_position_embeddings": 8192,
+                      "rope_type": "llama3"},
+        tie_word_embeddings=False,
+        max_position_embeddings=131072,
+        attention_bias=False,
+        mlp_bias=False,
+        bos_token_id=128000,
+        eos_token_id=[128001, 128008, 128009],
+    )
+
+
+def llama_tensor_specs(config: dict) -> list:
+    """(HF key, shape, fill) of every tensor of a llama checkpoint, in the
+    JAX package's builder's draw order (its llama_hf_weights)."""
+    D, V, I = (config["hidden_size"], config["vocab_size"],
+               config["intermediate_size"])
+    nh = config["num_attention_heads"]
+    nkv = config.get("num_key_value_heads") or nh
+    hd = config.get("head_dim") or D // nh
+    specs = [("model.embed_tokens.weight", (V, D), "rand"),
+             ("model.norm.weight", (D,), "ones")]
+    for i in range(config["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        specs += [
+            (p + "input_layernorm.weight", (D,), "ones"),
+            (p + "post_attention_layernorm.weight", (D,), "ones"),
+            (p + "self_attn.q_proj.weight", (nh * hd, D), "rand"),
+            (p + "self_attn.k_proj.weight", (nkv * hd, D), "rand"),
+            (p + "self_attn.v_proj.weight", (nkv * hd, D), "rand"),
+            (p + "self_attn.o_proj.weight", (D, nh * hd), "rand"),
+            (p + "mlp.gate_proj.weight", (I, D), "rand"),
+            (p + "mlp.up_proj.weight", (I, D), "rand"),
+            (p + "mlp.down_proj.weight", (D, I), "rand"),
+        ]
+    if not config.get("tie_word_embeddings"):
+        specs.append(("lm_head.weight", (V, D), "rand"))
+    return specs
+
+
+def llama_hf_weights(config: dict, seed: int = 0,
+                     scale: float = 0.05) -> dict:
+    """Random f32 weights with HF llama checkpoint keys; the same arrays as
+    the JAX package's builder for a seed."""
+    return _draw(llama_tensor_specs(config), np.random.default_rng(seed),
+                 scale)
+
+
+def tiny_llava_config(**overrides) -> dict:
+    cfg = {
+        "model_type": "llava",
+        "image_token_index": 32,
+        "vision_feature_layer": -2,
+        "vision_feature_select_strategy": "default",
+        "vocab_size": 256,
+        "text_config": tiny_llama_config(),
+        "vision_config": {
+            "model_type": "clip_vision_model",
+            "num_hidden_layers": 2,
+            "hidden_size": 32,
+            "intermediate_size": 64,
+            "num_attention_heads": 4,
+            "image_size": 28,
+            "patch_size": 14,
+            "num_channels": 3,
+        },
+    }
+    cfg.update(overrides)
+    return cfg
+
+
+def llava_1_5_7b_config() -> dict:
+    """llava-hf/llava-1.5-7b-hf's published widths (config.json, its
+    text_config resolved to Llama-2-7B's): a 32-layer decoder of hidden
+    4096, 32 / 32 heads, intermediate 11008, vocab 32064, rope theta 10000,
+    4096 positions; the CLIP ViT-L/14-336 tower (24 layers, hidden 1024, 16
+    heads, intermediate 4096, quick-GELU); image token 32000, a GELU
+    projector."""
+    return tiny_llava_config(
+        image_token_index=32000,
+        vocab_size=32064,
+        pad_token_id=32001,
+        projector_hidden_act="gelu",
+        tie_word_embeddings=False,
+        text_config={
+            "model_type": "llama",
+            "hidden_size": 4096,
+            "num_hidden_layers": 32,
+            "intermediate_size": 11008,
+            "num_attention_heads": 32,
+            "num_key_value_heads": 32,
+            "head_dim": 128,
+            "rms_norm_eps": 1e-5,
+            "vocab_size": 32064,
+            "rope_theta": 10000.0,
+            "max_position_embeddings": 4096,
+            "tie_word_embeddings": False,
+            "eos_token_id": 2,
+        },
+        vision_config={
+            "model_type": "clip_vision_model",
+            "num_hidden_layers": 24,
+            "hidden_size": 1024,
+            "intermediate_size": 4096,
+            "num_attention_heads": 16,
+            "image_size": 336,
+            "patch_size": 14,
+            "projection_dim": 768,
+            "vocab_size": 32000,
+            "num_channels": 3,
+            "layer_norm_eps": 1e-5,
+            "hidden_act": "quick_gelu",
+        },
+    )
+
+
+def llava_vision_specs(config: dict) -> list:
+    """(HF key, shape, fill) of a LLaVA checkpoint's CLIP tower and
+    projector, in the JAX package's builder's draw order."""
+    vc, D = config["vision_config"], config["text_config"]["hidden_size"]
+    E, P, I = vc["hidden_size"], vc["patch_size"], vc["intermediate_size"]
+    C = vc.get("num_channels", 3)
+    p = "vision_tower.vision_model."
+    specs = [(p + "embeddings.class_embedding", (E,), "rand"),
+             (p + "embeddings.patch_embedding.weight", (E, C, P, P), "rand"),
+             (p + "embeddings.position_embedding.weight",
+              ((vc["image_size"] // P) ** 2 + 1, E), "rand")]
+    for nm in ("pre_layrnorm", "post_layernorm"):
+        specs += [(p + nm + ".weight", (E,), "ones"),
+                  (p + nm + ".bias", (E,), "zeros")]
+    for i in range(vc["num_hidden_layers"]):
+        q = p + f"encoder.layers.{i}."
+        for nm in ("layer_norm1", "layer_norm2"):
+            specs += [(q + nm + ".weight", (E,), "ones"),
+                      (q + nm + ".bias", (E,), "zeros")]
+        for nm in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            specs += [(q + f"self_attn.{nm}.weight", (E, E), "rand"),
+                      (q + f"self_attn.{nm}.bias", (E,), "rand")]
+        specs += [(q + "mlp.fc1.weight", (I, E), "rand"),
+                  (q + "mlp.fc1.bias", (I,), "rand"),
+                  (q + "mlp.fc2.weight", (E, I), "rand"),
+                  (q + "mlp.fc2.bias", (E,), "rand")]
+    p = "multi_modal_projector."
+    return specs + [(p + "linear_1.weight", (D, E), "rand"),
+                    (p + "linear_1.bias", (D,), "rand"),
+                    (p + "linear_2.weight", (D, D), "rand"),
+                    (p + "linear_2.bias", (D,), "rand")]
+
+
+def llava_hf_weights(config: dict, seed: int = 0,
+                     scale: float = 0.05) -> dict:
+    """Random f32 weights with HF LLaVA checkpoint keys; the same arrays
+    as the JAX package's builder for a seed (the language model's drawn
+    by llama_hf_weights, the tower's and projector's from a second
+    generator of the seed)."""
+    w = {"language_model." + k: v for k, v in
+         llama_hf_weights(config["text_config"], seed, scale).items()}
+    w.update(_draw(llava_vision_specs(config), np.random.default_rng(seed),
+                   scale))
+    return w
+
+
 def tensor_specs(config: dict) -> list:
     """(HF key, shape, fill) of every tensor of a checkpoint of
-    config["model_type"] (qwen2_vl, qwen2_5_vl, qwen3_vl or qwen3_vl_moe;
-    the last in the mlx conversions' fused expert layout)."""
+    config["model_type"] (qwen2_vl, qwen2_5_vl, qwen3_vl, qwen3_vl_moe,
+    the last in the mlx conversions' fused expert layout; llama, llava)."""
     kind = config.get("model_type", "qwen2_vl")
+    if kind == "llama":
+        return llama_tensor_specs(config)
+    if kind == "llava":
+        return ([("language_model." + k, shape, fill) for k, shape, fill
+                 in llama_tensor_specs(config["text_config"])]
+                + llava_vision_specs(config))
     if kind == "qwen2_vl":
         return qwen2_vl_tensor_specs(config)
     if kind == "qwen2_5_vl":
@@ -628,8 +845,10 @@ def tensor_specs(config: dict) -> list:
 
 
 def is_vision_key(key: str) -> bool:
-    """Whether an HF checkpoint key belongs to the vision tower."""
-    return key.startswith(("visual.", "model.visual."))
+    """Whether an HF checkpoint key belongs to the vision tower (LLaVA's
+    projector included)."""
+    return key.startswith(("visual.", "model.visual.", "vision_tower.",
+                           "multi_modal_projector."))
 
 
 def _is_quantized_in_mlx(key: str) -> bool:
@@ -638,6 +857,8 @@ def _is_quantized_in_mlx(key: str) -> bool:
     too), lm_head and embed_tokens."""
     if key.startswith("model.language_model."):
         key = "model." + key[len("model.language_model."):]
+    elif key.startswith("language_model."):  # LLaVA's layout
+        key = key[len("language_model."):]
     return key in ("model.embed_tokens.weight", "lm_head.weight") or (
         key.startswith("model.layers.")
         and key.endswith(("_proj.weight", ".mlp.gate.weight")))
@@ -648,8 +869,8 @@ def mlx_quantized_checkpoint(config: dict, bits: int = 4, group_size: int = 64,
                              vision_only: bool = False,
                              router_bits: Optional[int] = None):
     """(config, weights) of a random `bits`-bit mlx-format checkpoint of
-    config["model_type"] (Qwen2-VL, Qwen2.5-VL, Qwen3-VL or Qwen3-VL-MoE;
-    bits 4 or 8); with `vision_only`, the vision tower's tensors alone
+    config["model_type"] (Qwen2-VL, Qwen2.5-VL, Qwen3-VL, Qwen3-VL-MoE,
+    llama or LLaVA; bits 4 or 8); with `vision_only`, the vision tower's tensors alone
     (drawn from the seed's generator in the same way).  With
     `router_bits`, Qwen3-VL-MoE's routers (`mlp.gate`) are drawn at those
     bits and the config's quantization gets a per-path entry for each
@@ -729,15 +950,17 @@ def _byte_unicode() -> list:
 
 
 class ByteTokenizer:
-    """Qwen2-VL special tokens at their public ids; every other UTF-8 byte is
-    its own id (0-255).  Enough of the HF tokenizer surface for the
-    processor, the chat-template fallback and the detokenizer."""
+    """Special tokens at their ids (Qwen2-VL's public ones by default, with
+    its <|im_end|> as EOS); every other UTF-8 byte is its own id (0-255).
+    Enough of the HF tokenizer surface for the processors, the
+    chat-template fallback and the detokenizer."""
 
-    eos_token_id = QWEN2_VL_SPECIAL_TOKENS["<|im_end|>"]
-    pad_token_id = QWEN2_VL_SPECIAL_TOKENS["<|endoftext|>"]
-
-    def __init__(self):
-        self._special = dict(QWEN2_VL_SPECIAL_TOKENS)
+    def __init__(self, special_tokens: Optional[dict] = None,
+                 eos_token: str = "<|im_end|>",
+                 pad_token: str = "<|endoftext|>"):
+        self._special = dict(special_tokens or QWEN2_VL_SPECIAL_TOKENS)
+        self.eos_token_id = self._special[eos_token]
+        self.pad_token_id = self._special[pad_token]
         self._by_id = {v: k for k, v in self._special.items()}
         names = sorted(self._special, key=len, reverse=True)
         self._split = re.compile("(" + "|".join(map(re.escape, names)) + ")")

@@ -253,6 +253,59 @@ def test_mrope_cos_sin_and_apply_match():
     np.testing.assert_allclose(tk_.numpy(), np.asarray(jk_), atol=ATOL)
 
 
+# the scaled RoPE variants of core/rope.py's Rope, each as a published
+# config writes its rope_scaling (Llama-3.1, a YaRN Qwen, a linear one,
+# Phi-3's longrope with and without long_mscale, Gemma-4's proportional)
+ROPE_SCALINGS = {
+    "llama3": {"factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+               "original_max_position_embeddings": 8192,
+               "rope_type": "llama3"},
+    "yarn": {"type": "yarn", "factor": 4.0,
+             "original_max_position_embeddings": 32768, "mscale": 0.707,
+             "mscale_all_dim": 0.0},
+    "linear": {"type": "linear", "factor": 2.5},
+    "longrope": {"type": "longrope", "original_max_position_embeddings": 4096,
+                 "long_factor": list(np.linspace(1.0, 8.0, 32)),
+                 "short_factor": [1.0] * 32},
+    "su": {"type": "su", "original_max_position_embeddings": 4096,
+           "long_factor": list(np.linspace(1.0, 3.0, 32)),
+           "long_mscale": 1.19},
+    "proportional": {"rope_type": "proportional", "factor": 8.0,
+                     "partial_rotary_factor": 0.25},
+}
+
+
+@pytest.mark.parametrize("kind", sorted(ROPE_SCALINGS))
+def test_scaled_rope_tables_match(kind):
+    """The inverse frequencies and attention scaling of each scaled variant
+    equal the reference's; cos / sin at positions up to 100k within 1e-6
+    (plain and M-RoPE-shaped ids); partial rotary (the rotated sub-dim at
+    half the head) applies as the reference's."""
+    from mlx_vlm_tpu.core.rope import apply_rope as jax_apply
+
+    jr = jax_make_rope(64, 500000.0, ROPE_SCALINGS[kind], 131072)
+    tr = make_rope(64, 500000.0, ROPE_SCALINGS[kind], 131072)
+    assert np.array_equal(tr.inv_freq, jr.inv_freq)
+    assert tr.attention_scaling == jr.attention_scaling
+    if kind in ("yarn", "longrope", "su"):
+        assert tr.attention_scaling != 1.0
+    pos = np.random.default_rng(7).integers(0, 100000, (2, 9)).astype(
+        np.int32)
+    for p in (pos, np.broadcast_to(pos[None], (3, 2, 9))):
+        jc, js = jr.cos_sin(jnp.asarray(p))
+        tc, ts = tr.cos_sin(torch.from_numpy(p.astype(np.int64)))
+        np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-6)
+        np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-6)
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((2, 4, 9, 128)).astype(np.float32)
+    k = rng.standard_normal((2, 2, 9, 128)).astype(np.float32)
+    jq, jk = jax_apply(jnp.asarray(q), jnp.asarray(k), jc, js)
+    tq, tk = apply_rope(torch.from_numpy(q), torch.from_numpy(k), tc, ts)
+    np.testing.assert_allclose(tq.numpy(), np.asarray(jq), atol=ATOL)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=ATOL)
+    assert torch.equal(tq[..., 64:], torch.from_numpy(q[..., 64:]))
+
+
 @pytest.mark.parametrize("name", ["rms_norm", "layer_norm", "swiglu_mlp"])
 def test_layers_match(name):
     from mlx_vlm_tpu.core import layers as jl
