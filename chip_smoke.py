@@ -122,8 +122,13 @@ Phases (any failure exits non-zero):
      decoder layers, the whole 24-block CLIP tower, a 336x336 image) at
      their published widths, each in its default w8chan mode and in exact
      (K5), 4 steps each against f32 CPU runs, launches held to what ran,
-     and each model's replayed decode against eager steps.  The phase
-     prints the seconds of each of its parts;
+     and each model's replayed decode against eager steps; and video
+     (`video_parity`, 4 steps against the CPU by the parity rule,
+     launches held to what ran): a 4-frame 112x112 clip, and a 224x224
+     image before it, on the Qwen2-VL slice (f32 reference), the clip on
+     Qwen2.5-VL (bf16 reference) and on Qwen3-VL (128x128 frames at its
+     patch 16, timestamped; f32 reference).  The phase prints the
+     seconds of each of its parts;
   4. the main path at full Qwen2-VL-7B width (random mlx-format weights,
      28 decoder layers, 32 vision blocks): eight greedy requests through
      load_model_from_weights and stream_generate, each with the kernels'
@@ -141,8 +146,13 @@ Phases (any failure exits non-zero):
      (100 tokens) and (c) decode through K3; (b) (100 tokens) runs with
      MLX_VLM_TPU_FUSED_DECODE=0, the per-linear route (K2); (d), (e) and
      (f) take (c)'s image and ~8.2k-token prompt with kv_bits 3.5 (K7),
-     3.5 and MLX_VLM_TPU_TQ_SCHEME=split (K8) and 4 (K6).  Then one
-     28-layer K3 step and its plain version are timed on the loaded model
+     3.5 and MLX_VLM_TPU_TQ_SCHEME=split (K8) and 4 (K6); (w1) a 64-frame
+     448x448 clip (32,768 patches, the tower per frame group) and a short
+     prompt, ~8.2k tokens, 16 tokens: K1 and K4 on every layer of every
+     prefill chunk, K3 every step; each video request (run_video) also
+     prints the host seconds of its preprocessing and of the vision
+     cache's key and the prefix cache's salt, and the tower's device
+     ms.  Then one 28-layer K3 step and its plain version are timed on the loaded model
      (beside the times of the design that took its offset from the host).
      Requests (g) and (h) each load their own model with
      MLX_VLM_TPU_RUNTIME_QUANT=exact, so every linear and the lm_head run
@@ -241,12 +251,14 @@ Phases (any failure exits non-zero):
      Then Qwen2.5-VL-7B (the Qwen2-VL-7B checkpoint's language model and
      its own 32-block windowed tower), default w4grp: (n1) a 448x448
      image request of 100 tokens (K1 on the prefill, K3 every decode
-     step), (n2) `batch_generate` of (i)'s prompts, (n3) one image chat
+     step), (w2) a 448x448 image and a 16-frame 448x448 clip, 32 tokens,
+     (n2) `batch_generate` of (i)'s prompts, (n3) one image chat
      through the server; and Qwen3-VL-8B (36 layers, the 27-block
      deepstack tower) loaded exact: (q1) an image request, (q2) an image
-     and a ~8.5k-token prompt (K4 on every layer of every chunk), (q3)
+     and a ~8.5k-token prompt (K4 on every layer of every chunk), (w3) a
+     16-frame 448x448 clip with its timestamps, 32 tokens, (q3)
      `batch_generate` of a text and an image prompt admitted together
-     (rows of embedding widths D and 4D); and Qwen3-VL-30B-A3B (12 of
+     (rows of embedding widths D and 4D); and Qwen3-VL-30B-A3B (6 of
      its 48 layers of 128 experts, top-8, the 27-block tower, random 4-bit
      weights with 8-bit routers) in its default mode: (u1) an image request of 64
      tokens, (u2) (i)'s prompts through `batch_generate`, (u3) an image
@@ -1879,6 +1891,52 @@ def _image(size: int) -> np.ndarray:
         0, 256, (size, size, 3), dtype=np.uint8)
 
 
+def _clip(n_frames: int, size: int) -> np.ndarray:
+    """A seeded clip of `n_frames` uint8 size x size frames
+    (utils/testing.py `synthetic_video`)."""
+    from mlx_vlm_tpu_torch.utils.testing import synthetic_video
+
+    return synthetic_video(n_frames, size, seed=SEED + 11 + n_frames)
+
+
+VIDEO_TRIPLE = "<|vision_start|><|video_pad|><|vision_end|>"
+# the frames' rate: transformers' Qwen2.5-VL default, so one frame group
+# spans 1 s (Qwen2.5-VL's times step by tokens_per_second = 2 a group)
+VIDEO_FPS = 2.0
+
+
+def video_prompt(proc, cfg, text: str, frames, with_image: bool) -> str:
+    """The chat prompt of a clip: apply_chat_template's video message, or
+    with an image an image message whose text opens with the video's
+    start / pad / end triple (the image's tokens first)."""
+    from mlx_vlm_tpu_torch import apply_chat_template
+
+    if with_image:
+        return apply_chat_template(proc, cfg, VIDEO_TRIPLE + text,
+                                   num_images=1)
+    return apply_chat_template(proc, cfg, text, video=frames, fps=VIDEO_FPS,
+                               num_images=0)
+
+
+def video_inputs(proc, cfg, text: str, frames, image=None) -> dict:
+    """prepare_inputs' arrays of a clip (and an image before it)."""
+    from mlx_vlm_tpu_torch.utils.processing import prepare_inputs
+
+    return prepare_inputs(proc, video_prompt(proc, cfg, text, frames,
+                                             image is not None),
+                          images=image, videos=frames, fps=VIDEO_FPS)
+
+
+def phase3_clip(proc) -> np.ndarray:
+    """Phase 3's clip: 4 frames of 112 x 112 (two frame groups of 8 x 8
+    patches at patch 14), so that the CPU references take seconds; at
+    Qwen3-VL's patch 16, 128 x 128, the nearest size that its processor
+    takes without a resize (a multiple of 32)."""
+    ip = proc.image_processor
+    factor = ip.patch_size * ip.merge_size
+    return _clip(4, factor * math.ceil(112 / factor))
+
+
 def counters() -> list:
     """Every kernel's launch counter (dicts of name -> count)."""
     from mlx_vlm_tpu_torch.ops import flash_attention as fa
@@ -1978,9 +2036,10 @@ class fold_once:
 
 
 # Qwen3-VL-30B-A3B's decoder layers in phase 4: its published 48 cut to
-# 12, so that the run, with the llama family added, stays near 1050 s of
-# its 1200 s limit; phase 3 holds 2 of them to the CPU
-MOE_LAYERS = 12
+# 12 when the llama family came, then to 6 when video came (the run took
+# 1045.9 s of its 1200 s limit at 12), so that it stays near 950 s;
+# phase 3 holds 2 of them to the CPU
+MOE_LAYERS = 6
 
 
 def family_checkpoints() -> dict:
@@ -1993,8 +2052,9 @@ def family_checkpoints() -> dict:
     SEED + 6), "qwen3_vl_8b" (seed SEED + 7), "qwen3_vl_moe_30b_a3b"
     (Qwen3-VL-30B-A3B at MOE_LAYERS decoder layers, its 128 experts a layer
     in the mlx fused layout and its routers at 8 bits under per-path
-    entries, seed SEED + 8), "llama_3_1_8b" (seed SEED + 9) and
-    "llava_1_5_7b" (seed SEED + 10).  Each is (config, weights)."""
+    entries, seed SEED + 8), "llama_3_1_8b" (seed SEED + 9),
+    "llava_1_5_7b" (seed SEED + 10) and "qwen2_vl_7b_8bit" (Qwen2-VL-7B at
+    8 bits, request (h)'s, seed SEED + 3).  Each is (config, weights)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mlx_vlm_tpu_torch.utils.testing import (is_vision_key,
@@ -2022,6 +2082,8 @@ def family_checkpoints() -> dict:
                                                     seed=SEED + 9),
         "llava_1_5_7b": lambda: mlx_int4_checkpoint(llava_1_5_7b_config(),
                                                     seed=SEED + 10),
+        "qwen2_vl_7b_8bit": lambda: mlx_quantized_checkpoint(
+            qwen2_vl_7b_config(), bits=8, seed=SEED + 3),
     }
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
@@ -2033,7 +2095,7 @@ def family_checkpoints() -> dict:
     out["qwen2_5_vl_7b"] = (cfg25, {**lm, **vision})
     print(f"  checkpoints (Qwen2-VL-7B, Qwen2.5-VL-7B's vision tower, "
           f"Qwen3-VL-8B, Qwen3-VL-30B-A3B at {MOE_LAYERS} layers, "
-          f"Llama-3.1-8B, LLaVA-1.5-7B) built in "
+          f"Llama-3.1-8B, LLaVA-1.5-7B, Qwen2-VL-7B at 8 bits) built in "
           f"{time.perf_counter() - t0:.1f} s on {len(builds)} threads",
           flush=True)
     return out
@@ -2570,6 +2632,37 @@ def spec_replay_matches_eager(model) -> bool:
     return ok and same and counts_ok
 
 
+# teacher-forced steps of phase 3's video prompts
+VIDEO_STEPS = 4
+
+
+def video_parity(gpu, videos: dict, refs: dict, family: str, ref_dtype: str,
+                 want: dict) -> bool:
+    """Each of `videos` (name -> prepare_inputs' arrays) on the card
+    (bf16, kernels), teacher-forced with its CPU reference's tokens
+    (`refs`: name -> (logits, tokens)), held to it by the parity rule, its
+    launches to `want`."""
+    all_ok = True
+    for name, inputs in videos.items():
+        ref, toks = refs[name]
+        reset_counts()
+        got, _ = teacher_forced_logits(gpu, inputs, forced=toks,
+                                       n_steps=VIDEO_STEPS)
+        counts = read_counts()
+        ok, err, tol, n_margin = parity_rule(ref, got)
+        grids = {k: inputs[k].tolist() for k in ("image_grid_thw",
+                                                "video_grid_thw")
+                 if k in inputs}
+        print(f"  {family}, {name} (4 frames): prompt "
+              f"{inputs['input_ids'].shape[1]} tokens, grids {grids}; vs "
+              f"the CPU in {ref_dtype}: max|cuda - cpu| = {err:.4e}, tol "
+              f"{tol:.4e}; argmax checked on {n_margin}/{VIDEO_STEPS} steps; "
+              f"launches {counts} (want {want}) "
+              f"{'ok' if ok and counts == want else 'MISMATCH'}", flush=True)
+        all_ok = all_ok and ok and counts == want
+    return all_ok
+
+
 # (kv_bits, MLX_VLM_TPU_TQ_SCHEME, the kernel each decode step runs,
 # launches per layer and step, the CPU reference's dtype, teacher-forced
 # steps).  The bf16 cache is held to an f32 CPU run.  A quantized cache is
@@ -2612,8 +2705,12 @@ def phase_slice_parity(ckpt: tuple) -> bool:
     prompt = apply_chat_template(proc, cfg, "What is in this image?",
                                  num_images=1)
     inputs = prepare_inputs(proc, prompt, images=_image(224))
+    clip = phase3_clip(proc)
+    videos = {"a video": video_inputs(proc, cfg, "What happens?", clip),
+              "an image and a video": video_inputs(
+                  proc, cfg, "Compare them.", clip, _image(224))}
     lap("checkpoint")
-    refs, batch_refs, route = {}, {}, True
+    refs, batch_refs, route, video_refs = {}, {}, True, {}
     for dtype in ("float32", "bfloat16"):
         cpu = load_model_from_weights(cfg, weights, getattr(torch, dtype),
                                       "cpu")
@@ -2623,6 +2720,10 @@ def phase_slice_parity(ckpt: tuple) -> bool:
                 with env_vars(MLX_VLM_TPU_TQ_SCHEME=tq):
                     refs[kv_bits, tq] = teacher_forced_logits(
                         cpu, inputs, n_steps=n_steps, kv_bits=kv_bits)
+        if dtype == "float32":
+            for name, vin in videos.items():
+                video_refs[name] = teacher_forced_logits(
+                    cpu, vin, n_steps=VIDEO_STEPS)
         lap(f"CPU {dtype} load and single-stream references")
         for kv_bits, _, _, ref_dtype in BATCH_CASES:
             if ref_dtype == dtype:
@@ -2654,6 +2755,10 @@ def phase_slice_parity(ckpt: tuple) -> bool:
               f"{'ok' if ok and n == want else 'MISMATCH'}", flush=True)
         all_ok = all_ok and ok and n == want
     lap("card single-stream cases")
+    all_ok = video_parity(gpu, videos, video_refs, "Qwen2-VL", "float32",
+                          family_want("w4grp", gpu.language_model,
+                                      VIDEO_STEPS)) and all_ok
+    lap("card video cases")
     # the batch (K2 at M = 3, per-row cursors) held to the CPU, teacher-
     # forced with the CPU's greedy tokens, every step eager on the card
     for kv_bits, kernel, per_layer, ref_dtype in BATCH_CASES:
@@ -2741,6 +2846,11 @@ FAMILY_CASES = (
     ("LLaVA-1.5-7B, exact (K5)", "llava_1_5_7b", 2, "exact",
      "QuantizedTensor", "float32", 4),
 )
+# the FAMILY_CASES whose models also take phase 3's clip (label -> the
+# family's name): Qwen2.5-VL's window tower and scaled times, Qwen3-VL's
+# timestamped frame groups
+VIDEO_FAMILY_CASES = {"Qwen2.5-VL, w4grp (K3 decode)": "Qwen2.5-VL",
+                      "Qwen3-VL, w8chan": "Qwen3-VL"}
 # each checkpoint's phase-3 image: the Qwen-VL line's 224 x 224 (no
 # resize at patch 14 or 16), LLaVA's 336 x 336 (its crop size, so the
 # processor needs no PIL), none for the text-only Llama
@@ -2814,6 +2924,13 @@ def phase_family_parity(ckpts: dict) -> bool:
             inputs = prepare_inputs(proc, prompt, images=None if size is None
                                     else _image(size))
             ref, toks = teacher_forced_logits(cpu, inputs, n_steps=n_steps)
+            videos = {}
+            if label in VIDEO_FAMILY_CASES:
+                videos = {"a video": video_inputs(proc, cfg, "What happens?",
+                                                  phase3_clip(proc))}
+                video_refs = {k: teacher_forced_logits(cpu, v,
+                                                       n_steps=VIDEO_STEPS)
+                              for k, v in videos.items()}
             del cpu
             t1 = time.perf_counter()
             gpu = load_model_from_weights(cfg, weights, torch.bfloat16,
@@ -2846,6 +2963,11 @@ def phase_family_parity(ckpts: dict) -> bool:
               f"{t1 - t0:.1f} s, card {time.perf_counter() - t1:.1f} s "
               f"{'ok' if ok and counts_ok and layout_ok else 'MISMATCH'}",
               flush=True)
+        if videos:
+            with env_vars(MLX_VLM_TPU_RUNTIME_QUANT=mode):
+                all_ok = video_parity(
+                    gpu, videos, video_refs, VIDEO_FAMILY_CASES[label],
+                    ref_dtype, family_want(label, lm, VIDEO_STEPS)) and all_ok
         with env_vars(MLX_VLM_TPU_RUNTIME_QUANT=mode):
             replay_ok = replay_matches_eager(gpu, label)
         all_ok = all_ok and ok and counts_ok and layout_ok and replay_ok
@@ -3009,25 +3131,30 @@ def print_profile(run, what: str = "replays") -> None:
 
 
 def run_request(model, proc, cfg, name: str, route: str, text: str, image,
-                n_img: int, max_tokens: int, kv_bits, env: dict) -> tuple:
+                n_img: int, max_tokens: int, kv_bits, env: dict,
+                video=None, prompt=None) -> tuple:
     """One greedy request through stream_generate with `env` set, the
     kernels' launch counters set to 0 just before it and read just after;
     prints its metrics (with the decode loop's first-step and capture
     seconds, graph replays and host fetches, which must be one per block
     and one for the first token) and returns (launch counts, generated
-    tokens, prompt tokens, decode steps run)."""
+    tokens, prompt tokens, decode steps run).  `video` (frames at
+    VIDEO_FPS) goes to stream_generate with `prompt`, the chat prompt that
+    holds its token."""
     import torch
 
     from mlx_vlm_tpu_torch import apply_chat_template, stream_generate
     from mlx_vlm_tpu_torch.generate import ar
 
-    prompt = apply_chat_template(proc, cfg, text, num_images=n_img)
+    if prompt is None:
+        prompt = apply_chat_template(proc, cfg, text, num_images=n_img)
     torch.cuda.reset_peak_memory_stats()
     times, last = [], None
     with env_vars(**env):
         reset_counts()
         tic = time.perf_counter()
         for res in stream_generate(model, proc, prompt, image=image,
+                                   video=video, fps=VIDEO_FPS,
                                    max_tokens=max_tokens, kv_bits=kv_bits):
             times.append(time.perf_counter())
             if not np.all(np.isfinite(res.logprobs)):
@@ -5109,6 +5236,19 @@ def phase_main_path(ckpts: dict) -> dict:
         if kv_kernel:
             want[kv_kernel] = n_layers * steps
         expect(name, counts, want, total)
+    # (w1): a 64-frame clip (the JAX package's max_frames) makes the
+    # prompt ~8.2k tokens, so the cache reaches 8192 rows: K4 on every
+    # layer of every prefill chunk, K1 on its linears, K3 every step
+    name = "(w1) 64-frame 448x448 clip + short prompt"
+    counts, n, S, steps = run_video(
+        model, proc, cfg, name, "K3", "Describe what happens in the video.",
+        _clip(64, 448), None, 16)
+    chunks = prefill_chunks(S, 16)
+    want = {k: 0 for k in counts}
+    want.update(fused_decode=steps, int4_matvec=1,
+                int4_matmul=7 * n_layers * chunks,
+                flash_attention=n_layers * chunks)
+    expect(name, counts, want, total)
     del os.environ["MLX_VLM_TPU_FUSED_DECODE"]
     decide_fused_decode(model)
     time_full_step(model)
@@ -5122,7 +5262,7 @@ def phase_main_path(ckpts: dict) -> dict:
     run_speculative(model, cfg, total)
     del model
     torch.cuda.empty_cache()
-    exact_requests(proc, cfg, weights, total)
+    exact_requests(proc, cfg, weights, ckpts.pop("qwen2_vl_7b_8bit"), total)
     run_qwen2_5_vl(ckpts["qwen2_5_vl_7b"], total)
     run_qwen3_vl(ckpts["qwen3_vl_8b"], total)
     run_qwen3_vl_moe(ckpts["qwen3_vl_moe_30b_a3b"], total)
@@ -5211,6 +5351,51 @@ def exact_batch_want(counts: dict, L: int, st: dict) -> dict:
     return want
 
 
+def run_video(model, proc, cfg, name: str, route: str, text: str,
+              frames, image, max_tokens: int) -> tuple:
+    """A clip (and an image before it) through run_request, after its host
+    work is timed alone: prepare_inputs (the preprocessing: the frames'
+    patches, the prompt's tokens), the vision cache's key and the prefix
+    cache's salt of its arrays (the two hashes).  After the request the
+    vision tower runs again on the clip's patches, already on the card,
+    between CUDA events (two runs; each waits once on the host, where the
+    tower reads its frame groups' layout).  Returns run_request's tuple."""
+    import torch
+
+    from mlx_vlm_tpu_torch.apc import prompt_key
+    from mlx_vlm_tpu_torch.utils.processing import prepare_inputs
+    from mlx_vlm_tpu_torch.vision_cache import VisionFeatureCache
+
+    prompt = video_prompt(proc, cfg, text, frames, image is not None)
+    t0 = time.perf_counter()
+    inputs = prepare_inputs(proc, prompt, images=image, videos=frames,
+                            fps=VIDEO_FPS)
+    t1 = time.perf_counter()
+    pv, grid = inputs["pixel_values_videos"], inputs["video_grid_thw"]
+    VisionFeatureCache.key(pv, grid)
+    t2 = time.perf_counter()
+    prompt_key(model, inputs)
+    t3 = time.perf_counter()
+    out = run_request(model, proc, cfg, name, route, text, image,
+                      int(image is not None), max_tokens, None, {},
+                      video=frames, prompt=prompt)
+    dev = model.device
+    aux = {k: torch.from_numpy(np.asarray(v)).to(dev)
+           for k, v in model.vision_aux_inputs(grid).items()}
+    pix = torch.from_numpy(pv).to(dev)
+    run = getattr(model, "vision_features", None) or model.tower_features
+    tower_ms = _events_ms(lambda: run(model.params, pix, **aux), 2)
+    del pix, aux
+    print(f"    {name}: {len(frames)} frames of {frames.shape[2]}x"
+          f"{frames.shape[1]}, video grid {grid.tolist()} ({pv.shape[0]} "
+          f"patches, {pv.nbytes / 1e6:.1f} MB of pixel_values_videos); "
+          f"host: preprocessing {t1 - t0:.4f} s, vision-cache key "
+          f"{t2 - t1:.4f} s, prefix-cache salt {t3 - t2:.4f} s; the vision "
+          f"tower on the clip {tower_ms:.4f} ms on the device (CUDA events, "
+          f"mean of 2)", flush=True)
+    return out
+
+
 def run_qwen2_5_vl(ckpt: tuple, total: dict) -> None:
     """Qwen2.5-VL-7B at full width and depth (28 decoder layers, the 32-block
     windowed tower), default w4grp: (n1) an image request of 100 tokens
@@ -5232,6 +5417,14 @@ def run_qwen2_5_vl(ckpt: tuple, total: dict) -> None:
     want = {k: 0 for k in counts}
     want.update(fused_decode=steps, int4_matvec=1,
                 int4_matmul=7 * L * prefill_chunks(S, 100))
+    expect(name, counts, want, total)
+    name = "(w2) Qwen2.5-VL-7B, image 448x448 + 16-frame 448x448 clip"
+    counts, n, S, steps = run_video(
+        model, proc, cfg, name, "K3", "Compare the image with the video.",
+        _clip(16, 448), _image(448), 32)
+    want = {k: 0 for k in counts}
+    want.update(fused_decode=steps, int4_matvec=1,
+                int4_matmul=7 * L * prefill_chunks(S, 32))
     expect(name, counts, want, total)
     run_batch_generate(model, proc, cfg, total,
                        name="(n2) Qwen2.5-VL-7B batch_generate")
@@ -5277,6 +5470,12 @@ def run_qwen3_vl(ckpt: tuple, total: dict) -> None:
          "Describe this image in detail.", 448, 32, None),
         ("(q2) Qwen3-VL-8B exact, image + ~8.5k-token prompt", LONG_TEXT,
          448, 16, None)), total)
+    name = "(w3) Qwen3-VL-8B exact, 16-frame 448x448 clip with timestamps"
+    counts, n, S, steps = run_video(
+        model, proc, cfg, name, "per-linear, qmatmul_int4",
+        "What happens in this video?", _clip(16, 448), None, 32)
+    expect(name, counts, exact_want(counts, L, prefill_chunks(S, 32), 1,
+                                    steps), total)
     name = "(q3) Qwen3-VL-8B exact, batch_generate: a text and an image row"
     prompts = [apply_chat_template(proc, cfg, t, num_images=k) for t, k in (
         ("Write a short story about a lighthouse.", 0),
@@ -5490,17 +5689,17 @@ def run_llava(ckpt: tuple, total: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def exact_requests(proc, cfg4: dict, weights4: dict, total: dict) -> None:
+def exact_requests(proc, cfg4: dict, weights4: dict, ckpt8: tuple,
+                   total: dict) -> None:
     """Requests (g) and (h): each on its own full-width model loaded with
     MLX_VLM_TPU_RUNTIME_QUANT=exact, so that every decoder linear (7 per
     layer) runs K5 for each prefill chunk and each decode step, and the
     lm_head once per token; no other weight kernel and no quantized-KV
-    kernel runs."""
+    kernel runs.  (g) takes the 4-bit checkpoint, (h) `ckpt8`, the 8-bit
+    one that `family_checkpoints` built."""
     import torch
 
     from mlx_vlm_tpu_torch.utils.loader import load_model_from_weights
-    from mlx_vlm_tpu_torch.utils.testing import (mlx_quantized_checkpoint,
-                                                 qwen2_vl_7b_config)
 
     zero = ("int4_matmul", "int4_matvec", "fused_decode",
             "int4_kv_attention", "tq_kv_attention", "tq_kv_attention_split")
@@ -5513,12 +5712,7 @@ def exact_requests(proc, cfg4: dict, weights4: dict, total: dict) -> None:
     ]
     for name, bits, text, image, n_img, max_tokens, kv_bits, scheme in \
             requests:
-        t0 = time.perf_counter()
-        if bits == 4:
-            cfg, weights = cfg4, weights4
-        else:
-            cfg, weights = mlx_quantized_checkpoint(
-                qwen2_vl_7b_config(), bits=bits, seed=SEED + 3)
+        cfg, weights = (cfg4, weights4) if bits == 4 else ckpt8
         t1 = time.perf_counter()
         with env_vars(MLX_VLM_TPU_RUNTIME_QUANT="exact"):
             model = load_model_from_weights(cfg, weights, torch.bfloat16,
@@ -5531,7 +5725,7 @@ def exact_requests(proc, cfg4: dict, weights4: dict, total: dict) -> None:
         if (type(head).__name__ != "QuantizedTensor" or head.bits != bits
                 or model.language_model.fused_decode):
             fail(f"{name}: the model did not load exact {bits}-bit weights")
-        print(f"  {name}: checkpoint built in {t1 - t0:.1f} s, loaded in "
+        print(f"  {name}: checkpoint built in phase 3, loaded in "
               f"{t2 - t1:.1f} s; device memory "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
         counts, n, S, steps = run_request(

@@ -8,7 +8,7 @@ the reference's, byte for byte.
 
 Block mode (a plain `KVCache` / `BatchKVCache`): a prompt's K/V rows are
 cut into blocks of `block_size` tokens, keyed by a chained sha256 of the
-tokens and a salt (the model and the image: `semantic_extra_hash`), and
+tokens and a salt (the model and the media: `semantic_extra_hash`), and
 kept in host RAM as numpy arrays [L, H, block_size, D].  A block of a
 bfloat16 cache is a uint16 array of the bf16 bits (the way the loader reads
 BF16, with no `ml_dtypes`): its bytes equal the reference's bf16 block's.
@@ -53,28 +53,36 @@ def semantic_extra_hash(
     images: Optional[Sequence[Any]] = None,
     tenant: str = "",
 ) -> str:
-    """Multimodal-aware salt: the same tokens with another image must not
-    collide."""
+    """Multimodal-aware salt: the same tokens with other media must not
+    collide.  Every byte of each array and its shape go in; the reference
+    reads the first 64 KiB of each (so two clips or screenshots that open
+    alike collide there), and on arrays within those 64 KiB the two salts
+    are equal."""
     h = hashlib.sha256()
     h.update(model_key.encode())
     h.update(tenant.encode())
     for im in images or []:
         arr = np.asarray(im)
-        h.update(arr.tobytes()[:65536])
+        h.update(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
         h.update(str(arr.shape).encode())
     return h.hexdigest()
 
 
+# prepare_inputs' media arrays that a prompt's salt reads, in this order
+MEDIA_KEYS = ("pixel_values", "image_grid_thw", "pixel_values_videos",
+              "video_grid_thw")
+
+
 def prompt_key(model, inputs: dict) -> Tuple[List[int], str]:
-    """A prompt's token ids and its salt (`semantic_extra_hash` of the model
-    type and the image's pixels), as the reference's stream_generate
-    (dispatch.py:156-160) and server (engine.py:280-289) compute them from
-    prepare_inputs' arrays."""
-    pixel_values = inputs.get("pixel_values")
+    """A prompt's token ids and its salt: `semantic_extra_hash` of the model
+    type and prepare_inputs' media arrays (MEDIA_KEYS: the image's pixels
+    and grid, the video's pixels and grid), where the reference's
+    stream_generate (dispatch.py:156-160) and server (engine.py:280-289)
+    hash the image's pixels alone, and no video."""
     extra = semantic_extra_hash(
         model_key=str(getattr(model, "config_dict", {}).get("model_type", "")),
-        images=[np.asarray(pixel_values)] if pixel_values is not None
-        else None)
+        images=[np.asarray(inputs[k]) for k in MEDIA_KEYS
+                if inputs.get(k) is not None] or None)
     return np.asarray(inputs["input_ids"])[0].tolist(), extra
 
 

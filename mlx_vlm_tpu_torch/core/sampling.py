@@ -1,19 +1,19 @@
 """Samplers and logits processors.
 
-Port of mlx_vlm_tpu/core/sampling.py (make_sampler :94,
-make_batched_sampler :137, batched_filter_logits :159,
+Port of mlx_vlm_tpu/core/sampling.py (the filters :29-91, make_sampler
+:94, make_batched_sampler :137, batched_filter_logits :159,
 batched_filtered_probs :188, make_logits_processors :210) for
-temperature, top-k, top-p and min-p sampling, the same filters with
-per-row parameters (continuous batching), and the logit-bias and
-repetition-penalty processors.
+temperature, top-k, top-n-sigma, top-p, min-p, typical-p and XTC
+sampling, the top-k / top-p / min-p filters with per-row parameters
+(continuous batching), and the logit-bias, repetition-penalty and
+presence / frequency-penalty processors.
 A sampler is `(logits [B, V] f32, generator) -> tokens [B] int64`, a
 batched sampler `(logits, params, generator)` with `params` a dict of [B]
 device tensors; random draws come from the `torch.Generator` it is given.
 Every sampler and processor built here reads nothing on the host and
 uploads nothing after its first call on a device, so a decode step that
 runs them can be captured in a CUDA graph (generate/ar.py,
-generate/batch.py).  Presence/frequency penalties and the other filters
-(top-n-sigma, typical-p, XTC) are not ported.
+generate/batch.py).  XTC draws its coin from the sampler's generator.
 """
 
 from __future__ import annotations
@@ -52,12 +52,60 @@ def _apply_min_p(logits: torch.Tensor, min_p: float) -> torch.Tensor:
     return logits.masked_fill(probs < min_p * pmax, _NEG_INF)
 
 
+def _apply_top_n_sigma(logits: torch.Tensor, n_sigma: float) -> torch.Tensor:
+    """Keep the logits within n_sigma standard deviations of the largest:
+    the population deviation over the whole row, -inf entries counted as 0,
+    as the reference computes it."""
+    mx = logits.amax(dim=-1, keepdim=True)
+    finite = torch.where(torch.isfinite(logits), logits,
+                         torch.zeros_like(logits))
+    std = finite.std(dim=-1, keepdim=True, correction=0)
+    return logits.masked_fill(logits < mx - n_sigma * std, _NEG_INF)
+
+
+def _apply_typical_p(logits: torch.Tensor, typical_p: float) -> torch.Tensor:
+    """Locally typical sampling: keep the tokens whose surprisal is closest
+    to the entropy until their mass reaches typical_p.  Ranks come from a
+    stable sort, as `jnp.argsort`'s: tied deviations rank by index."""
+    lp = torch.log_softmax(logits, dim=-1)
+    p = torch.exp(lp)
+    ent = -(p * torch.where(torch.isfinite(lp), lp,
+                            torch.zeros_like(lp))).sum(-1, keepdim=True)
+    dev = (-lp - ent).abs()
+    order = torch.sort(dev, dim=-1, stable=True).indices
+    p_sorted = p.gather(-1, order)
+    cum = torch.cumsum(p_sorted, dim=-1)
+    keep_sorted = (cum - p_sorted) < typical_p
+    keep = torch.empty_like(keep_sorted).scatter_(-1, order, keep_sorted)
+    return logits.masked_fill(~keep, _NEG_INF)
+
+
+def _apply_xtc(logits: torch.Tensor, probability: float, threshold: float,
+               generator) -> torch.Tensor:
+    """Exclude top choices: with probability `probability` a row drops every
+    token whose probability reaches `threshold` except the least likely of
+    them (nothing when fewer than two reach it).  The row's coin is a
+    uniform draw from `generator` on the logits' device."""
+    p = torch.softmax(logits, dim=-1)
+    above = p >= threshold
+    n_above = above.sum(dim=-1, keepdim=True)
+    min_above = torch.where(above, p, torch.full_like(p, float("inf"))
+                            ).amin(dim=-1, keepdim=True)
+    coin = torch.rand((logits.shape[0], 1), generator=generator,
+                      device=logits.device)
+    drop = above & (p > min_above) & (coin < probability) & (n_above > 1)
+    return logits.masked_fill(drop, _NEG_INF)
+
+
 def make_sampler(temp: float = 0.0, top_p: float = 0.0, min_p: float = 0.0,
-                 top_k: int = -1) -> Callable:
+                 top_k: int = -1, top_n_sigma: float = -1.0,
+                 typical_p: float = 0.0, xtc_probability: float = 0.0,
+                 xtc_threshold: float = 0.1) -> Callable:
     """Build `(logits [B, V], generator) -> tokens [B]`.
 
     temp == 0 is greedy (argmax).  Otherwise filters apply in the
-    reference's order (top_k -> top_p -> min_p), then a categorical draw at
+    reference's order (top_k -> top_n_sigma -> top_p -> min_p -> typical_p
+    -> xtc), then a categorical draw at
     temperature `temp` from the generator, as an exponential race
     argmax(p / E) with E ~ Exp(1): `torch.multinomial`'s own one-sample
     draw (the same tokens from the same generator), without its check of
@@ -71,10 +119,16 @@ def make_sampler(temp: float = 0.0, top_p: float = 0.0, min_p: float = 0.0,
         x = logits.float()
         if top_k > 0:
             x = _apply_top_k(x, top_k)
+        if top_n_sigma > 0:
+            x = _apply_top_n_sigma(x, top_n_sigma)
         if 0.0 < top_p < 1.0:
             x = _apply_top_p(x, top_p)
         if min_p > 0.0:
             x = _apply_min_p(x, min_p)
+        if 0.0 < typical_p < 1.0:
+            x = _apply_typical_p(x, typical_p)
+        if xtc_probability > 0.0:
+            x = _apply_xtc(x, xtc_probability, xtc_threshold, generator)
         return _race(torch.softmax(x / temp, dim=-1), generator)
 
     return sample
@@ -162,11 +216,17 @@ def batched_filtered_probs(logits: torch.Tensor,
 
 def make_logits_processors(logit_bias: Optional[dict] = None,
                            repetition_penalty: Optional[float] = None,
-                           repetition_context_size: int = 20):
+                           repetition_context_size: int = 20,
+                           presence_penalty: Optional[float] = None,
+                           frequency_penalty: Optional[float] = None):
     """Processors `(history [B, W] int64, logits [B, V]) -> logits`.
 
     `history` is a fixed-width ring of the last W generated tokens, padded
-    with -1."""
+    with -1.  The repetition penalty reads the last
+    `repetition_context_size` of them; the presence and frequency
+    penalties, as the reference's, the whole ring: each token's logit
+    less frequency_penalty times its count and presence_penalty if it
+    occurs."""
     processors = []
 
     if logit_bias:
@@ -202,5 +262,19 @@ def make_logits_processors(logit_bias: Optional[dict] = None,
             return torch.where(seen, penalized, lf).to(logits.dtype)
 
         processors.append(rep_proc)
+
+    if presence_penalty or frequency_penalty:
+        pp = presence_penalty or 0.0
+        fp = frequency_penalty or 0.0
+
+        def freq_proc(history, logits):
+            counts = torch.zeros(logits.shape, dtype=torch.float32,
+                                 device=logits.device)
+            counts.scatter_add_(1, history.clamp(min=0),
+                                (history >= 0).float())
+            lf = logits.float() - fp * counts - pp * (counts > 0).float()
+            return lf.to(logits.dtype)
+
+        processors.append(freq_proc)
 
     return processors

@@ -2,7 +2,9 @@
 
 Port of mlx_vlm_tpu/generate/cli.py, with the reference's flags and
 `--device` (the model loads onto the card unless `--device cpu` is
-given).  `--video` is taken, and stream_generate refuses it.
+given).  `--video` takes paths (read with cv2) and `--fps` the rate to
+sample them at; the prompt gets a video part for each, after the images'
+parts (the reference's prompt takes none, so its videos find no token).
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ def parse_arguments(argv=None):
     p.add_argument("--prompt", default="Describe this image.")
     p.add_argument("--image", nargs="*", default=None)
     p.add_argument("--video", nargs="*", default=None)
+    p.add_argument("--fps", type=float, default=None,
+                   help="frames a second to sample each --video at")
     p.add_argument("--max-tokens", type=int, default=256)
     p.add_argument("--temperature", "--temp", type=float, default=0.0)
     p.add_argument("--top-p", type=float, default=0.0)
@@ -33,22 +37,31 @@ def parse_arguments(argv=None):
 
 def main(argv=None):
     args = parse_arguments(argv)
-    from ..prompt_utils import apply_chat_template
+    from ..prompt_utils import (apply_chat_template, get_chat_template,
+                                get_message_json)
     from ..utils.loader import load
     from .dispatch import generate
 
     model, processor = load(args.model, device=args.device)
     n_images = len(args.image) if args.image else 0
-    prompt = apply_chat_template(
-        processor, getattr(model, "config_dict", {}), args.prompt,
-        num_images=max(n_images, 0),
-    )
+    config = getattr(model, "config_dict", {})
+    message = None
+    if args.video:  # a video family's message: video parts, then the text
+        message = get_message_json(config.get("model_type", ""), args.prompt,
+                                   video=args.video, fps=args.fps or 1)
+    if isinstance(message, dict) and isinstance(message["content"], list):
+        message["content"][:0] = [{"type": "image"}] * n_images
+        prompt = get_chat_template(processor, [message], True)
+    else:  # no video, or a model that refuses it in generate
+        prompt = apply_chat_template(processor, config, args.prompt,
+                                     num_images=max(n_images, 0))
     generate(
         model,
         processor,
         prompt,
         image=args.image,
         video=args.video,
+        fps=args.fps,
         max_tokens=args.max_tokens,
         temperature=args.temperature,
         top_p=args.top_p,

@@ -26,47 +26,68 @@ def device_peak_memory_gb(device) -> float:
     return torch.cuda.max_memory_allocated(device) / (1024**3)
 
 
+def media_features(model, pixel_values, grid_thw, vision_cache=None):
+    """The vision tower's features of one media array (an image's
+    `pixel_values` or a video's `pixel_values_videos`) with its grid
+    (None for LLaVA's CLIP pixels), on the model's device; its host-side
+    vision inputs (`vision_aux_inputs`) go to the tower as a whole, as
+    the reference passes them (generate/dispatch.py:118-140).  With a
+    `vision_cache` (vision_cache.VisionFeatureCache) and a model that has
+    `vision_features`, they are looked up by the array's content and
+    stored there on a miss, as the reference's server does
+    (mlx_vlm_tpu/server/engine.py:247-264); a model without it
+    (Qwen2.5-VL) runs its tower (`tower_features`) every time, as there."""
+    dev = torch.device(model.device or "cpu")
+    run = getattr(model, "vision_features", None)
+    key = None
+    if vision_cache is not None and run is not None:
+        key = vision_cache.key(pixel_values, grid_thw)
+        feats = vision_cache.get(key)
+        if feats is not None:
+            return feats
+    aux = {k: torch.from_numpy(np.asarray(v)).to(dev)
+           for k, v in model.vision_aux_inputs(grid_thw).items()}
+    pixels = torch.from_numpy(np.asarray(pixel_values)).to(dev)
+    feats = (run or model.tower_features)(model.params, pixels, **aux)
+    if key is not None:
+        vision_cache.put(key, feats)
+    return feats
+
+
 def embed_prompt(model, inputs: dict, vision_cache=None) -> tuple:
     """prepare_inputs' arrays -> (input embeddings [1, S, D] on the model's
-    device with any image merged by the vision tower (channel-packed
-    [1, S, D * (1 + n_ds)] for a Qwen3-VL image prompt), M-RoPE position
-    ids [3, 1, S], rope deltas [1, 1]).  The family's host-side vision
-    inputs (`vision_aux_inputs`) go to the tower as a whole, as the
-    reference passes them (generate/dispatch.py:118-140).  With a
-    `vision_cache` (vision_cache.VisionFeatureCache) and a model that has
-    `vision_features`, the tower's output is looked up by the image's
-    content and stored there on a miss, as the reference's server does
-    (mlx_vlm_tpu/server/engine.py:247-264); a model without it (Qwen2.5-VL)
-    runs its tower every time, as there.  An image processor without a
-    grid (LLaVA's CLIP processor: pixel_values [B, 3, H, W] and no
-    `image_grid_thw`) gives the family's vision inputs and the cache's key
-    a grid of None, and its model's positions take none."""
+    device with the image's and the video's features merged in at their
+    tokens (channel-packed [1, S, D * (1 + n_ds)] for a Qwen3-VL prompt
+    with media), M-RoPE position ids [3, 1, S], rope deltas [1, 1]).  Each
+    media array goes through the tower on its own (`media_features`, which
+    takes the vision cache): the image's `pixel_values`, the video's
+    `pixel_values_videos`.  The image's grid, the video's and
+    `second_per_grid_ts` go to `prepare_position_ids`.  The reference
+    embeds no video (ROADMAP's known faults in the reference).  An image
+    processor without a grid (LLaVA's CLIP processor: pixel_values
+    [B, 3, H, W] and no `image_grid_thw`) gives the family's vision inputs
+    and the cache's key a grid of None, and its model's positions take
+    none."""
     dev = torch.device(model.device or "cpu")
     input_ids = np.asarray(inputs["input_ids"])
     ids = torch.from_numpy(input_ids.astype(np.int64)).to(dev)
-    pixel_values = inputs.get("pixel_values")
-    grid_thw = None
-    if pixel_values is None:
-        embeds = model.get_input_embeddings(model.params, ids)
-    else:
-        if inputs.get("image_grid_thw") is not None:
-            grid_thw = np.asarray(inputs["image_grid_thw"])
-        aux = {k: torch.from_numpy(np.asarray(v)).to(dev)
-               for k, v in model.vision_aux_inputs(grid_thw).items()}
-        pixels = torch.from_numpy(np.asarray(pixel_values)).to(dev)
-        if vision_cache is None or not hasattr(model, "vision_features"):
-            embeds = model.get_input_embeddings(model.params, ids, pixels,
-                                                **aux)
-        else:
-            key = vision_cache.key(pixel_values, grid_thw)
-            feats = vision_cache.get(key)
-            if feats is None:
-                feats = model.vision_features(model.params, pixels, **aux)
-                vision_cache.put(key, feats)
-            embeds = model.get_input_embeddings(model.params, ids,
-                                                image_features=feats)
+    grid_thw = video_grid = None
+    if inputs.get("image_grid_thw") is not None:
+        grid_thw = np.asarray(inputs["image_grid_thw"])
+    feats = {}
+    if inputs.get("pixel_values") is not None:
+        feats["image_features"] = media_features(
+            model, inputs["pixel_values"], grid_thw, vision_cache)
+    if inputs.get("pixel_values_videos") is not None:
+        video_grid = np.asarray(inputs["video_grid_thw"])
+        feats["video_features"] = media_features(
+            model, inputs["pixel_values_videos"], video_grid, vision_cache)
+    embeds = model.get_input_embeddings(model.params, ids, **feats)
+    kw = {}
+    if inputs.get("second_per_grid_ts") is not None:
+        kw["second_per_grid_ts"] = np.asarray(inputs["second_per_grid_ts"])
     position_ids, rope_deltas = model.prepare_position_ids(
-        input_ids, grid_thw, None, inputs.get("attention_mask"))
+        input_ids, grid_thw, video_grid, inputs.get("attention_mask"), **kw)
     return embeds, position_ids, rope_deltas
 
 

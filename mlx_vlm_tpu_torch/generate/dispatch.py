@@ -1,15 +1,19 @@
 """High-level generate / stream_generate.
 
 Port of mlx_vlm_tpu/generate/dispatch.py (stream_generate :43, generate
-:309) for the autoregressive image + text path.  `kv_bits` picks a
+:309) for the autoregressive image, video and text path.  `kv_bits` picks a
 quantized KV cache (generate/ar.py make_cache); `block_size` is the number
 of decode steps per host fetch (generate/ar.py `DecodeBlocks`: on the card
 each step after the first replays one captured CUDA graph).  `apc`
 reuses a cached prompt prefix (the reference's :148-194) and
 `vision_cache` the vision tower's features.  `draft_model` decodes
 speculatively with a vanilla drafter (speculative/utils.py
-`speculative_generate_step`, the reference's :223-241).  The arguments
-of paths that are not ported (audio, video) raise NotImplementedError.
+`speculative_generate_step`, the reference's :223-241).  `video` (a
+path, which needs cv2, or frames; `fps` their rate) goes to the vision
+tower and the M-RoPE ids of the Qwen-VL line (generate/common.py
+`embed_prompt`), where the reference's embedding drops it (ROADMAP's
+known faults in the reference); a model without a video token refuses
+it, and `audio` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -112,8 +116,25 @@ def stream_generate(
     vision_cache=None,
     draft_model=None,
     num_draft_tokens: int = 4,
+    fps=None,
+    top_n_sigma: float = -1.0,
+    typical_p: float = 0.0,
+    xtc_probability: float = 0.0,
+    xtc_threshold: float = 0.1,
+    presence_penalty: Optional[float] = None,
+    frequency_penalty: Optional[float] = None,
 ) -> Generator[GenerationResult, None, None]:
     """Stream GenerationResult chunks, one per generated token.
+
+    `video` is one video or a list of them (utils/processing.py
+    `prepare_inputs`): a path or frames (a uint8 [T, H, W, 3] array or a
+    list of frames), `fps` a number or one per video (a path's sampling
+    rate, or the rate of frames given).  The prompt holds a
+    <|vision_start|><|video_pad|><|vision_end|> for each video
+    (apply_chat_template(..., video=...) writes one); a model without a
+    video token raises NotImplementedError.  `top_n_sigma`, `typical_p`,
+    `xtc_probability` / `xtc_threshold` and the presence / frequency
+    penalties are core/sampling.py's.
 
     `vision_cache` (vision_cache.VisionFeatureCache) keeps the vision
     tower's features by image content.  `apc` (apc.APCManager) reuses the
@@ -131,11 +152,17 @@ def stream_generate(
     sampling arguments, as the reference's branch does (:223-241): that
     branch passes no `kv_bits`, no prompt cache, no logits processors and
     no `block_size`, so with a drafter both caches are bf16 and `apc`,
-    `kv_bits`, `kv_group_size`, `block_size`, `logit_bias` and
-    `repetition_penalty` are ignored (no APC lookup is made)."""
-    for name, val in (("audio", audio), ("video", video)):
-        if val is not None:
-            raise NotImplementedError(f"{name} is not ported")
+    `kv_bits`, `kv_group_size`, `block_size`, `logit_bias`,
+    `repetition_penalty`, the presence / frequency penalties and the
+    filters past top-k / top-p / min-p are ignored (no APC lookup is
+    made)."""
+    if audio is not None:
+        raise NotImplementedError("audio is not ported")
+    if video is not None and getattr(getattr(model, "config", None),
+                                     "video_token_id", None) is None:
+        raise NotImplementedError(
+            f"{type(model).__module__} takes no video: its config has no "
+            f"video token")
     if draft_model is not None:
         from ..speculative.utils import validate_drafter_compatibility
 
@@ -143,7 +170,8 @@ def stream_generate(
         apc = kv_bits = None
     check_kv_bits(kv_bits)
 
-    inputs = prepare_inputs(processor, prompt, images=image)
+    inputs = prepare_inputs(processor, prompt, images=image, videos=video,
+                            fps=fps)
     input_ids = np.asarray(inputs["input_ids"])
     dev = model.device
 
@@ -156,9 +184,11 @@ def stream_generate(
             apc, model, inputs, embeds.dtype, max_tokens, block_size,
             kv_bits, kv_group_size)
 
-    sampler = make_sampler(temperature, top_p, min_p, top_k)
+    sampler = make_sampler(temperature, top_p, min_p, top_k, top_n_sigma,
+                           typical_p, xtc_probability, xtc_threshold)
     processors = make_logits_processors(logit_bias, repetition_penalty,
-                                        repetition_context_size)
+                                        repetition_context_size,
+                                        presence_penalty, frequency_penalty)
     eos_ids = _get_eos_ids(model, processor)
     detok = make_detokenizer(getattr(processor, "tokenizer", processor))
 

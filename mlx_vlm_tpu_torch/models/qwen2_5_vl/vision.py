@@ -7,9 +7,13 @@ unchanged: a patch permutation into window order, full-attention and
 window segment ids, and the inverse permutation of the merged tokens.  On
 the device: the Conv3d patch embed as one matmul over flattened patches, a
 gather into window order, the blocks as a Python loop over views of the
-stacked weights, each attending under the full or the window segment mask
-(`fullatt_block_indexes`) through ops/attention.py's `sdpa`, the merger,
-and the inverse gather.
+stacked weights, each attending within its full-attention segments (an
+image, or a video's frame group) or its windows (`fullatt_block_indexes`)
+through ops/attention.py's `segment_sdpa`, where the reference attends
+all patches at once under an [N, N] segment mask; the merger, and the
+inverse gather.  In window order both kinds of segment are contiguous:
+windows are cut within a frame group, and a frame group's windows are
+consecutive.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import torch.nn.functional as F
 
 from ...core.layers import linear, rms_norm, swiglu_mlp
 from ...core.rope import apply_rope, default_inv_freq
-from ...ops.attention import sdpa
+from ...ops.attention import segment_runs, segment_sdpa
 from ..base import layer_view
 from .config import VisionConfig
 
@@ -126,15 +130,15 @@ class VisionModel:
 
         cos = torch.cos(rotary_freqs)[None]
         sin = torch.sin(rotary_freqs)[None]
-        m_full = (seg_full[None, :] == seg_full[:, None])[None, None]
-        m_win = (seg_win[None, :] == seg_win[:, None])[None, None]
+        runs_full = segment_runs(seg_full)
+        runs_win = segment_runs(seg_win)
 
         blocks = params[STACK_PREFIX]
         for i in range(cfg.depth):
             lp = layer_view(blocks, i)
-            mask = m_full if i in self.full_blocks else m_win
+            runs = runs_full if i in self.full_blocks else runs_win
             x = rms_norm(lp["norm1"], h, 1e-6)
-            h = h + self._attention(lp["attn"], x, cos, sin, mask)
+            h = h + self._attention(lp["attn"], x, cos, sin, runs)
             x = rms_norm(lp["norm2"], h, 1e-6)
             h = h + swiglu_mlp(lp["mlp"], x)
 
@@ -146,14 +150,14 @@ class VisionModel:
         x = linear(mp["mlp"]["2"], x)
         return x[reverse_index.long()]
 
-    def _attention(self, p, x, cos, sin, mask):
+    def _attention(self, p, x, cos, sin, runs):
         N = x.shape[0]
         qkv = linear(p["qkv"], x).reshape(N, 3, self.num_heads, self.head_dim)
         q = qkv[:, 0].transpose(0, 1)[None]  # [1, heads, N, hd]
         k = qkv[:, 1].transpose(0, 1)[None]
         v = qkv[:, 2].transpose(0, 1)[None]
         q, k = apply_rope(q, k, cos, sin)
-        out = sdpa(q, k, v, self.scale, mask)
+        out = segment_sdpa(q, k, v, self.scale, runs)
         out = out[0].transpose(0, 1).reshape(N, -1)
         return linear(p["proj"], out)
 

@@ -11,7 +11,8 @@ The logits come back from `step_logits` instead of being stashed on the
 instance (the reference's `_fused_logits`, :72-86 and :189-194).  The
 pack-only weight unpack (:107-120) is not ported: the port keeps the
 per-linear weights only.  `mrope_position_ids` (:230) is copied unchanged
-(host numpy, once per prompt).
+(host numpy, once per prompt), with Qwen2.5-VL's scaling of a video's
+time as an option the reference lacks.
 """
 
 from __future__ import annotations
@@ -160,13 +161,23 @@ def mrope_position_ids(
     merge: int,
     image_token_id: int,
     video_token_id: int,
+    second_per_grid_ts: Optional[np.ndarray] = None,
+    tokens_per_second: float = 1.0,
 ):
     """3-D (t/h/w) position ids for M-RoPE — host-side, once per prompt.
 
     Text tokens get sequential positions on all three streams; each vision
     span gets a (t, h, w) grid offset from the running position; positions
     after a span continue from its max + 1.  Returns (position_ids [3,B,S],
-    rope_deltas [B,1])."""
+    rope_deltas [B,1]).
+
+    With `second_per_grid_ts` (one per video), video i's frame group g
+    takes time floor(g * second_per_grid_ts[i] * tokens_per_second), the
+    product in float32, as Qwen2.5-VL's get_rope_index computes it
+    (transformers' modeling_qwen2_5_vl.py:1061-1097; 4.57.6 casts the
+    seconds to an integer before the product, so it agrees only where
+    they are whole).  Without it every frame group steps time by one, as
+    the reference does for every family."""
     input_ids = np.asarray(input_ids)
     B, S = input_ids.shape
     if image_grid_thw is None and video_grid_thw is None:
@@ -222,11 +233,16 @@ def mrope_position_ids(
                 pos_chunks.append(
                     np.broadcast_to(np.arange(text_len) + cur, (3, text_len)))
                 cur += text_len
-            t_idx = np.repeat(np.arange(gt), gh * gw)
+            times = np.arange(gt)
+            if toks[ed] == vid_tok and second_per_grid_ts is not None:
+                times = (times.astype(np.float32)
+                         * np.float32(second_per_grid_ts[vid_idx - 1])
+                         * np.float32(tokens_per_second)).astype(np.int64)
+            t_idx = np.repeat(times, gh * gw)
             h_idx = np.tile(np.repeat(np.arange(gh), gw), gt)
             w_idx = np.tile(np.arange(gw), gt * gh)
             pos_chunks.append(np.stack([t_idx, h_idx, w_idx]) + cur)
-            cur += max(gt, gh, gw)
+            cur += max(int(times[-1]) + 1, gh, gw)
             st = ed + gt * gh * gw
         if pos_chunks:
             compact = np.concatenate(pos_chunks, axis=1)  # [3, n]

@@ -4,6 +4,15 @@ Port of mlx_vlm_tpu/models/qwen2_vl/qwen2_vl.py (Model :50,
 merge_input_ids_with_image_features :29, sanitize :137,
 prepare_position_ids :113, vision_aux_inputs :124).  The feature merge is a
 vectorized masked gather (cumsum + index + where).
+
+A video's features (the tower over its frame groups, `vision_features`
+with the video's grid) merge at the video token and an image's at the
+image token, each stream in its own token order (`merge_media_features`).
+The reference merges one stream, its image features then its video
+features, at both tokens in token order (:29-45): the two agree where all
+images come before all videos; where a video precedes an image, or a
+prompt holds video tokens and no video, the reference puts another
+media's features (or a clamped row) at those tokens.
 """
 
 from __future__ import annotations
@@ -41,6 +50,23 @@ def merge_input_ids_with_image_features(
     return merged.reshape(B, S, D)
 
 
+def merge_media_features(image_token_id: int, video_token_id: int,
+                         image_features: Optional[torch.Tensor],
+                         video_features: Optional[torch.Tensor],
+                         inputs_embeds: torch.Tensor,
+                         input_ids: torch.Tensor) -> torch.Tensor:
+    """Image features [N_img, D] at the image tokens and video features
+    [N_vid, D] at the video tokens, each in token order; a stream that is
+    None leaves its tokens' embeddings as they are."""
+    out = inputs_embeds
+    for tok, feats in ((image_token_id, image_features),
+                       (video_token_id, video_features)):
+        if feats is not None:
+            out = merge_input_ids_with_image_features(tok, tok, feats, out,
+                                                      input_ids)
+    return out
+
+
 class Model:
     def __init__(self, config: ModelConfig):
         self.config = config
@@ -65,18 +91,18 @@ class Model:
         rotary_freqs: Optional[torch.Tensor] = None,
         segment_ids: Optional[torch.Tensor] = None,
         image_features: Optional[torch.Tensor] = None,
+        video_features: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """Token embeddings with the vision features merged in."""
+        """Token embeddings with the image features merged in at the image
+        tokens and the video features at the video tokens."""
         embeds = self.language_model.embed(params["language_model"], input_ids)
-        if pixel_values is None and image_features is None:
-            return embeds
         feats = image_features
-        if feats is None:
+        if feats is None and pixel_values is not None:
             feats = self.vision_features(params, pixel_values, rotary_freqs,
                                          segment_ids)
-        return merge_input_ids_with_image_features(
+        return merge_media_features(
             self.config.image_token_id, self.config.video_token_id, feats,
-            embeds, input_ids)
+            video_features, embeds, input_ids)
 
     def __call__(self, params: dict, inputs_embeds: torch.Tensor, cache,
                  position_ids: torch.Tensor) -> torch.Tensor:
@@ -88,7 +114,10 @@ class Model:
     def prepare_position_ids(self, input_ids: np.ndarray,
                              image_grid_thw: Optional[np.ndarray] = None,
                              video_grid_thw: Optional[np.ndarray] = None,
-                             attention_mask: Optional[np.ndarray] = None):
+                             attention_mask: Optional[np.ndarray] = None,
+                             second_per_grid_ts=None):
+        """M-RoPE ids over both grids (`second_per_grid_ts` is Qwen2.5-VL's;
+        this family steps a video's time by one a frame group)."""
         return self.language_model.get_rope_index(
             input_ids, image_grid_thw, video_grid_thw, attention_mask)
 

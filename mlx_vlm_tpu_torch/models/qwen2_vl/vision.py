@@ -1,10 +1,13 @@
 """Qwen2-VL vision tower: ViT with 2-D rotary embeddings and patch merger.
 
 Port of mlx_vlm_tpu/models/qwen2_vl/vision.py.  The Conv3d patch embed has
-stride == kernel, so it is a matmul over flattened (C*T*P*P) patches; all
-images attend in one SDPA call under a block-diagonal segment mask; the
-stacked blocks run as a Python loop over per-block views; 2-D rotary
-frequencies and segment ids come from `grid_thw` on the host (numpy).
+stride == kernel, so it is a matmul over flattened (C*T*P*P) patches;
+each segment (an image, or a video's frame group) attends to itself
+through ops/attention.py's `segment_sdpa`, where the reference attends all
+patches in one call under an [N, N] segment mask (a 64-frame 448 x 448
+video's f32 scores would take 68.7 GB there); the stacked blocks run as a
+Python loop over per-block views; 2-D rotary frequencies and segment ids
+come from `grid_thw` on the host (numpy).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch.nn.functional as F
 
 from ...core.layers import gelu_mlp, layer_norm, linear
 from ...core.rope import apply_rope, default_inv_freq
-from ...ops.attention import sdpa
+from ...ops.attention import segment_runs, segment_sdpa
 from ..base import layer_view
 from .config import VisionConfig
 
@@ -69,13 +72,13 @@ class VisionModel:
 
         cos = torch.cos(rotary_freqs)[None]  # [1, N, head_dim/2]
         sin = torch.sin(rotary_freqs)[None]
-        mask = (segment_ids[None, :] == segment_ids[:, None])[None, None]
+        runs = segment_runs(segment_ids)
 
         blocks = params[STACK_PREFIX]
         for i in range(cfg.depth):
             lp = layer_view(blocks, i)
             x = layer_norm(lp["norm1"], h, cfg.layer_norm_eps)
-            h = h + self._attention(lp["attn"], x, cos, sin, mask)
+            h = h + self._attention(lp["attn"], x, cos, sin, runs)
             x = layer_norm(lp["norm2"], h, cfg.layer_norm_eps)
             h = h + gelu_mlp(lp["mlp"], x, approximate=True)
 
@@ -86,14 +89,14 @@ class VisionModel:
         x = F.gelu(x, approximate="none")
         return linear(mp["mlp"]["2"], x)
 
-    def _attention(self, p, x, cos, sin, mask):
+    def _attention(self, p, x, cos, sin, runs):
         N = x.shape[0]
         qkv = linear(p["qkv"], x).reshape(N, 3, self.num_heads, self.head_dim)
         q = qkv[:, 0].transpose(0, 1)[None]  # [1, heads, N, hd]
         k = qkv[:, 1].transpose(0, 1)[None]
         v = qkv[:, 2].transpose(0, 1)[None]
         q, k = apply_rope(q, k, cos, sin)
-        out = sdpa(q, k, v, self.scale, mask)
+        out = segment_sdpa(q, k, v, self.scale, runs)
         out = out[0].transpose(0, 1).reshape(N, -1)
         return linear(p["proj"], out)
 

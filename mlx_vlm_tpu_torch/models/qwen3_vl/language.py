@@ -14,7 +14,12 @@ such a model).  Decoder layers run as a Python loop over views of the
 stacked weights and the KV cache is written in place, as in Qwen2-VL's
 port.  `step_logits` has the Qwen2-VL language model's contract; the
 reference has no fused decode step for this family, so every step runs the
-per-linear path (`fused_decode` stays False).
+per-linear path (`fused_decode` stays False).  `get_rope_index` splits
+each video's grid [t, h, w] into t grids [1, h, w], one a frame group,
+as transformers' modeling_qwen3_vl.py:916-930 does for the timestamped
+prompt (each frame group its own span between a time and a vision start /
+end pair); the reference keeps Qwen2-VL's rule (:155-167), whose one span
+of t * h * w / merge^2 tokens runs past the first frame group's.
 """
 
 from __future__ import annotations
@@ -135,6 +140,10 @@ class LanguageModel:
                        video_grid_thw: Optional[np.ndarray] = None,
                        attention_mask: Optional[np.ndarray] = None):
         cfg = self.config
+        if video_grid_thw is not None:
+            video_grid_thw = np.repeat(np.asarray(video_grid_thw),
+                                       np.asarray(video_grid_thw)[:, 0], axis=0)
+            video_grid_thw[:, 0] = 1
         return mrope_position_ids(
             input_ids, image_grid_thw, video_grid_thw, attention_mask,
             merge=cfg.vision_config.spatial_merge_size,

@@ -20,12 +20,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..qwen2_vl.qwen2_vl import merge_input_ids_with_image_features
+from ..qwen2_vl.qwen2_vl import merge_media_features
 from .config import ModelConfig
 from .language import LanguageModel
 from .vision import VisionModel
 
 STACK_PATTERNS = ("language_model.model.layers", "vision_tower.blocks")
+
+
+def _pair(features):
+    """vision_features' (features, deepstack) pair, features alone or None
+    -> (features or None, deepstack or None)."""
+    if isinstance(features, tuple):
+        return features
+    return features, None
 
 
 class Model:
@@ -56,29 +64,30 @@ class Model:
         pos_idx: Optional[torch.Tensor] = None,
         pos_weights: Optional[torch.Tensor] = None,
         image_features=None,  # vision_features' pair, or features alone
+        video_features=None,  # the same for a video
     ) -> torch.Tensor:
-        """Token embeddings with the vision features merged in; with
-        deepstack features, channel-packed [B, S, D * (1 + n_ds)]."""
+        """Token embeddings with the image features merged in at the image
+        tokens and the video features at the video tokens; with deepstack
+        features, channel-packed [B, S, D * (1 + n_ds)]."""
         embeds = self.language_model.embed(params["language_model"], input_ids)
-        if pixel_values is None and image_features is None:
-            return embeds
-        if image_features is None:
+        if image_features is None and pixel_values is not None:
             image_features = self.vision_features(
                 params, pixel_values, rotary_freqs, segment_ids, pos_idx,
                 pos_weights)
-        feats, ds = (image_features if isinstance(image_features, tuple)
-                     else (image_features, None))
-        img_tok = self.config.image_token_id
-        vid_tok = self.config.video_token_id
-        merged = merge_input_ids_with_image_features(
-            img_tok, vid_tok, feats, embeds, input_ids)
-        if ds is None:
+        img, img_ds = _pair(image_features)
+        vid, vid_ds = _pair(video_features)
+        ids = (self.config.image_token_id, self.config.video_token_id)
+        merged = merge_media_features(*ids, img, vid, embeds, input_ids)
+        levels = next((d.shape[0] for d in (img_ds, vid_ds) if d is not None),
+                      0)
+        if not levels:
             return merged
         zeros = torch.zeros_like(embeds)
         packed = [merged] + [
-            merge_input_ids_with_image_features(img_tok, vid_tok, ds[i], zeros,
-                                                input_ids)
-            for i in range(ds.shape[0])]
+            merge_media_features(*ids, None if img_ds is None else img_ds[i],
+                                 None if vid_ds is None else vid_ds[i], zeros,
+                                 input_ids)
+            for i in range(levels)]
         return torch.cat(packed, dim=-1)
 
     def __call__(self, params: dict, inputs_embeds: torch.Tensor, cache,
@@ -91,7 +100,10 @@ class Model:
     def prepare_position_ids(self, input_ids: np.ndarray,
                              image_grid_thw: Optional[np.ndarray] = None,
                              video_grid_thw: Optional[np.ndarray] = None,
-                             attention_mask: Optional[np.ndarray] = None):
+                             attention_mask: Optional[np.ndarray] = None,
+                             second_per_grid_ts=None):
+        """M-RoPE ids (`second_per_grid_ts` is Qwen2.5-VL's; this family
+        writes a video's times into the prompt as text)."""
         return self.language_model.get_rope_index(
             input_ids, image_grid_thw, video_grid_thw, attention_mask)
 

@@ -8,10 +8,12 @@ it is host numpy (four source indices and weights per patch, copied
 unchanged); the device does four gathers and a weighted sum in f32.  The
 Conv3d patch embed is one matmul over flattened patches; the LayerNorm /
 tanh-GELU blocks run as a Python loop over views of the stacked weights,
-all frames attending in one `sdpa` call under a block-diagonal segment
-mask; after block deepstack_visual_indexes[j] the hidden state goes through
-deepstack merger j (LayerNorm after the 2x2 shuffle); the last state
-through the merger (LayerNorm before it).
+each frame (an image, or a video's frame group) attending to itself
+through ops/attention.py's `segment_sdpa` (the reference: all frames in
+one call under an [N, N] segment mask); after block
+deepstack_visual_indexes[j] the hidden state goes through deepstack
+merger j (LayerNorm after the 2x2 shuffle); the last state through the
+merger (LayerNorm before it).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch.nn.functional as F
 
 from ...core.layers import layer_norm, linear
 from ...core.rope import apply_rope
-from ...ops.attention import sdpa
+from ...ops.attention import segment_runs, segment_sdpa
 from ..base import layer_view
 from ..qwen2_vl.vision import vision_rotary_and_segments
 from .config import VisionConfig
@@ -109,14 +111,14 @@ class VisionModel:
 
         cos = torch.cos(rotary_freqs)[None]
         sin = torch.sin(rotary_freqs)[None]
-        mask = (segment_ids[None, :] == segment_ids[:, None])[None, None]
+        runs = segment_runs(segment_ids)
 
         blocks = params[STACK_PREFIX]
         ds_feats = []
         for i in range(cfg.depth):
             lp = layer_view(blocks, i)
             x = layer_norm(lp["norm1"], h, cfg.layer_norm_eps)
-            h = h + self._attention(lp["attn"], x, cos, sin, mask)
+            h = h + self._attention(lp["attn"], x, cos, sin, runs)
             x = layer_norm(lp["norm2"], h, cfg.layer_norm_eps)
             x = F.gelu(linear(lp["mlp"]["linear_fc1"], x), approximate="tanh")
             h = h + linear(lp["mlp"]["linear_fc2"], x)
@@ -143,14 +145,14 @@ class VisionModel:
         x = F.gelu(linear(mp["linear_fc1"], x), approximate="none")
         return linear(mp["linear_fc2"], x)
 
-    def _attention(self, p, x, cos, sin, mask):
+    def _attention(self, p, x, cos, sin, runs):
         N = x.shape[0]
         qkv = linear(p["qkv"], x).reshape(N, 3, self.num_heads, self.head_dim)
         q = qkv[:, 0].transpose(0, 1)[None]  # [1, heads, N, hd]
         k = qkv[:, 1].transpose(0, 1)[None]
         v = qkv[:, 2].transpose(0, 1)[None]
         q, k = apply_rope(q, k, cos, sin)
-        out = sdpa(q, k, v, self.scale, mask)
+        out = segment_sdpa(q, k, v, self.scale, runs)
         out = out[0].transpose(0, 1).reshape(N, -1)
         return linear(p["proj"], out)
 

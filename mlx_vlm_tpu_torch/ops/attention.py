@@ -5,6 +5,13 @@ GQA-aware grouping without repeating KV heads, f32 scores and softmax,
 probabilities cast to the input dtype before the value product, as in the
 reference's einsum formulation.  Logit soft-capping, attention sinks and
 additive masks (other model families) are not ported.
+
+`segment_sdpa` is the vision towers' attention within segments (an
+image's frame, a video's frame group, a window): each run of equal-length
+segments in batches of segments, so that no [N, N] mask or score tensor is
+made, where the reference attends all N patches at once under a
+block-diagonal mask.  Masked entries add exactly 0 there, so the two
+differ by the order of the sums alone.
 """
 
 from __future__ import annotations
@@ -13,7 +20,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["sdpa"]
+__all__ = ["sdpa", "segment_runs", "segment_sdpa"]
 
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -39,3 +46,45 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", probs.to(dtype).float(), v.float())
     return out.reshape(B, nh, S, v.shape[-1]).to(dtype)
+
+
+# f32 score bytes that one batch of segments may take in segment_sdpa
+SEGMENT_SCORE_BYTES = 1 << 30
+
+
+def segment_runs(segment_ids: torch.Tensor) -> list:
+    """[(start, length, count)]: the runs of consecutive segments of one
+    length in [N] segment ids, each segment a contiguous block of one id.
+    Reads the ids on the host (one wait for the card there)."""
+    _, counts = torch.unique_consecutive(segment_ids, return_counts=True)
+    runs: list = []
+    start = 0
+    for n in counts.tolist():
+        if runs and runs[-1][1] == n:
+            runs[-1][2] += 1
+        else:
+            runs.append([start, n, 1])
+        start += n
+    return [tuple(r) for r in runs]
+
+
+def segment_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float, runs: list) -> torch.Tensor:
+    """Attention of each segment to itself: q / k / v [1, heads, N, D] with
+    the segments `runs` (segment_runs) -> [1, heads, N, D] in q.dtype.
+    Each run's segments go through `sdpa` as a batch, at most as many at a
+    time as keep the f32 scores under SEGMENT_SCORE_BYTES."""
+    H, D = q.shape[1], q.shape[3]
+    out = torch.empty_like(q)
+    for start, n, count in runs:
+        per = max(1, SEGMENT_SCORE_BYTES // (H * n * n * 4))
+        for s0 in range(0, count, per):
+            m = min(per, count - s0)
+            rows = slice(start + s0 * n, start + (s0 + m) * n)
+
+            def batch(x):  # [1, H, m * n, D] -> [m, H, n, D]
+                return x[0, :, rows].reshape(H, m, n, D).transpose(0, 1)
+
+            o = sdpa(batch(q), batch(k), batch(v), scale)
+            out[0, :, rows] = o.transpose(0, 1).reshape(H, m * n, D)
+    return out

@@ -1,6 +1,9 @@
 """Chat templating: per-family media-token message shapes.
 
-Copied unchanged from mlx_vlm_tpu/prompt_utils.py (it imports no jax).
+Copied from mlx_vlm_tpu/prompt_utils.py (it imports no jax), unchanged
+but for `video=`: a video given as frames (a uint8 [T, H, W, 3] array or
+a list of frames) is one video, where the reference tests the array's
+truth value (which raises) and takes each frame of a list for a video.
 Role parity: reference `mlx_vlm/prompt_utils.py` — MODEL_CONFIG:33,
 MessageFormatter:238, get_message_json:520, get_chat_template:559,
 apply_chat_template:794.
@@ -116,9 +119,9 @@ def _text_part(text: str) -> dict:
 
 
 def _video_parts(prompt: str, kwargs: dict) -> List[dict]:
-    videos = kwargs["video"]
-    if not isinstance(videos, list):
-        videos = [videos]
+    from .utils.processing import video_list
+
+    videos = video_list(kwargs["video"])
     fps = kwargs.get("fps", 1)
     fps_list = fps if isinstance(fps, list) else [fps] * len(videos)
     if len(fps_list) != len(videos):
@@ -155,7 +158,9 @@ def get_message_json(
             f"Model {model_type} does not support multi-image chat. "
             f"Please only use 1 image.")
 
-    if model_type in _VIDEO_FAMILIES and kwargs.get("video"):
+    video = kwargs.get("video")
+    if model_type in _VIDEO_FAMILIES and video is not None and not (
+            isinstance(video, (list, tuple)) and not video):
         return {"role": role, "content": _video_parts(prompt, kwargs)}
 
     want_images = (role == "user" and not skip_image_token and num_images > 0)

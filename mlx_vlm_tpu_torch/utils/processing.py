@@ -1,16 +1,31 @@
 """Preprocessing: images -> pixel arrays, prompt -> token ids.
 
-Port of mlx_vlm_tpu/utils/processing.py (load_image :24, smart_resize :127,
-Qwen2VLImageProcessor :150, Qwen2VLProcessor :273, load_processor :390,
-prepare_inputs :420) for images and text; the image processor's patch,
-merge and temporal sizes follow the checkpoint (`image_processor_for`).
+Port of mlx_vlm_tpu/utils/processing.py (load_image :24, load_video :55,
+smart_resize :127, Qwen2VLImageProcessor :150, Qwen2VLProcessor :273,
+load_processor :390, prepare_inputs :420) for images, videos and text;
+the image processor's patch, merge and temporal sizes follow the
+checkpoint (`image_processor_for`).
 LLaVA gets a CLIP image processor and a processor that expands each image
 token (`ClipImageProcessor`, `LlavaProcessor`, picked by model type in
 `load_processor`): the reference has none and gives LLaVA the Qwen2-VL
 fallback, whose patch rows the CLIP tower cannot take (ROADMAP Queue 3).
-PIL and transformers are imported only inside the functions that use them:
-a uint8 [H, W, 3] array whose size already meets the resize rule goes
-through without PIL.  Audio and video inputs are not ported.
+PIL, cv2 and transformers are imported only inside the functions that use
+them: a uint8 [H, W, 3] array, or a video's uint8 [T, H, W, 3] frames,
+whose size already meets the resize rule goes through without PIL, and a
+video given as frames needs no cv2.
+
+A video becomes `pixel_values_videos` and `video_grid_thw` (its frames
+through the image processor's patching, `_preprocess_one`), its
+<|video_pad|> token prod(grid) / merge^2 of them, and
+`second_per_grid_ts` = temporal_patch_size / fps (transformers'
+processing_qwen2_5_vl.py:154-161), `fps` being the rate of the frames
+given (`DEFAULT_VIDEO_FPS` unless the caller says; a path's frames are
+sampled by `load_video` at the rate it reports).  A processor made with
+`video_timestamps` (Qwen3-VL's) writes each frame group as
+"<{t:.1f} seconds>" and a vision start / end pair around its tokens, as
+transformers' processing_qwen3_vl.py:196-230 does.  The JAX package's
+processor ignores `videos` (ROADMAP's known faults in the reference).
+Audio inputs are not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +38,9 @@ import numpy as np
 
 OPENAI_CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 OPENAI_CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+# the frame rate of a video given as frames when the caller names none
+# (transformers' Qwen2.5-VL processor's default fps)
+DEFAULT_VIDEO_FPS = 2.0
 
 
 def load_image(source):
@@ -55,6 +73,61 @@ def load_image(source):
         raise ValueError(f"cannot load image from {type(source)}")
     img = ImageOps.exif_transpose(img)
     return img.convert("RGB")
+
+
+def load_video(source, nframes=None, fps=None, frame_factor: int = 2,
+               max_frames: int = 64):
+    """A video -> (frames [T, H, W, 3] uint8, their rate in frames a second).
+
+    Frames given as a uint8 [T, H, W, 3] array or a list of frames (uint8
+    [H, W, 3] arrays or PIL images) pass through as they are, at `fps`
+    (DEFAULT_VIDEO_FPS when None); no cv2 is needed.  A path is read with
+    cv2 as the reference reads it: `nframes` frames, or those that `fps`
+    (default 1) a second gives, at most `max_frames`, rounded down to a
+    multiple of `frame_factor`, spread evenly over the video; the rate
+    returned is the frames' over the video's length."""
+    if isinstance(source, (list, tuple)):
+        source = np.stack([np.asarray(load_image(f)) for f in source])
+    if isinstance(source, np.ndarray):
+        if source.dtype != np.uint8 or source.ndim != 4 or source.shape[3] != 3:
+            raise ValueError("video frames must be uint8 [T, H, W, 3]")
+        return source, float(fps) if fps else DEFAULT_VIDEO_FPS
+    import cv2
+
+    cap = cv2.VideoCapture(str(source))
+    if not cap.isOpened():
+        raise ValueError(f"cannot open video {source}")
+    total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    video_fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
+    if nframes is None:
+        nframes = int(total / video_fps * (fps or 1.0))
+    nframes = max(frame_factor, min(nframes, total, max_frames))
+    nframes = (nframes // frame_factor) * frame_factor
+    frames = []
+    for idx in np.linspace(0, total - 1, nframes).round().astype(int):
+        cap.set(cv2.CAP_PROP_POS_FRAMES, int(idx))
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+    cap.release()
+    if not frames:
+        raise ValueError(f"no frames decoded from {source}")
+    return np.stack(frames), nframes / max(total / video_fps, 1e-6)
+
+
+def video_timestamps(n_frames: int, fps: float,
+                     temporal_patch_size: int = 2) -> list:
+    """Seconds of each frame group of `n_frames` frames at `fps`: the mean
+    time of the group's first and last frame, the frame count padded with
+    the last frame to a multiple of the group (transformers'
+    processing_qwen3_vl.py:314-325, which groups by the merge size, equal
+    to the temporal patch size in Qwen3-VL's configs)."""
+    g = temporal_patch_size
+    idx = list(range(n_frames))
+    idx += [idx[-1]] * (-len(idx) % g)
+    t = [i / fps for i in idx]
+    return [(t[i] + t[i + g - 1]) / 2 for i in range(0, len(t), g)]
 
 
 def smart_resize(height: int, width: int, factor: int = 28,
@@ -92,7 +165,8 @@ class Qwen2VLImageProcessor:
         self.image_std = np.asarray(image_std, np.float32)
 
     def _preprocess_one(self, frames: List[np.ndarray]):
-        """frames: T uint8 [H, W, 3] frames of one image -> (patches, grid).
+        """frames: T uint8 [H, W, 3] frames of one image or video ->
+        (patches, grid).
 
         The bicubic resize is skipped when the rule keeps the size: PIL then
         returns an identical copy."""
@@ -137,34 +211,96 @@ class Qwen2VLImageProcessor:
             "image_grid_thw": np.stack(grids),
         }
 
+    def videos(self, videos) -> dict:
+        """videos: uint8 [T, H, W, 3] frame arrays -> pixel_values_videos
+        [N, D] and video_grid_thw, each video's T frames patched together
+        (T padded with its last frame to a multiple of the temporal patch
+        size)."""
+        flats, grids = [], []
+        for frames in videos:
+            flat, grid = self._preprocess_one(list(frames))
+            flats.append(flat)
+            grids.append(grid)
+        return {
+            "pixel_values_videos": np.concatenate(flats, axis=0).astype(
+                np.float32),
+            "video_grid_thw": np.stack(grids),
+        }
+
+
+def _expand(texts: list, token: str, placeholders) -> list:
+    """Each `token` in `texts`, in order, replaced by the next of
+    `placeholders` (strings that may hold `token`)."""
+    out = []
+    for t in texts:
+        pieces = t.split(token)
+        t = pieces[0]
+        for rest in pieces[1:]:
+            t += next(placeholders) + rest
+        out.append(t)
+    return out
+
 
 class Qwen2VLProcessor:
-    """Minimal text + image processor mirroring the HF behaviour."""
+    """Minimal text + image + video processor mirroring the HF behaviour;
+    with `video_timestamps`, Qwen3-VL's video placeholders."""
 
     image_pad = "<|image_pad|>"
+    video_pad = "<|video_pad|>"
+    vision_start = "<|vision_start|>"
+    vision_end = "<|vision_end|>"
 
-    def __init__(self, tokenizer, image_processor: Qwen2VLImageProcessor):
+    def __init__(self, tokenizer, image_processor: Qwen2VLImageProcessor,
+                 video_timestamps: bool = False):
         self.tokenizer = tokenizer
         self.image_processor = image_processor
+        self.video_timestamps = video_timestamps
+
+    def _video_placeholders(self, grids, n_frames: list, fps: list):
+        merge2 = self.image_processor.merge_size**2
+        tps = self.image_processor.temporal_patch_size
+        for (t, h, w), n, rate in zip(grids, n_frames, fps):
+            frame = int(h * w) // merge2
+            if not self.video_timestamps:
+                yield self.video_pad * (int(t) * frame)
+                continue
+            yield "".join(
+                f"<{s:.1f} seconds>{self.vision_start}"
+                f"{self.video_pad * frame}{self.vision_end}"
+                for s in video_timestamps(n, rate, tps))
 
     def __call__(self, text=None, images=None, videos=None, padding=True,
-                 audio=None, **kw):
-        if videos is not None or audio is not None:
-            raise NotImplementedError("video and audio inputs are not ported")
+                 audio=None, fps=None, **kw):
+        """`videos`: uint8 [T, H, W, 3] frame arrays; `fps`: their rates (a
+        number for all, or one per video; DEFAULT_VIDEO_FPS when None)."""
+        if audio is not None:
+            raise NotImplementedError("audio inputs are not ported")
         out = {}
+        texts = [text] if isinstance(text, str) else list(text)
         if images is not None:
             out.update(self.image_processor(images))
             merge2 = self.image_processor.merge_size**2
-            texts = [text] if isinstance(text, str) else list(text)
-            grid_iter = iter(out["image_grid_thw"])
-            expanded = []
-            for t in texts:
-                while self.image_pad in t:
-                    n = int(np.prod(next(grid_iter))) // merge2
-                    t = t.replace(self.image_pad, "<_IMG_PLACEHOLDER_>" * n, 1)
-                expanded.append(t.replace("<_IMG_PLACEHOLDER_>", self.image_pad))
-            text = expanded
-        enc = self.tokenizer(text, return_tensors="np", padding=padding,
+            texts = _expand(texts, self.image_pad, iter(
+                self.image_pad * (int(np.prod(g)) // merge2)
+                for g in out["image_grid_thw"]))
+        if videos is not None:
+            out.update(self.image_processor.videos(videos))
+            fps = fps if fps is not None else DEFAULT_VIDEO_FPS
+            fps = [float(f) for f in (fps if isinstance(fps, (list, tuple))
+                                      else [fps] * len(videos))]
+            if len(fps) != len(videos):
+                raise ValueError(f"{len(fps)} fps values for {len(videos)} "
+                                 f"videos")
+            tps = self.image_processor.temporal_patch_size
+            out["second_per_grid_ts"] = np.asarray([tps / f for f in fps],
+                                                   np.float32)
+            spans = self._video_placeholders(
+                out["video_grid_thw"], [len(v) for v in videos], fps)
+            if self.video_timestamps:  # the whole start / pad / end triple
+                triple = self.vision_start + self.video_pad + self.vision_end
+                texts = [t.replace(triple, self.video_pad) for t in texts]
+            texts = _expand(texts, self.video_pad, spans)
+        enc = self.tokenizer(texts, return_tensors="np", padding=padding,
                              padding_side="left")
         out["input_ids"] = np.asarray(enc["input_ids"])
         out["attention_mask"] = np.asarray(enc["attention_mask"])
@@ -332,13 +468,20 @@ def _llava_processor(tokenizer, model, model_path) -> LlavaProcessor:
                           image_token=token or "<image>", num_image_tokens=n)
 
 
+# families whose processor writes each video frame group with its time
+# (transformers' processing_qwen3_vl.py:196-230)
+TIMESTAMPED_VIDEO = ("qwen3_vl", "qwen3_vl_moe")
+
+
 def processor_for(tokenizer, model=None, model_path=None):
     """The numpy processor of `model`'s family around `tokenizer`:
     LlavaProcessor for LLaVA, else Qwen2VLProcessor with the checkpoint's
-    image processor."""
-    if getattr(getattr(model, "config", None), "model_type", "") == "llava":
+    image processor (writing video timestamps for Qwen3-VL)."""
+    kind = getattr(getattr(model, "config", None), "model_type", "")
+    if kind == "llava":
         return _llava_processor(tokenizer, model, model_path)
-    return Qwen2VLProcessor(tokenizer, image_processor_for(model, model_path))
+    return Qwen2VLProcessor(tokenizer, image_processor_for(model, model_path),
+                            video_timestamps=kind in TIMESTAMPED_VIDEO)
 
 
 def load_processor(model_path, model=None, **kwargs):
@@ -362,12 +505,26 @@ def load_processor(model_path, model=None, **kwargs):
     return processor_for(load_tokenizer(model_path), model, model_path)
 
 
+def video_list(videos) -> list:
+    """One video (a path, a [T, H, W, 3] array or a list of frames) or a
+    list of them -> a list of videos."""
+    one = isinstance(videos, (str, Path, np.ndarray)) or (
+        isinstance(videos, (list, tuple)) and len(videos) > 0 and (
+            hasattr(videos[0], "convert") or (
+                isinstance(videos[0], np.ndarray) and videos[0].ndim == 3)))
+    return [videos] if one else list(videos)
+
+
 def prepare_inputs(processor, prompts: Union[str, List[int], np.ndarray],
-                   images=None, videos=None, **kwargs) -> dict:
+                   images=None, videos=None, fps=None, **kwargs) -> dict:
     """Normalize user inputs into model arrays (input_ids, attention_mask,
-    pixel_values, image_grid_thw)."""
-    if videos is not None or kwargs.get("audios") is not None:
-        raise NotImplementedError("video and audio inputs are not ported")
+    pixel_values, image_grid_thw; for videos pixel_values_videos,
+    video_grid_thw, second_per_grid_ts).  `videos` is one video or a list
+    of them, each a path (read by `load_video`, which needs cv2, at `fps`
+    frames a second) or its frames; `fps` is a number for all or one per
+    video: a path's sampling rate, or the rate of frames given."""
+    if kwargs.get("audios") is not None:
+        raise NotImplementedError("audio inputs are not ported")
     kwargs.pop("audios", None)
     if isinstance(prompts, np.ndarray):
         return {"input_ids": prompts.reshape(1, -1) if prompts.ndim == 1 else prompts}
@@ -377,9 +534,19 @@ def prepare_inputs(processor, prompts: Union[str, List[int], np.ndarray],
         images = [images]
     if images is not None:
         images = [load_image(im) for im in images]
+    if videos is not None:
+        videos = video_list(videos)
+        rates = fps if isinstance(fps, (list, tuple)) else [fps] * len(videos)
+        if len(rates) != len(videos):
+            raise ValueError(f"{len(rates)} fps values for {len(videos)} "
+                             f"videos")
+        loaded = [load_video(v, fps=f) for v, f in zip(videos, rates)]
+        videos = [frames for frames, _ in loaded]
+        kwargs["fps"] = [rate for _, rate in loaded]
     out = processor(
         text=prompts if isinstance(prompts, list) else [prompts],
         images=images,
+        videos=videos,
         padding=True,
         **kwargs,
     )

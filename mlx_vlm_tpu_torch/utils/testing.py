@@ -31,7 +31,9 @@ qwen2_5_vl_hf_weights :178 draw the same arrays for a seed), plus:
 - `ByteTokenizer`: Qwen2-VL's special tokens at their public ids (Qwen2.5-VL
   and Qwen3-VL keep them), or another family's (`LLAMA3_SPECIAL_TOKENS`,
   `LLAVA_SPECIAL_TOKENS`), and one id per UTF-8 byte otherwise, so a
-  processor works without `transformers`.
+  processor works without `transformers`;
+- `synthetic_video`: seeded uint8 frames of a clip, at any size (a tiny
+  one for the CPU tests, 448 x 448 for the card).
 
 Everything is numpy on the host and made from a seed.
 """
@@ -932,6 +934,26 @@ def mlx_int4_checkpoint(config: dict, seed: int = 0, group_size: int = 64,
     """The 4-bit case of `mlx_quantized_checkpoint` (the same draws)."""
     return mlx_quantized_checkpoint(config, bits=4, group_size=group_size,
                                     seed=seed, std=std)
+
+
+def synthetic_video(n_frames: int, size: int = 448, seed: int = 0,
+                    step: int = 8) -> np.ndarray:
+    """A seeded clip, uint8 [n_frames, size, size, 3]: a random first frame,
+    each later frame the one before moved `step` pixels to the right
+    (wrapping round) with a fresh random square of size / 8 pixels at a
+    random place, so that consecutive frames share most of their pixels,
+    as a video's do."""
+    rng = np.random.default_rng(seed)
+    frame = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+    side = max(1, size // 8)
+    frames = [frame]
+    for _ in range(n_frames - 1):
+        frame = np.roll(frame, step, axis=1)
+        y, x = rng.integers(0, size - side + 1, 2)
+        frame[y:y + side, x:x + side] = rng.integers(
+            0, 256, (side, side, 3), dtype=np.uint8)
+        frames.append(frame)
+    return np.stack(frames)
 
 
 def _byte_unicode() -> list:

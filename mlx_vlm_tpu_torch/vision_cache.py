@@ -1,10 +1,15 @@
 """LRU cache of projected vision features.
 
-Port of mlx_vlm_tpu/vision_cache.py (VisionFeatureCache :20), copied
-verbatim: keyed by a sha256 over the `pixel_values` bytes and the grid,
-default 20 entries.  The server's engine stores the vision tower's merged
-features here as tensors on the model's device (server/engine.py
-`_prepare`).
+Port of mlx_vlm_tpu/vision_cache.py (VisionFeatureCache :20): keyed by a
+sha256 over every byte of the `pixel_values` array, its shape and the
+grid, default 20 entries.  The reference hashes the first 256 KiB of the
+array only, so two images or clips that open alike (a screenshot's header
+bar, a video's first frames) share its key (ROADMAP's known faults in the
+reference); on an array within those 256 KiB the two keys are equal.
+The stores of images and of videos (generate/common.py `embed_prompt`)
+are keyed each by its own array.  The server's engine stores the vision
+tower's merged features here as tensors on the model's device
+(server/engine.py `_prepare`).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ class VisionFeatureCache:
     def key(pixel_values, grid_thw=None) -> str:
         h = hashlib.sha256()
         arr = np.asarray(pixel_values)
-        h.update(arr.tobytes()[:262144])
+        h.update(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
         h.update(str(arr.shape).encode())
         if grid_thw is not None:
             h.update(np.asarray(grid_thw).tobytes())

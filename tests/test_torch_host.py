@@ -169,7 +169,8 @@ def test_import_pulls_in_no_jax_or_optional_packages():
         "import sys, mlx_vlm_tpu_torch, mlx_vlm_tpu_torch.utils.testing, "
         "mlx_vlm_tpu_torch.ops.int4_matvec, mlx_vlm_tpu_torch.ops.flash_attention\n"
         "bad = [m for m in ('jax', 'mlx_vlm_tpu', 'transformers', 'tokenizers', "
-        "'safetensors', 'PIL', 'triton', 'ml_dtypes') if m in sys.modules]\n"
+        "'safetensors', 'PIL', 'triton', 'ml_dtypes', 'cv2') "
+        "if m in sys.modules]\n"
         "print(bad); sys.exit(1 if bad else 0)\n")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
@@ -183,13 +184,21 @@ def test_unported_arguments_raise(arg):
     """Arguments the port cannot take raise before any work.  `kv_bits` is
     ported; a bit width no cache takes (6) raises the reference's
     ValueError before any work.  `draft_model` is ported; a drafter of
-    another vocabulary raises ValueError before any work."""
+    another vocabulary raises ValueError before any work.  `video` is
+    ported for the Qwen-VL line; a model whose config has no video token
+    (LLaVA's, a text-only llama's) raises NotImplementedError before any
+    work."""
     import types
 
     from mlx_vlm_tpu_torch.generate.dispatch import stream_generate
 
     model, value, exc = None, 1, NotImplementedError
-    if arg == "kv_bits":
+    if arg == "video":
+        model = types.SimpleNamespace(
+            config=types.SimpleNamespace(model_type="llava",
+                                         image_token_index=32000),
+            config_dict={"model_type": "llava"})
+    elif arg == "kv_bits":
         value, exc = 6, ValueError
     elif arg == "draft_model":
         model = types.SimpleNamespace(config_dict={"vocab_size": 256})
