@@ -40,11 +40,23 @@ Phases (any failure exits non-zero):
      odd multiples of 32), and at 4 bits through Llama-3.1-8B's gate / up
      (N = 14336), down (K = 14336) and lm_head (N = 128256) and
      LLaVA-1.5-7B's gate / up (N = 11008), down (K = 11008) and lm_head
-     (N = 32064) at M = 1 and 512, timed cold and warm, every case with its
+     (N = 32064) at M = 1 and 512, and at the text MoE families' exact
+     mode: the 8-bit routers of Mixtral (N = 8, K = 4096), Phi-3.5-MoE
+     (16, 4096), Granite 3.0 (40, 1536), Qwen1.5-MoE (60, 2048) and OLMoE
+     (64, 2048) and Qwen1.5-MoE's shared-expert gate (N = 1, K = 2048, 8
+     and 4 bits) at M = 1 and 512, Qwen3-30B-A3B's q / k / v / o at M = 1
+     and 512 and its and Mixtral's heads (N = 151936, 32000) at M = 1,
+     timed cold and warm, every case with its
      plan, kernels per call and a bit-identical repeat; K5's
      expert-indexed entry (`qmatmul_experts`) at those expert stacks (128
      experts) for 8, 32 and 40 (token, expert) pairs with two pairs on
-     expert 127, timed cold (copies of the stack) and warm, with kernels
+     expert 127, and at the text MoE families' stacks (gate / up [E, I,
+     D] and down [E, D, I], `EXPERT_STACKS`): Mixtral [8, 14336, 4096] at
+     2 and 8 pairs, OLMoE [64, 1024, 2048] at 8, Qwen1.5-MoE [60, 1408,
+     2048] at 4 (at g = 64 and 128, where its down projection has an odd
+     number of groups a row), Phi-3.5-MoE [16, 6400, 4096] at 2 and
+     Granite 3.0 [40, 512, 1536] at 8, each with two pairs on the last
+     expert, timed cold (copies of the stack) and warm, with kernels
      per call (1), a repeat and bytes per second; the route rules at the
      shapes their kernels refused (K4 at head size 64 takes `sdpa`, K5 at
      group 16 the dequantize route, the w4grp fold at group 24
@@ -122,7 +134,15 @@ Phases (any failure exits non-zero):
      decoder layers, the whole 24-block CLIP tower, a 336x336 image) at
      their published widths, each in its default w8chan mode and in exact
      (K5), 4 steps each against f32 CPU runs, launches held to what ran,
-     and each model's replayed decode against eager steps; and video
+     and each model's replayed decode against eager steps; and the text
+     MoE decoders at their published widths, text only, random 4-bit
+     weights with 8-bit routers, 2 teacher-forced steps each against f32
+     CPU runs (bf16 for Qwen3-30B-A3B, see FAMILY_CASES): Qwen3-30B-A3B
+     (2 of its layers; default and exact),
+     Qwen1.5-MoE-A2.7B (1; its shared expert), Mixtral-8x7B (1),
+     OLMoE-1B-7B (2), Phi-3.5-MoE (1) and Granite-3.0-3B-A800M (2), the
+     experts by `moe_want`, each model's replayed decode against eager
+     steps; and video
      (`video_parity`, 4 steps against the CPU by the parity rule,
      launches held to what ran): a 4-frame 112x112 clip, and a 224x224
      image before it, on the Qwen2-VL slice (f32 reference), the clip on
@@ -270,11 +290,21 @@ Phases (any failure exits non-zero):
      (t3) `batch_generate` of (i)'s texts; and LLaVA-1.5-7B (32 decoder
      layers, the 24-block CLIP tower) loaded exact: (v1) a 336x336 image
      and a short prompt, 32 tokens, (v2) an image chat through the server;
-     each with its load seconds, TTFT, ms per replayed token and peak GiB,
+     and Qwen3-30B-A3B (QWEN3_MOE_LAYERS of its 48 layers of 128 experts,
+     top-8, text only; Qwen3-VL-30B-A3B's requests take its first 6
+     layers) in its default mode: (x1) a short chat of 64 tokens, (x2) a
+     ~8.3k-token prompt, 16 tokens (K4 and the prefill route on every
+     layer of every chunk), (x3) `batch_generate` of (i)'s texts in 4
+     slots, (x4) a chat through the server, (x5) (x1)'s prompt at
+     kv_bits=4, 16 tokens (K6 on every layer and step); and Mixtral-8x7B
+     (MIXTRAL_LAYERS of its 32 layers): (y1) a short chat of 32 tokens in
+     the default mode and in exact;
+     each with its load seconds, TTFT, ms per replayed token, the
+     replayed step's device ms and peak GiB,
      its launches held to what ran (the expert layers: one
      expert-indexed launch a projection at decode, K5 per expert with
      rows in long prefill chunks; the exact models K5 on every linear and
-     head).
+     head); each of the later models' parts prints its seconds.
 Phases 3 and 4 fold each mlx triple once for all of its loads in one
 runtime mode (`fold_once`), across the checkpoints that share it.
 Each phase prints its seconds.  The line before the last is the kernel
@@ -357,6 +387,12 @@ def device_ms(fn, iters: int = 20) -> float:
 # Bytes of weight copies that the other calls of a cold timing read between
 # two reads of one copy: twice the H100's 50 MB L2.
 COLD_BYTES = 100e6
+
+
+# the most copies a cold timing captures: weights under COLD_BYTES /
+# MAX_COLD_COPIES (about 100 KB; the text MoE families' routers) are timed
+# warm only
+MAX_COLD_COPIES = 1024
 
 
 def cold_copies(nbytes: float) -> int:
@@ -804,8 +840,24 @@ K5_LLAMA_CASES = tuple(
     (4, 64, M, K, N) for M in (1, 512)
     for K, N in LLAMA_8B_SHAPES + LLAVA_7B_SHAPES
     if (4, 64, M, K, N) not in K5_8B_CASES)
+# the text MoE families in the exact mode ((x1)-(x5) load Qwen3-30B-A3B
+# by default, (y1) Mixtral-8x7B also exact; phase 3 holds all six): the
+# 8-bit routers [E, D] of Mixtral (8 x 4096), Phi-3.5-MoE (16 x 4096),
+# Granite 3.0 (40 x 1536), Qwen1.5-MoE (60 x 2048) and OLMoE (64 x 2048),
+# and Qwen1.5-MoE's shared-expert gate (N = 1, K = 2048) at 8 and 4 bits,
+# at M = 1 and 512; Qwen3-30B-A3B's q / k / v / o (2048 -> 4096, 512;
+# 4096 -> 2048) at M = 1 and 512 and its lm_head (N = 151936) and
+# Mixtral's (N = 32000) at M = 1; each timed cold and warm
+MOE_ROUTERS = ((4096, 8), (4096, 16), (1536, 40), (2048, 60), (2048, 64),
+               (2048, 1))
+K5_MOE_TEXT_CASES = (
+    tuple((8, 64, M, K, N) for M in (1, 512) for K, N in MOE_ROUTERS)
+    + tuple((4, 64, M, 2048, 1) for M in (1, 512))
+    + tuple((4, 64, M, K, N) for M in (1, 512)
+            for K, N in ((2048, 4096), (2048, 512), (4096, 2048)))
+    + ((4, 64, 1, 2048, 151936), (4, 64, 1, 4096, 32000)))
 K5_CASES = (K5_CASES + K5_8B_CASES + K5_MOE_CASES + K5_HALF_CASES
-            + K5_LLAMA_CASES)
+            + K5_LLAMA_CASES + K5_MOE_TEXT_CASES)
 K5_TOL = 1e-2
 
 
@@ -917,9 +969,17 @@ def check_qmatmul(results: list, dev) -> None:
                lambda: run(t), lambda: k5.qmatmul_plain(x, t), floor=0.0,
                work=qmm_work(M, t), library=lib)
         r = results[-1]
-        if (M <= k5.MAX_GEMV_ROWS or M == 58
+        weight_bytes = t.q.numel() + 2 * t.scales.numel() * 2
+        cold = (M <= k5.MAX_GEMV_ROWS or M == 58
                 or (bits, g, M, K, N) in (K5_8B_CASES + K5_MOE_CASES
-                                          + K5_LLAMA_CASES)):
+                                          + K5_LLAMA_CASES
+                                          + K5_MOE_TEXT_CASES))
+        if cold and cold_copies(weight_bytes) > MAX_COLD_COPIES:
+            # a router's few KB: warm only (its cold timing would capture
+            # tens of thousands of copies in one graph)
+            print(f"  {name} {shape}: {weight_bytes} bytes of weight, timed "
+                  f"warm only", flush=True)
+        elif cold:
             r["warm_ms"], r["ms"] = r["ms"], qmm_cold_ms(run, t)
             txt = f"kernel_ms={r['ms']:.4f} cold {r['warm_ms']:.4f} warm"
             if lib is not None:
@@ -954,6 +1014,21 @@ def check_qmatmul(results: list, dev) -> None:
 # experts), a 4-slot batch step (32) and a speculative verify at M = 5 (40)
 MOE_EXPERTS, MOE_TOP_K = 128, 8
 EXPERT_PAIRS = (8, 32, 40)
+# and at the text MoE families' stacks: (name, experts, top-k, hidden D,
+# expert width I, pairs, group size); gate / up [E, I, D] with the tokens'
+# rows, down [E, D, I] one row a pair.  Qwen3-30B-A3B's stacks are
+# Qwen3-VL-30B-A3B's (the first row); Mixtral at a decode step (2 pairs)
+# and a 4-slot batch step (8); Qwen1.5-MoE also at g = 128, where its
+# down projection (K = 1408) has an odd number of groups a row
+EXPERT_STACKS = (
+    ("Qwen3-30B-A3B", MOE_EXPERTS, MOE_TOP_K, 2048, 768, EXPERT_PAIRS, 64),
+    ("Mixtral-8x7B", 8, 2, 4096, 14336, (2, 8), 64),
+    ("OLMoE-1B-7B", 64, 8, 2048, 1024, (8,), 64),
+    ("Qwen1.5-MoE-A2.7B", 60, 4, 2048, 1408, (4,), 64),
+    ("Qwen1.5-MoE-A2.7B", 60, 4, 2048, 1408, (4,), 128),
+    ("Phi-3.5-MoE", 16, 2, 4096, 6400, (2,), 64),
+    ("Granite-3.0-3B-A800M", 40, 8, 1536, 512, (8,), 64),
+)
 
 
 def expert_work(t, experts, x_rows: int) -> tuple:
@@ -971,15 +1046,15 @@ def expert_work(t, experts, x_rows: int) -> tuple:
 
 def check_qmatmul_experts(results: list, dev) -> None:
     """K5's expert-indexed entry (`quantized_matmul_experts`) against its
-    plain version at gate / up [128, 768, 2048] (x: the tokens' rows, pair
-    p reading token p // 8) and down [128, 2048, 768] (x: one row a pair),
-    at EXPERT_PAIRS pairs, two pairs on expert 127; tolerance K5_TOL *
-    max|ref| (both round once to bf16 after f32 sums).  Each case is timed
-    cold (`graph_ms` over copies of the stack that together pass
-    COLD_BYTES of the experts it reads) and warm, with its kernels per call
-    (must be 1), a bit-identical repeat and its bytes per second beside the
-    bound.  No PyTorch call gathers experts from mlx-affine codes, so there
-    is no library time."""
+    plain version at each of EXPERT_STACKS: gate / up [E, I, D] (x: the
+    tokens' rows, pair p reading token p // k) and down [E, D, I] (x: one
+    row a pair), at the stack's pair counts, two pairs on expert E - 1;
+    tolerance K5_TOL * max|ref| (both round once to bf16 after f32 sums).
+    Each case is timed cold (`graph_ms` over copies of the stack that
+    together pass COLD_BYTES of the experts it reads) and warm, with its
+    kernels per call (must be 1), a bit-identical repeat and its bytes per
+    second beside the bound.  No PyTorch call gathers experts from
+    mlx-affine codes, so there is no library time."""
     import functools
 
     import torch
@@ -987,49 +1062,53 @@ def check_qmatmul_experts(results: list, dev) -> None:
     from mlx_vlm_tpu_torch.ops import qmatmul as k5
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
-    stacks = {(K, N): random_mlx(4, 64, K, N, gen, dev, (MOE_EXPERTS,))
-              for K, N in MOE_SHAPES}
-    for P in EXPERT_PAIRS:
-        experts = torch.randint(0, MOE_EXPERTS, (P,), generator=gen,
-                                device=dev, dtype=torch.int32)
-        experts[0] = experts[1] = MOE_EXPERTS - 1
-        tokens = P // MOE_TOP_K
-        token_rows = (torch.arange(P, device=dev) // MOE_TOP_K).to(
-            torch.int32)
-        for (K, N), t in stacks.items():
-            rows = token_rows if N == 768 else None
-            x = torch.randn((tokens if rows is not None else P, K),
-                            generator=gen, device=dev).to(torch.bfloat16)
-            run = functools.partial(k5.quantized_matmul_experts, x,
-                                    experts=experts, rows=rows)
-            out = run(t)
-            name = "qmatmul_experts"
-            shape = f"P={P} E={MOE_EXPERTS} K={K} N={N} g=64"
-            work = expert_work(t, experts, x.shape[0])
-            _check(results, name, shape, out,
-                   k5.qmatmul_experts_plain(x, t, experts, rows), K5_TOL,
-                   lambda: run(t),
-                   lambda: k5.qmatmul_experts_plain(x, t, experts, rows),
-                   floor=0.0, work=work)
-            r = results[-1]
-            copies = [t] + [clone_mlx(t) for _ in range(
-                cold_copies(work[0]) - 1)]
-            r["warm_ms"] = r["ms"]
-            r["ms"] = graph_ms([functools.partial(run, c) for c in copies],
-                               iters=5)
-            del copies
-            kernels = kernels_per_call(lambda: run(t))
-            same = bool(torch.equal(run(t), out))
-            r["kernels_per_call"], r["repeat_identical"] = kernels, same
-            r["ok"] = r["ok"] and same and kernels == 1
-            print(f"  {name} {shape}: kernel_ms={r['ms']:.4f} cold "
-                  f"{r['warm_ms']:.4f} warm (device time); "
-                  f"{len(set(experts.tolist()))} experts read, "
-                  f"{work[0] / 1e6:.3f} MB, {work[0] / r['ms'] / 1e9:.3f} "
-                  f"TB/s cold against the bound's 3.35; kernels per call "
-                  f"{kernels} (want 1), repeat bit-identical {same} "
-                  f"{'ok' if r['ok'] else 'MISMATCH'}", flush=True)
-    del stacks
+    for model, E, top_k, D, I, pair_counts, g in EXPERT_STACKS:
+        stacks = {(K, N): random_mlx(4, g, K, N, gen, dev, (E,))
+                  for K, N in ((D, I), (I, D))}
+        for P in pair_counts:
+            experts = torch.randint(0, E, (P,), generator=gen, device=dev,
+                                    dtype=torch.int32)
+            experts[0] = experts[1] = E - 1
+            tokens = P // top_k
+            token_rows = (torch.arange(P, device=dev) // top_k).to(
+                torch.int32)
+            for (K, N), t in stacks.items():
+                rows = token_rows if K == D else None
+                x = torch.randn((tokens if rows is not None else P, K),
+                                generator=gen, device=dev).to(torch.bfloat16)
+                run = functools.partial(k5.quantized_matmul_experts, x,
+                                        experts=experts, rows=rows)
+                out = run(t)
+                name = "qmatmul_experts"
+                shape = f"P={P} E={E} K={K} N={N} g={g}"
+                work = expert_work(t, experts, x.shape[0])
+                _check(results, name, shape, out,
+                       k5.qmatmul_experts_plain(x, t, experts, rows), K5_TOL,
+                       lambda: run(t),
+                       lambda: k5.qmatmul_experts_plain(x, t, experts, rows),
+                       floor=0.0, work=work)
+                r = results[-1]
+                copies = [t] + [clone_mlx(t) for _ in range(
+                    cold_copies(work[0]) - 1)]
+                r["warm_ms"] = r["ms"]
+                r["ms"] = graph_ms([functools.partial(run, c)
+                                    for c in copies], iters=5)
+                del copies
+                kernels = kernels_per_call(lambda: run(t))
+                same = bool(torch.equal(run(t), out))
+                r["kernels_per_call"], r["repeat_identical"] = kernels, same
+                r["model"] = model
+                r["ok"] = r["ok"] and same and kernels == 1
+                print(f"  {name} {model} {shape}: kernel_ms={r['ms']:.4f} "
+                      f"cold {r['warm_ms']:.4f} warm (device time); "
+                      f"{len(set(experts.tolist()))} experts read, "
+                      f"{work[0] / 1e6:.3f} MB, "
+                      f"{work[0] / r['ms'] / 1e9:.3f} TB/s cold against the "
+                      f"bound's 3.35 (bound_ms={r['bound_ms']:.5f}); kernels "
+                      f"per call {kernels} (want 1), repeat bit-identical "
+                      f"{same} {'ok' if r['ok'] else 'MISMATCH'}",
+                      flush=True)
+        del stacks
 
 
 def check_route_repairs(dev) -> bool:
@@ -1865,13 +1944,14 @@ def _processor(name_ids: bool = False, model=None):
     CLIP processor, which expands each <image> into 576 tokens, else the
     Qwen2-VL processor with `model`'s image processor, patch 16 for
     Qwen3-VL and 14 otherwise) over utils/testing.py's ByteTokenizer with
-    the family's special tokens (Llama-3.1's and LLaVA-1.5's ids, else
-    Qwen2-VL's); with `name_ids`, its decode writes every id as "<id>", so
+    the family's special tokens (Llama-3.1's, LLaVA-1.5's, Mixtral's,
+    OLMoE's, Phi-3.5-MoE's and Granite 3.0's ids, else Qwen2-VL's); with `name_ids`, its decode writes every id as "<id>", so
     that a text shows each token that random weights generate (most ids
     are not bytes)."""
     from mlx_vlm_tpu_torch.utils.processing import processor_for
     from mlx_vlm_tpu_torch.utils.testing import (LLAMA3_SPECIAL_TOKENS,
                                                  LLAVA_SPECIAL_TOKENS,
+                                                 MOE_TEXT_SPECIAL_TOKENS,
                                                  ByteTokenizer)
 
     class NamingTokenizer(ByteTokenizer):
@@ -1881,7 +1961,8 @@ def _processor(name_ids: bool = False, model=None):
     kind = getattr(getattr(model, "config", None), "model_type", "")
     specials = {"llama": (LLAMA3_SPECIAL_TOKENS, "<|eot_id|>",
                           "<|end_of_text|>"),
-                "llava": (LLAVA_SPECIAL_TOKENS, "</s>", "<pad>")}.get(kind, ())
+                "llava": (LLAVA_SPECIAL_TOKENS, "</s>", "<pad>"),
+                **MOE_TEXT_SPECIAL_TOKENS}.get(kind, ())
     tok = (NamingTokenizer if name_ids else ByteTokenizer)(*specials)
     return processor_for(tok, model)
 
@@ -1976,6 +2057,13 @@ def moe_want(counts: dict, n_layers: int, forwards: int) -> dict:
     return want
 
 
+def batch_moe_want(n_layers: int):
+    """want(counts, generator stats) of a batch of an MoE model (the
+    default mode): `moe_want` over its prefill chunks and batch steps."""
+    return lambda counts, st: moe_want(counts, n_layers,
+                                       st["prefill_chunks"] + st["steps"])
+
+
 def read_counts() -> dict:
     return {k: v for c in counters() for k, v in c.items()}
 
@@ -2038,37 +2126,89 @@ class fold_once:
 # Qwen3-VL-30B-A3B's decoder layers in phase 4: its published 48 cut to
 # 12 when the llama family came, then to 6 when video came (the run took
 # 1045.9 s of its 1200 s limit at 12), so that it stays near 950 s;
-# phase 3 holds 2 of them to the CPU
+# phase 3 holds 2 of them to the CPU.  They are the first layers of
+# Qwen3-30B-A3B's build, whose text widths are the same
 MOE_LAYERS = 6
+# Qwen3-30B-A3B's decoder layers in phase 4 ((x1)-(x5)), of its published
+# 48, and Mixtral-8x7B's ((y1)), of its published 32, cut for the run's
+# time: the whole run took 1174.1 s at 24 and 4 layers (phase 3 759.1 s;
+# one NVIDIA H100 80GB HBM3 at 700 W) on a host 1.22-1.26 times slower
+# than the one that ran 792.2 s before these models came
+QWEN3_MOE_LAYERS = 12
+MIXTRAL_LAYERS = 2
+# the text MoE checkpoints that phase 3 alone takes, built at its depth:
+# name -> (utils/testing's published config, decoder layers, seed)
+MOE_TEXT_PHASE3 = {
+    "qwen1_5_moe_a2_7b": ("qwen1_5_moe_a2_7b_config", 1, SEED + 13),
+    "olmoe_1b_7b": ("olmoe_1b_7b_config", 2, SEED + 14),
+    "phi_3_5_moe": ("phi_3_5_moe_config", 1, SEED + 15),
+    "granite_3_0_3b_a800m": ("granite_3_0_3b_a800m_config", 2, SEED + 16),
+}
+
+
+def qwen3_vl_moe_from_text(text: tuple, vision: tuple) -> tuple:
+    """Qwen3-VL-30B-A3B's checkpoint at MOE_LAYERS decoder layers from
+    Qwen3-30B-A3B's (`text`: the same language-model widths, so the same
+    arrays: its embedding, final norm, head and first MOE_LAYERS layers
+    under Qwen3-VL's names, its 8-bit routers' per-path entries under the
+    conversion's) and Qwen3-VL-30B-A3B's vision tower (`vision`)."""
+    tcfg, tw = text
+    cfg, w = vision
+    cfg = json.loads(json.dumps(cfg))
+    cfg["text_config"]["num_hidden_layers"] = MOE_LAYERS
+    q = {k: v for k, v in tcfg["quantization"].items()
+         if not isinstance(v, dict)}
+    for k, v in tw.items():
+        if k.startswith("model.layers."):
+            i = int(k.split(".")[2])
+            if i >= MOE_LAYERS:
+                continue
+            path = k[:k.rindex(".")]
+            if path in tcfg["quantization"]:
+                q["language_model." + path] = tcfg["quantization"][path]
+        w[k.replace("model.", "model.language_model.", 1)
+          if k.startswith("model.") else k] = v
+    cfg["quantization"] = q
+    return cfg, w
 
 
 def family_checkpoints() -> dict:
-    """The random mlx 4-bit checkpoints of phases 3 and 4 at the published
+    """The random mlx checkpoints of phases 3 and 4 at the published
     widths, built once, each on a thread of its own (the draws release the
     interpreter lock, and each checkpoint has its own seed, so the arrays
-    are those of a sequential build): "qwen2_vl_7b" (seed SEED + 2),
-    "qwen2_5_vl_7b" (Qwen2.5-VL-7B: the same language-model arrays, whose
-    widths are Qwen2-VL-7B's, and its own windowed vision tower, seed
-    SEED + 6), "qwen3_vl_8b" (seed SEED + 7), "qwen3_vl_moe_30b_a3b"
-    (Qwen3-VL-30B-A3B at MOE_LAYERS decoder layers, its 128 experts a layer
-    in the mlx fused layout and its routers at 8 bits under per-path
-    entries, seed SEED + 8), "llama_3_1_8b" (seed SEED + 9),
-    "llava_1_5_7b" (seed SEED + 10) and "qwen2_vl_7b_8bit" (Qwen2-VL-7B at
-    8 bits, request (h)'s, seed SEED + 3).  Each is (config, weights)."""
+    are those of a sequential build): "qwen2_vl_7b" (4 bits, seed
+    SEED + 2), "qwen2_5_vl_7b" (Qwen2.5-VL-7B: the same language-model
+    arrays, whose widths are Qwen2-VL-7B's, and its own windowed vision
+    tower, seed SEED + 6), "qwen3_vl_8b" (seed SEED + 7),
+    "qwen3_30b_a3b" (Qwen3-30B-A3B at QWEN3_MOE_LAYERS decoder layers, its
+    128 experts a layer in the mlx fused layout and its routers at 8 bits
+    under per-path entries, seed SEED + 8), "qwen3_vl_moe_30b_a3b"
+    (Qwen3-VL-30B-A3B: its first MOE_LAYERS layers with its embedding and
+    head, and Qwen3-VL's deepstack tower, seed SEED + 8,
+    `qwen3_vl_moe_from_text`), "llama_3_1_8b" (seed SEED + 9),
+    "llava_1_5_7b" (seed SEED + 10), "mixtral_8x7b" (MIXTRAL_LAYERS
+    layers, 8-bit routers, seed SEED + 12), MOE_TEXT_PHASE3's (8-bit
+    routers) and "qwen2_vl_7b_8bit" (Qwen2-VL-7B at 8 bits, request (h)'s,
+    seed SEED + 3).  Each is (config, weights)."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from mlx_vlm_tpu_torch.utils import testing
     from mlx_vlm_tpu_torch.utils.testing import (is_vision_key,
                                                  llama_3_1_8b_config,
                                                  llava_1_5_7b_config,
+                                                 mixtral_8x7b_config,
                                                  mlx_int4_checkpoint,
                                                  mlx_quantized_checkpoint,
                                                  qwen2_5_vl_7b_config,
                                                  qwen2_vl_7b_config,
+                                                 qwen3_30b_a3b_config,
                                                  qwen3_vl_8b_config,
                                                  qwen3_vl_moe_30b_a3b_config)
 
-    moe = qwen3_vl_moe_30b_a3b_config()
-    moe["text_config"]["num_hidden_layers"] = MOE_LAYERS
+    def at_depth(cfg: dict, n_layers: int) -> dict:
+        cfg["num_hidden_layers"] = n_layers
+        return cfg
+
     builds = {
         "qwen2_vl_7b": lambda: mlx_int4_checkpoint(qwen2_vl_7b_config(),
                                                    seed=SEED + 2),
@@ -2076,15 +2216,26 @@ def family_checkpoints() -> dict:
             qwen2_5_vl_7b_config(), seed=SEED + 6, vision_only=True),
         "qwen3_vl_8b": lambda: mlx_int4_checkpoint(qwen3_vl_8b_config(),
                                                    seed=SEED + 7),
-        "qwen3_vl_moe_30b_a3b": lambda: mlx_quantized_checkpoint(
-            moe, seed=SEED + 8, router_bits=8),
+        "qwen3_30b_a3b": lambda: mlx_quantized_checkpoint(
+            at_depth(qwen3_30b_a3b_config(), QWEN3_MOE_LAYERS),
+            seed=SEED + 8, router_bits=8),
+        "qwen3_vl_moe_vision": lambda: mlx_quantized_checkpoint(
+            qwen3_vl_moe_30b_a3b_config(), seed=SEED + 8, vision_only=True),
         "llama_3_1_8b": lambda: mlx_int4_checkpoint(llama_3_1_8b_config(),
                                                     seed=SEED + 9),
         "llava_1_5_7b": lambda: mlx_int4_checkpoint(llava_1_5_7b_config(),
                                                     seed=SEED + 10),
+        "mixtral_8x7b": lambda: mlx_quantized_checkpoint(
+            at_depth(mixtral_8x7b_config(), MIXTRAL_LAYERS), seed=SEED + 12,
+            router_bits=8),
         "qwen2_vl_7b_8bit": lambda: mlx_quantized_checkpoint(
             qwen2_vl_7b_config(), bits=8, seed=SEED + 3),
     }
+    for name, (config, n_layers, seed) in MOE_TEXT_PHASE3.items():
+        builds[name] = (lambda c=config, n=n_layers, sd=seed:
+                        mlx_quantized_checkpoint(
+                            at_depth(getattr(testing, c)(), n), seed=sd,
+                            router_bits=8))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {k: pool.submit(build) for k, build in builds.items()}
@@ -2093,9 +2244,19 @@ def family_checkpoints() -> dict:
     lm = {k: v for k, v in out["qwen2_vl_7b"][1].items()
           if not is_vision_key(k)}
     out["qwen2_5_vl_7b"] = (cfg25, {**lm, **vision})
+    out["qwen3_vl_moe_30b_a3b"] = qwen3_vl_moe_from_text(
+        out["qwen3_30b_a3b"], out.pop("qwen3_vl_moe_vision"))
+    # Qwen1.5-MoE's embedding and head have Qwen3-30B-A3B's shapes: the
+    # same arrays, so that `fold_once` requantizes them once
+    q15, q3 = out["qwen1_5_moe_a2_7b"][1], out["qwen3_30b_a3b"][1]
+    for k in [k for k in q15 if k.startswith(("model.embed_tokens.",
+                                              "lm_head."))]:
+        q15[k] = q3[k]
     print(f"  checkpoints (Qwen2-VL-7B, Qwen2.5-VL-7B's vision tower, "
-          f"Qwen3-VL-8B, Qwen3-VL-30B-A3B at {MOE_LAYERS} layers, "
-          f"Llama-3.1-8B, LLaVA-1.5-7B, Qwen2-VL-7B at 8 bits) built in "
+          f"Qwen3-VL-8B, Qwen3-30B-A3B at {QWEN3_MOE_LAYERS} layers with "
+          f"Qwen3-VL-30B-A3B's tower, Llama-3.1-8B, LLaVA-1.5-7B, "
+          f"Mixtral-8x7B at {MIXTRAL_LAYERS} layers, "
+          f"{', '.join(MOE_TEXT_PHASE3)}, Qwen2-VL-7B at 8 bits) built in "
           f"{time.perf_counter() - t0:.1f} s on {len(builds)} threads",
           flush=True)
     return out
@@ -2845,7 +3006,33 @@ FAMILY_CASES = (
      "ChannelQuantizedTensor", "float32", 4),
     ("LLaVA-1.5-7B, exact (K5)", "llava_1_5_7b", 2, "exact",
      "QuantizedTensor", "float32", 4),
-)
+) + tuple(
+    # the text MoE decoders at their published widths, text only, 2
+    # teacher-forced steps (their CPU references dequantize every expert
+    # of a layer at each forward: a Mixtral expert projection takes 0.3 s
+    # on 8 host threads, so Mixtral, Phi-3.5-MoE and Qwen1.5-MoE keep 1
+    # layer); the default mode (w8chan linears and routers, the experts on
+    # K5) for all six, exact for Qwen3-30B-A3B (Mixtral's exact case, 17.5
+    # s of CPU, was cut for the run's time: Mixtral runs exact in phase 4).
+    # Qwen3-30B-A3B is held to a CPU run in the card's working type, bf16:
+    # its router picks 8 of 128 experts, and at near-ties bf16 and f32
+    # scores pick different ones, so that against f32 runs the card
+    # measured 0.2097 of the tolerance 0.2154 (default, 4 steps) and
+    # 0.2159, past 0.2134 (exact, the third of 4 steps), where the other
+    # families' errors are 0.06-0.35 of theirs; against bf16 runs 0.1387 of
+    # 0.2266 and 0.1484 of 0.2141 (NVIDIA H100 80GB HBM3, 700 W)
+    (f"{title}, {'exact (K5; 8-bit router)' if mode else 'default (w8chan; experts on K5)'}",
+     name, n_layers, mode,
+     "QuantizedTensor" if mode else "ChannelQuantizedTensor", ref_dtype, 2)
+    for title, name, n_layers, mode, ref_dtype in (
+        ("Qwen3-30B-A3B", "qwen3_30b_a3b", 2, None, "bfloat16"),
+        ("Qwen3-30B-A3B", "qwen3_30b_a3b", 2, "exact", "bfloat16"),
+        ("Qwen1.5-MoE-A2.7B", "qwen1_5_moe_a2_7b", 1, None, "float32"),
+        ("Mixtral-8x7B", "mixtral_8x7b", 1, None, "float32"),
+        ("OLMoE-1B-7B", "olmoe_1b_7b", 2, None, "float32"),
+        ("Phi-3.5-MoE", "phi_3_5_moe", 1, None, "float32"),
+        ("Granite-3.0-3B-A800M", "granite_3_0_3b_a800m", 2, None,
+         "float32")))
 # the FAMILY_CASES whose models also take phase 3's clip (label -> the
 # family's name): Qwen2.5-VL's window tower and scaled times, Qwen3-VL's
 # timestamped frame groups
@@ -2854,7 +3041,10 @@ VIDEO_FAMILY_CASES = {"Qwen2.5-VL, w4grp (K3 decode)": "Qwen2.5-VL",
 # each checkpoint's phase-3 image: the Qwen-VL line's 224 x 224 (no
 # resize at patch 14 or 16), LLaVA's 336 x 336 (its crop size, so the
 # processor needs no PIL), none for the text-only Llama
-FAMILY_IMAGE = {"llama_3_1_8b": None, "llava_1_5_7b": 336}
+FAMILY_IMAGE = {"llama_3_1_8b": None, "llava_1_5_7b": 336,
+                "qwen3_30b_a3b": None, "qwen1_5_moe_a2_7b": None,
+                "mixtral_8x7b": None, "olmoe_1b_7b": None,
+                "phi_3_5_moe": None, "granite_3_0_3b_a800m": None}
 
 
 def vision_depth(model) -> int:
@@ -2868,9 +3058,10 @@ def family_want(label: str, lm, n_steps: int) -> dict:
     chunk with its head at M = 1, then n_steps - 1 decode steps): on the
     fused route K1 for the chunk's linears, K2 for its head and K3 each
     step; exact K5 on every linear and the head of the chunk and of each
-    step; w8chan no kernel (K4 takes no chunk this short).  Qwen3-VL-MoE:
-    its expert layers by `moe_want`, and in exact K5 on the 4 attention
-    linears and the head (4 bits) and the router (8 bits)."""
+    step; w8chan no kernel (K4 takes no chunk this short).  The MoE
+    models (Qwen3-VL-MoE and the text MoE decoders): their expert layers
+    by `moe_want`, and in exact K5 on the 4 attention linears and the head
+    (4 bits) and the router (8 bits)."""
     want = {k: 0 for k in read_counts()}
     L = lm.args.num_hidden_layers
     if hasattr(lm, "top_k"):  # the MoE language model
@@ -2893,12 +3084,16 @@ def phase_family_parity(ckpts: dict) -> bool:
     the whole tower; default mode and exact, its 8-bit routers),
     Llama-3.1-8B (2 decoder layers, text only) and LLaVA-1.5-7B (2 decoder
     layers, the whole 24-block CLIP tower), the last two in their default
-    w8chan mode and in exact, on the card (bf16, kernels) against the CPU
-    (plain versions, in f32 or bf16 by FAMILY_CASES), each on its own
-    prompt (an image one but for Llama, FAMILY_IMAGE) and processor (patch
-    14; 16; CLIP's 336 crop), teacher-forced by the parity rule, its
-    launches held to what ran; then each model's graph-replayed decode
-    against eager steps on the card."""
+    w8chan mode and in exact, and the text MoE decoders (Qwen3-30B-A3B,
+    Qwen1.5-MoE-A2.7B, Mixtral-8x7B, OLMoE-1B-7B, Phi-3.5-MoE and
+    Granite-3.0-3B-A800M, 1 or 2 decoder layers at their published widths,
+    8-bit routers; the default mode, and exact for Qwen3-30B-A3B), on the
+    card (bf16, kernels) against the CPU (plain versions,
+    in f32 or bf16 by FAMILY_CASES), each on its own prompt (an image one
+    but for the text models, FAMILY_IMAGE) and processor (patch 14; 16;
+    CLIP's 336 crop; each text family's special tokens), teacher-forced by
+    the parity rule, its launches held to what ran; then each model's
+    graph-replayed decode against eager steps on the card."""
     import torch
 
     from mlx_vlm_tpu_torch import apply_chat_template
@@ -2907,7 +3102,9 @@ def phase_family_parity(ckpts: dict) -> bool:
     from mlx_vlm_tpu_torch.utils.processing import prepare_inputs
 
     print("phase 3: Qwen2.5-VL (7B widths), Qwen3-VL (8B widths), "
-          "Qwen3-VL-MoE (30B-A3B widths), Llama-3.1-8B and LLaVA-1.5-7B on "
+          "Qwen3-VL-MoE (30B-A3B widths), Llama-3.1-8B, LLaVA-1.5-7B and "
+          "the text MoE decoders (Qwen3-30B-A3B, Qwen1.5-MoE-A2.7B, "
+          "Mixtral-8x7B, OLMoE-1B-7B, Phi-3.5-MoE, Granite-3.0-3B-A800M) on "
           "the card vs the CPU, teacher-forced", flush=True)
     all_ok = True
     for (label, name, n_layers, mode, layout, ref_dtype,
@@ -3305,15 +3502,18 @@ def report_batch(name: str, st: dict, counts: dict, tokens: str, n_gen: int,
 
 
 def run_batch_generate(model, proc, cfg, total: dict,
-                       name: str = "(i) batch_generate") -> list:
-    """Request (i): BATCH_PROMPTS through batch_generate (greedy, bf16
-    batch cache), the kernels' launch counters set to 0 just before it and
-    read just after.  Returns its texts."""
+                       name: str = "(i) batch_generate",
+                       with_images: bool = True, want=None) -> list:
+    """Request (i): BATCH_PROMPTS (their texts alone without `with_images`)
+    through batch_generate (greedy, bf16 batch cache), the kernels' launch
+    counters set to 0 just before it and read just after, and held to
+    report_batch's launches or to want(counts, generator stats).  Returns
+    its texts."""
     import torch
 
     from mlx_vlm_tpu_torch import batch_generate
 
-    prompts, images = batch_prompts(proc, cfg)
+    prompts, images = batch_prompts(proc, cfg, with_images)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     res = batch_generate(model, proc, prompts, images=images,
@@ -3322,10 +3522,11 @@ def run_batch_generate(model, proc, cfg, total: dict,
     counts = read_counts()
     if len(res.texts) != len(prompts):
         fail(f"{name}: {len(res.texts)} texts for {len(prompts)} prompts")
-    report_batch(name, res.generator_stats, counts, "",
-                 res.stats["generation_tokens"], res.stats["prompt_tokens"],
-                 res.stats["wall_s"], None,
-                 model.language_model.args.num_hidden_layers, total)
+    st = res.generator_stats
+    report_batch(name, st, counts, "", res.stats["generation_tokens"],
+                 res.stats["prompt_tokens"], res.stats["wall_s"], None,
+                 model.language_model.args.num_hidden_layers, total,
+                 want=None if want is None else want(counts, st))
     return res.texts
 
 
@@ -5265,9 +5466,15 @@ def phase_main_path(ckpts: dict) -> dict:
     exact_requests(proc, cfg, weights, ckpts.pop("qwen2_vl_7b_8bit"), total)
     run_qwen2_5_vl(ckpts["qwen2_5_vl_7b"], total)
     run_qwen3_vl(ckpts["qwen3_vl_8b"], total)
-    run_qwen3_vl_moe(ckpts["qwen3_vl_moe_30b_a3b"], total)
-    run_llama(ckpts["llama_3_1_8b"], total)
-    run_llava(ckpts["llava_1_5_7b"], total)
+    for run, name in ((run_qwen3_vl_moe, "qwen3_vl_moe_30b_a3b"),
+                      (run_llama, "llama_3_1_8b"),
+                      (run_llava, "llava_1_5_7b"),
+                      (run_qwen3_moe, "qwen3_30b_a3b"),
+                      (run_mixtral, "mixtral_8x7b")):
+        t0 = time.perf_counter()
+        run(ckpts.pop(name), total)
+        print(f"  {run.__name__}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
     print(f"  kernel launches on the main path: {total}", flush=True)
     for k, v in total.items():
         if v <= 0:
@@ -5396,6 +5603,31 @@ def run_video(model, proc, cfg, name: str, route: str, text: str,
     return out
 
 
+def serve_chat(model, proc, cfg, label: str, title: str, text: str, size,
+               want, total: dict) -> None:
+    """One chat of 16 tokens (with a size x size image, where `size`)
+    through serve_requests; prints its metrics and holds its answer and
+    launches (want(counts, generator stats)) to what ran."""
+    req = (label, "chat", text, size, False, False, None, 16)
+    answers, _, _, _, counts, st, metrics, wall, _, http = serve_requests(
+        model, proc, cfg, [req], None)
+    ans = answers.get(label) or {}
+    env = (metrics.get("recent") or [{}])[-1]
+    what = "chat" if size is None else "image chat ({})".format(
+        "a PNG data URI over HTTP" if http else "through the engine")
+    print(f"  {label} {title} server, {what}: status "
+          f"{ans.get('status')}, {ans.get('completion')} tokens, finish "
+          f"{ans.get('finish')}, {wall:.4f} s; /metrics ttft_s "
+          f"{env.get('ttft_s')}, generation_tps "
+          f"{env.get('generation_tps')}; {st['steps']} batch steps, "
+          f"{st['prefill_chunks']} prefill chunks; launches {counts}",
+          flush=True)
+    if ans.get("status") != 200 or ans.get("errors") or not (
+            ans.get("completion") == 16 or ans.get("finish") == "stop"):
+        fail(f"{label}: answer {ans}")
+    expect(label, counts, want(counts, st), total)
+
+
 def run_qwen2_5_vl(ckpt: tuple, total: dict) -> None:
     """Qwen2.5-VL-7B at full width and depth (28 decoder layers, the 32-block
     windowed tower), default w4grp: (n1) an image request of 100 tokens
@@ -5428,27 +5660,11 @@ def run_qwen2_5_vl(ckpt: tuple, total: dict) -> None:
     expect(name, counts, want, total)
     run_batch_generate(model, proc, cfg, total,
                        name="(n2) Qwen2.5-VL-7B batch_generate")
-    req = ("(n3)", "chat", "Describe this image in detail.", 448, False,
-           False, None, 16)
-    answers, _, _, _, counts, st, metrics, wall, _, http = serve_requests(
-        model, proc, cfg, [req], None)
-    ans = answers.get("(n3)") or {}
-    env = (metrics.get("recent") or [{}])[-1]
-    want = {k: 0 for k in counts}
-    want["int4_matvec"] = (7 * L + 1) * st["steps"] + st["prefill_heads"]
-    want["int4_matmul"] = 7 * L * st["prefill_chunks"]
-    via = "a PNG data URI over HTTP" if http else "through the engine"
-    print(f"  (n3) Qwen2.5-VL-7B server, image chat ({via}): status "
-          f"{ans.get('status')}, {ans.get('completion')} tokens, finish "
-          f"{ans.get('finish')}, {wall:.4f} s; /metrics ttft_s "
-          f"{env.get('ttft_s')}, generation_tps "
-          f"{env.get('generation_tps')}; {st['steps']} batch steps, "
-          f"{st['prefill_chunks']} prefill chunks; launches {counts}",
-          flush=True)
-    if ans.get("status") != 200 or ans.get("errors") or not (
-            ans.get("completion") == 16 or ans.get("finish") == "stop"):
-        fail(f"(n3): answer {ans}")
-    expect("(n3)", counts, want, total)
+    serve_chat(model, proc, cfg, "(n3)", "Qwen2.5-VL-7B",
+               "Describe this image in detail.", 448, lambda c, st: dict(
+                   {k: 0 for k in c}, int4_matmul=7 * L * st[
+                       "prefill_chunks"], int4_matvec=(7 * L + 1) * st[
+                       "steps"] + st["prefill_heads"]), total)
     del model
     torch.cuda.empty_cache()
 
@@ -5548,7 +5764,6 @@ def run_qwen3_vl_moe(ckpt: tuple, total: dict) -> None:
     launch a projection, long chunks K5 per expert with rows)."""
     import torch
 
-    from mlx_vlm_tpu_torch import batch_generate
     from mlx_vlm_tpu_torch.core import moe
 
     cfg, weights = ckpt
@@ -5585,38 +5800,12 @@ def run_qwen3_vl_moe(ckpt: tuple, total: dict) -> None:
         expect(name, counts, want, total)
         if PROFILE and max_tokens == 64:
             profile_prefill(model, proc, cfg, text)
-    name = "(u2) Qwen3-VL-30B-A3B batch_generate"
-    prompts, images = batch_prompts(proc, cfg)
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    res = batch_generate(model, proc, prompts, images=images,
-                         max_tokens=BATCH_MAX_TOKENS,
-                         num_slots=BATCH_NUM_SLOTS)
-    counts = read_counts()
-    st = res.generator_stats
-    report_batch(name, st, counts, "", res.stats["generation_tokens"],
-                 res.stats["prompt_tokens"], res.stats["wall_s"], None, L,
-                 total, want=moe_want(counts, L, st["prefill_chunks"]
-                                      + st["steps"]))
-    req = ("(u3)", "chat", "Describe this image in detail.", 448, False,
-           False, None, 16)
-    answers, _, _, _, counts, st, metrics, wall, _, http = serve_requests(
-        model, proc, cfg, [req], None)
-    ans = answers.get("(u3)") or {}
-    env = (metrics.get("recent") or [{}])[-1]
-    via = "a PNG data URI over HTTP" if http else "through the engine"
-    print(f"  (u3) Qwen3-VL-30B-A3B server, image chat ({via}): status "
-          f"{ans.get('status')}, {ans.get('completion')} tokens, finish "
-          f"{ans.get('finish')}, {wall:.4f} s; /metrics ttft_s "
-          f"{env.get('ttft_s')}, generation_tps "
-          f"{env.get('generation_tps')}; {st['steps']} batch steps, "
-          f"{st['prefill_chunks']} prefill chunks; launches {counts}",
-          flush=True)
-    if ans.get("status") != 200 or ans.get("errors") or not (
-            ans.get("completion") == 16 or ans.get("finish") == "stop"):
-        fail(f"(u3): answer {ans}")
-    expect("(u3)", counts, moe_want(counts, L, st["prefill_chunks"]
-                                    + st["steps"]), total)
+    run_batch_generate(model, proc, cfg, total,
+                       "(u2) Qwen3-VL-30B-A3B batch_generate",
+                       want=batch_moe_want(L))
+    serve_chat(model, proc, cfg, "(u3)", "Qwen3-VL-30B-A3B",
+               "Describe this image in detail.", 448, batch_moe_want(L),
+               total)
     del model, experts, router, layers
     torch.cuda.empty_cache()
 
@@ -5630,8 +5819,6 @@ def run_llama(ckpt: tuple, total: dict) -> None:
     chunk); (t3) batch_generate of BATCH_PROMPTS' texts in 4 slots."""
     import torch
 
-    from mlx_vlm_tpu_torch import batch_generate
-
     model, cfg, L, proc = load_exact("Llama-3.1-8B (t1)-(t3)", ckpt)
     chat = "Write a short story about a lighthouse."
     run_exact_requests(model, proc, cfg, L, (
@@ -5640,18 +5827,10 @@ def run_llama(ckpt: tuple, total: dict) -> None:
          4),
         ("(t2) Llama-3.1-8B exact, ~8.5k-token prompt", LONG_TEXT, None, 16,
          None)), total)
-    name = "(t3) Llama-3.1-8B exact, batch_generate"
-    prompts, images = batch_prompts(proc, cfg, images=False)
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    res = batch_generate(model, proc, prompts, images=images,
-                         max_tokens=BATCH_MAX_TOKENS,
-                         num_slots=BATCH_NUM_SLOTS)
-    counts = read_counts()
-    st = res.generator_stats
-    report_batch(name, st, counts, "", res.stats["generation_tokens"],
-                 res.stats["prompt_tokens"], res.stats["wall_s"], None, L,
-                 total, want=exact_batch_want(counts, L, st))
+    run_batch_generate(model, proc, cfg, total,
+                       "(t3) Llama-3.1-8B exact, batch_generate",
+                       with_images=False,
+                       want=lambda c, st: exact_batch_want(c, L, st))
     del model
     torch.cuda.empty_cache()
 
@@ -5667,26 +5846,134 @@ def run_llava(ckpt: tuple, total: dict) -> None:
     run_exact_requests(model, proc, cfg, L, (
         ("(v1) LLaVA-1.5-7B exact, image 336x336 + short prompt",
          "Describe this image in detail.", 336, 32, None),), total)
-    req = ("(v2)", "chat", "Describe this image in detail.", 336, False,
-           False, None, 16)
-    answers, _, _, _, counts, st, metrics, wall, _, http = serve_requests(
-        model, proc, cfg, [req], None)
-    ans = answers.get("(v2)") or {}
-    env = (metrics.get("recent") or [{}])[-1]
-    via = "a PNG data URI over HTTP" if http else "through the engine"
-    print(f"  (v2) LLaVA-1.5-7B server, image chat ({via}): status "
-          f"{ans.get('status')}, {ans.get('completion')} tokens, finish "
-          f"{ans.get('finish')}, {wall:.4f} s; /metrics ttft_s "
-          f"{env.get('ttft_s')}, generation_tps "
-          f"{env.get('generation_tps')}; {st['steps']} batch steps, "
-          f"{st['prefill_chunks']} prefill chunks; launches {counts}",
-          flush=True)
-    if ans.get("status") != 200 or ans.get("errors") or not (
-            ans.get("completion") == 16 or ans.get("finish") == "stop"):
-        fail(f"(v2): answer {ans}")
-    expect("(v2)", counts, exact_batch_want(counts, L, st), total)
+    serve_chat(model, proc, cfg, "(v2)", "LLaVA-1.5-7B",
+               "Describe this image in detail.", 336,
+               lambda c, st: exact_batch_want(c, L, st), total)
     del model
     torch.cuda.empty_cache()
+
+
+def moe_exact_want(counts: dict, L: int, forwards: int, heads: int) -> dict:
+    """Launches of an exact-mode text MoE model over `forwards` forward
+    passes (prefill chunks and decode steps) and `heads` head rows
+    (prefill heads and one a step): its expert layers by `moe_want`, K5
+    on the 4 attention linears of each layer and forward and on each head
+    (4 bits), and on each layer's router (8 bits)."""
+    want = moe_want(counts, L, forwards)
+    want["qmatmul_int4"] += 4 * L * forwards + heads
+    want["qmatmul_int8"] = L * forwards
+    return want
+
+
+def run_moe_requests(model, proc, cfg, requests, total: dict,
+                     exact: bool = False) -> None:
+    """`requests` (name, text, max tokens, kv_bits) through run_request on
+    a text MoE model, each held to what ran: its expert layers by
+    `moe_want` (and, `exact`, every linear, router and head on K5:
+    `moe_exact_want`), K4 on every layer of every chunk where the cache
+    reaches 8192 rows, K6 on every layer and step at kv_bits 4.  A long
+    prompt's chunks (more than PREFILL_MIN_TOKENS rows each) must take the
+    prefill route on every layer."""
+    from mlx_vlm_tpu_torch.core import moe
+
+    L = model.language_model.args.num_hidden_layers
+    for name, text, max_tokens, kv_bits in requests:
+        route = ("per-linear" + (", qmatmul_int4" if exact else "")
+                 + ", experts on K5"
+                 + (", int4_kv_attention" if kv_bits else ""))
+        counts, n, S, steps = run_request(model, proc, cfg, name, route, text,
+                                          None, 0, max_tokens, kv_bits, {})
+        chunks = prefill_chunks(S, max_tokens)
+        capacity = -(-(S + max_tokens + min(32, max_tokens) + 1) // 256) * 256
+        want = (moe_exact_want(counts, L, chunks + steps, 1 + steps) if exact
+                else moe_want(counts, L, chunks + steps))
+        want["flash_attention"] = (L * chunks if capacity >= 8192
+                                   and not kv_bits else 0)
+        if kv_bits == 4:
+            want["int4_kv_attention"] = L * steps
+        calls, runs = moe.stats["grouped_calls"], moe.stats["grouped_experts"]
+        print(f"    {name}: prefill route on {calls} layer calls, {runs} "
+              f"expert runs ({runs / max(1, calls):.1f} experts a layer and "
+              f"chunk)", flush=True)
+        if text is LONG_TEXT and calls != L * chunks:
+            fail(f"{name}: the prefill route took {calls} layer calls, want "
+                 f"{L} layers x {chunks} chunks")
+        expect(name, counts, want, total)
+
+
+def load_moe_text(name: str, ckpt: tuple, mode=None):
+    """A text MoE checkpoint loaded onto the card (load_timed), checked to
+    hold 4-bit expert stacks [L, E, ...] exact for K5 beside 8-bit routers
+    (per-channel int8 by default, K5's codes in exact)."""
+    cfg, weights = ckpt
+    model = load_timed(name, cfg, weights, mode=mode)
+    lm = model.language_model
+    mlp = model.params["language_model"]["model"]["layers"]["mlp"]
+    experts, router = (mlp["experts"]["gate_proj"]["weight"],
+                       mlp["gate"]["weight"])
+    E = cfg.get("num_experts") or cfg["num_local_experts"]
+    router_kind = "QuantizedTensor" if mode == "exact" else \
+        "ChannelQuantizedTensor"
+    if (type(experts).__name__ != "QuantizedTensor" or experts.bits != 4
+            or tuple(experts.shape[:2]) != (lm.args.num_hidden_layers, E)
+            or type(router).__name__ != router_kind
+            or getattr(router, "bits", getattr(router, "src_bits", 0)) != 8
+            or lm.top_k != cfg["num_experts_per_tok"]):
+        fail(f"{name} did not load 4-bit expert stacks [L, {E}, ...] on K5 "
+             f"beside 8-bit routers ({router_kind}), top-"
+             f"{cfg['num_experts_per_tok']}")
+    return model, cfg, lm.args.num_hidden_layers, _processor(model=model)
+
+
+def run_qwen3_moe(ckpt: tuple, total: dict) -> None:
+    """Qwen3-30B-A3B at full width (QWEN3_MOE_LAYERS of its 48 decoder
+    layers of 128 experts, top-8), text only, the loader's default mode
+    (w8chan linears and 8-bit routers, the expert stacks exact on K5): (x1)
+    a short chat of 64 tokens; (x2) a ~8.3k-token prompt, 16 tokens (K4
+    and the prefill route on every layer of every chunk); (x3)
+    BATCH_PROMPTS' texts through batch_generate in 4 slots; (x4) one chat
+    through the server; (x5) (x1)'s prompt at kv_bits=4, 16 tokens (K6 on
+    every layer and step).  Each request's expert layers are held to
+    `moe_want`."""
+    import torch
+
+    model, cfg, L, proc = load_moe_text("Qwen3-30B-A3B (x1)-(x5)", ckpt)
+    if type(model).__module__ != "mlx_vlm_tpu_torch.models.qwen2_moe." \
+                                 "qwen2_moe":
+        fail("qwen3_moe did not load as the Qwen-MoE decoder")
+    chat = "Write a short story about a lighthouse."
+    run_moe_requests(model, proc, cfg, (
+        ("(x1) Qwen3-30B-A3B, short chat", chat, 64, None),
+        ("(x2) Qwen3-30B-A3B, ~8.3k-token prompt", LONG_TEXT, 16, None),
+        ("(x5) Qwen3-30B-A3B, short chat, kv_bits 4", chat, 16, 4)), total)
+    run_batch_generate(model, proc, cfg, total,
+                       "(x3) Qwen3-30B-A3B batch_generate",
+                       with_images=False,
+                       want=batch_moe_want(L))
+    serve_chat(model, proc, cfg, "(x4)", "Qwen3-30B-A3B", chat, None,
+               batch_moe_want(L), total)
+    del model
+    torch.cuda.empty_cache()
+
+
+def run_mixtral(ckpt: tuple, total: dict) -> None:
+    """Mixtral-8x7B at its published widths and MIXTRAL_LAYERS of its 32
+    decoder layers (8 experts of width 14336, top-2): (y1) a short chat of
+    32 tokens in the default mode (w8chan linears and 8-bit routers, the
+    experts on K5) and in exact (every linear, router and head on K5), each
+    on its own load."""
+    import torch
+
+    chat = "Write a short story about a lighthouse."
+    for mode in (None, "exact"):
+        label = "exact" if mode else "default"
+        model, cfg, _, proc = load_moe_text(f"Mixtral-8x7B (y1) {label}",
+                                            ckpt, mode)
+        run_moe_requests(model, proc, cfg, (
+            (f"(y1) Mixtral-8x7B {label}, short chat", chat, 32, None),),
+            total, exact=mode == "exact")
+        del model
+        torch.cuda.empty_cache()
 
 
 def exact_requests(proc, cfg4: dict, weights4: dict, ckpt8: tuple,

@@ -18,7 +18,8 @@ adds them in x's dtype in ascending expert order (:157).
 
 Routes of `switch_glu` and `switch_mlp`, decided by device and shape alone:
 
-- CPU tensors: the masked scan.
+- CPU tensors: the masked scan (over the experts some token chose: the
+  others add zeros).
 - CUDA tensors whose stacks the kernel takes (`experts_kernel_route`, or
   dense tensors):
   * the decode route (`pairs_route`): at most PREFILL_MIN_TOKENS tokens,
@@ -31,8 +32,11 @@ Routes of `switch_glu` and `switch_mlp`, decided by device and shape alone:
   * the prefill route (`grouped_route`): more tokens, eager.  The pairs are
     sorted by expert on the device, the per-expert counts fetched once per
     layer, then each expert with rows runs K5 on its rows (the GEMV at up
-    to 8 rows, the GEMM above) and the outputs go back to their pairs.
-    Reached inside a capture, it raises.
+    to 8 rows, the GEMM above) and the outputs go back to their pairs.  An
+    expert whose slice K5's 2-D rule refuses (at 4 bits a row of an odd
+    number of groups, which the GEMM's group pairs cannot take: Qwen1.5-MoE's
+    down projection, K = 1408, at g = 128) runs its rows through the
+    expert-indexed entry instead.  Reached inside a capture, it raises.
 - other stacks on CUDA (a group size K5 does not take, a per-channel
   stack): the masked scan, as the reference's route leaves them to XLA.
 """
@@ -46,7 +50,8 @@ import torch.nn.functional as F
 
 from .layers import linear
 from .quant import (ChannelQuantizedTensor, QuantizedTensor,
-                    channel_quantized_matmul, quantized_matmul)
+                    channel_quantized_matmul, qmm_kernel_route,
+                    quantized_matmul)
 
 __all__ = ["topk_router", "switch_mlp", "group_expert_select", "switch_glu",
            "switch_glu_scan", "pairs_route",
@@ -119,10 +124,15 @@ def _scan(x, ins, out, indices, weights, hidden, biases):
     """The reference's masked scan over every expert: ins are the input
     projections (gate and up, or up), out the down projection, hidden maps
     their outputs to down's input; biases (one [E, width] per projection)
-    or None."""
+    or None.  On the CPU the experts that no token chose are skipped:
+    their terms are zeros, so the sum is the same (in the same ascending
+    order); on a device every expert runs, as finding them would read it."""
     dtype = x.dtype
     acc = None
-    for e in range(out.shape[0]):
+    experts = range(out.shape[0])
+    if x.device.type == "cpu":
+        experts = sorted(set(indices.reshape(-1).tolist()))
+    for e in experts:
         w_tok = ((indices == e).float() * weights.float()).sum(dim=-1)
         hs = [_expert_matmul(x, _expert(w, e)) for w in ins]
         if biases is not None:
@@ -139,6 +149,21 @@ def _combine(y: torch.Tensor, weights: torch.Tensor, dtype) -> torch.Tensor:
     """A token's k expert outputs y [N, k, D] times its routing weights,
     added in f32 and rounded once to dtype."""
     return (y.float() * weights.float()[..., None]).sum(dim=1).to(dtype)
+
+
+def _rows_matmul(x: torch.Tensor, w, e: int) -> torch.Tensor:
+    """x @ expert e of the stack w, for the prefill route: the expert's
+    slice through `_expert_matmul`, unless it is an mlx slice that K5's
+    2-D rule refuses; then K5's expert-indexed entry with every row on
+    expert e (the route is taken only for stacks that entry takes)."""
+    we = _expert(w, e)
+    if isinstance(we, QuantizedTensor) and not qmm_kernel_route(we):
+        from ..ops.qmatmul import quantized_matmul_experts
+
+        experts = torch.full((x.shape[0],), e, dtype=torch.int32,
+                             device=x.device)
+        return quantized_matmul_experts(x.contiguous(), w, experts)
+    return _expert_matmul(x, we)
 
 
 def _pairs_matmul(x: torch.Tensor, w, experts: torch.Tensor, rows):
@@ -194,10 +219,10 @@ def grouped_route(x, ins, out, indices, weights, hidden, biases=None):
         if c == 0:
             continue
         xe = xs[start:start + c]
-        hs = [_expert_matmul(xe, _expert(w, e)) for w in ins]
+        hs = [_rows_matmul(xe, w, e) for w in ins]
         if biases is not None:
             hs = [h + b[e].to(x.dtype) for h, b in zip(hs, biases)]
-        ye = _expert_matmul(hidden(*hs), _expert(out, e))
+        ye = _rows_matmul(hidden(*hs), out, e)
         if biases is not None:
             ye = ye + biases[-1][e].to(x.dtype)
         if ys is None:

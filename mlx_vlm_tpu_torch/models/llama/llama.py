@@ -38,9 +38,11 @@ def text_position_ids(input_ids: np.ndarray, attention_mask=None):
 
 
 class Model:
+    language_model_class = LanguageModel  # derived families set their own
+
     def __init__(self, config: ModelConfig):
         self.config = config
-        self.language_model = LanguageModel(config)
+        self.language_model = self.language_model_class(config)
         self.params: dict = {}  # set by the loader
         self.config_dict: dict = {}
         self.device: Optional[torch.device] = None  # set by the loader

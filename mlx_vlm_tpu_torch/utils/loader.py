@@ -4,10 +4,11 @@ Port of mlx_vlm_tpu/utils/loader.py (get_model_and_args :125,
 load_config :107, _nest :143, _stack_layers :154, runtime_quant_mode :290,
 _fold_quantized :323, _to_device :375, load_model_from_weights :548,
 load_model :759, load :773) for the qwen2_vl, qwen2_5_vl, qwen3_vl,
-qwen3_vl_moe, llama and llava families, each picked by its config's
-model_type (after the reference's remapping, `MODEL_REMAPPING`), and the
-text-only fallback (models/text_only.py) for mistral and the other
-llama-architecture text checkpoints.
+qwen3_vl_moe, llama and llava families and the text MoE decoders
+(qwen2_moe, which qwen3_moe maps to, mixtral, olmoe, phimoe, granitemoe),
+each picked by its config's model_type (after the reference's remapping,
+`MODEL_REMAPPING`), and the text-only fallback (models/text_only.py) for
+mistral and the other llama-architecture text checkpoints.
 Safetensors are parsed in numpy (bfloat16 read as uint16 and viewed as
 torch.bfloat16), so loading needs neither `safetensors` nor `ml_dtypes`.  mlx group-affine triples fold by the
 runtime mode (MLX_VLM_TPU_RUNTIME_QUANT, the reference's default rule when
@@ -17,7 +18,11 @@ Int4GroupedTensor layout and requantizes the rest to per-channel int8,
 every triple as a QuantizedTensor in the mlx byte layout; a 3-D triple (a
 stack of experts) stays exact in every mode, as in the reference (:362-366),
 and per-path entries of the quantization config (an 8-bit router beside
-4-bit linears) set a triple's own bits and group.  The unset mode
+4-bit linears) set a triple's own bits and group.  The entries are keyed by
+the checkpoint's names; a model whose `sanitize` renames a quantized weight
+(mixtral's `block_sparse_moe.gate` becomes `mlp.gate`) renames its entries
+the same way (`rename_key`), where the reference probes the sanitized name
+alone and misses them (ROADMAP Queue 3).  The unset mode
 is w4grp only for a 4-bit checkpoint whose language model has the fused
 decode step (`supports_fused_decode`: Qwen2-VL's, which Qwen2.5-VL
 shares), else w8chan, as in the reference.  Per-layer weights are stacked
@@ -109,7 +114,8 @@ def load_config(model_path: Path) -> dict:
 
 # the model types the port has, each its own package under models/
 PORTED_MODEL_TYPES = ("qwen2_vl", "qwen2_5_vl", "qwen3_vl",
-                      "qwen3_vl_moe", "llama", "llava")
+                      "qwen3_vl_moe", "llama", "llava", "qwen2_moe",
+                      "mixtral", "olmoe", "phimoe", "granitemoe")
 
 # model_type -> module overrides: the reference's entries (:42-75) for the
 # ported families
@@ -117,6 +123,7 @@ MODEL_REMAPPING = {
     "llava_next": "llava",  # CLIP tower + llama decoder path
     "qwen3": "llama",  # qk-norm + head_dim picked up from keys/config
     "qwen2": "llama",  # text-only qwen2 checkpoints (biases via keys)
+    "qwen3_moe": "qwen2_moe",  # same MoE decoder; q/k norms picked up
 }
 
 
@@ -231,16 +238,20 @@ _DATA_FIELDS = {
 }
 
 
-def _stack(vals: list):
+def _stack(vals: list, dest: int = 0):
+    """The arrays stacked on a new axis at `dest`."""
     if isinstance(vals[0], torch.Tensor):
-        return torch.stack(vals)
-    return np.stack(vals)
+        return torch.movedim(torch.stack(vals), 0, dest)
+    return np.moveaxis(np.stack(vals), 0, dest)
 
 
 def _stack_layers(flat: dict, patterns) -> dict:
-    """Fold `prefix.{i}.rest` keys into stacked leaves keyed `prefix.rest`
-    (new axis 0)."""
-    for pref in patterns:
+    """Fold `prefix.{i}.rest` keys into stacked leaves keyed `prefix.rest`.
+    Patterns apply in order; an entry `(prefix, dest_axis)` puts the new
+    axis at dest_axis (per-layer expert stacks, already stacked over the
+    layers, become [L, E, ...] with dest_axis 1)."""
+    for pat in patterns:
+        pref, dest = pat if isinstance(pat, (tuple, list)) else (pat, 0)
         pr = re.compile(rf"^{re.escape(pref)}\.(\d+)\.(.+)$")
         out = {}
         groups: dict = {}
@@ -257,10 +268,10 @@ def _stack_layers(flat: dict, patterns) -> dict:
             v0 = vals[0]
             if type(v0) in _DATA_FIELDS:
                 stacked = dataclasses.replace(
-                    v0, **{f: _stack([getattr(t, f) for t in vals])
+                    v0, **{f: _stack([getattr(t, f) for t in vals], dest)
                            for f in _DATA_FIELDS[type(v0)]})
             else:
-                stacked = _stack(vals)
+                stacked = _stack(vals, dest)
             out[f"{pref}.{rest}"] = stacked
         flat = out
     return flat
@@ -452,7 +463,7 @@ def load_model_from_weights(config: dict, weights: dict,
         # whose language model has the fused decode step, else w8chan
         fused_ok = (getattr(model.language_model, "supports_fused_decode",
                             False) and qcfg.get("bits", 4) == 4)
-        weights = _fold_quantized(weights, qcfg,
+        weights = _fold_quantized(weights, _renamed_entries(model, qcfg),
                                   "w4grp" if fused_ok else "w8chan")
     weights = _stack_layers(weights, tuple(model.stack_patterns))
     model.params = _nest(_to_device(weights, dtype, device))
@@ -460,6 +471,18 @@ def load_model_from_weights(config: dict, weights: dict,
     model.device = device
     decide_fused_decode(model)
     return model
+
+
+def _renamed_entries(model, qcfg: dict) -> dict:
+    """The quantization config with its per-path entries (checkpoint names)
+    renamed as the model's `sanitize` renames the weights they describe
+    (`rename_key`, where a model has one), so that the fold finds them
+    under the sanitized keys."""
+    rename = getattr(model, "rename_key", None)
+    if rename is None:
+        return qcfg
+    return {(rename(k + ".")[:-1] if isinstance(v, dict) or v is False
+             else k): v for k, v in qcfg.items()}
 
 
 def decide_fused_decode(model) -> bool:

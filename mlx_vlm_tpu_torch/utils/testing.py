@@ -28,6 +28,16 @@ qwen2_5_vl_hf_weights :178 draw the same arrays for a seed), plus:
   seed); `llama_3_1_8b_config` and `llava_1_5_7b_config`: the published
   widths of meta-llama/Llama-3.1-8B-Instruct and llava-hf/llava-1.5-7b-hf
   (config.json);
+- the text MoE decoders (`MOE_TEXT_TYPES`): `tiny_qwen2_moe_config` /
+  `qwen2_moe_hf_weights`, the JAX package's Qwen-MoE test model
+  (mlx_vlm_tpu/utils/testing.py:275-313), copied; `tiny_moe_text_config`
+  and `moe_text_hf_weights` for each family on it, in its HF or mlx
+  layout; the published widths of Qwen/Qwen3-30B-A3B,
+  Qwen/Qwen1.5-MoE-A2.7B, mistralai/Mixtral-8x7B-v0.1,
+  allenai/OLMoE-1B-7B-0924, microsoft/Phi-3.5-MoE-instruct and
+  ibm-granite/granite-3.0-3b-a800m-instruct (config.json); and
+  `MOE_TEXT_SPECIAL_TOKENS` for the vocabularies that do not hold Qwen's
+  ids;
 - `ByteTokenizer`: Qwen2-VL's special tokens at their public ids (Qwen2.5-VL
   and Qwen3-VL keep them), or another family's (`LLAMA3_SPECIAL_TOKENS`,
   `LLAVA_SPECIAL_TOKENS`), and one id per UTF-8 byte otherwise, so a
@@ -820,6 +830,362 @@ def llava_hf_weights(config: dict, seed: int = 0,
     return w
 
 
+# ------------------------------------------------------------ text MoE
+
+# the text MoE decoders' model types (qwen3_moe loads as qwen2_moe)
+MOE_TEXT_TYPES = ("qwen2_moe", "qwen3_moe", "mixtral", "olmoe", "phimoe",
+                  "granitemoe")
+# special tokens at their public ids for the families whose vocabularies
+# do not hold Qwen's (ByteTokenizer's arguments: tokens, EOS, pad):
+# Mixtral's (Llama-2's), OLMoE's (GPT-NeoX's), Phi-3.5-MoE's (Phi-3's) and
+# Granite 3.0's
+MOE_TEXT_SPECIAL_TOKENS = {
+    "mixtral": ({"<unk>": 0, "<s>": 1, "</s>": 2}, "</s>", "<unk>"),
+    "olmoe": ({"<|padding|>": 1, "<|endoftext|>": 50279}, "<|endoftext|>",
+              "<|padding|>"),
+    "phimoe": ({"<unk>": 0, "<s>": 1, "</s>": 2, "<|endoftext|>": 32000,
+                "<|assistant|>": 32001, "<|end|>": 32007, "<|user|>": 32010},
+               "<|end|>", "<|endoftext|>"),
+    "granitemoe": ({"<|end_of_text|>": 0, "<|start_of_role|>": 49152,
+                    "<|end_of_role|>": 49153, "<|tool_call|>": 49154},
+                   "<|end_of_text|>", "<|end_of_text|>"),
+}
+
+
+def tiny_qwen2_moe_config(**overrides) -> dict:
+    """The JAX package's Qwen-MoE test model (mlx_vlm_tpu/utils/testing.py
+    `tiny_qwen2_moe_config`): the tiny llama with 4 experts of width 32, 2
+    a token, and a shared expert of 64."""
+    cfg = tiny_llama_config(
+        model_type="qwen2_moe",
+        num_experts=4,
+        num_experts_per_tok=2,
+        moe_intermediate_size=32,
+        shared_expert_intermediate_size=64,
+        norm_topk_prob=False,
+    )
+    cfg.update(overrides)
+    return cfg
+
+
+def qwen2_moe_hf_weights(config: dict, seed: int = 0,
+                         scale: float = 0.05) -> dict:
+    """Random f32 Qwen-MoE weights with HF keys; the same arrays as the JAX
+    package's `qwen2_moe_hf_weights` for a seed: llama_hf_weights' arrays
+    without the dense MLPs, then from a second generator of the seed each
+    layer's router, experts (one key each) and shared expert with its
+    gate."""
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    D = config["hidden_size"]
+    E = config["num_experts"]
+    Im = config["moe_intermediate_size"]
+    Is = config["shared_expert_intermediate_size"]
+    w = llama_hf_weights(config, seed, scale)
+    for i in range(config["num_hidden_layers"]):
+        p = f"model.layers.{i}.mlp."
+        for nm in ("gate_proj", "up_proj", "down_proj"):
+            del w[p + nm + ".weight"]
+        w[p + "gate.weight"] = rand(E, D)
+        for e in range(E):
+            w[p + f"experts.{e}.gate_proj.weight"] = rand(Im, D)
+            w[p + f"experts.{e}.up_proj.weight"] = rand(Im, D)
+            w[p + f"experts.{e}.down_proj.weight"] = rand(D, Im)
+        w[p + "shared_expert.gate_proj.weight"] = rand(Is, D)
+        w[p + "shared_expert.up_proj.weight"] = rand(Is, D)
+        w[p + "shared_expert.down_proj.weight"] = rand(D, Is)
+        w[p + "shared_expert_gate.weight"] = rand(1, D)
+    return w
+
+
+def tiny_moe_text_config(model_type: str, **overrides) -> dict:
+    """A tiny config of one of MOE_TEXT_TYPES on the Qwen-MoE test model:
+    qwen2_moe as it is (shared expert, q / k / v biases in its weights);
+    qwen3_moe with renormalised routing, no shared expert and per-head q /
+    k norms of a head dim of its own (24); mixtral; olmoe (flat q / k
+    norms); phimoe (LayerNorms with biases, biased attention and head, a
+    longrope scaling whose long factors apply past 16 positions); and
+    granitemoe (Granite 3.0's multipliers, the attention one 1 / head_dim,
+    a tied head)."""
+    E = 4
+    over = {
+        "qwen2_moe": {},
+        "qwen3_moe": {"norm_topk_prob": True, "head_dim": 24,
+                      "attention_bias": False},
+        "mixtral": {"num_local_experts": E, "norm_topk_prob": True,
+                    "attention_bias": False},
+        "olmoe": {"attention_bias": False},
+        "phimoe": {
+            "num_local_experts": E, "norm_topk_prob": True,
+            "attention_bias": True, "max_position_embeddings": 64,
+            "original_max_position_embeddings": 16,
+            "rope_scaling": {"type": "longrope", "short_factor": [1.0] * 8,
+                             "long_factor": [1.0 + 0.25 * j
+                                             for j in range(8)],
+                             "short_mscale": 1.0, "long_mscale": 1.2}},
+        "granitemoe": {"num_local_experts": E, "norm_topk_prob": True,
+                       "attention_bias": False, "tie_word_embeddings": True,
+                       "embedding_multiplier": 12.0,
+                       "residual_multiplier": 0.22,
+                       "attention_multiplier": 1 / 16,
+                       "logits_scaling": 6.0},
+    }[model_type]
+    cfg = tiny_qwen2_moe_config(model_type=model_type, num_experts=E, **over)
+    cfg.update(overrides)
+    return cfg
+
+
+def _moe_block(model_type: str) -> tuple:
+    """(the MoE block's prefix in a layer, its router's name) in the
+    checkpoints of `model_type`."""
+    if model_type in ("mixtral", "phimoe"):
+        return "block_sparse_moe.", "gate"
+    if model_type == "granitemoe":
+        return "block_sparse_moe.", "router.layer"
+    return "mlp.", "gate"
+
+
+def _moe_extras(config: dict) -> list:
+    """(key suffix in a layer, shape, fill) of the attention and norm
+    tensors a family adds to the llama layer: qwen2_moe's q / k / v biases
+    (where `attention_bias`), phimoe's q / k / v / o biases and LayerNorm
+    biases, qwen3_moe's per-head and olmoe's flat q / k norms."""
+    kind = config["model_type"]
+    D, nh = config["hidden_size"], config["num_attention_heads"]
+    nkv = config.get("num_key_value_heads") or nh
+    hd = config.get("head_dim") or D // nh
+    out = []
+    if kind in ("qwen2_moe", "phimoe") and config.get("attention_bias", True):
+        out += [(f"self_attn.{nm}.bias", (n,), "rand") for nm, n in (
+            ("q_proj", nh * hd), ("k_proj", nkv * hd), ("v_proj", nkv * hd))]
+        if kind == "phimoe":
+            out.append(("self_attn.o_proj.bias", (D,), "rand"))
+    if kind == "qwen3_moe":
+        out += [("self_attn.q_norm.weight", (hd,), "ones"),
+                ("self_attn.k_norm.weight", (hd,), "ones")]
+    if kind == "olmoe":
+        out += [("self_attn.q_norm.weight", (nh * hd,), "ones"),
+                ("self_attn.k_norm.weight", (nkv * hd,), "ones")]
+    if kind == "phimoe":
+        out += [(nm + ".bias", (D,), "zeros")
+                for nm in ("input_layernorm", "post_attention_layernorm")]
+    return out
+
+
+def moe_text_hf_weights(config: dict, seed: int = 0, scale: float = 0.05,
+                        layout: str = "hf") -> dict:
+    """Random f32 weights of a MOE_TEXT_TYPES checkpoint: qwen2_moe_hf_weights'
+    arrays for the seed (the shared expert kept for qwen2_moe alone), then
+    from a generator of seed + 1 the family's extras (`_moe_extras`, each
+    rand ~ N(0, scale), each norm 1 + 0.1 N(0, 1), each LayerNorm bias
+    ~ N(0, scale); phimoe's model.norm bias and head bias last), in
+    `layout` "hf" (the family's HF keys: one key per expert, mixtral's and
+    phimoe's `block_sparse_moe.experts.{e}.w1|w3|w2`, granitemoe's fused
+    `input_linear` / `output_linear`) or "mlx" (mlx conversions' stacks,
+    `switch_mlp.{gate,up,down}_proj` [E, I, D] / [E, D, I] under the
+    family's block)."""
+    kind = config["model_type"]
+    E = config.get("num_experts") or config["num_local_experts"]
+    base = dict(config, num_experts=E)
+    w = qwen2_moe_hf_weights(base, seed, scale)
+    rng = np.random.default_rng(seed + 1)
+    out = {}
+    block, router = _moe_block(kind)
+    for k, v in w.items():
+        m = re.match(r"model\.layers\.(\d+)\.mlp\.(.+)$", k)
+        if m is None:
+            out[k] = v
+            continue
+        i, rest = int(m.group(1)), m.group(2)
+        p = f"model.layers.{i}."
+        if rest.startswith("shared_expert"):
+            if kind == "qwen2_moe":
+                out[k] = v
+            continue
+        if rest == "gate.weight":
+            for suffix, shape, fill in _moe_extras(config):
+                out[p + suffix] = (
+                    (rng.standard_normal(shape) * scale)
+                    if fill in ("rand", "zeros") else
+                    1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+            out[p + block + router + ".weight"] = v
+            experts = {nm: np.stack([w[p + f"mlp.experts.{e}.{nm}.weight"]
+                                     for e in range(E)])
+                       for nm in ("gate_proj", "up_proj", "down_proj")}
+            if layout == "mlx":
+                for nm, a in experts.items():
+                    out[p + block + f"switch_mlp.{nm}.weight"] = a
+            elif kind == "granitemoe":
+                out[p + block + "input_linear.weight"] = np.concatenate(
+                    [experts["gate_proj"], experts["up_proj"]], axis=1)
+                out[p + block + "output_linear.weight"] = experts["down_proj"]
+            else:
+                names = ({"gate_proj": "w1", "up_proj": "w3", "down_proj": "w2"}
+                         if block == "block_sparse_moe." else
+                         {nm: nm for nm in experts})
+                for e in range(E):
+                    for nm, a in experts.items():
+                        out[p + block + f"experts.{e}.{names[nm]}.weight"] = a[e]
+    if kind == "phimoe":
+        D, V = config["hidden_size"], config["vocab_size"]
+        out["model.norm.bias"] = (rng.standard_normal(D) * scale).astype(
+            np.float32)
+        out["lm_head.bias"] = (rng.standard_normal(V) * scale).astype(
+            np.float32)
+    return out
+
+
+def qwen3_30b_a3b_config() -> dict:
+    """Qwen/Qwen3-30B-A3B's published widths (config.json): 48 layers of
+    hidden 2048, 32 / 4 heads of 128 with per-head q / k norms, 128
+    experts of width 768, 8 a token, renormalised; vocab 151936, rope theta
+    1e6, an untied head.  Its widths are Qwen3-VL-30B-A3B's language
+    model's."""
+    return tiny_llama_config(
+        model_type="qwen3_moe", hidden_size=2048,
+        num_hidden_layers=48, intermediate_size=6144, num_attention_heads=32,
+        num_key_value_heads=4, head_dim=128, rms_norm_eps=1e-6,
+        vocab_size=151936, rope_theta=1000000.0,
+        max_position_embeddings=40960, tie_word_embeddings=False,
+        attention_bias=False, num_experts=128, num_experts_per_tok=8,
+        moe_intermediate_size=768, norm_topk_prob=True,
+        decoder_sparse_step=1, mlp_only_layers=[], bos_token_id=151643,
+        eos_token_id=151645)
+
+
+def qwen1_5_moe_a2_7b_config() -> dict:
+    """Qwen/Qwen1.5-MoE-A2.7B's published widths (config.json): 24 layers
+    of hidden 2048, 16 / 16 heads of 128, q / k / v biases, 60 experts of
+    width 1408, 4 a token, not renormalised, a shared expert of 5632 with
+    its sigmoid gate; vocab 151936, rope theta 1e6, an untied head."""
+    return tiny_llama_config(
+        model_type="qwen2_moe", hidden_size=2048,
+        num_hidden_layers=24, intermediate_size=5632, num_attention_heads=16,
+        num_key_value_heads=16, rms_norm_eps=1e-6, vocab_size=151936,
+        rope_theta=1000000.0, max_position_embeddings=8192,
+        tie_word_embeddings=False, num_experts=60, num_experts_per_tok=4,
+        moe_intermediate_size=1408, shared_expert_intermediate_size=5632,
+        norm_topk_prob=False, decoder_sparse_step=1, bos_token_id=151643,
+        eos_token_id=151643)
+
+
+def mixtral_8x7b_config() -> dict:
+    """mistralai/Mixtral-8x7B-v0.1's published widths (config.json): 32
+    layers of hidden 4096, 32 / 8 heads of 128, 8 experts of width 14336,
+    2 a token; vocab 32000, rope theta 1e6, an untied head."""
+    return tiny_llama_config(
+        model_type="mixtral", hidden_size=4096,
+        num_hidden_layers=32, intermediate_size=14336,
+        num_attention_heads=32, num_key_value_heads=8, rms_norm_eps=1e-5,
+        vocab_size=32000, rope_theta=1000000.0,
+        max_position_embeddings=32768, tie_word_embeddings=False,
+        num_local_experts=8, num_experts_per_tok=2, bos_token_id=1,
+        eos_token_id=2)
+
+
+def olmoe_1b_7b_config() -> dict:
+    """allenai/OLMoE-1B-7B-0924's published widths (config.json): 16
+    layers of hidden 2048, 16 / 16 heads of 128 with flat q / k norms, 64
+    experts of width 1024, 8 a token, not renormalised; vocab 50304, rope
+    theta 10000, an untied head."""
+    return tiny_llama_config(
+        model_type="olmoe", hidden_size=2048, num_hidden_layers=16,
+        intermediate_size=1024, num_attention_heads=16,
+        num_key_value_heads=16, rms_norm_eps=1e-5, vocab_size=50304,
+        rope_theta=10000.0, max_position_embeddings=4096,
+        tie_word_embeddings=False, num_experts=64, num_experts_per_tok=8,
+        norm_topk_prob=False, eos_token_id=50279, pad_token_id=1)
+
+
+def phi_3_5_moe_config() -> dict:
+    """microsoft/Phi-3.5-MoE-instruct's published widths (config.json): 32
+    layers of hidden 4096, 32 / 8 heads of 128, LayerNorms, biased q / k /
+    v / o and head, 16 experts of width 6400, 2 a token; vocab 32064, rope
+    theta 10000 with its longrope scaling (original 4096 positions of
+    131072).  The scaling's two lists of 64 per-dimension factors are
+    stand-ins here (short 1.0; long rising from 1.0 to 64.0), not the
+    release's values; its mscale 1.243 is the release's to 3 places."""
+    return tiny_llama_config(
+        model_type="phimoe", hidden_size=4096,
+        num_hidden_layers=32, intermediate_size=6400,
+        num_attention_heads=32, num_key_value_heads=8, rms_norm_eps=1e-5,
+        vocab_size=32064, rope_theta=10000.0,
+        max_position_embeddings=131072,
+        original_max_position_embeddings=4096, tie_word_embeddings=False,
+        attention_bias=True, num_local_experts=16, num_experts_per_tok=2,
+        rope_scaling={"type": "longrope", "short_factor": [1.0] * 64,
+                      "long_factor": [float(64.0 ** (j / 63))
+                                      for j in range(64)],
+                      "short_mscale": 1.243, "long_mscale": 1.243},
+        bos_token_id=1, eos_token_id=32000)
+
+
+def granite_3_0_3b_a800m_config() -> dict:
+    """ibm-granite/granite-3.0-3b-a800m-instruct's published widths
+    (config.json): 32 layers of hidden 1536, 24 / 8 heads of 64, 40 experts
+    of width 512, 8 a token; multipliers embedding 12.0, residual 0.22,
+    attention 0.015625, logits scaling 6.0; vocab 49155, rope theta 10000,
+    a tied head."""
+    return tiny_llama_config(
+        model_type="granitemoe", hidden_size=1536,
+        num_hidden_layers=32, intermediate_size=512, num_attention_heads=24,
+        num_key_value_heads=8, rms_norm_eps=1e-6, vocab_size=49155,
+        rope_theta=10000.0, max_position_embeddings=4096,
+        tie_word_embeddings=True, num_local_experts=40,
+        num_experts_per_tok=8, embedding_multiplier=12.0,
+        residual_multiplier=0.22, attention_multiplier=0.015625,
+        logits_scaling=6.0, bos_token_id=0, eos_token_id=0, pad_token_id=0)
+
+
+def moe_text_tensor_specs(config: dict) -> list:
+    """(key, shape, fill) of every tensor of a MOE_TEXT_TYPES checkpoint in
+    the mlx conversions' layout: llama_tensor_specs' with each layer's
+    dense MLP replaced by its router [E, D] and the `switch_mlp` stacks
+    under the family's block (`_moe_block`), qwen2_moe's shared expert and
+    its gate [1, D], and the family's extras (`_moe_extras`; phimoe's
+    model.norm and head biases)."""
+    kind = config["model_type"]
+    D = config["hidden_size"]
+    E = config.get("num_experts") or config["num_local_experts"]
+    I = config["moe_intermediate_size"] if "moe_intermediate_size" in \
+        config else config["intermediate_size"]
+    Is = config.get("shared_expert_intermediate_size") or 0
+    block, router = _moe_block(kind)
+    specs = []
+    for key, shape, fill in llama_tensor_specs(config):
+        if key.endswith((".mlp.up_proj.weight", ".mlp.down_proj.weight")):
+            continue
+        if key.endswith(".mlp.gate_proj.weight"):
+            p = key[: -len("mlp.gate_proj.weight")]
+            specs += [(p + suffix, shape, fill)
+                      for suffix, shape, fill in _moe_extras(config)]
+            specs += [(p + block + router + ".weight", (E, D), "rand"),
+                      (p + block + "switch_mlp.gate_proj.weight", (E, I, D),
+                       "rand"),
+                      (p + block + "switch_mlp.up_proj.weight", (E, I, D),
+                       "rand"),
+                      (p + block + "switch_mlp.down_proj.weight", (E, D, I),
+                       "rand")]
+            if kind == "qwen2_moe" and Is:
+                specs += [(p + "mlp.shared_expert.gate_proj.weight", (Is, D),
+                           "rand"),
+                          (p + "mlp.shared_expert.up_proj.weight", (Is, D),
+                           "rand"),
+                          (p + "mlp.shared_expert.down_proj.weight", (D, Is),
+                           "rand"),
+                          (p + "mlp.shared_expert_gate.weight", (1, D),
+                           "rand")]
+            continue
+        specs.append((key, shape, fill))
+    if kind == "phimoe":
+        specs += [("model.norm.bias", (D,), "zeros"),
+                  ("lm_head.bias", (config["vocab_size"],), "rand")]
+    return specs
+
+
 def tensor_specs(config: dict) -> list:
     """(HF key, shape, fill) of every tensor of a checkpoint of
     config["model_type"] (qwen2_vl, qwen2_5_vl, qwen3_vl, qwen3_vl_moe,
@@ -843,6 +1209,8 @@ def tensor_specs(config: dict) -> list:
         return qwen3_vl_tensor_specs(config)
     if kind == "qwen3_vl_moe":
         return qwen3_vl_moe_tensor_specs(config)
+    if kind in MOE_TEXT_TYPES:
+        return moe_text_tensor_specs(config)
     raise NotImplementedError(f"no tensor specs for model type {kind}")
 
 
@@ -853,17 +1221,34 @@ def is_vision_key(key: str) -> bool:
                            "multi_modal_projector."))
 
 
+# the routers' keys (and Qwen-MoE's shared-expert gate, a router of one
+# output), whose quantization `router_bits` sets
+_ROUTER_KEYS = (".mlp.gate.weight", ".block_sparse_moe.gate.weight",
+                ".block_sparse_moe.router.layer.weight",
+                ".mlp.shared_expert_gate.weight")
+
+
 def _is_quantized_in_mlx(key: str) -> bool:
     """Keys an mlx-community conversion of these families stores quantized:
-    the language model's linears (Qwen3-VL-MoE's expert stacks and routers
-    too), lm_head and embed_tokens."""
+    the language model's linears (the MoE families' expert stacks and
+    routers too), lm_head and embed_tokens."""
     if key.startswith("model.language_model."):
         key = "model." + key[len("model.language_model."):]
     elif key.startswith("language_model."):  # LLaVA's layout
         key = key[len("language_model."):]
     return key in ("model.embed_tokens.weight", "lm_head.weight") or (
         key.startswith("model.layers.")
-        and key.endswith(("_proj.weight", ".mlp.gate.weight")))
+        and key.endswith(("_proj.weight",) + _ROUTER_KEYS))
+
+
+def _mlx_path(key: str) -> str:
+    """The name an mlx conversion gives the module of an HF weight key (the
+    key of its per-path quantization entry): Qwen3-VL-MoE's language model
+    moves under `language_model.model.`; the text families keep theirs."""
+    key = key[: -len(".weight")]
+    if key.startswith("model.language_model."):
+        return "language_model.model." + key[len("model.language_model."):]
+    return key
 
 
 def mlx_quantized_checkpoint(config: dict, bits: int = 4, group_size: int = 64,
@@ -872,12 +1257,17 @@ def mlx_quantized_checkpoint(config: dict, bits: int = 4, group_size: int = 64,
                              router_bits: Optional[int] = None):
     """(config, weights) of a random `bits`-bit mlx-format checkpoint of
     config["model_type"] (Qwen2-VL, Qwen2.5-VL, Qwen3-VL, Qwen3-VL-MoE,
-    llama or LLaVA; bits 4 or 8); with `vision_only`, the vision tower's tensors alone
-    (drawn from the seed's generator in the same way).  With
-    `router_bits`, Qwen3-VL-MoE's routers (`mlp.gate`) are drawn at those
-    bits and the config's quantization gets a per-path entry for each
-    ("language_model.model.layers.{i}.mlp.gate": {"bits", "group_size"}),
-    as mlx-community's MoE conversions keep the router at 8 bits.
+    llama, LLaVA or one of MOE_TEXT_TYPES; bits 4 or 8); with
+    `vision_only`, the vision tower's tensors alone (drawn from the seed's
+    generator in the same way).  With `router_bits`, the MoE families'
+    routers (and Qwen-MoE's shared-expert gate) are drawn at those bits and
+    the config's quantization gets a per-path entry for each under the
+    conversion's own name ("language_model.model.layers.{i}.mlp.gate" for
+    Qwen3-VL-MoE; "model.layers.{i}.mlp.gate",
+    "model.layers.{i}.block_sparse_moe.gate" or
+    "model.layers.{i}.block_sparse_moe.router.layer" for the text
+    families: {"bits", "group_size"}), as mlx-community's MoE conversions
+    keep the router at 8 bits.
 
     Quantized tensors: `<key>.weight` uint32 [..., out, in * bits / 32]
     (codes packed low bits first), `<key>.scales` and `<key>.biases` bf16
@@ -898,11 +1288,9 @@ def mlx_quantized_checkpoint(config: dict, bits: int = 4, group_size: int = 64,
             continue
         if _is_quantized_in_mlx(key):
             b = bits
-            if router_bits and key.endswith(".mlp.gate.weight"):
+            if router_bits and key.endswith(_ROUTER_KEYS):
                 b = router_bits
-                path = "language_model.model." + key[len(
-                    "model.language_model."):-len(".weight")]
-                qcfg[path] = {"group_size": group_size, "bits": b}
+                qcfg[_mlx_path(key)] = {"group_size": group_size, "bits": b}
             levels = 2**b
             s_mean = std / float(np.sqrt((levels**2 - 1) / 12.0))  # uniform
             *lead, n, k = shape

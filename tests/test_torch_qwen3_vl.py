@@ -161,7 +161,7 @@ def test_published_config_parses_as_the_reference():
             got.vision_config.patch_size) == (4096, 36, 16)
 
 
-@pytest.mark.parametrize("model_type", ["idefics2", "qwen3_moe", "gemma3"])
+@pytest.mark.parametrize("model_type", ["idefics2", "deepseek_v2", "gemma3"])
 def test_unported_model_types_raise(model_type):
     with pytest.raises(NotImplementedError, match=model_type):
         get_model_and_args({"model_type": model_type})
