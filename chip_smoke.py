@@ -40,7 +40,10 @@ Phases (any failure exits non-zero):
      odd multiples of 32), and at 4 bits through Llama-3.1-8B's gate / up
      (N = 14336), down (K = 14336) and lm_head (N = 128256) and
      LLaVA-1.5-7B's gate / up (N = 11008), down (K = 11008) and lm_head
-     (N = 32064) at M = 1 and 512, and at the text MoE families' exact
+     (N = 32064) at M = 1 and 512, and Llama-3.1-8B's q / o, k / v,
+     gate / up, down and lm_head at the drafters' verify rows (M = 5, 9
+     and 16) and its lm_head at DFlash's 15 draft rows, and at the text
+     MoE families' exact
      mode: the 8-bit routers of Mixtral (N = 8, K = 4096), Phi-3.5-MoE
      (16, 4096), Granite 3.0 (40, 1536), Qwen1.5-MoE (60, 2048) and OLMoE
      (64, 2048) and Qwen1.5-MoE's shared-expert gate (N = 1, K = 2048, 8
@@ -147,8 +150,22 @@ Phases (any failure exits non-zero):
      launches held to what ran): a 4-frame 112x112 clip, and a 224x224
      image before it, on the Qwen2-VL slice (f32 reference), the clip on
      Qwen2.5-VL (bf16 reference) and on Qwen3-VL (128x128 frames at its
-     patch 16, timestamped; f32 reference).  The phase prints the
-     seconds of each of its parts;
+     patch 16, timestamped; f32 reference); and the target-coupled
+     drafters (`phase_drafter_parity`) at Llama-3.1-8B's widths on its
+     checkpoint cut to 3 layers, exact (K5) against f32 CPU runs: EAGLE-3
+     (capturing layers 0, 1, 2), MTP, DFlash (2 of its layers, block 16)
+     and DDTree (budget 8), each drafter drawn on the card: 16 greedy
+     tokens with their verify rows held by the parity rule to the CPU's
+     logits teacher-forced with them, every round after the first a
+     replay of the captured one, bit-identical (tokens and both caches)
+     to every round eager, the drafter's first-round logits (DDTree: the
+     [bonus | tree] forward) against the CPU's teacher-forced with the
+     card's tokens, and the all-accepted case (final norms zeroed).
+     Before the phase, `check_fold_on_card` folds Llama-3.1-8B's embedding
+     table (128256 x 4096) to per-channel int8 on the host and on the card,
+     bytes equal, both times printed; every fold of phases 3-4 runs on the
+     card (`fold_once`).  The phase prints the seconds of each of its
+     parts;
   4. the main path at full Qwen2-VL-7B width (random mlx-format weights,
      28 decoder layers, 32 vision blocks): eight greedy requests through
      load_model_from_weights and stream_generate, each with the kernels'
@@ -287,7 +304,15 @@ Phases (any failure exits non-zero):
      loaded exact: (t1) a short chat of 32 tokens, then the same prompt
      with kv_bits=4, 16 tokens (K6 on every layer and step), (t2) a
      ~8.3k-token prompt, 16 tokens (K4 on every layer of every chunk),
-     (t3) `batch_generate` of (i)'s texts; and LLaVA-1.5-7B (32 decoder
+     (t3) `batch_generate` of (i)'s texts, then (z) the drafter kinds
+     on the same model (`run_drafters`: full-width drafters written as
+     checkpoints without the embedding and head and loaded onto the card
+     by `load_drafter`; 32 greedy tokens each of EAGLE-3 and MTP (k = 4,
+     a 5-row verify), DFlash with adaptive and with fixed blocks of 16,
+     and DDTree with 8 nodes; K5 launches held to the rounds, every token
+     the argmax of its own verify row, the stream held by the parity rule
+     to the plain logits teacher-forced with it, a round's device ms
+     beside the plain step's and host ms per round); and LLaVA-1.5-7B (32 decoder
      layers, the 24-block CLIP tower) loaded exact: (v1) a 336x336 image
      and a short prompt, 32 tokens, (v2) an image chat through the server;
      and Qwen3-30B-A3B (QWEN3_MOE_LAYERS of its 48 layers of 128 experts,
@@ -856,8 +881,16 @@ K5_MOE_TEXT_CASES = (
     + tuple((4, 64, M, K, N) for M in (1, 512)
             for K, N in ((2048, 4096), (2048, 512), (4096, 2048)))
     + ((4, 64, 1, 2048, 151936), (4, 64, 1, 4096, 32000)))
+# the target-coupled drafters' verifies on Llama-3.1-8B exact ((z)):
+# q / o, k / v, gate / up, down and the head at M = 5 (EAGLE-3 / MTP, k =
+# 4, on the GEMV), 9 (DDTree's [bonus | 8 nodes]) and 16 (DFlash's block),
+# and the head at M = 15 (DFlash's draft rows); each timed cold and warm
+K5_DRAFT_CASES = tuple(
+    (4, 64, M, K, N) for M in (5, 9, 16)
+    for K, N in ((4096, 4096),) + LLAMA_8B_SHAPES) + (
+    (4, 64, 15, 4096, 128256),)
 K5_CASES = (K5_CASES + K5_8B_CASES + K5_MOE_CASES + K5_HALF_CASES
-            + K5_LLAMA_CASES + K5_MOE_TEXT_CASES)
+            + K5_LLAMA_CASES + K5_MOE_TEXT_CASES + K5_DRAFT_CASES)
 K5_TOL = 1e-2
 
 
@@ -973,7 +1006,8 @@ def check_qmatmul(results: list, dev) -> None:
         cold = (M <= k5.MAX_GEMV_ROWS or M == 58
                 or (bits, g, M, K, N) in (K5_8B_CASES + K5_MOE_CASES
                                           + K5_LLAMA_CASES
-                                          + K5_MOE_TEXT_CASES))
+                                          + K5_MOE_TEXT_CASES
+                                          + K5_DRAFT_CASES))
         if cold and cold_copies(weight_bytes) > MAX_COLD_COPIES:
             # a router's few KB: warm only (its cold timing would capture
             # tens of thousands of copies in one graph)
@@ -2094,25 +2128,37 @@ class fold_once:
     loads and checkpoints hold it: the CPU references' and the card's
     loads of one checkpoint, and checkpoints that share arrays (phase 3's
     2- and 3-layer slices and phase 4's Qwen2.5-VL-7B hold the arrays of
-    the full-depth checkpoints, `family_checkpoints`).  The fold (the host
-    requantization of w4grp's embedding table and of w8chan's every
-    linear, in float64; w4grp's relayout) depends on neither the dtype nor
-    the device, which come after it.  A triple is known by the identity of
-    its arrays, held by the memo so that no identity is reused."""
+    the full-depth checkpoints, `family_checkpoints`).  Every fold runs on
+    the card (w8chan's per-channel requantization in float64 there;
+    w4grp's relayout on the host), whatever the load's device: a CPU
+    reference's load takes a host copy of the card's result, which is the
+    host fold's byte for byte (`check_fold_on_card`).  A triple is known by
+    the identity of its arrays, held by the memo so that no identity is
+    reused."""
 
     def __enter__(self):
         from mlx_vlm_tpu_torch.utils import loader
 
         self.loader, self.real, self.memo = loader, loader._fold_triple, {}
+        # the per-channel folds on the card: (count, seconds); they run on
+        # the loading thread (w4grp's relayouts on the loader's pool)
+        self.card = [0, 0.0]
 
         def fold(w, scales, biases, bits, group_size, mode, is_embed,
-                 pool=None):
+                 device=None):
+            import torch
+
             key = (id(w), id(scales), id(biases), bits, group_size, mode,
                    is_embed)
             if key not in self.memo:
-                self.memo[key] = (self.real(w, scales, biases, bits,
-                                            group_size, mode, is_embed, pool),
-                                  (w, scales, biases))
+                tic = time.perf_counter()
+                out = self.real(w, scales, biases, bits, group_size, mode,
+                                is_embed, device="cuda")
+                if type(out).__name__ == "ChannelQuantizedTensor":
+                    torch.cuda.synchronize()
+                    self.card[0] += 1
+                    self.card[1] += time.perf_counter() - tic
+                self.memo[key] = (out, (w, scales, biases))
             return self.memo[key][0]
 
         loader._fold_triple = fold
@@ -2121,6 +2167,42 @@ class fold_once:
     def __exit__(self, *exc):
         self.loader._fold_triple = self.real
         self.memo.clear()
+
+
+def check_fold_on_card(ckpt: tuple) -> None:
+    """The w8chan fold of one vocab-sized table (Llama-3.1-8B's embedding,
+    128256 x 4096 at 4 bits) on the host (torch float64 on the CPU) and on
+    the card: codes, scales and biases byte for byte equal; both times
+    printed."""
+    import torch
+
+    from mlx_vlm_tpu_torch.core.quant import (from_mlx_packed,
+                                              to_channel_quantized)
+
+    cfg, w = ckpt
+    b = "model.embed_tokens."
+    t = from_mlx_packed(w[b + "weight"], w[b + "scales"], w[b + "biases"],
+                        4, cfg["quantization"]["group_size"])
+    tic = time.perf_counter()
+    host = to_channel_quantized(t, device="cpu")
+    host_s = time.perf_counter() - tic
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    card = to_channel_quantized(t, device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - tic
+    differ = {f: int((getattr(host, f).view(torch.int8 if f == "q8"
+                                             else torch.int16)
+                      != getattr(card, f).cpu().view(
+                          torch.int8 if f == "q8" else torch.int16)).sum())
+              for f in ("q8", "scales", "biases")}
+    same = not any(differ.values())
+    print(f"  w8chan fold of a {t.q.shape[0]} x {t.q.shape[1] * 2} table: "
+          f"host (torch float64, {torch.get_num_threads()} threads) "
+          f"{host_s:.2f} s, card {card_s:.3f} s; codes, scales and biases "
+          f"byte-equal {same} (elements that differ: {differ})", flush=True)
+    if not same:
+        fail("the w8chan fold on the card differs from the host's")
 
 
 # Qwen3-VL-30B-A3B's decoder layers in phase 4: its published 48 cut to
@@ -5369,6 +5451,621 @@ def run_speculative(model, cfg, total: dict) -> None:
           flush=True)
 
 
+# ---------------------------------------------------- target-coupled drafters
+# The drafter kinds on Llama-3.1-8B (exact, K5): EAGLE-3 and MTP drafting
+# DRAFT_K tokens a round (a verify of DRAFT_K + 1 rows on K5's GEMV),
+# DFlash's block of 16 (its 16-row verify and 15-row draft head on the
+# GEMM), DDTree's tree of DDTREE_BUDGET nodes over DFlash's block (a
+# [bonus | tree] forward of 1 + DDTREE_BUDGET rows)
+DRAFT_KINDS = ("eagle3", "mtp", "dflash", "ddtree")
+DRAFT_K = 4
+DDTREE_BUDGET = 8
+DRAFT_TEXT = "Write a short story about a lighthouse."
+# phase 3: the target cut to 3 layers, so EAGLE-3 captures layers 0, 1, 2
+# and DFlash (2 of its 5 layers) reads the same 3 (their widths are the
+# published ones); the ring of recorded head rows
+DRAFT_PHASE3_LAYERS = 3
+DRAFT_RING_ROWS = 2048
+
+
+def drafter_configs(phase3: bool) -> dict:
+    """{kind: drafter config.json} at Llama-3.1-8B's widths
+    (utils/testing.py `llama_3_1_8b_drafter_configs`); for phase 3 the
+    capture and target ids of a 3-layer target, and DFlash at 2 layers."""
+    from mlx_vlm_tpu_torch.utils.testing import llama_3_1_8b_drafter_configs
+
+    cfgs = llama_3_1_8b_drafter_configs()
+    if phase3:
+        cfgs["eagle3"]["capture_layers"] = [0, 1, 2]
+        cfgs["dflash"]["num_hidden_layers"] = 2
+        cfgs["dflash"]["dflash_config"]["target_layer_ids"] = [0, 1, 2]
+    return cfgs
+
+
+def card_drafter(kind: str, cfg: dict, seed: int, dev):
+    """(drafter, params) of `kind` built from its config.json the way
+    `load_drafter` builds it, its random bf16 weights drawn on the card
+    (a torch generator seeded `seed`: drawing 0.2-1.1 billion weights with
+    numpy would take the host tens of seconds), without the embedding and
+    head, which it takes from the target (`bind`)."""
+    import torch
+
+    from mlx_vlm_tpu_torch.speculative import drafters as dr
+    from mlx_vlm_tpu_torch.speculative.drafters import (dflash, eagle3,
+                                                        mtp)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def draw(*shape):
+        return (torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.float32) * 0.05).to(torch.bfloat16)
+
+    fields = {k: cfg[k] for k in dr._CFG_FIELDS if k in cfg}
+    kw = dict(dtype=torch.bfloat16, device=dev, draw=draw)
+    if kind == "eagle3":
+        d = dr.Eagle3Drafter(dr.Eagle3Config(
+            capture_layers=tuple(cfg["capture_layers"]), **fields))
+        p = eagle3.init_eagle3_params(d.config, **kw)
+    elif kind == "mtp":
+        d = dr.MTPDrafter(dr.MTPConfig(**fields))
+        p = mtp.init_mtp_params(d.config, **kw)
+    else:
+        dc = cfg["dflash_config"]
+        d = dr.DFlashDrafter(dr.DFlashConfig(
+            **fields, num_hidden_layers=cfg["num_hidden_layers"],
+            head_dim=cfg["head_dim"], block_size=cfg["block_size"],
+            mask_token_id=dc["mask_token_id"],
+            target_layer_ids=tuple(dc["target_layer_ids"])))
+        p = dflash.init_dflash_params(d.config, **kw)
+    for k in ("embed_tokens", "lm_head"):
+        p.pop(k, None)
+    return d, p
+
+
+def bound_to(drafter, params: dict, model, dtype) -> tuple:
+    """A copy of (drafter, params) for `model` (another device or dtype):
+    the params moved, an EAGLE-3 / MTP drafter bound to `model`."""
+    import copy
+
+    import torch
+
+    def move(t):
+        if isinstance(t, dict):
+            return {k: move(v) for k, v in t.items()}
+        return t.to(model.device, dtype)
+
+    d = copy.copy(drafter)
+    if hasattr(d, "bind"):
+        d.bind(model.language_model, model.params["language_model"])
+    return d, move(params)
+
+
+def drafter_step(kind: str):
+    """The kind's generate step (speculative/)."""
+    from mlx_vlm_tpu_torch.speculative import ddtree, dflash, utils
+
+    return {"eagle3": utils.eagle3_generate_step,
+            "mtp": utils.eagle3_generate_step,
+            "dflash": dflash.dflash_generate_step,
+            "ddtree": ddtree.tree_generate_step}[kind]
+
+
+def drafter_kwargs(kind: str, adaptive: bool = False) -> dict:
+    if kind in ("eagle3", "mtp"):
+        return {"num_draft": DRAFT_K}
+    if kind == "dflash":
+        return {"adaptive": adaptive}
+    return {"tree_budget": DDTREE_BUDGET}
+
+
+class HeadRecorder:
+    """The rows of the target's head after each `forward_captured` and
+    `forward_masked` (the prefill, each verify, DDTree's tree forward and
+    replay), copied into a device ring at a device counter, so that a
+    captured round records at every replay; each CapturedRounds.run
+    result (the round's tokens and n_acc) and each DDTree walk (the tree's
+    greedy tokens and the path) kept on the host.  `rows(kind, tokens)`:
+    the recorded row that produced each committed token."""
+
+    def __init__(self, model):
+        import torch
+
+        self.lm = model.language_model
+        self.ring = torch.zeros((DRAFT_RING_ROWS, self.lm.args.vocab_size),
+                                dtype=torch.float32, device=model.device)
+        self.count = torch.zeros((), dtype=torch.int64, device=model.device)
+        self.results, self.walks = [], []
+
+    def __enter__(self):
+        import torch
+
+        from mlx_vlm_tpu_torch.speculative import ddtree
+        from mlx_vlm_tpu_torch.speculative import utils as su
+
+        lm, armed = self.lm, [False]
+        real = {n: getattr(lm, n) for n in ("forward_captured",
+                                            "forward_masked", "logits")}
+        self.su, self.dd = su, ddtree
+        self.real_run, self.real_walk = su.CapturedRounds.run, \
+            ddtree.walk_tree
+
+        def arm(name):
+            def call(*a, **kw):
+                armed[0] = True
+                return real[name](*a, **kw)
+            return call
+
+        def logits(params, hidden):
+            out = real["logits"](params, hidden)
+            if armed[0]:
+                armed[0] = False
+                n = out.shape[1]
+                at = (self.count + torch.arange(n, device=out.device)).clamp(
+                    max=DRAFT_RING_ROWS - 1)
+                self.ring.index_copy_(0, at, out[0].float())
+                self.count.add_(n)
+            return out
+
+        def run(rounds):
+            res = self.real_run(rounds)
+            self.results.append(res)
+            return res
+
+        def walk(tree, greedy):
+            path = self.real_walk(tree, greedy)
+            self.walks.append((np.asarray(greedy), path))
+            return path
+
+        lm.forward_captured = arm("forward_captured")
+        lm.forward_masked = arm("forward_masked")
+        lm.logits = logits
+        su.CapturedRounds.run = run
+        ddtree.walk_tree = walk
+        return self
+
+    def __exit__(self, *exc):
+        for n in ("forward_captured", "forward_masked", "logits"):
+            delattr(self.lm, n)
+        self.su.CapturedRounds.run = self.real_run
+        self.dd.walk_tree = self.real_walk
+
+    def rows(self, kind: str, n: int) -> np.ndarray:
+        """[n, V]: the recorded row that produced each of the n committed
+        tokens: the prefill's, then each round's verify rows up to n_acc
+        (EAGLE-3, MTP, DFlash: k + 1 rows a round), or (DDTree: the tree's
+        rows, then the replay's last) the tree's bonus row, the rows of
+        the path's nodes but the last, and the replay's row."""
+        count = int(self.count)
+        if count > DRAFT_RING_ROWS:
+            fail(f"{kind}: {count} head rows recorded, room for "
+                 f"{DRAFT_RING_ROWS}")
+        ring = self.ring[:count].cpu().numpy()
+        out, at = [ring[0]], 1
+        if kind == "ddtree":
+            for greedy, path in self.walks:
+                tree = ring[at:at + len(greedy)]
+                if path:  # path[0] from the bonus row, path[j] from j - 1's
+                    out += [tree[0]] + [tree[p + 1] for p in path[:-1]]
+                out.append(ring[at + len(greedy)])
+                at += len(greedy) + 1
+        else:
+            for res in self.results:
+                n_acc = int(res[0, -1])
+                out += list(ring[at:at + n_acc + 1])
+                at += res.shape[1] - 1
+        if at != count:
+            fail(f"{kind}: {count} head rows recorded, {at} accounted for")
+        return np.stack(out[:n])
+
+
+def drafter_stream(model, drafter, params, kind: str, embeds, n: int,
+                   graph: bool = True, adaptive: bool = False) -> tuple:
+    """One request of `kind` through its generate step, greedy, `n`
+    tokens, with every round's verify (and tree) head rows recorded:
+    (tokens, [n, V] rows, stats, the rounds object(s), host seconds, the
+    recorder, whose ring a captured round writes at every replay, so it
+    must outlive any further replay).  `graph` False runs every round
+    eagerly on the card.  Fails unless each token is the argmax of its
+    row."""
+    from mlx_vlm_tpu_torch.speculative import utils as su
+    from mlx_vlm_tpu_torch.speculative.dflash import DFlashStats
+
+    stats = DFlashStats() if kind in ("dflash", "ddtree") else su.SpecStats()
+    real_init = su.CapturedRounds.__init__
+
+    def init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        self.use_graph = self.use_graph and graph
+
+    su.CapturedRounds.__init__ = init
+    try:
+        with HeadRecorder(model) as rec:
+            tic = time.perf_counter()
+            toks = [int(t[0]) for t, _ in drafter_step(kind)(
+                embeds, model, drafter, params, max_tokens=n, stats=stats,
+                **drafter_kwargs(kind, adaptive))]
+            secs = time.perf_counter() - tic
+    finally:
+        su.CapturedRounds.__init__ = real_init
+    rows = rec.rows(kind, n)
+    if len(toks) != n or not np.array_equal(rows.argmax(-1), toks):
+        fail(f"{kind}: a committed token is not the argmax of the target's "
+             f"own verify row: {toks} vs {rows.argmax(-1).tolist()}")
+    return toks, rows, stats, last_rounds_of(kind), secs, rec
+
+
+def last_rounds_of(kind: str):
+    from mlx_vlm_tpu_torch.speculative import ddtree, dflash, utils
+
+    return {"eagle3": utils, "mtp": utils, "dflash": dflash,
+            "ddtree": ddtree}[kind].last_rounds
+
+
+def rounds_state(kind: str, rounds) -> list:
+    """The caches of a request's rounds (the target's and the drafter's
+    buffers and cursors), for bit-identity checks."""
+    if isinstance(rounds, dict):  # DFlash's / DDTree's by size
+        r = next(iter(rounds.values()))
+    else:
+        r = rounds
+    out = [r.cache.k, r.cache.v, r.cache.offset]
+    if hasattr(r, "d_cache"):
+        out += [r.d_cache.k, r.d_cache.v, r.d_cache.offset]
+    return [t.clone() for t in out]
+
+
+def prompt_embeds(model, proc, cfg):
+    import torch
+
+    from mlx_vlm_tpu_torch import apply_chat_template
+    from mlx_vlm_tpu_torch.utils.processing import prepare_inputs
+
+    prompt = apply_chat_template(proc, cfg, DRAFT_TEXT, num_images=0)
+    ids = torch.from_numpy(np.asarray(prepare_inputs(proc, prompt)[
+        "input_ids"], np.int64)).to(model.device)
+    return model.get_input_embeddings(model.params, ids), ids
+
+
+def teacher_forced(model, ids, toks: list) -> np.ndarray:
+    """The target's plain logits [n, V] (f32) at the positions that
+    produced the n tokens: the prompt and all but the last token in one
+    uncached causal forward."""
+    import torch
+
+    lm, lp = model.language_model, model.params["language_model"]
+    seq = torch.cat([ids, torch.tensor([toks[:-1]], dtype=torch.int64,
+                                       device=ids.device)], dim=1)
+    S = ids.shape[1]
+    h = lm(lp, lm.embed(lp, seq), None,
+           torch.arange(seq.shape[1], device=ids.device)[None])
+    return lm.logits(lp, h[:, S - 1:]).float()[0].cpu().numpy()
+
+
+def drafter_logits_forced(model, drafter, params, kind: str, ids,
+                          first: int, forced=None) -> tuple:
+    """The drafter's first-round logits on `model`'s device from the card's
+    first token: EAGLE-3 / MTP [k, V], DFlash / DDTree [15, V] (the block
+    from the prompt's capture on this device).  EAGLE-3 / MTP steps take
+    their token and feature from `forced` (the card's (drafts, features)),
+    so each step is held on the card's inputs (random weights amplify a
+    step's bf16 rounding along the chain of the drafter's own features),
+    or, when it is None, their own argmax and feature, the first feature
+    from this device's capture.  Returns (logits, (drafts, the input
+    feature of each step))."""
+    import torch
+
+    from mlx_vlm_tpu_torch.speculative.utils import captured_prefill
+
+    lm, lp = model.language_model, model.params["language_model"]
+    dev, dt = model.device, lm_dtype(model)
+    cache = lm.init_cache(1, 256, dt, device=dev)
+    _, hiddens = captured_prefill(lm, lp, lm.embed(lp, ids), cache)
+    d_cache = drafter.init_cache(1, 256, dt, device=dev)
+    tok = torch.tensor([first], device=dev)
+    if kind in ("eagle3", "mtp"):
+        feat = drafter.fuse_features(params, hiddens[:, :, -1:])[:, 0]
+        rows, fed, feats = [], [], []
+        for i in range(DRAFT_K):
+            if forced is not None:
+                feat = torch.from_numpy(forced[1][i]).to(dev, dt)[None]
+            feats.append(feat[0].float().cpu().numpy())
+            lg, feat = drafter.step(params, d_cache, tok, feat,
+                                    torch.tensor(i, device=dev))
+            rows.append(lg[0].float())
+            fed.append(int(lg[0].argmax()) if forced is None
+                       else forced[0][i])
+            tok = torch.tensor([fed[-1]], device=dev)
+        return torch.stack(rows).cpu().numpy(), (fed, feats)
+    drafter.append_fn(ids.shape[1])(params, d_cache,
+                                    drafter.fuse_ctx(hiddens), ids.shape[1])
+    bs = drafter.config.block_size
+    lg = drafter.draft_logits_fn(lm, bs)(model.params, params, d_cache, tok)
+    return lg[0].cpu().numpy(), None
+
+
+def tree_logits(model, ids, tree_seq: np.ndarray, depths: np.ndarray,
+                amask: np.ndarray) -> np.ndarray:
+    """The target's `forward_masked` head rows [T, V] over a tree after
+    the prompt (read-only), on `model`'s device."""
+    import torch
+
+    lm, lp = model.language_model, model.params["language_model"]
+    dev = model.device
+    cache = lm.init_cache(1, 256, lm_dtype(model), device=dev)
+    lm(lp, lm.embed(lp, ids), cache,
+       torch.arange(ids.shape[1], device=dev)[None])
+    pos = (cache.offset.long() + torch.from_numpy(depths).to(dev))[None]
+    h = lm.forward_masked(lp, lm.embed(lp, torch.from_numpy(tree_seq).to(
+        dev)), cache, pos, torch.from_numpy(amask).to(dev))
+    return lm.logits(lp, h)[0].float().cpu().numpy()
+
+
+def lm_dtype(model):
+    return model.params["language_model"]["model"]["norm"]["weight"].dtype
+
+
+def zero_norms(model, params: dict):
+    """A with-block's state: the target's final norm and the drafter's
+    (a copy of `params`) zeroed, so every logit row is 0 and every draft
+    and greedy token is 0 (the all-accepted case)."""
+    norm = model.params["language_model"]["model"]["norm"]["weight"]
+    saved = norm.clone()
+    zp = dict(params, norm={"weight": params["norm"]["weight"] * 0})
+
+    class Zeroed:
+        def __enter__(self):
+            norm.zero_()
+            return zp
+
+        def __exit__(self, *exc):
+            norm.copy_(saved)
+
+    return Zeroed()
+
+
+def boosted(logits):
+    """Block logits with token 0 far above the rest (50 there, 0
+    elsewhere), so that DDTree's best-first tree is the chain of 0s."""
+    out = logits * 0
+    out[..., 0] = 50.0
+    return out
+
+
+def all_accepted(model, drafter, params, kind: str, embeds) -> tuple:
+    """The all-accepted case on the card: the final norms of target and
+    drafter zeroed, so that every logit row is 0 and every greedy token
+    and draft is token 0; for DDTree the drafter's block logits also have
+    token 0 as their one maximum (with all of them tied, numpy's argsort
+    puts other tokens first, so the tree would hold no 0), so its tree is
+    a chain of 0s.  (ok, summary)."""
+    import copy
+
+    from mlx_vlm_tpu_torch.speculative.ddtree import (build_ddtree,
+                                                      walk_tree)
+
+    n = 24
+    if kind == "ddtree":
+        drafter = copy.copy(drafter)
+        real = drafter.draft_logits_fn
+        drafter.draft_logits_fn = lambda lm, bs: (
+            lambda *a: boosted(real(lm, bs)(*a)))
+    with zero_norms(model, params) as zp:
+        toks, _, st, _, _, _ = drafter_stream(model, drafter, zp, kind,
+                                              embeds, n)
+    if kind in ("eagle3", "mtp"):
+        per = DRAFT_K - 1
+    elif kind == "dflash":
+        per = drafter.config.block_size - 1
+    else:
+        tree = build_ddtree(boosted(np.zeros(
+            (drafter.config.block_size - 1, 8), np.float32)), DDTREE_BUDGET)
+        per = len(walk_tree(tree, np.zeros(len(tree) + 1, np.int64)))
+    recent = getattr(st, "recent", None)
+    ok = toks == [0] * n and st.rounds > 0 and per > 0 and (
+        st.accepted == per * st.rounds if recent is None
+        else all(a == per for a, _ in recent[:-1]))
+    return ok, (f"all accepted (final norms zeroed): {n} tokens of 0 in "
+                f"{st.rounds} rounds, {st.accepted} of {st.drafted} drafts "
+                f"accepted ({per} a round)")
+
+
+def phase_drafter_parity(ckpt: tuple) -> bool:
+    """The target-coupled drafters at full width against the CPU: the
+    Llama-3.1-8B checkpoint cut to DRAFT_PHASE3_LAYERS layers, exact (K5)
+    on the card in bf16 and plain on the CPU in f32; each kind's drafter
+    at Llama-3.1-8B's widths (drafter_configs(phase3=True)) drawn on the
+    card, its f32 copy on the CPU.  For each kind: the card's 16 greedy
+    tokens (rounds captured and replayed) and their verify rows held by
+    the parity rule to the CPU's plain logits teacher-forced with those
+    tokens; the same request with every round eager, its tokens and both
+    caches bit-identical; the drafter's first-round logits on both
+    devices, teacher-forced with the card's first token, drafts and
+    features (DDTree: the [bonus | tree] forward of the card's first
+    tree), by the parity rule; the all-accepted case."""
+    import torch
+
+    from mlx_vlm_tpu_torch.speculative.ddtree import (build_ddtree,
+                                                      tree_ancestor_mask)
+
+    print(f"phase 3: target-coupled drafters (EAGLE-3, MTP, DFlash, DDTree) "
+          f"at Llama-3.1-8B widths, target cut to {DRAFT_PHASE3_LAYERS} "
+          f"layers, exact (K5), vs the CPU in float32", flush=True)
+    t0 = time.perf_counter()
+    cfg, w = sliced(ckpt, DRAFT_PHASE3_LAYERS)
+    with env_vars(MLX_VLM_TPU_RUNTIME_QUANT="exact"):
+        from mlx_vlm_tpu_torch.utils.loader import load_model_from_weights
+
+        gpu = load_model_from_weights(cfg, w, torch.bfloat16, "cuda")
+        cpu = load_model_from_weights(cfg, w, torch.float32, "cpu")
+    proc = _processor(model=gpu)
+    embeds, ids = prompt_embeds(gpu, proc, cfg)
+    cpu_ids = ids.cpu()
+    print(f"  (loads: {time.perf_counter() - t0:.1f} s)", flush=True)
+    forced_cache, ok_all, n = {}, True, 16
+    cfgs = drafter_configs(phase3=True)
+    for kind in DRAFT_KINDS:
+        t1 = time.perf_counter()
+        dcfg = cfgs["dflash" if kind == "ddtree" else kind]
+        d, p = card_drafter("dflash" if kind == "ddtree" else kind, dcfg,
+                            SEED + 20 + DRAFT_KINDS.index(kind), gpu.device)
+        gd, gp = bound_to(d, p, gpu, torch.bfloat16)
+        cd, cp = bound_to(d, p, cpu, torch.float32)
+        reset_counts()
+        toks, rows, st, rounds, _, rec = drafter_stream(gpu, gd, gp, kind,
+                                                        embeds, n)
+        counts = read_counts()
+        state = rounds_state(kind, rounds)
+        del rounds, rec
+        etoks, _, _, erounds, _, _ = drafter_stream(gpu, gd, gp, kind,
+                                                    embeds, n, graph=False)
+        estate = rounds_state(kind, erounds)
+        same = etoks == toks and all(torch.equal(a, b)
+                                     for a, b in zip(state, estate))
+        key = tuple(toks)
+        if key not in forced_cache:
+            forced_cache[key] = teacher_forced(cpu, cpu_ids, toks)
+        ok_t, err_t, tol_t, n_t = parity_rule(forced_cache[key], rows)
+        first = toks[0]
+        g_d, forced = drafter_logits_forced(gpu, gd, gp, kind, ids, first)
+        if kind == "ddtree":
+            tree = build_ddtree(g_d, DDTREE_BUDGET)
+            seq = np.asarray([[first] + [x.token_ids[-1] for x in tree]])
+            depths = np.asarray([0] + [x.depth for x in tree])
+            amask = tree_ancestor_mask(tree)
+            g_d = tree_logits(gpu, ids, seq, depths, amask)
+            c_d = tree_logits(cpu, cpu_ids, seq, depths, amask)
+        else:
+            c_d, _ = drafter_logits_forced(cpu, cd, cp, kind, cpu_ids, first,
+                                           forced)
+        ok_d, err_d, tol_d, n_d = parity_rule(c_d, g_d)
+        ok_a, acc = all_accepted(gpu, gd, gp, kind, embeds)
+        what = ("the [bonus | tree] forward" if kind == "ddtree"
+                else "the drafter's first-round logits")
+        ok = ok_t and ok_d and same and ok_a
+        ok_all &= ok
+        print(f"  {kind}: {n} tokens in {st.rounds} rounds ({st.accepted} of "
+              f"{st.drafted} drafts accepted); verify rows vs the CPU "
+              f"teacher-forced: max|cuda - cpu| = {err_t:.4e}, tol "
+              f"{tol_t:.4e}, argmax checked on {n_t}/{n}; {what} vs the "
+              f"CPU: {err_d:.4e}, tol {tol_d:.4e}, argmax checked on "
+              f"{n_d}/{len(c_d)}; replayed rounds vs eager (tokens and both "
+              f"caches) bit-identical {same}; {acc} {ok_a}; qmatmul_int4 "
+              f"launches {counts['qmatmul_int4']}; "
+              f"{'ok' if ok else 'MISMATCH'} "
+              f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return ok_all
+
+
+def time_rounds(rounds, iters: int = 5) -> float:
+    """Device ms of one captured round replayed alone between CUDA events
+    (it moves both cursors on, inside the capacity's slack)."""
+    return _events_ms(rounds.graph.graph.replay, iters)
+
+
+def drafter_want(counts: dict, kind: str, L: int, rounds: int) -> dict:
+    """K5 launches of a drafter request on the exact target: the prefill's
+    7 L linears and its head, then a round's: EAGLE-3 / MTP 7 L + 1 (the
+    verify) + DRAFT_K (the drafter's head on the target's table), DFlash
+    7 L + 1 + 1 (the block's head), DDTree 14 L + 3 (the block's head, the
+    tree forward and the replay); every other counter 0."""
+    want = {k: 0 for k in counts}
+    per = {"eagle3": 7 * L + 1 + DRAFT_K, "mtp": 7 * L + 1 + DRAFT_K,
+           "dflash": 7 * L + 2, "ddtree": 14 * L + 3}[kind]
+    want["qmatmul_int4"] = 7 * L + 1 + per * rounds
+    return want
+
+
+def run_drafters(model, cfg: dict, total: dict) -> None:
+    """Phase 4's drafter requests on the 32-layer exact Llama-3.1-8B: each
+    kind's full-width drafter written as a checkpoint (without the
+    embedding and head) and loaded onto the card by `load_drafter`, then
+    32 greedy tokens of DRAFT_TEXT (DFlash adaptive and with fixed blocks
+    of 16), each request's K5 launches held to its rounds, every committed
+    token the argmax of the target's own verify row, the stream the plain
+    greedy one wherever the plain step's top-2 margin exceeds twice the
+    parity bound; rounds, drafted and accepted tokens, a round's device ms
+    against the plain step's and host ms per round printed."""
+    import tempfile
+
+    import torch
+
+    from mlx_vlm_tpu_torch.speculative.drafters import load_drafter
+    from mlx_vlm_tpu_torch.utils.testing import write_drafter_checkpoint
+
+    t0 = time.perf_counter()
+    proc = _processor(model=model)
+    L = model.language_model.args.num_hidden_layers
+    embeds, ids = prompt_embeds(model, proc, cfg)
+    plain_ms = plain_step_ms(model, proc, cfg)
+    n = 32
+    cfgs = drafter_configs(phase3=False)
+    loaded = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind in ("eagle3", "mtp", "dflash"):
+            t1 = time.perf_counter()
+            d, p = card_drafter(kind, cfgs[kind], SEED + 30 + len(loaded),
+                                model.device)
+            write_drafter_checkpoint(f"{tmp}/{kind}", cfgs[kind], p)
+            del d, p
+            loaded[kind] = load_drafter(f"{tmp}/{kind}", model,
+                                        dtype=torch.bfloat16)
+            if loaded[kind][2] != kind:
+                fail(f"load_drafter gave {loaded[kind][2]} for {kind}")
+            print(f"  {kind} drafter: checkpoint written and loaded onto "
+                  f"the card in {time.perf_counter() - t1:.1f} s", flush=True)
+    forced = {}
+    for kind, adaptive in (("eagle3", False), ("mtp", False),
+                           ("dflash", True), ("dflash", False),
+                           ("ddtree", False)):
+        d, p, _ = loaded["dflash" if kind == "ddtree" else kind]
+        name = f"(z) Llama-3.1-8B exact, {kind}" + (
+            ", adaptive blocks" if adaptive else "")
+        reset_counts()
+        toks, rows, st, rounds, secs, rec = drafter_stream(
+            model, d, p, kind, embeds, n, adaptive=adaptive)
+        counts = read_counts()
+        if tuple(toks) not in forced:
+            forced[tuple(toks)] = teacher_forced(model, ids, toks)
+        ok, err, tol, n_m = parity_rule(forced[tuple(toks)], rows)
+        if not ok:
+            fail(f"{name}: the stream or its verify rows leave the plain "
+                 f"greedy decode: max|verify - plain| = {err:.4e}, tol "
+                 f"{tol:.4e}")
+        expect(name, counts, drafter_want(counts, kind, L, st.rounds), total)
+        # the captured program timed: the round (DFlash: its largest
+        # block's), DDTree's tree forward; host ms over the replayed ones
+        graphs = rounds if isinstance(rounds, dict) else {0: rounds}
+        timed = graphs[max(graphs)]
+        dev_ms = time_rounds(timed) if timed.graph is not None else \
+            float("nan")
+        sts = [g.stats for g in graphs.values()]
+        replays = sum(x["replays"] for x in sts)
+        replay_s = sum(x["round_s"] - x["first_s"] - x["capture_s"]
+                       for x in sts if x["captures"])
+        del rec
+        what = ("the tree forward's" if kind == "ddtree" else
+                f"a {max(graphs)}-row block's round" if kind == "dflash"
+                else "a round's")
+        print(f"  {name}: {n} tokens in {st.rounds} rounds, {st.drafted} "
+              f"drafted, {st.accepted} accepted; {secs:.3f} s with the "
+              f"prefill, {sum(x['captures'] for x in sts)} captures; "
+              f"{1e3 * replay_s / max(replays, 1):.4f} host ms per replayed "
+              f"{'tree forward' if kind == 'ddtree' else 'round'}"
+              f"{f', {1e3 * secs / st.rounds:.4f} per round' if kind == 'ddtree' else ''}; "
+              f"{what} device ms {dev_ms:.4f} (captured, replayed alone) "
+              f"against the plain step's {plain_ms:.4f}; qmatmul_int4 "
+              f"{counts['qmatmul_int4']} launches, "
+              f"{(counts['qmatmul_int4'] - 7 * L - 1) / st.rounds:.1f} a "
+              f"round; every token the argmax of its verify row; stream vs "
+              f"plain greedy (teacher-forced): max|verify - plain| = "
+              f"{err:.4e}, tol {tol:.4e}, argmax held on {n_m}/{n} "
+              f"margins", flush=True)
+    print(f"  drafter part: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def expect(name: str, counts: dict, want: dict, total: dict) -> None:
     """Fail unless each counter in `want` holds its count; add the request's
     counts to `total`."""
@@ -5831,6 +6528,7 @@ def run_llama(ckpt: tuple, total: dict) -> None:
                        "(t3) Llama-3.1-8B exact, batch_generate",
                        with_images=False,
                        want=lambda c, st: exact_batch_want(c, L, st))
+    run_drafters(model, cfg, total)
     del model
     torch.cuda.empty_cache()
 
@@ -6116,8 +6814,9 @@ def main() -> None:
     bad = [r for r in results if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks disagree with their plain versions")
-    with fold_once():
+    with fold_once() as folds:
         ckpts = family_checkpoints()
+        check_fold_on_card(ckpts["llama_3_1_8b"])
         if not phase_slice_parity(ckpts["qwen2_vl_7b"]):
             fail("the slice on the card disagrees with the slice on the CPU")
         if not phase_quant_parity():
@@ -6125,8 +6824,17 @@ def main() -> None:
                  "CPU")
         if not phase_family_parity(ckpts):
             fail("Qwen2.5-VL or Qwen3-VL on the card disagrees with the CPU")
+        t3 = time.perf_counter()
+        if not phase_drafter_parity(ckpts["llama_3_1_8b"]):
+            fail("a target-coupled drafter on the card disagrees with the "
+                 "CPU")
+        print(f"  drafter part: {time.perf_counter() - t3:.1f} s; "
+              f"per-channel folds on the card so far: {folds.card[0]} in "
+              f"{folds.card[1]:.1f} s", flush=True)
         lap("phase 3")
         launches = phase_main_path(ckpts)
+        print(f"  per-channel folds on the card in phases 3-4: "
+              f"{folds.card[0]} in {folds.card[1]:.1f} s", flush=True)
         lap("phase 4")
     report = []
     for name, source, replaces, shape in KERNELS:

@@ -8,8 +8,10 @@ int4_grouped_dequantize :574).
 
 Layouts stay bit-exact with the reference: the mlx uint32 words are re-viewed
 as bytes, and the halves-packed int4 repack runs on the host in numpy, as in
-the reference (torch has few uint32 operations).  Containers hold numpy
-arrays while on the host and torch tensors once loaded on a device.
+the reference (torch has few uint32 operations); the per-channel int8
+requantization (w8chan) runs as torch float64 ops on the load's device.
+Containers hold numpy arrays while on the host and torch tensors once
+loaded on a device.
 """
 
 from __future__ import annotations
@@ -176,59 +178,66 @@ class Int4GroupedTensor:
 
 
 def to_channel_quantized(t: QuantizedTensor, chunk_rows: int = 8192,
-                         pool=None) -> ChannelQuantizedTensor:
-    """Requantize a group-affine [N, K] tensor to per-channel int8 [K, N].
+                         device=None) -> ChannelQuantizedTensor:
+    """Requantize a group-affine [N, K] tensor to per-channel int8 [K, N],
+    as torch float64 ops on `device` (the CPU when None): the load's
+    device, so that a load onto the card folds there.
 
-    Exact dequant of the source (float64), then per output row:
-    q8 = round((w - min_n) / s_n) - 128 with s_n = (max_n - min_n) / 255.
-    Rows are independent, so they are processed `chunk_rows` at a time to
-    bound host memory on vocab-sized tables, on the threads of `pool` (a
-    concurrent.futures executor) when one is given; the result depends on
-    neither."""
-    q = host_array(t.q)
+    Exact dequant of the source (float64: codes * scale, then + bias, two
+    roundings as the reference's numpy takes them), then per output row:
+    q8 = round((w - min_n) / s_n) - 128 (round half to even, clipped to
+    [0, 255]) with s_n = (max_n - min_n) / 255 (1 where that is 0), and the
+    bias min_n + 128 * s_n; scales and biases cast to the output dtype on
+    the device.  Rows are independent, so they are processed `chunk_rows`
+    at a time to bound memory on vocab-sized tables; the result does not
+    depend on it, and is byte for byte the reference's host fold
+    (reference core/quant.py:114) on either device."""
+    dev = torch.device("cpu" if device is None else device)
+    q = t.q if isinstance(t.q, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(host_array(t.q)))
     if q.ndim != 2:
         raise ValueError("to_channel_quantized takes a 2-D weight")
-    scales = host_array(t.scales, np.float64)
-    biases = host_array(t.biases, np.float64)
+    q = q.to(dev, torch.uint8)
+
+    def f64(a) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            return a.to(dev, torch.float64)
+        return torch.from_numpy(host_array(a, np.float64)).to(dev)
+
+    scales, biases = f64(t.scales), f64(t.biases)
     per_byte = 8 // t.bits
     mask = (1 << t.bits) - 1
     g = t.group_size
     N = q.shape[0]
     K = q.shape[1] * per_byte
-    q8 = np.empty((K, N), np.int8)
-    s_out = np.empty((1, N), np.float64)
-    b_out = np.empty((1, N), np.float64)
-
-    def rows(r0: int) -> None:
-        qc = q[r0:r0 + chunk_rows]
+    q8 = torch.empty((K, N), dtype=torch.int8, device=dev)
+    s_out = torch.empty((1, N), dtype=torch.float64, device=dev)
+    b_out = torch.empty((1, N), dtype=torch.float64, device=dev)
+    for r0 in range(0, N, chunk_rows):
+        r1 = min(N, r0 + chunk_rows)
+        qc = q[r0:r1]
         if per_byte > 1:
             parts = [(qc >> (t.bits * j)) & mask for j in range(per_byte)]
-            qc = np.stack(parts, axis=-1).reshape(qc.shape[0], -1)
-        w = qc.reshape(qc.shape[0], K // g, g).astype(np.float64)
-        w = w * scales[r0:r0 + chunk_rows, :, None] \
-            + biases[r0:r0 + chunk_rows, :, None]
-        w = w.reshape(qc.shape[0], K)
-        mn = w.min(axis=-1, keepdims=True)
-        mx = w.max(axis=-1, keepdims=True)
-        s = (mx - mn) / 255.0
-        s = np.where(s == 0.0, 1.0, s)
-        q8[:, r0:r0 + chunk_rows] = (
-            np.clip(np.round((w - mn) / s), 0, 255) - 128.0).T.astype(np.int8)
-        s_out[0, r0:r0 + chunk_rows] = s[:, 0]
-        b_out[0, r0:r0 + chunk_rows] = (mn + 128.0 * s)[:, 0]
-
-    starts = range(0, N, chunk_rows)
-    if pool is None:
-        for r0 in starts:
-            rows(r0)
-    else:
-        for f in [pool.submit(rows, r0) for r0 in starts]:
-            f.result()
+            qc = torch.stack(parts, dim=-1).reshape(r1 - r0, K)
+        w = qc.reshape(r1 - r0, K // g, g).to(torch.float64)
+        w = w * scales[r0:r1, :, None]
+        w = w + biases[r0:r1, :, None]
+        w = w.reshape(r1 - r0, K)
+        mn = w.amin(dim=-1, keepdim=True)
+        mx = w.amax(dim=-1, keepdim=True)
+        # a tensor divisor: PyTorch's CUDA division by a scalar multiplies
+        # by its reciprocal, which is not the reference's quotient
+        s = (mx - mn) / torch.full_like(mx, 255.0)
+        s = torch.where(s == 0.0, torch.ones_like(s), s)
+        codes = torch.clamp(torch.round((w - mn) / s), 0, 255) - 128.0
+        q8[:, r0:r1] = codes.T.to(torch.int8)
+        s_out[0, r0:r1] = s[:, 0]
+        b_out[0, r0:r1] = (mn + 128.0 * s)[:, 0]
     dt = torch_dtype(t.out_dtype)
     return ChannelQuantizedTensor(
-        q8=torch.from_numpy(q8),
-        scales=torch.from_numpy(s_out).to(dt),
-        biases=torch.from_numpy(b_out).to(dt),
+        q8=q8,
+        scales=s_out.to(dt),
+        biases=b_out.to(dt),
         src_bits=t.bits,
         out_dtype=t.out_dtype,
     )

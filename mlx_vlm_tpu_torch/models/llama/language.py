@@ -2,8 +2,9 @@
 models and by LLaVA.
 
 Port of mlx_vlm_tpu/models/llama/language.py (LanguageModel :22, __call__
-:50, forward_captured :89, _mlp :151, _qkv :154, _attention :169,
-_attention_nc :177, logits :185, embed :190, init_cache :193).  Decoder
+:50, forward_captured :89, forward_masked :113, _mlp :151, _qkv :154,
+_attention :169, _attention_nc :177, logits :185, embed :190, init_cache
+:193).  Decoder
 layers run as a Python loop over views of the stacked weights and the KV
 cache is written in place, as in the Qwen-VL ports.  What a checkpoint
 carries is picked up from its weights, as in the reference: q / k / v / o
@@ -18,8 +19,9 @@ K2 under a forced w4grp, w8chan as plain tensor math, and the cache's
 
 `forward_captured` returns the final hidden state and every layer's output
 [L, B, S, D] (the cache is written in place, so it is not returned).
-`forward_masked` (:113, tree-verified drafting) reads the cache's raw
-buffers and waits for DDTree's port.
+`forward_masked` (:113, DDTree's tree verify) is a read-only forward of S
+rows over the bf16 `KVCache` below its cursor and an [S, S] mask among the
+rows, through `sdpa` as in the reference.
 """
 
 from __future__ import annotations
@@ -77,6 +79,44 @@ class LanguageModel:
         h = self._forward(params, inputs_embeds, cache, position_ids, True,
                           hiddens)
         return h, torch.stack(hiddens)
+
+    def forward_masked(self, params: dict, inputs_embeds: torch.Tensor,
+                       cache, position_ids: torch.Tensor,
+                       block_mask: torch.Tensor) -> torch.Tensor:
+        """Read-only forward with a custom mask among the new rows
+        (reference :113): the S rows attend to the cache below its cursor
+        and to each other by `block_mask` (bool [S, S], True = attend);
+        their K/V are used in flight and never written, and the cursor
+        stays.  Returns the final-normed hidden [B, S, D].  It reads the
+        raw buffers of a bf16 `KVCache` (exactly that class; any other
+        cache raises)."""
+        if type(cache) is not cache_lib.KVCache:
+            raise TypeError(f"forward_masked reads a bf16 KVCache's buffers, "
+                            f"not a {type(cache).__name__}")
+        B, S, _ = inputs_embeds.shape
+        cos, sin = self.rope.cos_sin(position_ids)
+        mp = params["model"]
+        eps = self.args.rms_norm_eps
+        dev = inputs_embeds.device
+        C = cache.capacity
+        cache_part = (torch.arange(C, device=dev) < cache.offset)
+        mask = torch.cat([cache_part[None, None, None, :].expand(B, 1, S, C),
+                          block_mask.to(dev)[None, None].expand(B, 1, S, S)],
+                         dim=-1)
+        h = inputs_embeds
+        for i in range(self.args.num_hidden_layers):
+            lp = layer_view(mp["layers"], i)
+            x = self._norm(lp["input_layernorm"], h, eps)
+            q, k, v = self._qkv(lp["self_attn"], x)
+            q, k = apply_rope(q, k, cos, sin)
+            keys = torch.cat([cache.k[i], k.to(cache.k.dtype)], dim=2)
+            vals = torch.cat([cache.v[i], v.to(cache.v.dtype)], dim=2)
+            o = sdpa(q.contiguous(), keys, vals, self.scale, mask)
+            o = o.transpose(1, 2).reshape(B, S, -1)
+            h = self._residual(h, linear(lp["self_attn"]["o_proj"], o))
+            x = self._norm(lp["post_attention_layernorm"], h, eps)
+            h = self._residual(h, self._mlp(lp["mlp"], x))
+        return self._norm(mp["norm"], h, eps)
 
     def _forward(self, params, inputs_embeds, cache, position_ids, causal,
                  hiddens) -> torch.Tensor:

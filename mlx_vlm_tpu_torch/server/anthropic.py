@@ -138,8 +138,7 @@ def messages_endpoint(handler, body: dict, generator, model_name: str):
             {"type": "error", "error": {"type": "api_error", "message": error}}, 500
         )
         return None
-    meta = generator.metrics.snapshot()["recent"]
-    env = meta[-1] if meta else {}
+    env = generator.metrics.envelope(args.request_id)
     handler.send_json({
         "id": mid,
         "type": "message",

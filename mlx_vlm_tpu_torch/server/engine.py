@@ -106,6 +106,15 @@ class ServerMetricsStore:
             if len(self.requests) > self.history:
                 self.requests = self.requests[-self.history :]
 
+    def envelope(self, request_id: str) -> dict:
+        """The newest envelope recorded for `request_id` ({} when there is
+        none): each finished request reads its own, not the newest one."""
+        with self.lock:
+            for env in reversed(self.requests):
+                if env.get("request_id") == request_id:
+                    return env
+        return {}
+
     def snapshot(self) -> dict:
         with self.lock:
             recent = self.requests[-20:]
@@ -397,9 +406,6 @@ class ResponseGenerator:
         tail = final_text[sent:]
         now = time.time()
         decode_s = now - (t_first or now)
-        if q:
-            q.put(StreamingToken(token=None, text=tail,
-                                 finish_reason=finish))
         self.metrics.record({"request_id": args.request_id,
                              "prompt_tokens": int(ids.shape[1]),
                              "generation_tokens": n,
@@ -407,6 +413,9 @@ class ResponseGenerator:
                              "generation_tps": ((n - 1) / decode_s
                                                 if decode_s > 1e-6 else 0.0),
                              "constrained": True})
+        if q:
+            q.put(StreamingToken(token=None, text=tail,
+                                 finish_reason=finish))
 
     def _run(self):
         while not self._stop.is_set():
@@ -477,6 +486,7 @@ class ResponseGenerator:
                 if meta["t_first"] is None:
                     meta["t_first"] = now
                 finished = False
+                last = None  # the finishing token, queued after its envelope
                 for tok, lp in toks:
                     meta["generated"] += 1
                     is_eos = tok in self.eos_ids
@@ -505,22 +515,23 @@ class ResponseGenerator:
                     elif stop_hit:
                         finish = "stop"
                         self.batch.remove(rid)
-                    if q:
-                        q.put(StreamingToken(token=None if is_eos else tok,
-                                             text=text, logprob=lp,
-                                             finish_reason=finish))
+                    out = StreamingToken(token=None if is_eos else tok,
+                                         text=text, logprob=lp,
+                                         finish_reason=finish)
                     if finish:
+                        last = out
                         finished = True
                         break
+                    if q:
+                        q.put(out)
                 still_active = any(
                     s is not None and s.req.uid == rid for s in self.batch.slots
                 ) or any(r.uid == rid for r in self.batch.queue)
                 if not finished and not still_active:
                     # length exhausted
-                    if q:
-                        tail = meta["detok"].finalize()
-                        q.put(StreamingToken(token=None, text=tail,
-                                             finish_reason="length"))
+                    last = StreamingToken(token=None,
+                                          text=meta["detok"].finalize(),
+                                          finish_reason="length")
                     finished = True
                 if finished:
                     decode_s = now - (meta["t_first"] or now)
@@ -546,5 +557,9 @@ class ResponseGenerator:
                             "accepted": st.accepted,
                             "acceptance_rate": round(st.acceptance_rate, 4),
                         }
+                    # recorded before the finishing token is queued, so
+                    # that the handler finds its own envelope
                     self.metrics.record(env)
                     self._meta.pop(rid, None)
+                    if q:
+                        q.put(last)

@@ -133,8 +133,7 @@ def chat_completion(handler, body: dict, generator, model_name: str):
                 }],
             }
             if tok.finish_reason:
-                meta = generator.metrics.snapshot()["recent"]
-                env = meta[-1] if meta else {}
+                env = generator.metrics.envelope(args.request_id)
                 chunk["usage"] = {
                     "prompt_tokens": env.get("prompt_tokens", 0),
                     "completion_tokens": n_gen,
@@ -196,8 +195,7 @@ def chat_completion(handler, body: dict, generator, model_name: str):
                 ],
             }
             finish = "tool_calls"
-    meta = generator.metrics.snapshot()["recent"]
-    env = meta[-1] if meta else {}
+    env = generator.metrics.envelope(args.request_id)
     choice = {"index": 0, "message": message, "finish_reason": finish}
     if body.get("logprobs"):
         choice["logprobs"] = {"content": token_logprobs}

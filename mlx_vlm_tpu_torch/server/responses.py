@@ -82,7 +82,7 @@ def create_response(handler, body: dict, generator, model_name: str):
     it = generator.generate(args)
 
     def final_response(text: str, n_gen: int, status="completed") -> dict:
-        env = (generator.metrics.snapshot()["recent"] or [{}])[-1]
+        env = generator.metrics.envelope(args.request_id)
         return {
             "id": rid,
             "object": "response",

@@ -4,10 +4,11 @@ one target forward.
 Port of mlx_vlm_tpu/speculative/utils.py (load_drafter :142,
 validate_drafter_compatibility :154, rejection_walk :164,
 SpeculativeEngine :203, SpecStats :313, speculative_generate_step :323)
-for the vanilla drafter: an independent smaller language model that shares
-the target's tokenizer.  The target-coupled drafters (EAGLE-3 / MTP,
-DFlash, DDTree) need `forward_captured` on the target's language model,
-which Qwen2-VL lacks in the JAX package too; they are not ported.
+for the vanilla drafter (an independent smaller language model that
+shares the target's tokenizer), and `eagle3_generate_step` (:38) for the
+target-coupled EAGLE-3 and MTP drafters (speculative/drafters/), which
+need the target's `forward_captured` (the llama decoder's; DFlash and
+DDTree are in dflash.py and ddtree.py).
 
 A round is the reference's two programs on device tensors: k drafter
 steps (`SpeculativeEngine.draft`, each through the drafter's `step_logits`:
@@ -58,7 +59,8 @@ from ..generate.common import round_up
 __all__ = ["SpecStats", "SpeculativeEngine", "load_drafter",
            "rejection_walk", "run_speculative_rounds",
            "speculative_generate_step", "validate_drafter_compatibility",
-           "walk_noise"]
+           "walk_noise", "eagle3_generate_step", "Eagle3Rounds",
+           "greedy_walk"]
 
 # The last request's rounds (its `SpeculativeRounds`: the caches, the
 # captured round and `stats`), held until the next request starts
@@ -83,13 +85,15 @@ class SpecStats:
 
 def load_drafter(path_or_repo: str, dtype=torch.bfloat16,
                  kind: str = "vanilla", device="cuda"):
-    """Load a vanilla draft model (reference drafters/__init__.py
-    load_drafter) with the port's loader, onto the card unless `device`
-    says otherwise.  The target-coupled kinds raise."""
+    """Load a vanilla draft model (reference :142) with the port's loader,
+    onto the card unless `device` says otherwise.  A target-coupled kind
+    raises ValueError: it loads against its target through
+    `speculative.drafters.load_drafter` (the reference ignores `kind`
+    here and loads any directory as a plain model)."""
     if kind != "vanilla":
-        raise NotImplementedError(
-            f"{kind} drafters need forward_captured on the target; only "
-            f"vanilla drafters are ported")
+        raise ValueError(
+            f"{kind} drafters load against their target: use "
+            f"speculative.drafters.load_drafter(path, target_model)")
     from ..utils.loader import load_model
 
     return load_model(path_or_repo, dtype=dtype, device=device)
@@ -424,6 +428,144 @@ def speculative_generate_step(
                                              sp, gen)
     rounds.stats["prefill_chunks"] = S_pad // step
     rounds.tok.copy_(engine.sampler(logits, sp, gen))  # the first token
+    first = rounds.tok.cpu().numpy()
+    rounds.stats["fetches"] += 1
+    yield first, np.zeros((B,), np.float32)
+    n = 1
+    while n < max_tokens:
+        res = rounds.run()[0]
+        n_acc = int(res[k + 1])
+        stats.add(k, n_acc)
+        for t in res[:n_acc + 1].astype(np.int64):
+            if n >= max_tokens:
+                break
+            yield np.asarray([t]), np.zeros((B,), np.float32)
+            n += 1
+
+
+def greedy_walk(greedy: torch.Tensor, draft_toks: torch.Tensor,
+                cap: Optional[int] = None) -> tuple:
+    """The target-coupled kinds' greedy walk (reference :85-97,
+    dflash.py:96-106): n_acc [B] = the drafts that equal the target's
+    greedy tokens before the first that does not (at most `cap`); out
+    [B, k + 1] = the accepted drafts, then the target's greedy token at
+    n_acc (the bonus), then zeros."""
+    k = draft_toks.shape[1]
+    n_acc = (greedy[:, :k] == draft_toks).long().cumprod(dim=1).sum(dim=1)
+    if cap is not None:
+        n_acc = n_acc.clamp(max=cap)
+    idx = torch.arange(k + 1, device=greedy.device)[None, :]
+    out = torch.where(idx < n_acc[:, None], F.pad(draft_toks, (0, 1)),
+                      torch.zeros_like(idx))
+    bonus = greedy.gather(1, n_acc[:, None])
+    out = torch.where(idx == n_acc[:, None], bonus, out)
+    return out, n_acc
+
+
+def text_positions(start: torch.Tensor, n: int) -> torch.Tensor:
+    """The llama decoder's own positions [1, n]: start + arange(n), from a
+    0-dim device cursor (the reference builds M-RoPE [3, B, n] ids)."""
+    return (start.long() + torch.arange(n, device=start.device))[None]
+
+
+def captured_prefill(lm, lp: dict, embeds: torch.Tensor, cache) -> tuple:
+    """The target's prompt through `forward_captured` in one chunk at
+    positions 0..S-1: (f32 logits [1, V] of the last row, the captured
+    stack [L, 1, S, D]); the cache holds the prompt after it."""
+    S = embeds.shape[1]
+    hidden, hiddens = lm.forward_captured(lp, embeds, cache,
+                                          text_positions(cache.offset, S))
+    return lm.logits(lp, hidden[:, -1:])[:, 0].float(), hiddens
+
+
+class Eagle3Rounds(CapturedRounds):
+    """The EAGLE-3 / MTP round (reference :116-139) on device state: the
+    last committed token `tok` [1], the fused feature `feat` [1, D] at the
+    position before it, the target's cache and the drafter's one-layer
+    cache with their 0-dim cursors.  k draft steps from the drafter's
+    cursor, the target's `forward_captured` over [tok, d1..dk] at text
+    positions, the greedy walk (n_acc at most k - 1, as the reference
+    caps it: the drafter never wrote d_k), the target's cursor rewound by
+    offset - (k + 1) + n_acc + 1, the drafter's set to its round start +
+    n_acc + 1 (the reference's host mirror `d_off`, here on the device),
+    and the feature at the last accepted position.  `result` [1, k + 2]:
+    the round's k + 1 tokens, then n_acc."""
+
+    def __init__(self, model, drafter, params: dict, cache, d_cache, k: int,
+                 gen: torch.Generator):
+        dev = cache.offset.device
+        super().__init__(dev, gen, (1, k + 2))
+        self.lm, self.lp = model.language_model, model.params["language_model"]
+        self.drafter, self.params, self.k = drafter, params, k
+        self.cache, self.d_cache = cache, d_cache
+        self.draft = drafter.draft_fn(k)
+        self.tok = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.feat = None  # [1, D], set from the prefill
+        self.d_start = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def round(self) -> None:
+        k, lm, lp = self.k, self.lm, self.lp
+        self.d_start.copy_(self.d_cache.offset)
+        d_toks = self.draft(self.params, self.d_cache, self.tok, self.feat,
+                            self.d_start)
+        seq = torch.cat([self.tok[:, None], d_toks], dim=1)
+        hidden, hiddens = lm.forward_captured(
+            lp, lm.embed(lp, seq), self.cache,
+            text_positions(self.cache.offset, k + 1))
+        greedy = torch.argmax(lm.logits(lp, hidden).float(), dim=-1)
+        out, n_acc = greedy_walk(greedy, d_toks, cap=k - 1)
+        feats = self.drafter.fuse_features(self.params, hiddens)
+        at = n_acc[:, None, None].expand(1, 1, feats.shape[-1])
+        self.feat.copy_(feats.gather(1, at)[:, 0])
+        acc = n_acc.max().to(torch.int32)
+        self.cache.offset.add_(acc - k)
+        self.d_cache.offset.copy_(self.d_start + acc + 1)
+        self.tok.copy_(out.gather(1, n_acc[:, None])[:, 0])
+        self.result.copy_(torch.cat([out, n_acc[:, None]], dim=1))
+
+
+def eagle3_generate_step(
+    inputs_embeds: torch.Tensor,  # [1, S, D]
+    model,
+    drafter,  # drafters.eagle3.Eagle3Drafter or drafters.mtp.MTPDrafter
+    drafter_params: dict,
+    *,
+    max_tokens: int = 256,
+    num_draft: int = 4,
+    stats: Optional[SpecStats] = None,
+) -> Generator[Tuple[np.ndarray, np.ndarray], None, None]:
+    """EAGLE-3 style speculative decoding, B = 1 (reference :38): yields
+    (token [1], zeros [1]) numpy pairs.
+
+    The target runs `forward_captured`, so every verify also yields the
+    layer stack; the drafter takes the fused capture at the last committed
+    position and autoregresses its own single layer.  Greedy and lossless
+    (the walk commits only the target's greedy tokens).  The drafter's
+    cache starts cold at the prompt (no drafter prefill), as in the
+    reference.  Both caches are `KVCache`s of round_up(S + max_tokens +
+    k + 2, 256) rows in the embeddings' dtype.  A round is `Eagle3Rounds`:
+    on the card the first runs eagerly, the second is captured and every
+    later one replays it, with one host fetch a round (n_acc and the
+    tokens); `last_rounds` holds it until the next request."""
+    B, S, _ = inputs_embeds.shape
+    if B != 1:
+        raise ValueError("the EAGLE-3 path is single-stream")
+    global last_rounds
+    last_rounds = None
+    stats = stats if stats is not None else SpecStats()
+    dev, dt = inputs_embeds.device, inputs_embeds.dtype
+    lm, lp = model.language_model, model.params["language_model"]
+    k = num_draft
+    capacity = round_up(S + max_tokens + k + 2, CACHE_BUCKET)
+    cache = make_cache(model, B, capacity, dt, device=dev)
+    d_cache = drafter.init_cache(B, capacity, dt, device=dev)
+    logits, hiddens = captured_prefill(lm, lp, inputs_embeds, cache)
+    rounds = last_rounds = Eagle3Rounds(model, drafter, drafter_params,
+                                        cache, d_cache, k,
+                                        torch.Generator(device=dev))
+    rounds.feat = drafter.fuse_features(drafter_params,
+                                        hiddens[:, :, -1:])[:, 0].clone()
+    rounds.tok.copy_(torch.argmax(logits, dim=-1))
     first = rounds.tok.cpu().numpy()
     rounds.stats["fetches"] += 1
     yield first, np.zeros((B,), np.float32)

@@ -807,28 +807,59 @@ class ThinkingAwareLogitsProcessor:
         return self.active and self.inner.done
 
 
-def force_complete(text: str, schema: Optional[dict] = None,
-                   max_steps: int = 512) -> str:
-    """Deterministically extend `text` to a complete schema-valid document
-    (the llguidance "fast-forward/forced tokens" idea, reference
-    structured.py — here char-level): at each step append the candidate
-    that keeps the prefix valid and most reduces openness.  Used when a
-    length-bounded constrained generation ends mid-document."""
-    if schema:
-        ok = lambda t: schema_prefix_valid(t, schema)
-        done = lambda t: schema_complete(t, schema)
-    else:
-        ok = json_prefix_valid
-        done = json_complete
-    # candidate pieces, roughly by closing power; multi-char pieces let
-    # key/value obligations resolve in one step
-    pieces = ('"', "}", "]", "0", "null", "true", ":", ": 0", ", ", '"a"',
-              '"a": 0', "a", " ")
-    for _ in range(max_steps):
+# the reference's candidate pieces, roughly by closing power; multi-char
+# pieces let key/value obligations resolve in one step
+_FORCE_PIECES = ('"', "}", "]", "0", "null", "true", ":", ": 0", ", ",
+                 '"a"', '"a": 0', "a", " ")
+
+
+def _schema_pieces(schema) -> tuple:
+    """(pieces, required keys): pieces that name what `schema` asks for,
+    at any depth: each property
+    as a key, each enum or const value, an empty value of each type, the
+    openings of a document, and the rest of each key, value and literal
+    after any of its characters (to finish one that the text began)."""
+    keys, values, required = [], ['""', "false", "[]", "{}", "{", "["], []
+
+    def visit(node):
+        if isinstance(node, list):
+            for x in node:
+                visit(x)
+            return
+        if not isinstance(node, dict):
+            return
+        for k in node.get("required", ()) or ():
+            keys.append(k)
+            required.append(json.dumps(k))
+        for k in (node.get("properties") or {}):
+            keys.append(k)
+        for v in node.get("enum", ()) or ():
+            values.append(json.dumps(v))
+        if "const" in node:
+            values.append(json.dumps(node["const"]))
+        for v in node.values():
+            visit(v)
+
+    visit(schema)
+    out = []
+    for k in keys:
+        out += [json.dumps(k), json.dumps(k) + ": "]
+    words = [json.dumps(k) for k in keys] + values + ["true", "null"]
+    rests = [w[i:] for w in words for i in range(1, len(w))]
+    return (tuple(dict.fromkeys(out + values + rests)),
+            tuple(dict.fromkeys(required)))
+
+
+def _greedy_complete(text: str, ok, done, max_steps: int) -> str:
+    """The reference's walk: at each step append the piece that keeps the
+    prefix valid and most reduces openness.  A second space in a row means
+    the walk is stuck (what follows a space is what follows two), so the
+    spaces that its remaining steps would append are appended at once."""
+    for i in range(max_steps):
         if done(text):
             return text
         best = None
-        for cand in pieces:
+        for cand in _FORCE_PIECES:
             new = text + cand
             if ok(new):
                 op = _openness(new)
@@ -838,8 +869,73 @@ def force_complete(text: str, schema: Optional[dict] = None,
                         break
         if best is None:
             return text  # dead prefix; give up (caller already validated)
+        if best[1] == text + " " and text.endswith(" "):
+            return best[1] + " " * (max_steps - i - 1)
         text = best[1]
     return text
+
+
+def _search_complete(text: str, ok, done, pieces: tuple, required: tuple,
+                     budget: int) -> Optional[str]:
+    """Best-first search over appended pieces (whitespace left out: it
+    completes nothing) for a complete document, ranked by the pieces
+    appended, the open containers and twice the `required` keys that the
+    text does not name yet; None when `budget` prefixes were expanded
+    without one."""
+    import heapq
+
+    def rank(t: str, steps: int) -> int:
+        return steps + _openness(t) + 2 * sum(k not in t for k in required)
+
+    pieces = tuple(c for c in pieces if c.strip())
+    heap = [(rank(text, 0), 0, 0, text)]
+    seen = {text}
+    order = 1
+    while heap and budget > 0:
+        _, steps, _, t = heapq.heappop(heap)
+        budget -= 1
+        for cand in pieces:
+            new = t + cand
+            if new in seen or not ok(new):
+                continue
+            if done(new):
+                return new
+            seen.add(new)
+            heapq.heappush(heap, (rank(new, steps + 1), steps + 1, order,
+                                  new))
+            order += 1
+    return None
+
+
+def force_complete(text: str, schema: Optional[dict] = None,
+                   max_steps: int = 512) -> str:
+    """Deterministically extend `text` to a complete schema-valid document
+    (the llguidance "fast-forward/forced tokens" idea, reference
+    structured.py -- here char-level).  Used when a length-bounded
+    constrained generation ends mid-document.
+
+    First the reference's greedy walk over its fixed pieces
+    (`_greedy_complete`).  That walk knows no key but "a", so under a
+    schema whose required keys are others it stalls (reference
+    structured.py:788-803: `{` under `required: ["name"]` becomes `{"a"`
+    and 508 spaces).  Where it ends incomplete, a best-first search over
+    those pieces and the schema's own keys, enum / const values and empty
+    values (`_search_complete`) finds a complete document, such as
+    `{"name": ""}`; the walk's text is returned only when the search
+    finds none either."""
+    if schema:
+        ok = lambda t: schema_prefix_valid(t, schema)
+        done = lambda t: schema_complete(t, schema)
+    else:
+        ok = json_prefix_valid
+        done = json_complete
+    out = _greedy_complete(text, ok, done, max_steps)
+    if done(out) or not ok(text):
+        return out
+    pieces, required = _schema_pieces(schema)
+    found = _search_complete(text, ok, done, _FORCE_PIECES + pieces,
+                             required, budget=max_steps)
+    return out if found is None else found
 
 
 def build_json_schema_logits_processor(schema, tokenizer, beam: int = 128):

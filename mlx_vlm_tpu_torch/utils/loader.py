@@ -71,6 +71,7 @@ __all__ = [
     "load_config",
     "read_safetensors",
     "read_safetensors_metadata",
+    "safetensors_keys",
     "write_safetensors",
     "params_from_jax",
     "runtime_quant_mode",
@@ -152,16 +153,25 @@ def _bf16_tensor(u16: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(u16)).view(torch.bfloat16)
 
 
-def read_safetensors(path) -> dict:
-    """All tensors of one .safetensors file: numpy arrays, except BF16
-    tensors, which come back as CPU torch.bfloat16 tensors."""
+def safetensors_keys(path) -> list:
+    """The tensor names of one .safetensors file, in header order."""
+    with open(path, "rb") as fh:
+        (hlen,) = struct.unpack("<Q", fh.read(8))
+        return [k for k in json.loads(fh.read(hlen)) if k != "__metadata__"]
+
+
+def read_safetensors(path, keys=None) -> dict:
+    """The tensors of one .safetensors file (those named in `keys`, or
+    all): numpy arrays, except BF16 tensors, which come back as CPU
+    torch.bfloat16 tensors."""
     out = {}
     with open(path, "rb") as fh:
         (hlen,) = struct.unpack("<Q", fh.read(8))
         header = json.loads(fh.read(hlen))
         base = 8 + hlen
         for key, meta in header.items():
-            if key == "__metadata__":
+            if key == "__metadata__" or (keys is not None
+                                         and key not in keys):
                 continue
             dt = _ST_DTYPES.get(meta["dtype"])
             if dt is None:
@@ -293,8 +303,8 @@ def runtime_quant_mode(default: str = "w8chan") -> str:
 
 
 def _fold_workers() -> int:
-    """Host threads of the fold: the cores this process may use, at most 8
-    (each thread holds about a GB of float64 temporaries at vocab sizes)."""
+    """Host threads of w4grp's int4 repacks: the cores this process may
+    use, at most 8."""
     try:
         n = len(os.sched_getaffinity(0))
     except AttributeError:
@@ -303,35 +313,35 @@ def _fold_workers() -> int:
 
 
 def _fold_triple(w: np.ndarray, scales, biases, bits: int, group_size: int,
-                 mode: str, is_embed: bool, pool=None):
+                 mode: str, is_embed: bool, device=None):
     """One mlx triple in the runtime `mode`'s layout: Int4GroupedTensor for
     an eligible 4-bit linear under w4grp, ChannelQuantizedTensor for other
-    2-D triples under w4grp and w8chan, else the QuantizedTensor as it is.
-    Eligible: the reference's rule (whole groups a row) and a group size
-    that K1 and K2 take (a multiple of 16); the reference's fold repacks
-    any group size (ROADMAP Queue 3, divergences).  `pool` runs the rows of
-    a per-channel requantization on its threads."""
+    2-D triples under w4grp and w8chan (requantized on `device`, the
+    load's), else the QuantizedTensor as it is.  Eligible: the reference's
+    rule (whole groups a row) and a group size that K1 and K2 take (a
+    multiple of 16); the reference's fold repacks any group size (ROADMAP
+    Queue 3, divergences)."""
     qt = from_mlx_packed(w, scales, biases, bits, group_size)
     if (mode == "w4grp" and bits == 4 and qt.q.ndim == 2 and not is_embed
             and (qt.q.shape[1] * 2) % group_size == 0
             and group_size % 16 == 0):
         return to_int4_grouped(qt)
     if mode in ("w8chan", "w4grp") and qt.q.ndim == 2:
-        return to_channel_quantized(qt, pool=pool)
+        return to_channel_quantized(qt, device=device)
     return qt
 
 
 def _fold_quantized(flat: dict, qcfg: dict,
-                    default_mode: str = "w8chan") -> dict:
+                    default_mode: str = "w8chan", device=None) -> dict:
     """Fold mlx-style (weight: packed uint32, scales, biases) triples by the
     runtime mode: under "w4grp" eligible 4-bit linears -> Int4GroupedTensor
     and other 2-D triples (embedding tables included) ->
     ChannelQuantizedTensor; under "w8chan" every 2-D triple ->
     ChannelQuantizedTensor; under "exact" every triple stays a
     QuantizedTensor.  The triples are independent: the int4 repacks run on
-    a pool of host threads, and each per-channel requantization spreads its
-    rows over the same pool (`_fold_workers`); every result is what one
-    thread computes."""
+    a pool of host threads (`_fold_workers`), while each per-channel
+    requantization runs as torch float64 ops on `device` (the load's; the
+    CPU when None), so that a load onto the card folds there."""
     bits = qcfg.get("bits", 4)
     group_size = qcfg.get("group_size", 64)
     mode = runtime_quant_mode(default_mode)
@@ -368,15 +378,14 @@ def _fold_quantized(flat: dict, qcfg: dict,
         jobs.append((wk, (w, flat[k], biases, b, g, mode, is_embed)))
         handled.update({wk, k, bk})
     with ThreadPoolExecutor(_fold_workers()) as pool:
-        # int4 repacks go to the pool whole; a requantization (run here)
-        # puts its row chunks on the pool behind them, so no task waits on
-        # another
+        # int4 repacks go to the pool; the requantizations run here, on
+        # the device, meanwhile
         pending = {}
         for wk, args in jobs:
             if mode == "w4grp" and args[3] == 4 and not args[6]:
                 pending[wk] = pool.submit(_fold_triple, *args)
             else:
-                out[wk] = _fold_triple(*args, pool=pool)
+                out[wk] = _fold_triple(*args, device=device)
         for wk, f in pending.items():
             out[wk] = f.result()
     out = {wk: out[wk] for wk, _ in jobs}  # the checkpoint's key order
@@ -464,7 +473,7 @@ def load_model_from_weights(config: dict, weights: dict,
         fused_ok = (getattr(model.language_model, "supports_fused_decode",
                             False) and qcfg.get("bits", 4) == 4)
         weights = _fold_quantized(weights, _renamed_entries(model, qcfg),
-                                  "w4grp" if fused_ok else "w8chan")
+                                  "w4grp" if fused_ok else "w8chan", device)
     weights = _stack_layers(weights, tuple(model.stack_patterns))
     model.params = _nest(_to_device(weights, dtype, device))
     model.config_dict = config

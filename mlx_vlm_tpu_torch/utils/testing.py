@@ -43,7 +43,17 @@ qwen2_5_vl_hf_weights :178 draw the same arrays for a seed), plus:
   `LLAVA_SPECIAL_TOKENS`), and one id per UTF-8 byte otherwise, so a
   processor works without `transformers`;
 - `synthetic_video`: seeded uint8 frames of a clip, at any size (a tiny
-  one for the CPU tests, 448 x 448 for the card).
+  one for the CPU tests, 448 x 448 for the card);
+- the target-coupled drafters' config.json dicts over a llama target
+  (`eagle3_drafter_config`, `mtp_drafter_config`,
+  `dflash_drafter_config`): `tiny_drafter_configs` over the tiny llama
+  target (the JAX package's test drafters, tests/test_speculative.py:
+  181-188, tests/test_dflash.py:43-56) and `llama_3_1_8b_drafter_configs`
+  at Llama-3.1-8B's widths (one drafter layer for EAGLE-3, capturing
+  layers 2, 16 and 29, and MTP; DFlash's 5 layers, block 16 and target
+  layers 1, 8, 15, 22 and 29, the reference's defaults), and
+  `write_drafter_checkpoint`, which writes such a drafter's directory
+  (without the embedding and head that it shares with its target).
 
 Everything is numpy on the host and made from a seed.
 """
@@ -1425,3 +1435,104 @@ class ByteTokenizer:
         if isinstance(ids, (list, tuple, np.ndarray)):
             return [one(i) for i in ids]
         return one(ids)
+
+
+# --------------------------------------------------- target-coupled drafters
+def _drafter_widths(target: dict) -> dict:
+    return {k: target[k] for k in (
+        "hidden_size", "intermediate_size", "num_attention_heads",
+        "num_key_value_heads", "vocab_size")}
+
+
+def eagle3_drafter_config(target: dict, capture_layers: tuple) -> dict:
+    """An EAGLE-3 drafter's config.json at a llama target's widths."""
+    return {"model_type": "eagle3", **_drafter_widths(target),
+            "capture_layers": list(capture_layers)}
+
+
+def mtp_drafter_config(target: dict) -> dict:
+    """An MTP drafter's config.json (qwen3_5_mtp) at a target's widths."""
+    return {"model_type": "qwen3_5_mtp", **_drafter_widths(target)}
+
+
+def dflash_drafter_config(target: dict, num_hidden_layers: int,
+                          block_size: int, target_layer_ids: tuple,
+                          mask_token_id: int = 0) -> dict:
+    """A DFlash drafter's config.json (qwen3_dflash) at a target's widths:
+    its head dim the target's, its block and target layers in
+    `dflash_config`, as the published drafters write them."""
+    hd = target.get("head_dim") or (target["hidden_size"]
+                                    // target["num_attention_heads"])
+    return {"model_type": "qwen3_dflash", **_drafter_widths(target),
+            "num_hidden_layers": num_hidden_layers, "head_dim": hd,
+            "block_size": block_size,
+            "dflash_config": {"mask_token_id": mask_token_id,
+                              "target_layer_ids": list(target_layer_ids)}}
+
+
+def tiny_drafter_configs(target: dict) -> dict:
+    """{kind: config.json} of the JAX package's test drafters over its
+    tiny 3-layer llama target: EAGLE-3 capturing layers 0, 1 and 2, MTP,
+    and a 2-layer DFlash of block 4 over target layers 0 and 2 with mask
+    token 5."""
+    return {"eagle3": eagle3_drafter_config(target, (0, 1, 2)),
+            "mtp": mtp_drafter_config(target),
+            "dflash": dflash_drafter_config(target, 2, 4, (0, 2), 5)}
+
+
+def llama_3_1_8b_drafter_configs() -> dict:
+    """{kind: config.json} of full-width drafters over Llama-3.1-8B (hidden
+    4096, intermediate 14336, 32 / 8 heads, vocab 128256, 32 target
+    layers): EAGLE-3 (one layer) capturing layers 2, 16 and 29 (early,
+    middle and late, as EAGLE-3 takes them), MTP (one block), and DFlash
+    with the reference's defaults (5 layers, block 16, target layers 1, 8,
+    15, 22 and 29; drafters/__init__.py:124-132)."""
+    target = llama_3_1_8b_config()
+    return {"eagle3": eagle3_drafter_config(target, (2, 16, 29)),
+            "mtp": mtp_drafter_config(target),
+            "dflash": dflash_drafter_config(target, 5, 16,
+                                            (1, 8, 15, 22, 29))}
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + k + "."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def write_drafter_checkpoint(path, config: dict, params: dict,
+                             omit=("embed_tokens", "lm_head")) -> None:
+    """A drafter's directory: config.json and model.safetensors of its
+    params (torch tensors or numpy arrays; bfloat16 written as BF16), a
+    DFlash stack's layers as layers.<i>.*, without the `omit` subtrees
+    (the target's, which load_drafter binds)."""
+    import json
+    from pathlib import Path
+
+    from .loader import write_safetensors
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    params = {k: v for k, v in params.items() if k not in omit}
+    flat = {}
+    for k, v in _flat(params).items():
+        if k.startswith("layers."):
+            for i in range(v.shape[0]):
+                flat[k.replace("layers.", f"layers.{i}.", 1)] = v[i]
+        else:
+            flat[k] = v
+    arrays, bf16 = {}, []
+    for k, v in flat.items():
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu()
+            if v.dtype == torch.bfloat16:
+                bf16.append(k)
+                v = v.view(torch.uint16)
+            v = v.numpy()
+        arrays[k] = v
+    write_safetensors(path / "model.safetensors", arrays, bf16=tuple(bf16))
+    (path / "config.json").write_text(json.dumps(config))

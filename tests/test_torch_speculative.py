@@ -482,7 +482,8 @@ def test_single_stream_refusals(tiny):
     with pytest.raises(ValueError, match="single-stream"):
         next(tspec.speculative_generate_step(emb.expand(2, -1, -1), tt, td,
                                              input_ids=IDS))
-    with pytest.raises(NotImplementedError, match="vanilla"):
+    # a target-coupled kind loads against its target (drafters/)
+    with pytest.raises(ValueError, match="speculative.drafters.load_drafter"):
         tspec.load_drafter("/nonexistent", kind="eagle3")
 
 
