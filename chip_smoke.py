@@ -49,7 +49,11 @@ Phases (any failure exits non-zero):
      (64, 2048) and Qwen1.5-MoE's shared-expert gate (N = 1, K = 2048, 8
      and 4 bits) at M = 1 and 512, Qwen3-30B-A3B's q / k / v / o at M = 1
      and 512 and its and Mixtral's heads (N = 151936, 32000) at M = 1,
-     timed cold and warm, every case with its
+     timed cold and warm, and at 4 bits through PaliGemma2-3B's q (K =
+     2304, 36 groups; N = 2048), k / v (N = 1024), o (K = 2048), gate / up
+     (N = 9216), down (K = 9216) and tied head (N = 257216) at M = 1 and
+     512 and PaliGemma-3B's k / v (N = 256) at M = 1 and 512 and head (K =
+     2048) at M = 1 (`K5_PALIGEMMA_CASES`), every case with its
      plan, kernels per call and a bit-identical repeat; K5's
      expert-indexed entry (`qmatmul_experts`) at those expert stacks (128
      experts) for 8, 32 and 40 (token, expert) pairs with two pairs on
@@ -82,7 +86,10 @@ Phases (any failure exits non-zero):
      8545), each replay bit-identical to an eager call at that cursor;
      K6-K8: 4 KV heads of 7 query rows over an 8704-slot cache at offsets
      1, 300 and 8545, left_pad 100 and per-row cursors, K6 also with NaN
-     scales past the cursor (bit-identical to 1e3 there), K8 also at
+     scales past the cursor (bit-identical to 1e3 there) and at
+     PaliGemma-3B's decode step (one KV head of 8 query rows at head dim
+     256, the same capacity: offsets 1, 300 and 8545, left_pad 100, NaN
+     past the cursor; `check_k6_paligemma`), K8 also at
      kv_bits 3.05 and 3.95 (8-dim segments); each timed cold (`graph_ms`
      over copies of the codes, scales and query) and warm, with its plan,
      kernels per call (must be 1), a bit-identical repeat and its bytes
@@ -97,7 +104,7 @@ Phases (any failure exits non-zero):
      (plain versions) at 7B widths with 2 decoder layers (the first two of
      phase 4's checkpoint, which `family_checkpoints` builds here),
      teacher-forced:
-     decode through K3 on the bf16 cache (CPU in f32, 8 steps), and through
+     decode through K3 on the bf16 cache (CPU in f32, 4 steps), and through
      K6, K7 and K8 with kv_bits 4, 3.5 and 3.5 split (CPU in bf16, 4
      steps); then the runtime quantization modes (2 steps each): exact
      4-bit (K5) and w8chan 8-bit against f32 CPU runs, exact 8-bit (K5)
@@ -128,15 +135,15 @@ Phases (any failure exits non-zero):
      FAMILY_CASES) and Qwen3-VL at 8B widths (f32 CPU runs)
      (3 decoder layers, so that all 3 deepstack levels are added; the
      whole 27-block tower) in its default w8chan mode and in exact (K5),
-     4 steps each, and Qwen3-VL-MoE at 30B-A3B widths (2 decoder layers of
+     2 steps each, and Qwen3-VL-MoE at 30B-A3B widths (2 decoder layers of
      128 experts, top-8, the whole tower; its routers at 8 bits) in its
-     default mode (w8chan linears, the experts on K5) and in exact, 4
+     default mode (w8chan linears, the experts on K5) and in exact, 2
      steps each, launches held to what ran (the experts by `moe_want`),
      and each model's replayed decode against eager steps; and
-     Llama-3.1-8B (2 decoder layers, text only) and LLaVA-1.5-7B (2
-     decoder layers, the whole 24-block CLIP tower, a 336x336 image) at
-     their published widths, each in its default w8chan mode and in exact
-     (K5), 4 steps each against f32 CPU runs, launches held to what ran,
+     Llama-3.1-8B (2 decoder layers, text only; exact, K5) and LLaVA-1.5-7B
+     (2 decoder layers, the whole 24-block CLIP tower, a 336x336 image; its
+     default w8chan mode and exact) at their published widths, 2 steps
+     each against f32 CPU runs, launches held to what ran,
      and each model's replayed decode against eager steps; and the text
      MoE decoders at their published widths, text only, random 4-bit
      weights with 8-bit routers, 2 teacher-forced steps each against f32
@@ -145,7 +152,13 @@ Phases (any failure exits non-zero):
      Qwen1.5-MoE-A2.7B (1; its shared expert), Mixtral-8x7B (1),
      OLMoE-1B-7B (2), Phi-3.5-MoE (1) and Granite-3.0-3B-A800M (2), the
      experts by `moe_want`, each model's replayed decode against eager
-     steps; and video
+     steps; and PaliGemma2-3B and PaliGemma-3B at their published widths
+     (2 decoder layers, the whole 27-block SigLIP tower, a 224x224 image)
+     in their default w8chan mode and in exact (K5 on every linear and the
+     tied head), and their text models as text-only Gemma-2-2B (exact) and
+     Gemma-2B (w8chan) checkpoints on the same arrays, against f32 CPU
+     runs (2 steps; PaliGemma2's exact 4), each model's replayed decode
+     against eager steps; and video
      (`video_parity`, 4 steps against the CPU by the parity rule,
      launches held to what ran): a 4-frame 112x112 clip, and a 224x224
      image before it, on the Qwen2-VL slice (f32 reference), the clip on
@@ -323,7 +336,14 @@ Phases (any failure exits non-zero):
      slots, (x4) a chat through the server, (x5) (x1)'s prompt at
      kv_bits=4, 16 tokens (K6 on every layer and step); and Mixtral-8x7B
      (MIXTRAL_LAYERS of its 32 layers): (y1) a short chat of 32 tokens in
-     the default mode and in exact;
+     the default mode and in exact; and PaliGemma2-3B (26 decoder layers,
+     the 27-block SigLIP tower): (p1) a 224x224 image and a short prompt,
+     32 tokens, in the default w8chan mode (no kernel) and exact (K5, no
+     K4: the prefix keeps `flash_ok` False), (p2) exact, an image and a
+     ~8.5k-token prompt, 16 tokens (the chunked bidirectional prefill, the
+     4096 window on 13 of the 26 layers at decode), and PaliGemma-3B
+     (18 decoder layers) exact: (p3) an image and a
+     short prompt at kv_bits=4, 16 tokens (K6 once a layer and step);
      each with its load seconds, TTFT, ms per replayed token, the
      replayed step's device ms and peak GiB,
      its launches held to what ran (the expert layers: one
@@ -889,8 +909,21 @@ K5_DRAFT_CASES = tuple(
     (4, 64, M, K, N) for M in (5, 9, 16)
     for K, N in ((4096, 4096),) + LLAMA_8B_SHAPES) + (
     (4, 64, 15, 4096, 128256),)
+# PaliGemma2-3B's linears and head in the exact mode ((p1), (p2); K =
+# 2304 is 36 groups): q N = 2048, k / v N = 1024, o K = 2048, gate / up N =
+# 9216, down K = 9216, the tied head N = 257216, at M = 1 and 512;
+# PaliGemma-3B's ((p3)) k / v N = 256 at M = 1 and 512 and its head (K =
+# 2048) at M = 1; each timed cold and warm
+PALIGEMMA2_3B_SHAPES = ((2304, 2048), (2304, 1024), (2048, 2304),
+                        (2304, 9216), (9216, 2304), (2304, 257216))
+K5_PALIGEMMA_CASES = (
+    tuple((4, 64, M, K, N) for M in (1, 512)
+          for K, N in PALIGEMMA2_3B_SHAPES)
+    + tuple((4, 64, M, 2048, 256) for M in (1, 512))
+    + ((4, 64, 1, 2048, 257216),))
 K5_CASES = (K5_CASES + K5_8B_CASES + K5_MOE_CASES + K5_HALF_CASES
-            + K5_LLAMA_CASES + K5_MOE_TEXT_CASES + K5_DRAFT_CASES)
+            + K5_LLAMA_CASES + K5_MOE_TEXT_CASES + K5_DRAFT_CASES
+            + K5_PALIGEMMA_CASES)
 K5_TOL = 1e-2
 
 
@@ -1007,7 +1040,8 @@ def check_qmatmul(results: list, dev) -> None:
                 or (bits, g, M, K, N) in (K5_8B_CASES + K5_MOE_CASES
                                           + K5_LLAMA_CASES
                                           + K5_MOE_TEXT_CASES
-                                          + K5_DRAFT_CASES))
+                                          + K5_DRAFT_CASES
+                                          + K5_PALIGEMMA_CASES))
         if cold and cold_copies(weight_bytes) > MAX_COLD_COPIES:
             # a router's few KB: warm only (its cold timing would capture
             # tens of thousands of copies in one graph)
@@ -1276,6 +1310,7 @@ def phase_kernels() -> list:
     check_fused_decode(results, gen, dev)
     check_fused_decode_2b(results, gen, dev)
     check_kv_kernels(results, gen, dev)
+    check_k6_paligemma(results, gen, dev)
     return results
 
 
@@ -1707,6 +1742,12 @@ def check_fused_cursor_replay(params, args, h, rope, gen, dev) -> dict:
 
 
 KV_HEADS, KV_ROWS, KV_DIM, KV_CAPACITY = 4, 7, 128, 8704
+KV_DIMS = (KV_HEADS, KV_ROWS, KV_DIM, KV_CAPACITY)
+# PaliGemma-3B's decode step at kv_bits 4 ((p3)): 8 query heads over one
+# KV head of 256 (BH = 1), the same capacity; K6's cases there: offsets
+# 1, 300 and 8545, left_pad 100, and NaN past the cursor at 8545
+K6_PALIGEMMA_DIMS = (1, 8, 256, 8704)
+K6_PALIGEMMA_CASES = ((1, 0), (300, 0), (8545, 0), (8545, 100))
 # (offsets, left_pad) cases; the last has per-row cursors
 KV_CASES = ((1, 0), (300, 0), (8545, 0), (8545, 100),
             ((8545, 300, 4000, 1), (0, 0, 100, 0)))
@@ -1717,26 +1758,29 @@ KV_TOL = 1e-2
 K8_CASES = ((3.5, KV_CASES), (3.05, ((8545, 0),)), (3.95, ((8545, 0),)))
 
 
-def _kv_case(off, lp, dev):
-    """Cursor tensors [BH] and a shape label for one KV_CASES entry."""
+def _kv_case(off, lp, dev, dims=None):
+    """Cursor tensors [BH] and a shape label for one KV_CASES entry, at
+    `dims` (BH, g, D, C; KV_HEADS, KV_ROWS, KV_DIM, KV_CAPACITY when
+    None)."""
     import torch
 
-    offs = off if isinstance(off, tuple) else (off,) * KV_HEADS
-    lps = lp if isinstance(lp, tuple) else (lp,) * KV_HEADS
+    BH, G, D, C = dims or KV_DIMS
+    offs = off if isinstance(off, tuple) else (off,) * BH
+    lps = lp if isinstance(lp, tuple) else (lp,) * BH
     t = [torch.tensor(x, dtype=torch.int32, device=dev) for x in (offs, lps)]
-    return t[0], t[1], (f"BH={KV_HEADS} g={KV_ROWS} D={KV_DIM} "
-                        f"C={KV_CAPACITY} offset={off} left_pad={lp} "
-                        f"q_scale=4")
+    return t[0], t[1], (f"BH={BH} g={G} D={D} C={C} offset={off} "
+                        f"left_pad={lp} q_scale=4")
 
 
-def kv_work(offs, lps, token_bytes: int, head_bytes: int) -> tuple:
+def kv_work(offs, lps, token_bytes: int, head_bytes: int,
+            dims=None) -> tuple:
     """(bytes, operations) of a K6/K7/K8 call on this data: `token_bytes`
     of codes and scales per visible token and KV head, `head_bytes` per
     head for the query, cursors and output; 4 * g * D operations per
     visible token (the score dot and the value sum)."""
+    BH, G, D, _ = dims or KV_DIMS
     visible = float((offs - lps).clamp(min=0).sum())
-    return (visible * token_bytes + KV_HEADS * head_bytes,
-            4.0 * KV_ROWS * KV_DIM * visible)
+    return (visible * token_bytes + BH * head_bytes, 4.0 * G * D * visible)
 
 
 def split_dims(kv_bits: float, D: int) -> tuple:
@@ -1780,48 +1824,52 @@ def check_kv_case(results: list, run, arrays, nbytes: float, plan) -> None:
           f"{same} {'ok' if r['ok'] else 'MISMATCH'}", flush=True)
 
 
-def kv_codes(width: int, gen, dev):
-    """Random code bytes [KV_HEADS, KV_CAPACITY, width] on the card."""
+def kv_codes(width: int, gen, dev, dims=None):
+    """Random code bytes [BH, C, width] on the card (KV_DIMS unless
+    `dims`)."""
     import torch
 
-    return torch.randint(0, 256, (KV_HEADS, KV_CAPACITY, width),
-                         generator=gen, dtype=torch.uint8).to(dev)
+    BH, _, _, C = dims or KV_DIMS
+    return torch.randint(0, 256, (BH, C, width), generator=gen,
+                         dtype=torch.uint8).to(dev)
 
 
-def kv_scales(off, lo: float, hi: float, gen, dev):
-    """Per-token f32 scales [KV_HEADS, KV_CAPACITY] uniform in [lo, hi),
-    and 1e3 from each row's cursor on (a read past the cursor shows)."""
+def kv_scales(off, lo: float, hi: float, gen, dev, dims=None):
+    """Per-token f32 scales [BH, C] uniform in [lo, hi), and 1e3 from each
+    row's cursor on (a read past the cursor shows)."""
     import torch
 
-    x = lo + (hi - lo) * torch.rand((KV_HEADS, KV_CAPACITY), generator=gen)
-    col = torch.arange(KV_CAPACITY)[None]
+    BH, _, _, C = dims or KV_DIMS
+    x = lo + (hi - lo) * torch.rand((BH, C), generator=gen)
+    col = torch.arange(C)[None]
     return torch.where(col >= off.cpu()[:, None].long(),
                        torch.full_like(x, 1e3), x).to(dev)
 
 
-def k6_inputs(off, gen, dev) -> tuple:
-    """K6's inputs at KV_HEADS x KV_ROWS x KV_DIM over KV_CAPACITY: int8
+def k6_inputs(off, gen, dev, dims=None) -> tuple:
+    """K6's inputs at BH x g x D over C (KV_DIMS unless `dims`): int8
     query codes of q x 4 with their (sum, qs), random 4-bit codes, and
     per-token scales and biases that are 1e3 from each row's cursor on."""
     import torch
 
-    q = torch.randn((KV_HEADS, KV_ROWS, KV_DIM), generator=gen) * 4
+    BH, G, D, _ = dims or KV_DIMS
+    q = torch.randn((BH, G, D), generator=gen) * 4
     qs = q.abs().amax(-1) / 127.0
     q8 = torch.round(q / qs[..., None])
     meta = torch.stack([q8.sum(-1), qs], -1).to(dev)
     q8 = q8.to(torch.int8).to(dev)
-    k4, v4 = kv_codes(KV_DIM // 2, gen, dev), kv_codes(KV_DIM // 2, gen, dev)
-    ks, vs = (kv_scales(off, 0.02, 0.3, gen, dev) for _ in range(2))
-    kb, vb = (kv_scales(off, -2.0, 0.0, gen, dev) for _ in range(2))
+    k4, v4 = (kv_codes(D // 2, gen, dev, dims) for _ in range(2))
+    ks, vs = (kv_scales(off, 0.02, 0.3, gen, dev, dims) for _ in range(2))
+    kb, vb = (kv_scales(off, -2.0, 0.0, gen, dev, dims) for _ in range(2))
     return q8, meta, k4, ks, kb, v4, vs, vb
 
 
-def k6_work(off, lp) -> tuple:
-    """(bytes, operations) of a K6 call at KV_CASES' shapes: D + 16 bytes
-    of codes and scales per visible token; the query codes, their (sum,
-    qs), the cursors and the f32 output per head."""
-    G, D = KV_ROWS, KV_DIM
-    return kv_work(off, lp, D + 16, G * D + 8 * G + G * D * 4 + 8)
+def k6_work(off, lp, dims=None) -> tuple:
+    """(bytes, operations) of a K6 call: D + 16 bytes of codes and scales
+    per visible token; the query codes, their (sum, qs), the cursors and
+    the f32 output per head."""
+    _, G, D, _ = dims or KV_DIMS
+    return kv_work(off, lp, D + 16, G * D + 8 * G + G * D * 4 + 8, dims)
 
 
 def time_k6(dev, cases=KV_CASES) -> None:
@@ -1858,6 +1906,62 @@ def time_k6(dev, cases=KV_CASES) -> None:
               flush=True)
 
 
+def check_k6_case(results: list, gen, dev, off_v, lp_v, dims, sms) -> None:
+    """K6 against its plain version at one (offset, left_pad) case of
+    `dims` (BH, g, D, C), then check_kv_case's further checks; at offset
+    8545 with left_pad 0 also the same inputs with NaN scales and biases
+    past the cursor, held to the plain version on the 1e3 inputs and to
+    the kernel's own output there, bit for bit."""
+    import torch
+
+    from mlx_vlm_tpu_torch.ops import int4_kv_attention as k6
+
+    BH, G, D, C = dims
+    scale = D ** -0.5
+    plan = k6.int4_kv_attention_plan(BH, G, C, D, sms)
+    off, lp, shape = _kv_case(off_v, lp_v, dev, dims)
+    a6 = k6_inputs(off, gen, dev, dims)
+
+    def run(*arrays):
+        return k6.int4_kv_decode_attention(*arrays, off, scale, left_pad=lp)
+
+    def case(label, arrays):
+        def plain():
+            return k6.int4_kv_decode_attention_plain(*a6, off, scale, lp)
+
+        out = run(*arrays)
+        _check(results, "int4_kv_attention", label, out, plain(), KV_TOL,
+               lambda: run(*arrays), plain, floor=0.0,
+               work=k6_work(off, lp, dims))
+        check_kv_case(results, run, arrays, k6_work(off, lp, dims)[0], plan)
+        return out
+
+    case(shape, a6)
+    if (off_v, lp_v) == (8545, 0):
+        nan6 = tuple(a.clone() for a in a6)
+        col = torch.arange(C, device=dev)[None]
+        for a in nan6[3:5] + nan6[6:8]:
+            a[col >= off[:, None]] = float("nan")
+        got = case(shape + " past=nan", nan6)
+        same = bool(torch.equal(got, run(*a6)))
+        r = results[-1]
+        r["ok"] = r["ok"] and same
+        print(f"  int4_kv_attention {r['shape']}: bit-identical to the 1e3 "
+              f"case {same} {'ok' if r['ok'] else 'MISMATCH'}", flush=True)
+
+
+def check_k6_paligemma(results: list, gen, dev) -> None:
+    """K6 at PaliGemma-3B's decode step ((p3): BH = 1, g = 8, D = 256,
+    C = 8704) at K6_PALIGEMMA_CASES, as check_kv_kernels holds it at
+    4 x 7 x 128: the plan cuts the capacity into short splits there, whose
+    combine this holds."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for off_v, lp_v in K6_PALIGEMMA_CASES:
+        check_k6_case(results, gen, dev, off_v, lp_v, K6_PALIGEMMA_DIMS, sms)
+
+
 def check_kv_kernels(results: list, gen, dev) -> None:
     """K6, K7 (3-bit keys, 4-bit values) and K8 (K8_CASES) against their
     plain versions at the shapes of requests (d)-(f): 4 KV heads of 7
@@ -1873,13 +1977,11 @@ def check_kv_kernels(results: list, gen, dev) -> None:
     import torch
 
     from mlx_vlm_tpu_torch.core.turboquant import _levels
-    from mlx_vlm_tpu_torch.ops import int4_kv_attention as k6
     from mlx_vlm_tpu_torch.ops import tq_kv_attention as tk
 
-    BH, G, D, C = KV_HEADS, KV_ROWS, KV_DIM, KV_CAPACITY
+    BH, G, D, C = KV_DIMS
     scale = D ** -0.5
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan6 = k6.int4_kv_attention_plan(BH, G, C, D, sms)
 
     def codes(width):
         return kv_codes(width, gen, dev)
@@ -1887,41 +1989,12 @@ def check_kv_kernels(results: list, gen, dev) -> None:
     def scales(off, lo, hi):
         return kv_scales(off, lo, hi, gen, dev)
 
-    def k6_case(off, lp, shape, a6, ref_inputs):
-        def run(*arrays, off=off, lp=lp):
-            return k6.int4_kv_decode_attention(*arrays, off, scale,
-                                               left_pad=lp)
-
-        def plain(a=ref_inputs, off=off, lp=lp):
-            return k6.int4_kv_decode_attention_plain(*a, off, scale, lp)
-
-        out = run(*a6)
-        _check(results, "int4_kv_attention", shape, out, plain(), KV_TOL,
-               lambda: run(*a6), plain, floor=0.0, work=k6_work(off, lp))
-        check_kv_case(results, run, a6, k6_work(off, lp)[0], plan6)
-        return out
-
     luts = (_levels(3), _levels(4))
     head_out = G * D * 4 + 8  # output f32, offset and left_pad
     queries = {}
     for off_v, lp_v in KV_CASES:
         off, lp, shape = _kv_case(off_v, lp_v, dev)
-        a6 = k6_inputs(off, gen, dev)
-        k6_case(off, lp, shape, a6, a6)
-        if (off_v, lp_v) == (8545, 0):
-            # the same inputs with NaN past the cursor
-            nan6 = tuple(a.clone() for a in a6)
-            col = torch.arange(C, device=dev)[None]
-            for a in nan6[3:5] + nan6[6:8]:
-                a[col >= off[:, None]] = float("nan")
-            got = k6_case(off, lp, shape + " past=nan", nan6, a6)
-            same = bool(torch.equal(got, k6.int4_kv_decode_attention(
-                *a6, off, scale, left_pad=lp)))
-            r = results[-1]
-            r["ok"] = r["ok"] and same
-            print(f"  int4_kv_attention {r['shape']}: bit-identical to the "
-                  f"1e3 case {same} {'ok' if r['ok'] else 'MISMATCH'}",
-                  flush=True)
+        check_k6_case(results, gen, dev, off_v, lp_v, KV_DIMS, sms)
         qr = queries[(off_v, lp_v)] = (
             torch.randn((BH, G, D), generator=gen) * 4).to(dev)
         a7 = (codes(D * 3 // 8), scales(off, 0.5, 1.5), codes(D // 2),
@@ -1978,14 +2051,18 @@ def _processor(name_ids: bool = False, model=None):
     CLIP processor, which expands each <image> into 576 tokens, else the
     Qwen2-VL processor with `model`'s image processor, patch 16 for
     Qwen3-VL and 14 otherwise) over utils/testing.py's ByteTokenizer with
-    the family's special tokens (Llama-3.1's, LLaVA-1.5's, Mixtral's,
-    OLMoE's, Phi-3.5-MoE's and Granite 3.0's ids, else Qwen2-VL's); with `name_ids`, its decode writes every id as "<id>", so
+    the family's special tokens (Llama-3.1's, LLaVA-1.5's, Gemma's and
+    PaliGemma's, Mixtral's, OLMoE's, Phi-3.5-MoE's and Granite 3.0's ids,
+    else Qwen2-VL's; PaliGemma's processor writes its prompt as
+    transformers' does); with `name_ids`, its decode writes every id as
+    "<id>", so
     that a text shows each token that random weights generate (most ids
     are not bytes)."""
     from mlx_vlm_tpu_torch.utils.processing import processor_for
     from mlx_vlm_tpu_torch.utils.testing import (LLAMA3_SPECIAL_TOKENS,
                                                  LLAVA_SPECIAL_TOKENS,
                                                  MOE_TEXT_SPECIAL_TOKENS,
+                                                 PALIGEMMA_SPECIAL_TOKENS,
                                                  ByteTokenizer)
 
     class NamingTokenizer(ByteTokenizer):
@@ -1993,9 +2070,11 @@ def _processor(name_ids: bool = False, model=None):
             return "".join(f"<{i}>" for i in np.asarray(ids).reshape(-1))
 
     kind = getattr(getattr(model, "config", None), "model_type", "")
+    gemma = (PALIGEMMA_SPECIAL_TOKENS, "<eos>", "<pad>")
     specials = {"llama": (LLAMA3_SPECIAL_TOKENS, "<|eot_id|>",
                           "<|end_of_text|>"),
                 "llava": (LLAVA_SPECIAL_TOKENS, "</s>", "<pad>"),
+                "paligemma": gemma, "gemma": gemma, "gemma2": gemma,
                 **MOE_TEXT_SPECIAL_TOKENS}.get(kind, ())
     tok = (NamingTokenizer if name_ids else ByteTokenizer)(*specials)
     return processor_for(tok, model)
@@ -2215,8 +2294,10 @@ MOE_LAYERS = 6
 # 48, and Mixtral-8x7B's ((y1)), of its published 32, cut for the run's
 # time: the whole run took 1174.1 s at 24 and 4 layers (phase 3 759.1 s;
 # one NVIDIA H100 80GB HBM3 at 700 W) on a host 1.22-1.26 times slower
-# than the one that ran 792.2 s before these models came
-QWEN3_MOE_LAYERS = 12
+# than the one that ran 792.2 s before these models came; Qwen3-30B-A3B
+# at 8 since PaliGemma's parts came (a run with them projected past 1,050
+# s at 12)
+QWEN3_MOE_LAYERS = 8
 MIXTRAL_LAYERS = 2
 # the text MoE checkpoints that phase 3 alone takes, built at its depth:
 # name -> (utils/testing's published config, decoder layers, seed)
@@ -2270,8 +2351,11 @@ def family_checkpoints() -> dict:
     `qwen3_vl_moe_from_text`), "llama_3_1_8b" (seed SEED + 9),
     "llava_1_5_7b" (seed SEED + 10), "mixtral_8x7b" (MIXTRAL_LAYERS
     layers, 8-bit routers, seed SEED + 12), MOE_TEXT_PHASE3's (8-bit
-    routers) and "qwen2_vl_7b_8bit" (Qwen2-VL-7B at 8 bits, request (h)'s,
-    seed SEED + 3).  Each is (config, weights)."""
+    routers), "paligemma2_3b" (seed SEED + 17) and "paligemma_3b"
+    (seed SEED + 18) with their text models as
+    text-only checkpoints "gemma2_2b" and "gemma_2b" (the same arrays,
+    `gemma_text_of`), and "qwen2_vl_7b_8bit" (Qwen2-VL-7B at 8 bits,
+    request (h)'s, seed SEED + 3).  Each is (config, weights)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mlx_vlm_tpu_torch.utils import testing
@@ -2281,6 +2365,8 @@ def family_checkpoints() -> dict:
                                                  mixtral_8x7b_config,
                                                  mlx_int4_checkpoint,
                                                  mlx_quantized_checkpoint,
+                                                 paligemma2_3b_224_config,
+                                                 paligemma_3b_224_config,
                                                  qwen2_5_vl_7b_config,
                                                  qwen2_vl_7b_config,
                                                  qwen3_30b_a3b_config,
@@ -2312,6 +2398,10 @@ def family_checkpoints() -> dict:
             router_bits=8),
         "qwen2_vl_7b_8bit": lambda: mlx_quantized_checkpoint(
             qwen2_vl_7b_config(), bits=8, seed=SEED + 3),
+        "paligemma2_3b": lambda: mlx_int4_checkpoint(
+            paligemma2_3b_224_config(), seed=SEED + 17),
+        "paligemma_3b": lambda: mlx_int4_checkpoint(
+            paligemma_3b_224_config(), seed=SEED + 18),
     }
     for name, (config, n_layers, seed) in MOE_TEXT_PHASE3.items():
         builds[name] = (lambda c=config, n=n_layers, sd=seed:
@@ -2334,14 +2424,28 @@ def family_checkpoints() -> dict:
     for k in [k for k in q15 if k.startswith(("model.embed_tokens.",
                                               "lm_head."))]:
         q15[k] = q3[k]
+    out["gemma2_2b"] = gemma_text_of(out["paligemma2_3b"])
+    out["gemma_2b"] = gemma_text_of(out["paligemma_3b"])
     print(f"  checkpoints (Qwen2-VL-7B, Qwen2.5-VL-7B's vision tower, "
           f"Qwen3-VL-8B, Qwen3-30B-A3B at {QWEN3_MOE_LAYERS} layers with "
           f"Qwen3-VL-30B-A3B's tower, Llama-3.1-8B, LLaVA-1.5-7B, "
           f"Mixtral-8x7B at {MIXTRAL_LAYERS} layers, "
-          f"{', '.join(MOE_TEXT_PHASE3)}, Qwen2-VL-7B at 8 bits) built in "
+          f"{', '.join(MOE_TEXT_PHASE3)}, PaliGemma2-3B, PaliGemma-3B, "
+          f"Qwen2-VL-7B at 8 bits) built in "
           f"{time.perf_counter() - t0:.1f} s on {len(builds)} threads",
           flush=True)
     return out
+
+
+def gemma_text_of(ckpt: tuple) -> tuple:
+    """A PaliGemma checkpoint's text model as a text-only gemma / gemma2
+    checkpoint: its text config (vocab as the checkpoint has it) with the
+    quantization entry, and its `language_model.` arrays under their own
+    names (the same arrays, so `fold_once` folds them once for both)."""
+    cfg, w = ckpt
+    text = dict(cfg["text_config"], quantization=cfg["quantization"])
+    return text, {k[len("language_model."):]: v for k, v in w.items()
+                  if k.startswith("language_model.")}
 
 
 def sliced(ckpt: tuple, n_layers: int) -> tuple:
@@ -2913,8 +3017,10 @@ def video_parity(gpu, videos: dict, refs: dict, family: str, ref_dtype: str,
 # k/v element that bf16 rounding moves across a code boundary flips a
 # code, and the random stack amplifies the flips (0.37-0.47 against the
 # 0.31 bound at 2 layers on the H100, where the bf16 cache drifts 0.21).
+# The f32 case's 4 steps hold its K3 route 3 times; the run's time limit
+# leaves no room for more (its CPU reference is most of the case).
 PARITY_CASES = (
-    (None, None, "fused_decode", 0, "float32", 8),
+    (None, None, "fused_decode", 0, "float32", 4),
     (4, None, "int4_kv_attention", 1, "bfloat16", 4),
     (3.5, None, "tq_kv_attention", 1, "bfloat16", 4),
     (3.5, "split", "tq_kv_attention_split", 1, "bfloat16", 4),
@@ -3069,25 +3175,30 @@ def phase_slice_parity(ckpt: tuple) -> bool:
 # Qwen2-VL's tower) into the residual stream, and against an f32 run the
 # card measured 0.3149 past the tolerance of 0.3018 (NVIDIA H100 80GB
 # HBM3, 700 W), where Qwen2-VL's image prompt measures 0.19 of 0.35.
+# The f32 cases of Qwen3-VL, Qwen3-VL-MoE, Llama-3.1-8B and LLaVA-1.5-7B
+# run 2 teacher-forced steps (a decode step after the prefill holds each
+# route once), and Llama-3.1-8B's w8chan case 1 decoder layer: their f32
+# CPU references are most of phase 3, and the run's time limit leaves no
+# room for more.
 FAMILY_CASES = (
     ("Qwen2.5-VL, w4grp (K3 decode)", "qwen2_5_vl_7b", 2, None,
      "Int4GroupedTensor", "bfloat16", 8),
     ("Qwen3-VL, w8chan", "qwen3_vl_8b", 3, None, "ChannelQuantizedTensor",
-     "float32", 4),
+     "float32", 2),
     ("Qwen3-VL, exact (K5)", "qwen3_vl_8b", 3, "exact", "QuantizedTensor",
-     "float32", 4),
+     "float32", 2),
     ("Qwen3-VL-MoE, default (w8chan; experts on K5)", "qwen3_vl_moe_30b_a3b",
-     2, None, "ChannelQuantizedTensor", "float32", 4),
+     2, None, "ChannelQuantizedTensor", "float32", 2),
     ("Qwen3-VL-MoE, exact (K5; 8-bit router)", "qwen3_vl_moe_30b_a3b", 2,
-     "exact", "QuantizedTensor", "float32", 4),
-    ("Llama-3.1-8B, w8chan", "llama_3_1_8b", 2, None,
-     "ChannelQuantizedTensor", "float32", 4),
+     "exact", "QuantizedTensor", "float32", 2),
+    ("Llama-3.1-8B, w8chan", "llama_3_1_8b", 1, None,
+     "ChannelQuantizedTensor", "float32", 2),
     ("Llama-3.1-8B, exact (K5)", "llama_3_1_8b", 2, "exact",
-     "QuantizedTensor", "float32", 4),
+     "QuantizedTensor", "float32", 2),
     ("LLaVA-1.5-7B, w8chan", "llava_1_5_7b", 2, None,
-     "ChannelQuantizedTensor", "float32", 4),
+     "ChannelQuantizedTensor", "float32", 2),
     ("LLaVA-1.5-7B, exact (K5)", "llava_1_5_7b", 2, "exact",
-     "QuantizedTensor", "float32", 4),
+     "QuantizedTensor", "float32", 2),
 ) + tuple(
     # the text MoE decoders at their published widths, text only, 2
     # teacher-forced steps (their CPU references dequantize every expert
@@ -3114,7 +3225,25 @@ FAMILY_CASES = (
         ("OLMoE-1B-7B", "olmoe_1b_7b", 2, None, "float32"),
         ("Phi-3.5-MoE", "phi_3_5_moe", 1, None, "float32"),
         ("Granite-3.0-3B-A800M", "granite_3_0_3b_a800m", 2, None,
-         "float32")))
+         "float32"))) + (
+    # PaliGemma2-3B and PaliGemma-3B at their published widths, 2 decoder
+    # layers, the whole 27-block SigLIP tower and one 224 x 224 image,
+    # default (w8chan) and exact (K5: every linear and the tied head);
+    # their text models as text-only gemma2 / gemma checkpoints on the
+    # same arrays.  2 teacher-forced steps but PaliGemma2's exact case's 4:
+    # each CPU step runs the 257216-row head in f32
+    ("PaliGemma2-3B, w8chan", "paligemma2_3b", 2, None,
+     "ChannelQuantizedTensor", "float32", 2),
+    ("PaliGemma2-3B, exact (K5)", "paligemma2_3b", 2, "exact",
+     "QuantizedTensor", "float32", 4),
+    ("PaliGemma-3B, w8chan", "paligemma_3b", 2, None,
+     "ChannelQuantizedTensor", "float32", 2),
+    ("PaliGemma-3B, exact (K5)", "paligemma_3b", 2, "exact",
+     "QuantizedTensor", "float32", 2),
+    ("Gemma-2-2B text, exact (K5)", "gemma2_2b", 2, "exact",
+     "QuantizedTensor", "float32", 2),
+    ("Gemma-2B text, w8chan", "gemma_2b", 2, None, "ChannelQuantizedTensor",
+     "float32", 2))
 # the FAMILY_CASES whose models also take phase 3's clip (label -> the
 # family's name): Qwen2.5-VL's window tower and scaled times, Qwen3-VL's
 # timestamped frame groups
@@ -3126,7 +3255,8 @@ VIDEO_FAMILY_CASES = {"Qwen2.5-VL, w4grp (K3 decode)": "Qwen2.5-VL",
 FAMILY_IMAGE = {"llama_3_1_8b": None, "llava_1_5_7b": 336,
                 "qwen3_30b_a3b": None, "qwen1_5_moe_a2_7b": None,
                 "mixtral_8x7b": None, "olmoe_1b_7b": None,
-                "phi_3_5_moe": None, "granite_3_0_3b_a800m": None}
+                "phi_3_5_moe": None, "granite_3_0_3b_a800m": None,
+                "gemma2_2b": None, "gemma_2b": None}
 
 
 def vision_depth(model) -> int:
@@ -3164,9 +3294,11 @@ def phase_family_parity(ckpts: dict) -> bool:
     Qwen3-VL at 8B widths (3 decoder layers, its whole deepstack tower),
     Qwen3-VL-MoE at 30B-A3B widths (2 decoder layers of 128 experts, top-8,
     the whole tower; default mode and exact, its 8-bit routers),
-    Llama-3.1-8B (2 decoder layers, text only) and LLaVA-1.5-7B (2 decoder
-    layers, the whole 24-block CLIP tower), the last two in their default
-    w8chan mode and in exact, and the text MoE decoders (Qwen3-30B-A3B,
+    Llama-3.1-8B (2 decoder layers, text only; exact) and LLaVA-1.5-7B (2
+    decoder layers, the whole 24-block CLIP tower; its default w8chan mode
+    and exact), PaliGemma2-3B and PaliGemma-3B (2 decoder layers, the whole
+    SigLIP tower; default and exact) and their text models as text-only
+    Gemma-2-2B and Gemma-2B, and the text MoE decoders (Qwen3-30B-A3B,
     Qwen1.5-MoE-A2.7B, Mixtral-8x7B, OLMoE-1B-7B, Phi-3.5-MoE and
     Granite-3.0-3B-A800M, 1 or 2 decoder layers at their published widths,
     8-bit routers; the default mode, and exact for Qwen3-30B-A3B), on the
@@ -6167,7 +6299,9 @@ def phase_main_path(ckpts: dict) -> dict:
                       (run_llama, "llama_3_1_8b"),
                       (run_llava, "llava_1_5_7b"),
                       (run_qwen3_moe, "qwen3_30b_a3b"),
-                      (run_mixtral, "mixtral_8x7b")):
+                      (run_mixtral, "mixtral_8x7b"),
+                      (run_paligemma2, "paligemma2_3b"),
+                      (run_paligemma, "paligemma_3b")):
         t0 = time.perf_counter()
         run(ckpts.pop(name), total)
         print(f"  {run.__name__}: {time.perf_counter() - t0:.1f} s",
@@ -6547,6 +6681,99 @@ def run_llava(ckpt: tuple, total: dict) -> None:
     serve_chat(model, proc, cfg, "(v2)", "LLaVA-1.5-7B",
                "Describe this image in detail.", 336,
                lambda c, st: exact_batch_want(c, L, st), total)
+    del model
+    torch.cuda.empty_cache()
+
+
+def load_paligemma(name: str, ckpt: tuple, mode=None):
+    """A 4-bit PaliGemma checkpoint loaded by load_timed in `mode` (None:
+    the default, w8chan; "exact": K5), its tied table checked to be in
+    that layout: (model, decoder layers, the model's processor)."""
+    cfg, weights = ckpt
+    model = load_timed(name, cfg, weights, mode=mode)
+    table = model.params["language_model"]["model"]["embed_tokens"]["weight"]
+    want = "QuantizedTensor" if mode == "exact" else "ChannelQuantizedTensor"
+    if type(table).__name__ != want or model.language_model.fused_decode:
+        fail(f"{name}: its tied table loaded as {type(table).__name__}, "
+             f"want {want}")
+    return model, model.language_model.args.num_hidden_layers, \
+        _processor(model=model)
+
+
+def paligemma_requests(model, proc, cfg, L: int, requests,
+                       total: dict) -> None:
+    """`requests` (name, text, max tokens, kv_bits) on a PaliGemma model,
+    each with a 224 x 224 image, through run_request: K5 on every linear
+    and head in exact (exact_want, K4 never: the prefix keeps `flash_ok`
+    False), no kernel in w8chan, K6 once a layer and decode step at
+    kv_bits 4; every other counter 0.  Prints the layers that take the
+    sliding mask and whether the cache reached past the window."""
+    lm = model.language_model
+    exact = type(model.params["language_model"]["model"]["layers"][
+        "self_attn"]["q_proj"]["weight"]).__name__ == "QuantizedTensor"
+    for name, text, max_tokens, kv_bits in requests:
+        counts, n, S, steps = run_request(
+            model, proc, cfg, name, ("per-linear, qmatmul_int4" if exact
+                                     else "per-linear, w8chan")
+            + (", int4_kv_attention" if kv_bits else ""), text, _image(224),
+            1, max_tokens, kv_bits, {})
+        chunks = prefill_chunks(S, max_tokens)
+        want = (exact_want(counts, L, chunks, 1, steps) if exact
+                else {k: 0 for k in counts})
+        if kv_bits == 4:
+            want["int4_kv_attention"] = L * steps
+        sliding = lm.is_full.count(False)
+        past = sliding and S > lm.args.sliding_window
+        print(f"    {name}: {sliding} of {L} layers take the sliding mask "
+              f"(window {lm.args.sliding_window}); the prompt's {S} tokens "
+              f"and {steps} steps reach row {S + steps - 1}"
+              f"{', past the window' if past else ''}", flush=True)
+        expect(name, counts, want, total)
+
+
+PALIGEMMA_CHAT = "Describe this image in detail."
+
+
+def run_paligemma2(ckpt: tuple, total: dict) -> None:
+    """PaliGemma2-3B at full width and depth (26 layers, the 27-block
+    SigLIP tower): (p1) a 224 x 224 image and a short prompt, 32 tokens,
+    in the default mode (w8chan: no kernel) and exact (K5, no K4); (p2)
+    exact, an image and a ~8.5k-token prompt, 16 tokens (the chunked
+    bidirectional prefill, the 4096 window at decode).  Its prefix keeps
+    prefix caching off (`model_apc_mode` None)."""
+    import torch
+
+    from mlx_vlm_tpu_torch.apc_adapters import model_apc_mode
+
+    cfg = ckpt[0]
+    for mode in (None, "exact"):
+        label = "exact" if mode else "default (w8chan)"
+        model, L, proc = load_paligemma(f"PaliGemma2-3B {label} (p1)"
+                                        + (", (p2)" if mode else ""),
+                                        ckpt, mode)
+        if model_apc_mode(model) is not None:
+            fail("PaliGemma2-3B: prefix caching is on for a bidirectional "
+                 "prefix")
+        requests = [(f"(p1) PaliGemma2-3B {label}, image 224x224 + short "
+                     f"prompt", PALIGEMMA_CHAT, 32, None)]
+        if mode:
+            requests.append(("(p2) PaliGemma2-3B exact, image + ~8.5k-token "
+                             "prompt", LONG_TEXT, 16, None))
+        paligemma_requests(model, proc, cfg, L, requests, total)
+        del model
+        torch.cuda.empty_cache()
+
+
+def run_paligemma(ckpt: tuple, total: dict) -> None:
+    """PaliGemma-3B at full width and depth (18 layers) exact: (p3) an
+    image and a short prompt at kv_bits 4, 16 tokens (K6 once a layer and
+    step, head dim 256 over one KV head)."""
+    import torch
+
+    model, L, proc = load_paligemma("PaliGemma-3B exact (p3)", ckpt, "exact")
+    paligemma_requests(model, proc, ckpt[0], L, [
+        ("(p3) PaliGemma-3B exact, image 224x224 + short prompt, kv_bits 4",
+         PALIGEMMA_CHAT, 16, 4)], total)
     del model
     torch.cuda.empty_cache()
 

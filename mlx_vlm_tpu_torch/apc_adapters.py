@@ -81,7 +81,16 @@ def model_apc_mode(model, kv_bits=None, kv_group_size: int = 64) -> Optional[str
     """The APC strategy for `model` under a KV-quantization policy: one
     probe cache of 256 rows made on the model's device by the factory the
     generate paths use, classified; memoized per (model type, kv_bits,
-    group size, MLX_VLM_TPU_KV_SCHEME), as in the reference."""
+    group size, MLX_VLM_TPU_KV_SCHEME), as in the reference.  None for a
+    decoder with a bidirectional prefix (PaliGemma's), where the reference
+    pages its cache as any other: a prompt row's k/v there depends on the
+    rest of its prompt, so that a cached prefix would carry another
+    prompt's text into this one (ROADMAP, known faults in the
+    reference)."""
+    from .generate.common import bidirectional_prefix
+
+    if bidirectional_prefix(model):
+        return None
     key = (
         str(getattr(model, "config_dict", {}).get("model_type", "")) or
         type(model).__name__,

@@ -15,11 +15,16 @@ device, written by index (`insert_row`) and never read on the host.
 Unlike the reference's immutable arrays, writes happen IN PLACE at rows
 offset + arange(S) (each row at its own cursor for a [B] cursor), by
 index: `update_layer` and each cache's `attend(layer, q, k, v, scale,
-mask)` mutate the buffers they are given, and `advance` adds to the cursor
-in place.  Nothing here reads the cursor on the host, so a decode step can
-be captured in a CUDA graph and replayed; the capacity is checked by the
-caller, which knows every position it will write (generate/ar.py
-`check_capacity`, generate/batch.py's cap on `max_tokens`).
+mask, flash_ok=True, logit_softcap=None)` mutate the buffers they are
+given, and `advance` adds to the cursor in place.  As in the reference,
+`flash_ok` False keeps a prefill chunk off K4 (a decoder whose mask K4
+cannot express), and a soft-cap (gemma2's) keeps every kernel off: K4 and
+K6 take no soft-cap, so the capped scores go through the plain routes
+(`sdpa`, `_integer_attend`).  Nothing here reads the cursor on the host,
+so a decode step can be captured in a CUDA graph and replayed; the
+capacity is checked by the caller, which knows every position it will
+write (generate/ar.py `check_capacity`, generate/batch.py's cap on
+`max_tokens`).
 
 The group-affine QuantizedKVCache stores mlx-style codes along the head dim
 (the `quantize` / `dequantize` of QuantizedTensor) and attends by
@@ -128,6 +133,17 @@ def cursor(left_pad: Optional[torch.Tensor], batch_size: int,
     return left_pad.to(device=device, dtype=torch.int32)
 
 
+def set_prompt_end(cache, end) -> None:
+    """Record where the prompt ends in `cache` before a padded prefill (an
+    int, or int [B] for right-padded rows), as an int32 tensor on the
+    cache's device.  A decoder with a bidirectional prefix stops its
+    prefix mask there, so that no prompt row sees the prefill's padding;
+    the causal decoders never read it.  An attribute, not a field: a
+    snapshot, a row view or a restored cache does not carry it."""
+    cache.prompt_end = torch.as_tensor(end, dtype=torch.int32).to(
+        cache.left_pad.device)
+
+
 @dataclasses.dataclass
 class KVCache:
     """All-layer KV cache.
@@ -150,21 +166,24 @@ class KVCache:
     def advance(self, new_tokens: int) -> None:
         self.offset.add_(new_tokens)
 
-    def attend(self, layer: int, q, k, v, scale: float, mask) -> torch.Tensor:
+    def attend(self, layer: int, q, k, v, scale: float, mask,
+               flash_ok: bool = True,
+               logit_softcap: Optional[float] = None) -> torch.Tensor:
         """Write this layer's new k/v at `offset` (in place) and attend.
 
         Prefill chunks that pass `flash_eligible` go through the flash
-        kernel; decode and other shapes use `sdpa` with `mask`."""
+        kernel, when `flash_ok` and no soft-cap; decode and other shapes
+        use `sdpa` with `mask`."""
         from ..ops.attention import sdpa
 
         k_buf, v_buf = self.k[layer], self.v[layer]
         update_layer(k_buf, v_buf, k, v, self.offset)
-        if flash_eligible(q, k_buf):
+        if flash_ok and logit_softcap is None and flash_eligible(q, k_buf):
             from ..ops.flash_attention import flash_attention
 
             off = self.offset.expand(q.shape[0])
             return flash_attention(q, k_buf, v_buf, off, self.left_pad, scale)
-        return sdpa(q, k_buf, v_buf, scale, mask)
+        return sdpa(q, k_buf, v_buf, scale, mask, logit_softcap)
 
 
 def init_cache(num_layers: int, batch_size: int, num_kv_heads: int,
@@ -312,7 +331,9 @@ class QuantizedKVCache:
                             out_dtype=dtype_name(s))
         return dequantize(t, dtype)
 
-    def attend(self, layer: int, q, k, v, scale: float, mask) -> torch.Tensor:
+    def attend(self, layer: int, q, k, v, scale: float, mask,
+               flash_ok: bool = True,
+               logit_softcap: Optional[float] = None) -> torch.Tensor:
         from ..ops.attention import sdpa
 
         kq, ks, kb = self.kq[layer], self.ks[layer], self.kb[layer]
@@ -324,7 +345,7 @@ class QuantizedKVCache:
         update_layer(kb, vb, kn.biases, vn.biases, self.offset)
         k_full = self._dequantize(kq, ks, kb, q.dtype)
         v_full = self._dequantize(vq, vs, vb, q.dtype)
-        return sdpa(q, k_full, v_full, scale, mask)
+        return sdpa(q, k_full, v_full, scale, mask, logit_softcap)
 
 
 def init_quantized_cache(num_layers: int, batch_size: int, num_kv_heads: int,
@@ -366,10 +387,12 @@ def quantize_query(q: torch.Tensor):
 
 
 def _integer_attend(q8, qs, qsum, k_codes, ks, kb, v_codes, vs, vb,
-                    scale: float, mask, dtype) -> torch.Tensor:
+                    scale: float, mask, dtype,
+                    logit_softcap: Optional[float] = None) -> torch.Tensor:
     """The reference's integer-domain attend (Int8KVCache.attend and
     Int4KVCache's XLA route): per-token affine codes, scores
-    qs * (ks * (q8 . k) + kb * sum(q8)) * scale, masked to f32 min, a plain
+    qs * (ks * (q8 . k) + kb * sum(q8)) * scale, soft-capped when asked,
+    masked to f32 min, a plain
     softmax, the value scale folded into the probabilities (rounded to
     `dtype`) and the value bias added as a rank-1 term.
 
@@ -383,6 +406,8 @@ def _integer_attend(q8, qs, qsum, k_codes, ks, kb, v_codes, vs, vb,
     scores = ((iscores * ks[:, :, None, None, :]
                + qsum.reshape(B, nkv, g, S, 1) * kb[:, :, None, None, :])
               * qs.reshape(B, nkv, g, S, 1) * scale)
+    if logit_softcap is not None:
+        scores = torch.tanh(scores / logit_softcap) * logit_softcap
     if mask is not None:
         m = mask
         if m.dim() == 4:
@@ -441,7 +466,9 @@ class Int8KVCache:
         q, s, mn = _affine_tokens(x, 255)
         return (q - 128.0).to(torch.int8), s, mn + 128.0 * s
 
-    def attend(self, layer: int, q, k, v, scale: float, mask) -> torch.Tensor:
+    def attend(self, layer: int, q, k, v, scale: float, mask,
+               flash_ok: bool = True,
+               logit_softcap: Optional[float] = None) -> torch.Tensor:
         k8, ks, kb = self.k8[layer], self.ks[layer], self.kb[layer]
         v8, vs, vb = self.v8[layer], self.vs[layer], self.vb[layer]
         kn8, kns, knb = self._quantize_tokens(k)
@@ -451,7 +478,7 @@ class Int8KVCache:
         _update_scalar(kb, vb, knb, vnb, self.offset)
         q8, qs, qsum = quantize_query(q)
         return _integer_attend(q8, qs, qsum, k8.float(), ks, kb, v8.float(),
-                               vs, vb, scale, mask, q.dtype)
+                               vs, vb, scale, mask, q.dtype, logit_softcap)
 
 
 def _cache_planes(num_layers, batch_size, num_kv_heads, capacity, width,
@@ -503,9 +530,9 @@ class Int4KVCache:
     ks/kb, vs/vb: f32 [L, B, H, C] per-token scale / bias (dequant =
     code * s + b, codes 0..15)
 
-    A decode step runs K6 (ops/int4_kv_attention.py) on the packed codes;
-    prefill takes the integer-domain attend with the unpack materialized
-    (the reference's XLA route)."""
+    A decode step runs K6 (ops/int4_kv_attention.py) on the packed codes,
+    unless a soft-cap keeps it off; prefill takes the integer-domain attend
+    with the unpack materialized (the reference's XLA route)."""
 
     k4: torch.Tensor
     ks: torch.Tensor
@@ -536,7 +563,9 @@ class Int4KVCache:
         """u8 [..., D/2] -> codes [..., D] as f32 (half-plane order)."""
         return torch.cat([p4 & 0xF, p4 >> 4], dim=-1).float()
 
-    def attend(self, layer: int, q, k, v, scale: float, mask) -> torch.Tensor:
+    def attend(self, layer: int, q, k, v, scale: float, mask,
+               flash_ok: bool = True,
+               logit_softcap: Optional[float] = None) -> torch.Tensor:
         from ..ops.int4_kv_attention import int4_kv_decode_attention
 
         k4, ks, kb = self.k4[layer], self.ks[layer], self.kb[layer]
@@ -550,10 +579,10 @@ class Int4KVCache:
         B, nh, S, D = q.shape
         nkv, C = k4.shape[1], k4.shape[2]
         q8, qs, qsum = quantize_query(q)
-        if not int4_kv_route(S, D):
+        if logit_softcap is not None or not int4_kv_route(S, D):
             return _integer_attend(q8, qs, qsum, self._unpack(k4), ks, kb,
                                    self._unpack(v4), vs, vb, scale, mask,
-                                   q.dtype)
+                                   q.dtype, logit_softcap)
         BH, g = B * nkv, nh // nkv
         off = self.offset + S
         if off.dim() == 1:  # per-row cursors: one per (row, KV head)

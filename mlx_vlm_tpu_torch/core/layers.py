@@ -87,13 +87,15 @@ def embedding_as_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     return _matmul_wT(x, p["weight"])
 
 
-def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm with f32 accumulation."""
+def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-6, *,
+             offset: float = 0.0) -> torch.Tensor:
+    """RMSNorm with f32 accumulation; `offset=1.0` gives Gemma's (1 + w)
+    convention (the weight stored as w - 1), added in f32."""
     dtype = x.dtype
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     xn = xf * torch.rsqrt(var + eps)
-    return (xn * p["weight"].float()).to(dtype)
+    return (xn * (p["weight"].float() + offset)).to(dtype)
 
 
 def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

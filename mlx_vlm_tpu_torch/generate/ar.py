@@ -11,7 +11,11 @@ bits, or 4 / 8 with MLX_VLM_TPU_KV_SCHEME=affine).
 The prompt is prefilled in `prefill_step_size` chunks, padded as in the
 reference (:357-397) so every chunk has the same length; the cache must
 hold the padded prompt and every decode step's row, which
-`check_capacity` checks before any write.
+`check_capacity` checks before any write.  The cache records where the
+prompt ends (`set_prompt_end`), so that a decoder with a bidirectional
+prefix (PaliGemma's) stops its prefix mask there and no prompt row attends
+to the padding, where the reference's does (ROADMAP, known faults in the
+reference).
 
 Decoding runs in blocks of `block_size` steps, the reference's
 `decode_block_fn` (one `lax.scan` program per block, one host fetch per
@@ -46,9 +50,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import cache as cache_lib
 from ..core.quant import _check_bits
 from ..core.sampling import make_sampler
-from .common import round_up
+from .common import refuse_prefix_reuse, round_up
 
 CACHE_BUCKET = 256
 HISTORY_SIZE = 64  # ring of recent tokens for repetition/frequency penalties
@@ -99,7 +104,6 @@ def make_cache(model, batch_size: int, capacity: int, dtype,
     codebook cache, whose 0-dim cursor then fails the batch's first
     admission (an IndexError in `insert_row`): here such a request raises
     before any buffer is made."""
-    from ..core import cache as cache_lib
     from ..core import turboquant as tq
 
     lm = model.language_model
@@ -335,7 +339,8 @@ def generate_step(
     holds the prompt's first `prefix_len` rows; only [prefix_len, S) is
     prefilled, into that cache, at positions sliced from `prefix_len`,
     with the chunk halved until the padded suffix fits behind the prefix
-    (a padded write must never land on cached rows).
+    (a padded write must never land on cached rows).  A decoder with a
+    bidirectional prefix takes no cached prefix (`refuse_prefix_reuse`).
     `prompt_cache_callback(cache)` runs once the cursor is at S, before
     any decode step is captured, so that its copy to the host falls
     outside every replay window; `prompt_progress_callback(done, S)` after
@@ -357,6 +362,7 @@ def generate_step(
 
     block_size = max(1, min(block_size, max_tokens))
     if prompt_cache is not None:
+        refuse_prefix_reuse(model, prefix_len)
         cache = prompt_cache
     else:
         prefix_len = 0
@@ -381,6 +387,7 @@ def generate_step(
         embeds = F.pad(embeds, (0, 0, 0, S_pad - suffix))
     pos_pad = _pad_axis(np.asarray(position_ids, np.int64)[:, :, prefix_len:],
                         2, S_pad)
+    cache_lib.set_prompt_end(cache, S)
 
     logits = None
     last = suffix - 1

@@ -46,7 +46,7 @@ from ..core.sampling import make_batched_sampler
 from ..utils.processing import prepare_inputs
 from ..utils.tokenizer import make_detokenizer
 from .ar import DecodeBlocks, check_kv_bits, make_cache
-from .common import embed_prompt, round_up
+from .common import embed_prompt, refuse_prefix_reuse, round_up
 
 DEFAULT_SLOTS = 8
 DEFAULT_CAPACITY = 4096
@@ -209,6 +209,11 @@ class BatchGenerator:
 
     # ------------------------------------------------------------ lifecycle
     def insert(self, req: BatchRequest) -> None:
+        """Queue `req`; a warm one (`prompt_cache` at `prefix_len` > 0) is
+        refused for a decoder with a bidirectional prefix
+        (`refuse_prefix_reuse`)."""
+        if req.prompt_cache is not None:
+            refuse_prefix_reuse(self.model, req.prefix_len)
         self.queue.append(req)
 
     def _free_slots(self) -> List[int]:
@@ -304,6 +309,7 @@ class BatchGenerator:
         suffix = S - prefix
         pos = np.zeros((3, 1, S_pad), np.int64)
         pos[:, :, :suffix] = self._positions(req, S)[:, :, prefix:]
+        cache_lib.set_prompt_end(row_cache, S)
         logits = self._prefill(
             row_cache, F.pad(embeds[:, prefix:], (0, 0, 0, S_pad - suffix)),
             pos, np.array([suffix - 1]), step)
@@ -354,6 +360,7 @@ class BatchGenerator:
                            device=self.dev)
         last_idx = np.zeros(n_pad, np.int64)
         last_idx[:n] = np.asarray(lens) - 1
+        cache_lib.set_prompt_end(cache, last_idx + 1)
         first = self._first(self._prefill(cache, embeds, pos, last_idx,
                                           step), reqs)
         for i, r in enumerate(reqs):

@@ -26,6 +26,28 @@ def device_peak_memory_gb(device) -> float:
     return torch.cuda.max_memory_allocated(device) / (1024**3)
 
 
+def bidirectional_prefix(model) -> bool:
+    """Whether `model`'s decoder attends over the prompt without a causal
+    order (PaliGemma's prefix).  Each prompt row's k/v then depends on
+    every later prompt row, so that no other prompt may reuse them (prefix
+    caching) and no verify of several rows may run through it
+    (speculative decoding)."""
+    return bool(getattr(getattr(model, "language_model", None),
+                        "bidirectional", False))
+
+
+def refuse_prefix_reuse(model, prefix_len: int) -> None:
+    """Raise ValueError where a prompt cache holding `prefix_len` > 0 rows
+    of another prompt is given to a decoder with a bidirectional prefix
+    (`bidirectional_prefix`): its rows were computed while attending to
+    that other prompt's later rows."""
+    if prefix_len > 0 and bidirectional_prefix(model):
+        raise ValueError(
+            f"{model.config.model_type}: a cached prefix's rows depend on the "
+            f"rest of the prompt they were computed with under its "
+            f"bidirectional prefix; prefix caching is off for it")
+
+
 def media_features(model, pixel_values, grid_thw, vision_cache=None):
     """The vision tower's features of one media array (an image's
     `pixel_values` or a video's `pixel_values_videos`) with its grid

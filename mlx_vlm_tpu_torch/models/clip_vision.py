@@ -1,15 +1,15 @@
-"""CLIP vision encoder (LLaVA's tower).
+"""CLIP / SigLIP vision encoder (LLaVA's and PaliGemma's tower).
 
 Port of mlx_vlm_tpu/models/clip_vision.py (VisionConfig :37, _act :53,
-patchify_images :63, ClipVisionTower :74, sanitize :145) for CLIP; the
-reference's SigLIP branch (no class embedding, mean pooling) waits for a
-family that uses it.  The Conv2d
+patchify_images :63, ClipVisionTower :74, sanitize :145).  The Conv2d
 patch embedding (stride = kernel) is one matmul over flattened patches;
-CLIP adds its class embedding, the positions and `pre_layrnorm`; the
-encoder runs as a Python loop over views of the stacked layers and keeps
-every layer's hidden state, so that `vision_feature_layer` picks one by
-index.  Attention goes through ops/attention.py's `sdpa`, as the
-reference's tower does.  CLIP's activation defaults to quick-GELU.
+CLIP adds its class embedding, the positions and `pre_layrnorm`, SigLIP
+the positions alone; the encoder runs as a Python loop over views of the
+stacked layers and keeps every layer's hidden state, so that
+`vision_feature_layer` picks one by index.  Attention goes through
+ops/attention.py's `sdpa`, as the reference's tower does.  CLIP's
+activation defaults to quick-GELU, SigLIP's to tanh GELU; CLIP pools its
+class token, SigLIP the mean of the post-normed patches.
 """
 
 from __future__ import annotations
@@ -74,18 +74,21 @@ def patchify_images(pixel_values: torch.Tensor,
 
 
 class ClipVisionTower:
-    """Functional CLIP tower over params keyed as HF `vision_model.*`."""
+    """Functional CLIP / SigLIP tower over params keyed as HF
+    `vision_model.*`."""
 
     def __init__(self, config: VisionConfig):
         self.config = config
-        if config.model_type != "clip_vision_model":
-            raise NotImplementedError(
-                f"vision model type {config.model_type} is not ported "
-                f"(the port's tower is CLIP's)")
+        if config.model_type not in ("clip_vision_model",
+                                     "siglip_vision_model"):
+            raise ValueError(
+                f"Unsupported vision model type: {config.model_type}")
+        self.is_clip = config.model_type == "clip_vision_model"
         self.num_heads = config.num_attention_heads
         self.head_dim = config.hidden_size // config.num_attention_heads
         self.scale = self.head_dim**-0.5
-        self.act = _act(config.hidden_act or "quick_gelu")
+        self.act = _act(config.hidden_act or (
+            "quick_gelu" if self.is_clip else "gelu_pytorch_tanh"))
 
     def __call__(self, params: dict,
                  pixel_values: torch.Tensor) -> TowerOutput:
@@ -100,11 +103,12 @@ class ClipVisionTower:
                          .to(w.dtype), w.T)
         if "bias" in emb["patch_embedding"]:
             x = x + emb["patch_embedding"]["bias"]
-        cls = emb["class_embedding"].to(x.dtype).expand(x.shape[0], 1,
-                                                        cfg.hidden_size)
-        x = torch.cat([cls, x], dim=1)
+        if self.is_clip:
+            cls = emb["class_embedding"].to(x.dtype).expand(
+                x.shape[0], 1, cfg.hidden_size)
+            x = torch.cat([cls, x], dim=1)
         x = x + emb["position_embedding"]["weight"][None, :x.shape[1]]
-        if "pre_layrnorm" in vm:
+        if self.is_clip and "pre_layrnorm" in vm:
             x = layer_norm(vm["pre_layrnorm"], x, eps)
         states = [x]
         layers = vm["encoder"]["layers"]
@@ -117,7 +121,8 @@ class ClipVisionTower:
                            self.act(linear(lp["mlp"]["fc1"], y)))
             states.append(x)
         post = layer_norm(vm["post_layernorm"], x, eps)
-        return TowerOutput(post[:, 0], x, torch.stack(states), post)
+        pooled = post[:, 0] if self.is_clip else post.mean(dim=1)
+        return TowerOutput(pooled, x, torch.stack(states), post)
 
     def _attention(self, p, x):
         B, N, D = x.shape

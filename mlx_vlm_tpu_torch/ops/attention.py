@@ -3,8 +3,10 @@
 Port of mlx_vlm_tpu/ops/attention.py (sdpa :23) for boolean masks:
 GQA-aware grouping without repeating KV heads, f32 scores and softmax,
 probabilities cast to the input dtype before the value product, as in the
-reference's einsum formulation.  Logit soft-capping, attention sinks and
-additive masks (other model families) are not ported.
+reference's einsum formulation, and logit soft-capping (gemma2's
+tanh(scores / cap) * cap on the f32 scores before the mask, :47-48).
+Attention sinks and additive masks (other model families) are not
+ported.
 
 `segment_sdpa` is the vision towers' attention within segments (an
 image's frame, a video's frame group, a window): each run of equal-length
@@ -26,9 +28,11 @@ _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+         mask: Optional[torch.Tensor] = None,
+         logit_softcap: Optional[float] = None) -> torch.Tensor:
     """q [B, nh, S, D]; k/v [B, nkv, C, D]; mask bool (True = attend)
-    broadcastable to [B, nh, S, C].  Returns [B, nh, S, D] in q.dtype."""
+    broadcastable to [B, nh, S, C]; `logit_softcap` caps the scaled
+    scores.  Returns [B, nh, S, D] in q.dtype."""
     B, nh, S, D = q.shape
     nkv = k.shape[1]
     groups = nh // nkv
@@ -36,6 +40,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
 
     qg = q.reshape(B, nkv, groups, S, D)
     scores = torch.einsum("bkgsd,bktd->bkgst", qg.float(), k.float()) * scale
+    if logit_softcap is not None:
+        scores = torch.tanh(scores / logit_softcap) * logit_softcap
     if mask is not None:
         if mask.dtype != torch.bool:
             raise TypeError("sdpa: the mask must be boolean")

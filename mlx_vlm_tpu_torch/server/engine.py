@@ -303,7 +303,9 @@ class ResponseGenerator:
         prefix length, harvest), or (None, 0, None) without APC or when
         the batch's cache is not a block cache (`model_apc_mode` for
         `kv_bits`): the reference builds a bf16 warm cache there too, and
-        its admission fails copying it into the quantized batch cache."""
+        its admission fails copying it into the quantized batch cache.
+        `model_apc_mode` is None also for a decoder with a bidirectional
+        prefix, whose cached rows would carry another prompt's text."""
         from ..apc import prompt_key
         from ..apc_adapters import model_apc_mode
         from ..generate.common import round_up

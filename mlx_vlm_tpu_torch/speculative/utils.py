@@ -54,7 +54,7 @@ import torch.nn.functional as F
 
 from ..core.sampling import batched_filtered_probs, make_batched_sampler
 from ..generate.ar import CACHE_BUCKET, _NoSync, _pad_axis, make_cache
-from ..generate.common import round_up
+from ..generate.common import bidirectional_prefix, round_up
 
 __all__ = ["SpecStats", "SpeculativeEngine", "load_drafter",
            "rejection_walk", "run_speculative_rounds",
@@ -100,7 +100,18 @@ def load_drafter(path_or_repo: str, dtype=torch.bfloat16,
 
 
 def validate_drafter_compatibility(model, drafter) -> None:
-    """Vocab-size check (reference drafters/__init__.py:37)."""
+    """Vocab-size check (reference drafters/__init__.py:37); and a model
+    whose decoder has a bidirectional prefix (PaliGemma's) is refused: a
+    verify of k + 1 rows would take the prefix's mask, no causal order
+    among the drafts, where the reference's verify does so and returns
+    other tokens than greedy decoding (ROADMAP, known faults in the
+    reference)."""
+    for m in (model, drafter):
+        if bidirectional_prefix(m):
+            raise ValueError(
+                f"{m.config.model_type}: speculative decoding verifies "
+                f"several rows at once, which its bidirectional prefix "
+                f"would let see each other")
     tv = model.config_dict.get("vocab_size") or model.config_dict.get(
         "text_config", {}).get("vocab_size")
     dv = drafter.config_dict.get("vocab_size")

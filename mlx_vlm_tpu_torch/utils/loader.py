@@ -4,19 +4,23 @@ Port of mlx_vlm_tpu/utils/loader.py (get_model_and_args :125,
 load_config :107, _nest :143, _stack_layers :154, runtime_quant_mode :290,
 _fold_quantized :323, _to_device :375, load_model_from_weights :548,
 load_model :759, load :773) for the qwen2_vl, qwen2_5_vl, qwen3_vl,
-qwen3_vl_moe, llama and llava families and the text MoE decoders
-(qwen2_moe, which qwen3_moe maps to, mixtral, olmoe, phimoe, granitemoe),
-each picked by its config's model_type (after the reference's remapping,
-`MODEL_REMAPPING`), and the text-only fallback (models/text_only.py) for
-mistral and the other llama-architecture text checkpoints.
+qwen3_vl_moe, llama, llava and paligemma families (PaliGemma's gemma and
+gemma2 text models) and the text MoE decoders (qwen2_moe, which qwen3_moe
+maps to, mixtral, olmoe, phimoe, granitemoe), each picked by its config's
+model_type (after the reference's remapping, `MODEL_REMAPPING`), and the
+text-only fallback (models/text_only.py) for mistral and the other
+llama-architecture text checkpoints and for gemma and gemma2.
 Safetensors are parsed in numpy (bfloat16 read as uint16 and viewed as
 torch.bfloat16), so loading needs neither `safetensors` nor `ml_dtypes`.  mlx group-affine triples fold by the
 runtime mode (MLX_VLM_TPU_RUNTIME_QUANT, the reference's default rule when
 unset): "w4grp" keeps 4-bit linears bit-exact in the halves-packed
 Int4GroupedTensor layout and requantizes the rest to per-channel int8,
 "w8chan" requantizes every 2-D triple to per-channel int8 and "exact" keeps
-every triple as a QuantizedTensor in the mlx byte layout; a 3-D triple (a
-stack of experts) stays exact in every mode, as in the reference (:362-366),
+every triple as a QuantizedTensor in the mlx byte layout (a tied
+embedding table, PaliGemma's and Gemma's, folds by the same rule: the
+head reads the table it gathers from, per-channel int8 or K5's codes); a
+3-D triple (a stack of experts) stays exact in every mode, as in the
+reference (:362-366),
 and per-path entries of the quantization config (an 8-bit router beside
 4-bit linears) set a triple's own bits and group.  The entries are keyed by
 the checkpoint's names; a model whose `sanitize` renames a quantized weight
@@ -115,8 +119,9 @@ def load_config(model_path: Path) -> dict:
 
 # the model types the port has, each its own package under models/
 PORTED_MODEL_TYPES = ("qwen2_vl", "qwen2_5_vl", "qwen3_vl",
-                      "qwen3_vl_moe", "llama", "llava", "qwen2_moe",
-                      "mixtral", "olmoe", "phimoe", "granitemoe")
+                      "qwen3_vl_moe", "llama", "llava", "paligemma",
+                      "qwen2_moe", "mixtral", "olmoe", "phimoe",
+                      "granitemoe")
 
 # model_type -> module overrides: the reference's entries (:42-75) for the
 # ported families
@@ -132,7 +137,7 @@ def get_model_and_args(config: dict):
     """(model package, model type) for config["model_type"] (reference
     :125-136): the type remapped, its package when the port has it, else
     the text-only fallback for a text config of its architectures
-    (models/text_only.py, which refuses gemma); any other type raises."""
+    (models/text_only.py); any other type raises."""
     model_type = MODEL_REMAPPING.get(config["model_type"],
                                      config["model_type"])
     if model_type in PORTED_MODEL_TYPES:
@@ -146,7 +151,7 @@ def get_model_and_args(config: dict):
     raise NotImplementedError(
         f"model type {model_type} is not ported (the port has "
         f"{', '.join(PORTED_MODEL_TYPES)} and text-only llama, mistral, "
-        f"qwen2 and qwen3)")
+        f"qwen2, qwen3, gemma and gemma2)")
 
 
 def _bf16_tensor(u16: np.ndarray) -> torch.Tensor:

@@ -6,9 +6,12 @@ load_processor :390, prepare_inputs :420) for images, videos and text;
 the image processor's patch, merge and temporal sizes follow the
 checkpoint (`image_processor_for`).
 LLaVA gets a CLIP image processor and a processor that expands each image
-token (`ClipImageProcessor`, `LlavaProcessor`, picked by model type in
-`load_processor`): the reference has none and gives LLaVA the Qwen2-VL
-fallback, whose patch rows the CLIP tower cannot take (ROADMAP Queue 3).
+token (`ClipImageProcessor`, `LlavaProcessor`), and PaliGemma a SigLIP
+image processor and a processor that writes transformers' PaliGemma
+prompt (`SiglipImageProcessor`, `PaliGemmaProcessor`), each picked by
+model type in `load_processor`: the reference has neither and gives both
+the Qwen2-VL fallback, whose patch rows their towers cannot take (ROADMAP,
+known faults in the reference).
 PIL, cv2 and transformers are imported only inside the functions that use
 them: a uint8 [H, W, 3] array, or a video's uint8 [T, H, W, 3] frames,
 whose size already meets the resize rule goes through without PIL, and a
@@ -310,6 +313,17 @@ class Qwen2VLProcessor:
         return self.tokenizer.apply_chat_template(messages, **kwargs)
 
 
+def _preprocessor_config(model_path) -> dict:
+    """A checkpoint's preprocessor_config.json ({} without one)."""
+    pre = Path(model_path) / "preprocessor_config.json" if model_path else None
+    if pre is None or not pre.exists():
+        return {}
+    import json
+
+    with open(pre) as f:
+        return json.load(f)
+
+
 def image_processor_for(model=None, model_path=None) -> Qwen2VLImageProcessor:
     """The numpy image processor of a checkpoint: the sizes and the
     normalization of its preprocessor_config.json when it has one, else its
@@ -323,12 +337,8 @@ def image_processor_for(model=None, model_path=None) -> Qwen2VLImageProcessor:
         kw = {"patch_size": vc.patch_size,
               "merge_size": vc.spatial_merge_size,
               "temporal_patch_size": vc.temporal_patch_size}
-    pre = Path(model_path) / "preprocessor_config.json" if model_path else None
-    if pre is not None and pre.exists():
-        import json
-
-        with open(pre) as f:
-            pc = json.load(f)
+    pc = _preprocessor_config(model_path)
+    if pc:
         for k in ("patch_size", "merge_size", "temporal_patch_size",
                   "min_pixels", "max_pixels", "image_mean", "image_std"):
             if pc.get(k) is not None:
@@ -422,6 +432,109 @@ class LlavaProcessor:
         return self.tokenizer.apply_chat_template(messages, **kwargs)
 
 
+class SiglipImageProcessor(ClipImageProcessor):
+    """Numpy SigLIP image processor (transformers' SiglipImageProcessor's
+    defaults): a bicubic resize to `size` x `size`, rescale by 1/255 (in
+    float64, then float32), normalize with mean and std 0.5.  Returns
+    pixel_values [N, 3, size, size] float32 and no grid."""
+
+    def __init__(self, size: int = 224, image_mean=(0.5, 0.5, 0.5),
+                 image_std=(0.5, 0.5, 0.5), rescale_factor: float = 1 / 255):
+        super().__init__(size, (size, size), image_mean, image_std,
+                         rescale_factor)
+
+    def _preprocess_one(self, img: np.ndarray) -> np.ndarray:
+        side = self.size
+        if img.shape[:2] != (side, side):  # PIL returns a copy otherwise
+            from PIL import Image
+
+            img = np.asarray(Image.fromarray(img).resize((side, side),
+                                                         Image.BICUBIC))
+        x = (img.astype(np.float64) * self.rescale_factor).astype(np.float32)
+        x = (x - self.image_mean) / self.image_std
+        return x.transpose(2, 0, 1)
+
+
+class PaliGemmaProcessor:
+    """Text + image processor for PaliGemma, as transformers'
+    processing_paligemma.py builds its prompt: a prompt without
+    `image_token` becomes `num_image_tokens` image tokens, BOS, the prompt
+    and "\n" (`build_string_from_input`, one image a prompt); one with it
+    has each image token expanded and BOS after the last, then "\n".  The
+    tokenizer adds no special token of its own.  Like transformers', it
+    takes no prompt without an image."""
+
+    def __init__(self, tokenizer, image_processor: SiglipImageProcessor,
+                 image_token: str = "<image>", num_image_tokens: int = 256,
+                 bos_token: str = "<bos>"):
+        self.tokenizer = tokenizer
+        self.image_processor = image_processor
+        self.image_token = image_token
+        self.num_image_tokens = num_image_tokens
+        self.bos_token = bos_token
+
+    def _prompt(self, text: str) -> str:
+        tok = self.image_token
+        if tok not in text:
+            return f"{tok * self.num_image_tokens}{self.bos_token}{text}\n"
+        text = text.replace(tok, tok * self.num_image_tokens)
+        at = text.rfind(tok) + len(tok)
+        return f"{text[:at]}{self.bos_token}{text[at:]}\n"
+
+    def __call__(self, text=None, images=None, videos=None, padding=True,
+                 audio=None, **kw):
+        if videos is not None or audio is not None:
+            raise NotImplementedError("video and audio inputs are not ported")
+        if images is None:
+            raise ValueError("`images` are expected as arguments to a "
+                             "`PaliGemmaProcessor` instance.")
+        texts = [text or ""] if text is None or isinstance(text, str) \
+            else list(text)
+        if not isinstance(images, (list, tuple)):
+            images = [images]
+        if not any(self.image_token in t for t in texts) and \
+                len(images) != len(texts):
+            raise ValueError(
+                f"Received {len(images)} images for {len(texts)} prompts. "
+                f"Each prompt should be associated with an image or list "
+                f"of images.")
+        out = self.image_processor(images)
+        enc = self.tokenizer([self._prompt(t) for t in texts],
+                             return_tensors="np", padding=padding,
+                             padding_side="left", add_special_tokens=False)
+        out["input_ids"] = np.asarray(enc["input_ids"])
+        out["attention_mask"] = np.asarray(enc["attention_mask"])
+        return out
+
+    def apply_chat_template(self, messages, **kwargs):
+        return self.tokenizer.apply_chat_template(messages, **kwargs)
+
+
+def _paligemma_processor(tokenizer, model, model_path) -> PaliGemmaProcessor:
+    """PaliGemmaProcessor for a PaliGemma model: its image token the
+    tokenizer's token at the config's `image_token_index`, its count the
+    tower's patch grid (or the preprocessor config's
+    `image_seq_length`), its images at the tower's size (or the
+    preprocessor config's), BOS the tokenizer's."""
+    cfg = model.config
+    vc = cfg.vision_config
+    pc = _preprocessor_config(model_path)
+    size = pc.get("size")
+    side = (size.get("height", vc.image_size) if isinstance(size, dict)
+            else size or vc.image_size)
+    kw = {k: pc[k] for k in ("image_mean", "image_std", "rescale_factor")
+          if pc.get(k) is not None}
+    token = None
+    if hasattr(tokenizer, "convert_ids_to_tokens"):
+        token = tokenizer.convert_ids_to_tokens(cfg.image_token_index)
+    return PaliGemmaProcessor(
+        tokenizer, SiglipImageProcessor(side, **kw),
+        image_token=token or "<image>",
+        num_image_tokens=pc.get("image_seq_length",
+                                (vc.image_size // vc.patch_size) ** 2),
+        bos_token=getattr(tokenizer, "bos_token", None) or "<bos>")
+
+
 def clip_image_processor_for(model=None,
                              model_path=None) -> ClipImageProcessor:
     """A checkpoint's CLIP image processor: its preprocessor_config.json's
@@ -430,12 +543,8 @@ def clip_image_processor_for(model=None,
     vc = getattr(getattr(model, "config", None), "vision_config", None)
     side = getattr(vc, "image_size", 336)
     kw = {"size": side, "crop_size": (side, side)}
-    pre = Path(model_path) / "preprocessor_config.json" if model_path else None
-    if pre is not None and pre.exists():
-        import json
-
-        with open(pre) as f:
-            pc = json.load(f)
+    pc = _preprocessor_config(model_path)
+    if pc:
         size = pc.get("size")
         if size is not None:
             kw["size"] = (size.get("shortest_edge", side)
@@ -475,11 +584,14 @@ TIMESTAMPED_VIDEO = ("qwen3_vl", "qwen3_vl_moe")
 
 def processor_for(tokenizer, model=None, model_path=None):
     """The numpy processor of `model`'s family around `tokenizer`:
-    LlavaProcessor for LLaVA, else Qwen2VLProcessor with the checkpoint's
-    image processor (writing video timestamps for Qwen3-VL)."""
+    LlavaProcessor for LLaVA, PaliGemmaProcessor for PaliGemma, else
+    Qwen2VLProcessor with the checkpoint's image processor (writing video
+    timestamps for Qwen3-VL)."""
     kind = getattr(getattr(model, "config", None), "model_type", "")
     if kind == "llava":
         return _llava_processor(tokenizer, model, model_path)
+    if kind == "paligemma":
+        return _paligemma_processor(tokenizer, model, model_path)
     return Qwen2VLProcessor(tokenizer, image_processor_for(model, model_path),
                             video_timestamps=kind in TIMESTAMPED_VIDEO)
 
@@ -488,8 +600,9 @@ def load_processor(model_path, model=None, **kwargs):
     """The HF AutoProcessor when transformers can build one with an image
     processor; otherwise the numpy processor of the model's family around
     the checkpoint's tokenizer: LlavaProcessor with the CLIP image
-    processor for LLaVA, else Qwen2VLProcessor with the checkpoint's image
-    processor (`image_processor_for`)."""
+    processor for LLaVA, PaliGemmaProcessor with the SigLIP image
+    processor for PaliGemma, else Qwen2VLProcessor with the checkpoint's
+    image processor (`image_processor_for`)."""
     model_path = Path(model_path)
     try:
         from transformers import AutoProcessor

@@ -28,6 +28,13 @@ qwen2_5_vl_hf_weights :178 draw the same arrays for a seed), plus:
   seed); `llama_3_1_8b_config` and `llava_1_5_7b_config`: the published
   widths of meta-llama/Llama-3.1-8B-Instruct and llava-hf/llava-1.5-7b-hf
   (config.json);
+- `tiny_paligemma_config` / `paligemma_hf_weights`: the JAX package's
+  PaliGemma test model (mlx_vlm_tpu/utils/testing.py:387-490), copied (the
+  same arrays for a seed), its gemma or gemma2 text model alone as
+  `tiny_gemma_text_config` / `gemma_text_hf_weights`;
+  `paligemma2_3b_224_config` and `paligemma_3b_224_config`: the published
+  widths of google/paligemma2-3b-pt-224 and google/paligemma-3b-pt-224
+  (config.json), and `PALIGEMMA_SPECIAL_TOKENS`;
 - the text MoE decoders (`MOE_TEXT_TYPES`): `tiny_qwen2_moe_config` /
   `qwen2_moe_hf_weights`, the JAX package's Qwen-MoE test model
   (mlx_vlm_tpu/utils/testing.py:275-313), copied; `tiny_moe_text_config`
@@ -84,6 +91,9 @@ LLAMA3_SPECIAL_TOKENS = {
 # LLaVA-1.5's (llava-hf/llava-1.5-7b-hf: Llama-2's and <image>, <pad>)
 LLAVA_SPECIAL_TOKENS = {"<s>": 1, "</s>": 2, "<image>": 32000,
                         "<pad>": 32001}
+# PaliGemma's (Gemma's <pad> / <eos> / <bos> and PaliGemma's <image>)
+PALIGEMMA_SPECIAL_TOKENS = {"<pad>": 0, "<eos>": 1, "<bos>": 2,
+                            "<image>": 257152}
 
 
 def tiny_qwen2_vl_config(**overrides) -> dict:
@@ -840,6 +850,222 @@ def llava_hf_weights(config: dict, seed: int = 0,
     return w
 
 
+# ------------------------------------------------------------ PaliGemma
+
+
+def tiny_paligemma_config(gemma2: bool = False, **overrides) -> dict:
+    text = {
+        "model_type": "gemma2" if gemma2 else "gemma",
+        "hidden_size": 48,
+        "num_hidden_layers": 4,
+        "intermediate_size": 96,
+        "num_attention_heads": 4,
+        "num_key_value_heads": 2,
+        "vocab_size": 256,
+        "rms_norm_eps": 1e-6,
+    }
+    if gemma2:
+        text.update(
+            head_dim=16,
+            query_pre_attn_scalar=16.0,
+            attn_logit_softcapping=50.0,
+            final_logit_softcapping=30.0,
+            sliding_window=4,
+        )
+    cfg = {
+        "model_type": "paligemma",
+        "image_token_index": 64,
+        "hidden_size": 48,
+        "pad_token_id": 0,
+        "projection_dim": 48,
+        "text_config": text,
+        "vision_config": {
+            "model_type": "siglip_vision_model",
+            "num_hidden_layers": 2,
+            "hidden_size": 32,
+            "intermediate_size": 64,
+            "num_attention_heads": 4,
+            "image_size": 28,  # 2x2 patches
+            "patch_size": 14,
+            "num_channels": 3,
+            "projection_dim": 48,
+        },
+    }
+    cfg.update(overrides)
+    return cfg
+
+
+def tiny_gemma_text_config(gemma2: bool = False, **overrides) -> dict:
+    """The text model of tiny_paligemma_config as a text-only gemma /
+    gemma2 checkpoint's config."""
+    cfg = dict(tiny_paligemma_config(gemma2)["text_config"])
+    cfg.update(overrides)
+    return cfg
+
+
+def paligemma2_3b_224_config() -> dict:
+    """google/paligemma2-3b-pt-224's published widths (config.json): a
+    Gemma-2-2B decoder (hidden 2304, 26 layers, 8 / 4 heads of 256,
+    intermediate 9216, vocab 257216, query_pre_attn_scalar 256, attention
+    soft-cap 50, final soft-cap 30, window 4096 on the even layers), the
+    SigLIP-So400m/14 tower at 224 (27 layers, hidden 1152, intermediate
+    4304, 16 heads: 256 image tokens), projection_dim 2304, image token
+    257152 (the root hidden_size is the release's stale 2048)."""
+    return {
+        "model_type": "paligemma",
+        "image_token_index": 257152,
+        "hidden_size": 2048,
+        "pad_token_id": 0,
+        "bos_token_id": 2,
+        "eos_token_id": 1,
+        "projection_dim": 2304,
+        "text_config": {
+            "model_type": "gemma2",
+            "hidden_size": 2304,
+            "num_hidden_layers": 26,
+            "intermediate_size": 9216,
+            "num_attention_heads": 8,
+            "num_key_value_heads": 4,
+            "head_dim": 256,
+            "vocab_size": 257216,
+            "rms_norm_eps": 1e-6,
+            "rope_theta": 10000.0,
+            "query_pre_attn_scalar": 256,
+            "attn_logit_softcapping": 50.0,
+            "final_logit_softcapping": 30.0,
+            "sliding_window": 4096,
+            "hidden_activation": "gelu_pytorch_tanh",
+        },
+        "vision_config": _so400m_224(2304),
+    }
+
+
+def paligemma_3b_224_config() -> dict:
+    """google/paligemma-3b-pt-224's published widths (config.json): a
+    Gemma-2B decoder (hidden 2048, 18 layers, 8 heads over 1 KV head of
+    256, intermediate 16384, vocab 257216), the same SigLIP tower,
+    projection_dim 2048, image token 257152."""
+    return {
+        "model_type": "paligemma",
+        "image_token_index": 257152,
+        "hidden_size": 2048,
+        "pad_token_id": 0,
+        "bos_token_id": 2,
+        "eos_token_id": 1,
+        "projection_dim": 2048,
+        "text_config": {
+            "model_type": "gemma",
+            "hidden_size": 2048,
+            "num_hidden_layers": 18,
+            "intermediate_size": 16384,
+            "num_attention_heads": 8,
+            "num_key_value_heads": 1,
+            "vocab_size": 257216,
+            "rms_norm_eps": 1e-6,
+            "rope_theta": 10000.0,
+            "hidden_activation": "gelu_pytorch_tanh",
+        },
+        "vision_config": _so400m_224(2048),
+    }
+
+
+def _so400m_224(projection_dim: int) -> dict:
+    return {
+        "model_type": "siglip_vision_model",
+        "num_hidden_layers": 27,
+        "hidden_size": 1152,
+        "intermediate_size": 4304,
+        "num_attention_heads": 16,
+        "image_size": 224,
+        "patch_size": 14,
+        "num_channels": 3,
+        "projection_dim": projection_dim,
+        "layer_norm_eps": 1e-6,
+    }
+
+
+def gemma_text_tensor_specs(config: dict) -> list:
+    """(HF key, shape, fill) of every tensor of a gemma / gemma2 text
+    checkpoint, in the JAX package's builder's draw order (the language
+    model of its paligemma_hf_weights; the norms stored as w - 1, zeros)."""
+    gemma2 = config["model_type"] == "gemma2"
+    D, I = config["hidden_size"], config["intermediate_size"]
+    nh, nkv = config["num_attention_heads"], config["num_key_value_heads"]
+    hd = config.get("head_dim", D // nh) if gemma2 else D // nh
+    specs = [("model.embed_tokens.weight", (config["vocab_size"], D), "rand"),
+             ("model.norm.weight", (D,), "zeros")]
+    norms = ["input_layernorm", "post_attention_layernorm"]
+    if gemma2:
+        norms += ["pre_feedforward_layernorm", "post_feedforward_layernorm"]
+    for i in range(config["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        specs += [(p + nm + ".weight", (D,), "zeros") for nm in norms]
+        specs += [
+            (p + "self_attn.q_proj.weight", (nh * hd, D), "rand"),
+            (p + "self_attn.k_proj.weight", (nkv * hd, D), "rand"),
+            (p + "self_attn.v_proj.weight", (nkv * hd, D), "rand"),
+            (p + "self_attn.o_proj.weight", (D, nh * hd), "rand"),
+            (p + "mlp.gate_proj.weight", (I, D), "rand"),
+            (p + "mlp.up_proj.weight", (I, D), "rand"),
+            (p + "mlp.down_proj.weight", (D, I), "rand"),
+        ]
+    return specs
+
+
+def siglip_vision_specs(config: dict) -> list:
+    """(HF key, shape, fill) of a PaliGemma checkpoint's SigLIP tower and
+    projector, in the JAX package's builder's draw order."""
+    vc, D = config["vision_config"], config["text_config"]["hidden_size"]
+    E, P, I = vc["hidden_size"], vc["patch_size"], vc["intermediate_size"]
+    C = vc.get("num_channels", 3)
+    p = "vision_tower.vision_model."
+    specs = [(p + "embeddings.patch_embedding.weight", (E, C, P, P), "rand"),
+             (p + "embeddings.patch_embedding.bias", (E,), "rand"),
+             (p + "embeddings.position_embedding.weight",
+              ((vc["image_size"] // P) ** 2, E), "rand"),
+             (p + "post_layernorm.weight", (E,), "ones"),
+             (p + "post_layernorm.bias", (E,), "zeros")]
+    for i in range(vc["num_hidden_layers"]):
+        q = p + f"encoder.layers.{i}."
+        for nm in ("layer_norm1", "layer_norm2"):
+            specs += [(q + nm + ".weight", (E,), "ones"),
+                      (q + nm + ".bias", (E,), "zeros")]
+        for nm in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            specs += [(q + f"self_attn.{nm}.weight", (E, E), "rand"),
+                      (q + f"self_attn.{nm}.bias", (E,), "rand")]
+        specs += [(q + "mlp.fc1.weight", (I, E), "rand"),
+                  (q + "mlp.fc1.bias", (I,), "rand"),
+                  (q + "mlp.fc2.weight", (E, I), "rand"),
+                  (q + "mlp.fc2.bias", (E,), "rand")]
+    return specs + [("multi_modal_projector.linear.weight", (D, E), "rand"),
+                    ("multi_modal_projector.linear.bias", (D,), "rand")]
+
+
+def paligemma_tensor_specs(config: dict) -> list:
+    """(HF key, shape, fill) of every tensor of a PaliGemma checkpoint."""
+    return ([("language_model." + k, shape, fill) for k, shape, fill
+             in gemma_text_tensor_specs(config["text_config"])]
+            + siglip_vision_specs(config))
+
+
+def paligemma_hf_weights(config: dict, seed: int = 0,
+                         scale: float = 0.05) -> dict:
+    """Random f32 weights with HF PaliGemma checkpoint keys; the same
+    arrays as the JAX package's builder for a seed (one generator, the
+    language model first)."""
+    return _draw(paligemma_tensor_specs(config), np.random.default_rng(seed),
+                 scale)
+
+
+def gemma_text_hf_weights(config: dict, seed: int = 0,
+                          scale: float = 0.05) -> dict:
+    """Random f32 weights of a text-only gemma / gemma2 checkpoint: the
+    language model of paligemma_hf_weights for a seed, under its own
+    keys."""
+    return _draw(gemma_text_tensor_specs(config), np.random.default_rng(seed),
+                 scale)
+
+
 # ------------------------------------------------------------ text MoE
 
 # the text MoE decoders' model types (qwen3_moe loads as qwen2_moe)
@@ -1199,10 +1425,15 @@ def moe_text_tensor_specs(config: dict) -> list:
 def tensor_specs(config: dict) -> list:
     """(HF key, shape, fill) of every tensor of a checkpoint of
     config["model_type"] (qwen2_vl, qwen2_5_vl, qwen3_vl, qwen3_vl_moe,
-    the last in the mlx conversions' fused expert layout; llama, llava)."""
+    the last in the mlx conversions' fused expert layout; llama, llava,
+    paligemma, gemma, gemma2 and the text MoE types)."""
     kind = config.get("model_type", "qwen2_vl")
     if kind == "llama":
         return llama_tensor_specs(config)
+    if kind == "paligemma":
+        return paligemma_tensor_specs(config)
+    if kind in ("gemma", "gemma2"):
+        return gemma_text_tensor_specs(config)
     if kind == "llava":
         return ([("language_model." + k, shape, fill) for k, shape, fill
                  in llama_tensor_specs(config["text_config"])]
@@ -1267,7 +1498,8 @@ def mlx_quantized_checkpoint(config: dict, bits: int = 4, group_size: int = 64,
                              router_bits: Optional[int] = None):
     """(config, weights) of a random `bits`-bit mlx-format checkpoint of
     config["model_type"] (Qwen2-VL, Qwen2.5-VL, Qwen3-VL, Qwen3-VL-MoE,
-    llama, LLaVA or one of MOE_TEXT_TYPES; bits 4 or 8); with
+    llama, LLaVA, PaliGemma, gemma / gemma2 or one of MOE_TEXT_TYPES; bits
+    4 or 8); with
     `vision_only`, the vision tower's tensors alone (drawn from the seed's
     generator in the same way).  With `router_bits`, the MoE families'
     routers (and Qwen-MoE's shared-expert gate) are drawn at those bits and

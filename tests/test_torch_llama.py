@@ -5,7 +5,8 @@ JAX package's test size (hidden 64, 2 decoder layers, 4 / 2 heads):
 - host layouts exactly: the published Llama-3.1-8B config, the weight
   builder, `sanitize`, `text_position_ids`, the loader's model-type
   dispatch (llama, mistral, qwen2 and qwen3 through the text-only
-  fallback or the remapping, llava and llava_next; gemma refused);
+  fallback or the remapping, llava and llava_next; gemma and gemma2
+  through the fallback on PaliGemma's decoder);
 - the language model for llama, mistral, qwen2 (q / k / v biases), qwen3
   (per-head q / k norms) and a partial-rotary llama3-scaled variant:
   cached prefill and decode steps, the uncached call and
@@ -143,9 +144,14 @@ def test_model_types_dispatch_as_the_reference(model_type, module, as_type):
 
 
 def test_gemma_text_and_other_types_refused():
-    # gemma runs on paligemma's decoder in the reference, not ported
-    with pytest.raises(NotImplementedError, match="gemma.*Queue 1"):
-        get_model_and_args({"model_type": "gemma"})
+    # gemma and gemma2 run on paligemma's decoder through the text-only
+    # fallback, as in the reference
+    for model_type in ("gemma", "gemma2"):
+        arch, got = get_model_and_args({"model_type": model_type})
+        jarch, ref = jax_model_and_args({"model_type": model_type})
+        assert got == ref == model_type
+        assert arch.__name__ == "mlx_vlm_tpu_torch.models.text_only"
+        assert jarch.__name__ == "mlx_vlm_tpu.models.text_only"
     with pytest.raises(NotImplementedError, match="idefics2"):
         get_model_and_args({"model_type": "idefics2", "vision_config": {}})
     # a llama-architecture type with a vision config is not text-only

@@ -115,8 +115,8 @@ def test_weight_builder_and_sanitize_equal_reference():
 
 @pytest.mark.parametrize("act", [None, "gelu"])
 def test_tower_every_hidden_state(models, act):
-    """CLIP's default quick-GELU and a config's exact GELU; SigLIP's
-    branch of the reference's tower is refused."""
+    """CLIP's default quick-GELU and a config's exact GELU; a tower type
+    that is neither CLIP nor SigLIP is refused, as in the reference."""
     from mlx_vlm_tpu.models.clip_vision import ClipVisionTower as JaxTower
 
     from mlx_vlm_tpu_torch.models.clip_vision import ClipVisionTower
@@ -132,9 +132,9 @@ def test_tower_every_hidden_state(models, act):
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
                                    atol=1e-5)
-    with pytest.raises(NotImplementedError, match="siglip"):
+    with pytest.raises(ValueError, match="Unsupported vision model type"):
         ClipVisionTower(type(vc)(**dict(vc.__dict__,
-                                        model_type="siglip_vision_model")))
+                                        model_type="vit_vision_model")))
 
 
 def test_embeddings_and_teacher_forced_logits(models):
