@@ -921,9 +921,26 @@ K5_PALIGEMMA_CASES = (
           for K, N in PALIGEMMA2_3B_SHAPES)
     + tuple((4, 64, M, 2048, 256) for M in (1, 512))
     + ((4, 64, 1, 2048, 257216),))
+# gpt-oss-20b's linears ((o1)-(o3)): K = 2880 is 45 groups of 64, an odd
+# count.  At 4 bits the reference's rule sends q (N = 4096), k / v (N =
+# 512), the router (N = 32) and the head (N = 201088) to its dequantize
+# route (a row of 1440 code bytes holds no whole number of 64-byte group
+# pairs), so the port does too; K5 takes them at 8 bits, held here at M =
+# 1 and 512; o (K = 4096, N = 2880) runs K5 at 4 bits.  phi-2's ((r1),
+# (r2); K = 2560, 40 groups): q / k / v / dense N = 2560, fc1 N = 10240,
+# fc2 K = 10240, the biased head N = 51200, at M = 1 and 512.  Each timed
+# cold and warm (the router warm only)
+GPT_OSS_2880_SHAPES = ((2880, 4096), (2880, 512), (2880, 32),
+                       (2880, 201088))
+K5_GPT_OSS_CASES = (tuple((8, 64, M, K, N) for M in (1, 512)
+                          for K, N in GPT_OSS_2880_SHAPES)
+                    + tuple((4, 64, M, 4096, 2880) for M in (1, 512)))
+PHI_2_SHAPES = ((2560, 2560), (2560, 10240), (10240, 2560), (2560, 51200))
+K5_PHI_2_CASES = tuple((4, 64, M, K, N) for M in (1, 512)
+                       for K, N in PHI_2_SHAPES)
 K5_CASES = (K5_CASES + K5_8B_CASES + K5_MOE_CASES + K5_HALF_CASES
             + K5_LLAMA_CASES + K5_MOE_TEXT_CASES + K5_DRAFT_CASES
-            + K5_PALIGEMMA_CASES)
+            + K5_PALIGEMMA_CASES + K5_GPT_OSS_CASES + K5_PHI_2_CASES)
 K5_TOL = 1e-2
 
 
@@ -1041,7 +1058,9 @@ def check_qmatmul(results: list, dev) -> None:
                                           + K5_LLAMA_CASES
                                           + K5_MOE_TEXT_CASES
                                           + K5_DRAFT_CASES
-                                          + K5_PALIGEMMA_CASES))
+                                          + K5_PALIGEMMA_CASES
+                                          + K5_GPT_OSS_CASES
+                                          + K5_PHI_2_CASES))
         if cold and cold_copies(weight_bytes) > MAX_COLD_COPIES:
             # a router's few KB: warm only (its cold timing would capture
             # tens of thousands of copies in one graph)
@@ -1096,6 +1115,9 @@ EXPERT_STACKS = (
     ("Qwen1.5-MoE-A2.7B", 60, 4, 2048, 1408, (4,), 128),
     ("Phi-3.5-MoE", 16, 2, 4096, 6400, (2,), 64),
     ("Granite-3.0-3B-A800M", 40, 8, 1536, 512, (8,), 64),
+    # gpt-oss-20b: gate / up and down alike [32, 2880, 2880], 45 groups a
+    # row at g = 64; a decode step (4 pairs) and a 4-slot batch step (16)
+    ("gpt-oss-20b", 32, 4, 2880, 2880, (4, 16), 64),
 )
 
 
@@ -1131,8 +1153,8 @@ def check_qmatmul_experts(results: list, dev) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
     for model, E, top_k, D, I, pair_counts, g in EXPERT_STACKS:
-        stacks = {(K, N): random_mlx(4, g, K, N, gen, dev, (E,))
-                  for K, N in ((D, I), (I, D))}
+        stacks = [(K, N, down, random_mlx(4, g, K, N, gen, dev, (E,)))
+                  for down, (K, N) in enumerate(((D, I), (I, D)))]
         for P in pair_counts:
             experts = torch.randint(0, E, (P,), generator=gen, device=dev,
                                     dtype=torch.int32)
@@ -1140,15 +1162,16 @@ def check_qmatmul_experts(results: list, dev) -> None:
             tokens = P // top_k
             token_rows = (torch.arange(P, device=dev) // top_k).to(
                 torch.int32)
-            for (K, N), t in stacks.items():
-                rows = token_rows if K == D else None
+            for K, N, down, t in stacks:
+                rows = None if down else token_rows
                 x = torch.randn((tokens if rows is not None else P, K),
                                 generator=gen, device=dev).to(torch.bfloat16)
                 run = functools.partial(k5.quantized_matmul_experts, x,
                                         experts=experts, rows=rows)
                 out = run(t)
                 name = "qmatmul_experts"
-                shape = f"P={P} E={E} K={K} N={N} g={g}"
+                shape = (f"P={P} E={E} K={K} N={N} g={g}"
+                         + (" down" if down and D == I else ""))
                 work = expert_work(t, experts, x.shape[0])
                 _check(results, name, shape, out,
                        k5.qmatmul_experts_plain(x, t, experts, rows), K5_TOL,
@@ -1238,6 +1261,27 @@ def check_route_repairs(dev) -> bool:
           f"max_abs_err={err:.3e} tol={tol:.3e} "
           f"{'ok' if k5_ok else 'MISMATCH'}", flush=True)
     ok = ok and k5_ok
+    # K5 at gpt-oss-20b's K = 2880 (45 groups of 64): at 4 bits the rule
+    # sends a 2-D weight to the dequantize route, and the expert-indexed
+    # entry takes the [32, 2880, 2880] stacks
+    t = random_mlx(4, 64, 2880, 512, gen, dev)
+    x = torch.randn((8, 2880), generator=gen, device=dev).to(torch.bfloat16)
+    before = dict(k5.launches)
+    out = tq.quantized_matmul(x, t)
+    ref = k5.qmatmul_plain(x, t)
+    err = float((out.float() - ref.float()).abs().max())
+    tol = K5_TOL * float(ref.float().abs().max())
+    stack = random_mlx(4, 64, 2880, 2880, gen, dev, (32,))
+    oss_ok = (not tq.qmm_kernel_route(t) and k5.launches == before
+              and err <= tol and k5.experts_kernel_route(stack))
+    print(f"  route rule K5 at gpt-oss-20b's K=2880, 4 bits g=64: "
+          f"qmm_kernel_route {tq.qmm_kernel_route(t)}, dequantize route vs "
+          f"K5's plain version max_abs_err={err:.3e} tol={tol:.3e}; "
+          f"experts_kernel_route([32, 2880, 2880]) "
+          f"{k5.experts_kernel_route(stack)} "
+          f"{'ok' if oss_ok else 'MISMATCH'}", flush=True)
+    ok = ok and oss_ok
+    del stack
     # K1 / K2: a 4-bit triple of group 24 folds per-channel under w4grp
     rng = np.random.default_rng(SEED + 16)
     w = rng.integers(0, 2**32, (256, 96 * 4 // 32), dtype=np.uint32)
@@ -2052,14 +2096,16 @@ def _processor(name_ids: bool = False, model=None):
     Qwen2-VL processor with `model`'s image processor, patch 16 for
     Qwen3-VL and 14 otherwise) over utils/testing.py's ByteTokenizer with
     the family's special tokens (Llama-3.1's, LLaVA-1.5's, Gemma's and
-    PaliGemma's, Mixtral's, OLMoE's, Phi-3.5-MoE's and Granite 3.0's ids,
+    PaliGemma's, Mixtral's, OLMoE's, Phi-3.5-MoE's, Granite 3.0's, gpt-oss's
+    and phi-2's ids,
     else Qwen2-VL's; PaliGemma's processor writes its prompt as
     transformers' does); with `name_ids`, its decode writes every id as
     "<id>", so
     that a text shows each token that random weights generate (most ids
     are not bytes)."""
     from mlx_vlm_tpu_torch.utils.processing import processor_for
-    from mlx_vlm_tpu_torch.utils.testing import (LLAMA3_SPECIAL_TOKENS,
+    from mlx_vlm_tpu_torch.utils.testing import (CLASSIC_SPECIAL_TOKENS,
+                                                 LLAMA3_SPECIAL_TOKENS,
                                                  LLAVA_SPECIAL_TOKENS,
                                                  MOE_TEXT_SPECIAL_TOKENS,
                                                  PALIGEMMA_SPECIAL_TOKENS,
@@ -2075,7 +2121,8 @@ def _processor(name_ids: bool = False, model=None):
                           "<|end_of_text|>"),
                 "llava": (LLAVA_SPECIAL_TOKENS, "</s>", "<pad>"),
                 "paligemma": gemma, "gemma": gemma, "gemma2": gemma,
-                **MOE_TEXT_SPECIAL_TOKENS}.get(kind, ())
+                **MOE_TEXT_SPECIAL_TOKENS,
+                **CLASSIC_SPECIAL_TOKENS}.get(kind, ())
     tok = (NamingTokenizer if name_ids else ByteTokenizer)(*specials)
     return processor_for(tok, model)
 
@@ -2309,6 +2356,12 @@ MOE_TEXT_PHASE3 = {
 }
 
 
+# gpt-oss-20b's decoder layers in phase 4 ((o1)-(o3)), of its published
+# 24: two sliding and two full, its widths whole; phase 3 holds its first
+# 2 (one of each) to the CPU
+GPT_OSS_LAYERS = 4
+
+
 def qwen3_vl_moe_from_text(text: tuple, vision: tuple) -> tuple:
     """Qwen3-VL-30B-A3B's checkpoint at MOE_LAYERS decoder layers from
     Qwen3-30B-A3B's (`text`: the same language-model widths, so the same
@@ -2351,15 +2404,18 @@ def family_checkpoints() -> dict:
     `qwen3_vl_moe_from_text`), "llama_3_1_8b" (seed SEED + 9),
     "llava_1_5_7b" (seed SEED + 10), "mixtral_8x7b" (MIXTRAL_LAYERS
     layers, 8-bit routers, seed SEED + 12), MOE_TEXT_PHASE3's (8-bit
-    routers), "paligemma2_3b" (seed SEED + 17) and "paligemma_3b"
-    (seed SEED + 18) with their text models as
+    routers), "gpt_oss_20b" (gpt-oss-20b at GPT_OSS_LAYERS decoder layers,
+    its expert stacks in the mlx layout, seed SEED + 19), "phi_2" (phi-2 at
+    its 32 layers, seed SEED + 20), "paligemma2_3b" (seed SEED + 17) and
+    "paligemma_3b" (seed SEED + 18) with their text models as
     text-only checkpoints "gemma2_2b" and "gemma_2b" (the same arrays,
     `gemma_text_of`), and "qwen2_vl_7b_8bit" (Qwen2-VL-7B at 8 bits,
     request (h)'s, seed SEED + 3).  Each is (config, weights)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mlx_vlm_tpu_torch.utils import testing
-    from mlx_vlm_tpu_torch.utils.testing import (is_vision_key,
+    from mlx_vlm_tpu_torch.utils.testing import (gpt_oss_20b_config,
+                                                 is_vision_key,
                                                  llama_3_1_8b_config,
                                                  llava_1_5_7b_config,
                                                  mixtral_8x7b_config,
@@ -2367,6 +2423,7 @@ def family_checkpoints() -> dict:
                                                  mlx_quantized_checkpoint,
                                                  paligemma2_3b_224_config,
                                                  paligemma_3b_224_config,
+                                                 phi_2_config,
                                                  qwen2_5_vl_7b_config,
                                                  qwen2_vl_7b_config,
                                                  qwen3_30b_a3b_config,
@@ -2375,6 +2432,8 @@ def family_checkpoints() -> dict:
 
     def at_depth(cfg: dict, n_layers: int) -> dict:
         cfg["num_hidden_layers"] = n_layers
+        if "layer_types" in cfg:
+            cfg["layer_types"] = cfg["layer_types"][:n_layers]
         return cfg
 
     builds = {
@@ -2402,6 +2461,9 @@ def family_checkpoints() -> dict:
             paligemma2_3b_224_config(), seed=SEED + 17),
         "paligemma_3b": lambda: mlx_int4_checkpoint(
             paligemma_3b_224_config(), seed=SEED + 18),
+        "gpt_oss_20b": lambda: mlx_int4_checkpoint(
+            at_depth(gpt_oss_20b_config(), GPT_OSS_LAYERS), seed=SEED + 19),
+        "phi_2": lambda: mlx_int4_checkpoint(phi_2_config(), seed=SEED + 20),
     }
     for name, (config, n_layers, seed) in MOE_TEXT_PHASE3.items():
         builds[name] = (lambda c=config, n=n_layers, sd=seed:
@@ -2431,6 +2493,7 @@ def family_checkpoints() -> dict:
           f"Qwen3-VL-30B-A3B's tower, Llama-3.1-8B, LLaVA-1.5-7B, "
           f"Mixtral-8x7B at {MIXTRAL_LAYERS} layers, "
           f"{', '.join(MOE_TEXT_PHASE3)}, PaliGemma2-3B, PaliGemma-3B, "
+          f"gpt-oss-20b at {GPT_OSS_LAYERS} layers, phi-2, "
           f"Qwen2-VL-7B at 8 bits) built in "
           f"{time.perf_counter() - t0:.1f} s on {len(builds)} threads",
           flush=True)
@@ -3243,7 +3306,28 @@ FAMILY_CASES = (
     ("Gemma-2-2B text, exact (K5)", "gemma2_2b", 2, "exact",
      "QuantizedTensor", "float32", 2),
     ("Gemma-2B text, w8chan", "gemma_2b", 2, None, "ChannelQuantizedTensor",
-     "float32", 2))
+     "float32", 2)) + (
+    # gpt-oss-20b at its published widths, 2 decoder layers (one sliding,
+    # one full; sinks on), exact: K5 on o and the experts (q / k / v, the
+    # router and the head take the dequantize route at K = 2880), held to
+    # a bf16 CPU run as Qwen3-30B-A3B is (top-4 of 32 near-ties); phi-2 at
+    # its widths, 2 layers, exact; Llama-3.1-8B at 1 layer, exact, with a
+    # rank-16 LoRA and DoRA on q / v (FAMILY_ADAPTERS)
+    ("gpt-oss-20b, exact (K5: o, experts)", "gpt_oss_20b", 2, "exact",
+     "QuantizedTensor", "bfloat16", 2),
+    ("phi-2, exact (K5)", "phi_2", 2, "exact", "QuantizedTensor", "float32",
+     2),
+    ("Llama-3.1-8B + LoRA r16 on q / v, exact (K5)", "llama_3_1_8b", 1,
+     "exact", "QuantizedTensor", "float32", 2),
+    ("Llama-3.1-8B + DoRA r16 on q / v, exact (K5)", "llama_3_1_8b", 1,
+     "exact", "QuantizedTensor", "float32", 2))
+# FAMILY_CASES whose models carry an adapter (label -> DoRA), and the
+# cases whose K5 launches `k5_linears` counts from the loaded tree
+FAMILY_ADAPTERS = {"Llama-3.1-8B + LoRA r16 on q / v, exact (K5)": False,
+                   "Llama-3.1-8B + DoRA r16 on q / v, exact (K5)": True}
+COUNTED_CASES = ("gpt-oss-20b, exact (K5: o, experts)", "phi-2, exact (K5)",
+                 *FAMILY_ADAPTERS)
+ADAPTER_RANK = 16
 # the FAMILY_CASES whose models also take phase 3's clip (label -> the
 # family's name): Qwen2.5-VL's window tower and scaled times, Qwen3-VL's
 # timestamped frame groups
@@ -3256,7 +3340,8 @@ FAMILY_IMAGE = {"llama_3_1_8b": None, "llava_1_5_7b": 336,
                 "qwen3_30b_a3b": None, "qwen1_5_moe_a2_7b": None,
                 "mixtral_8x7b": None, "olmoe_1b_7b": None,
                 "phi_3_5_moe": None, "granite_3_0_3b_a800m": None,
-                "gemma2_2b": None, "gemma_2b": None}
+                "gemma2_2b": None, "gemma_2b": None, "gpt_oss_20b": None,
+                "phi_2": None}
 
 
 def vision_depth(model) -> int:
@@ -3265,7 +3350,52 @@ def vision_depth(model) -> int:
     return getattr(vc, "depth", getattr(vc, "num_hidden_layers", 0))
 
 
-def family_want(label: str, lm, n_steps: int) -> dict:
+def k5_linears(lp: dict) -> tuple:
+    """({K5 counter: launches a layer}, {counter: launches a head}) of one
+    forward of a language model's tree `lp`: every 2-D mlx weight of layer
+    0 that K5's route rule takes (a DoRA's base is dequantized instead; an
+    expert stack is 3-D), and the head (the untied `lm_head`, else a tied
+    table) likewise."""
+    from mlx_vlm_tpu_torch.core.quant import QuantizedTensor, qmm_kernel_route
+    from mlx_vlm_tpu_torch.models.base import layer_view
+
+    def routed(p, out):
+        w = p.get("weight")
+        if (isinstance(w, QuantizedTensor) and "dora_m" not in p
+                and qmm_kernel_route(w)):
+            key = f"qmatmul_int{w.bits}"
+            out[key] = out.get(key, 0) + 1
+
+    per, head = {}, {}
+
+    def walk(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                routed(v, per)
+                walk(v)
+
+    walk(layer_view(lp["model"]["layers"], 0))
+    mp = lp["model"]
+    routed(lp.get("lm_head") or mp.get("embed_tokens") or mp.get("wte")
+           or {}, head)
+    return per, head
+
+
+def gpt_oss_experts_want(want: dict, n_layers: int, forwards: int) -> dict:
+    """gpt-oss's expert layers over `forwards` forward passes: one
+    expert-indexed launch a projection on the decode route, and on the
+    prefill route (core/moe.py `stats`) one a projection and expert with
+    rows, since K5's 2-D rule refuses each [2880, 2880] slice at 4 bits
+    and the route takes the expert-indexed entry instead."""
+    from mlx_vlm_tpu_torch.core import moe
+
+    want["qmatmul_experts"] = 3 * (n_layers * forwards
+                                   - moe.stats["grouped_calls"]
+                                   + moe.stats["grouped_experts"])
+    return want
+
+
+def family_want(label: str, lm, n_steps: int, lp=None) -> dict:
     """Launches of FAMILY_CASES' teacher-forced run (one unpadded prefill
     chunk with its head at M = 1, then n_steps - 1 decode steps): on the
     fused route K1 for the chunk's linears, K2 for its head and K3 each
@@ -3273,9 +3403,18 @@ def family_want(label: str, lm, n_steps: int) -> dict:
     step; w8chan no kernel (K4 takes no chunk this short).  The MoE
     models (Qwen3-VL-MoE and the text MoE decoders): their expert layers
     by `moe_want`, and in exact K5 on the 4 attention linears and the head
-    (4 bits) and the router (8 bits)."""
+    (4 bits) and the router (8 bits).  COUNTED_CASES (gpt-oss, phi-2,
+    the adapted Llamas): K5 on what `k5_linears` finds in the tree `lp`,
+    gpt-oss's experts by `gpt_oss_experts_want`."""
     want = {k: 0 for k in read_counts()}
     L = lm.args.num_hidden_layers
+    if label in COUNTED_CASES:
+        per, head = k5_linears(lp)
+        for k in set(per) | set(head):
+            want[k] = n_steps * (L * per.get(k, 0) + head.get(k, 0))
+        if lm.args.model_type == "gpt_oss":
+            gpt_oss_experts_want(want, L, n_steps)
+        return want
     if hasattr(lm, "top_k"):  # the MoE language model
         want = moe_want(want, L, n_steps)
         if "exact" in label:
@@ -3287,6 +3426,45 @@ def family_want(label: str, lm, n_steps: int) -> dict:
     elif "exact" in label:
         want["qmatmul_int4"] = n_steps * (7 * L + 1)
     return want
+
+
+def card_adapter(model, dora: bool, seed: int) -> dict:
+    """A rank-ADAPTER_RANK adapter on q_proj / v_proj of every layer of a
+    loaded llama-family model (trainer/lora.py's layout: f32 factors
+    stacked [L, ...], on the CPU), drawn from `seed`: lora_a ~ N(0, 1/K),
+    lora_b ~ N(0, 0.02^2); with `dora`, a magnitude of each base row's
+    norm (its weight dequantized in f32) times 1 + U(-0.1, 0.1)."""
+    import torch
+
+    from mlx_vlm_tpu_torch.core.layers import dense_weight
+
+    gen = torch.Generator().manual_seed(seed)
+    attn = model.params["language_model"]["model"]["layers"]["self_attn"]
+    r, out = ADAPTER_RANK, {}
+    for name in ("q_proj", "v_proj"):
+        w = attn[name]["weight"]
+        L, N, K = w.shape
+        fac = {"lora_a": torch.randn((L, r, K), generator=gen) / K**0.5,
+               "lora_b": torch.randn((L, N, r), generator=gen) * 0.02}
+        if dora:
+            norms = torch.stack([dense_weight(w.layer(i)).float().norm(
+                dim=-1).cpu() for i in range(L)])
+            fac["dora_m"] = norms * (1 + 0.2 * (torch.rand(
+                (L, N), generator=gen) - 0.5))
+        out[f"language_model.model.layers.self_attn.{name}"] = fac
+    return out
+
+
+def attach(model, adapter: dict) -> None:
+    """`adapter` attached to the model's tree on its device
+    (trainer/lora.py `attach_lora`) and its fused route decided again."""
+    from mlx_vlm_tpu_torch.trainer.lora import attach_lora
+    from mlx_vlm_tpu_torch.utils.loader import decide_fused_decode
+
+    model.params = attach_lora(model.params, {
+        p: {k: v.to(model.device) for k, v in fac.items()}
+        for p, fac in adapter.items()})
+    decide_fused_decode(model)
 
 
 def phase_family_parity(ckpts: dict) -> bool:
@@ -3328,6 +3506,11 @@ def phase_family_parity(ckpts: dict) -> bool:
         with env_vars(MLX_VLM_TPU_RUNTIME_QUANT=mode):
             cpu = load_model_from_weights(cfg, weights,
                                           getattr(torch, ref_dtype), "cpu")
+            adapter = None
+            if label in FAMILY_ADAPTERS:
+                adapter = card_adapter(cpu, FAMILY_ADAPTERS[label],
+                                       SEED + 21)
+                attach(cpu, adapter)
             proc = _processor(model=cpu)
             size = FAMILY_IMAGE.get(name, 224)
             prompt = apply_chat_template(proc, cfg, "What is in this image?",
@@ -3346,17 +3529,20 @@ def phase_family_parity(ckpts: dict) -> bool:
             t1 = time.perf_counter()
             gpu = load_model_from_weights(cfg, weights, torch.bfloat16,
                                           "cuda")
+            if adapter is not None:
+                attach(gpu, adapter)
             reset_counts()
             got, _ = teacher_forced_logits(gpu, inputs, forced=toks,
                                            n_steps=n_steps)
             counts = read_counts()
         lm = gpu.language_model
         lp = gpu.params["language_model"]
-        kind = type(lp["model"]["layers"]["self_attn"]["q_proj"]["weight"]
-                    ).__name__
+        layers = lp["model"]["layers"]
+        kind = type(layers.get("self_attn", layers.get("attn"))["q_proj"][
+            "weight"]).__name__
         layout_ok = kind == layout and lm.fused_decode == (
             layout == "Int4GroupedTensor")
-        want = family_want(label, lm, n_steps)
+        want = family_want(label, lm, n_steps, lp)
         counts_ok = counts == want
         ok, err, tol, n_margin = parity_rule(ref, got)
         image = (f"grid {inputs['image_grid_thw'].tolist()}"
@@ -6295,13 +6481,18 @@ def phase_main_path(ckpts: dict) -> dict:
     exact_requests(proc, cfg, weights, ckpts.pop("qwen2_vl_7b_8bit"), total)
     run_qwen2_5_vl(ckpts["qwen2_5_vl_7b"], total)
     run_qwen3_vl(ckpts["qwen3_vl_8b"], total)
+    t0 = time.perf_counter()
+    run_llama_lora(sliced(ckpts["llama_3_1_8b"], 2), total)
+    print(f"  run_llama_lora: {time.perf_counter() - t0:.1f} s", flush=True)
     for run, name in ((run_qwen3_vl_moe, "qwen3_vl_moe_30b_a3b"),
                       (run_llama, "llama_3_1_8b"),
                       (run_llava, "llava_1_5_7b"),
                       (run_qwen3_moe, "qwen3_30b_a3b"),
                       (run_mixtral, "mixtral_8x7b"),
                       (run_paligemma2, "paligemma2_3b"),
-                      (run_paligemma, "paligemma_3b")):
+                      (run_paligemma, "paligemma_3b"),
+                      (run_gpt_oss, "gpt_oss_20b"),
+                      (run_phi_2, "phi_2")):
         t0 = time.perf_counter()
         run(ckpts.pop(name), total)
         print(f"  {run.__name__}: {time.perf_counter() - t0:.1f} s",
@@ -6324,8 +6515,9 @@ def load_timed(name: str, cfg: dict, weights: dict, mode=None):
     with env_vars(MLX_VLM_TPU_RUNTIME_QUANT=mode):
         model = load_model_from_weights(cfg, weights, torch.bfloat16, "cuda")
     lm = model.language_model
-    kind = type(model.params["language_model"]["model"]["layers"]
-                ["self_attn"]["q_proj"]["weight"]).__name__
+    layers = model.params["language_model"]["model"]["layers"]
+    kind = type(layers.get("self_attn", layers.get("attn"))["q_proj"][
+        "weight"]).__name__
     print(f"  {name}: loaded (fold + stack + upload) in "
           f"{time.perf_counter() - t0:.1f} s, {kind} linears, fused route "
           f"{lm.fused_decode}, {lm.args.num_hidden_layers} decoder layers, "
@@ -6899,6 +7091,144 @@ def run_mixtral(ckpt: tuple, total: dict) -> None:
             total, exact=mode == "exact")
         del model
         torch.cuda.empty_cache()
+
+
+def run_gpt_oss(ckpt: tuple, total: dict) -> None:
+    """gpt-oss-20b at its published widths and GPT_OSS_LAYERS of its 24
+    decoder layers (two sliding, window 128, and two full; sinks on every
+    layer), text only.  Exact: (o1) a short chat of 32 tokens; (o2) a
+    ~8.5k-token prompt, 16 tokens (the window and the sinks over a long
+    cache; the experts' prefill route on every layer of every chunk).  The
+    default mode (w8chan linears, router and head; the expert stacks exact
+    on K5): (o3) the short chat, 16 tokens.  Each on its load, each
+    request's launches held to what ran: K5 on o (4 bits; q / k / v, the
+    router and the head take the dequantize route at K = 2880) in exact,
+    the experts by `gpt_oss_experts_want`, and no attention kernel (K4 is
+    refused, K6-K8 by the sinks)."""
+    import torch
+
+    from mlx_vlm_tpu_torch.core import moe
+
+    cfg, weights = ckpt
+    chat = "Write a short story about a lighthouse."
+    for mode, requests in (
+            ("exact", (("(o1) gpt-oss-20b exact, short chat", chat, 32),
+                       ("(o2) gpt-oss-20b exact, ~8.5k-token prompt",
+                        LONG_TEXT, 16))),
+            (None, (("(o3) gpt-oss-20b default, short chat", chat, 16),))):
+        label = "exact" if mode else "default"
+        model = load_timed(f"gpt-oss-20b {label}", cfg, weights, mode=mode)
+        lm = model.language_model
+        L = lm.args.num_hidden_layers
+        lay = model.params["language_model"]["model"]["layers"]
+        experts = lay["mlp"]["experts"]["gate_proj"]["weight"]
+        q = lay["self_attn"]["q_proj"]["weight"]
+        if (type(experts).__name__ != "QuantizedTensor" or experts.bits != 4
+                or tuple(experts.shape[:2]) != (L, 32)
+                or type(q).__name__ != ("QuantizedTensor" if mode else
+                                        "ChannelQuantizedTensor")
+                or lm.is_full != [False, True] * (L // 2)):
+            fail(f"gpt-oss-20b {label} did not load 4-bit expert stacks "
+                 f"[L, 32, ...] beside its mode's linears, sliding and full "
+                 f"layers alternating")
+        proc = _processor(model=model)
+        for name, text, max_tokens in requests:
+            counts, n, S, steps = run_request(
+                model, proc, cfg, name, "per-linear, experts on K5"
+                + (", o on qmatmul_int4" if mode else ""), text, None, 0,
+                max_tokens, None, {})
+            chunks = prefill_chunks(S, max_tokens)
+            want = gpt_oss_experts_want({k: 0 for k in counts}, L,
+                                        chunks + steps)
+            if mode:
+                want["qmatmul_int4"] = L * (chunks + steps)
+            calls, runs = (moe.stats["grouped_calls"],
+                           moe.stats["grouped_experts"])
+            print(f"    {name}: prefill route on {calls} layer calls, {runs} "
+                  f"expert runs", flush=True)
+            if text is LONG_TEXT and calls != L * chunks:
+                fail(f"{name}: the prefill route took {calls} layer calls, "
+                     f"want {L} layers x {chunks} chunks")
+            expect(name, counts, want, total)
+        del model
+        torch.cuda.empty_cache()
+
+
+# (r2)'s prompt: LONG_TEXT's first 1,850 characters, ~1.9k tokens with the
+# chat template, inside phi-2's 2,048 positions
+PHI_2_TEXT = LONG_TEXT[:1850]
+
+
+def run_phi_2(ckpt: tuple, total: dict) -> None:
+    """phi-2 at its published widths and depth (32 layers), exact (K5 on
+    q / k / v / dense / fc1 / fc2 and the biased head): (r1) a short chat of
+    32 tokens; (r2) a ~1.9k-token prompt, 16 tokens.  Each request's
+    launches: K5 on 6 linears a layer of each chunk and step and on each
+    head, nothing else (the classic decoder attends through `sdpa`)."""
+    import torch
+
+    cfg, weights = ckpt
+    model = load_timed("phi-2 (r1), (r2)", cfg, weights, mode="exact")
+    lm = model.language_model
+    L = lm.args.num_hidden_layers
+    head = model.params["language_model"]["lm_head"]
+    if (type(head["weight"]).__name__ != "QuantizedTensor" or L != 32
+            or "bias" not in head or lm.rope_dim != 32):
+        fail("phi-2 did not load exact at 32 layers with its biased head "
+             "and 32 rotated lanes")
+    proc = _processor(model=model)
+    chat = "Write a short story about a lighthouse."
+    for name, text, max_tokens in (
+            ("(r1) phi-2 exact, short chat", chat, 32),
+            ("(r2) phi-2 exact, ~1.9k-token prompt", PHI_2_TEXT, 16)):
+        counts, n, S, steps = run_request(model, proc, cfg, name,
+                                          "per-linear, qmatmul_int4", text,
+                                          None, 0, max_tokens, None, {})
+        chunks = prefill_chunks(S, max_tokens)
+        want = {k: 0 for k in counts}
+        want["qmatmul_int4"] = 6 * L * (chunks + steps) + 1 + steps
+        expect(name, counts, want, total)
+    del model
+    torch.cuda.empty_cache()
+
+
+def run_llama_lora(ckpt: tuple, total: dict) -> None:
+    """Llama-3.1-8B at its published widths and 2 of its 32 layers, exact,
+    with a rank-16 LoRA on q / v written by `save_adapter` and attached by
+    `apply_lora_layers` (trainer/lora.py): (r3) a short chat of 32 tokens,
+    K5 on every base linear and the head (the adapter's rank-16 products
+    are plain matmuls)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mlx_vlm_tpu_torch.trainer.lora import apply_lora_layers, save_adapter
+
+    cfg, weights = ckpt
+    model = load_timed("Llama-3.1-8B (r3)", cfg, weights, mode="exact")
+    where = tempfile.mkdtemp()
+    try:
+        save_adapter(where, card_adapter(model, False, SEED + 22),
+                     {"rank": ADAPTER_RANK})
+        apply_lora_layers(model, where)
+    finally:
+        shutil.rmtree(where)
+    q = model.params["language_model"]["model"]["layers"]["self_attn"][
+        "q_proj"]
+    L = model.language_model.args.num_hidden_layers
+    if tuple(q["lora_a"].shape) != (L, ADAPTER_RANK, 4096) or not \
+            q["lora_a"].is_cuda:
+        fail("(r3): the adapter did not attach on the card")
+    proc = _processor(model=model)
+    name = "(r3) Llama-3.1-8B exact + LoRA r16 on q / v, short chat"
+    counts, n, S, steps = run_request(
+        model, proc, cfg, name, "per-linear, qmatmul_int4, LoRA",
+        "Write a short story about a lighthouse.", None, 0, 32, None, {})
+    expect(name, counts, exact_want(counts, L, prefill_chunks(S, 32), 1,
+                                    steps), total)
+    del model
+    torch.cuda.empty_cache()
 
 
 def exact_requests(proc, cfg4: dict, weights4: dict, ckpt8: tuple,

@@ -15,12 +15,13 @@ device, written by index (`insert_row`) and never read on the host.
 Unlike the reference's immutable arrays, writes happen IN PLACE at rows
 offset + arange(S) (each row at its own cursor for a [B] cursor), by
 index: `update_layer` and each cache's `attend(layer, q, k, v, scale,
-mask, flash_ok=True, logit_softcap=None)` mutate the buffers they are
-given, and `advance` adds to the cursor in place.  As in the reference,
-`flash_ok` False keeps a prefill chunk off K4 (a decoder whose mask K4
-cannot express), and a soft-cap (gemma2's) keeps every kernel off: K4 and
-K6 take no soft-cap, so the capped scores go through the plain routes
-(`sdpa`, `_integer_attend`).  Nothing here reads the cursor on the host,
+mask, flash_ok=True, logit_softcap=None, sinks=None)` mutate the buffers
+they are given, and `advance` adds to the cursor in place.  As in the
+reference, `flash_ok` False keeps a prefill chunk off K4 (a decoder whose
+mask K4 cannot express), and a soft-cap (gemma2's) or attention sinks
+(gpt-oss's, :132, :719-722, :889, :946-948) keep every kernel off: K4 and
+K6 take neither, so such scores go through the plain routes (`sdpa`,
+`_integer_attend`).  Nothing here reads the cursor on the host,
 so a decode step can be captured in a CUDA graph and replayed; the
 capacity is checked by the caller, which knows every position it will
 write (generate/ar.py `check_capacity`, generate/batch.py's cap on
@@ -46,6 +47,7 @@ from typing import Optional
 
 import torch
 
+from ..ops.attention import softmax_with_sinks
 from .quant import (QuantizedTensor, _check_bits, dequantize, dtype_name,
                     quantize)
 
@@ -168,22 +170,24 @@ class KVCache:
 
     def attend(self, layer: int, q, k, v, scale: float, mask,
                flash_ok: bool = True,
-               logit_softcap: Optional[float] = None) -> torch.Tensor:
+               logit_softcap: Optional[float] = None,
+               sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Write this layer's new k/v at `offset` (in place) and attend.
 
         Prefill chunks that pass `flash_eligible` go through the flash
-        kernel, when `flash_ok` and no soft-cap; decode and other shapes
-        use `sdpa` with `mask`."""
+        kernel, when `flash_ok` and neither a soft-cap nor sinks; decode
+        and other shapes use `sdpa` with `mask`."""
         from ..ops.attention import sdpa
 
         k_buf, v_buf = self.k[layer], self.v[layer]
         update_layer(k_buf, v_buf, k, v, self.offset)
-        if flash_ok and logit_softcap is None and flash_eligible(q, k_buf):
+        if (flash_ok and logit_softcap is None and sinks is None
+                and flash_eligible(q, k_buf)):
             from ..ops.flash_attention import flash_attention
 
             off = self.offset.expand(q.shape[0])
             return flash_attention(q, k_buf, v_buf, off, self.left_pad, scale)
-        return sdpa(q, k_buf, v_buf, scale, mask, logit_softcap)
+        return sdpa(q, k_buf, v_buf, scale, mask, logit_softcap, sinks)
 
 
 def init_cache(num_layers: int, batch_size: int, num_kv_heads: int,
@@ -333,7 +337,8 @@ class QuantizedKVCache:
 
     def attend(self, layer: int, q, k, v, scale: float, mask,
                flash_ok: bool = True,
-               logit_softcap: Optional[float] = None) -> torch.Tensor:
+               logit_softcap: Optional[float] = None,
+               sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
         from ..ops.attention import sdpa
 
         kq, ks, kb = self.kq[layer], self.ks[layer], self.kb[layer]
@@ -345,7 +350,7 @@ class QuantizedKVCache:
         update_layer(kb, vb, kn.biases, vn.biases, self.offset)
         k_full = self._dequantize(kq, ks, kb, q.dtype)
         v_full = self._dequantize(vq, vs, vb, q.dtype)
-        return sdpa(q, k_full, v_full, scale, mask, logit_softcap)
+        return sdpa(q, k_full, v_full, scale, mask, logit_softcap, sinks)
 
 
 def init_quantized_cache(num_layers: int, batch_size: int, num_kv_heads: int,
@@ -388,12 +393,13 @@ def quantize_query(q: torch.Tensor):
 
 def _integer_attend(q8, qs, qsum, k_codes, ks, kb, v_codes, vs, vb,
                     scale: float, mask, dtype,
-                    logit_softcap: Optional[float] = None) -> torch.Tensor:
+                    logit_softcap: Optional[float] = None,
+                    sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The reference's integer-domain attend (Int8KVCache.attend and
     Int4KVCache's XLA route): per-token affine codes, scores
     qs * (ks * (q8 . k) + kb * sum(q8)) * scale, soft-capped when asked,
-    masked to f32 min, a plain
-    softmax, the value scale folded into the probabilities (rounded to
+    masked to f32 min, a plain softmax (with the sinks' column when given,
+    :719-722), the value scale folded into the probabilities (rounded to
     `dtype`) and the value bias added as a rank-1 term.
 
     q8/qs/qsum from quantize_query; k/v codes [B, nkv, C, D] as f32
@@ -414,7 +420,7 @@ def _integer_attend(q8, qs, qsum, k_codes, ks, kb, v_codes, vs, vb,
             m = (m.reshape(B, nkv, g, S, -1) if m.shape[1] == nh
                  else m[:, :, None])
         scores = scores.masked_fill(~m, _F32_MIN)
-    p = torch.softmax(scores, dim=-1)
+    p = softmax_with_sinks(scores, sinks)
     pv = (p * vs[:, :, None, None, :]).to(dtype).float()
     out = torch.einsum("bkgst,bktd->bkgsd", pv, v_codes.to(dtype).float())
     out = out + torch.einsum("bkgst,bkt->bkgs", p, vb)[..., None]
@@ -468,7 +474,8 @@ class Int8KVCache:
 
     def attend(self, layer: int, q, k, v, scale: float, mask,
                flash_ok: bool = True,
-               logit_softcap: Optional[float] = None) -> torch.Tensor:
+               logit_softcap: Optional[float] = None,
+               sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
         k8, ks, kb = self.k8[layer], self.ks[layer], self.kb[layer]
         v8, vs, vb = self.v8[layer], self.vs[layer], self.vb[layer]
         kn8, kns, knb = self._quantize_tokens(k)
@@ -478,7 +485,8 @@ class Int8KVCache:
         _update_scalar(kb, vb, knb, vnb, self.offset)
         q8, qs, qsum = quantize_query(q)
         return _integer_attend(q8, qs, qsum, k8.float(), ks, kb, v8.float(),
-                               vs, vb, scale, mask, q.dtype, logit_softcap)
+                               vs, vb, scale, mask, q.dtype, logit_softcap,
+                               sinks)
 
 
 def _cache_planes(num_layers, batch_size, num_kv_heads, capacity, width,
@@ -508,15 +516,19 @@ def init_int8_cache(num_layers: int, batch_size: int, num_kv_heads: int,
                        left_pad=cursor(left_pad, batch_size, device))
 
 
-def int4_kv_route(S: int, D: int) -> bool:
+def int4_kv_route(S: int, D: int, logit_softcap: Optional[float] = None,
+                  sinks: Optional[torch.Tensor] = None) -> bool:
     """A 4-bit cache's attend runs K6 for a decode step (S == 1) with a head
     dim that is a multiple of 8, so that each token's D/2 code bytes are
-    whole 32-bit words for the kernel; other steps take the integer-domain
-    attend (`_integer_attend`).  The reference's own rule ((D/2) % 128 == 0,
+    whole 32-bit words for the kernel, and neither a soft-cap nor sinks
+    (the kernel takes neither; the reference's rule refuses both, :889);
+    other steps take the integer-domain attend (`_integer_attend`).  The
+    reference's own rule ((D/2) % 128 == 0,
     C % 128 == 0, g * S <= 8: cache.py:887-892), which sends even D = 128
     to that route, holds Mosaic tiling and row padding limits of its TPU
     kernel, which the port's kernel does not have."""
-    return S == 1 and D % 8 == 0
+    return (S == 1 and D % 8 == 0 and logit_softcap is None
+            and sinks is None)
 
 
 @dataclasses.dataclass
@@ -531,8 +543,9 @@ class Int4KVCache:
     code * s + b, codes 0..15)
 
     A decode step runs K6 (ops/int4_kv_attention.py) on the packed codes,
-    unless a soft-cap keeps it off; prefill takes the integer-domain attend
-    with the unpack materialized (the reference's XLA route)."""
+    unless a soft-cap or sinks keep it off (`int4_kv_route`); prefill takes
+    the integer-domain attend with the unpack materialized (the reference's
+    XLA route)."""
 
     k4: torch.Tensor
     ks: torch.Tensor
@@ -565,7 +578,8 @@ class Int4KVCache:
 
     def attend(self, layer: int, q, k, v, scale: float, mask,
                flash_ok: bool = True,
-               logit_softcap: Optional[float] = None) -> torch.Tensor:
+               logit_softcap: Optional[float] = None,
+               sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
         from ..ops.int4_kv_attention import int4_kv_decode_attention
 
         k4, ks, kb = self.k4[layer], self.ks[layer], self.kb[layer]
@@ -579,10 +593,10 @@ class Int4KVCache:
         B, nh, S, D = q.shape
         nkv, C = k4.shape[1], k4.shape[2]
         q8, qs, qsum = quantize_query(q)
-        if logit_softcap is not None or not int4_kv_route(S, D):
+        if not int4_kv_route(S, D, logit_softcap, sinks):
             return _integer_attend(q8, qs, qsum, self._unpack(k4), ks, kb,
                                    self._unpack(v4), vs, vb, scale, mask,
-                                   q.dtype, logit_softcap)
+                                   q.dtype, logit_softcap, sinks)
         BH, g = B * nkv, nh // nkv
         off = self.offset + S
         if off.dim() == 1:  # per-row cursors: one per (row, KV head)

@@ -4,6 +4,16 @@ Port of mlx_vlm_tpu/core/layers.py.  Parameters are nested dicts whose keys
 mirror the HF safetensors names; each layer takes its parameter subtree as
 the first argument.  Norms and softmax accumulate in f32; matmuls run in the
 input dtype with f32 accumulation.
+
+`linear` takes the adapters that trainer/lora.py attaches beside a weight
+(reference :69-100): LoRA factors (`lora_a` [r, in], `lora_b` [out, r],
+the scale folded into `lora_b`) add (x A^T) B^T to the base product, which
+keeps its own route (K1 / K2 / K5 or w8chan); the two rank-r products are
+plain matmuls, as the reference computes them outside Pallas.  DoRA (a
+`dora_m` [out] magnitude beside the factors) dequantizes the base, adds
+B A in f32 and scales each output row by m / ||W + B A||, a dense product
+as in the reference.  Stacked factors [L, r, in] slice with the layer
+(`models/base.py` `layer_view`).
 """
 
 from __future__ import annotations
@@ -48,14 +58,42 @@ def _matmul_wT(x: torch.Tensor, w) -> torch.Tensor:
     return torch.matmul(x, w.to(x.dtype).transpose(-1, -2))
 
 
+def dense_weight(w) -> torch.Tensor:
+    """A linear's weight [.., out, in] as a dense tensor: quantized layouts
+    dequantized in their own dtype, a dense one as it is."""
+    if isinstance(w, QuantizedTensor):
+        return dequantize(w)
+    if isinstance(w, ChannelQuantizedTensor):
+        dt = w.dtype
+        return (w.q8.to(dt) * w.scales.to(dt)
+                + w.biases.to(dt)).transpose(-1, -2)
+    if isinstance(w, Int4GroupedTensor):
+        from .quant import int4_grouped_dequantize
+
+        if w.qp.dim() != 2:
+            raise NotImplementedError("a stacked w4grp weight under DoRA")
+        return int4_grouped_dequantize(w)
+    return w
+
+
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """HF Linear: y = x @ W.T + b.  p = {"weight": [out, in], "bias"?: [out]}."""
-    if "lora_a" in p or "dora_m" in p:
-        raise NotImplementedError("LoRA / DoRA adapters are not ported")
-    y = _matmul_wT(x, p["weight"])
+    """HF Linear: y = x @ W.T + b.  p = {"weight": [out, in], "bias"?: [out]}
+    and, when an adapter is attached, LoRA's `lora_a` / `lora_b` or DoRA's
+    with `dora_m` (module docstring)."""
+    if "dora_m" in p:
+        delta = torch.einsum("...or,...ri->...oi", p["lora_b"].float(),
+                             p["lora_a"].float())
+        adapted = dense_weight(p["weight"]).float() + delta
+        norm = torch.sqrt(adapted.square().sum(dim=-1) + 1e-12)
+        y = _matmul_wT(x, adapted) * (p["dora_m"].float() / norm).to(x.dtype)
+    else:
+        y = _matmul_wT(x, p["weight"])
     b = p.get("bias")
     if b is not None:
         y = y + b.to(y.dtype)
+    if "lora_a" in p and "dora_m" not in p:
+        z = _matmul_wT(x, p["lora_a"])  # [..., r]
+        y = y + _matmul_wT(z, p["lora_b"])
     return y
 
 

@@ -62,7 +62,12 @@ def llama3_inv_freq(dim: int, base: float, scaling: dict) -> np.ndarray:
 
 def yarn_inv_freq(dim: int, base: float, scaling: dict) -> tuple:
     """YaRN (reference :62): (inv_freq, the attention scaling that
-    multiplies cos and sin)."""
+    multiplies cos and sin).  The correction range's ends are rounded
+    (floor of the low end, ceil of the high end) only when
+    scaling["truncate"] is true or absent, as transformers does
+    (`_compute_yarn_parameters`); the reference always rounds, which
+    moves gpt-oss's range (its config sets `truncate: false`) from
+    8.09-17.40 to 8-18 (ROADMAP Queue 3, divergences)."""
     factor = scaling.get("factor", 1.0)
     orig_max = scaling.get("original_max_position_embeddings", 4096)
     beta_fast = scaling.get("beta_fast", 32.0)
@@ -74,8 +79,10 @@ def yarn_inv_freq(dim: int, base: float, scaling: dict) -> tuple:
         return (dim * math.log(orig_max / (num_rot * 2 * math.pi))) / (
             2 * math.log(base))
 
-    low = max(math.floor(find_dim(beta_fast)), 0)
-    high = min(math.ceil(find_dim(beta_slow)), dim - 1)
+    low, high = find_dim(beta_fast), find_dim(beta_slow)
+    if scaling.get("truncate", True):
+        low, high = math.floor(low), math.ceil(high)
+    low, high = max(low, 0), min(high, dim - 1)
 
     inv_extra = default_inv_freq(dim, base) / factor
     inv_inter = default_inv_freq(dim, base)

@@ -17,7 +17,8 @@ Decode attention (S == 1) runs on the packed codes through
 ops/tq_kv_attention.py (K7 for `TurboQuantKVCache`, K8 for the split
 cache) with the query rotated once outside; `MLX_VLM_TPU_TQ_FUSED=0` takes
 the dequantize + `sdpa` route instead, as in the reference, and so does
-a soft-capped attend (the kernels take no soft-cap).  The caches
+a soft-capped attend or one with attention sinks (the kernels take
+neither; the reference's rules :278, :482).  The caches
 write in place by index at their device cursor `offset`, like `KVCache`,
 and hand the kernels the cursor and the device codebooks (`_codebook`), so
 that a decode step reads nothing on the host.
@@ -279,7 +280,8 @@ class TurboQuantKVCache:
 
     def attend(self, layer: int, q, k, v, scale: float, mask,
                flash_ok: bool = True,
-               logit_softcap: Optional[float] = None) -> torch.Tensor:
+               logit_softcap: Optional[float] = None,
+               sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
         from ..ops.attention import sdpa
         from ..ops.tq_kv_attention import tq_kv_decode_attention
 
@@ -294,7 +296,7 @@ class TurboQuantKVCache:
         B, nh, S, _ = q.shape
         nkv, C = kq.shape[1], kq.shape[2]
         if (S == 1 and p2 % 8 == 0 and logit_softcap is None
-                and fused_route_on()):
+                and sinks is None and fused_route_on()):
             BH = B * nkv
             out = tq_kv_decode_attention(
                 _group_rows(_rotate_padded(q, signs), nkv),
@@ -311,7 +313,7 @@ class TurboQuantKVCache:
                                    self.head_dim, q.dtype)
         v_full = tq_decode_headdim(vq, vsc, self.v_bits, signs,
                                    self.head_dim, q.dtype)
-        return sdpa(q, k_full, v_full, scale, mask, logit_softcap)
+        return sdpa(q, k_full, v_full, scale, mask, logit_softcap, sinks)
 
 
 def init_turboquant_cache(num_layers: int, batch_size: int,
@@ -370,7 +372,8 @@ class SplitTurboQuantKVCache:
 
     def attend(self, layer: int, q, k, v, scale: float, mask,
                flash_ok: bool = True,
-               logit_softcap: Optional[float] = None) -> torch.Tensor:
+               logit_softcap: Optional[float] = None,
+               sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
         from ..ops.attention import sdpa
         from ..ops.tq_kv_attention import tq_kv_decode_attention_split
 
@@ -390,7 +393,8 @@ class SplitTurboQuantKVCache:
         nkv, C = kqa.shape[1], kqa.shape[2]
         da = p2 - self.d_hi
         if (S == 1 and da % 8 == 0 and self.d_hi % 8 == 0
-                and logit_softcap is None and fused_route_on()):
+                and logit_softcap is None and sinks is None
+                and fused_route_on()):
             BH = B * nkv
             out = tq_kv_decode_attention_split(
                 _group_rows(_rotate_padded(q, signs), nkv),
@@ -407,7 +411,7 @@ class SplitTurboQuantKVCache:
                                  self.hi_bits, signs, self.head_dim, q.dtype)
         v_full = tq_decode_split(vqa, vsa, vqb, vsb, self.lo_bits,
                                  self.hi_bits, signs, self.head_dim, q.dtype)
-        return sdpa(q, k_full, v_full, scale, mask, logit_softcap)
+        return sdpa(q, k_full, v_full, scale, mask, logit_softcap, sinks)
 
 
 def init_turboquant_split_cache(num_layers: int, batch_size: int,
@@ -466,11 +470,12 @@ class RotatedInt4KVCache(cache_lib.Int4KVCache):
 
     def attend(self, layer: int, q, k, v, scale: float, mask,
                flash_ok: bool = True,
-               logit_softcap: Optional[float] = None) -> torch.Tensor:
+               logit_softcap: Optional[float] = None,
+               sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
         signs = _signs(q.shape[-1], q.device)
         out = super().attend(layer, _rotate(q, signs), _rotate(k, signs),
                              _rotate(v, signs), scale, mask, flash_ok,
-                             logit_softcap)
+                             logit_softcap, sinks)
         return _unrotate(out, signs)
 
 

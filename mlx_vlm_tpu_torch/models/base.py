@@ -8,6 +8,7 @@ iteration views of the stacked weights.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.quant import (ChannelQuantizedTensor, Int4GroupedTensor,
@@ -29,3 +30,11 @@ def layer_view(tree: dict, i: int) -> dict:
             raise NotImplementedError(
                 f"stacked parameter {k} of type {type(v).__name__}")
     return out
+
+
+def contiguous(v):
+    """A checkpoint array (numpy, or a torch tensor for bf16 data) laid out
+    contiguously, as the loader's stacking and upload take it."""
+    if isinstance(v, torch.Tensor):
+        return v.contiguous()
+    return np.ascontiguousarray(v)

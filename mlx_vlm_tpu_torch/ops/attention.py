@@ -3,10 +3,12 @@
 Port of mlx_vlm_tpu/ops/attention.py (sdpa :23) for boolean masks:
 GQA-aware grouping without repeating KV heads, f32 scores and softmax,
 probabilities cast to the input dtype before the value product, as in the
-reference's einsum formulation, and logit soft-capping (gemma2's
-tanh(scores / cap) * cap on the f32 scores before the mask, :47-48).
-Attention sinks and additive masks (other model families) are not
-ported.
+reference's einsum formulation, logit soft-capping (gemma2's
+tanh(scores / cap) * cap on the f32 scores before the mask, :47-48) and
+attention sinks (gpt-oss's one learned f32 logit per head, :63-70: one
+extra score column after the cap and the mask, in the softmax's
+denominator, its probability then dropped).  Additive masks (other model
+families) are not ported.
 
 `segment_sdpa` is the vision towers' attention within segments (an
 image's frame, a video's frame group, a window): each run of equal-length
@@ -22,17 +24,32 @@ from typing import Optional
 
 import torch
 
-__all__ = ["sdpa", "segment_runs", "segment_sdpa"]
+__all__ = ["sdpa", "softmax_with_sinks", "segment_runs", "segment_sdpa"]
 
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
+def softmax_with_sinks(scores: torch.Tensor,
+                       sinks: Optional[torch.Tensor]) -> torch.Tensor:
+    """Softmax of f32 scores [B, nkv, g, S, C] over the last axis; with
+    `sinks` ([nh] = [nkv * g], one logit per head) each head's sink joins
+    its row as one more column and its probability is dropped, so a row
+    whose keys are all masked gives its mass to the sink."""
+    if sinks is None:
+        return torch.softmax(scores, dim=-1)
+    B, nkv, g, S, _ = scores.shape
+    col = sinks.float().reshape(1, nkv, g, 1, 1).expand(B, nkv, g, S, 1)
+    return torch.softmax(torch.cat([scores, col], dim=-1), dim=-1)[..., :-1]
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
          mask: Optional[torch.Tensor] = None,
-         logit_softcap: Optional[float] = None) -> torch.Tensor:
+         logit_softcap: Optional[float] = None,
+         sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [B, nh, S, D]; k/v [B, nkv, C, D]; mask bool (True = attend)
     broadcastable to [B, nh, S, C]; `logit_softcap` caps the scaled
-    scores.  Returns [B, nh, S, D] in q.dtype."""
+    scores; `sinks` [nh] f32 sink logits (`softmax_with_sinks`).  Returns
+    [B, nh, S, D] in q.dtype."""
     B, nh, S, D = q.shape
     nkv = k.shape[1]
     groups = nh // nkv
@@ -49,7 +66,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
         if m.dim() == 4:  # [B, 1 or nh, S, C] -> group layout
             m = m[:, :, None] if m.shape[1] == 1 else m.reshape(B, nkv, groups, S, -1)
         scores = scores.masked_fill(~m, _NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
+    probs = softmax_with_sinks(scores, sinks)
     out = torch.einsum("bkgst,bktd->bkgsd", probs.to(dtype).float(), v.float())
     return out.reshape(B, nh, S, v.shape[-1]).to(dtype)
 

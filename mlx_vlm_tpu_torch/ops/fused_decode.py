@@ -62,6 +62,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import logging
 import math
 from typing import Union
 
@@ -106,10 +107,21 @@ def fused_decode_eligible(params: dict, args, device="cpu") -> bool:
     and each linear's n matches.  `params` is the language model's tree.
     On a `device` other than the CPU the step runs the kernel, so its
     limits (`kernel_refusal`) apply too, as the reference builds no pack on
-    its device for a head_dim the kernel does not take (:205-210)."""
+    its device for a head_dim the kernel does not take (:205-210).  A
+    tree that carries LoRA / DoRA factors (trainer/lora.py) is refused:
+    the kernel reads the base weights alone, where the reference keeps its
+    pack and decodes without the adapter (ROADMAP Queue 3, known
+    faults)."""
     try:
         ws = [p["weight"] for p in _linears(params)]
     except (KeyError, TypeError):
+        return False
+    from ..trainer.lora import has_adapters
+
+    if has_adapters(params):
+        logging.getLogger("mlx_vlm_tpu_torch.loader").warning(
+            "adapter factors attached: the fused decode step (K3) is off, "
+            "every step runs the per-linear path")
         return False
     if not all(isinstance(w, Int4GroupedTensor) and w.qp.dim() == 3
                for w in ws):

@@ -5,8 +5,10 @@ load_config :107, _nest :143, _stack_layers :154, runtime_quant_mode :290,
 _fold_quantized :323, _to_device :375, load_model_from_weights :548,
 load_model :759, load :773) for the qwen2_vl, qwen2_5_vl, qwen3_vl,
 qwen3_vl_moe, llama, llava and paligemma families (PaliGemma's gemma and
-gemma2 text models) and the text MoE decoders (qwen2_moe, which qwen3_moe
-maps to, mixtral, olmoe, phimoe, granitemoe), each picked by its config's
+gemma2 text models), the text MoE decoders (qwen2_moe, which qwen3_moe
+maps to, mixtral, olmoe, phimoe, granitemoe), gpt_oss and the classic
+decoders on models/classic_base.py (gpt2, gpt_neox, gpt_bigcode, phi,
+phixtral, qwen, stablelm, starcoder2, nemotron), each picked by its config's
 model_type (after the reference's remapping, `MODEL_REMAPPING`), and the
 text-only fallback (models/text_only.py) for mistral and the other
 llama-architecture text checkpoints and for gemma and gemma2.
@@ -121,7 +123,9 @@ def load_config(model_path: Path) -> dict:
 PORTED_MODEL_TYPES = ("qwen2_vl", "qwen2_5_vl", "qwen3_vl",
                       "qwen3_vl_moe", "llama", "llava", "paligemma",
                       "qwen2_moe", "mixtral", "olmoe", "phimoe",
-                      "granitemoe")
+                      "granitemoe", "gpt_oss", "gpt2", "gpt_neox",
+                      "gpt_bigcode", "phi", "phixtral", "qwen", "stablelm",
+                      "starcoder2", "nemotron")
 
 # model_type -> module overrides: the reference's entries (:42-75) for the
 # ported families
@@ -379,7 +383,7 @@ def _fold_quantized(flat: dict, qcfg: dict,
         if biases is None:
             biases = np.zeros_like(flat[k]) if isinstance(flat[k], np.ndarray) \
                 else torch.zeros_like(flat[k])
-        is_embed = "embed_tokens" in base or "wte" in base
+        is_embed = any(n in base for n in ("embed_tokens", "wte", "wpe"))
         jobs.append((wk, (w, flat[k], biases, b, g, mode, is_embed)))
         handled.update({wk, k, bk})
     with ThreadPoolExecutor(_fold_workers()) as pool:
@@ -543,7 +547,9 @@ def params_from_jax(model, params: dict) -> dict:
     Int4GroupedTensor / QuantizedTensor / ChannelQuantizedTensor containers
     of numpy fields.
     Containers are recognised by their fields, so the JAX package is not
-    imported.  Every byte and value is kept; tensors land on the CPU.  A
+    imported; adapter factors (`lora_a`, `lora_b`, `dora_m`) and gpt-oss's
+    sinks are dense leaves like any other, and the classic decoders'
+    layers keep their `attn` key.  Every byte and value is kept; tensors land on the CPU.  A
     fused-decode pack (the JAX default for int4 weights) is not part of the
     port's layout: the per-linear layers it replaced are rebuilt from it
     when the tree has none, and the pack is dropped."""
@@ -579,7 +585,9 @@ def params_from_jax(model, params: dict) -> dict:
         raise TypeError(f"{path}: unsupported leaf {type(v).__name__}")
 
     out = convert(params, "")
-    q = out["language_model"]["model"]["layers"]["self_attn"]["q_proj"]["weight"]
+    layers = out["language_model"]["model"]["layers"]
+    q = layers["self_attn" if "self_attn" in layers else "attn"]["q_proj"][
+        "weight"]
     if not isinstance(q, torch.Tensor):
         q = getattr(q, _DATA_FIELDS[type(q)][0])
     n_layers = q.shape[0]

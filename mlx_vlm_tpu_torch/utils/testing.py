@@ -256,10 +256,11 @@ def qwen2_vl_tensor_specs(config: dict) -> list:
 
 
 def _draw(specs: list, rng, scale: float) -> dict:
-    """f32 arrays for `specs`, "rand" ones drawn from `rng` in order."""
+    """f32 arrays for `specs`, "rand" (and "qrand") ones drawn from `rng` in
+    order."""
     w = {}
     for key, shape, fill in specs:
-        if fill == "rand":
+        if fill in ("rand", "qrand"):
             w[key] = (rng.standard_normal(shape) * scale).astype(np.float32)
         else:
             w[key] = (np.ones if fill == "ones" else np.zeros)(shape, np.float32)
@@ -1422,12 +1423,17 @@ def moe_text_tensor_specs(config: dict) -> list:
     return specs
 
 
-def tensor_specs(config: dict) -> list:
+def tensor_specs(config: dict, layout: str = "hf") -> list:
     """(HF key, shape, fill) of every tensor of a checkpoint of
     config["model_type"] (qwen2_vl, qwen2_5_vl, qwen3_vl, qwen3_vl_moe,
     the last in the mlx conversions' fused expert layout; llama, llava,
-    paligemma, gemma, gemma2 and the text MoE types)."""
+    paligemma, gemma, gemma2 and the text MoE types; gpt_oss and
+    CLASSIC_TYPES in `layout`, "hf" or "mlx")."""
     kind = config.get("model_type", "qwen2_vl")
+    if kind == "gpt_oss":
+        return gpt_oss_tensor_specs(config, layout)
+    if kind in CLASSIC_TYPES:
+        return classic_tensor_specs(config, layout)
     if kind == "llama":
         return llama_tensor_specs(config)
     if kind == "paligemma":
@@ -1466,7 +1472,7 @@ def is_vision_key(key: str) -> bool:
 # output), whose quantization `router_bits` sets
 _ROUTER_KEYS = (".mlp.gate.weight", ".block_sparse_moe.gate.weight",
                 ".block_sparse_moe.router.layer.weight",
-                ".mlp.shared_expert_gate.weight")
+                ".mlp.shared_expert_gate.weight", ".mlp.router.weight")
 
 
 def _is_quantized_in_mlx(key: str) -> bool:
@@ -1498,7 +1504,9 @@ def mlx_quantized_checkpoint(config: dict, bits: int = 4, group_size: int = 64,
                              router_bits: Optional[int] = None):
     """(config, weights) of a random `bits`-bit mlx-format checkpoint of
     config["model_type"] (Qwen2-VL, Qwen2.5-VL, Qwen3-VL, Qwen3-VL-MoE,
-    llama, LLaVA, PaliGemma, gemma / gemma2 or one of MOE_TEXT_TYPES; bits
+    llama, LLaVA, PaliGemma, gemma / gemma2, one of MOE_TEXT_TYPES, gpt_oss
+    in the mlx layout with its expert stacks, or one of CLASSIC_TYPES,
+    whose every linear, embedding table and head is quantized; bits
     4 or 8); with
     `vision_only`, the vision tower's tensors alone (drawn from the seed's
     generator in the same way).  With `router_bits`, the MoE families'
@@ -1525,10 +1533,10 @@ def mlx_quantized_checkpoint(config: dict, bits: int = 4, group_size: int = 64,
     rng = np.random.default_rng(seed)
     qcfg = {"group_size": group_size, "bits": bits}
     w = {}
-    for key, shape, fill in tensor_specs(config):
+    for key, shape, fill in tensor_specs(config, "mlx"):
         if vision_only and not is_vision_key(key):
             continue
-        if _is_quantized_in_mlx(key):
+        if fill == "qrand" or _is_quantized_in_mlx(key):
             b = bits
             if router_bits and key.endswith(_ROUTER_KEYS):
                 b = router_bits
@@ -1768,3 +1776,301 @@ def write_drafter_checkpoint(path, config: dict, params: dict,
         arrays[k] = v
     write_safetensors(path / "model.safetensors", arrays, bf16=tuple(bf16))
     (path / "config.json").write_text(json.dumps(config))
+
+
+# ------------------------------------- gpt-oss and the classic decoders
+# special tokens at their public ids (ByteTokenizer's arguments: tokens,
+# EOS, pad): gpt-oss's harmony tokens (o200k_harmony) and phi-2's
+# (GPT-2's <|endoftext|>), which the other classic families' tokenizers
+# also end a text with where their vocabularies hold it
+CLASSIC_SPECIAL_TOKENS = {
+    "gpt_oss": ({"<|startoftext|>": 199998, "<|endoftext|>": 199999,
+                 "<|return|>": 200002, "<|constrain|>": 200003,
+                 "<|channel|>": 200005, "<|start|>": 200006,
+                 "<|end|>": 200007, "<|message|>": 200008,
+                 "<|call|>": 200012}, "<|return|>", "<|endoftext|>"),
+    "phi": ({"<|endoftext|>": 50256}, "<|endoftext|>", "<|endoftext|>"),
+}
+CLASSIC_TYPES = ("gpt2", "gpt_neox", "gpt_bigcode", "phi", "phixtral",
+                 "qwen", "stablelm", "starcoder2", "nemotron")
+
+
+def tiny_gpt_oss_config(**overrides) -> dict:
+    """The JAX package's gpt-oss test model (tests/test_gpt_oss.py:13),
+    copied: 2 layers (sliding, full; window 4), 4 / 2 heads of 8, 4
+    experts of width 24, top-2, vocab 96."""
+    cfg = {
+        "model_type": "gpt_oss", "hidden_size": 32, "num_hidden_layers": 2,
+        "intermediate_size": 24, "num_attention_heads": 4,
+        "num_key_value_heads": 2, "head_dim": 8, "num_local_experts": 4,
+        "num_experts_per_tok": 2, "sliding_window": 4, "rms_norm_eps": 1e-5,
+        "vocab_size": 96, "rope_theta": 150000.0,
+        "layer_types": ["sliding_attention", "full_attention"],
+        "tie_word_embeddings": False,
+    }
+    cfg.update(overrides)
+    return cfg
+
+
+def gpt_oss_20b_config() -> dict:
+    """openai/gpt-oss-20b's published widths (config.json): 24 layers of
+    hidden 2880 alternating sliding (window 128) and full attention, 64 / 8
+    heads of 64 with q / k / v / o biases and sinks, 32 experts of width
+    2880, 4 a token; vocab 201088, rope theta 150000 with YaRN (factor 32
+    over 4096 positions, beta 32 / 1, `truncate: false`), an untied head."""
+    return tiny_gpt_oss_config(
+        hidden_size=2880, num_hidden_layers=24, intermediate_size=2880,
+        num_attention_heads=64, num_key_value_heads=8, head_dim=64,
+        num_local_experts=32, num_experts_per_tok=4, sliding_window=128,
+        rms_norm_eps=1e-5, vocab_size=201088, rope_theta=150000.0,
+        rope_scaling={"rope_type": "yarn", "factor": 32.0,
+                      "beta_fast": 32.0, "beta_slow": 1.0,
+                      "truncate": False,
+                      "original_max_position_embeddings": 4096},
+        layer_types=["sliding_attention", "full_attention"] * 12,
+        max_position_embeddings=131072, tie_word_embeddings=False,
+        attention_bias=True, swiglu_limit=7.0, eos_token_id=200002,
+        pad_token_id=199999)
+
+
+def gpt_oss_tensor_specs(config: dict, layout: str = "hf") -> list:
+    """(key, shape, fill) of a gpt-oss checkpoint: HF's fused interleaved
+    `mlp.experts.gate_up_proj` [E, D, 2I] and `down_proj` [E, I, D] with
+    their biases (`layout` "hf"), or the mlx layout's split stacks
+    `mlp.experts.{gate,up}_proj` [E, I, D] and `down_proj` [E, D, I]
+    ("mlx").  Fill "qrand" marks the weights an mlx conversion quantizes
+    (drawn as "rand" in float checkpoints); norms "ones"."""
+    D, V, I = (config["hidden_size"], config["vocab_size"],
+               config["intermediate_size"])
+    nh, nkv, hd = (config["num_attention_heads"],
+                   config["num_key_value_heads"], config["head_dim"])
+    E = config["num_local_experts"]
+    specs = [("model.embed_tokens.weight", (V, D), "qrand"),
+             ("model.norm.weight", (D,), "ones")]
+    for i in range(config["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        specs += [(p + "input_layernorm.weight", (D,), "ones"),
+                  (p + "post_attention_layernorm.weight", (D,), "ones")]
+        for nm, o, k in (("q_proj", nh * hd, D), ("k_proj", nkv * hd, D),
+                         ("v_proj", nkv * hd, D), ("o_proj", D, nh * hd)):
+            specs += [(p + f"self_attn.{nm}.weight", (o, k), "qrand"),
+                      (p + f"self_attn.{nm}.bias", (o,), "rand")]
+        specs += [(p + "self_attn.sinks", (nh,), "rand"),
+                  (p + "mlp.router.weight", (E, D), "qrand"),
+                  (p + "mlp.router.bias", (E,), "rand")]
+        x = p + "mlp.experts."
+        if layout == "hf":
+            specs += [(x + "gate_up_proj", (E, D, 2 * I), "rand"),
+                      (x + "gate_up_proj_bias", (E, 2 * I), "rand"),
+                      (x + "down_proj", (E, I, D), "rand"),
+                      (x + "down_proj_bias", (E, D), "rand")]
+        else:
+            for nm, o, k in (("gate_proj", I, D), ("up_proj", I, D),
+                             ("down_proj", D, I)):
+                specs += [(x + f"{nm}.weight", (E, o, k), "qrand"),
+                          (x + f"{nm}.bias", (E, o), "rand")]
+    if not config.get("tie_word_embeddings"):
+        specs.append(("lm_head.weight", (V, D), "qrand"))
+    return specs
+
+
+def tiny_classic_config(model_type: str, **overrides) -> dict:
+    """A tiny HF config.json of one of CLASSIC_TYPES: 2 layers of hidden
+    64, 4 heads of 16 (starcoder2 2 KV heads, gpt_bigcode 1), vocab 128,
+    each family's own flags (gpt_neox's and stablelm's rotary 0.25 with
+    stablelm's per-head q / k norms and q / k / v biases, phi's rotary 0.5
+    (phi-2's 0.4 of a 16-wide head would rotate 6 lanes), phixtral's 4
+    experts, top-2, nemotron's linear rope scaling)."""
+    D, L, H, V, P = 64, 2, 4, 128, 256
+    cfg = {
+        "gpt2": {"n_embd": D, "n_layer": L, "n_head": H, "vocab_size": V,
+                 "n_positions": P},
+        "gpt_neox": {"hidden_size": D, "num_hidden_layers": L,
+                     "num_attention_heads": H, "intermediate_size": 128,
+                     "vocab_size": V, "rotary_pct": 0.25,
+                     "use_parallel_residual": True,
+                     "tie_word_embeddings": False},
+        "gpt_bigcode": {"n_embd": D, "n_layer": L, "n_head": H,
+                        "n_inner": 128, "vocab_size": V, "n_positions": P,
+                        "multi_query": True},
+        "phi": {"hidden_size": D, "num_hidden_layers": L,
+                "num_attention_heads": H, "intermediate_size": 128,
+                "vocab_size": V, "partial_rotary_factor": 0.5,
+                "max_position_embeddings": P},
+        "phixtral": {"model_dim": D, "num_layers": L, "num_heads": H,
+                     "num_vocab": V, "rotary_dim": 8,
+                     "num_local_experts": 4, "num_experts_per_tok": 2},
+        "qwen": {"hidden_size": D, "num_hidden_layers": L,
+                 "num_attention_heads": H, "intermediate_size": 256,
+                 "vocab_size": V, "kv_channels": 16},
+        "stablelm": {"hidden_size": D, "num_hidden_layers": L,
+                     "num_attention_heads": H, "num_key_value_heads": H,
+                     "intermediate_size": 128, "vocab_size": V,
+                     "partial_rotary_factor": 0.25,
+                     "use_parallel_residual": False, "qk_layernorm": True,
+                     "use_qkv_bias": True},
+        "starcoder2": {"hidden_size": D, "num_hidden_layers": L,
+                       "num_attention_heads": H, "num_key_value_heads": 2,
+                       "intermediate_size": 128, "vocab_size": V,
+                       "tie_word_embeddings": True},
+        "nemotron": {"hidden_size": D, "num_hidden_layers": L,
+                     "num_attention_heads": H, "num_key_value_heads": 2,
+                     "intermediate_size": 128, "vocab_size": V,
+                     "partial_rotary_factor": 0.5,
+                     "rope_scaling": {"type": "linear", "factor": 2.0}},
+    }[model_type]
+    cfg = {"model_type": model_type, **cfg}
+    cfg.update(overrides)
+    return cfg
+
+
+def phi_2_config() -> dict:
+    """microsoft/phi-2's published widths (config.json): 32 layers of
+    hidden 2560, 32 heads of 80 with a partial rotary of 0.4 (32 lanes),
+    q / k / v / dense biases, an MLP of 10240, vocab 51200, 2048
+    positions, an untied biased head."""
+    return {"model_type": "phi", "hidden_size": 2560,
+            "num_hidden_layers": 32, "num_attention_heads": 32,
+            "num_key_value_heads": 32, "intermediate_size": 10240,
+            "vocab_size": 51200, "max_position_embeddings": 2048,
+            "partial_rotary_factor": 0.4, "rope_theta": 10000.0,
+            "layer_norm_eps": 1e-5, "tie_word_embeddings": False,
+            "hidden_act": "gelu_new", "qk_layernorm": False,
+            "bos_token_id": 50256, "eos_token_id": 50256}
+
+
+def classic_tensor_specs(config: dict, layout: str = "hf") -> list:
+    """(key, shape, fill) of a checkpoint of one of CLASSIC_TYPES in its HF
+    layout ("hf": gpt2's Conv1D [in, out] weights), or as an mlx
+    conversion writes it ("mlx": the same names but for gpt2, whose keys
+    take mlx-lm's "model." prefix and Linear layout).  Fill "qrand" marks
+    the weights an mlx conversion quantizes (every linear, the embedding
+    tables and the head); norm weights "ones", nemotron's (stored as
+    w - 1) and every bias "rand"."""
+    kind = config["model_type"]
+    g = config.get
+
+    def linear(key, o, k, bias=True, conv=False):
+        shape = (k, o) if conv and layout == "hf" else (o, k)
+        return [(key + ".weight", shape, "qrand")] + (
+            [(key + ".bias", (o,), "rand")] if bias else [])
+
+    def norm(key, bias=True, fill="ones"):
+        return [(key + ".weight", (D,), fill)] + (
+            [(key + ".bias", (D,), "rand")] if bias else [])
+
+    specs = []
+    if kind in ("gpt2", "gpt_bigcode"):
+        D, L, H, V, P = (g("n_embd"), g("n_layer"), g("n_head"),
+                         g("vocab_size"), g("n_positions"))
+        I = g("n_inner") or 4 * D
+        kvd = (D // H) * (1 if kind == "gpt_bigcode" and g("multi_query",
+                                                           True) else H)
+        conv = kind == "gpt2"
+        pre = "model." if conv and layout == "mlx" else ""
+        specs += [(pre + "wte.weight", (V, D), "qrand"),
+                  (pre + "wpe.weight", (P, D), "qrand")] + norm(pre + "ln_f")
+        for i in range(L):
+            p = f"{pre}h.{i}."
+            specs += (norm(p + "ln_1") + norm(p + "ln_2")
+                      + linear(p + "attn.c_attn", D + 2 * kvd, D, conv=conv)
+                      + linear(p + "attn.c_proj", D, D, conv=conv)
+                      + linear(p + "mlp.c_fc", I, D, conv=conv)
+                      + linear(p + "mlp.c_proj", D, I, conv=conv))
+        return specs
+    if kind == "gpt_neox":
+        D, L, V, I = (g("hidden_size"), g("num_hidden_layers"),
+                      g("vocab_size"), g("intermediate_size"))
+        specs += [("gpt_neox.embed_in.weight", (V, D), "qrand")]
+        specs += norm("gpt_neox.final_layer_norm")
+        for i in range(L):
+            p = f"gpt_neox.layers.{i}."
+            specs += (norm(p + "input_layernorm")
+                      + norm(p + "post_attention_layernorm")
+                      + linear(p + "attention.query_key_value", 3 * D, D)
+                      + linear(p + "attention.dense", D, D)
+                      + linear(p + "mlp.dense_h_to_4h", I, D)
+                      + linear(p + "mlp.dense_4h_to_h", D, I))
+        if not g("tie_word_embeddings"):
+            specs += [("embed_out.weight", (V, D), "qrand")]
+        return specs
+    if kind == "phixtral":
+        D, L, V, E = (g("model_dim"), g("num_layers"), g("num_vocab"),
+                      g("num_local_experts"))
+        specs += [("transformer.embd.wte.weight", (V, D), "qrand")]
+        for i in range(L):
+            p = f"transformer.h.{i}."
+            specs += (norm(p + "ln") + linear(p + "mixer.Wqkv", 3 * D, D)
+                      + linear(p + "mixer.out_proj", D, D)
+                      + [(p + "moe.gate.weight", (E, D), "qrand")])
+            for e in range(E):
+                specs += (linear(p + f"moe.mlp.{e}.fc1", 4 * D, D)
+                          + linear(p + f"moe.mlp.{e}.fc2", D, 4 * D))
+        return specs + norm("lm_head.ln") + linear("lm_head.linear", V, D)
+    if kind == "qwen":
+        D, L, V = g("hidden_size"), g("num_hidden_layers"), g("vocab_size")
+        I = g("intermediate_size") // 2
+        specs += [("transformer.wte.weight", (V, D), "qrand")]
+        specs += norm("transformer.ln_f", bias=False)
+        for i in range(L):
+            p = f"transformer.h.{i}."
+            specs += (norm(p + "ln_1", bias=False)
+                      + norm(p + "ln_2", bias=False)
+                      + linear(p + "attn.c_attn", 3 * D, D)
+                      + linear(p + "attn.c_proj", D, D, bias=False)
+                      + linear(p + "mlp.w1", I, D, bias=False)
+                      + linear(p + "mlp.w2", I, D, bias=False)
+                      + linear(p + "mlp.c_proj", D, I, bias=False))
+        return specs + linear("lm_head", V, D, bias=False)
+    # the llama-named families: phi, stablelm, starcoder2, nemotron
+    D, L, V = g("hidden_size"), g("num_hidden_layers"), g("vocab_size")
+    H = g("num_attention_heads")
+    nkv = g("num_key_value_heads") or H
+    hd = g("head_dim") or D // H
+    I = g("intermediate_size") or 4 * D
+    final = {"phi": "model.final_layernorm"}.get(kind, "model.norm")
+    nfill = "rand" if kind == "nemotron" else "ones"
+    qkv_bias = {"phi": True, "starcoder2": True, "nemotron": False,
+                "stablelm": bool(g("use_qkv_bias"))}[kind]
+    specs += [("model.embed_tokens.weight", (V, D), "qrand")]
+    specs += norm(final, fill=nfill)
+    for i in range(L):
+        p = f"model.layers.{i}."
+        specs += norm(p + "input_layernorm", fill=nfill)
+        if kind != "phi" and not g("use_parallel_residual"):
+            specs += norm(p + "post_attention_layernorm", fill=nfill)
+        for nm, o in (("q_proj", H * hd), ("k_proj", nkv * hd),
+                      ("v_proj", nkv * hd)):
+            specs += linear(p + f"self_attn.{nm}", o, D, bias=qkv_bias)
+        o_name = "dense" if kind == "phi" else "o_proj"
+        specs += linear(p + f"self_attn.{o_name}", D, H * hd,
+                        bias=kind in ("phi", "starcoder2"))
+        if kind == "stablelm" and g("qk_layernorm"):
+            specs += [(p + f"self_attn.{w}_layernorm.norms.{h}.weight",
+                       (hd,), "ones")
+                      for w, n in (("q", H), ("k", nkv)) for h in range(n)]
+        if kind == "phi":
+            specs += linear(p + "mlp.fc1", I, D) + linear(p + "mlp.fc2", D, I)
+        elif kind == "starcoder2":
+            specs += (linear(p + "mlp.c_fc", I, D)
+                      + linear(p + "mlp.c_proj", D, I))
+        elif kind == "nemotron":
+            specs += (linear(p + "mlp.up_proj", I, D, bias=False)
+                      + linear(p + "mlp.down_proj", D, I, bias=False))
+        else:
+            specs += (linear(p + "mlp.gate_proj", I, D, bias=False)
+                      + linear(p + "mlp.up_proj", I, D, bias=False)
+                      + linear(p + "mlp.down_proj", D, I, bias=False))
+    tied = g("tie_word_embeddings", kind != "phi" and kind != "stablelm"
+             and kind != "nemotron")
+    if not tied:
+        specs += linear("lm_head", V, D, bias=kind == "phi")
+    return specs
+
+
+def classic_hf_weights(config: dict, seed: int = 0, scale: float = 0.08,
+                       layout: str = "hf") -> dict:
+    """Random f32 weights of a gpt-oss or CLASSIC_TYPES checkpoint
+    (`gpt_oss_tensor_specs` / `classic_tensor_specs` in `layout`)."""
+    return _draw(tensor_specs(config, layout), np.random.default_rng(seed),
+                 scale)
